@@ -1,0 +1,198 @@
+"""Model configuration of the port: its own copy of the reference's
+``ModelConfig`` (fields, ``padded_vocab``, ``layer_kinds``, ``reduced``)
+and config registry.
+
+The port serves the dense all-global GQA decoders (``qwen3-0.6b`` and
+``paper-overhead-100m``).  The other families keep their fields here so a
+config reads the same as in the reference; :func:`check_ported` rejects
+them when a model is built.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+GLOBAL_ATTN = "global"      # full causal attention
+LOCAL_ATTN = "local"        # sliding-window causal attention
+RECURRENT = "recurrent"     # RG-LRU recurrent block
+RWKV = "rwkv"               # RWKV6 time-mix block
+
+BLOCK_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, RWKV)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyper-parameters for one model family instance."""
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    block_pattern: Tuple[str, ...] = (GLOBAL_ATTN,)
+    window_size: int = 0
+
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    query_pre_attn_scalar: float = 0.0
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.001
+    moe_group_size: int = 1024
+
+    rnn_width: int = 0
+    conv1d_width: int = 4
+
+    rwkv_head_dim: int = 64
+    rwkv_ddlerp_rank: int = 32
+    rwkv_decay_rank: int = 64
+
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+
+    frontend: str = "none"
+    frontend_tokens: int = 0
+
+    cache_layout: str = "dense"       # dense | paged
+    page_size: int = 128              # tokens per KV page (paged layout)
+
+    norm_eps: float = 1e-6
+    act: str = "silu"                 # silu | gelu_tanh
+    embed_scale_by_sqrt_dim: bool = False
+    use_post_block_norm: bool = False
+    pad_vocab_multiple: int = 128
+    dtype: str = "bfloat16"           # compute dtype; also the KV-cache dtype
+    param_dtype: str = "float32"      # storage dtype
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.pad_vocab_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def layer_kinds(self, num_layers: Optional[int] = None) -> Tuple[str, ...]:
+        """The per-layer block kinds, pattern tiled to ``num_layers``."""
+        n = self.num_layers if num_layers is None else num_layers
+        pat = self.block_pattern
+        reps = (n + len(pat) - 1) // len(pat)
+        return tuple((pat * reps)[:n])
+
+    def reduced(self) -> "ModelConfig":
+        """A tiny same-family config for CPU tests (the reference's
+        ``ModelConfig.reduced``, field for field)."""
+        few_layers = max(len(self.block_pattern) + 1, 3)
+        if self.first_k_dense:
+            few_layers = max(few_layers, self.first_k_dense + 2)
+        kv = min(self.num_kv_heads, 2) or 1
+        heads = max(4, kv * 2)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            num_layers=few_layers,
+            d_model=64,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=16,
+            d_ff=128,
+            vocab_size=503,
+            window_size=min(self.window_size, 16) if self.window_size else 0,
+            q_lora_rank=24 if self.q_lora_rank else 0,
+            kv_lora_rank=16 if self.kv_lora_rank else 0,
+            qk_nope_head_dim=16 if self.qk_nope_head_dim else 0,
+            qk_rope_head_dim=8 if self.qk_rope_head_dim else 0,
+            v_head_dim=16 if self.v_head_dim else 0,
+            num_experts=4 if self.num_experts else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2),
+            num_shared_experts=min(self.num_shared_experts, 1),
+            moe_d_ff=32 if self.moe_d_ff else 0,
+            first_k_dense=min(self.first_k_dense, 1),
+            rnn_width=64 if self.rnn_width else 0,
+            rwkv_ddlerp_rank=8,
+            rwkv_decay_rank=8,
+            num_encoder_layers=2 if self.is_encoder_decoder else 0,
+            frontend_tokens=min(self.frontend_tokens, 4),
+            pad_vocab_multiple=32,
+            page_size=8,
+        )
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config that needs a part of the
+    model this port does not have yet."""
+    missing = []
+    if set(cfg.layer_kinds()) != {GLOBAL_ATTN}:
+        missing.append(f"block kinds {sorted(set(cfg.layer_kinds()))}")
+    if cfg.window_size:
+        missing.append("sliding-window attention")
+    if cfg.use_mla:
+        missing.append("MLA")
+    if cfg.is_moe:
+        missing.append("MoE")
+    if cfg.is_encoder_decoder:
+        missing.append("encoder-decoder")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if cfg.attn_logit_softcap or cfg.final_logit_softcap \
+            or cfg.query_pre_attn_scalar or cfg.embed_scale_by_sqrt_dim \
+            or cfg.use_post_block_norm:
+        missing.append("gemma2 softcaps / scalings / sandwich norms")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} comes in a later slice of "
+            "the port")
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate config {cfg.name!r}")
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown architecture {name!r}; the port has "
+            f"{sorted(_REGISTRY)} (the others come in later slices)"
+        ) from None
+
+
+def list_configs() -> Tuple[str, ...]:
+    _ensure_loaded()
+    return tuple(sorted(_REGISTRY))
+
+
+def _ensure_loaded() -> None:
+    """Import every config module (they self-register on import)."""
+    from repro_torch.configs import paper_overhead, qwen3_0_6b  # noqa: F401

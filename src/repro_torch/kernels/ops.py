@@ -1,0 +1,134 @@
+"""Model-layout wrappers around the Hopper kernels (the reference's
+``kernels/ops.py:flash_attention_bshd`` / ``paged_decode_bhd``).
+
+Each wrapper checks devices, dtypes, shapes and contiguity, then:
+
+* a CPU tensor goes to the kernel's plain PyTorch version;
+* a CUDA tensor launches the kernel, or the wrapper raises.  There is no
+  fallback from a CUDA tensor to the plain version.
+
+``launches`` counts kernel launches per wrapper, so a run can show that
+its path went through the kernels; :func:`reset_launches` zeroes it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
+
+launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(what)
+
+
+def _cuda_operands(name: str, tensors, dtypes, head_dim: int,
+                   head_dims) -> None:
+    """What the CUDA kernels take: one card, supported dtypes and head
+    dims, contiguous row-major operands."""
+    dev = tensors[0].device
+    _require(dev.type == "cuda", f"{name}: tensors on {dev}, expected cpu "
+             "or cuda")
+    _require(all(t.device == dev for t in tensors),
+             f"{name}: operands on different devices")
+    _require(all(t.dtype in dtypes for t in tensors),
+             f"{name}: dtypes {[t.dtype for t in tensors]}, kernel takes "
+             f"{sorted(map(str, dtypes))}")
+    _require(head_dim in head_dims,
+             f"{name}: head_dim {head_dim}, kernel takes {head_dims}")
+    _require(all(t.is_contiguous() for t in tensors),
+             f"{name}: operands must be contiguous")
+
+
+def flash_attention_bshd(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, S, K, hd)
+    v: torch.Tensor,          # (B, S, K, hd)
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """Self-attention over positions ``0..S-1`` (prefill), any S."""
+    _require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
+             f"flash_attention_bshd: shapes {q.shape} {k.shape} {v.shape}")
+    B, S, H, hd = q.shape
+    _require(k.shape[0] == B and k.shape[1] == S and k.shape[3] == hd
+             and H % k.shape[2] == 0,
+             f"flash_attention_bshd: q {tuple(q.shape)} vs k "
+             f"{tuple(k.shape)}")
+    _require(q.dtype == k.dtype == v.dtype,
+             "flash_attention_bshd: q, k, v dtypes differ")
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return fa.flash_attention_torch(q, k, v, scale=scale, causal=causal,
+                                        window=window, logit_cap=logit_cap)
+    _cuda_operands("flash_attention_bshd", (q, k, v), fa.DTYPE_CODES, hd,
+                   fa.HEAD_DIMS)
+    launches["flash_attention_bshd"] += 1
+    return fa.flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                   window=window, logit_cap=logit_cap)
+
+
+def paged_decode_bhd(
+    q: torch.Tensor,            # (B, 1, H, hd): one new token per sequence
+    k_pages: torch.Tensor,      # (P, K, ps, hd) shared physical pool
+    v_pages: torch.Tensor,      # (P, K, ps, hd)
+    page_table: torch.Tensor,   # (B, pps) int32; -1 = unallocated
+    pos_q: torch.Tensor,        # (B,) int32; -1 = inactive slot
+    *,
+    scale: float,
+    logit_cap: float = 0.0,
+    grouped: bool = True,
+) -> torch.Tensor:
+    """Regroup the q heads per kv head, run the paged flash-decode, and
+    ungroup.  ``grouped`` picks the kernel's head-tile grid (default) or
+    its per-kv-head grid; both give the same numbers."""
+    _require(q.ndim == 4 and q.shape[1] == 1 and k_pages.ndim == 4
+             and k_pages.shape == v_pages.shape,
+             f"paged_decode_bhd: shapes {tuple(q.shape)} "
+             f"{tuple(k_pages.shape)} {tuple(v_pages.shape)}")
+    B, _, H, hd = q.shape
+    K = k_pages.shape[1]
+    _require(H % K == 0 and k_pages.shape[3] == hd,
+             f"paged_decode_bhd: q {tuple(q.shape)} vs pool "
+             f"{tuple(k_pages.shape)}")
+    _require(page_table.ndim == 2 and page_table.shape[0] == B
+             and tuple(pos_q.shape) == (B,),
+             f"paged_decode_bhd: table {tuple(page_table.shape)}, pos "
+             f"{tuple(pos_q.shape)} for batch {B}")
+    _require(k_pages.dtype == v_pages.dtype,
+             "paged_decode_bhd: k and v pools differ in dtype")
+    qg = q.reshape(B, K, H // K, hd)
+    operands = (qg, k_pages, v_pages, page_table, pos_q)
+    if all(t.device.type == "cpu" for t in operands):
+        out = pa.paged_decode_torch(qg, k_pages, v_pages, page_table, pos_q,
+                                    scale=scale, logit_cap=logit_cap)
+        return out.reshape(B, 1, H, hd)
+    _cuda_operands("paged_decode_bhd", (qg, k_pages, v_pages),
+                   pa.DTYPE_CODES, hd, pa.HEAD_DIMS)
+    _require(H // K <= pa.MAX_GROUP,
+             f"paged_decode_bhd: group {H // K} > {pa.MAX_GROUP}")
+    _require(page_table.device == q.device and pos_q.device == q.device
+             and page_table.dtype == torch.int32
+             and pos_q.dtype == torch.int32
+             and page_table.is_contiguous() and pos_q.is_contiguous(),
+             "paged_decode_bhd: page_table and pos_q must be contiguous "
+             "int32 on the card")
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             "paged_decode_bhd: pools must be 16-byte aligned (the kernel "
+             "reads 16-byte chunks)")
+    launches["paged_decode_bhd"] += 1
+    out = pa.paged_decode_cuda(qg, k_pages, v_pages, page_table, pos_q,
+                               scale=scale, logit_cap=logit_cap,
+                               grouped=grouped)
+    return out.reshape(B, 1, H, hd)

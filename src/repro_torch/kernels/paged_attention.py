@@ -1,0 +1,138 @@
+"""Paged flash-decode: the Hopper kernel and its plain version.
+
+One new token per sequence attends the paged KV cache: a shared pool
+``(P, K, ps, hd)`` walked through per-sequence page tables ``(B, pps)``.
+The CUDA kernel (``csrc/paged_decode.cu``) replaces both Pallas kernels of
+the reference's ``kernels/paged_attention.py``: ``_decode_kernel_grouped``
+(``grouped=True``, a block per tile of ``group_tile(K, G)`` kv heads) and
+``_decode_kernel`` (``grouped=False``, a block per kv head).  The two give
+the same numbers.  Each (row, kv head) page walk is cut into
+:func:`split_count` page ranges walked by separate blocks and merged by a
+second small kernel (flash-decoding), so a serving batch fills the card.
+A block loads its own page-table row and position (the TPU
+scalar-prefetched them) and walks pages ``0 .. pos_q // ps`` only, so
+nothing is read past the last live page.
+
+Contract (shared with :func:`paged_decode_torch` and the reference):
+
+* slot ``t`` of a sequence holds absolute position ``t``: a key is live iff
+  ``t <= pos_q`` and its page-table entry is ``>= 0``;
+* ``pos_q < 0`` marks an inactive slot and gives a zero output row;
+* a ``-1`` entry is never dereferenced: on the card an out-of-range page
+  is an illegal address (the kernel also skips an entry past the pool),
+  and in torch indexing with -1 would read the LAST page, so the plain
+  version masks instead of indexing.
+
+Layouts: q ``(B, K, G, hd)``, pools ``(P, K, ps, hd)``, table ``(B, pps)``
+int32, pos_q ``(B,)`` int32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -2.0e38
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8          # query heads per kv head the kernel holds in registers
+
+_SIGNATURES = {
+    "paged_decode_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def group_tile(K: int, G: int) -> int:
+    """kv heads per block of the grouped grid: the largest divisor of K
+    keeping the tile's query rows (kt·G) within 8 (the reference's MXU
+    band).  G >= 8 tiles one kv head at a time."""
+    kt = 1
+    for d in range(1, K + 1):
+        if K % d == 0 and d * G <= max(G, 8):
+            kt = d
+    return kt
+
+
+def paged_decode_torch(
+    q: torch.Tensor,            # (B, K, G, hd)
+    k_pages: torch.Tensor,      # (P, K, ps, hd)
+    v_pages: torch.Tensor,      # (P, K, ps, hd)
+    page_table: torch.Tensor,   # (B, pps); -1 = unallocated
+    pos_q: torch.Tensor,        # (B,); -1 = inactive slot
+    *,
+    scale: float,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """The reference's ``paged_decode_jnp``: a loop over logical pages
+    carrying the online-softmax (m, l, acc) in fp32, one (B, K, ps, hd)
+    page gather per step."""
+    B, K, G, hd = q.shape
+    ps = k_pages.shape[2]
+    pps = page_table.shape[1]
+    dev = q.device
+    qf = q.float() * scale
+    pq = pos_q.long()
+    m = torch.full((B, K, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, K, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, K, G, hd), dtype=torch.float32, device=dev)
+    for i in range(pps):
+        entry = page_table[:, i].long()
+        alloc = entry >= 0
+        held = alloc[:, None, None, None]
+        kb = torch.where(held, k_pages[entry.clamp(min=0)], 0).float()
+        vb = torch.where(held, v_pages[entry.clamp(min=0)], 0).float()
+        s = torch.einsum("bkgd,bktd->bkgt", qf, kb)
+        if logit_cap:
+            s = logit_cap * torch.tanh(s / logit_cap)
+        t = i * ps + torch.arange(ps, device=dev)
+        valid = alloc[:, None] & (t[None, :] <= pq[:, None])       # (B, ps)
+        vm = valid[:, None, None, :]
+        s = torch.where(vm, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # mask p explicitly: a fully-dead row would otherwise see
+        # exp(NEG_INF - NEG_INF) == 1 (NEG_INF is a finite sentinel)
+        p = torch.where(vm, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgt,bktd->bkgd", p, vb)
+        m = m_new
+    return (acc / l.clamp_min(1e-37)[..., None]).to(q.dtype)
+
+
+def split_count(B: int, K: int, pps: int, n_sm: int) -> int:
+    """Contiguous page ranges each (row, kv head) walk is cut into: enough
+    blocks for two per SM, at most one range per page.  It depends on
+    neither the head tile nor the data, so both grids and every call at a
+    shape run the same arithmetic."""
+    return max(1, min(pps, -(-2 * n_sm // (B * K))))
+
+
+def paged_decode_cuda(q, k_pages, v_pages, page_table, pos_q, *,
+                      scale: float, logit_cap: float,
+                      grouped: bool) -> torch.Tensor:
+    """Launch the kernel on the current stream.  The caller
+    (``ops.paged_decode_bhd``) has checked devices, dtypes, shapes and
+    contiguity."""
+    lib = _build.load("paged_decode", _SIGNATURES)
+    B, K, G, hd = q.shape
+    ps = k_pages.shape[2]
+    pps = page_table.shape[1]
+    kt = group_tile(K, G) if grouped else 1
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = split_count(B, K, pps, n_sm)
+    ws = torch.empty(n_split * B * K * G * (2 + hd), dtype=torch.float32,
+                     device=q.device)
+    out = torch.empty_like(q)
+    rc = lib.paged_decode_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), pos_q.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
+        B, K, G, hd, ps, pps, k_pages.shape[0], kt, n_split,
+        float(scale), float(logit_cap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"paged_decode_fwd launch failed: status {rc}")
+    return out

@@ -1,0 +1,295 @@
+"""GQA attention over the paged KV cache (the reference's
+``models/attention.py``, GQA part).
+
+Two modes:
+
+* ``full`` (prefill) — self-attention over the prompt through
+  ``ops.flash_attention_bshd`` (the Hopper kernel on the card, its plain
+  version on the CPU), then the rotated K/V are written into the page
+  pool.  A chunked prefill (prefix caching: per-row absolute positions)
+  writes the chunk's K/V first and then walks the page table
+  (:func:`prefill_attention_paged`, plain torch as in the reference).
+* ``decode`` — one new token per sequence: its K/V go into the pool, then
+  ``ops.paged_decode_bhd`` walks the page table.
+
+Keys are RoPE-rotated at write time, so cached keys never re-rotate.
+
+The reference's cache is functional; here the page pools are updated IN
+PLACE by the writers (``index_put_``), and the writers return the same
+tensors.  The reference's ``mode="drop"`` scatters silently drop rows
+aimed out of the pool; torch would raise (or fault on the card), so the
+writers select the rows to write with a mask first.  Its ``mode="fill"``
+gathers read zeros for a ``-1`` entry; torch indexing with -1 reads the
+last page, so the gathers here mask instead.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_torch,
+)
+from repro_torch.models.layers import apply_rope, rms_norm, softcap
+
+Cache = Dict[str, torch.Tensor]
+NEG_INF = -2.0e38
+
+
+def decode_attention_torch(
+    q: torch.Tensor,          # (B, 1, H, hd)
+    k: torch.Tensor,          # (B, K, Skv, hd) cache layout, rotated
+    v: torch.Tensor,          # (B, K, Skv, vd)
+    pos_k: torch.Tensor,      # (Skv,) or (B, Skv) positions; -1 = invalid
+    pos_q: torch.Tensor,      # scalar or (B,)
+    *,
+    scale: float,
+    window: int = 0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """One-token attention against a dense view of the cache, plain
+    softmax (the reference's ``decode_attention_jnp``)."""
+    B, _, H, hd = q.shape
+    K = k.shape[1]
+    G = H // K
+    vd = v.shape[-1]
+    qg = q.reshape(B, K, G, hd).float() * scale
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float())
+    s = softcap(s, logit_cap)
+    pk = pos_k if pos_k.ndim == 2 else pos_k[None, :]
+    pq = torch.as_tensor(pos_q, device=q.device).reshape(-1, 1)
+    valid = (pk >= 0) & (pk <= pq)
+    if window:
+        valid = valid & (pq - pk < window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    return out.reshape(B, 1, H, vd).to(q.dtype)
+
+
+def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, K, pps·ps, d) view of each row's pages; ``-1`` entries read as
+    zeros (the reference's fill-mode take), never as the last page."""
+    B, pps = page_table.shape
+    _, K, ps, d = pages.shape
+    held = (page_table >= 0)[:, :, None, None, None]
+    g = torch.where(held, pages[page_table.long().clamp(min=0)], 0)
+    return g.permute(0, 2, 1, 3, 4).reshape(B, K, pps * ps, d)
+
+
+def _table_positions(page_table: torch.Tensor, ps: int) -> torch.Tensor:
+    """(B, pps·ps) position of each gathered slot, -1 on unallocated
+    pages."""
+    T = page_table.shape[1] * ps
+    alloc = (page_table >= 0).repeat_interleave(ps, dim=1)
+    t = torch.arange(T, device=page_table.device)[None, :]
+    return torch.where(alloc, t, -1)
+
+
+def prefill_attention_paged(
+    q: torch.Tensor,            # (B, S0, H, hd) chunk queries, rotated
+    k_pages: torch.Tensor,      # (P, K, ps, hd)
+    v_pages: torch.Tensor,      # (P, K, ps, vd)
+    page_table: torch.Tensor,   # (B, pps); -1 = unallocated
+    pos_q: torch.Tensor,        # (B, S0) absolute positions of the chunk
+    lengths: torch.Tensor,      # (B,) valid chunk tokens; 0 = inactive row
+    *,
+    scale: float,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """Chunked-prefill attention over the page table (prefix caching).
+    The chunk's own K/V are already in the pool (write-then-read), so one
+    masked walk covers the cached prefix and within-chunk causality: a
+    key at slot ``t`` is live iff its page is allocated and
+    ``t <= pos_q[b, s]``.  Rows with ``lengths == 0`` return zeros."""
+    B, S0, H, hd = q.shape
+    _, K, ps, _ = k_pages.shape
+    G = H // K
+    kb = _gather_pages(k_pages, page_table)
+    vb = _gather_pages(v_pages, page_table)
+    pos_k = _table_positions(page_table, ps)                      # (B, T)
+    qg = q.reshape(B, S0, K, G, hd).float() * scale
+    s = torch.einsum("bskgd,bktd->bskgt", qg, kb.float())
+    s = softcap(s, logit_cap)
+    rows = torch.arange(S0, device=q.device)[None, :, None] \
+        < lengths.long()[:, None, None]
+    valid = (pos_k[:, None, :] >= 0) \
+        & (pos_k[:, None, :] <= pos_q.long()[:, :, None]) & rows  # (B,S0,T)
+    vm = valid[:, :, None, None, :]
+    s = torch.where(vm, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    # mask p explicitly: fully-dead rows (inactive slots) would otherwise
+    # see exp(NEG_INF - NEG_INF) == 1 (NEG_INF is a finite sentinel)
+    p = torch.where(vm, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bskgt,bktd->bskgd", p, vb.float())
+    out = out / l.clamp_min(1e-37)[..., None]
+    return out.reshape(B, S0, H, vb.shape[-1]).to(q.dtype)
+
+
+def decode_attention_paged(
+    q: torch.Tensor,            # (B, 1, H, hd)
+    k_pages: torch.Tensor,      # (P, K, ps, hd)
+    v_pages: torch.Tensor,      # (P, K, ps, vd)
+    page_table: torch.Tensor,   # (B, pps); -1 = unallocated
+    pos_q: torch.Tensor,        # scalar or (B,)
+    *,
+    scale: float,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """The reference walk and the decode oracle: gather each row's pages
+    into a dense view and run :func:`decode_attention_torch`."""
+    kb = _gather_pages(k_pages, page_table)
+    vb = _gather_pages(v_pages, page_table)
+    pos_k = _table_positions(page_table, k_pages.shape[2])
+    return decode_attention_torch(q, kb, vb, pos_k, pos_q, scale=scale,
+                                  logit_cap=logit_cap)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+def _attn_scale(cfg: ModelConfig) -> float:
+    if cfg.query_pre_attn_scalar > 0:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return cfg.head_dim ** -0.5
+
+
+def gqa_attention(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                 # (B, S, D)
+    *,
+    mode: str,                       # full | decode
+    cache: Optional[Cache],
+    pos: torch.Tensor,               # full: (S,) or (B, S0); decode: (B,)
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Self-attention of one global layer; returns (out (B, S, D), cache).
+    ``cache`` is the layer's ``{"k_pages", "v_pages", "page_table"}``."""
+    scale = _attn_scale(cfg)
+    cap = cfg.attn_logit_softcap
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["q"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["k"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["v"])
+    if "qb" in p:
+        q = q + p["qb"].to(q.dtype)
+        k = k + p["kb"].to(k.dtype)
+        v = v + p["vb"].to(v.dtype)
+    if cfg.qk_norm:                  # before rope, as in the reference
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+
+    new_cache = cache
+    if mode == "full":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        if pos.ndim == 2:
+            # chunked prefix prefill: write the chunk, then one masked walk
+            # over the page table covers the cached prefix and the chunk
+            if cache is None or lengths is None:
+                raise ValueError("chunked prefill needs the paged cache and "
+                                 "lengths")
+            new_cache = _write_prefill_paged_offset(cache, k, v, lengths, pos)
+            out = prefill_attention_paged(
+                q, cache["k_pages"], cache["v_pages"], cache["page_table"],
+                pos, lengths, scale=scale, logit_cap=cap)
+        else:
+            out = ops.flash_attention_bshd(
+                q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+                causal=True, logit_cap=cap)
+            if cache is not None:
+                new_cache = _write_prefill_paged(cache, k, v, lengths)
+    elif mode == "decode":
+        pos_r = pos.reshape(-1, 1)
+        q = apply_rope(q, pos_r, cfg.rope_theta)
+        k = apply_rope(k, pos_r, cfg.rope_theta)
+        new_cache = _update_decode_kv_paged(cache, k, v, pos)
+        out = ops.paged_decode_bhd(
+            q.contiguous(), cache["k_pages"], cache["v_pages"],
+            cache["page_table"], pos.to(torch.int32), scale=scale,
+            logit_cap=cap)
+    else:
+        raise ValueError(mode)
+    return torch.einsum("bshk,hkd->bsd", out, p["o"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Paged cache writers (in place)
+# ---------------------------------------------------------------------------
+def _write_prefill_paged(cache: Cache, k, v,
+                         lengths: Optional[torch.Tensor] = None) -> Cache:
+    """Prefill from position 0: logical page ``i`` of row ``b`` receives
+    tokens ``i·ps .. min((i+1)·ps, S0)`` when its entry is allocated and
+    (ragged prefill) ``i·ps < lengths[b]``; length-0 rows write nothing.
+    ``k, v`` arrive as (B, S0, K, hd), rotated."""
+    kp, vp, pt = cache["k_pages"], cache["v_pages"], cache["page_table"]
+    ps = kp.shape[2]
+    B, S0 = k.shape[:2]
+    n = -(-S0 // ps)
+    lo = torch.arange(n, device=pt.device) * ps                    # (n,)
+    write = pt[:, :n] >= 0                                         # (B, n)
+    if lengths is not None:
+        write = write & (lo[None, :] < lengths[:, None])
+    rows, pages = write.nonzero(as_tuple=True)
+    phys = pt[rows, pages].long()
+    pad = n * ps - S0
+    kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
+    vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
+    # (B, n, K, ps, hd): page i of row b holds tokens i*ps .. (i+1)*ps-1
+    kc = kc.reshape(B, n, ps, *k.shape[2:]).transpose(2, 3)
+    vc = vc.reshape(B, n, ps, *v.shape[2:]).transpose(2, 3)
+    full = ps - pad                  # slots of the last page that hold tokens
+    last = pages == n - 1
+    head = ~last if pad else torch.ones_like(last)
+    kp[phys[head]] = kc[rows[head], pages[head]].to(kp.dtype)
+    vp[phys[head]] = vc[rows[head], pages[head]].to(vp.dtype)
+    if pad:
+        kp[phys[last], :, :full] = kc[rows[last], n - 1, :, :full].to(kp.dtype)
+        vp[phys[last], :, :full] = vc[rows[last], n - 1, :, :full].to(vp.dtype)
+    return cache
+
+
+def _write_prefill_paged_offset(cache: Cache, k, v, lengths, pos) -> Cache:
+    """Chunked prefill: token ``s`` of row ``b`` lands at absolute
+    position ``pos[b, s]`` (slot ``pos % ps`` of logical page
+    ``pos // ps``).  Only tokens ``s < lengths[b]`` with an allocated
+    entry write.  The engine's copy-on-write rule keeps every target page
+    private, so the targets are unique."""
+    kp, vp, pt = cache["k_pages"], cache["v_pages"], cache["page_table"]
+    S0 = k.shape[1]
+    ps = kp.shape[2]
+    pps = pt.shape[1]
+    pos = pos.long()
+    pidx = pos // ps
+    entry = pt.gather(1, pidx.clamp(0, pps - 1)).long()           # (B, S0)
+    valid = (torch.arange(S0, device=pt.device)[None, :]
+             < lengths.long()[:, None]) & (entry >= 0) & (pidx < pps)
+    rows, toks = valid.nonzero(as_tuple=True)
+    phys, off = entry[rows, toks], pos[rows, toks] % ps
+    kp[phys, :, off] = k[rows, toks].to(kp.dtype)
+    vp[phys, :, off] = v[rows, toks].to(vp.dtype)
+    return cache
+
+
+def _update_decode_kv_paged(cache: Cache, k, v, pos) -> Cache:
+    """Insert one token's K/V per row at position ``pos[b]``.  ``k, v``
+    arrive as (B, 1, K, hd).  Rows with ``pos < 0`` (inactive slots) and
+    unallocated entries write nothing."""
+    kp, vp, pt = cache["k_pages"], cache["v_pages"], cache["page_table"]
+    ps = kp.shape[2]
+    pps = pt.shape[1]
+    posb = pos.long()
+    posc = posb.clamp(min=0)
+    pidx = posc // ps
+    entry = pt.gather(1, pidx.clamp(max=pps - 1)[:, None])[:, 0].long()
+    rows = ((posb >= 0) & (entry >= 0) & (pidx < pps)).nonzero()[:, 0]
+    phys, off = entry[rows], posc[rows] % ps
+    kp[phys, :, off] = k[rows, 0].to(kp.dtype)
+    vp[phys, :, off] = v[rows, 0].to(vp.dtype)
+    return cache

@@ -1,0 +1,155 @@
+"""The model's parameters as ``nn.Module``s.
+
+Leaf names and shapes follow the reference's abstract tree
+(``repro/models/params.py``, dense GQA blocks): the stacked ``groups``
+leading dim of the reference becomes one :class:`Block` per layer in a
+``ModuleList``.  State-dict keys therefore read ``blocks.{i}.attn.q`` where
+the reference reads ``decoder/groups/0/attn/q[i]``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, check_ported
+
+Tree = Dict[str, Union[torch.Tensor, "Tree", List["Tree"]]]
+
+
+def _leaf(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
+class Attention(nn.Module):
+    """GQA projections, kept 3-D like the reference: q (D, H, hd),
+    k/v (D, K, hd), o (H, hd, D); optional qkv biases and qk-norm gains."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        self.q = _leaf((D, H, hd), device)
+        self.k = _leaf((D, K, hd), device)
+        self.v = _leaf((D, K, hd), device)
+        self.o = _leaf((H, hd, D), device)
+        if cfg.qkv_bias:
+            self.qb = _leaf((H, hd), device)
+            self.kb = _leaf((K, hd), device)
+            self.vb = _leaf((K, hd), device)
+        if cfg.qk_norm:
+            self.q_norm = _leaf((hd,), device)
+            self.k_norm = _leaf((hd,), device)
+
+
+class DenseFFN(nn.Module):
+    """SwiGLU weights: wg, wu (D, F) and wd (F, D)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, F = cfg.d_model, cfg.d_ff
+        self.wg = _leaf((D, F), device)
+        self.wu = _leaf((D, F), device)
+        self.wd = _leaf((F, D), device)
+
+
+class Block(nn.Module):
+    """One decoder layer: pre-norm attention + pre-norm dense FFN."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.pre_norm = _leaf((cfg.d_model,), device)
+        self.attn = Attention(cfg, device)
+        self.ffn_norm = _leaf((cfg.d_model,), device)
+        self.ffn = DenseFFN(cfg, device)
+
+
+class Model(nn.Module):
+    """Embedding table, ``num_layers`` blocks, final norm and (untied)
+    LM head.  Holds the fp32 master weights; :func:`cast_params` makes
+    the compute copy the forward pass reads."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        D, V = cfg.d_model, cfg.padded_vocab
+        self.embed = _leaf((V, D), device)
+        self.blocks = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = _leaf((D,), device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _leaf((D, V), device)
+
+
+# ---------------------------------------------------------------------------
+# Init: the reference's per-leaf recipes, drawn from a torch.Generator
+# seeded per leaf from the model seed and the leaf's name.  The numbers
+# differ from the reference's jax.random draws; tests that compare the
+# two packages load converted reference weights instead.
+# ---------------------------------------------------------------------------
+def _recipe(name: str) -> str:
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "embed":
+        return "normal:0.02"
+    if leaf.endswith("norm"):
+        return "ones"
+    if leaf in ("qb", "kb", "vb"):
+        return "zeros"
+    return "fan_in"
+
+
+def _stable_hash(s: str) -> int:
+    h = 2166136261
+    for c in s.encode():
+        h = ((h ^ c) * 16777619) & 0x7FFFFFFF
+    return h
+
+
+@torch.no_grad()
+def init_params(model: Model, seed: int) -> Model:
+    """Initialise every leaf in place on its own device."""
+    for name, p in model.named_parameters():
+        recipe = _recipe(name)
+        if recipe == "ones":
+            p.fill_(1.0)
+            continue
+        if recipe == "zeros":
+            p.zero_()
+            continue
+        gen = torch.Generator(device=p.device)
+        gen.manual_seed(seed * 1_000_003 + _stable_hash(name))
+        std = 0.02 if recipe.startswith("normal:") else \
+            1.0 / math.sqrt(max(math.prod(p.shape[:-1]), 1))
+        p.normal_(0.0, std, generator=gen)
+    return model
+
+
+def count_params(cfg: ModelConfig, include_embed: bool = False) -> int:
+    """Parameter count from the module shapes (built on the meta device,
+    nothing allocated).  ``include_embed=False`` leaves out the embedding
+    and LM head, as the reference's 6ND convention does."""
+    model = Model(cfg, device="meta")
+    return sum(p.numel() for name, p in model.named_parameters()
+               if include_embed or name not in ("embed", "lm_head"))
+
+
+def cast_params(model: nn.Module, dtype: torch.dtype) -> Tree:
+    """The compute copy of the weights as a nested tree (the reference's
+    ``cast_params``): matrices (ndim >= 2) in ``dtype``, 1-D leaves (norm
+    gains, biases) stay fp32.  Made once per engine, not per step."""
+    def cast(p: torch.Tensor) -> torch.Tensor:
+        p = p.detach()
+        return p.to(dtype) if p.ndim >= 2 and p.dtype == torch.float32 else p
+
+    def tree(m: nn.Module):
+        if isinstance(m, nn.ModuleList):
+            return [tree(c) for c in m]
+        out: Tree = {n: cast(p) for n, p in m.named_parameters(recurse=False)}
+        out.update({n: tree(c) for n, c in m.named_children()})
+        return out
+
+    return tree(model)
