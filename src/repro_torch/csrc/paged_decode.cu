@@ -30,8 +30,10 @@
 // so each thread keeps many loads in flight instead of a dependent chain.
 //
 // Bound on the card: decode is bandwidth bound.  The live K/V bytes are
-// sum_b (pos_q[b] + 1) * K * hd * 2 (K and V) * sizeof(element); at
-// 3.35 TB/s (H100 SXM) that is the least time.  The split over pages is
+// (distinct live keys) * K * hd * 2 (K and V) * sizeof(element), with
+// distinct live keys = sum_b (pos_q[b] + 1) less the keys of pages that
+// several rows share (counted once) and of -1 holes; at 3.35 TB/s
+// (H100 SXM) that is the least time.  The split over pages is
 // what puts enough blocks on the card's 132 SMs at serving batch sizes.
 
 #include <cuda_bf16.h>

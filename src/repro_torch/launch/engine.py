@@ -230,7 +230,7 @@ class ServingEngine:
 
         self.prefill, self.decode = make_serve_steps(cfg, self.ctx)
         self.cache = init_cache(cfg, B, self.max_len, page_budget=budget,
-                                paged_tables="empty", device=dev)
+                                device=dev)
         self.pool = PagePool(budget)
         self.per_shard = budget
         self.reserved = [0]                    # worst-case pages admitted

@@ -122,34 +122,23 @@ def num_pages(seq_len: int, page_size: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
-               layout: str = "paged", page_budget: Optional[int] = None,
-               paged_tables: str = "empty", device=None) -> Dict:
-    """The paged KV cache: per layer a K and a V pool ``(P, K, ps, hd)`` in
-    ``cfg.dtype``, and ONE page table ``(B, pps)`` int32 that every layer
-    reads (the reference broadcasts the same host table into each layer's
-    leaf).  ``paged_tables="empty"`` starts the table at -1 for a host-side
-    allocator; ``"identity"`` gives row ``b`` pages ``b·pps ..`` and needs
-    the worst-case pool."""
+               page_budget: Optional[int] = None, device=None) -> Dict:
+    """The paged KV cache (``cfg.cache_layout == "paged"``): per layer a K
+    and a V pool ``(P, K, ps, hd)`` in ``cfg.dtype``, and ONE page table
+    ``(B, pps)`` int32 that every layer reads (the reference broadcasts the
+    same host table into each layer's leaf).  The table starts at -1 for
+    the engine's host-side allocator (the reference's
+    ``paged_tables="empty"``)."""
     check_ported(cfg)
-    if layout != "paged":
+    if cfg.cache_layout != "paged":
         raise NotImplementedError(
-            f"the {layout!r} cache layout comes in a later slice of the port")
+            f"the {cfg.cache_layout!r} cache layout comes in a later slice "
+            "of the port")
     dev = resolve_device(device)
     ps = cfg.page_size
     pps = num_pages(max_len, ps)
     pool = page_budget if page_budget is not None else batch_size * pps
-    if paged_tables == "identity":
-        if pool < batch_size * pps:
-            raise ValueError(
-                "identity page tables need the worst-case pool; pass "
-                "paged_tables='empty' with a reduced page_budget")
-        table = torch.arange(batch_size * pps, dtype=torch.int32,
-                             device=dev).reshape(batch_size, pps)
-    elif paged_tables == "empty":
-        table = torch.full((batch_size, pps), -1, dtype=torch.int32,
-                           device=dev)
-    else:
-        raise ValueError(f"unknown paged_tables {paged_tables!r}")
+    table = torch.full((batch_size, pps), -1, dtype=torch.int32, device=dev)
     shape = (pool, cfg.num_kv_heads, ps, cfg.head_dim)
     dt = DTYPES[cfg.dtype]
     return {

@@ -118,5 +118,8 @@ def test_unported_configs_raise_at_build():
         cfg = dataclasses.replace(base, **over)
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model(cfg, device="cpu")
+    assert base.cache_layout == "dense"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        init_cache(base, 2, 16, device="cpu")
     with pytest.raises(KeyError, match="later slices"):
         get_config("gemma2-9b")

@@ -77,7 +77,7 @@ def _caches(rcfg, tcfg, B, max_len, table):
                               page_budget=pool, paged_tables="empty")
     rc = ref_set_tables(rc, table)
     tc = port_model.init_cache(tcfg, B, max_len, page_budget=pool,
-                               paged_tables="empty", device=CPU)
+                               device=CPU)
     tc["page_table"].copy_(torch.from_numpy(table))
     return rc, tc
 
