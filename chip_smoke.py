@@ -8,9 +8,10 @@ Phases, each of which exits non-zero on the first failure:
 1. build   -- compiles every CUDA source of the port with ``nvcc`` for
               ``sm_90a`` (one process per source, all started together).
 2. kernels -- holds each hand-written kernel against its plain PyTorch
-              version on the card, at the shapes the serving path gives
+              version on the card, at the shapes the serving paths give
               it, and times kernel, plain version and (where one PyTorch
-              call computes the same function) the library call.
+              call computes the same function) the library call.  The
+              WKV6 kernel is also held against the step-by-step oracle.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -27,6 +28,14 @@ Phases, each of which exits non-zero on the first failure:
               tolerance (up to the first divergent step, which must be a
               tie, if the token streams part), then a byte-identical
               snapshot/restore on ``cuda``.
+5. rwkv    -- the same for ``rwkv6-7b`` (32 layers, d 4096, 64 heads of 64,
+              7.04 B parameters without the embeddings): serve at full
+              width in bf16 with the WKV6 kernel in every prefill of every
+              layer (its launches must be 32 a prefill round), one traced
+              prefill round and four decode steps, then fp32 cuda vs cpu
+              parity at full width and 2 layers (prompts up to 90 tokens:
+              a chunk, a ragged tail and padded rows) and snapshot/restore
+              of the RWKV state on ``cuda``.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  With no CUDA device, or
@@ -56,6 +65,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # its atol covers.  One key dropped from a 1,000-key row breaks both.
 FLASH_TOL = {"bfloat16": (4e-3, 2 ** -7), "float32": (1e-4, 0.0)}
 DECODE_TOL = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-5, 0.0)}
+# WKV6 sums hundreds of k vᵀ terms into outputs of magnitude ~100, so its
+# absolute term is a share of the output's largest magnitude: 1e-5 against
+# the step-by-step oracle (the kernel's own arithmetic order), 3e-5
+# against the chunked plain version, whose own fp32 error reaches 1e-5 of
+# that scale at lw = -e^2 (cancellation in its log-space cumulative sums,
+# measured against an fp64 recurrence on the CPU).  bf16 outputs are
+# rounded once from fp32 in both versions: one bf16 ulp of the value more.
+WKV_SCALE = {"oracle": 1e-5, "chunked": 3e-5}
+WKV_RTOL = {"bfloat16": 2 ** -7, "float32": 0.0}
 PARITY_LOGIT_TOL = 2e-3      # fp32 cuda vs cpu, 4 layers, summation order
 PARITY_TIE_TOL = 2e-3        # top-2 gap below which a divergence is a tie
 
@@ -342,6 +360,120 @@ def run_decode_phase(dev, gen):
     return rows
 
 
+def wkv_cases():
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, N, dtype, nonzero s0, padded row 0 from step)
+    return [
+        ("rwkv6-7b serving", 8, 1024, 64, 64, bf16, False, None),
+        ("fp32 serving", 8, 1024, 64, 64, f32, False, None),
+        ("ragged S1000 s0 padded", 2, 1000, 64, 64, bf16, True, 700),
+        ("fp32 ragged S77 s0 padded", 2, 77, 8, 64, f32, True, 41),
+        ("fp32 N32 S100", 2, 100, 4, 32, f32, True, 60),
+        ("N16 S40", 2, 40, 4, 16, bf16, True, 25),
+    ]
+
+
+def wkv_inputs(dev, gen, B, S, H, N, dt, nonzero_s0, pad_from):
+    """r/k/v ~ N(0,1) in ``dt``; lw = -exp(U(-6, 2)), decays from -e^-6 to
+    -e^2 (the model's initial decays sit near -e^-6); u ~ 0.5·N(0,1); s0
+    zero (a prefill) or 0.3·N(0,1); row 0 padded from ``pad_from`` on
+    (k = 0, lw = 0), as the ragged prefill pads."""
+    import torch
+    r, k, v = (torch.randn(B, S, H, N, device=dev, generator=gen).to(dt)
+               for _ in range(3))
+    lw = -torch.exp(torch.rand(B, S, H, N, device=dev, generator=gen) * 8
+                    - 6)
+    u = 0.5 * torch.randn(H, N, device=dev, generator=gen)
+    s0 = 0.3 * torch.randn(B, H, N, N, device=dev, generator=gen) \
+        if nonzero_s0 else torch.zeros(B, H, N, N, device=dev)
+    if pad_from is not None:
+        k[0, pad_from:] = 0
+        lw[0, pad_from:] = 0
+    return r, k, v, lw, u, s0
+
+
+def wkv_work(B, S, H, N, elt):
+    """(operations, bytes) of WKV6: per step and head the read-out r·S
+    (2N²), the decay and write S·w + k vᵀ (3N²), the bonus r·(u⊙k) and
+    its v term (4N) and exp(lw) (N); r, k, v and o in the compute dtype,
+    lw in fp32, u, s0 and s_fin in fp32, each read or written once."""
+    ops = B * H * S * (5.0 * N * N + 5.0 * N)
+    nbytes = B * S * H * N * (4 * elt + 4) + H * N * 4 + 2 * B * H * N * N * 4
+    return ops, nbytes
+
+
+def wkv_check(out, plain, scale, dt, what):
+    """Element-wise: |kernel - plain| <= scale·max|plain| + rtol·|plain|."""
+    atol = scale * plain.float().abs().max().item()
+    return compare(out, plain, (atol, WKV_RTOL[dtype_name(dt)]), what)
+
+
+def run_wkv_phase(dev, gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    rows = []
+    for label, B, S, H, N, dt, nz, pad_from in wkv_cases():
+        r, k, v, lw, u, s0 = wkv_inputs(dev, gen, B, S, H, N, dt, nz,
+                                        pad_from)
+        o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(o).all() and torch.isfinite(s_fin).all()),
+              f"wkv6 {label}: non-finite")
+        po, ps = wkv.wkv6_torch(r, k, v, lw, u, s0)
+        fold = lambda t: t.transpose(1, 2).reshape(B * H, S, N)  # noqa: E731
+        ro, rs = ref.wkv6_ref(fold(r), fold(k), fold(v), fold(lw),
+                              u[None].expand(B, H, N).reshape(B * H, 1, N),
+                              s0.reshape(B * H, N, N))
+        ro = ro.reshape(B, H, S, N).transpose(1, 2)
+        rs = rs.reshape(B, H, N, N)
+        err = wkv_check(o, po, WKV_SCALE["chunked"], dt, f"wkv6 {label} o")
+        s_err = wkv_check(s_fin, ps, WKV_SCALE["chunked"], torch.float32,
+                          f"wkv6 {label} s_fin")
+        o_err = wkv_check(o, ro, WKV_SCALE["oracle"], dt,
+                          f"wkv6 {label} o vs oracle")
+        so_err = wkv_check(s_fin, rs, WKV_SCALE["oracle"], torch.float32,
+                           f"wkv6 {label} s_fin vs oracle")
+        if pad_from is not None:
+            cut = [t[:1, :pad_from].contiguous() for t in (r, k, v, lw)]
+            _, s_cut = ops.wkv6_bshn(*cut, u, s0[:1].contiguous())
+            torch.cuda.synchronize()
+            check(torch.equal(s_fin[0], s_cut[0]),
+                  f"wkv6 {label}: padding steps changed the state")
+        row = dict(label=label, dtype=dtype_name(dt), max_abs_err=err,
+                   s_fin_err=s_err, oracle_err=o_err, oracle_s_fin_err=so_err,
+                   max_abs_plain=po.float().abs().max().item(),
+                   tol=f"{WKV_SCALE['chunked']:g}·max|plain| + "
+                   f"{WKV_RTOL[dtype_name(dt)]:g}·|plain| (oracle "
+                   f"{WKV_SCALE['oracle']:g}·max)")
+        timing = ""
+        if S >= 1000 and pad_from is None:
+            call = lambda: ops.wkv6_bshn(r, k, v, lw, u, s0)  # noqa: E731
+            flops, nbytes = wkv_work(B, S, H, N, r.element_size())
+            t_ops = flops / PEAK_FLOPS["float32"]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       plain_ms=time_ms(lambda: wkv.wkv6_torch(
+                           r, k, v, lw, u, s0), reps=3, warmup=1),
+                       library_ms=None,
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       shape=f"B {B}, S {S}, H {H}, N {N}, {dtype_name(dt)}")
+            timing = (f" kernel {row['ms']:.4f} ms (device "
+                      f"{fmt_ms(row['device_ms'])}) plain "
+                      f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']})")
+        rows.append(row)
+        print(f"  wkv6 {label:<26} {dtype_name(dt):<8} err o {err:.3g} "
+              f"s_fin {s_err:.3g}, vs oracle {o_err:.3g} / {so_err:.3g} "
+              f"(max |o| {row['max_abs_plain']:.4g}; tol {row['tol']})"
+              f"{timing}", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve qwen3-0.6b at full width
 # ---------------------------------------------------------------------------
@@ -458,9 +590,10 @@ def run_serve_phase(dev, seed):
 
 def trace_window(fn):
     """Run ``fn`` under torch.profiler; returns (wall_s, device-busy s,
-    top ops by self CPU time, top device activities by time).  Busy time
-    sums the device-side events alone (kernels, copies), so an operator
-    and the kernel it launched are not counted twice."""
+    kernel launches, top ops by self CPU time, top device activities by
+    time).  Busy time sums the device-side events alone (kernels, copies),
+    so an operator and the kernel it launched are not counted twice;
+    launches count the host's kernel-launch calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -478,45 +611,55 @@ def trace_window(fn):
         else:
             host.append((e.key, e.count, e.self_cpu_time_total))
     busy = sum(r[2] for r in dev) * 1e-6
-    return (wall, busy, sorted(host, key=lambda r: -r[2])[:10],
+    launches = sum(n for key, n, _ in host if "LaunchKernel" in key)
+    return (wall, busy, launches, sorted(host, key=lambda r: -r[2])[:10],
             sorted(dev, key=lambda r: -r[2])[:8])
 
 
-def run_trace_phase(dev, seed):
-    """One prefill round and four decode steps of serve cell (a) under the
-    profiler: where the time goes, and the device's idle share."""
+def trace_serving(cfg, model, dev, seed):
+    """One prefill round and four decode steps of an 8-slot workload of
+    prompts up to 1,024 tokens under the profiler: where the time goes,
+    the device's idle share and the kernel launches per step."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.engine import ServingEngine, synthesize_requests
     from repro_torch.launch.spec import ServeSpec
-    from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), cache_layout="paged",
-                              page_size=128)
-    model = build_model(cfg, device=dev, seed=seed)
     sv = ServeSpec(batch=8, prompt_len=1024, gen=32, requests=8,
                    prefix_cache=False)
     out = {}
     eng = ServingEngine(cfg, model, sv, device=dev, dtype=torch.bfloat16)
     for r in synthesize_requests(cfg, sv, seed):
         eng.submit(r)
-    for name, fn in (("prefill_round", eng.admit),
-                     ("decode_4_steps", lambda: [eng.step()
-                                                 for _ in range(4)])):
-        wall, busy, by_cpu, by_dev = trace_window(fn)
+    for name, steps, fn in (("prefill_round", 1, eng.admit),
+                            ("decode_4_steps", 4,
+                             lambda: [eng.step() for _ in range(4)])):
+        wall, busy, launches, by_cpu, by_dev = trace_window(fn)
         # one stream: busy time beyond the wall means events counted twice
         check(busy <= wall * 1.05, f"traced {name}: device busy {busy} s "
               f"exceeds the window's wall time {wall} s")
+        check(busy > 0, f"traced {name}: no device activity recorded")
         out[name] = dict(wall_s=wall, device_busy_s=busy,
-                         idle_share=1 - busy / wall)
+                         idle_share=1 - busy / wall,
+                         launches_per_step=launches / steps)
         print(f"  traced {name}: wall {wall * 1e3:.2f} ms, device busy "
-              f"{busy * 1e3:.2f} ms, idle share {out[name]['idle_share']:.3f}",
-              flush=True)
+              f"{busy * 1e3:.2f} ms, idle share {out[name]['idle_share']:.3f}"
+              f", {launches / steps:.0f} kernel launches a step", flush=True)
         for key, n, us in by_cpu:
             print(f"    host {key[:56]:<56} x{n:<6} {us / 1e3:9.3f} ms")
         for key, n, us in by_dev:
             print(f"    dev  {key[:56]:<56} x{n:<6} {us / 1e3:9.3f} ms")
     return out
+
+
+def run_trace_phase(dev, seed):
+    """The trace of serve cell (a), qwen3-0.6b."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), cache_layout="paged",
+                              page_size=128)
+    model = build_model(cfg, device=dev, seed=seed)
+    return trace_serving(cfg, model, dev, seed)
 
 
 # ---------------------------------------------------------------------------
@@ -563,20 +706,32 @@ def parity_walk(calls_a, calls_b):
     return err, min(len(calls_a), len(calls_b)), diverged
 
 
-def run_parity_phase(dev, seed):
+def caches_equal(a, b) -> bool:
+    """Every leaf of two host or device caches (lists per layer, or one
+    tensor) equal byte for byte."""
     import torch
-    from repro_torch.configs import get_config
+    if set(a) != set(b):
+        return False
+    for name in a:
+        xs, ys = (a[name], b[name]) if isinstance(a[name], list) \
+            else ([a[name]], [b[name]])
+        if len(xs) != len(ys) or not all(
+                torch.equal(x.cpu(), y.cpu()) for x, y in zip(xs, ys)):
+            return False
+    return True
+
+
+def parity_run(cfg, sv, dev, seed):
+    """The same weights and requests through the engine on ``cuda`` and on
+    ``cpu`` in fp32 (TF32 off): live logits of every step within tolerance,
+    then snapshot/restore on ``cuda`` byte-identical, every cache leaf
+    (KV pools or RWKV state, and the page table) included."""
+    import torch
     from repro_torch.launch.engine import ServingEngine, synthesize_requests
-    from repro_torch.launch.spec import ServeSpec
     from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=4,
-                              cache_layout="paged", page_size=128,
-                              dtype="float32")
-    sv = ServeSpec(batch=4, prompt_len=384, gen=8, requests=6,
-                   prefix_cache=False)
     cpu_model = build_model(cfg, device="cpu", seed=seed)
     gpu_model = build_model(cfg, device="cpu", seed=seed).to(dev)
     requests = synthesize_requests(cfg, sv, seed)
@@ -590,6 +745,7 @@ def run_parity_phase(dev, seed):
             eng.submit(r)
         eng.run()
         streams[name] = eng.responses
+    del cpu_model
     # the schedule depends on lengths only, so the steps line up; every
     # step up to the first differing argmax of a live row is compared
     perr, compared, diverged = parity_walk(recs["cpu"], recs["cuda"])
@@ -603,7 +759,8 @@ def run_parity_phase(dev, seed):
               "recorded step differs")
         check(diverged[3] <= PARITY_TIE_TOL, f"parity: streams part at "
               f"{diverged} with a top-2 gap above {PARITY_TIE_TOL}")
-    print(f"  parity fp32 cuda vs cpu: live logit max err {perr:.3g} over "
+    print(f"  parity fp32 cuda vs cpu ({cfg.name}, {cfg.num_layers} layers): "
+          f"live logit max err {perr:.3g} over "
           f"{compared} of {len(recs['cuda'])} prefill and decode steps "
           f"(tol {PARITY_LOGIT_TOL}); token streams "
           f"{'equal' if diverged is None else f'part at a tie {diverged}'} "
@@ -620,23 +777,96 @@ def run_parity_phase(dev, seed):
     eng.run()
     fresh = ServingEngine(cfg, gpu_model, sv, device=dev, dtype=torch.float32)
     fresh.restore(snap)
-    again = fresh.snapshot()
-    for name in ("k_pages", "v_pages"):
-        for a, b in zip(snap["cache"][name], again["cache"][name]):
-            check(torch.equal(a, b), "restore is not byte-identical")
-    check(torch.equal(snap["cache"]["page_table"],
-                      again["cache"]["page_table"]),
-          "restored page table differs")
+    check(caches_equal(snap["cache"], fresh.snapshot()["cache"]),
+          "restore is not byte-identical")
     fresh.run()
     check(fresh.responses == eng.responses,
           "restored engine answered differently")
-    for name in ("k_pages", "v_pages"):
-        for a, b in zip(eng.cache[name], fresh.cache[name]):
-            check(torch.equal(a, b), "restored run left a different cache")
+    check(caches_equal(eng.cache, fresh.cache),
+          "restored run left a different cache")
     print(f"  snapshot/restore on cuda: {len(fresh.responses)} responses and "
-          "the final KV pools byte-identical", flush=True)
+          f"the final cache ({', '.join(sorted(eng.cache))}) byte-identical",
+          flush=True)
     return dict(logit_err=perr, steps_compared=compared,
                 diverged=diverged)
+
+
+def run_parity_phase(dev, seed):
+    """qwen3-0.6b at full width and 4 layers, prompts up to 384 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spec import ServeSpec
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=4,
+                              cache_layout="paged", page_size=128,
+                              dtype="float32")
+    return parity_run(cfg, ServeSpec(batch=4, prompt_len=384, gen=8,
+                                     requests=6, prefix_cache=False),
+                      dev, seed)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: rwkv6-7b (the WKV6 kernel's path)
+# ---------------------------------------------------------------------------
+def run_rwkv_phase(dev, seed):
+    """Serve rwkv6-7b at full width in bf16, trace it, then fp32 parity
+    and snapshot/restore at 2 layers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import count_params
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), cache_layout="paged",
+                              page_size=128)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{count_params(cfg) / 1e9:.2f} B parameters without the "
+          f"embeddings, in {time.perf_counter() - t0:.2f} s", flush=True)
+    serve_once(cfg, model, ServeSpec(batch=2, prompt_len=256, gen=4,
+                                     requests=2, prefix_cache=False),
+               dev, seed)                                      # warm-up
+    sv = ServeSpec(batch=8, prompt_len=1024, gen=32, requests=16,
+                   prefix_cache=False)
+    r = serve_once(cfg, model, sv, dev, seed)
+    eng = r.pop("engine")
+    L = cfg.num_layers
+    check(r["launches"]["wkv6_bshn"] > 0,
+          "serve rwkv6-7b: the WKV6 kernel never launched")
+    check(r["launches"]["wkv6_bshn"] == L * r["prefill_calls"],
+          f"serve rwkv6-7b: WKV6 launches {r['launches']} for "
+          f"{r['prefill_calls']} prefill rounds")
+    check(r["launches"]["flash_attention_bshd"] == 0
+          and r["launches"]["paged_decode_bhd"] == 0,
+          f"serve rwkv6-7b: attention kernels launched {r['launches']}")
+    r.update(decode_steps=eng.decode_steps, evictions=eng.evictions,
+             prefill_tokens=eng.prefill_tokens,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    print(f"  serve rwkv6-7b: {sv.requests} requests, {r['generated']} tokens "
+          f"generated, {r['prompt_tokens']} prompt tokens in "
+          f"{r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated tok/s; "
+          f"prefill {r['prefill_s']:.3f} s over {r['prefill_calls']} rounds, "
+          f"decode {r['decode_s']:.3f} s over {r['decode_calls']} steps; "
+          f"peak memory {r['peak_mem_gb']:.2f} GB; launches {r['launches']}",
+          flush=True)
+    print("[rwkv trace] profiler on (not used for the numbers above)",
+          flush=True)
+    trace = trace_serving(cfg, model, dev, seed)
+    del model
+    torch.cuda.empty_cache()
+    print("[rwkv parity]", flush=True)
+    # page size 16: rounds pad to 48..96 steps, so the plain version on the
+    # cpu crosses a 32-step chunk and a ragged tail; rows are padded too
+    pcfg = dataclasses.replace(cfg, num_layers=2, page_size=16,
+                               dtype="float32")
+    parity = parity_run(pcfg, ServeSpec(batch=4, prompt_len=90, gen=8,
+                                        requests=6, prefix_cache=False),
+                        dev, seed)
+    return dict(serve=r, trace=trace, parity=parity)
 
 
 def main() -> int:
@@ -674,6 +904,7 @@ def main() -> int:
     print("[kernels]", flush=True)
     flash_rows = run_flash_phase(dev, gen)
     decode_rows = run_decode_phase(dev, gen)
+    wkv_rows = run_wkv_phase(dev, gen)
     print("[serve] qwen3-0.6b full width, bf16", flush=True)
     runs = run_serve_phase(dev, seed)
     print("[trace] cell (a), profiler on (not used for the numbers above)",
@@ -681,10 +912,13 @@ def main() -> int:
     traces = run_trace_phase(dev, seed)
     print("[parity]", flush=True)
     parity = run_parity_phase(dev, seed)
+    print("[rwkv] rwkv6-7b full width, bf16", flush=True)
+    rwkv = run_rwkv_phase(dev, seed)
 
     main_run = runs["a_no_prefix_cache"]
     fl = next(r for r in flash_rows if r["label"] == "qwen3 S1024")
     dc = next(r for r in decode_rows if r["label"] == "qwen3 G2")
+    wk = next(r for r in wkv_rows if r["label"] == "rwkv6-7b serving")
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -706,10 +940,18 @@ def main() -> int:
              device_ms_ungrouped=dc["device_ms_ungrouped"],
              also_replaces="src/repro/kernels/paged_attention.py:76",
              shape="B 8, K 8, G 2, hd 128, ps 128, bf16, ragged"),
+        dict(name="wkv6_fwd", route="cuda",
+             source="src/repro_torch/csrc/rwkv6_wkv.cu",
+             replaces="src/repro/kernels/rwkv6_wkv.py:49",
+             launches=rwkv["serve"]["launches"]["wkv6_bshn"],
+             max_abs_err=max(r["max_abs_err"] for r in wkv_rows),
+             ms=wk["ms"], device_ms=wk["device_ms"], plain_ms=wk["plain_ms"],
+             bound_ms=wk["bound_ms"], bound_by=wk["bound_by"],
+             library_ms=None, shape=wk["shape"]),
     ]
     serve = {name: {k: v for k, v in r.items()} for name, r in runs.items()}
     print(json.dumps({"serve": serve, "trace": traces, "parity": parity,
-                      "build_s": build_s,
+                      "wkv6": wkv_rows, "rwkv": rwkv, "build_s": build_s,
                       "total_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

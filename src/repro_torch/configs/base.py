@@ -3,9 +3,10 @@
 and config registry.
 
 The port serves the dense all-global GQA decoders (``qwen3-0.6b`` and
-``paper-overhead-100m``).  The other families keep their fields here so a
-config reads the same as in the reference; :func:`check_ported` rejects
-them when a model is built.
+``paper-overhead-100m``) and the attention-free RWKV6 stack
+(``rwkv6-7b``).  The other families keep their fields here so a config
+reads the same as in the reference; :func:`check_ported` rejects them
+when a model is built.
 """
 from __future__ import annotations
 
@@ -145,8 +146,9 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
     model this port does not have yet."""
     missing = []
-    if set(cfg.layer_kinds()) != {GLOBAL_ATTN}:
-        missing.append(f"block kinds {sorted(set(cfg.layer_kinds()))}")
+    kinds = set(cfg.layer_kinds())
+    if kinds != {GLOBAL_ATTN} and kinds != {RWKV}:
+        missing.append(f"block kinds {sorted(kinds)}")
     if cfg.window_size:
         missing.append("sliding-window attention")
     if cfg.use_mla:
@@ -195,4 +197,5 @@ def list_configs() -> Tuple[str, ...]:
 
 def _ensure_loaded() -> None:
     """Import every config module (they self-register on import)."""
-    from repro_torch.configs import paper_overhead, qwen3_0_6b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        paper_overhead, qwen3_0_6b, rwkv6_7b)

@@ -1,0 +1,18 @@
+"""RWKV6-7B ("Finch"): attention-free, data-dependent decay. [arXiv:2404.05892]"""
+from repro_torch.configs.base import RWKV, ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="rwkv6-7b",
+    family="ssm",
+    num_layers=32,
+    d_model=4096,
+    num_heads=64,                 # = d_model / rwkv_head_dim
+    num_kv_heads=64,
+    head_dim=64,
+    d_ff=14336,
+    vocab_size=65_536,
+    block_pattern=(RWKV,),
+    rwkv_head_dim=64,
+    rwkv_ddlerp_rank=32,
+    rwkv_decay_rank=64,
+))

@@ -1,5 +1,6 @@
 """Model-layout wrappers around the Hopper kernels (the reference's
-``kernels/ops.py:flash_attention_bshd`` / ``paged_decode_bhd``).
+``kernels/ops.py:flash_attention_bshd`` / ``paged_decode_bhd`` /
+``wkv6_bshn``).
 
 Each wrapper checks devices, dtypes, shapes and contiguity, then:
 
@@ -16,8 +17,9 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rwkv6_wkv as wkv
 
-launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0}
+launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0, "wkv6_bshn": 0}
 
 
 def reset_launches() -> None:
@@ -132,3 +134,38 @@ def paged_decode_bhd(
                                scale=scale, logit_cap=logit_cap,
                                grouped=grouped)
     return out.reshape(B, 1, H, hd)
+
+
+def wkv6_bshn(
+    r: torch.Tensor,          # (B, S, H, N)
+    k: torch.Tensor,          # (B, S, H, N)
+    v: torch.Tensor,          # (B, S, H, N)
+    lw: torch.Tensor,         # (B, S, H, N) fp32 log-decay <= 0
+    u: torch.Tensor,          # (H, N) fp32 bonus
+    s0: torch.Tensor,         # (B, H, N, N) fp32 initial state
+    *,
+    chunk: int = 32,
+):
+    """WKV6 over the model layout.  Returns ``(o (B, S, H, N) in r's
+    dtype, s_final (B, H, N, N) fp32)``.  ``chunk`` is the plain version's
+    chunk length; the kernel walks the steps in order and has none."""
+    _require(r.ndim == 4 and k.shape == r.shape and v.shape == r.shape
+             and lw.shape == r.shape,
+             f"wkv6_bshn: shapes {tuple(r.shape)} {tuple(k.shape)} "
+             f"{tuple(v.shape)} {tuple(lw.shape)}")
+    B, S, H, N = r.shape
+    _require(tuple(u.shape) == (H, N) and tuple(s0.shape) == (B, H, N, N),
+             f"wkv6_bshn: u {tuple(u.shape)}, s0 {tuple(s0.shape)} for r "
+             f"{tuple(r.shape)}")
+    _require(S > 0 and chunk > 0, f"wkv6_bshn: S {S}, chunk {chunk}")
+    _require(r.dtype == k.dtype == v.dtype,
+             "wkv6_bshn: r, k, v dtypes differ")
+    _require(lw.dtype == u.dtype == s0.dtype == torch.float32,
+             "wkv6_bshn: lw, u and s0 must be fp32")
+    operands = (r, k, v, lw, u, s0)
+    if all(t.device.type == "cpu" for t in operands):
+        return wkv.wkv6_torch(r, k, v, lw, u, s0, chunk=chunk)
+    _cuda_operands("wkv6_bshn", operands, wkv.DTYPE_CODES, N,
+                   wkv.HEAD_SIZES)
+    launches["wkv6_bshn"] += 1
+    return wkv.wkv6_cuda(r, k, v, lw, u, s0)

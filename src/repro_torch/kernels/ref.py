@@ -1,4 +1,4 @@
-"""Naive torch oracle for the flash-attention kernel."""
+"""Naive torch oracles of the kernels: attention and WKV6."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +26,19 @@ def attention_ref(q, k, v, *, group: int, scale: float, causal: bool = True,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,hkd->hqd", p, vq.float()).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, lw, u, s0):
+    """Step-by-step WKV6, the oracle of the chunked forms.  r/k/v/lw
+    (BH, S, N), u (BH, 1, N), s0 (BH, N, N); returns (o (BH, S, N) in
+    r's dtype, s_final (BH, N, N) fp32)."""
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    uf = u.float()[:, 0]                                  # (BH, N)
+    s = s0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        at = kf[:, t, :, None] * vf[:, t, None, :]        # (BH, N, N)
+        outs.append(torch.einsum("bc,bcv->bv", rf[:, t],
+                                 s + uf[:, :, None] * at))
+        s = torch.exp(lw[:, t].float())[:, :, None] * s + at
+    return torch.stack(outs, dim=1).to(r.dtype), s

@@ -12,8 +12,11 @@ byte-identically.
 
 What differs from the reference: the port has no mesh, so the page pool
 has one shard; prefill is always ragged (the port serves decoder-only
-stacks); the cache's pools are updated in place, so :meth:`snapshot`
-copies every device tensor to the host.
+stacks); the cache (KV pools or RWKV state) is updated in place, so
+:meth:`snapshot` copies every device tensor to the host.  An RWKV stack
+keeps the page accounting of an attention stack (its table has no pools
+behind it); an admitted row starts from zero state inside the ragged
+prefill, and rows not in the round keep theirs.
 """
 from __future__ import annotations
 
@@ -538,9 +541,10 @@ class ServingEngine:
 
     # -- snapshot / restore --------------------------------------------------
     def snapshot(self) -> dict:
-        """The complete engine state as plain host data; the cache tensors
-        are copied off the device (the pools are updated in place, so a
-        view would change under the snapshot)."""
+        """The complete engine state as plain host data; every cache
+        tensor (KV pools, RWKV state, page table) is copied off the device
+        (the cache is updated in place, so a view would change under the
+        snapshot)."""
         def rec_doc(rec: Optional[SeqRecord]):
             if rec is None:
                 return None
@@ -583,14 +587,16 @@ class ServingEngine:
                       "prefix_hits": self.prefix_hits,
                       "prefix_misses": self.prefix_misses,
                       "cow_copies": self.cow_copies},
-            "cache": {
-                "k_pages": [t.cpu().clone() for t in self.cache["k_pages"]],
-                "v_pages": [t.cpu().clone() for t in self.cache["v_pages"]],
-                "page_table": self.cache["page_table"].cpu().clone()},
+            "cache": {name: [t.cpu().clone() for t in leaf]
+                      if isinstance(leaf, list) else leaf.cpu().clone()
+                      for name, leaf in self.cache.items()},
         }
 
     def restore(self, snap: dict) -> None:
         """Load a :meth:`snapshot` into this (freshly built) engine."""
+        if set(snap["cache"]) != set(self.cache):
+            raise ValueError(f"snapshot cache holds {sorted(snap['cache'])}, "
+                             f"this engine's {sorted(self.cache)}")
         self.queue = deque(Request(req=r, tokens=np.asarray(t), gen_len=g)
                            for r, t, g in snap["queue"])
         self.slots = []
@@ -635,10 +641,12 @@ class ServingEngine:
         self.prefix_misses = st["prefix_misses"]
         self.cow_copies = st["cow_copies"]
         c = snap["cache"]
-        for name in ("k_pages", "v_pages"):
-            for dst, src in zip(self.cache[name], c[name], strict=True):
-                dst.copy_(src)
-        self.cache["page_table"].copy_(c["page_table"])
+        for name, leaf in self.cache.items():
+            if isinstance(leaf, list):
+                for dst, src in zip(leaf, c[name], strict=True):
+                    dst.copy_(src)
+            else:
+                leaf.copy_(c[name])
 
     # -- drive to completion --------------------------------------------------
     def run(self) -> None:

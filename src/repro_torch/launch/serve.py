@@ -4,6 +4,8 @@
         --batch 8 --prompt-len 1024 --gen 32 --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --reduced --device cpu
 
 Weights are random, drawn from ``--seed``; the workload is synthesized
 (``launch.engine.synthesize_requests``).  It runs on ``cuda`` unless

@@ -10,11 +10,13 @@ import torch.nn.functional as F
 @dataclass(frozen=True)
 class Ctx:
     """What the forward pass needs to know besides the weights: the
-    device everything lives on and the compute dtype matrices are cast
-    to (the reference's ``Ctx`` without a mesh)."""
+    device everything lives on, the compute dtype matrices are cast to,
+    and the chunk length of the plain WKV6 version (the reference's
+    ``Ctx`` without a mesh)."""
 
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
+    rwkv_chunk: int = 32
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,10 +1,11 @@
 """The model's parameters as ``nn.Module``s.
 
 Leaf names and shapes follow the reference's abstract tree
-(``repro/models/params.py``, dense GQA blocks): the stacked ``groups``
-leading dim of the reference becomes one :class:`Block` per layer in a
-``ModuleList``.  State-dict keys therefore read ``blocks.{i}.attn.q`` where
-the reference reads ``decoder/groups/0/attn/q[i]``.
+(``repro/models/params.py``: dense GQA blocks and RWKV6 blocks): the
+stacked ``groups`` leading dim of the reference becomes one :class:`Block`
+per layer in a ``ModuleList``.  State-dict keys therefore read
+``blocks.{i}.attn.q`` where the reference reads
+``decoder/groups/0/attn/q[i]``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Dict, List, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import RWKV, ModelConfig, check_ported
 
 Tree = Dict[str, Union[torch.Tensor, "Tree", List["Tree"]]]
 
@@ -56,15 +57,61 @@ class DenseFFN(nn.Module):
         self.wd = _leaf((F, D), device)
 
 
-class Block(nn.Module):
-    """One decoder layer: pre-norm attention + pre-norm dense FFN."""
+class TimeMix(nn.Module):
+    """RWKV6 time-mix: the ddlerp token shift (``tm_mu`` holds the input's
+    lerp and the five targets w, k, v, r, g; ``tm_A``/``tm_B`` its LoRA),
+    r/k/v/g/o projections, the data-dependent decay (``w_base`` and the
+    ``ww_A``/``ww_B`` LoRA), the per-head bonus ``u`` and the per-head
+    GroupNorm gain ``ln_x``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        D, N = cfg.d_model, cfg.rwkv_head_dim
+        rk, rw = cfg.rwkv_ddlerp_rank, cfg.rwkv_decay_rank
+        self.tm_mu = _leaf((6, D), device)
+        self.tm_A = _leaf((D, 5 * rk), device)
+        self.tm_B = _leaf((5, rk, D), device)
+        self.wr = _leaf((D, D), device)
+        self.wk = _leaf((D, D), device)
+        self.wv = _leaf((D, D), device)
+        self.wg = _leaf((D, D), device)
+        self.w_base = _leaf((D,), device)
+        self.ww_A = _leaf((D, rw), device)
+        self.ww_B = _leaf((rw, D), device)
+        self.u = _leaf((D // N, N), device)
+        self.ln_x = _leaf((D,), device)
+        self.wo = _leaf((D, D), device)
+
+
+class ChannelMix(nn.Module):
+    """RWKV6 channel-mix: token-shift lerps, squared-ReLU key, sigmoid
+    receptance."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, F = cfg.d_model, cfg.d_ff
+        self.cm_mu_k = _leaf((D,), device)
+        self.cm_mu_r = _leaf((D,), device)
+        self.wk_c = _leaf((D, F), device)
+        self.wv_c = _leaf((F, D), device)
+        self.wr_c = _leaf((D, D), device)
+
+
+class Block(nn.Module):
+    """One decoder layer of ``kind``: pre-norm attention + pre-norm dense
+    FFN, or (RWKV) pre-norm time-mix + pre-norm channel-mix."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+        super().__init__()
         self.pre_norm = _leaf((cfg.d_model,), device)
-        self.attn = Attention(cfg, device)
-        self.ffn_norm = _leaf((cfg.d_model,), device)
-        self.ffn = DenseFFN(cfg, device)
+        if kind == RWKV:
+            self.tm = TimeMix(cfg, device)
+            self.cm_norm = _leaf((cfg.d_model,), device)
+            self.cm = ChannelMix(cfg, device)
+        else:
+            self.attn = Attention(cfg, device)
+            self.ffn_norm = _leaf((cfg.d_model,), device)
+            self.ffn = DenseFFN(cfg, device)
 
 
 class Model(nn.Module):
@@ -78,8 +125,8 @@ class Model(nn.Module):
         self.cfg = cfg
         D, V = cfg.d_model, cfg.padded_vocab
         self.embed = _leaf((V, D), device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, device)
+                                    for kind in cfg.layer_kinds())
         self.final_norm = _leaf((D,), device)
         if not cfg.tie_embeddings:
             self.lm_head = _leaf((D, V), device)
@@ -91,10 +138,22 @@ class Model(nn.Module):
 # differ from the reference's jax.random draws; tests that compare the
 # two packages load converted reference weights instead.
 # ---------------------------------------------------------------------------
+# The reference's explicit recipes; every other leaf is "fan_in" (norm
+# gains "ones", biases "zeros").
+_RECIPES = {
+    "embed": "normal:0.02",
+    "tm_mu": "uniform:0:1", "cm_mu_k": "uniform:0:1", "cm_mu_r": "uniform:0:1",
+    "w_base": "uniform:-7:-5",
+    "tm_A": "normal:0.02", "tm_B": "normal:0.02", "ww_A": "normal:0.02",
+    "ww_B": "normal:0.02", "u": "normal:0.02",
+    "ln_x": "ones",
+}
+
+
 def _recipe(name: str) -> str:
     leaf = name.rsplit(".", 1)[-1]
-    if leaf == "embed":
-        return "normal:0.02"
+    if leaf in _RECIPES:
+        return _RECIPES[leaf]
     if leaf.endswith("norm"):
         return "ones"
     if leaf in ("qb", "kb", "vb"):
@@ -122,7 +181,11 @@ def init_params(model: Model, seed: int) -> Model:
             continue
         gen = torch.Generator(device=p.device)
         gen.manual_seed(seed * 1_000_003 + _stable_hash(name))
-        std = 0.02 if recipe.startswith("normal:") else \
+        kind, *args = recipe.split(":")
+        if kind == "uniform":
+            p.uniform_(float(args[0]), float(args[1]), generator=gen)
+            continue
+        std = float(args[0]) if kind == "normal" else \
             1.0 / math.sqrt(max(math.prod(p.shape[:-1]), 1))
         p.normal_(0.0, std, generator=gen)
     return model

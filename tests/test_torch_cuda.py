@@ -11,7 +11,12 @@ kernel is held against its plain PyTorch version on the same inputs, made
 with numpy from a seed, element by element: fp32 to 1e-4 (flash) and 1e-5
 (decode); bf16 to one bf16 ulp of the value (2^-7·|plain|, both kernels
 round their fp32 result once) plus 1e-4 (decode) or 4e-3 (flash, which
-also rounds P to bf16 for its tensor-core P·V product).
+also rounds P to bf16 for its tensor-core P·V product).  The WKV6 kernel
+is held against the step-by-step oracle ``ref.wkv6_ref`` within 1e-5 of
+the output's largest magnitude, and against the chunked plain version
+within 3e-5 of it (that version's own fp32 error reaches 1e-5 of the
+scale at lw = -e^2, from its log-space cumulative sums); bf16 outputs
+also get one bf16 ulp of the value.
 """
 import dataclasses
 
@@ -24,6 +29,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_wkv as wkv  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     ServingEngine, synthesize_requests)
 from repro_torch.launch.spec import ServeSpec  # noqa: E402
@@ -34,6 +41,10 @@ pytestmark = pytest.mark.cuda
 # (atol, rtol): |kernel - plain| <= atol + rtol·|plain| for every element
 FLASH_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
 DECODE_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-4, 2 ** -7)}
+# WKV6: (share of max |plain| as atol, rtol) against the oracle and the
+# chunked plain version
+WKV_TOL = {"oracle": 1e-5, "chunked": 3e-5}
+WKV_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 
 
 def _within(out, plain, tol):
@@ -162,3 +173,91 @@ def test_engine_serves_on_the_card(cuda):
     assert sorted(eng.responses) == [r.req for r in requests]
     assert ops.launches["flash_attention_bshd"] > 0
     assert ops.launches["paged_decode_bhd"] > 0
+
+
+def _wkv_within(out, plain, scale, dt):
+    return _within(out, plain, (scale * plain.float().abs().max().item(),
+                                WKV_RTOL[dt]))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N", [
+    (2, 64, 3, 64),
+    (1, 77, 4, 64),        # ragged tail
+    (2, 40, 2, 16),
+    (1, 100, 2, 32),
+])
+def test_wkv6_kernel_matches_plain_and_oracle(cuda, dt, B, S, H, N):
+    """Decays from -e^-6 to -e^2, a nonzero s0, and row 0 padded past
+    step 25 (k = 0, lw = 0): its final state is bit-equal to the kernel's
+    state at step 25."""
+    rng = np.random.default_rng(S * N)
+    r, k, v = (_randn(rng, (B, S, H, N), cuda, dt) for _ in range(3))
+    lw = -torch.from_numpy(np.exp(rng.uniform(-6, 2, (B, S, H, N))).astype(
+        np.float32)).to(cuda)
+    u = 0.5 * _randn(rng, (H, N), cuda, torch.float32)
+    s0 = 0.3 * _randn(rng, (B, H, N, N), cuda, torch.float32)
+    k[0, 25:] = 0
+    lw[0, 25:] = 0
+    before = ops.launches["wkv6_bshn"]
+    o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6_bshn"] == before + 1
+    assert o.dtype == dt and o.shape == r.shape
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s_fin).all())
+    po, ps = wkv.wkv6_torch(r, k, v, lw, u, s0)
+    assert _wkv_within(o, po, WKV_TOL["chunked"], dt)
+    assert _wkv_within(s_fin, ps, WKV_TOL["chunked"], torch.float32)
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, N)  # noqa: E731
+    ro, rs = ref.wkv6_ref(fold(r), fold(k), fold(v), fold(lw),
+                          u[None].expand(B, H, N).reshape(B * H, 1, N),
+                          s0.reshape(B * H, N, N))
+    ro = ro.reshape(B, H, S, N).transpose(1, 2)
+    assert _wkv_within(o, ro, WKV_TOL["oracle"], dt)
+    assert _wkv_within(s_fin, rs.reshape(B, H, N, N), WKV_TOL["oracle"],
+                       torch.float32)
+    cut = [t[:1, :25].contiguous() for t in (r, k, v, lw)]
+    _, s_cut = ops.wkv6_bshn(*cut, u, s0[:1].contiguous())
+    assert torch.equal(s_fin[0], s_cut[0])
+
+
+def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 8, 2, 48, device=cuda)
+    u, s0 = torch.zeros(2, 48, device=cuda), torch.zeros(1, 2, 48, 48,
+                                                         device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.wkv6_bshn(x, x, x, x, u, s0)
+    y = torch.zeros(1, 8, 4, 64, device=cuda)[:, :, ::2]
+    u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(1, 2, 64, 64,
+                                                         device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv6_bshn(y, y, y, y, u, s0)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.wkv6_bshn(y.contiguous(), y.contiguous(), y.contiguous(),
+                      y.contiguous(), u.cpu(), s0)
+
+
+def test_rwkv_engine_serves_on_the_card(cuda):
+    """rwkv6-7b .reduced() with four heads of 16 through the engine on the
+    card, in bf16: every request completes and each prefill round launched
+    the WKV6 kernel once a layer."""
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(),
+                              rwkv_head_dim=16, cache_layout="paged")
+    model = build_model(cfg, device=cuda, seed=0)
+    sv = ServeSpec(batch=3, prompt_len=40, gen=6, requests=5)
+    eng = ServingEngine(cfg, model, sv, dtype=torch.bfloat16)
+    requests = synthesize_requests(cfg, sv, seed=0)
+    for r in requests:
+        eng.submit(r)
+    rounds = []
+    prefill = eng.prefill
+
+    def counted(*args):
+        rounds.append(1)
+        return prefill(*args)
+
+    eng.prefill = counted
+    ops.reset_launches()
+    eng.run()
+    assert sorted(eng.responses) == [r.req for r in requests]
+    assert ops.launches["wkv6_bshn"] == cfg.num_layers * len(rounds) > 0

@@ -109,10 +109,10 @@ def test_serve_cli_rejects_bad_flags():
 
 
 def test_unported_configs_raise_at_build():
-    assert list_configs() == ("paper-overhead-100m", "qwen3-0.6b")
+    assert list_configs() == ("paper-overhead-100m", "qwen3-0.6b", "rwkv6-7b")
     base = get_config("qwen3-0.6b").reduced()
     for over in (dict(window_size=8), dict(use_mla=True, kv_lora_rank=16),
-                 dict(num_experts=4), dict(block_pattern=("rwkv",)),
+                 dict(num_experts=4), dict(block_pattern=("recurrent",)),
                  dict(is_encoder_decoder=True), dict(frontend="audio"),
                  dict(attn_logit_softcap=50.0)):
         cfg = dataclasses.replace(base, **over)
