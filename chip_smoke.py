@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on the first failure:
               version on the card, at the shapes the serving paths give
               it, and times kernel, plain version and (where one PyTorch
               call computes the same function) the library call.  The
-              WKV6 kernel is also held against the step-by-step oracle.
+              WKV6 and RG-LRU kernels are also held against their
+              step-by-step oracles.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -36,6 +37,18 @@ Phases, each of which exits non-zero on the first failure:
               parity at full width and 2 layers (prompts up to 90 tokens:
               a chunk, a ragged tail and padded rows) and snapshot/restore
               of the RWKV state on ``cuda``.
+6. recurrentgemma -- the same for ``recurrentgemma-9b`` (38 layers: 26
+              RG-LRU and 12 local-attention layers, d 4096, 16 q heads over
+              one kv head of 256, window 2,048; 9.40 B parameters), run after
+              rwkv6-7b's weights are freed: serve at full width in bf16 with
+              prompts up to 2,560 tokens and one pinned at 2,040 whose ring
+              wraps during decode (the RG-LRU kernel 26 times and the flash
+              kernel at hd 256 12 times a prefill round), one traced
+              prefill round and four decode steps, then fp32 cuda vs cpu
+              parity at full width and 3 layers (R, R, L) with the window
+              cut to 64 so prompts up to 150 tokens wrap the rings on the
+              cpu, and snapshot/restore of h, conv and the rings on
+              ``cuda``.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  With no CUDA device, or
@@ -45,6 +58,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -64,6 +78,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # flash kernel also rounds P to bf16 for its tensor-core P·V product, which
 # its atol covers.  One key dropped from a 1,000-key row breaks both.
 FLASH_TOL = {"bfloat16": (4e-3, 2 ** -7), "float32": (1e-4, 0.0)}
+# bf16 at hd 256 (recurrentgemma's local layers): 2^-8·max|v| + 2^-7·|plain|.
+# Rounding P to bf16 (2^-9 relative) moves an output by at most
+# 2^-9·Σ p|v| / Σ p <= 2^-9·max|v|; the bound doubles that as a margin for
+# the fp32 differences (exp, sum order), and both sides round the output
+# once (the rtol).  Rows with few live keys (large p, little averaging)
+# come near it; at the serving shape (84 M outputs, 10× the
+# hd-128 case) one output below |plain| 1.5 was 0.0156 (2 ulps) off, past
+# the 4e-3 + 2^-7·|plain| of FLASH_TOL, which stays for hd 64 and 128.
+FLASH_HD256_VSCALE = 2 ** -8
 DECODE_TOL = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-5, 0.0)}
 # WKV6 sums hundreds of k vᵀ terms into outputs of magnitude ~100, so its
 # absolute term is a share of the output's largest magnitude: 1e-5 against
@@ -74,7 +97,12 @@ DECODE_TOL = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-5, 0.0)}
 # rounded once from fp32 in both versions: one bf16 ulp of the value more.
 WKV_SCALE = {"oracle": 1e-5, "chunked": 3e-5}
 WKV_RTOL = {"bfloat16": 2 ** -7, "float32": 0.0}
-PARITY_LOGIT_TOL = 2e-3      # fp32 cuda vs cpu, 4 layers, summation order
+# RG-LRU: |kernel - plain| <= 1e-5·max|plain| + 1e-5·|plain|.  The kernel
+# fuses each step's multiply-add (one rounding), the plain loop rounds the
+# product and the sum, and the carries (up to ~30 at decays near 1) pass
+# the difference on through thousands of steps.
+RGLRU_TOL = (1e-5, 1e-5)
+PARITY_LOGIT_TOL = 2e-3      # fp32 cuda vs cpu, 2-4 layers, summation order
 PARITY_TIE_TOL = 2e-3        # top-2 gap below which a divergence is a tie
 
 
@@ -147,8 +175,9 @@ def compare(out, plain, tol, what: str) -> float:
     d = (out.float() - plain.float()).abs()
     over = (d > atol + rtol * plain.float().abs()).sum().item()
     err = d.max().item()
+    worst = plain.float().flatten()[d.argmax()].item()
     check(over == 0, f"{what}: {over} elements beyond {tol_text(tol)} "
-          f"(max |kernel - plain| {err})")
+          f"(max |kernel - plain| {err}, at plain {worst})")
     return err
 
 
@@ -172,6 +201,11 @@ def flash_cases():
         ("window 256 softcap 30", 2, 640, 16, 8, 128, bf16, True, 256, 30.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
         ("fp32 qwen3 S256", 2, 256, 16, 8, 128, f32, True, 0, 0.0),
+        # recurrentgemma's local layers: MQA (G 16), hd 256, window 2,048
+        ("rg hd256 S2560 w2048", 8, 2560, 16, 1, 256, bf16, True, 2048, 0.0),
+        ("rg hd256 ragged S2501", 8, 2501, 16, 1, 256, bf16, True, 2048,
+         0.0),
+        ("fp32 rg hd256 S2560", 8, 2560, 16, 1, 256, f32, True, 2048, 0.0),
     ]
 
 
@@ -205,6 +239,9 @@ def run_flash_phase(dev, gen):
         plain = fa.flash_attention_torch(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = FLASH_TOL[dtype_name(dt)]
+        if hd == 256 and dt == torch.bfloat16:
+            tol = (FLASH_HD256_VSCALE * v.float().abs().max().item(),
+                   2 ** -7)
         check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite")
         err = compare(out, plain, tol, f"flash {label}")
         ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
@@ -212,11 +249,19 @@ def run_flash_phase(dev, gen):
         plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
                            reps=5, warmup=1)
         lib_ms = None
-        if not window and not cap:
+        if not cap:
+            # SDPA on the same inputs; a window goes in as a boolean
+            # causal-window mask (True = attend)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = None
+            if window:
+                i = torch.arange(S, device=dev)
+                mask = (i[None, :] <= i[:, None]) \
+                    & (i[:, None] - i[None, :] < window)
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=hd ** -0.5,
-                enable_gqa=True))
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                scale=hd ** -0.5, enable_gqa=True))
+            del qt, kt, vt, mask
         flops, nbytes = flash_work(B, S, H, K, hd, q.element_size(), causal,
                                    window)
         t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
@@ -474,6 +519,99 @@ def run_wkv_phase(dev, gen):
     return rows
 
 
+def rglru_cases():
+    # (label, B, S, R, nonzero h0, padded row 0 from step)
+    return [
+        ("recurrentgemma serving", 8, 2560, 4096, False, None),
+        ("serving h0 padded", 8, 2560, 4096, True, 2040),
+        ("ragged S77 R100 h0 padded", 2, 77, 100, True, 41),
+        ("S5 R4096 h0", 3, 5, 4096, True, None),
+    ]
+
+
+def rglru_inputs(dev, gen, B, S, R, nonzero_h0, pad_from):
+    """b ~ N(0, 1); log_a on the first half of the channels as the model
+    draws it at its initial Λ (8·r·log σ(Λ), r ~ U(0, 1), σ(Λ) ~ U(0.9,
+    0.999)), on the second half strong decays -U(1, 20); h0 zero (a
+    prefill) or 3·N(0, 1); row 0 padded from ``pad_from`` on (log_a = 0,
+    b = 0), as the ragged prefill pads."""
+    import torch
+    lam = 0.9 + 0.099 * torch.rand(R, device=dev, generator=gen)
+    log_a = 8.0 * torch.rand(B, S, R, device=dev, generator=gen) \
+        * torch.log(lam)
+    log_a[..., R // 2:] = -1.0 - 19.0 * torch.rand(
+        B, S, R - R // 2, device=dev, generator=gen)
+    b = torch.randn(B, S, R, device=dev, generator=gen)
+    h0 = 3.0 * torch.randn(B, R, device=dev, generator=gen) \
+        if nonzero_h0 else None
+    if pad_from is not None:
+        log_a[0, pad_from:] = 0
+        b[0, pad_from:] = 0
+    return log_a, b, h0
+
+
+def rglru_check(out, plain, what):
+    scale, rtol = RGLRU_TOL
+    return compare(out, plain, (scale * plain.abs().max().item(), rtol), what)
+
+
+def run_rglru_phase(dev, gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+
+    rows = []
+    for label, B, S, R, nz, pad_from in rglru_cases():
+        log_a, b, h0 = rglru_inputs(dev, gen, B, S, R, nz, pad_from)
+        h = ops.rglru_scan_bsr(log_a, b, h0)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(h).all()), f"rglru {label}: non-finite")
+        plain = rg.rglru_scan_torch(log_a, b, h0)
+        oracle = ref.rglru_ref(log_a, b, torch.zeros(B, R, device=dev)
+                               if h0 is None else h0)
+        err = rglru_check(h, plain, f"rglru {label}")
+        o_err = rglru_check(h, oracle, f"rglru {label} vs oracle")
+        if pad_from is not None:
+            check(bool((h[0, pad_from:] == h[0, pad_from - 1]).all()),
+                  f"rglru {label}: padding steps changed the carry")
+            cut = ops.rglru_scan_bsr(
+                log_a[:1, :pad_from].contiguous(),
+                b[:1, :pad_from].contiguous(),
+                None if h0 is None else h0[:1].contiguous())
+            torch.cuda.synchronize()
+            check(torch.equal(h[0, -1], cut[0, -1]),
+                  f"rglru {label}: padded carry differs from the cut run's")
+        row = dict(label=label, max_abs_err=err, oracle_err=o_err,
+                   max_abs_plain=plain.abs().max().item(),
+                   tol=f"{RGLRU_TOL[0]:g}·max|plain| + "
+                   f"{RGLRU_TOL[1]:g}·|plain|")
+        timing = ""
+        if label == "recurrentgemma serving":
+            call = lambda: ops.rglru_scan_bsr(log_a, b, h0)  # noqa: E731
+            # log_a and b read once, h written once, fp32; exp and FMA
+            # per element are far below the bytes
+            nbytes = 3 * B * S * R * 4
+            flops = 3.0 * B * S * R
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS["float32"]
+            row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       plain_ms=time_ms(lambda: rg.rglru_scan_torch(
+                           log_a, b, h0), reps=3, warmup=1),
+                       library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       shape=f"B {B}, S {S}, R {R}, fp32")
+            timing = (f" kernel {row['ms']:.4f} ms (device "
+                      f"{fmt_ms(row['device_ms'])}) plain "
+                      f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']})")
+        rows.append(row)
+        print(f"  rglru {label:<26} err {err:.3g}, vs oracle {o_err:.3g} "
+              f"(max |h| {row['max_abs_plain']:.4g}; tol {row['tol']})"
+              f"{timing}", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve qwen3-0.6b at full width
 # ---------------------------------------------------------------------------
@@ -495,7 +633,10 @@ class StepTimer:
         return out
 
 
-def serve_once(cfg, model, sv, dev, seed):
+def serve_once(cfg, model, sv, dev, seed, extra=()):
+    """Drain ``synthesize_requests(cfg, sv, seed)`` plus the ``extra``
+    requests through a fresh bf16 engine, launch counters zeroed just
+    before ``engine.run()`` and read just after it."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.engine import ServingEngine, synthesize_requests
@@ -504,7 +645,7 @@ def serve_once(cfg, model, sv, dev, seed):
     engine = ServingEngine(cfg, model, sv, device=dev, dtype=torch.bfloat16)
     engine.prefill = pre = StepTimer(engine.prefill)
     engine.decode = dec = StepTimer(engine.decode)
-    requests = synthesize_requests(cfg, sv, seed)
+    requests = synthesize_requests(cfg, sv, seed) + list(extra)
     for r in requests:
         engine.submit(r)
     torch.cuda.synchronize()
@@ -616,15 +757,16 @@ def trace_window(fn):
             sorted(dev, key=lambda r: -r[2])[:8])
 
 
-def trace_serving(cfg, model, dev, seed):
+def trace_serving(cfg, model, dev, seed, prompt_len=1024):
     """One prefill round and four decode steps of an 8-slot workload of
-    prompts up to 1,024 tokens under the profiler: where the time goes,
-    the device's idle share and the kernel launches per step."""
+    prompts up to ``prompt_len`` tokens under the profiler: where the
+    time goes, the device's idle share and the kernel launches per
+    step."""
     import torch
     from repro_torch.launch.engine import ServingEngine, synthesize_requests
     from repro_torch.launch.spec import ServeSpec
 
-    sv = ServeSpec(batch=8, prompt_len=1024, gen=32, requests=8,
+    sv = ServeSpec(batch=8, prompt_len=prompt_len, gen=32, requests=8,
                    prefix_cache=False)
     out = {}
     eng = ServingEngine(cfg, model, sv, device=dev, dtype=torch.bfloat16)
@@ -869,6 +1011,92 @@ def run_rwkv_phase(dev, seed):
     return dict(serve=r, trace=trace, parity=parity)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: recurrentgemma-9b (the RG-LRU kernel's path, flash at hd 256)
+# ---------------------------------------------------------------------------
+def run_recurrentgemma_phase(dev, seed):
+    """Serve recurrentgemma-9b at full width in bf16, trace it, then fp32
+    parity and snapshot/restore at 3 layers with the window cut to 64."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import count_params
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              cache_layout="paged", page_size=128)
+    kinds = cfg.layer_kinds()
+    n_rec, n_loc = kinds.count("recurrent"), kinds.count("local")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name}: {cfg.num_layers} layers ({n_rec} RG-LRU, "
+          f"{n_loc} local attention), d {cfg.d_model}, R {cfg.rnn_width}, "
+          f"H {cfg.num_heads}, K {cfg.num_kv_heads}, hd {cfg.head_dim}, "
+          f"window {cfg.window_size}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, "
+          f"{count_params(cfg, include_embed=True) / 1e9:.2f} B parameters "
+          f"({count_params(cfg) / 1e9:.2f} B without the "
+          f"embeddings), in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
+          flush=True)
+    serve_once(cfg, model, ServeSpec(batch=2, prompt_len=2048, gen=4,
+                                     requests=2, prefix_cache=False),
+               dev, seed)                                      # warm-up
+    sv = ServeSpec(batch=8, prompt_len=2560, gen=32, requests=16,
+                   prefix_cache=False)
+    # one more request pinned at 2,040 prompt tokens: its decode positions
+    # 2,040..2,071 cross the 2,048-slot ring, so decode wraps it
+    rng = np.random.default_rng(seed + 1)
+    pinned = Request(req=sv.requests, tokens=rng.integers(
+        0, cfg.vocab_size, size=2040), gen_len=sv.gen)
+    r = serve_once(cfg, model, sv, dev, seed, extra=[pinned])
+    eng = r.pop("engine")
+    rounds = r["prefill_calls"]
+    check(rounds > 0 and r["launches"]["rglru_scan_bsr"] == n_rec * rounds,
+          f"serve {cfg.name}: RG-LRU launches {r['launches']} for "
+          f"{rounds} prefill rounds of {n_rec} recurrent layers")
+    check(r["launches"]["flash_attention_bshd"] == n_loc * rounds,
+          f"serve {cfg.name}: flash launches {r['launches']} for "
+          f"{rounds} prefill rounds of {n_loc} local layers")
+    check(r["launches"]["paged_decode_bhd"] == 0
+          and r["launches"]["wkv6_bshn"] == 0,
+          f"serve {cfg.name}: other kernels launched {r['launches']}")
+    check(len(eng.responses[pinned.req]) == pinned.gen_len,
+          "the pinned request did not complete")
+    r.update(decode_steps=eng.decode_steps, evictions=eng.evictions,
+             prefill_tokens=eng.prefill_tokens,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_round={k: v / rounds
+                                 for k, v in r["launches"].items()})
+    del eng
+    print(f"  serve {cfg.name}: {sv.requests + 1} requests, "
+          f"{r['generated']} tokens generated, {r['prompt_tokens']} prompt "
+          f"tokens in {r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated "
+          f"tok/s; prefill {r['prefill_s']:.3f} s over {rounds} rounds, "
+          f"decode {r['decode_s']:.3f} s over {r['decode_calls']} steps; "
+          f"peak memory {r['peak_mem_gb']:.2f} GB; launches {r['launches']} "
+          f"({r['launches_per_round']} a prefill round)", flush=True)
+    print("[recurrentgemma trace] profiler on (not used for the numbers "
+          "above)", flush=True)
+    trace = trace_serving(cfg, model, dev, seed, prompt_len=2560)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[recurrentgemma parity]", flush=True)
+    # full width, layers (R, R, L); the window cut to 64 and pages of 16 so
+    # prompts of 75..150 tokens wrap the ring in prefill on the cpu too
+    pcfg = dataclasses.replace(cfg, num_layers=3, window_size=64,
+                               page_size=16, dtype="float32")
+    parity = parity_run(pcfg, ServeSpec(batch=4, prompt_len=150, gen=8,
+                                        requests=6, prefix_cache=False),
+                        dev, seed)
+    return dict(serve=r, trace=trace, parity=parity,
+                parity_cuts="3 layers (R, R, L), window 64, page 16")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -905,6 +1133,7 @@ def main() -> int:
     flash_rows = run_flash_phase(dev, gen)
     decode_rows = run_decode_phase(dev, gen)
     wkv_rows = run_wkv_phase(dev, gen)
+    rglru_rows = run_rglru_phase(dev, gen)
     print("[serve] qwen3-0.6b full width, bf16", flush=True)
     runs = run_serve_phase(dev, seed)
     print("[trace] cell (a), profiler on (not used for the numbers above)",
@@ -914,11 +1143,18 @@ def main() -> int:
     parity = run_parity_phase(dev, seed)
     print("[rwkv] rwkv6-7b full width, bf16", flush=True)
     rwkv = run_rwkv_phase(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[recurrentgemma] recurrentgemma-9b full width, bf16", flush=True)
+    rgemma = run_recurrentgemma_phase(dev, seed)
 
     main_run = runs["a_no_prefix_cache"]
     fl = next(r for r in flash_rows if r["label"] == "qwen3 S1024")
     dc = next(r for r in decode_rows if r["label"] == "qwen3 G2")
     wk = next(r for r in wkv_rows if r["label"] == "rwkv6-7b serving")
+    fl256 = next(r for r in flash_rows if r["label"] == "rg hd256 S2560 w2048")
+    rl = next(r for r in rglru_rows if r["label"] == "recurrentgemma serving")
+    rg_launches = rgemma["serve"]["launches"]
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -928,7 +1164,18 @@ def main() -> int:
              ms=fl["ms"], device_ms=fl["device_ms"], plain_ms=fl["plain_ms"],
              bound_ms=fl["bound_ms"],
              bound_by=fl["bound_by"], library_ms=fl["library_ms"],
-             shape="B 4, S 1024, H 16, K 8, hd 128, bf16, causal"),
+             shape="B 4, S 1024, H 16, K 8, hd 128, bf16, causal",
+             hd256=dict(
+                 shape="B 8, S 2560, H 16, K 1, hd 256, bf16, causal, "
+                 "window 2048",
+                 launches=rg_launches["flash_attention_bshd"],
+                 max_abs_err=max(r["max_abs_err"] for r in flash_rows
+                                 if "hd256" in r["label"]),
+                 ms=fl256["ms"], device_ms=fl256["device_ms"],
+                 plain_ms=fl256["plain_ms"], bound_ms=fl256["bound_ms"],
+                 bound_by=fl256["bound_by"],
+                 library_ms=fl256["library_ms"],
+                 library="SDPA, boolean causal-window mask, enable_gqa")),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_attention.py:120",
@@ -948,10 +1195,20 @@ def main() -> int:
              ms=wk["ms"], device_ms=wk["device_ms"], plain_ms=wk["plain_ms"],
              bound_ms=wk["bound_ms"], bound_by=wk["bound_by"],
              library_ms=None, shape=wk["shape"]),
+        dict(name="rglru_scan_fwd", route="cuda",
+             source="src/repro_torch/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan.py:46",
+             launches=rg_launches["rglru_scan_bsr"],
+             max_abs_err=max(r["max_abs_err"] for r in rglru_rows),
+             ms=rl["ms"], device_ms=rl["device_ms"], plain_ms=rl["plain_ms"],
+             bound_ms=rl["bound_ms"], bound_by=rl["bound_by"],
+             library_ms=None, shape=rl["shape"]),
     ]
     serve = {name: {k: v for k, v in r.items()} for name, r in runs.items()}
     print(json.dumps({"serve": serve, "trace": traces, "parity": parity,
-                      "wkv6": wkv_rows, "rwkv": rwkv, "build_s": build_s,
+                      "wkv6": wkv_rows, "rwkv": rwkv, "rglru": rglru_rows,
+                      "flash": flash_rows, "recurrentgemma": rgemma,
+                      "build_s": build_s,
                       "total_s": time.perf_counter() - t_start}))
     print(card)
     print(json.dumps({"kernels": kernels}))

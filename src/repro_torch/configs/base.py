@@ -3,10 +3,10 @@
 and config registry.
 
 The port serves the dense all-global GQA decoders (``qwen3-0.6b`` and
-``paper-overhead-100m``) and the attention-free RWKV6 stack
-(``rwkv6-7b``).  The other families keep their fields here so a config
-reads the same as in the reference; :func:`check_ported` rejects them
-when a model is built.
+``paper-overhead-100m``), the attention-free RWKV6 stack (``rwkv6-7b``)
+and the RG-LRU + local-attention hybrid (``recurrentgemma-9b``).  The
+other families keep their fields here so a config reads the same as in
+the reference; :func:`check_ported` rejects them when a model is built.
 """
 from __future__ import annotations
 
@@ -142,15 +142,22 @@ class ModelConfig:
         )
 
 
+#: The layer mixes the port serves: dense all-global GQA, RWKV6, and the
+#: Griffin hybrid of RG-LRU and sliding-window (local) attention layers.
+PORTED_KINDS = ({GLOBAL_ATTN}, {RWKV}, {RECURRENT, LOCAL_ATTN})
+
+
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
     model this port does not have yet."""
     missing = []
     kinds = set(cfg.layer_kinds())
-    if kinds != {GLOBAL_ATTN} and kinds != {RWKV}:
+    if kinds not in PORTED_KINDS:
         missing.append(f"block kinds {sorted(kinds)}")
-    if cfg.window_size:
-        missing.append("sliding-window attention")
+    if LOCAL_ATTN in kinds and not cfg.window_size:
+        missing.append("local layers without a window")
+    if cfg.window_size and LOCAL_ATTN not in kinds:
+        missing.append("sliding-window attention on global layers")
     if cfg.use_mla:
         missing.append("MLA")
     if cfg.is_moe:
@@ -159,10 +166,12 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append("encoder-decoder")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
-    if cfg.attn_logit_softcap or cfg.final_logit_softcap \
-            or cfg.query_pre_attn_scalar or cfg.embed_scale_by_sqrt_dim \
-            or cfg.use_post_block_norm:
-        missing.append("gemma2 softcaps / scalings / sandwich norms")
+    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
+        missing.append("gemma2 logit softcaps")
+    if cfg.query_pre_attn_scalar:
+        missing.append("gemma2 query_pre_attn_scalar")
+    if cfg.use_post_block_norm:
+        missing.append("gemma2 post-block norms")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} comes in a later slice of "
@@ -198,4 +207,4 @@ def list_configs() -> Tuple[str, ...]:
 def _ensure_loaded() -> None:
     """Import every config module (they self-register on import)."""
     from repro_torch.configs import (  # noqa: F401
-        paper_overhead, qwen3_0_6b, rwkv6_7b)
+        paper_overhead, qwen3_0_6b, recurrentgemma_9b, rwkv6_7b)

@@ -12,7 +12,8 @@
 //
 // Design: the TPU walked kv blocks as a sequential grid axis with (m, l,
 // acc) in VMEM scratch.  Here one thread block owns a 64-row q tile of one
-// (b, h) and loops over 64-key kv tiles; that loop replaces the grid axis.
+// (b, h) and loops over kv tiles of 64 keys (32 in bf16 at hd 256); that
+// loop replaces the grid axis.
 // kv tiles beyond the causal frontier or before the window are never
 // loaded, and every masked probability is zeroed explicitly.
 //
@@ -21,7 +22,12 @@
 // * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
 //   fp32 accumulation.  4 warps; warp w owns q rows 16w..16w+15 of the tile
 //   and keeps its Q fragments, its 16 x 64 score tile, its 16 x hd output
-//   accumulator and its rows' (m, l) in registers.  K and V tiles are
+//   accumulator and its rows' (m, l) in registers.  At hd 256 (the local
+//   layers of recurrentgemma: 16 q heads over one kv head, window 2048) the
+//   accumulator is 128 registers a thread, so the Q tile (32 KB) stays in
+//   shared memory behind the K/V stages and each k-step reads its fragment
+//   with ldmatrix, and kv tiles are 32 keys (a 16 x 32 score tile): 96 KB
+//   of shared memory, two blocks an SM.  K and V tiles are
 //   staged in shared memory by cp.async, two stages deep (the next tile
 //   loads while this one is used), with a 16-byte-chunk XOR swizzle so the
 //   ldmatrix reads are free of bank conflicts.  The probabilities are
@@ -204,6 +210,13 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int MMA_THREADS = 128;  // 4 warps, 16 q rows each
 
+// keys per kv tile: 64, or 32 at hd 256, where a thread's 128 output
+// accumulators leave no room for a 64-key score tile (32 more registers)
+template <int HD>
+__host__ __device__ constexpr int kv_tile() {
+  return HD > 128 ? 32 : 64;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -264,9 +277,9 @@ template <int HD>
 __device__ __forceinline__ void load_kv_tile(
     __nv_bfloat16* ks, __nv_bfloat16* vs, const __nv_bfloat16* kb,
     const __nv_bfloat16* vb, size_t kstride, int t0, int S, int tid) {
-  constexpr int CH = HD / 8;
+  constexpr int CH = HD / 8, KT = kv_tile<HD>();
 #pragma unroll
-  for (int i = 0; i < BKV * CH / MMA_THREADS; ++i) {
+  for (int i = 0; i < KT * CH / MMA_THREADS; ++i) {
     const int idx = tid + i * MMA_THREADS;
     const int r = idx / CH, c = idx - r * CH, t = t0 + r;
     const bool in = t < S;
@@ -283,12 +296,17 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, int S, int H, int KH,
               float scale, int causal, int window, float cap) {
+  constexpr int KT = kv_tile<HD>();
   constexpr int KS = HD / 16;      // k-steps of Q.K^T
-  constexpr int NKT = BKV / 8;     // 8-key score tiles of a kv tile
+  constexpr int NKT = KT / 8;     // 8-key score tiles of a kv tile
   constexpr int DT = HD / 8;       // 8-dim output tiles
+  // at hd 256 the output accumulator alone is 128 registers a thread, so
+  // Q fragments (another 64) stay in shared memory
+  constexpr bool Q_SMEM = HD > 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // stage s: K at smem + s * 2 * BKV * HD, V right after it
+  // stage s: K at smem + s * 2 * KT * HD, V right after it; then Q
+  // (hd 256 only)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -303,18 +321,33 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ob = o + (size_t)b * S * qstride + (size_t)h * HD;
 
   const int kv_end = causal ? min(S, q0 + BQ) : S;
-  const int kv_begin = window ? (max(0, q0 - window + 1) / BKV) * BKV : 0;
-  const int n_tiles = (kv_end - kv_begin + BKV - 1) / BKV;
+  const int kv_begin = window ? (max(0, q0 - window + 1) / KT) * KT : 0;
+  const int n_tiles = (kv_end - kv_begin + KT - 1) / KT;
 
   if (n_tiles > 0)
-    load_kv_tile<HD>(smem, smem + BKV * HD, kb, vb, kstride, kv_begin, S,
+    load_kv_tile<HD>(smem, smem + KT * HD, kb, vb, kstride, kv_begin, S,
                      tid);
+  // hd 256: the Q tile waits in shared memory behind the two K/V stages
+  // and each k-step reads its fragment with ldmatrix (rows past S are
+  // zero-filled); it lands with the first K/V tile's group
+  __nv_bfloat16* qs = smem + 2 * 2 * KT * HD;
+  if constexpr (Q_SMEM) {
+    constexpr int CH = HD / 8;
+#pragma unroll
+    for (int i = 0; i < BQ * CH / MMA_THREADS; ++i) {
+      const int idx = tid + i * MMA_THREADS;
+      const int r = idx / CH, c = idx - r * CH, s = q0 + r;
+      const bool in = s < S;
+      cp_async16(smem_u32(qs + swz<HD>(r, c) * 8),
+                 qb + (in ? (size_t)s * qstride + c * 8 : 0), in ? 16 : 0);
+    }
+  }
   cp_async_commit();
 
   // this warp's two rows per thread: r0 = q0 + 16 warp + g, r1 = r0 + 8
   const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
-  uint32_t qf[KS][4];
-  {
+  uint32_t qf[Q_SMEM ? 1 : KS][4];
+  if constexpr (!Q_SMEM) {
     const uint32_t* q0p = reinterpret_cast<const uint32_t*>(
         qb + (size_t)min(r0, S - 1) * qstride);
     const uint32_t* q1p = reinterpret_cast<const uint32_t*>(
@@ -337,19 +370,19 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = kv_begin + it * BKV;
+    const int t0 = kv_begin + it * KT;
     if (it + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + ((it + 1) & 1) * 2 * BKV * HD;
-      load_kv_tile<HD>(nxt, nxt + BKV * HD, kb, vb, kstride, t0 + BKV, S,
+      __nv_bfloat16* nxt = smem + ((it + 1) & 1) * 2 * KT * HD;
+      load_kv_tile<HD>(nxt, nxt + KT * HD, kb, vb, kstride, t0 + KT, S,
                        tid);
     }
     cp_async_commit();          // possibly empty: keeps wait_group 1 exact
     cp_async_wait_1();
     __syncthreads();
-    const __nv_bfloat16* ks_t = smem + (it & 1) * 2 * BKV * HD;
-    const __nv_bfloat16* vs_t = ks_t + BKV * HD;
+    const __nv_bfloat16* ks_t = smem + (it & 1) * 2 * KT * HD;
+    const __nv_bfloat16* vs_t = ks_t + KT * HD;
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    // S = Q K^T for this warp's 16 rows and the tile's KT keys
     float sacc[NKT][4];
 #pragma unroll
     for (int j = 0; j < NKT; ++j)
@@ -357,14 +390,21 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t(&qa)[4] = qf[Q_SMEM ? 0 : ks];
+      if constexpr (Q_SMEM) {
+        // A fragment of rows 16 warp .. +15, dims 16 ks .. +15: matrix m
+        // = lane / 8 is rows + 8 (m & 1), dims + 8 (m >> 1)
+        const int row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(qa, smem_u32(qs + swz<HD>(row, ks * 2 + (lane >> 4)) * 8));
+      }
 #pragma unroll
       for (int np = 0; np < NKT / 2; ++np) {
         const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
         const int chunk = ks * 2 + ((lane >> 3) & 1);
         uint32_t bfr[4];
         ldmatrix_x4(bfr, smem_u32(ks_t + swz<HD>(key, chunk) * 8));
-        mma_bf16(sacc[2 * np], qf[ks], bfr[0], bfr[1]);
-        mma_bf16(sacc[2 * np + 1], qf[ks], bfr[2], bfr[3]);
+        mma_bf16(sacc[2 * np], qa, bfr[0], bfr[1]);
+        mma_bf16(sacc[2 * np + 1], qa, bfr[2], bfr[3]);
       }
     }
 
@@ -478,7 +518,9 @@ template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int KH, float scale, int causal, int window,
                float cap, cudaStream_t stream) {
-  const int smem = 2 * 2 * BKV * HD * (int)sizeof(__nv_bfloat16);
+  constexpr int KT = kv_tile<HD>();
+  const int smem = (2 * 2 * KT * HD + (HD > 128 ? BQ * HD : 0)) *
+                   (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -513,8 +555,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1 && hd == 64)
     return launch_mma<64>(q, k, v, o, B, S, H, KH, scale, causal, window,
                           cap, st);
+  if (dtype == 0 && hd == 256)
+    return launch_simt<256>(q, k, v, o, B, S, H, KH, scale, causal, window,
+                            cap, st);
   if (dtype == 1 && hd == 128)
     return launch_mma<128>(q, k, v, o, B, S, H, KH, scale, causal, window,
+                           cap, st);
+  if (dtype == 1 && hd == 256)
+    return launch_mma<256>(q, k, v, o, B, S, H, KH, scale, causal, window,
                            cap, st);
   return -1;
 }

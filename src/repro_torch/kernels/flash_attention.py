@@ -8,7 +8,9 @@ dead kv tiles skipped.  The TPU walked its kv blocks as a sequential grid
 axis; here one thread block owns a 64-row q tile of one (batch, head) and
 loops over 64-key kv tiles staged in shared memory.  Both sides take the
 model's (B, S, heads, hd) layout directly, and the kernel masks a ragged
-S itself, so there is no S % 128 gate and no transpose.
+S itself, so there is no S % 128 gate and no transpose.  Head dims 64 and
+128 (qwen3, paper-overhead) and 256 (the local layers of recurrentgemma,
+16 q heads over one kv head, window 2,048).
 
 :func:`flash_attention_torch` is the plain PyTorch version of the same
 contract (the reference's ``flash_attention_jnp``): the CPU path, and the
@@ -24,7 +26,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 _SIGNATURES = {
     "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6

@@ -1,6 +1,6 @@
 """Model-layout wrappers around the Hopper kernels (the reference's
 ``kernels/ops.py:flash_attention_bshd`` / ``paged_decode_bhd`` /
-``wkv6_bshn``).
+``rglru_scan_bsr`` / ``wkv6_bshn``).
 
 Each wrapper checks devices, dtypes, shapes and contiguity, then:
 
@@ -13,13 +13,17 @@ its path went through the kernels; :func:`reset_launches` zeroes it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_wkv as wkv
 
-launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0, "wkv6_bshn": 0}
+launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0,
+            "rglru_scan_bsr": 0, "wkv6_bshn": 0}
 
 
 def reset_launches() -> None:
@@ -134,6 +138,37 @@ def paged_decode_bhd(
                                scale=scale, logit_cap=logit_cap,
                                grouped=grouped)
     return out.reshape(B, 1, H, hd)
+
+
+def rglru_scan_bsr(
+    log_a: torch.Tensor,                 # (B, S, R) fp32, <= 0
+    b: torch.Tensor,                     # (B, S, R) fp32
+    h0: Optional[torch.Tensor] = None,   # (B, R) fp32; None = zero state
+) -> torch.Tensor:
+    """The RG-LRU scan h_t = exp(log_a_t)·h_{t-1} + b_t over dim 1; returns
+    h (B, S, R) fp32.  Any S: nothing is padded."""
+    _require(log_a.ndim == 3 and b.shape == log_a.shape,
+             f"rglru_scan_bsr: shapes {tuple(log_a.shape)} "
+             f"{tuple(b.shape)}")
+    B, S, R = log_a.shape
+    _require(S > 0, f"rglru_scan_bsr: S {S}")
+    _require(h0 is None or tuple(h0.shape) == (B, R),
+             f"rglru_scan_bsr: h0 {None if h0 is None else tuple(h0.shape)} "
+             f"for ({B}, {R})")
+    operands = (log_a, b) if h0 is None else (log_a, b, h0)
+    _require(all(t.dtype == torch.float32 for t in operands),
+             "rglru_scan_bsr: log_a, b and h0 must be fp32")
+    if all(t.device.type == "cpu" for t in operands):
+        return rg.rglru_scan_torch(log_a, b, h0)
+    dev = log_a.device
+    _require(dev.type == "cuda", f"rglru_scan_bsr: tensors on {dev}, "
+             "expected cpu or cuda")
+    _require(all(t.device == dev for t in operands),
+             "rglru_scan_bsr: operands on different devices")
+    _require(all(t.is_contiguous() for t in operands),
+             "rglru_scan_bsr: operands must be contiguous")
+    launches["rglru_scan_bsr"] += 1
+    return rg.rglru_scan_cuda(log_a, b, h0)
 
 
 def wkv6_bshn(

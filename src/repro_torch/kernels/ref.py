@@ -1,4 +1,5 @@
-"""Naive torch oracles of the kernels: attention and WKV6."""
+"""Naive torch oracles of the kernels: attention, the RG-LRU scan and
+WKV6."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +27,17 @@ def attention_ref(q, k, v, *, group: int, scale: float, causal: bool = True,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,hkd->hqd", p, vq.float()).to(q.dtype)
+
+
+def rglru_ref(log_a, b, h0) -> torch.Tensor:
+    """Step-by-step linear recurrence h_t = exp(log_a_t)·h_{t-1} + b_t.
+    log_a/b (B, S, R), h0 (B, R); returns the h sequence (B, S, R)."""
+    h = h0
+    hs = []
+    for t in range(log_a.shape[1]):
+        h = torch.exp(log_a[:, t]) * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def wkv6_ref(r, k, v, lw, u, s0):

@@ -12,11 +12,14 @@ byte-identically.
 
 What differs from the reference: the port has no mesh, so the page pool
 has one shard; prefill is always ragged (the port serves decoder-only
-stacks); the cache (KV pools or RWKV state) is updated in place, so
-:meth:`snapshot` copies every device tensor to the host.  An RWKV stack
-keeps the page accounting of an attention stack (its table has no pools
-behind it); an admitted row starts from zero state inside the ragged
-prefill, and rows not in the round keep theirs.
+stacks); the cache (KV pools, local rings, RG-LRU or RWKV state) is
+updated in place, so :meth:`snapshot` copies every device tensor to the
+host.  A stack without global layers (RWKV, the RG-LRU + local-attention
+hybrid) keeps the page accounting of an attention stack (its table has
+no pools behind it) and no prefix cache; an admitted row starts from zero
+state inside the ragged prefill, and rows not in the round keep theirs.
+A stack with local layers needs ``prompt_len + gen >= window_size``, so
+that every ring holds a whole window (``models.model.init_cache``).
 """
 from __future__ import annotations
 
@@ -161,12 +164,13 @@ def _set_page_tables(cache, host_table: np.ndarray):
 
 
 def _copy_pool_pages(cache, pairs: List[Tuple[int, int]]):
-    """``src -> dst`` page copies in every layer's K and V pool: the copy
-    half of copy-on-write."""
+    """``src -> dst`` page copies in every global layer's K and V pool:
+    the copy half of copy-on-write.  A stack without pools has nothing to
+    copy."""
     dev = cache["page_table"].device
     srcs = torch.tensor([s for s, _ in pairs], dtype=torch.long, device=dev)
     dsts = torch.tensor([d for _, d in pairs], dtype=torch.long, device=dev)
-    for pools in (cache["k_pages"], cache["v_pages"]):
+    for pools in (cache.get("k_pages", []), cache.get("v_pages", [])):
         for pool in pools:
             pool.index_copy_(0, dsts, pool.index_select(0, srcs))
     return cache
@@ -542,7 +546,8 @@ class ServingEngine:
     # -- snapshot / restore --------------------------------------------------
     def snapshot(self) -> dict:
         """The complete engine state as plain host data; every cache
-        tensor (KV pools, RWKV state, page table) is copied off the device
+        tensor (KV pools, local rings, recurrent state, page table; one
+        list entry per layer that holds the leaf) is copied off the device
         (the cache is updated in place, so a view would change under the
         snapshot)."""
         def rec_doc(rec: Optional[SeqRecord]):

@@ -6,10 +6,14 @@
         --device cpu --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --reduced --device cpu --prompt-len 24
 
 Weights are random, drawn from ``--seed``; the workload is synthesized
 (``launch.engine.synthesize_requests``).  It runs on ``cuda`` unless
-``--device`` names another device.
+``--device`` names another device.  A stack with local attention layers
+(recurrentgemma) needs ``--prompt-len`` + ``--gen`` >= its window (16 when
+``--reduced``, 2,048 at full width).
 """
 from __future__ import annotations
 

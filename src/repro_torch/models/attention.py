@@ -1,26 +1,31 @@
-"""GQA attention over the paged KV cache (the reference's
+"""GQA attention over the serving cache (the reference's
 ``models/attention.py``, GQA part).
 
-Two modes:
+Global layers keep their K/V in the paged pool; local (sliding-window)
+layers keep a per-sequence ring of ``window`` slots with a (B, W) map of
+the position each slot holds.  Two modes:
 
 * ``full`` (prefill) — self-attention over the prompt through
   ``ops.flash_attention_bshd`` (the Hopper kernel on the card, its plain
-  version on the CPU), then the rotated K/V are written into the page
-  pool.  A chunked prefill (prefix caching: per-row absolute positions)
-  writes the chunk's K/V first and then walks the page table
-  (:func:`prefill_attention_paged`, plain torch as in the reference).
+  version on the CPU; local layers pass their window), then the rotated
+  K/V are written into the page pool or the ring.  A chunked prefill
+  (prefix caching: per-row absolute positions) writes the chunk's K/V
+  first and then walks the page table (:func:`prefill_attention_paged`,
+  plain torch as in the reference).
 * ``decode`` — one new token per sequence: its K/V go into the pool, then
-  ``ops.paged_decode_bhd`` walks the page table.
+  ``ops.paged_decode_bhd`` walks the page table; a local layer writes its
+  ring slot and attends over the ring with :func:`decode_attention_torch`
+  (plain, as the reference's local decode is plain jnp).
 
 Keys are RoPE-rotated at write time, so cached keys never re-rotate.
 
-The reference's cache is functional; here the page pools are updated IN
-PLACE by the writers (``index_put_``), and the writers return the same
-tensors.  The reference's ``mode="drop"`` scatters silently drop rows
-aimed out of the pool; torch would raise (or fault on the card), so the
-writers select the rows to write with a mask first.  Its ``mode="fill"``
-gathers read zeros for a ``-1`` entry; torch indexing with -1 reads the
-last page, so the gathers here mask instead.
+The reference's cache is functional; here the page pools and rings are
+updated IN PLACE by the writers (``index_put_``), and the writers return
+the same tensors.  The reference's ``mode="drop"`` scatters silently drop
+rows aimed out of the pool; torch would raise (or fault on the card), so
+the writers select the rows to write with a mask first.  Its
+``mode="fill"`` gathers read zeros for a ``-1`` entry; torch indexing
+with -1 reads the last page, so the gathers here mask instead.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_torch,
@@ -164,15 +169,18 @@ def gqa_attention(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,                 # (B, S, D)
     *,
+    kind: str = GLOBAL_ATTN,
     mode: str,                       # full | decode
     cache: Optional[Cache],
     pos: torch.Tensor,               # full: (S,) or (B, S0); decode: (B,)
     lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Self-attention of one global layer; returns (out (B, S, D), cache).
-    ``cache`` is the layer's ``{"k_pages", "v_pages", "page_table"}``."""
+    """Self-attention of one layer; returns (out (B, S, D), cache).
+    ``cache`` is the layer's ``{"k_pages", "v_pages", "page_table"}``
+    (global) or its ring ``{"k", "v", "pos"}`` (local)."""
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
+    window = cfg.window_size if kind == LOCAL_ATTN else 0
 
     q = torch.einsum("bsd,dhk->bshk", x, p["q"])
     k = torch.einsum("bsd,dhk->bshk", x, p["k"])
@@ -192,9 +200,9 @@ def gqa_attention(
         if pos.ndim == 2:
             # chunked prefix prefill: write the chunk, then one masked walk
             # over the page table covers the cached prefix and the chunk
-            if cache is None or lengths is None:
-                raise ValueError("chunked prefill needs the paged cache and "
-                                 "lengths")
+            if cache is None or lengths is None or window:
+                raise ValueError("chunked prefill needs the paged cache of "
+                                 "a global layer and lengths")
             new_cache = _write_prefill_paged_offset(cache, k, v, lengths, pos)
             out = prefill_attention_paged(
                 q, cache["k_pages"], cache["v_pages"], cache["page_table"],
@@ -202,21 +210,79 @@ def gqa_attention(
         else:
             out = ops.flash_attention_bshd(
                 q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
-                causal=True, logit_cap=cap)
-            if cache is not None:
+                causal=True, window=window, logit_cap=cap)
+            if cache is not None and window:
+                if lengths is None:      # every row holds all S tokens
+                    lengths = torch.full((k.shape[0],), k.shape[1],
+                                         dtype=torch.int32, device=k.device)
+                new_cache = _write_prefill_ring_ragged(cache, k, v, lengths)
+            elif cache is not None:
                 new_cache = _write_prefill_paged(cache, k, v, lengths)
     elif mode == "decode":
         pos_r = pos.reshape(-1, 1)
         q = apply_rope(q, pos_r, cfg.rope_theta)
         k = apply_rope(k, pos_r, cfg.rope_theta)
-        new_cache = _update_decode_kv_paged(cache, k, v, pos)
-        out = ops.paged_decode_bhd(
-            q.contiguous(), cache["k_pages"], cache["v_pages"],
-            cache["page_table"], pos.to(torch.int32), scale=scale,
-            logit_cap=cap)
+        if window:
+            new_cache = _update_decode_kv_ring(cache, k, v, pos)
+            out = decode_attention_torch(
+                q, cache["k"], cache["v"], cache["pos"], pos, scale=scale,
+                window=window, logit_cap=cap)
+        else:
+            new_cache = _update_decode_kv_paged(cache, k, v, pos)
+            out = ops.paged_decode_bhd(
+                q.contiguous(), cache["k_pages"], cache["v_pages"],
+                cache["page_table"], pos.to(torch.int32), scale=scale,
+                logit_cap=cap)
     else:
         raise ValueError(mode)
     return torch.einsum("bshk,hkd->bsd", out, p["o"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Ring writers of the local layers (in place)
+# ---------------------------------------------------------------------------
+def _write_prefill_ring_ragged(cache: Cache, k, v,
+                               lengths: torch.Tensor) -> Cache:
+    """Ragged prefill into the (B, K, W, hd) ring: row ``b`` keeps the last
+    ``min(W, lengths[b])`` of its own tokens.  Ring slot ``s`` receives the
+    largest position ``t < lengths[b]`` with ``t ≡ s (mod W)``; slots with
+    no such token (short rows, length-0 rows) keep their contents and
+    their ``pos`` entry.  ``k, v`` arrive as (B, S0, K, hd), rotated."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    B, S0 = k.shape[:2]
+    W = ck.shape[2]
+    s = torch.arange(W, device=k.device)
+    lens = lengths.to(device=k.device, dtype=torch.long)[:, None]  # (B, 1)
+    lm1 = lens - 1
+    # floor mod (jnp's %): lm1 is -1 for length-0 rows
+    t = lm1 - torch.remainder(lm1 - s[None, :], W)                 # (B, W)
+    valid = (lens > 0) & (t >= 0) & (t >= lens - W)
+    tc = t.clamp(0, S0 - 1)
+    rows = torch.arange(B, device=k.device)[:, None]
+    kg = k[rows, tc].transpose(1, 2)                               # (B,K,W,hd)
+    vg = v[rows, tc].transpose(1, 2)
+    vm = valid[:, None, :, None]
+    ck.copy_(torch.where(vm, kg.to(ck.dtype), ck))
+    cv.copy_(torch.where(vm, vg.to(cv.dtype), cv))
+    cp.copy_(torch.where(valid, t.to(cp.dtype), cp))
+    return cache
+
+
+def _update_decode_kv_ring(cache: Cache, k, v, pos) -> Cache:
+    """Insert one token's K/V per row into ring slot ``max(pos, 0) % W``
+    and record ``pos`` there.  ``k, v`` arrive as (B, 1, K, hd).  An
+    inactive row (``pos = -1``) writes its slot 0 and marks it invalid,
+    as in the reference."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    B = k.shape[0]
+    W = ck.shape[2]
+    rows = torch.arange(B, device=k.device)
+    posb = pos.to(device=k.device, dtype=torch.long)
+    slot = torch.remainder(posb.clamp(min=0), W)
+    ck[rows, :, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, :, slot] = v[:, 0].to(cv.dtype)
+    cp[rows, slot] = posb.to(cp.dtype)
+    return cache
 
 
 # ---------------------------------------------------------------------------

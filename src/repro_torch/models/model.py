@@ -1,6 +1,7 @@
 """Model assembly: embedding → decoder blocks → logits, over the serving
 cache (the reference's ``models/model.py``, serving modes).  A block is
-GQA attention + dense FFN, or RWKV6 time-mix + channel-mix.
+GQA attention (global or sliding-window) + dense FFN, the RG-LRU block +
+dense FFN, or RWKV6 time-mix + channel-mix.
 
 Modes
 -----
@@ -19,17 +20,26 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (
-    GLOBAL_ATTN, RWKV, ModelConfig, check_ported,
+    GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, RWKV, ModelConfig, check_ported,
 )
 from repro_torch.models.attention import gqa_attention
 from repro_torch.models.layers import Ctx, dense_ffn, resolve_device, rms_norm
+from repro_torch.models.recurrent import rglru_block
 from repro_torch.models.rwkv import rwkv_channel_mix, rwkv_time_mix
 from repro_torch.models.params import (  # noqa: F401
     Model, Tree, cast_params, count_params, init_params,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-RWKV_STATE = ("s", "shift_tm", "shift_cm")   # per-layer RWKV cache leaves
+# The per-layer cache leaves of each block kind.  ``cache[name]`` lists one
+# entry per layer of that kind, in layer order (in a hybrid stack a leaf
+# exists only on the layers of its kind).
+LAYER_LEAVES = {
+    GLOBAL_ATTN: ("k_pages", "v_pages"),
+    LOCAL_ATTN: ("k", "v", "pos"),
+    RECURRENT: ("h", "conv"),
+    RWKV: ("s", "shift_tm", "shift_cm"),
+}
 
 
 def build_model(cfg: ModelConfig, *, device=None, seed: int = 0) -> Model:
@@ -42,7 +52,13 @@ def build_model(cfg: ModelConfig, *, device=None, seed: int = 0) -> Model:
 
 def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
            ctx: Ctx) -> torch.Tensor:
-    return params["embed"][tokens].to(ctx.dtype)
+    h = params["embed"][tokens].to(ctx.dtype)
+    if cfg.embed_scale_by_sqrt_dim:
+        # the scale is rounded to the compute dtype before it multiplies,
+        # as in the reference (√d is not a power of two at every width)
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=ctx.dtype,
+                             device=h.device)
+    return h
 
 
 def _unembed(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
@@ -69,15 +85,16 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns ``(logits (B, 1, V), cache)``; ``params`` is the compute
     tree from :func:`cast_params`.  The cache is updated in place: the
-    pools by the writers, the RWKV state lists by storing each layer's new
-    entries.
+    page pools and local rings by the writers, the recurrent state lists
+    (RWKV, RG-LRU) by storing each layer's new entries.
 
     ``lengths`` makes prefill ragged: the (B, S0) token batch is padded to
     the round's longest prompt, row ``b``'s prompt is its first
     ``lengths[b]`` tokens, cache writes are masked per row (length-0 rows
     leave the cache untouched) and the logits are each row's last valid
-    position.  RWKV carries are length-masked the same way: padding steps
-    neither read nor write the state, and length-0 rows keep theirs.
+    position.  RWKV and RG-LRU carries are length-masked the same way:
+    padding steps neither read nor write the state, and length-0 rows
+    keep theirs; a local ring keeps each row's last ``window`` tokens.
     ``starts`` makes it chunked: row ``b``'s tokens are the uncached tail
     of its prompt, opening at absolute position ``starts[b]``, and
     attention walks the page table (all-global stacks only)."""
@@ -109,30 +126,35 @@ def forward(
         lengths = lengths.to(dev, torch.int32)
 
     amode = "full" if mode == "prefill" else "decode"
-    for i, (kind, blk) in enumerate(zip(kinds, params["blocks"])):
+    seen = {kind: 0 for kind in LAYER_LEAVES}
+    for kind, blk in zip(kinds, params["blocks"]):
+        j = seen[kind]               # this layer's entry in its kind's lists
+        seen[kind] += 1
+        lc = None if cache is None else {
+            name: cache[name][j] for name in LAYER_LEAVES[kind]}
         x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
         if kind == RWKV:
-            lc = None if cache is None else {
-                name: cache[name][i] for name in RWKV_STATE}
             y, lc = rwkv_time_mix(cfg, blk["tm"], x, ctx, mode=amode,
                                   cache=lc, lengths=lengths)
             h = h + y
             x = rms_norm(h, blk["cm_norm"], cfg.norm_eps)
             y, lc = rwkv_channel_mix(cfg, blk["cm"], x, ctx, mode=amode,
                                      cache=lc, lengths=lengths)
-            h = h + y
-            if cache is not None:
-                for name in RWKV_STATE:
-                    cache[name][i] = lc[name]
-            continue
-        layer_cache = None if cache is None else {
-            "k_pages": cache["k_pages"][i], "v_pages": cache["v_pages"][i],
-            "page_table": cache["page_table"]}
-        y, _ = gqa_attention(cfg, blk["attn"], x, mode=amode,
-                             cache=layer_cache, pos=p_arr, lengths=lengths)
+        elif kind == RECURRENT:
+            y, lc = rglru_block(cfg, blk["rec"], x, ctx, mode=amode,
+                                cache=lc, lengths=lengths)
+        else:
+            if lc is not None and kind == GLOBAL_ATTN:
+                lc["page_table"] = cache["page_table"]
+            y, lc = gqa_attention(cfg, blk["attn"], x, kind=kind, mode=amode,
+                                  cache=lc, pos=p_arr, lengths=lengths)
         h = h + y
-        x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-        h = h + dense_ffn(blk["ffn"], x, cfg.act)
+        if kind != RWKV:
+            x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
+            h = h + dense_ffn(blk["ffn"], x, cfg.act)
+        if cache is not None:
+            for name in LAYER_LEAVES[kind]:
+                cache[name][j] = lc[name]
 
     if lengths is not None:
         # each row's last valid position (length-0 rows: garbage, ignored)
@@ -154,40 +176,60 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     ``(B, pps)`` int32 that every layer reads (the reference broadcasts the
     same host table into each layer's leaf), starting at -1 for the
     engine's host-side allocator (the reference's ``paged_tables="empty"``),
-    and per layer either a K and a V pool ``(P, K, ps, hd)`` in
-    ``cfg.dtype`` (attention), or the RWKV state of the reference's
-    ``_layer_cache_ab``: ``s (B, H, N, N)`` fp32 and the token-shift carries
-    ``shift_tm``, ``shift_cm (B, D)`` in ``cfg.dtype``.  An RWKV stack has
-    no pools; it keeps the table so the engine's page accounting is the
-    same for every config."""
+    and the per-layer leaves of the reference's ``_layer_cache_ab``, one
+    list entry per layer of their kind (:data:`LAYER_LEAVES`):
+
+    * global attention: a K and a V pool ``(P, K, ps, hd)`` in ``cfg.dtype``;
+    * local attention: a ring ``k``, ``v (B, K, W, hd)`` in ``cfg.dtype``
+      and ``pos (B, W)`` int32 starting at -1, W = ``window_size``;
+    * RG-LRU: ``h (B, R)`` fp32 and ``conv (B, CW-1, R)`` in ``cfg.dtype``;
+    * RWKV: ``s (B, H, N, N)`` fp32 and the token-shift carries
+      ``shift_tm``, ``shift_cm (B, D)`` in ``cfg.dtype``.
+
+    A stack without global layers has no pools; it keeps the table so the
+    engine's page accounting is the same for every config.  The ring must
+    hold a whole window (``max_len >= window_size``): the reference sizes
+    it ``min(window, max_len)`` but decodes per sequence only into a full
+    ring, so a shorter one fails there at the first decode step."""
     check_ported(cfg)
     if cfg.cache_layout != "paged":
         raise NotImplementedError(
             f"the {cfg.cache_layout!r} cache layout comes in a later slice "
             "of the port")
+    kinds = cfg.layer_kinds()
+    W = cfg.window_size
+    if LOCAL_ATTN in kinds and max_len < W:
+        raise ValueError(
+            f"{cfg.name}: max_len {max_len} (prompt_len + gen) is shorter "
+            f"than the local window {W}; the local layers' ring buffer needs "
+            "max_len >= window_size (the reference's engine fails at the "
+            "first decode step there)")
     dev = resolve_device(device)
     ps = cfg.page_size
     pps = num_pages(max_len, ps)
     pool = page_budget if page_budget is not None else batch_size * pps
-    table = torch.full((batch_size, pps), -1, dtype=torch.int32, device=dev)
-    dt = DTYPES[cfg.dtype]
-    L = cfg.num_layers
-
-    def per_layer(shape, dtype):
-        return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(L)]
-
-    if set(cfg.layer_kinds()) == {RWKV}:
-        N = cfg.rwkv_head_dim
-        D = cfg.d_model
-        return {
-            "s": per_layer((batch_size, D // N, N, N), torch.float32),
-            "shift_tm": per_layer((batch_size, D), dt),
-            "shift_cm": per_layer((batch_size, D), dt),
-            "page_table": table,
-        }
-    shape = (pool, cfg.num_kv_heads, ps, cfg.head_dim)
-    return {
-        "k_pages": per_layer(shape, dt),
-        "v_pages": per_layer(shape, dt),
-        "page_table": table,
+    B, K, hd, dt = batch_size, cfg.num_kv_heads, cfg.head_dim, \
+        DTYPES[cfg.dtype]
+    R, CW, D, N = cfg.rnn_width, cfg.conv1d_width, cfg.d_model, \
+        cfg.rwkv_head_dim
+    shapes = {
+        "k_pages": ((pool, K, ps, hd), dt, 0),
+        "v_pages": ((pool, K, ps, hd), dt, 0),
+        "k": ((B, K, W, hd), dt, 0),
+        "v": ((B, K, W, hd), dt, 0),
+        "pos": ((B, W), torch.int32, -1),
+        "h": ((B, R), torch.float32, 0),
+        "conv": ((B, CW - 1, R), dt, 0),
+        "s": ((B, D // N, N, N), torch.float32, 0),
+        "shift_tm": ((B, D), dt, 0),
+        "shift_cm": ((B, D), dt, 0),
     }
+    cache: Dict = {}
+    for kind in kinds:
+        for name in LAYER_LEAVES[kind]:
+            shape, dtype, fill = shapes[name]
+            cache.setdefault(name, []).append(
+                torch.full(shape, fill, dtype=dtype, device=dev))
+    cache["page_table"] = torch.full((B, pps), -1, dtype=torch.int32,
+                                     device=dev)
+    return cache

@@ -1,7 +1,8 @@
 """The model's parameters as ``nn.Module``s.
 
 Leaf names and shapes follow the reference's abstract tree
-(``repro/models/params.py``: dense GQA blocks and RWKV6 blocks): the
+(``repro/models/params.py``: dense GQA blocks, RWKV6 blocks and the
+RG-LRU and local-attention blocks of the Griffin hybrid): the
 stacked ``groups`` leading dim of the reference becomes one :class:`Block`
 per layer in a ``ModuleList``.  State-dict keys therefore read
 ``blocks.{i}.attn.q`` where the reference reads
@@ -15,7 +16,9 @@ from typing import Dict, List, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import RWKV, ModelConfig, check_ported
+from repro_torch.configs.base import (
+    RECURRENT, RWKV, ModelConfig, check_ported,
+)
 
 Tree = Dict[str, Union[torch.Tensor, "Tree", List["Tree"]]]
 
@@ -97,9 +100,29 @@ class ChannelMix(nn.Module):
         self.wr_c = _leaf((D, D), device)
 
 
+class RGLRU(nn.Module):
+    """Griffin recurrent block: input and gate branches ``wx``, ``wy``
+    (D, R), the depthwise causal conv ``conv_w`` (CW, R) and ``conv_b``
+    (R,), the input and recurrence gates ``gate_i``, ``gate_r`` (R, R), the
+    decay parameter ``rglru_lambda`` (R,) and the output ``wo`` (R, D)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, R, CW = cfg.d_model, cfg.rnn_width, cfg.conv1d_width
+        self.wx = _leaf((D, R), device)
+        self.wy = _leaf((D, R), device)
+        self.conv_w = _leaf((CW, R), device)
+        self.conv_b = _leaf((R,), device)
+        self.gate_i = _leaf((R, R), device)
+        self.gate_r = _leaf((R, R), device)
+        self.rglru_lambda = _leaf((R,), device)
+        self.wo = _leaf((R, D), device)
+
+
 class Block(nn.Module):
-    """One decoder layer of ``kind``: pre-norm attention + pre-norm dense
-    FFN, or (RWKV) pre-norm time-mix + pre-norm channel-mix."""
+    """One decoder layer of ``kind``: pre-norm temporal mixer (attention,
+    global or local, or the RG-LRU block) + pre-norm dense FFN, or (RWKV)
+    pre-norm time-mix + pre-norm channel-mix."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -108,10 +131,13 @@ class Block(nn.Module):
             self.tm = TimeMix(cfg, device)
             self.cm_norm = _leaf((cfg.d_model,), device)
             self.cm = ChannelMix(cfg, device)
+            return
+        if kind == RECURRENT:
+            self.rec = RGLRU(cfg, device)
         else:
             self.attn = Attention(cfg, device)
-            self.ffn_norm = _leaf((cfg.d_model,), device)
-            self.ffn = DenseFFN(cfg, device)
+        self.ffn_norm = _leaf((cfg.d_model,), device)
+        self.ffn = DenseFFN(cfg, device)
 
 
 class Model(nn.Module):
@@ -147,6 +173,8 @@ _RECIPES = {
     "tm_A": "normal:0.02", "tm_B": "normal:0.02", "ww_A": "normal:0.02",
     "ww_B": "normal:0.02", "u": "normal:0.02",
     "ln_x": "ones",
+    "conv_w": "normal:0.02", "conv_b": "zeros",
+    "rglru_lambda": "rglru_lambda",
 }
 
 
@@ -182,6 +210,11 @@ def init_params(model: Model, seed: int) -> Model:
         gen = torch.Generator(device=p.device)
         gen.manual_seed(seed * 1_000_003 + _stable_hash(name))
         kind, *args = recipe.split(":")
+        if kind == "rglru_lambda":
+            # Λ with σ(Λ) ~ U(0.9, 0.999), the Griffin decay range
+            a = torch.empty_like(p).uniform_(0.9, 0.999, generator=gen)
+            p.copy_(torch.log(a / (1.0 - a)))
+            continue
         if kind == "uniform":
             p.uniform_(float(args[0]), float(args[1]), generator=gen)
             continue

@@ -16,7 +16,11 @@ is held against the step-by-step oracle ``ref.wkv6_ref`` within 1e-5 of
 the output's largest magnitude, and against the chunked plain version
 within 3e-5 of it (that version's own fp32 error reaches 1e-5 of the
 scale at lw = -e^2, from its log-space cumulative sums); bf16 outputs
-also get one bf16 ulp of the value.
+also get one bf16 ulp of the value.  The RG-LRU kernel is held against its
+plain step loop and the oracle ``ref.rglru_ref`` within 1e-5 of the
+carry's largest magnitude plus 1e-5 of the value (the kernel fuses the
+multiply-add, the plain loop rounds twice a step), and a padded tail must
+leave the carry bit-equal.
 """
 import dataclasses
 
@@ -30,6 +34,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as wkv  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     ServingEngine, synthesize_requests)
@@ -45,6 +50,8 @@ DECODE_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-4, 2 ** -7)}
 # chunked plain version
 WKV_TOL = {"oracle": 1e-5, "chunked": 3e-5}
 WKV_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+# RG-LRU: (share of max |plain| as atol, rtol)
+RGLRU_TOL = (1e-5, 1e-5)
 
 
 def _within(out, plain, tol):
@@ -261,3 +268,119 @@ def test_rwkv_engine_serves_on_the_card(cuda):
     eng.run()
     assert sorted(eng.responses) == [r.req for r in requests]
     assert ops.launches["wkv6_bshn"] == cfg.num_layers * len(rounds) > 0
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,window", [
+    (2, 200, 16, 1, 64),       # recurrentgemma's MQA: G 16, window cuts
+    (1, 333, 16, 1, 2048),     # ragged S, window longer than S
+    (1, 130, 4, 2, 50),        # G 2
+])
+def test_flash_kernel_at_hd256_matches_plain(cuda, dt, B, S, H, K, window):
+    rng = np.random.default_rng(S + window)
+    hd = 256
+    q = _randn(rng, (B, S, H, hd), cuda, dt)
+    k = _randn(rng, (B, S, K, hd), cuda, dt)
+    v = _randn(rng, (B, S, K, hd), cuda, dt)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=0.0)
+    before = ops.launches["flash_attention_bshd"]
+    out = ops.flash_attention_bshd(q, k, v, **kw)
+    plain = fa.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bshd"] == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    assert _within(out, plain, FLASH_TOL[dt])
+
+
+def _rglru_inputs(rng, dev, B, S, R):
+    """log_a at the model's initial decays (8·r·log σ(Λ), σ(Λ) in
+    [0.9, 0.999]) on half the channels and strong ones (-U(1, 20)) on the
+    rest; b ~ N(0, 1); h0 ~ 3·N(0, 1)."""
+    lam = rng.uniform(0.9, 0.999, size=(R,))
+    log_a = 8.0 * rng.uniform(0, 1, size=(B, S, R)) * np.log(lam)
+    log_a[..., R // 2:] = -rng.uniform(1, 20, size=(B, S, R - R // 2))
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    return (to(log_a), to(rng.normal(size=(B, S, R))),
+            to(3.0 * rng.normal(size=(B, R))))
+
+
+def _rglru_within(out, plain):
+    scale, rtol = RGLRU_TOL
+    return _within(out, plain, (scale * plain.abs().max().item(), rtol))
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("B,S,R", [
+    (2, 64, 256),
+    (1, 77, 100),          # ragged S and R
+    (3, 5, 4096),          # shorter than one pass
+    (2, 1, 33),
+    (8, 300, 4096),        # the serving width
+])
+def test_rglru_kernel_matches_plain_and_oracle(cuda, with_h0, B, S, R):
+    """Row 0 is padded past step n (log_a = 0, b = 0): its carry stays
+    bit-equal to the kernel's carry at step n - 1."""
+    rng = np.random.default_rng(S * R + with_h0)
+    log_a, b, h0 = _rglru_inputs(rng, cuda, B, S, R)
+    n = max(S - 20, 1)
+    log_a[0, n:] = 0
+    b[0, n:] = 0
+    h0 = h0 if with_h0 else None
+    before = ops.launches["rglru_scan_bsr"]
+    h = ops.rglru_scan_bsr(log_a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan_bsr"] == before + 1
+    assert h.dtype == torch.float32 and h.shape == log_a.shape
+    assert bool(torch.isfinite(h).all())
+    zero = torch.zeros(B, R, device=cuda)
+    assert _rglru_within(h, rg.rglru_scan_torch(log_a, b, h0))
+    assert _rglru_within(h, ref.rglru_ref(log_a, b,
+                                          zero if h0 is None else h0))
+    assert bool((h[0, n:] == h[0, n - 1]).all())
+    cut = ops.rglru_scan_bsr(log_a[:1, :n].contiguous(),
+                             b[:1, :n].contiguous(),
+                             None if h0 is None else h0[:1].contiguous())
+    assert torch.equal(h[0, -1], cut[0, -1])
+
+
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan_bsr(x[:, :, ::2], x[:, :, ::2])
+    with pytest.raises(ValueError, match="different devices"):
+        ops.rglru_scan_bsr(x, x, torch.zeros(2, 64))
+    with pytest.raises(ValueError, match="fp32"):
+        ops.rglru_scan_bsr(x.bfloat16(), x.bfloat16())
+
+
+def test_recurrentgemma_engine_serves_on_the_card(cuda):
+    """recurrentgemma-9b .reduced() with hd 256 (the flash kernel's new
+    head dim) through the engine on the card in bf16, prompts longer than
+    the 16-token window: every request completes, each prefill round
+    launched the RG-LRU kernel once a recurrent layer and the flash kernel
+    once a local layer, and decode launched no kernel of its own."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              head_dim=256, cache_layout="paged")
+    model = build_model(cfg, device=cuda, seed=0)
+    sv = ServeSpec(batch=3, prompt_len=40, gen=6, requests=5)
+    eng = ServingEngine(cfg, model, sv, dtype=torch.bfloat16)
+    requests = synthesize_requests(cfg, sv, seed=0)
+    for r in requests:
+        eng.submit(r)
+    rounds = []
+    prefill = eng.prefill
+
+    def counted(*args):
+        rounds.append(1)
+        return prefill(*args)
+
+    eng.prefill = counted
+    ops.reset_launches()
+    eng.run()
+    kinds = cfg.layer_kinds()
+    assert sorted(eng.responses) == [r.req for r in requests]
+    assert ops.launches["rglru_scan_bsr"] == \
+        kinds.count("recurrent") * len(rounds) > 0
+    assert ops.launches["flash_attention_bshd"] == \
+        kinds.count("local") * len(rounds)
+    assert ops.launches["paged_decode_bhd"] == ops.launches["wkv6_bshn"] == 0

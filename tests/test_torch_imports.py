@@ -52,7 +52,8 @@ def test_port_imports_nothing_of_jax_or_repro(path):
 
 def test_importing_the_serve_cli_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    code = ("import sys, repro_torch.launch.serve, repro_torch.convert; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
+            "repro_torch.models.recurrent, repro_torch.kernels.rglru_scan; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('clean')")
@@ -78,6 +79,40 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
     assert layers.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_recurrentgemma_entry_points_need_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              cache_layout="paged")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 2, 16)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, model, ServeSpec(prompt_len=24, gen=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "recurrentgemma-9b", "--reduced"])
+
+
+@pytest.mark.parametrize("over,what", [
+    (dict(block_pattern=("recurrent", "global")), "block kinds"),
+    (dict(block_pattern=("global", "local")), "block kinds"),
+    (dict(window_size=0), "local layers without a window"),
+    (dict(attn_logit_softcap=50.0), "softcaps"),
+    (dict(query_pre_attn_scalar=256.0), "query_pre_attn_scalar"),
+    (dict(use_post_block_norm=True), "post-block norms"),
+], ids=["recurrent+global", "global+local", "no-window", "softcap",
+        "query-scalar", "post-norms"])
+def test_hybrid_stack_refuses_what_the_port_lacks(over, what):
+    """The RG-LRU + local-attention mix and the √d embedding scale are
+    ported; a global layer in the mix, a window-less local layer and the
+    other gemma2 features are not, each named in the refusal."""
+    base = get_config("recurrentgemma-9b").reduced()
+    build_model(base, device="cpu")
+    with pytest.raises(NotImplementedError, match=what):
+        build_model(dataclasses.replace(base, **over), device="cpu")
 
 
 def test_engine_refuses_weights_on_another_device():
@@ -109,7 +144,8 @@ def test_serve_cli_rejects_bad_flags():
 
 
 def test_unported_configs_raise_at_build():
-    assert list_configs() == ("paper-overhead-100m", "qwen3-0.6b", "rwkv6-7b")
+    assert list_configs() == ("paper-overhead-100m", "qwen3-0.6b",
+                              "recurrentgemma-9b", "rwkv6-7b")
     base = get_config("qwen3-0.6b").reduced()
     for over in (dict(window_size=8), dict(use_mla=True, kv_lora_rank=16),
                  dict(num_experts=4), dict(block_pattern=("recurrent",)),
