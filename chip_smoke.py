@@ -49,6 +49,18 @@ Phases, each of which exits non-zero on the first failure:
               cut to 64 so prompts up to 150 tokens wrap the rings on the
               cpu, and snapshot/restore of h, conv and the rings on
               ``cuda``.
+7. deepseek -- the same for ``deepseek-v2-236b`` at full width cut to 3
+              layers (MLA with 128 heads over a 512 + 64 latent, the dense
+              first layer and two MoE layers of 160 experts, top-6 and 2
+              shared; 9.33 B parameters), run after recurrentgemma-9b's
+              weights are freed: serve in bf16 with the MLA kernel 3 times
+              a decode step, one traced prefill round and four decode
+              steps, then fp32 cuda vs cpu parity at full width and 2
+              layers with the experts cut to 16 (prefix cache on, so every
+              prefill is the chunked walk, a shared-prefix request for
+              copy-on-write and a page budget that forces an eviction; a
+              routing flip counts as a tie only within PARITY_TIE_TOL) and
+              snapshot/restore of the latent pools on ``cuda``.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  With no CUDA device, or
@@ -104,6 +116,7 @@ WKV_RTOL = {"bfloat16": 2 ** -7, "float32": 0.0}
 RGLRU_TOL = (1e-5, 1e-5)
 PARITY_LOGIT_TOL = 2e-3      # fp32 cuda vs cpu, 2-4 layers, summation order
 PARITY_TIE_TOL = 2e-3        # top-2 gap below which a divergence is a tie
+PEAK_MEM_LIMIT_GB = 70.0     # deepseek-v2 at 3 layers: 56 GB of weights
 
 
 class SmokeFailure(RuntimeError):
@@ -612,6 +625,101 @@ def run_rglru_phase(dev, gen):
     return rows
 
 
+def mla_cases():
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    # deepseek-v2 serve shape: 8 slots, prompts up to 1024 + 32 generated
+    serve_pos = [1055, 700, 1023, -1, 512, 127, 128, 900]
+    # (label, B, H, ps, pps, q dtype, pool dtype, positions)
+    return [
+        ("deepseek-v2 serving", 8, 128, 128, 9, bf16, bf16, serve_pos),
+        ("fp32 serving", 8, 128, 128, 9, f32, f32, serve_pos),
+        ("fp32 q bf16 pools", 8, 128, 128, 9, f32, bf16, serve_pos),
+        ("H16 ps16", 4, 16, 16, 12, bf16, bf16, [150, 31, -1, 47]),
+        ("fp32 H16 ps16", 4, 16, 16, 12, f32, f32, [150, 31, -1, 47]),
+        ("H128 ps16", 4, 128, 16, 12, bf16, bf16, [150, 31, -1, 47]),
+    ]
+
+
+def mla_inputs(dev, gen, B, H, ps, pps, qdt, dt, positions, lora=512,
+               rd=64):
+    """A ragged latent batch, laid out as :func:`decode_inputs` lays out
+    the GQA one: shuffled pages, rows 0 and 1 alias their first page, one
+    row has a -1 hole inside its live prefix, ``positions`` may hold -1."""
+    import torch
+    P = B * pps
+    q = torch.randn(B, H, lora + rd, device=dev, generator=gen).to(qdt)
+    ckv = torch.randn(P, ps, lora, device=dev, generator=gen).to(dt)
+    krope = torch.randn(P, ps, rd, device=dev, generator=gen).to(dt)
+    perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
+    table = torch.full((B, pps), -1, dtype=torch.int32, device=dev)
+    for b, p in enumerate(positions):
+        if p >= 0:
+            n = p // ps + 1
+            table[b, :n] = perm[b * pps:b * pps + n]
+    if positions[0] >= 0 and positions[1] >= 0:
+        table[1, 0] = table[0, 0]                       # aliased prefix page
+    holed = [b for b, p in enumerate(positions) if p >= 2 * ps]
+    if holed:
+        table[holed[-1], 1] = -1                        # hole mid-prefix
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return q, ckv, krope, table, pos
+
+
+def run_mla_phase(dev, gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    rows = []
+    scale = (128 + 64) ** -0.5           # deepseek-v2: (nope + rd) ** -0.5
+    for label, B, H, ps, pps, qdt, dt, positions in mla_cases():
+        q, ckv, krope, table, pos = mla_inputs(dev, gen, B, H, ps, pps, qdt,
+                                               dt, positions)
+        out = ops.mla_paged_decode_bhd(q, ckv, krope, table, pos,
+                                       scale=scale)
+        plain = pa.mla_paged_decode_torch(q, ckv, krope, table, pos,
+                                          scale=scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"mla {label}: non-finite")
+        check(bool((out[pos < 0] == 0).all()),
+              f"mla {label}: inactive row not zero")
+        tol = DECODE_TOL[dtype_name(qdt)]
+        err = compare(out, plain, tol, f"mla {label}")
+        row = dict(label=label, dtype=f"q {dtype_name(qdt)}, pools "
+                   f"{dtype_name(dt)}", max_abs_err=err, tol=tol_text(tol))
+        timing = ""
+        if "serving" in label:
+            call = lambda: ops.mla_paged_decode_bhd(  # noqa: E731
+                q, ckv, krope, table, pos, scale=scale)
+            keys, pairs = decode_live_keys(table, pos, ps)
+            lora, rd = ckv.shape[2], krope.shape[2]
+            nbytes = keys * (lora + rd) * ckv.element_size() \
+                + (q.numel() + B * H * lora) * q.element_size() \
+                + table.numel() * 4 + pos.numel() * 4
+            flops = 2.0 * pairs * H * ((lora + rd) + lora)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
+            row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       plain_ms=time_ms(lambda: pa.mla_paged_decode_torch(
+                           q, ckv, krope, table, pos, scale=scale),
+                           reps=5, warmup=1),
+                       library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       live_keys=keys, scored=pairs, bytes=nbytes,
+                       flops=flops, shape=f"B {B}, H {H}, lora {lora}, rd "
+                       f"{rd}, ps {ps}, {row['dtype']}, ragged")
+            timing = (f" kernel {row['ms']:.4f} ms (device "
+                      f"{fmt_ms(row['device_ms'])}) plain "
+                      f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']}; {keys} distinct live keys, "
+                      f"{pairs} row-key pairs)")
+        rows.append(row)
+        print(f"  mla {label:<20} {row['dtype']:<26} err {err:.3g} (tol "
+              f"{tol_text(tol)}){timing}", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve qwen3-0.6b at full width
 # ---------------------------------------------------------------------------
@@ -810,33 +918,92 @@ def run_trace_phase(dev, seed):
 class LogitRecorder:
     """Wraps an engine's prefill or decode step and appends, per call, to
     the list ``calls`` the step's kind, the last-position logits on the
-    host and which rows were live (prefill: length > 0; decode: position
-    >= 0); other rows hold garbage."""
+    host, which rows were live (prefill: length > 0; decode: position
+    >= 0; other rows hold garbage) and, with a :class:`RouteRecorder`, the
+    routing of every MoE layer in the step with the mask of its live
+    tokens."""
 
-    def __init__(self, fn, kind, calls):
-        self.fn, self.kind, self.calls = fn, kind, calls
+    def __init__(self, fn, kind, calls, routes=None):
+        self.fn, self.kind, self.calls, self.routes = fn, kind, calls, routes
 
     def __call__(self, params, batch, cache, rows, *rest):
+        import torch
+        if self.routes is not None:
+            self.routes.sink = []
         logits, cache = self.fn(params, batch, cache, rows, *rest)
         live = (rows > 0) if self.kind == "prefill" else (rows >= 0)
+        routed = None
+        if self.routes is not None:
+            S = batch["tokens"].shape[1]
+            tok = torch.arange(S, device=rows.device)[None, :] < rows[:, None] \
+                if self.kind == "prefill" else live[:, None]
+            routed = (self.routes.sink, tok.reshape(-1).cpu())
+            self.routes.sink = None
         self.calls.append((self.kind, logits[:, -1].float().cpu(),
-                           live.cpu()))
+                           live.cpu(), routed))
         return logits, cache
+
+
+class RouteRecorder:
+    """Wraps ``repro_torch.models.moe.route``: while ``sink`` is a list,
+    each call appends the chosen experts of every token (sorted, on the
+    host) and the margin between its k-th and (k+1)-th router
+    probability."""
+
+    def __init__(self, fn):
+        self.fn, self.sink = fn, None
+
+    def __call__(self, logits, k):
+        import torch
+        weights, experts = self.fn(logits, k)
+        if self.sink is not None:
+            top = torch.softmax(logits, dim=-1).topk(k + 1, dim=-1).values
+            self.sink.append((experts.sort(dim=-1).values.cpu(),
+                              (top[:, k - 1] - top[:, k]).cpu()))
+        return weights, experts
+
+
+def route_flip(routed_a, routed_b):
+    """(first live token whose expert set differs, its margin on the
+    first device, the smallest live-token margin) of one step's routing
+    on two devices; the token is None when every live token routed the
+    same."""
+    calls_a, tok = routed_a
+    calls_b, _ = routed_b
+    check(len(calls_a) == len(calls_b), "parity: the devices routed a "
+          "different number of MoE layers")
+    low = float("inf")
+    for (ea, ma), (eb, _) in zip(calls_a, calls_b):
+        low = min(low, ma[tok].min().item())
+        bad = ((ea != eb).any(dim=-1) & tok).nonzero()
+        if len(bad):
+            t = int(bad[0])
+            return t, ma[t].item(), low
+    return None, None, low
 
 
 def parity_walk(calls_a, calls_b):
     """Walks two engines' recorded steps in order.  Returns (max live-row
-    logit difference, steps compared, first divergence or None).  The
-    walk stops after the first step where a live row's argmax differs
-    (kind, step, row, top-2 gap): that step still ran on equal inputs,
-    the steps after it do not."""
+    logit difference, steps compared, first divergence or None, smallest
+    router margin of a live token or None).  The walk stops after the
+    first step where a live row's argmax differs (kind, step, row, top-2
+    gap): that step still ran on equal inputs, the steps after it do not.
+    With recorded routing it stops before the logits of the first step
+    where a live token chose other experts ("route", step, token, router
+    margin): from that layer on the two devices computed different
+    functions."""
     import torch
-    err, diverged = 0.0, None
-    for i, ((kind, a, live), (kind_b, b, live_b)) in enumerate(
+    err, diverged, margin = 0.0, None, None
+    for i, ((kind, a, live, ra), (kind_b, b, live_b, rb)) in enumerate(
             zip(calls_a, calls_b)):
         check(kind == kind_b and torch.equal(live, live_b),
               f"parity: step {i} is a {kind} on one device and a {kind_b} "
               "on the other, or its live rows differ")
+        if ra is not None:
+            tok, m, low = route_flip(ra, rb)
+            margin = low if margin is None else min(margin, low)
+            if tok is not None:
+                return err, i + 1, ("route", i, tok, m), margin
         if live.any():
             err = max(err, (a - b)[live].abs().max().item())
         diff = ((a.argmax(-1) != b.argmax(-1)) & live).nonzero()
@@ -844,8 +1011,8 @@ def parity_walk(calls_a, calls_b):
             row = int(diff[0])
             top2 = a[row].topk(2).values
             diverged = (kind, i, row, float(top2[0] - top2[1]))
-            return err, i + 1, diverged
-    return err, min(len(calls_a), len(calls_b)), diverged
+            return err, i + 1, diverged, margin
+    return err, min(len(calls_a), len(calls_b)), diverged, margin
 
 
 def caches_equal(a, b) -> bool:
@@ -863,37 +1030,59 @@ def caches_equal(a, b) -> bool:
     return True
 
 
-def parity_run(cfg, sv, dev, seed):
-    """The same weights and requests through the engine on ``cuda`` and on
-    ``cpu`` in fp32 (TF32 off): live logits of every step within tolerance,
-    then snapshot/restore on ``cuda`` byte-identical, every cache leaf
-    (KV pools or RWKV state, and the page table) included."""
+def parity_run(cfg, sv, dev, seed, requests=None, routes=False):
+    """The same weights and requests (``requests``, by default
+    ``synthesize_requests``) through the engine on ``cuda`` and on ``cpu``
+    in fp32 (TF32 off): live logits of every step within tolerance, then
+    snapshot/restore on ``cuda`` byte-identical, every cache leaf (KV or
+    latent pools or RWKV state, and the page table) included.  With
+    ``routes`` the MoE routing of every live token is compared too."""
     import torch
     from repro_torch.launch.engine import ServingEngine, synthesize_requests
+    from repro_torch.models import moe
     from repro_torch.models.model import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu_model = build_model(cfg, device="cpu", seed=seed)
     gpu_model = build_model(cfg, device="cpu", seed=seed).to(dev)
-    requests = synthesize_requests(cfg, sv, seed)
-    streams, recs = {}, {}
-    for name, model, d in (("cpu", cpu_model, "cpu"), ("cuda", gpu_model, dev)):
-        eng = ServingEngine(cfg, model, sv, device=d, dtype=torch.float32)
-        recs[name] = []
-        eng.prefill = LogitRecorder(eng.prefill, "prefill", recs[name])
-        eng.decode = LogitRecorder(eng.decode, "decode", recs[name])
-        for r in requests:
-            eng.submit(r)
-        eng.run()
-        streams[name] = eng.responses
+    if requests is None:
+        requests = synthesize_requests(cfg, sv, seed)
+    recorder = RouteRecorder(moe.route) if routes else None
+    streams, recs, stats = {}, {}, {}
+    if recorder is not None:
+        moe.route = recorder
+    try:
+        for name, model, d in (("cpu", cpu_model, "cpu"),
+                               ("cuda", gpu_model, dev)):
+            eng = ServingEngine(cfg, model, sv, device=d, dtype=torch.float32)
+            recs[name] = []
+            eng.prefill = LogitRecorder(eng.prefill, "prefill", recs[name],
+                                        recorder)
+            eng.decode = LogitRecorder(eng.decode, "decode", recs[name],
+                                       recorder)
+            for r in requests:
+                eng.submit(r)
+            eng.run()
+            streams[name] = eng.responses
+            stats[name] = dict(evictions=eng.evictions,
+                               cow_copies=eng.cow_copies,
+                               prefix_hits=eng.prefix_hits,
+                               cached_tokens=eng.cached_tokens)
+    finally:
+        if recorder is not None:
+            moe.route = recorder.fn
     del cpu_model
     # the schedule depends on lengths only, so the steps line up; every
     # step up to the first differing argmax of a live row is compared
-    perr, compared, diverged = parity_walk(recs["cpu"], recs["cuda"])
+    perr, compared, diverged, margin = parity_walk(recs["cpu"], recs["cuda"])
     check(perr <= PARITY_LOGIT_TOL, f"parity: live logits differ by {perr} "
           f"> {PARITY_LOGIT_TOL} over {compared} steps")
-    if streams["cpu"] == streams["cuda"]:
+    if diverged is not None and diverged[0] == "route":
+        check(diverged[3] <= PARITY_TIE_TOL, f"parity: a live token routed "
+              f"differently at {diverged}, its router margin above "
+              f"{PARITY_TIE_TOL}")
+    elif streams["cpu"] == streams["cuda"]:
         check(diverged is None and len(recs["cpu"]) == len(recs["cuda"]),
               f"parity: equal token streams but steps part at {diverged}")
     else:
@@ -901,12 +1090,15 @@ def parity_run(cfg, sv, dev, seed):
               "recorded step differs")
         check(diverged[3] <= PARITY_TIE_TOL, f"parity: streams part at "
               f"{diverged} with a top-2 gap above {PARITY_TIE_TOL}")
+    routing = "" if margin is None else \
+        f"; smallest router margin of a live token {margin:.3g}"
     print(f"  parity fp32 cuda vs cpu ({cfg.name}, {cfg.num_layers} layers): "
           f"live logit max err {perr:.3g} over "
           f"{compared} of {len(recs['cuda'])} prefill and decode steps "
           f"(tol {PARITY_LOGIT_TOL}); token streams "
           f"{'equal' if diverged is None else f'part at a tie {diverged}'} "
-          f"over {len(requests)} requests", flush=True)
+          f"over {len(requests)} requests{routing}; engine {stats['cuda']}",
+          flush=True)
 
     # snapshot/restore on cuda: interrupt after one round and two steps
     eng = ServingEngine(cfg, gpu_model, sv, device=dev, dtype=torch.float32)
@@ -929,8 +1121,10 @@ def parity_run(cfg, sv, dev, seed):
     print(f"  snapshot/restore on cuda: {len(fresh.responses)} responses and "
           f"the final cache ({', '.join(sorted(eng.cache))}) byte-identical",
           flush=True)
-    return dict(logit_err=perr, steps_compared=compared,
-                diverged=diverged)
+    out = dict(logit_err=perr, steps_compared=compared, diverged=diverged)
+    if routes:
+        out.update(router_margin=margin, engine=stats["cuda"])
+    return out
 
 
 def run_parity_phase(dev, seed):
@@ -1097,6 +1291,107 @@ def run_recurrentgemma_phase(dev, seed):
                 parity_cuts="3 layers (R, R, L), window 64, page 16")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: deepseek-v2 (the MLA latent decode kernel's path)
+# ---------------------------------------------------------------------------
+def run_deepseek_phase(dev, seed):
+    """Serve deepseek-v2-236b at full width cut to 3 layers in bf16, trace
+    it, then fp32 parity (2 layers, 16 experts, prefix cache, an eviction)
+    and snapshot/restore of the latent pools."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Request, synthesize_requests
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import count_params
+
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=3, cache_layout="paged",
+                              page_size=128)
+    cut = (f"depth {full.num_layers} -> {cfg.num_layers} layers (the dense "
+           f"first layer and {cfg.num_layers - cfg.first_k_dense} MoE "
+           "layers), every width kept")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name}, {cut}: d {cfg.d_model}, H {cfg.num_heads}, "
+          f"q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, nope "
+          f"{cfg.qk_nope_head_dim}, rope {cfg.qk_rope_head_dim}, v "
+          f"{cfg.v_head_dim}, {cfg.num_experts} experts top-"
+          f"{cfg.num_experts_per_tok} + {cfg.num_shared_experts} shared of "
+          f"{cfg.moe_d_ff}, dense d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{count_params(cfg, include_embed=True) / 1e9:.2f} B parameters "
+          f"({count_params(cfg) / 1e9:.2f} B without the embeddings; "
+          f"{count_params(full) / 1e9:.1f} B at 60 layers), in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
+          flush=True)
+    serve_once(cfg, model, ServeSpec(batch=2, prompt_len=256, gen=4,
+                                     requests=2, prefix_cache=False),
+               dev, seed)                                      # warm-up
+    sv = ServeSpec(batch=8, prompt_len=1024, gen=32, requests=16,
+                   prefix_cache=False)
+    r = serve_once(cfg, model, sv, dev, seed)
+    eng = r.pop("engine")
+    steps = r["decode_calls"]
+    check(steps > 0 and r["launches"]["mla_paged_decode_bhd"]
+          == cfg.num_layers * steps,
+          f"serve {cfg.name}: MLA decode launches {r['launches']} for "
+          f"{steps} decode steps of {cfg.num_layers} layers")
+    check(all(r["launches"][k] == 0 for k in r["launches"]
+              if k != "mla_paged_decode_bhd"),
+          f"serve {cfg.name}: other kernels launched {r['launches']}")
+    r.update(decode_steps=eng.decode_steps, evictions=eng.evictions,
+             prefill_tokens=eng.prefill_tokens,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_step={k: v / steps
+                                for k, v in r["launches"].items()})
+    del eng
+    check(r["peak_mem_gb"] < PEAK_MEM_LIMIT_GB,
+          f"serve {cfg.name}: peak device memory {r['peak_mem_gb']:.2f} GB "
+          f">= {PEAK_MEM_LIMIT_GB} GB")
+    print(f"  serve {cfg.name}: {sv.requests} requests, {r['generated']} "
+          f"tokens generated, {r['prompt_tokens']} prompt tokens in "
+          f"{r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated tok/s; "
+          f"prefill {r['prefill_s']:.3f} s over {r['prefill_calls']} rounds, "
+          f"decode {r['decode_s']:.3f} s over {steps} steps; peak memory "
+          f"{r['peak_mem_gb']:.2f} GB; launches {r['launches']} "
+          f"({r['launches_per_step']} a decode step)", flush=True)
+    print("[deepseek trace] profiler on (not used for the numbers above)",
+          flush=True)
+    trace = trace_serving(cfg, model, dev, seed, prompt_len=1024)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[deepseek parity]", flush=True)
+    # full width, 2 layers (dense, MoE), experts cut to 16 (top-6 and the 2
+    # shared kept) so the cpu holds ~8 GB; pages of 16; the prefix cache on,
+    # so every prefill is the chunked walk over the latent pool; one more
+    # request, queued right after request 0, shares its first 40 tokens (2
+    # whole pages and a partial one: a prefix hit and copy-on-write); 18
+    # pages for 4 slots force an eviction
+    pcfg = dataclasses.replace(cfg, num_layers=2, num_experts=16,
+                               page_size=16, dtype="float32")
+    psv = ServeSpec(batch=4, prompt_len=150, gen=8, requests=6,
+                    page_budget=18, overcommit=2.0, prefix_cache=True)
+    requests = synthesize_requests(pcfg, psv, seed)
+    rng = np.random.default_rng(seed + 1)
+    shared = Request(req=psv.requests, tokens=np.concatenate(
+        [requests[0].tokens[:40], rng.integers(0, pcfg.vocab_size, size=60)]),
+        gen_len=psv.gen)
+    parity = parity_run(pcfg, psv, dev, seed, routes=True,
+                        requests=requests[:1] + [shared] + requests[1:])
+    check(parity["engine"]["evictions"] > 0,
+          f"deepseek parity: no eviction ({parity['engine']})")
+    check(parity["engine"]["cow_copies"] > 0
+          and parity["engine"]["prefix_hits"] > 0,
+          f"deepseek parity: no prefix hit or copy-on-write "
+          f"({parity['engine']})")
+    return dict(serve=r, trace=trace, parity=parity, cut=cut,
+                parity_cuts="2 layers (dense, MoE), 16 experts, page 16")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1134,6 +1429,7 @@ def main() -> int:
     decode_rows = run_decode_phase(dev, gen)
     wkv_rows = run_wkv_phase(dev, gen)
     rglru_rows = run_rglru_phase(dev, gen)
+    mla_rows = run_mla_phase(dev, gen)
     print("[serve] qwen3-0.6b full width, bf16", flush=True)
     runs = run_serve_phase(dev, seed)
     print("[trace] cell (a), profiler on (not used for the numbers above)",
@@ -1147,6 +1443,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("[recurrentgemma] recurrentgemma-9b full width, bf16", flush=True)
     rgemma = run_recurrentgemma_phase(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[deepseek] deepseek-v2-236b full width, 3 layers, bf16",
+          flush=True)
+    deepseek = run_deepseek_phase(dev, seed)
 
     main_run = runs["a_no_prefix_cache"]
     fl = next(r for r in flash_rows if r["label"] == "qwen3 S1024")
@@ -1155,6 +1456,7 @@ def main() -> int:
     fl256 = next(r for r in flash_rows if r["label"] == "rg hd256 S2560 w2048")
     rl = next(r for r in rglru_rows if r["label"] == "recurrentgemma serving")
     rg_launches = rgemma["serve"]["launches"]
+    ml = next(r for r in mla_rows if r["label"] == "deepseek-v2 serving")
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -1203,11 +1505,22 @@ def main() -> int:
              ms=rl["ms"], device_ms=rl["device_ms"], plain_ms=rl["plain_ms"],
              bound_ms=rl["bound_ms"], bound_by=rl["bound_by"],
              library_ms=None, shape=rl["shape"]),
+        dict(name="mla_paged_decode_fwd", route="cuda",
+             source="src/repro_torch/csrc/mla_decode.cu",
+             replaces="src/repro/kernels/paged_attention.py:182",
+             launches=deepseek["serve"]["launches"]["mla_paged_decode_bhd"],
+             max_abs_err=max(r["max_abs_err"] for r in mla_rows),
+             ms=ml["ms"], device_ms=ml["device_ms"], plain_ms=ml["plain_ms"],
+             bound_ms=ml["bound_ms"], bound_by=ml["bound_by"],
+             library_ms=None,
+             library="none: no PyTorch call reads a paged latent pool",
+             shape=ml["shape"]),
     ]
     serve = {name: {k: v for k, v in r.items()} for name, r in runs.items()}
     print(json.dumps({"serve": serve, "trace": traces, "parity": parity,
                       "wkv6": wkv_rows, "rwkv": rwkv, "rglru": rglru_rows,
                       "flash": flash_rows, "recurrentgemma": rgemma,
+                      "mla": mla_rows, "deepseek": deepseek,
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t_start}))
     print(card)

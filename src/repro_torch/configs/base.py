@@ -3,10 +3,12 @@
 and config registry.
 
 The port serves the dense all-global GQA decoders (``qwen3-0.6b`` and
-``paper-overhead-100m``), the attention-free RWKV6 stack (``rwkv6-7b``)
-and the RG-LRU + local-attention hybrid (``recurrentgemma-9b``).  The
-other families keep their fields here so a config reads the same as in
-the reference; :func:`check_ported` rejects them when a model is built.
+``paper-overhead-100m``), the attention-free RWKV6 stack (``rwkv6-7b``),
+the RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
+all-global MLA and MoE stacks (``deepseek-v2-236b``,
+``granite-moe-1b-a400m``).  The other families keep their fields here so
+a config reads the same as in the reference; :func:`check_ported`
+rejects them when a model is built.
 """
 from __future__ import annotations
 
@@ -142,8 +144,9 @@ class ModelConfig:
         )
 
 
-#: The layer mixes the port serves: dense all-global GQA, RWKV6, and the
-#: Griffin hybrid of RG-LRU and sliding-window (local) attention layers.
+#: The layer mixes the port serves: all-global attention (GQA or MLA, a
+#: dense or MoE FFN), RWKV6, and the Griffin hybrid of RG-LRU and
+#: sliding-window (local) attention layers.
 PORTED_KINDS = ({GLOBAL_ATTN}, {RWKV}, {RECURRENT, LOCAL_ATTN})
 
 
@@ -158,10 +161,10 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append("local layers without a window")
     if cfg.window_size and LOCAL_ATTN not in kinds:
         missing.append("sliding-window attention on global layers")
-    if cfg.use_mla:
-        missing.append("MLA")
-    if cfg.is_moe:
-        missing.append("MoE")
+    if cfg.use_mla and kinds != {GLOBAL_ATTN}:
+        missing.append("MLA mixed with non-global layers")
+    if cfg.is_moe and kinds != {GLOBAL_ATTN}:
+        missing.append("MoE on a stack that is not all-global")
     if cfg.is_encoder_decoder:
         missing.append("encoder-decoder")
     if cfg.frontend != "none":
@@ -207,4 +210,5 @@ def list_configs() -> Tuple[str, ...]:
 def _ensure_loaded() -> None:
     """Import every config module (they self-register on import)."""
     from repro_torch.configs import (  # noqa: F401
-        paper_overhead, qwen3_0_6b, recurrentgemma_9b, rwkv6_7b)
+        deepseek_v2_236b, granite_moe_1b_a400m, paper_overhead, qwen3_0_6b,
+        recurrentgemma_9b, rwkv6_7b)

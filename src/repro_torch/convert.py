@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the reference's parameter tree as nested dicts of
 numpy arrays (``jax.device_get(init_params(cfg, key))``) and returns a
 ``state_dict`` for :class:`repro_torch.models.params.Model`.  Leaves are
-keyed by tree path; the stacked ``decoder/groups`` leaves are unstacked
-into one block per layer (layer ``g * len(pattern) + j`` for group ``g``,
-pattern position ``j``; the unrolled ``tail`` follows the groups).
+keyed by tree path.  The unrolled ``decoder/prefix/{i}`` (the first
+``first_k_dense`` layers) is layer ``i``; the stacked ``decoder/groups``
+leaves are unstacked into one block per layer after it (layer
+``first_k_dense + g * len(pattern) + j`` for group ``g``, pattern position
+``j``); the unrolled ``tail`` follows the groups.
 """
 from __future__ import annotations
 
@@ -34,18 +36,21 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     check_ported(cfg)
     pat = len(cfg.block_pattern)
-    n_groups = cfg.num_layers // pat
+    first = cfg.first_k_dense
+    n_groups = (cfg.num_layers - first) // pat
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
         if path[0] != "decoder":
             out[".".join(path)] = _tensor(arr)
             continue
         part, j, rest = path[1], int(path[2]), ".".join(path[3:])
-        if part == "groups":
+        if part == "prefix":
+            out[f"blocks.{j}.{rest}"] = _tensor(arr)
+        elif part == "groups":
             for g in range(arr.shape[0]):
-                out[f"blocks.{g * pat + j}.{rest}"] = _tensor(arr[g])
+                out[f"blocks.{first + g * pat + j}.{rest}"] = _tensor(arr[g])
         elif part == "tail":
-            out[f"blocks.{n_groups * pat + j}.{rest}"] = _tensor(arr)
+            out[f"blocks.{first + n_groups * pat + j}.{rest}"] = _tensor(arr)
         else:
             raise NotImplementedError(
                 f"decoder/{part} comes in a later slice of the port")

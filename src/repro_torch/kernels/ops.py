@@ -1,6 +1,6 @@
 """Model-layout wrappers around the Hopper kernels (the reference's
 ``kernels/ops.py:flash_attention_bshd`` / ``paged_decode_bhd`` /
-``rglru_scan_bsr`` / ``wkv6_bshn``).
+``mla_paged_decode_bhd`` / ``rglru_scan_bsr`` / ``wkv6_bshn``).
 
 Each wrapper checks devices, dtypes, shapes and contiguity, then:
 
@@ -23,7 +23,7 @@ from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_wkv as wkv
 
 launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0,
-            "rglru_scan_bsr": 0, "wkv6_bshn": 0}
+            "mla_paged_decode_bhd": 0, "rglru_scan_bsr": 0, "wkv6_bshn": 0}
 
 
 def reset_launches() -> None:
@@ -36,10 +36,10 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _cuda_operands(name: str, tensors, dtypes, head_dim: int,
-                   head_dims) -> None:
+def _cuda_operands(name: str, tensors, dtypes, head_dim: int = 0,
+                   head_dims=(0,)) -> None:
     """What the CUDA kernels take: one card, supported dtypes and head
-    dims, contiguous row-major operands."""
+    dims (where the kernel has one), contiguous row-major operands."""
     dev = tensors[0].device
     _require(dev.type == "cuda", f"{name}: tensors on {dev}, expected cpu "
              "or cuda")
@@ -138,6 +138,60 @@ def paged_decode_bhd(
                                scale=scale, logit_cap=logit_cap,
                                grouped=grouped)
     return out.reshape(B, 1, H, hd)
+
+
+def mla_paged_decode_bhd(
+    q_lat: torch.Tensor,        # (B, H, lora + rd) absorbed query
+    ckv_pages: torch.Tensor,    # (P, ps, lora) shared latent pool
+    krope_pages: torch.Tensor,  # (P, ps, rd)
+    page_table: torch.Tensor,   # (B, pps) int32; -1 = unallocated
+    pos_q: torch.Tensor,        # (B,) int32; -1 = inactive slot
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """MLA latent flash-decode over the paged latent pool; returns the
+    latent context ``(B, H, lora)`` in q's dtype (the caller applies
+    ``W_vc`` and the output projection)."""
+    _require(q_lat.ndim == 3 and ckv_pages.ndim == 3 and krope_pages.ndim == 3
+             and ckv_pages.shape[:2] == krope_pages.shape[:2],
+             f"mla_paged_decode_bhd: shapes {tuple(q_lat.shape)} "
+             f"{tuple(ckv_pages.shape)} {tuple(krope_pages.shape)}")
+    B, H, qd = q_lat.shape
+    lora, rd = ckv_pages.shape[2], krope_pages.shape[2]
+    _require(qd == lora + rd, f"mla_paged_decode_bhd: q width {qd} is not "
+             f"lora {lora} + rd {rd}")
+    _require(page_table.ndim == 2 and page_table.shape[0] == B
+             and tuple(pos_q.shape) == (B,),
+             f"mla_paged_decode_bhd: table {tuple(page_table.shape)}, pos "
+             f"{tuple(pos_q.shape)} for batch {B}")
+    _require(ckv_pages.dtype == krope_pages.dtype,
+             "mla_paged_decode_bhd: latent pools differ in dtype")
+    operands = (q_lat, ckv_pages, krope_pages, page_table, pos_q)
+    if all(t.device.type == "cpu" for t in operands):
+        return pa.mla_paged_decode_torch(q_lat, ckv_pages, krope_pages,
+                                         page_table, pos_q, scale=scale)
+    _cuda_operands("mla_paged_decode_bhd", (q_lat, ckv_pages, krope_pages),
+                   pa.DTYPE_CODES)
+    _require((lora, rd) in pa.MLA_DIMS,
+             f"mla_paged_decode_bhd: lora {lora}, rd {rd}; the kernel takes "
+             f"(lora, rd) in {pa.MLA_DIMS}")
+    _require(not (q_lat.dtype == torch.bfloat16
+                  and ckv_pages.dtype == torch.float32),
+             "mla_paged_decode_bhd: a bf16 query over fp32 pools")
+    _require(page_table.device == q_lat.device
+             and pos_q.device == q_lat.device
+             and page_table.dtype == torch.int32
+             and pos_q.dtype == torch.int32
+             and page_table.is_contiguous() and pos_q.is_contiguous(),
+             "mla_paged_decode_bhd: page_table and pos_q must be contiguous "
+             "int32 on the card")
+    _require(ckv_pages.data_ptr() % 16 == 0
+             and krope_pages.data_ptr() % 16 == 0,
+             "mla_paged_decode_bhd: pools must be 16-byte aligned (the "
+             "kernel reads 16-byte chunks)")
+    launches["mla_paged_decode_bhd"] += 1
+    return pa.mla_paged_decode_cuda(q_lat, ckv_pages, krope_pages,
+                                    page_table, pos_q, scale=scale)
 
 
 def rglru_scan_bsr(

@@ -1,4 +1,4 @@
-"""Paged flash-decode: the Hopper kernel and its plain version.
+"""Paged flash-decode: the Hopper kernels and their plain versions.
 
 One new token per sequence attends the paged KV cache: a shared pool
 ``(P, K, ps, hd)`` walked through per-sequence page tables ``(B, pps)``.
@@ -25,6 +25,13 @@ Contract (shared with :func:`paged_decode_torch` and the reference):
 
 Layouts: q ``(B, K, G, hd)``, pools ``(P, K, ps, hd)``, table ``(B, pps)``
 int32, pos_q ``(B,)`` int32.
+
+The MLA latent flash-decode (``csrc/mla_decode.cu``, replacing the
+reference's ``_decode_kernel_mla``) keeps the same contract over the
+latent pools: the absorbed query ``q_lat (B, H, lora + rd)`` scores the
+keys ``[ckv ‖ krope]`` of ``ckv_pages (P, ps, lora)`` and ``krope_pages
+(P, ps, rd)`` (one latent kv head shared by all H heads), and the latent
+itself is the value: the output is the latent context ``(B, H, lora)``.
 """
 from __future__ import annotations
 
@@ -42,6 +49,13 @@ MAX_GROUP = 8          # query heads per kv head the kernel holds in registers
 _SIGNATURES = {
     "paged_decode_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+}
+# the MLA kernel's widths (deepseek-v2) and its head tile
+MLA_DIMS = ((512, 64),)        # (lora, rd) pairs the kernel is built for
+MLA_HEAD_TILE = 16
+_MLA_SIGNATURES = {
+    "mla_decode_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -135,4 +149,85 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, pos_q, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_fwd launch failed: status {rc}")
+    return out
+
+
+def mla_paged_decode_torch(
+    q_lat: torch.Tensor,        # (B, H, lora + rd) absorbed query
+    ckv_pages: torch.Tensor,    # (P, ps, lora)
+    krope_pages: torch.Tensor,  # (P, ps, rd)
+    page_table: torch.Tensor,   # (B, pps); -1 = unallocated
+    pos_q: torch.Tensor,        # (B,); -1 = inactive slot
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """The reference's ``mla_paged_decode_jnp``: a loop over logical pages
+    carrying the online-softmax (m, l, acc) in fp32, one (B, ps, lora + rd)
+    page gather per step (masked for ``-1`` entries, never indexed with
+    them).  Returns the latent context ``(B, H, lora)`` in q's dtype;
+    inactive rows are zero."""
+    B, H, _ = q_lat.shape
+    ps, lora = ckv_pages.shape[1], ckv_pages.shape[2]
+    pps = page_table.shape[1]
+    dev = q_lat.device
+    qf = q_lat.float() * scale
+    pq = pos_q.long()
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, lora), dtype=torch.float32, device=dev)
+    for i in range(pps):
+        entry = page_table[:, i].long()
+        alloc = entry >= 0
+        held = alloc[:, None, None]
+        idx = entry.clamp(min=0)
+        cb = torch.where(held, ckv_pages[idx], 0).float()      # (B, ps, lora)
+        rb = torch.where(held, krope_pages[idx], 0).float()    # (B, ps, rd)
+        s = torch.einsum("bhe,bte->bht", qf, torch.cat([cb, rb], dim=-1))
+        t = i * ps + torch.arange(ps, device=dev)
+        valid = alloc[:, None] & (t[None, :] <= pq[:, None])   # (B, ps)
+        vm = valid[:, None, :]
+        s = torch.where(vm, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # mask p explicitly: a fully-dead row would otherwise see
+        # exp(NEG_INF - NEG_INF) == 1 (NEG_INF is a finite sentinel)
+        p = torch.where(vm, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bht,btl->bhl", p, cb)
+        m = m_new
+    return (acc / l.clamp_min(1e-37)[..., None]).to(q_lat.dtype)
+
+
+def mla_split_count(B: int, H: int, pps: int, n_sm: int) -> int:
+    """Page ranges each (row, head tile) walk of the MLA kernel is cut
+    into: enough blocks for two per SM, at most one range per page."""
+    tiles = B * -(-H // MLA_HEAD_TILE)
+    return max(1, min(pps, -(-2 * n_sm // tiles)))
+
+
+def mla_paged_decode_cuda(q_lat, ckv_pages, krope_pages, page_table, pos_q,
+                          *, scale: float) -> torch.Tensor:
+    """Launch the MLA kernel on the current stream.  The caller
+    (``ops.mla_paged_decode_bhd``) has checked devices, dtypes, shapes and
+    contiguity."""
+    lib = _build.load("mla_decode", _MLA_SIGNATURES)
+    B, H, _ = q_lat.shape
+    ps, lora = ckv_pages.shape[1], ckv_pages.shape[2]
+    rd = krope_pages.shape[2]
+    pps = page_table.shape[1]
+    n_sm = torch.cuda.get_device_properties(
+        q_lat.device).multi_processor_count
+    n_split = mla_split_count(B, H, pps, n_sm)
+    ws = torch.empty(n_split * B * H * (2 + lora), dtype=torch.float32,
+                     device=q_lat.device)
+    out = torch.empty((B, H, lora), dtype=q_lat.dtype, device=q_lat.device)
+    rc = lib.mla_decode_fwd(
+        q_lat.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
+        page_table.data_ptr(), pos_q.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), DTYPE_CODES[q_lat.dtype],
+        DTYPE_CODES[ckv_pages.dtype], B, H, lora, rd, ps, pps,
+        ckv_pages.shape[0], n_split, float(scale),
+        torch.cuda.current_stream(q_lat.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"mla_decode_fwd launch failed: status {rc}")
     return out

@@ -19,7 +19,10 @@ hybrid) keeps the page accounting of an attention stack (its table has
 no pools behind it) and no prefix cache; an admitted row starts from zero
 state inside the ragged prefill, and rows not in the round keep theirs.
 A stack with local layers needs ``prompt_len + gen >= window_size``, so
-that every ring holds a whole window (``models.model.init_cache``).
+that every ring holds a whole window (``models.model.init_cache``).  An
+MoE stack refuses a ``prompt_len`` whose page-bucketed prefill rows could
+be longer than one MoE dispatch group and not a whole number of groups:
+the reference asserts on such a row (``models.moe.check_row_length``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.configs.base import GLOBAL_ATTN, check_ported
 from repro_torch.launch.spec import ServeSpec
 from repro_torch.models.layers import Ctx, resolve_device
 from repro_torch.models.model import init_cache, num_pages
+from repro_torch.models.moe import check_row_length
 from repro_torch.models.params import cast_params
 from repro_torch.train.steps import make_serve_steps
 
@@ -163,15 +167,20 @@ def _set_page_tables(cache, host_table: np.ndarray):
     return cache
 
 
+#: The paged pools, every one indexed by physical page on its leading dim:
+#: GQA K and V, and MLA's latent and rope-key pools.
+POOL_LEAVES = ("k_pages", "v_pages", "ckv_pages", "krope_pages")
+
+
 def _copy_pool_pages(cache, pairs: List[Tuple[int, int]]):
-    """``src -> dst`` page copies in every global layer's K and V pool:
-    the copy half of copy-on-write.  A stack without pools has nothing to
-    copy."""
+    """``src -> dst`` page copies in every global layer's pools (K and V,
+    or MLA's latent and rope-key pools): the copy half of copy-on-write.
+    A stack without pools has nothing to copy."""
     dev = cache["page_table"].device
     srcs = torch.tensor([s for s, _ in pairs], dtype=torch.long, device=dev)
     dsts = torch.tensor([d for _, d in pairs], dtype=torch.long, device=dev)
-    for pools in (cache.get("k_pages", []), cache.get("v_pages", [])):
-        for pool in pools:
+    for name in POOL_LEAVES:
+        for pool in cache.get(name, []):
             pool.index_copy_(0, dsts, pool.index_select(0, srcs))
     return cache
 
@@ -234,6 +243,11 @@ class ServingEngine:
         self.overcommit = sv.overcommit or 1.0
         if self.overcommit < 1.0:
             raise ValueError(f"overcommit {self.overcommit} must be >= 1")
+        if cfg.is_moe:
+            # a prefill round pads its rows to a page multiple up to P
+            for S0 in range(self.ps, num_pages(P, self.ps) * self.ps + 1,
+                            self.ps):
+                check_row_length(cfg, S0)
 
         self.prefill, self.decode = make_serve_steps(cfg, self.ctx)
         self.cache = init_cache(cfg, B, self.max_len, page_budget=budget,

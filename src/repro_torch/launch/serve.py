@@ -8,12 +8,19 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --reduced --device cpu --prompt-len 24
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --layers 3 --no-prefix-cache
 
 Weights are random, drawn from ``--seed``; the workload is synthesized
 (``launch.engine.synthesize_requests``).  It runs on ``cuda`` unless
 ``--device`` names another device.  A stack with local attention layers
 (recurrentgemma) needs ``--prompt-len`` + ``--gen`` >= its window (16 when
-``--reduced``, 2,048 at full width).
+``--reduced``, 2,048 at full width).  ``--layers`` cuts a config's depth
+and keeps its widths: deepseek-v2-236b (60 layers, 234.7 B parameters
+without the embeddings) fits one 80 GB card at 3 layers (the dense first
+layer and two MoE layers, 9.33 B parameters); the cut is printed.
 """
 from __future__ import annotations
 
@@ -35,6 +42,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config, fp32 compute")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers, widths kept "
+                         "(0 = the config's depth)")
     ap.add_argument("--batch", type=int, default=4,
                     help="concurrent decode slots")
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -108,6 +118,14 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = cfg.reduced()
     overrides = {"cache_layout": "paged"}
+    if args.layers:
+        if not 0 < args.layers <= cfg.num_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.num_layers} layers")
+        if args.layers < cfg.num_layers:
+            print(f"[serve] depth cut: {cfg.name} {cfg.num_layers} -> "
+                  f"{args.layers} layers, widths kept")
+        overrides["num_layers"] = args.layers
     if args.page_size:
         overrides["page_size"] = args.page_size
     cfg = dataclasses.replace(cfg, **overrides)

@@ -1,5 +1,6 @@
-"""GQA attention over the serving cache (the reference's
-``models/attention.py``, GQA part).
+"""Attention over the serving cache (the reference's
+``models/attention.py``): GQA, and DeepSeek-V2's MLA over a paged latent
+cache (:func:`mla_attention`, at the end of this module).
 
 Global layers keep their K/V in the paged pool; local (sliding-window)
 layers keep a per-sequence ring of ``window`` slots with a (B, W) map of
@@ -358,4 +359,249 @@ def _update_decode_kv_paged(cache: Cache, k, v, pos) -> Cache:
     phys, off = entry[rows], posc[rows] % ps
     kp[phys, :, off] = k[rows, 0].to(kp.dtype)
     vp[phys, :, off] = v[rows, 0].to(vp.dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2) over the paged latent cache
+# ---------------------------------------------------------------------------
+# The latent cache is MQA-shaped: ONE latent "kv head" of width lora + rd
+# (the compressed latent ``ckv`` and the shared rotated rope key) serves
+# all H query heads, once each query is absorbed through ``W_kc`` (the key
+# half of ``kv_b``); the latent itself is the value, and ``W_vc`` (the
+# value half) expands the latent context outside the walk.  Prefill walks
+# score (B, S, H, T) in fp32; the port takes them a chunk of heads at a
+# time (each head's softmax is independent), so the transient stays near
+# MLA_SCORE_BUDGET elements instead of 4 GB per tensor at B 8, S 1,024,
+# H 128.
+MLA_SCORE_BUDGET = 1 << 26
+
+
+def _head_chunks(H: int, per_head: int):
+    """Slices of the H heads whose fp32 scores (``per_head`` elements a
+    head) fit MLA_SCORE_BUDGET (at least one head a chunk)."""
+    hc = max(1, min(H, MLA_SCORE_BUDGET // max(per_head, 1)))
+    return [slice(h, min(h + hc, H)) for h in range(0, H, hc)]
+
+
+def _gather_latent(pages: torch.Tensor, page_table: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B, pps·ps, d) view of each row's pages of a latent pool (P, ps, d),
+    the one-kv-head case of :func:`_gather_pages`."""
+    return _gather_pages(pages[:, None], page_table)[:, 0]
+
+
+def mla_prefill_attention_paged(
+    q_eff: torch.Tensor,        # (B, S0, H, lora) W_kc-absorbed queries
+    q_rope: torch.Tensor,       # (B, S0, H, rd) rotated rope queries
+    ckv_pages: torch.Tensor,    # (P, ps, lora) shared latent pool
+    krope_pages: torch.Tensor,  # (P, ps, rd)
+    page_table: torch.Tensor,   # (B, pps); -1 = unallocated
+    pos_q: torch.Tensor,        # (B, S0) absolute positions of the chunk
+    lengths: torch.Tensor,      # (B,) valid chunk tokens; 0 = inactive row
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Chunked MLA prefill over the latent page table (prefix caching),
+    plain as in the reference: the chunk's latents are already in the
+    pool, so one masked walk covers the cached prefix and within-chunk
+    causality.  Scores are ``(q_eff·ckv + q_rope·krope)·scale``; returns
+    the latent context (B, S0, H, lora) in q_eff's dtype, zeros for rows
+    with ``lengths == 0``.  Heads are independent, so a caller may pass
+    any subset of them."""
+    S0 = q_eff.shape[1]
+    ps = ckv_pages.shape[1]
+    cb = _gather_latent(ckv_pages, page_table).float()            # (B, T, l)
+    rb = _gather_latent(krope_pages, page_table).float()          # (B, T, r)
+    pos_k = _table_positions(page_table, ps)                      # (B, T)
+    s = torch.einsum("bshl,btl->bsht", q_eff.float(), cb)
+    s = s + torch.einsum("bshr,btr->bsht", q_rope.float(), rb)
+    s = s * scale
+    rows = torch.arange(S0, device=q_eff.device)[None, :, None] \
+        < lengths.long()[:, None, None]
+    valid = (pos_k[:, None, :] >= 0) \
+        & (pos_k[:, None, :] <= pos_q.long()[:, :, None]) & rows  # (B,S0,T)
+    vm = valid[:, :, None, :]
+    s = torch.where(vm, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    # explicit p-masking: fully-dead rows would see exp(NEG_INF - NEG_INF)
+    p = torch.where(vm, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)
+    ctx = torch.einsum("bsht,btl->bshl", p, cb)
+    return (ctx / l.clamp_min(1e-37)[..., None]).to(q_eff.dtype)
+
+
+def mla_decode_attention_paged(
+    q_eff: torch.Tensor,        # (B, H, lora)
+    q_rope: torch.Tensor,       # (B, H, rd)
+    ckv_pages: torch.Tensor,    # (P, ps, lora)
+    krope_pages: torch.Tensor,  # (P, ps, rd)
+    page_table: torch.Tensor,   # (B, pps)
+    pos_q: torch.Tensor,        # (B,)
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """The reference's paged MLA decode walk (gather + dense softmax), the
+    decode oracle: returns the latent context (B, H, lora); rows with
+    ``pos_q < 0`` return zeros."""
+    ps = ckv_pages.shape[1]
+    cb = _gather_latent(ckv_pages, page_table).float()
+    rb = _gather_latent(krope_pages, page_table).float()
+    pos_k = _table_positions(page_table, ps)                      # (B, T)
+    s = torch.einsum("bhl,btl->bht", q_eff.float(), cb)
+    s = s + torch.einsum("bhr,btr->bht", q_rope.float(), rb)
+    s = s * scale
+    valid = (pos_k >= 0) & (pos_k <= pos_q.long()[:, None])       # (B, T)
+    vm = valid[:, None, :]
+    s = torch.where(vm, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vm, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)
+    ctx = torch.einsum("bht,btl->bhl", p, cb)
+    return (ctx / l.clamp_min(1e-37)[..., None]).to(q_eff.dtype)
+
+
+def _mla_fresh_walk(q_eff, q_rope, ckv, krope, *, scale: float
+                    ) -> torch.Tensor:
+    """Prefill from position 0 against the chunk's own fresh latents
+    (B, S, lora) and rope keys (B, S, rd), causal, fp32 softmax (the
+    reference's lines for a 1-D ``pos``).  Causality keeps each row's last
+    valid query off the ragged padding keys, which sit later.  Returns the
+    latent context (B, S, h, lora) in fp32 for the heads of ``q_eff``."""
+    S = q_eff.shape[1]
+    ckv = ckv.float()
+    s = torch.einsum("bshl,btl->bsht", q_eff.float(), ckv)
+    s = s + torch.einsum("bshr,btr->bsht", q_rope.float(), krope.float())
+    s = s * scale
+    i = torch.arange(S, device=q_eff.device)
+    causal = (i[:, None] >= i[None, :])[None, :, None, :]
+    s = torch.where(causal, s, NEG_INF)
+    return torch.einsum("bsht,btl->bshl", torch.softmax(s, dim=-1), ckv)
+
+
+def _mla_q(cfg: ModelConfig, p, x, pos):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rd)), rope applied at
+    ``pos``."""
+    nope = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank:
+        qa = rms_norm(x @ p["q_a"], p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsl,lhk->bshk", qa, p["q_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["q"])
+    return q[..., :nope], apply_rope(q[..., nope:], pos, cfg.rope_theta)
+
+
+def mla_attention(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                 # (B, S, D)
+    *,
+    mode: str,                       # full | decode
+    cache: Optional[Cache],
+    pos: torch.Tensor,               # full: (S,) or (B, S0); decode: (B,)
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """MLA self-attention of one layer over the paged latent cache
+    ``{"ckv_pages", "krope_pages", "page_table"}``; returns (out (B, S, D),
+    cache).  Prefill writes the chunk's latents, then scores the fresh
+    latents (``pos`` 1-D, from position 0) or walks the page table
+    (``pos`` 2-D, chunked prefix prefill); decode writes the new latent
+    and runs ``ops.mla_paged_decode_bhd`` (the Hopper kernel on the card,
+    its plain version on the CPU)."""
+    if cache is None or "ckv_pages" not in cache:
+        raise NotImplementedError(
+            "MLA without the paged latent cache (train mode, the dense "
+            "cache) comes in a later slice of the port")
+    B, S = x.shape[:2]
+    H = cfg.num_heads
+    nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    scale = (nope + rd) ** -0.5
+    w_kc = p["kv_b"][..., :nope]                          # (lora, H, nope)
+    w_vc = p["kv_b"][..., nope:]                          # (lora, H, vd)
+
+    kv_a = x @ p["kv_a"]                                  # (B, S, lora+rd)
+    ckv = rms_norm(kv_a[..., :lora], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., None, lora:]                       # (B, S, 1, rd)
+
+    if mode == "full":
+        pos_q = pos if pos.ndim == 2 else pos[None, :].expand(B, S)
+        lens = torch.full((B,), S, dtype=torch.int32, device=x.device) \
+            if lengths is None else lengths
+        q_nope, q_rope = _mla_q(cfg, p, x, pos)
+        k_rope = apply_rope(k_rope, pos, cfg.rope_theta)[:, :, 0]
+        _write_prefill_latent_paged(cache, ckv, k_rope, lens, pos_q)
+        T = cache["page_table"].shape[1] * cache["ckv_pages"].shape[1] \
+            if pos.ndim == 2 else S
+        out = torch.empty((B, S, H, vd), dtype=x.dtype, device=x.device)
+        for hs in _head_chunks(H, B * S * T):
+            q_eff = torch.einsum("bshe,lhe->bshl", q_nope[:, :, hs],
+                                 w_kc[:, hs])
+            if pos.ndim == 2:
+                ctx_lat = mla_prefill_attention_paged(
+                    q_eff, q_rope[:, :, hs], cache["ckv_pages"],
+                    cache["krope_pages"], cache["page_table"], pos_q, lens,
+                    scale=scale)
+            else:
+                ctx_lat = _mla_fresh_walk(q_eff, q_rope[:, :, hs], ckv,
+                                          k_rope, scale=scale)
+            out[:, :, hs] = torch.einsum("bshl,lhe->bshe",
+                                         ctx_lat.to(x.dtype), w_vc[:, hs])
+    elif mode == "decode":
+        posb = pos.reshape(-1).to(torch.int32)
+        pos_r = posb[:, None]                             # (B, 1) for rope
+        q_nope, q_rope = _mla_q(cfg, p, x, pos_r)
+        k_rope = apply_rope(k_rope, pos_r, cfg.rope_theta)
+        _update_decode_latent_paged(cache, ckv[:, 0], k_rope[:, 0, 0], posb)
+        q_eff = torch.einsum("bshe,lhe->bshl", q_nope, w_kc)  # (B,1,H,lora)
+        q_lat = torch.cat([q_eff[:, 0], q_rope[:, 0]], dim=-1).contiguous()
+        ctx_lat = ops.mla_paged_decode_bhd(
+            q_lat, cache["ckv_pages"], cache["krope_pages"],
+            cache["page_table"], posb, scale=scale)
+        out = torch.einsum("bshl,lhe->bshe", ctx_lat[:, None].to(x.dtype),
+                           w_vc)
+    else:
+        raise ValueError(mode)
+    return torch.einsum("bshe,hed->bsd", out, p["o"]), cache
+
+
+def _write_prefill_latent_paged(cache: Cache, ckv, krope, lengths,
+                                pos) -> Cache:
+    """Scatter a prefill chunk's latents ``ckv (B, S0, lora)`` and rotated
+    rope keys ``krope (B, S0, rd)`` into the latent pools: token ``s`` of
+    row ``b`` lands at absolute position ``pos[b, s]`` (slot ``pos % ps``
+    of logical page ``pos // ps``).  Only tokens ``s < lengths[b]`` with
+    an allocated entry write; the reference drops the others with
+    ``mode="drop"``, here they are masked before ``index_put_``."""
+    cp, rp, pt = cache["ckv_pages"], cache["krope_pages"], cache["page_table"]
+    S0 = ckv.shape[1]
+    ps = cp.shape[1]
+    pps = pt.shape[1]
+    pos = pos.long()
+    pidx = pos // ps
+    entry = pt.gather(1, pidx.clamp(0, pps - 1)).long()           # (B, S0)
+    valid = (torch.arange(S0, device=pt.device)[None, :]
+             < lengths.long()[:, None]) & (entry >= 0) & (pidx < pps)
+    rows, toks = valid.nonzero(as_tuple=True)
+    phys, off = entry[rows, toks], pos[rows, toks] % ps
+    cp[phys, off] = ckv[rows, toks].to(cp.dtype)
+    rp[phys, off] = krope[rows, toks].to(rp.dtype)
+    return cache
+
+
+def _update_decode_latent_paged(cache: Cache, ckv, krope, pos) -> Cache:
+    """Insert one token's latent ``ckv (B, lora)`` and rope key ``krope (B,
+    rd)`` per row at position ``pos[b]``.  Rows with ``pos < 0`` (inactive
+    slots) and unallocated entries write nothing."""
+    cp, rp, pt = cache["ckv_pages"], cache["krope_pages"], cache["page_table"]
+    ps = cp.shape[1]
+    pps = pt.shape[1]
+    posb = pos.long()
+    posc = posb.clamp(min=0)
+    pidx = posc // ps
+    entry = pt.gather(1, pidx.clamp(max=pps - 1)[:, None])[:, 0].long()
+    rows = ((posb >= 0) & (entry >= 0) & (pidx < pps)).nonzero()[:, 0]
+    phys, off = entry[rows], posc[rows] % ps
+    cp[phys, off] = ckv[rows].to(cp.dtype)
+    rp[phys, off] = krope[rows].to(rp.dtype)
     return cache

@@ -1,7 +1,7 @@
 """Model assembly: embedding → decoder blocks → logits, over the serving
 cache (the reference's ``models/model.py``, serving modes).  A block is
-GQA attention (global or sliding-window) + dense FFN, the RG-LRU block +
-dense FFN, or RWKV6 time-mix + channel-mix.
+GQA attention (global or sliding-window) or MLA + a dense or MoE FFN, the
+RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix.
 
 Modes
 -----
@@ -22,8 +22,9 @@ import torch
 from repro_torch.configs.base import (
     GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, RWKV, ModelConfig, check_ported,
 )
-from repro_torch.models.attention import gqa_attention
+from repro_torch.models.attention import gqa_attention, mla_attention
 from repro_torch.models.layers import Ctx, dense_ffn, resolve_device, rms_norm
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recurrent import rglru_block
 from repro_torch.models.rwkv import rwkv_channel_mix, rwkv_time_mix
 from repro_torch.models.params import (  # noqa: F401
@@ -33,13 +34,22 @@ from repro_torch.models.params import (  # noqa: F401
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # The per-layer cache leaves of each block kind.  ``cache[name]`` lists one
 # entry per layer of that kind, in layer order (in a hybrid stack a leaf
-# exists only on the layers of its kind).
+# exists only on the layers of its kind).  An MLA global layer pages its
+# latent cache instead of K and V (:func:`layer_leaves`).
 LAYER_LEAVES = {
     GLOBAL_ATTN: ("k_pages", "v_pages"),
     LOCAL_ATTN: ("k", "v", "pos"),
     RECURRENT: ("h", "conv"),
     RWKV: ("s", "shift_tm", "shift_cm"),
 }
+MLA_LEAVES = ("ckv_pages", "krope_pages")
+
+
+def layer_leaves(cfg: ModelConfig, kind: str):
+    """The cache leaves a layer of ``kind`` holds under ``cfg``."""
+    if cfg.use_mla and kind == GLOBAL_ATTN:
+        return MLA_LEAVES
+    return LAYER_LEAVES[kind]
 
 
 def build_model(cfg: ModelConfig, *, device=None, seed: int = 0) -> Model:
@@ -130,8 +140,9 @@ def forward(
     for kind, blk in zip(kinds, params["blocks"]):
         j = seen[kind]               # this layer's entry in its kind's lists
         seen[kind] += 1
+        leaves = layer_leaves(cfg, kind)
         lc = None if cache is None else {
-            name: cache[name][j] for name in LAYER_LEAVES[kind]}
+            name: cache[name][j] for name in leaves}
         x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
         if kind == RWKV:
             y, lc = rwkv_time_mix(cfg, blk["tm"], x, ctx, mode=amode,
@@ -146,14 +157,20 @@ def forward(
         else:
             if lc is not None and kind == GLOBAL_ATTN:
                 lc["page_table"] = cache["page_table"]
-            y, lc = gqa_attention(cfg, blk["attn"], x, kind=kind, mode=amode,
-                                  cache=lc, pos=p_arr, lengths=lengths)
+            if cfg.use_mla:
+                y, lc = mla_attention(cfg, blk["attn"], x, mode=amode,
+                                      cache=lc, pos=p_arr, lengths=lengths)
+            else:
+                y, lc = gqa_attention(cfg, blk["attn"], x, kind=kind,
+                                      mode=amode, cache=lc, pos=p_arr,
+                                      lengths=lengths)
         h = h + y
         if kind != RWKV:
             x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-            h = h + dense_ffn(blk["ffn"], x, cfg.act)
+            h = h + (moe_ffn(cfg, blk["moe"], x) if "moe" in blk
+                     else dense_ffn(blk["ffn"], x, cfg.act))
         if cache is not None:
-            for name in LAYER_LEAVES[kind]:
+            for name in leaves:
                 cache[name][j] = lc[name]
 
     if lengths is not None:
@@ -179,7 +196,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     and the per-layer leaves of the reference's ``_layer_cache_ab``, one
     list entry per layer of their kind (:data:`LAYER_LEAVES`):
 
-    * global attention: a K and a V pool ``(P, K, ps, hd)`` in ``cfg.dtype``;
+    * global attention: a K and a V pool ``(P, K, ps, hd)`` in ``cfg.dtype``,
+      or under MLA a latent pool ``ckv_pages (P, ps, lora)`` and a rope-key
+      pool ``krope_pages (P, ps, rd)``;
     * local attention: a ring ``k``, ``v (B, K, W, hd)`` in ``cfg.dtype``
       and ``pos (B, W)`` int32 starting at -1, W = ``window_size``;
     * RG-LRU: ``h (B, R)`` fp32 and ``conv (B, CW-1, R)`` in ``cfg.dtype``;
@@ -215,6 +234,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     shapes = {
         "k_pages": ((pool, K, ps, hd), dt, 0),
         "v_pages": ((pool, K, ps, hd), dt, 0),
+        "ckv_pages": ((pool, ps, cfg.kv_lora_rank), dt, 0),
+        "krope_pages": ((pool, ps, cfg.qk_rope_head_dim), dt, 0),
         "k": ((B, K, W, hd), dt, 0),
         "v": ((B, K, W, hd), dt, 0),
         "pos": ((B, W), torch.int32, -1),
@@ -226,7 +247,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     }
     cache: Dict = {}
     for kind in kinds:
-        for name in LAYER_LEAVES[kind]:
+        for name in layer_leaves(cfg, kind):
             shape, dtype, fill = shapes[name]
             cache.setdefault(name, []).append(
                 torch.full(shape, fill, dtype=dtype, device=dev))

@@ -1,10 +1,11 @@
 """The model's parameters as ``nn.Module``s.
 
 Leaf names and shapes follow the reference's abstract tree
-(``repro/models/params.py``: dense GQA blocks, RWKV6 blocks and the
-RG-LRU and local-attention blocks of the Griffin hybrid): the
-stacked ``groups`` leading dim of the reference becomes one :class:`Block`
-per layer in a ``ModuleList``.  State-dict keys therefore read
+(``repro/models/params.py``: dense GQA blocks, RWKV6 blocks, the RG-LRU
+and local-attention blocks of the Griffin hybrid, MLA attention and the
+MoE FFN): the reference's unrolled ``prefix`` (the first-k-dense layers),
+its stacked ``groups`` and its ``tail`` become one :class:`Block` per
+layer in a ``ModuleList``.  State-dict keys therefore read
 ``blocks.{i}.attn.q`` where the reference reads
 ``decoder/groups/0/attn/q[i]``.
 """
@@ -49,6 +50,31 @@ class Attention(nn.Module):
             self.k_norm = _leaf((hd,), device)
 
 
+class MLA(nn.Module):
+    """DeepSeek-V2 multi-head latent attention: the joint KV down-projection
+    ``kv_a (D, lora + rd)`` (latent and the shared rope key), its norm
+    ``kv_norm``, the up-projection ``kv_b (lora, H, nope + vd)`` and the
+    output ``o (H, vd, D)``; queries through the low-rank ``q_a (D,
+    q_lora)``, ``q_norm`` and ``q_b (q_lora, H, nope + rd)``, or one ``q
+    (D, H, nope + rd)`` without a query rank."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, H = cfg.d_model, cfg.num_heads
+        lora, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+        self.kv_a = _leaf((D, lora + rd), device)
+        self.kv_norm = _leaf((lora,), device)
+        self.kv_b = _leaf((lora, H, nope + vd), device)
+        self.o = _leaf((H, vd, D), device)
+        if cfg.q_lora_rank:
+            self.q_a = _leaf((D, cfg.q_lora_rank), device)
+            self.q_norm = _leaf((cfg.q_lora_rank,), device)
+            self.q_b = _leaf((cfg.q_lora_rank, H, nope + rd), device)
+        else:
+            self.q = _leaf((D, H, nope + rd), device)
+
+
 class DenseFFN(nn.Module):
     """SwiGLU weights: wg, wu (D, F) and wd (F, D)."""
 
@@ -58,6 +84,26 @@ class DenseFFN(nn.Module):
         self.wg = _leaf((D, F), device)
         self.wu = _leaf((D, F), device)
         self.wd = _leaf((F, D), device)
+
+
+class MoEFFN(nn.Module):
+    """Routed experts: ``router (D, E)``, SwiGLU expert weights ``we_g``,
+    ``we_u (E, D, Fe)`` and ``we_d (E, Fe, D)``; the shared experts as one
+    SwiGLU of width ``Fs = Fe · num_shared_experts``: ``ws_g``, ``ws_u
+    (D, Fs)`` and ``ws_d (Fs, D)``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, E, Fe = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        self.router = _leaf((D, E), device)
+        self.we_g = _leaf((E, D, Fe), device)
+        self.we_u = _leaf((E, D, Fe), device)
+        self.we_d = _leaf((E, Fe, D), device)
+        if cfg.num_shared_experts:
+            Fs = Fe * cfg.num_shared_experts
+            self.ws_g = _leaf((D, Fs), device)
+            self.ws_u = _leaf((D, Fs), device)
+            self.ws_d = _leaf((Fs, D), device)
 
 
 class TimeMix(nn.Module):
@@ -121,10 +167,12 @@ class RGLRU(nn.Module):
 
 class Block(nn.Module):
     """One decoder layer of ``kind``: pre-norm temporal mixer (attention,
-    global or local, or the RG-LRU block) + pre-norm dense FFN, or (RWKV)
-    pre-norm time-mix + pre-norm channel-mix."""
+    GQA or MLA, global or local, or the RG-LRU block) + pre-norm FFN
+    (dense, or MoE past the first ``first_k_dense`` layers of an MoE
+    config), or (RWKV) pre-norm time-mix + pre-norm channel-mix."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None, *,
+                 dense_ffn: bool = True):
         super().__init__()
         self.pre_norm = _leaf((cfg.d_model,), device)
         if kind == RWKV:
@@ -134,10 +182,15 @@ class Block(nn.Module):
             return
         if kind == RECURRENT:
             self.rec = RGLRU(cfg, device)
+        elif cfg.use_mla:
+            self.attn = MLA(cfg, device)
         else:
             self.attn = Attention(cfg, device)
         self.ffn_norm = _leaf((cfg.d_model,), device)
-        self.ffn = DenseFFN(cfg, device)
+        if dense_ffn:
+            self.ffn = DenseFFN(cfg, device)
+        else:
+            self.moe = MoEFFN(cfg, device)
 
 
 class Model(nn.Module):
@@ -151,8 +204,10 @@ class Model(nn.Module):
         self.cfg = cfg
         D, V = cfg.d_model, cfg.padded_vocab
         self.embed = _leaf((V, D), device)
-        self.blocks = nn.ModuleList(Block(cfg, kind, device)
-                                    for kind in cfg.layer_kinds())
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, device,
+                  dense_ffn=not cfg.is_moe or i < cfg.first_k_dense)
+            for i, kind in enumerate(cfg.layer_kinds()))
         self.final_norm = _leaf((D,), device)
         if not cfg.tie_embeddings:
             self.lm_head = _leaf((D, V), device)
@@ -175,6 +230,7 @@ _RECIPES = {
     "ln_x": "ones",
     "conv_w": "normal:0.02", "conv_b": "zeros",
     "rglru_lambda": "rglru_lambda",
+    "router": "normal:0.02",
 }
 
 

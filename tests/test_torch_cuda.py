@@ -20,7 +20,8 @@ also get one bf16 ulp of the value.  The RG-LRU kernel is held against its
 plain step loop and the oracle ``ref.rglru_ref`` within 1e-5 of the
 carry's largest magnitude plus 1e-5 of the value (the kernel fuses the
 multiply-add, the plain loop rounds twice a step), and a padded tail must
-leave the carry bit-equal.
+leave the carry bit-equal.  The MLA latent decode kernel is held to its
+plain version with the decode tolerances.
 """
 import dataclasses
 
@@ -384,3 +385,94 @@ def test_recurrentgemma_engine_serves_on_the_card(cuda):
     assert ops.launches["flash_attention_bshd"] == \
         kinds.count("local") * len(rounds)
     assert ops.launches["paged_decode_bhd"] == ops.launches["wkv6_bshn"] == 0
+
+
+def _latent(rng, dev, dt, B, H, ps, pps, positions, lora=512, rd=64,
+            qdt=None):
+    """A ragged latent batch as the smoke builds it: shuffled pages, rows 0
+    and 1 share their first page, row 2 has a -1 hole in its live range,
+    row 3 is inactive."""
+    P = B * pps
+    q = _randn(rng, (B, H, lora + rd), dev, qdt or dt)
+    ckv = _randn(rng, (P, ps, lora), dev, dt)
+    krope = _randn(rng, (P, ps, rd), dev, dt)
+    perm = rng.permutation(P).astype(np.int32)
+    table = np.full((B, pps), -1, np.int32)
+    for b, p in enumerate(positions):
+        if p >= 0:
+            table[b, :p // ps + 1] = perm[b * pps:b * pps + p // ps + 1]
+    table[1, 0] = table[0, 0]
+    table[2, 1] = -1
+    assert positions[2] >= ps and positions[3] < 0
+    return (q, ckv, krope, torch.from_numpy(table).to(dev),
+            torch.tensor(positions, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dt,qdt", [(torch.float32, None),
+                                    (torch.bfloat16, None),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["fp32", "bf16", "fp32-q-bf16-pools"])
+@pytest.mark.parametrize("H,ps,pps,positions", [
+    (128, 128, 9, [1055, 700, 1023, -1, 512, 127, 128, 900]),
+    (16, 16, 12, [150, 31, 100, -1, 0]),
+    (20, 128, 3, [300, 5, 200, -1]),          # a partial head tile
+], ids=["H128-ps128", "H16-ps16", "H20-ps128"])
+def test_mla_decode_kernel_matches_plain(cuda, dt, qdt, H, ps, pps,
+                                         positions):
+    rng = np.random.default_rng(H + ps)
+    B = len(positions)
+    q, ckv, krope, table, pos = _latent(rng, cuda, dt, B, H, ps, pps,
+                                        positions, qdt=qdt)
+    scale = (128 + 64) ** -0.5
+    before = ops.launches["mla_paged_decode_bhd"]
+    out = ops.mla_paged_decode_bhd(q, ckv, krope, table, pos, scale=scale)
+    plain = pa.mla_paged_decode_torch(q, ckv, krope, table, pos,
+                                      scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launches["mla_paged_decode_bhd"] == before + 1
+    assert out.dtype == q.dtype and tuple(out.shape) == (B, H, 512)
+    assert bool(torch.isfinite(out).all())
+    assert _within(out, plain, DECODE_TOL[q.dtype])
+    assert bool((out[pos < 0] == 0).all())
+
+
+def test_mla_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    q, ckv, krope, table, pos = _latent(rng, cuda, torch.bfloat16, 4, 16,
+                                        16, 4, [40, 10, 30, -1])
+    with pytest.raises(ValueError, match="lora"):
+        ops.mla_paged_decode_bhd(q[..., 64:].contiguous(),
+                                 ckv[..., 64:].contiguous(), krope, table,
+                                 pos, scale=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mla_paged_decode_bhd(q, ckv, krope, table.long().int().t()
+                                 .contiguous().t(), pos, scale=0.1)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.mla_paged_decode_bhd(q, ckv.cpu(), krope, table, pos, scale=0.1)
+    with pytest.raises(ValueError, match="bf16 query over fp32"):
+        ops.mla_paged_decode_bhd(q, ckv.float(), krope.float(), table, pos,
+                                 scale=0.1)
+
+
+def test_deepseek_engine_serves_on_the_card(cuda):
+    """deepseek-v2 .reduced() with the kernel's latent widths (lora 512, rd
+    64) through the engine on the card in bf16: every request completes,
+    every decode step launched the MLA kernel once a layer, and no other
+    attention kernel ran."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                              kv_lora_rank=512, qk_rope_head_dim=64,
+                              cache_layout="paged")
+    model = build_model(cfg, device=cuda, seed=0)
+    sv = ServeSpec(batch=3, prompt_len=40, gen=6, requests=5,
+                   prefix_cache=False)
+    eng = ServingEngine(cfg, model, sv, dtype=torch.bfloat16)
+    requests = synthesize_requests(cfg, sv, seed=0)
+    for r in requests:
+        eng.submit(r)
+    ops.reset_launches()
+    eng.run()
+    assert sorted(eng.responses) == [r.req for r in requests]
+    assert ops.launches["mla_paged_decode_bhd"] == \
+        cfg.num_layers * eng.decode_steps > 0
+    assert ops.launches["flash_attention_bshd"] == \
+        ops.launches["paged_decode_bhd"] == 0

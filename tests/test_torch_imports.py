@@ -144,13 +144,16 @@ def test_serve_cli_rejects_bad_flags():
 
 
 def test_unported_configs_raise_at_build():
-    assert list_configs() == ("paper-overhead-100m", "qwen3-0.6b",
+    assert list_configs() == ("deepseek-v2-236b", "granite-moe-1b-a400m",
+                              "paper-overhead-100m", "qwen3-0.6b",
                               "recurrentgemma-9b", "rwkv6-7b")
     base = get_config("qwen3-0.6b").reduced()
-    for over in (dict(window_size=8), dict(use_mla=True, kv_lora_rank=16),
-                 dict(num_experts=4), dict(block_pattern=("recurrent",)),
+    for over in (dict(window_size=8), dict(use_post_block_norm=True),
+                 dict(frontend="vision"), dict(block_pattern=("recurrent",)),
                  dict(is_encoder_decoder=True), dict(frontend="audio"),
-                 dict(attn_logit_softcap=50.0)):
+                 dict(attn_logit_softcap=50.0),
+                 dict(use_mla=True, kv_lora_rank=16,
+                      block_pattern=("global", "local"), window_size=8)):
         cfg = dataclasses.replace(base, **over)
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model(cfg, device="cpu")

@@ -200,8 +200,11 @@ def test_chunked_prefill_matches_reference(pair):
 
 def test_unported_configs_raise():
     base = get_config("qwen3-0.6b").reduced()
-    for over in (dict(window_size=8), dict(use_mla=True),
-                 dict(num_experts=4), dict(block_pattern=("recurrent",)),
-                 dict(is_encoder_decoder=True), dict(frontend="vision")):
+    for over in (dict(window_size=8), dict(use_post_block_norm=True),
+                 dict(num_experts=4, block_pattern=("rwkv",)),
+                 dict(block_pattern=("recurrent",)),
+                 dict(is_encoder_decoder=True), dict(frontend="vision"),
+                 dict(use_mla=True, window_size=8,
+                      block_pattern=("recurrent", "recurrent", "local"))):
         with pytest.raises(NotImplementedError, match="later slice"):
             Model(dataclasses.replace(base, **over), device="meta")
