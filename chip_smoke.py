@@ -210,6 +210,7 @@ def flash_cases():
         ("qwen3 S512", 4, 512, 16, 8, 128, bf16, True, 0, 0.0),
         ("qwen3 S1024", 4, 1024, 16, 8, 128, bf16, True, 0, 0.0),
         ("paper G3 hd64 S512", 4, 512, 12, 4, 64, bf16, True, 0, 0.0),
+        ("paper hd64 S1024", 4, 1024, 12, 4, 64, bf16, True, 0, 0.0),
         ("qwen3 ragged S1000", 2, 1000, 16, 8, 128, bf16, True, 0, 0.0),
         ("window 256 softcap 30", 2, 640, 16, 8, 128, bf16, True, 256, 30.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
@@ -219,6 +220,10 @@ def flash_cases():
         ("rg hd256 ragged S2501", 8, 2501, 16, 1, 256, bf16, True, 2048,
          0.0),
         ("fp32 rg hd256 S2560", 8, 2560, 16, 1, 256, f32, True, 2048, 0.0),
+        # one q tile and one row past it (the bf16 kernel's 128-row tiles)
+        ("edge hd64 S129", 2, 129, 12, 4, 64, bf16, True, 0, 0.0),
+        ("edge hd128 S129", 2, 129, 16, 8, 128, bf16, True, 0, 0.0),
+        ("edge hd256 S129", 2, 129, 16, 1, 256, bf16, True, 2048, 0.0),
     ]
 
 
@@ -279,18 +284,25 @@ def run_flash_phase(dev, gen):
                                    window)
         t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
         t_bytes = nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        # achieved rate and share of the bound, from the device time
+        k_ms = dev_ms if dev_ms is not None else ms
         rows.append(dict(label=label, dtype=dtype_name(dt), max_abs_err=err,
                          tol=tol_text(tol), ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_ms=bound_ms,
                          bound_by="operations" if t_ops >= t_bytes
-                         else "bytes"))
+                         else "bytes",
+                         tflops=flops / (k_ms * 1e-3) / 1e12,
+                         bound_share=bound_ms / k_ms))
+        rate = (f", {rows[-1]['tflops']:.0f} TFLOP/s, {bound_ms / k_ms:.1%} "
+                f"of bound" if dt == torch.bfloat16 else "")
         print(f"  flash {label:<24} {dtype_name(dt):<8} err {err:.3g} "
               f"(tol {tol_text(tol)}) kernel {ms:.4f} ms (device "
-              f"{fmt_ms(dev_ms)}) "
+              f"{fmt_ms(dev_ms)}{rate}) "
               f"plain {plain_ms:.4f} ms "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
-              f"bound {rows[-1]['bound_ms']:.4f} ms", flush=True)
+              f"bound {bound_ms:.4f} ms", flush=True)
     return rows
 
 
@@ -1418,6 +1430,8 @@ def main() -> int:
           f"{build_s:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
+            if "entry function" in line:        # names the lines below
+                print(f"  {name}: {line.strip().split()[-3]}")
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 

@@ -8,50 +8,63 @@
 // (B, S, heads, hd) layout.  Query head h of batch row b reads kv head
 // h / G (GQA).  Causal and sliding-window masks, a tanh logit softcap
 // applied before the mask, fp32 (m, l, acc), output acc / max(l, 1e-37).
-// Keys past S are masked, so S need not be a multiple of any tile.
-//
-// Design: the TPU walked kv blocks as a sequential grid axis with (m, l,
-// acc) in VMEM scratch.  Here one thread block owns a 64-row q tile of one
-// (b, h) and loops over kv tiles of 64 keys (32 in bf16 at hd 256); that
-// loop replaces the grid axis.
-// kv tiles beyond the causal frontier or before the window are never
-// loaded, and every masked probability is zeroed explicitly.
+// Keys past S are masked, so S need not be a multiple of any tile.  The
+// TPU walked kv blocks as a sequential grid axis with (m, l, acc) in VMEM
+// scratch; here a loop inside the thread block replaces that axis, and kv
+// tiles beyond the causal frontier or before the window are never loaded.
 //
 // Two instantiations of that walk:
 //
-// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
-//   fp32 accumulation.  4 warps; warp w owns q rows 16w..16w+15 of the tile
-//   and keeps its Q fragments, its 16 x 64 score tile, its 16 x hd output
-//   accumulator and its rows' (m, l) in registers.  At hd 256 (the local
-//   layers of recurrentgemma: 16 q heads over one kv head, window 2048) the
-//   accumulator is 128 registers a thread, so the Q tile (32 KB) stays in
-//   shared memory behind the K/V stages and each k-step reads its fragment
-//   with ldmatrix, and kv tiles are 32 keys (a 16 x 32 score tile): 96 KB
-//   of shared memory, two blocks an SM.  K and V tiles are
-//   staged in shared memory by cp.async, two stages deep (the next tile
-//   loads while this one is used), with a 16-byte-chunk XOR swizzle so the
-//   ldmatrix reads are free of bank conflicts.  The probabilities are
-//   rounded to bf16 for the P.V product (the plain version keeps fp32 P;
-//   the difference is within the stated bf16 tolerance).
+// * bf16 (the serving path; hd 64, 128, 256): a persistent,
+//   warp-specialised kernel of three warpgroups, one block an SM.  A work
+//   item is a 128-row q tile of one (b, h); a block walks its items longest
+//   first (a static zig-zag over the grid).  Warpgroup 0 is the producer:
+//   after setmaxnreg gives its registers away (24 a thread), one thread
+//   issues every load as a TMA copy of a 4-D tensor map (hd, heads, S, B)
+//   in boxes of 64 hd columns with the 128-byte swizzle: an item's Q, then
+//   its K and V tiles (128 keys, 64 at hd 256) through a ring of full/empty
+//   mbarriers (3 stages at hd 64, 2 above) whose stage and phase run on
+//   across items.  Rows past S arrive as zeros.  Warpgroups 1 and 2 are
+//   the consumers (240 registers a thread), 64 q rows each: S = Q K^T is
+//   wgmma with both operands in shared memory (K-major), O += P V is wgmma
+//   with P from registers (the score accumulator rounded to bf16 is the A
+//   fragment) and V MN-major (the transpose-B bit).  Each consumer issues
+//   tile i's S product before tile i-1's P V product and runs tile i's
+//   softmax while P V is in flight; a stage goes back to the producer only
+//   after the wgmma that read it has completed.  The two consumers also
+//   take turns to issue (ping-pong, named barriers), so one runs its
+//   softmax under the other's products.  The softmax works in
+//   log2 units (scores times scale * log2 e, ex2.approx); only the tiles on
+//   the causal diagonal, at the window's edge or past S compute a mask,
+//   and the softcap is a template flag.  The epilogue writes bf16 O to a
+//   staging buffer in shared memory and TMA-stores it (rows past S are
+//   clipped) while the block goes on.  The probabilities are rounded to bf16
+//   for the P V product (the plain version keeps fp32 P; the difference is
+//   within the stated tolerance).
 // * fp32 (exactness checks): the same walk on the CUDA cores in fp32, 256
 //   threads, thread (ty, tx) owning q rows ty + 16 i and keys tx + 16 j
 //   (i, j < 4) of the score tile and output dims tx + 16 jj of its rows.
 //
-// Bound on the card: a causal prefill does about 2 * B * H * S^2 * hd
-// FLOPs (two products over half the score matrix); against 989 TFLOP/s
-// (bf16 tensor cores, H100 SXM) that is the compute bound, while q, k, v
-// and o are read or written once (bytes / 3.35 TB/s).  mma.sync reaches a
-// fraction of the wgmma peak; wgmma / TMA and warp specialisation are later
-// work.
+// Bound on the card: a causal prefill does 4 * hd FLOPs per live (q, k)
+// pair (two products); against 989 TFLOP/s (bf16 tensor cores, H100 SXM)
+// that is the bound at the serving shapes, while q, k, v and o are read or
+// written once (bytes / 3.35 TB/s).  The exponentials are the next limit:
+// one MUFU op per pair at 16 a clock per SM, half the tensor-core time of
+// a pair at hd 128 and as much at hd 64.
+//
+// cuTensorMapEncodeTiled comes from the driver through the runtime's
+// cudaGetDriverEntryPoint(ByVersion), so the library links no -lcuda.
 
+#include <cuda.h>
+#include <algorithm>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per block
-constexpr int BKV = 64;         // keys per kv tile
+constexpr int BQ = 64;          // q rows per block of the fp32 path
+constexpr int BKV = 64;         // keys per kv tile of the fp32 path
 constexpr int NT = 256;         // threads per block of the fp32 path
 constexpr float NEG_INF = -2.0e38f;
 
@@ -206,58 +219,123 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path
+// bf16 path: TMA, mbarriers, wgmma, one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
-constexpr int MMA_THREADS = 128;  // 4 warps, 16 q rows each
+constexpr int WG_BQ = 128;              // q rows per block (64 per consumer)
+constexpr int WG_THREADS = 384;         // producer + two consumer warpgroups
+// setmaxnreg: (24 + 2 x 240) x 128 = 64,512 of the SM's 65,536 registers
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// keys per kv tile: 64, or 32 at hd 256, where a thread's 128 output
-// accumulators leave no room for a 64-key score tile (32 more registers)
+// keys per kv tile and ring depth: at hd 256 a thread's output accumulator
+// is 128 registers, so the score tile is 64 keys (32 more)
 template <int HD>
-__host__ __device__ constexpr int kv_tile() {
-  return HD > 128 ? 32 : 64;
-}
+struct WgTile {
+  static constexpr int BKV = HD > 128 ? 64 : 128;
+  static constexpr int STAGES = HD > 64 ? 2 : 3;
+  static constexpr int Q_BYTES = WG_BQ * HD * 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;          // one K or V tile
+  // the epilogue stages O in boxes of 64 rows x 64 columns, up to 128
+  // columns a consumer at a time (224 KB in all at hd 256)
+  static constexpr int O_COLS = HD < 128 ? HD : 128;
+  static constexpr int O_BYTES = 2 * 64 * O_COLS * 2;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES + O_BYTES;
+  // q_full, q_empty, then k_full, k_empty, v_full, v_empty per stage
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte copy global -> shared; src_bytes = 0 writes zeros (rows past S).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Blocks until the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+// One box (64 columns of hd, 1 head, rows, 1 batch row) of a 4-D tensor map
+// into shared memory; rows past S arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head),
+      "r"(row), "r"(batch), "r"(bar)
+      : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
+// The reverse, from shared memory: rows past S are clipped.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int col, int head, int row,
+                                          int batch) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma registers across
+// the fence, commit and wait instructions.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: every operand here is
+// stored as blocks of 64 hd columns (128 bytes a row, the TMA box), 8-row
+// groups 1,024 bytes apart (the stride byte offset).  ``lbo`` is the byte
+// distance between two such column blocks, read only for an MN-major
+// operand whose N spans several of them (V).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -265,237 +343,589 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A [64][HD] bf16 tile is HD / 8 chunks of 16 bytes per row; chunk c of
-// row r lives at chunk c ^ (r & 7), so the 8 rows an ldmatrix reads at one
-// logical chunk land in 8 distinct bank groups.
-template <int HD>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * (HD / 8) + (chunk ^ (row & 7));
+// d[OFF .. OFF + 32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared,
+// K-major); scale_d 0 overwrites d.
+template <int OFF, int T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[T], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <int HD>
-__device__ __forceinline__ void load_kv_tile(
-    __nv_bfloat16* ks, __nv_bfloat16* vs, const __nv_bfloat16* kb,
-    const __nv_bfloat16* vb, size_t kstride, int t0, int S, int tid) {
-  constexpr int CH = HD / 8, KT = kv_tile<HD>();
+// d[OFF .. OFF + 64) (+)= A (64 x 16, shared, K-major) . B (16 x 128, shared,
+// K-major); scale_d 0 overwrites d.
+template <int OFF, int T>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[T], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[OFF .. OFF + 32) += A (64 x 16, registers) . B (16 x 64, shared,
+// MN-major: the transpose-B bit).
+template <int OFF, int T>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[T],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[OFF .. OFF + 64) += A (64 x 16, registers) . B (16 x 128, shared,
+// MN-major: the transpose-B bit).
+template <int OFF, int T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[T],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q K^T for one consumer's 64 rows and a kv tile: HD / 16 k-steps.
+// Within a 128-byte swizzle atom a k-step advances the start address by
+// 32 bytes; every 4 k-steps move to the next 64-column block.
+template <int HD, int BKV>
+__device__ __forceinline__ void qk_product(float (&s)[BKV / 2], uint32_t qa,
+                                           uint32_t kb) {
 #pragma unroll
-  for (int i = 0; i < KT * CH / MMA_THREADS; ++i) {
-    const int idx = tid + i * MMA_THREADS;
-    const int r = idx / CH, c = idx - r * CH, t = t0 + r;
-    const bool in = t < S;
-    const size_t off = in ? (size_t)t * kstride + c * 8 : 0;
-    cp_async16(smem_u32(ks + swz<HD>(r, c) * 8), kb + off, in ? 16 : 0);
-    cp_async16(smem_u32(vs + swz<HD>(r, c) * 8), vb + off, in ? 16 : 0);
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint64_t da =
+        sw128_desc(qa + (ks >> 2) * WG_BQ * 128 + (ks & 3) * 32, 16);
+    const uint64_t db =
+        sw128_desc(kb + (ks >> 2) * BKV * 128 + (ks & 3) * 32, 16);
+    if constexpr (BKV == 128)
+      wgmma_ss_n128<0>(s, da, db, ks > 0);
+    else
+      wgmma_ss_n64<0>(s, da, db, ks > 0);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int S, int H, int KH,
-              float scale, int causal, int window, float cap) {
-  constexpr int KT = kv_tile<HD>();
-  constexpr int KS = HD / 16;      // k-steps of Q.K^T
-  constexpr int NKT = KT / 8;     // 8-key score tiles of a kv tile
-  constexpr int DT = HD / 8;       // 8-dim output tiles
-  // at hd 256 the output accumulator alone is 128 registers a thread, so
-  // Q fragments (another 64) stay in shared memory
-  constexpr bool Q_SMEM = HD > 128;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // stage s: K at smem + s * 2 * KT * HD, V right after it; then Q
-  // (hd 256 only)
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int n_qt = gridDim.x;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;   // long tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kh = h / (H / KH);
-  const size_t qstride = (size_t)H * HD, kstride = (size_t)KH * HD;
-  const __nv_bfloat16* qb = q + (size_t)b * S * qstride + (size_t)h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kstride + (size_t)kh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kstride + (size_t)kh * HD;
-  __nv_bfloat16* ob = o + (size_t)b * S * qstride + (size_t)h * HD;
-
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
-  const int kv_begin = window ? (max(0, q0 - window + 1) / KT) * KT : 0;
-  const int n_tiles = (kv_end - kv_begin + KT - 1) / KT;
-
-  if (n_tiles > 0)
-    load_kv_tile<HD>(smem, smem + KT * HD, kb, vb, kstride, kv_begin, S,
-                     tid);
-  // hd 256: the Q tile waits in shared memory behind the two K/V stages
-  // and each k-step reads its fragment with ldmatrix (rows past S are
-  // zero-filled); it lands with the first K/V tile's group
-  __nv_bfloat16* qs = smem + 2 * 2 * KT * HD;
-  if constexpr (Q_SMEM) {
-    constexpr int CH = HD / 8;
+// O += P V: P (bf16) from registers, V MN-major from shared memory; a
+// k-step is 16 keys (2,048 bytes of a column block), and n spans HD columns
+// (column blocks BKV * 128 bytes apart), at most 128 an instruction.
+template <int HD, int BKV>
+__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
+                                           const uint32_t (&p)[BKV / 16][4],
+                                           uint32_t vb) {
+  constexpr uint32_t LBO = BKV * 128;
 #pragma unroll
-    for (int i = 0; i < BQ * CH / MMA_THREADS; ++i) {
-      const int idx = tid + i * MMA_THREADS;
-      const int r = idx / CH, c = idx - r * CH, s = q0 + r;
-      const bool in = s < S;
-      cp_async16(smem_u32(qs + swz<HD>(r, c) * 8),
-                 qb + (in ? (size_t)s * qstride + c * 8 : 0), in ? 16 : 0);
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    const uint32_t a = vb + kk * 16 * 128;
+    if constexpr (HD == 64) {
+      wgmma_rs_n64<0>(o, p[kk], sw128_desc(a, LBO));
+    } else {
+      wgmma_rs_n128<0>(o, p[kk], sw128_desc(a, LBO));
+      if constexpr (HD == 256)
+        wgmma_rs_n128<64>(o, p[kk], sw128_desc(a + 2 * LBO, LBO));
     }
   }
-  cp_async_commit();
+}
 
-  // this warp's two rows per thread: r0 = q0 + 16 warp + g, r1 = r0 + 8
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
-  uint32_t qf[Q_SMEM ? 1 : KS][4];
-  if constexpr (!Q_SMEM) {
-    const uint32_t* q0p = reinterpret_cast<const uint32_t*>(
-        qb + (size_t)min(r0, S - 1) * qstride);
-    const uint32_t* q1p = reinterpret_cast<const uint32_t*>(
-        qb + (size_t)min(r1, S - 1) * qstride);
+// 2^x on the MUFU unit; results below 2^-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// What a consumer's softmax needs to know about its rows and the tile.
+struct RowCtx {
+  int S, causal, window;
+  int row0;      // this thread's first row (absolute); the second is +8
+  int key0;      // the tile's first key plus 2 * (lane % 4)
+  float sc;      // softcap: scale / cap; else scale * log2(e)
+  float cl;      // softcap: cap * log2(e)
+};
+
+// The online softmax of one score tile, in place: s becomes p =
+// 2^(x - m) with x the scaled (softcapped) score in log2 units and m the
+// running row max, in those units.  ``corr`` is what the running sums and
+// the output must be multiplied by, ``rs`` this tile's row sums (of this
+// thread's columns; the quad is reduced at the end).  MASK: some key of the
+// tile is dead for some row (the causal diagonal, the window's edge, keys
+// past S); elsewhere every key is live and no mask is computed.  A masked
+// score is NEG_INF, finite.  While a row has seen no live key its max is
+// NEG_INF, and its p are taken against 0 (so they are 0, not 2^0): the
+// exponent is one fma, s k - m k, and with both products near 1e37 its
+// rounding alone would be about 1e30.
+template <int NS, bool MASK, bool CAP>
+__device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2],
+                                               float (&rs)[2],
+                                               float (&corr)[2],
+                                               const RowCtx& c) {
+  const float k = CAP ? 1.f : c.sc;    // raw score -> log2 units
+  float mx[2] = {m[0], m[1]};
+  // row r's live keys, as columns of this thread relative to key0
+  // (lo..hi); one row at a time, so that two registers hold the bounds
+  // (four spilled at hd 256, where the output takes 128 of the 240)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int c = (16 * ks + 2 * tq) / 2;   // bf16 pair index
-      qf[ks][0] = r0 < S ? q0p[c] : 0u;
-      qf[ks][1] = r1 < S ? q1p[c] : 0u;
-      qf[ks][2] = r0 < S ? q0p[c + 4] : 0u;
-      qf[ks][3] = r1 < S ? q1p[c + 4] : 0u;
+  for (int r = 0; r < 2; ++r) {
+    int lo = 0, hi = 0;
+    if constexpr (MASK) {
+      const int row = c.row0 + 8 * r;
+      hi = (c.causal ? min(row, c.S - 1) : c.S - 1) - c.key0;
+      lo = c.window ? row - c.window + 1 - c.key0 : -(1 << 30);
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      if (((i >> 1) & 1) != r) continue;
+      float x = s[i];
+      if constexpr (CAP) x = c.cl * tanhf(x * c.sc);
+      if constexpr (MASK) {
+        const int col = 8 * (i >> 2) + (i & 1);
+        x = col <= hi && col >= lo ? x : NEG_INF;
+      }
+      s[i] = x;
+      mx[r] = fmaxf(mx[r], x);
     }
   }
-
-  float oacc[DT][4];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = kv_begin + it * KT;
-    if (it + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + ((it + 1) & 1) * 2 * KT * HD;
-      load_kv_tile<HD>(nxt, nxt + KT * HD, kb, vb, kstride, t0 + KT, S,
-                       tid);
-    }
-    cp_async_commit();          // possibly empty: keeps wait_group 1 exact
-    cp_async_wait_1();
-    __syncthreads();
-    const __nv_bfloat16* ks_t = smem + (it & 1) * 2 * KT * HD;
-    const __nv_bfloat16* vs_t = ks_t + KT * HD;
-
-    // S = Q K^T for this warp's 16 rows and the tile's KT keys
-    float sacc[NKT][4];
-#pragma unroll
-    for (int j = 0; j < NKT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t(&qa)[4] = qf[Q_SMEM ? 0 : ks];
-      if constexpr (Q_SMEM) {
-        // A fragment of rows 16 warp .. +15, dims 16 ks .. +15: matrix m
-        // = lane / 8 is rows + 8 (m & 1), dims + 8 (m >> 1)
-        const int row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(qa, smem_u32(qs + swz<HD>(row, ks * 2 + (lane >> 4)) * 8));
-      }
-#pragma unroll
-      for (int np = 0; np < NKT / 2; ++np) {
-        const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int chunk = ks * 2 + ((lane >> 3) & 1);
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, smem_u32(ks_t + swz<HD>(key, chunk) * 8));
-        mma_bf16(sacc[2 * np], qa, bfr[0], bfr[1]);
-        mma_bf16(sacc[2 * np + 1], qa, bfr[2], bfr[3]);
-      }
-    }
-
-    // scale, softcap, mask; online softmax over the two rows
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = t0 + 8 * j + 2 * tq + (e & 1);
-        float x = sacc[j][e] * scale;
-        if (cap != 0.f) x = cap * tanhf(x / cap);
-        bool ok = key < S;
-        if (causal) ok = ok && key <= row;
-        if (window) ok = ok && row - key < window;
-        x = ok ? x : NEG_INF;
-        sacc[j][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = sacc[j][e];
-        // masked probabilities are zeroed explicitly: a row with no live
-        // key yet would otherwise see exp(NEG_INF - NEG_INF) == 1
-        const float p = x == NEG_INF ? 0.f : expf(x - (e < 2 ? mn0 : mn1));
-        sacc[j][e] = p;
-        if (e < 2) s0 += p; else s1 += p;
-      }
-    }
-    l0 = l0 * c0 + s0;      // per-thread partial sums; reduced at the end
-    l1 = l1 * c1 + s1;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= c0;
-      oacc[dt][1] *= c0;
-      oacc[dt][2] *= c1;
-      oacc[dt][3] *= c1;
-    }
-
-    // O += P V: the score accumulators of key tiles 2kk, 2kk+1 are the A
-    // fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < NKT / 2; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
-      pa[1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
-      pa[2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int chunk = dp * 2 + (lane >> 4);
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, smem_u32(vs_t + swz<HD>(key, chunk) * 8));
-        mma_bf16(oacc[2 * dp], pa, bfr[0], bfr[1]);
-        mma_bf16(oacc[2 * dp + 1], pa, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();   // the next iteration refills this stage
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = ex2((m[r] - mx[r]) * k);
+    m[r] = mx[r];
+    rs[r] = 0.f;
   }
+  const float mk[2] = {m[0] == NEG_INF ? 0.f : m[0] * k,
+                       m[1] == NEG_INF ? 0.f : m[1] * k};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = ex2(fmaf(s[i], k, -mk[r]));
+    s[i] = p;
+    rs[r] += p;
+  }
+}
 
+template <int NS, bool CAP>
+__device__ __forceinline__ void softmax_tile(bool mask, float (&s)[NS],
+                                             float (&m)[2], float (&rs)[2],
+                                             float (&corr)[2],
+                                             const RowCtx& c) {
+  if (mask)
+    online_softmax<NS, true, CAP>(s, m, rs, corr, c);
+  else
+    online_softmax<NS, false, CAP>(s, m, rs, corr, c);
+}
+
+// The fp32 probabilities of the score accumulator, as the bf16 A fragments
+// of the P V k-steps: the accumulators of key columns 16 kk .. 16 kk + 15
+// are exactly the A fragment of k-step kk.
+template <int NS>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[NS / 8][4],
+                                       const float (&s)[NS]) {
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+  for (int kk = 0; kk < NS / 8; ++kk)
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int d = 8 * dt + 2 * tq;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * qstride + d) =
-          pack_bf16(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * qstride + d) =
-          pack_bf16(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
+    for (int j = 0; j < 4; ++j)
+      p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// A block's work items: the (b, h, 128-row q tile) triples in order of
+// length, longest q tiles first; block c of G takes items c, 2G - 1 - c,
+// 2G + c, ... (a zig-zag, so the long and the short even out).
+struct WorkItem {
+  int b, h, q0, t_lo, n_tiles;     // kv tiles t_lo .. t_lo + n_tiles - 1
+};
+
+template <int BKV>
+__device__ __forceinline__ WorkItem work_item(int w, int B, int S, int H,
+                                              int causal, int window) {
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  WorkItem u;
+  const int bh = w % (B * H);
+  u.b = bh / H;
+  u.h = bh % H;
+  u.q0 = (n_qt - 1 - w / (B * H)) * WG_BQ;
+  const int kv_end = causal ? min(S, u.q0 + WG_BQ) : S;
+  u.t_lo = window ? max(0, u.q0 - window + 1) / BKV : 0;
+  u.n_tiles = (kv_end - 1) / BKV - u.t_lo + 1;
+  return u;
+}
+
+__device__ __forceinline__ int work_index(int r) {
+  const int G = gridDim.x, c = blockIdx.x;
+  return r * G + ((r & 1) ? G - 1 - c : c);
+}
+
+// Persistent: one block an SM walks its work items.  Warpgroup 0 is the
+// producer (one thread issues every TMA load), warpgroups 1 and 2 are the
+// consumers, each owning 64 of an item's 128 q rows.  Both consumers walk
+// the same kv tiles, from the window's start up to the causal frontier
+// (so the masked diagonal tile comes last, its softmax under the P V
+// product of the tile before), and the ring's barriers see the same
+// arrivals from both each round; the ring's stage and phase run on across
+// items, and the next item's Q and first tiles load while the consumers
+// finish the last one.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap omap, int B, int S, int H,
+                int KH, float sc, float cl, int causal, int window) {
+  using T = WgTile<HD>;
+  constexpr int BKV = T::BKV, ST = T::STAGES, NS = BKV / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + T::Q_BYTES;
+  const uint32_t v_s = k_s + ST * T::KV_BYTES;
+  const uint32_t o_s = v_s + ST * T::KV_BYTES;
+  const uint32_t bars = base + T::BAR_OFF;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8 * (2 + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (2 + ST + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 + 2 * ST + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (2 + 3 * ST + s); };
+  const int n_work = B * H * ((S + WG_BQ - 1) / WG_BQ);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);                 // one arrival per consumer warp
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);
+      mbar_init(v_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: per item Q, then K_0, (K_i, V_{i-1}) ..., V_last ------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int it = 0;                          // kv tiles loaded so far
+      for (int r = 0;; ++r) {
+        const int w = work_index(r);
+        if (w >= n_work) break;
+        const WorkItem u = work_item<BKV>(w, B, S, H, causal, window);
+        const int kh = u.h / (H / KH);
+        mbar_wait(q_empty, (r & 1) ^ 1);   // item 0 passes at once
+        mbar_expect_tx(q_full, T::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load(q_s + c * WG_BQ * 128, &qmap, q_full, 64 * c, u.h, u.q0,
+                   u.b);
+        for (int i = 0; i <= u.n_tiles; ++i) {
+#pragma unroll
+          for (int kv = 0; kv < 2; ++kv) {
+            const int j = i - kv;          // K_i, then V_{i-1}
+            if (j < 0 || j >= u.n_tiles) continue;
+            const int n = it + j, s = n % ST;
+            const uint32_t full = kv ? v_full(s) : k_full(s);
+            mbar_wait(kv ? v_empty(s) : k_empty(s), ((n / ST) & 1) ^ 1);
+            mbar_expect_tx(full, T::KV_BYTES);
+            const uint32_t dst = (kv ? v_s : k_s) + s * T::KV_BYTES;
+#pragma unroll
+            for (int c = 0; c < HD / 64; ++c)
+              tma_load(dst + c * BKV * 128, kv ? &vmap : &kmap, full, 64 * c,
+                       kh, (u.t_lo + j) * BKV, u.b);
+          }
+        }
+        it += u.n_tiles;
+      }
+    }
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1;                       // consumer 0 or 1
+    const int t = threadIdx.x - 128 * wg;        // thread in the warpgroup
+    const int warp = t >> 5, lane = t & 31;
+    const uint32_t qa = q_s + 64 * cw * 128;     // this consumer's Q rows
+    // ping-pong: the consumers take turns to issue their products (named
+    // barriers 3 and 4), so one's softmax runs under the other's wgmma;
+    // consumer 1 passes the first turn and keeps its last
+    auto turn_wait = [&]() {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(3 + cw) : "memory");
+    };
+    auto turn_pass = [&](bool last) {
+      if (!(last && cw == 1))
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - cw) : "memory");
+    };
+    if (cw == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    // a warp's release of a barrier, once its wgmma reads are complete
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float o_acc[HD / 2], s[NS];
+    uint32_t p[BKV / 16][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    int it = 0;                                  // kv tiles consumed so far
+    for (int r = 0;; ++r) {
+      const int w = work_index(r);
+      if (w >= n_work) break;
+      const bool last_item = work_index(r + 1) >= n_work;
+      const WorkItem u = work_item<BKV>(w, B, S, H, causal, window);
+      const int q0c = u.q0 + 64 * cw;
+      RowCtx ctx{S, causal, window, q0c + 16 * warp + (lane >> 2), 0, sc, cl};
+      // a tile needs a mask iff some key of it is dead for some row of the
+      // consumer's 64: past S, past the causal diagonal, before the window
+      auto masked = [&](int t0) {
+        return t0 + BKV > S || (causal && t0 + BKV - 1 > q0c) ||
+               (window && q0c + 63 - t0 >= window);
+      };
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, rs[2], corr[2];
+
+      mbar_wait(q_full, r & 1);
+      // tile 0: S, softmax, P
+      {
+        const int sk = it % ST;
+        mbar_wait(k_full(sk), (it / ST) & 1);
+        turn_wait();
+        wgmma_fence();
+        qk_product<HD, BKV>(s, qa, k_s + sk * T::KV_BYTES);
+        wgmma_commit();
+        turn_pass(false);
+        wgmma_wait<0>();
+        reg_fence(s);
+        release(k_empty(sk));
+        if (u.n_tiles == 1) release(q_empty);
+        ctx.key0 = u.t_lo * BKV + 2 * (lane & 3);
+        softmax_tile<NS, CAP>(masked(u.t_lo * BKV), s, m, rs, corr, ctx);
+        l[0] = rs[0];
+        l[1] = rs[1];
+        pack_p<NS>(p, s);
+      }
+      // tile i: S_i = Q K_i is issued, then O += P_{i-1} V_{i-1}; the
+      // softmax of S_i runs while the P V product is in flight
+      for (int i = 1; i < u.n_tiles; ++i) {
+        const int nk = it + i, sk = nk % ST, sv = (nk - 1) % ST;
+        const int t0 = (u.t_lo + i) * BKV;
+        mbar_wait(k_full(sk), (nk / ST) & 1);
+        mbar_wait(v_full(sv), ((nk - 1) / ST) & 1);
+        turn_wait();
+        wgmma_fence();
+        qk_product<HD, BKV>(s, qa, k_s + sk * T::KV_BYTES);
+        wgmma_commit();
+        pv_product<HD, BKV>(o_acc, p, v_s + sv * T::KV_BYTES);
+        wgmma_commit();
+        turn_pass(false);
+        wgmma_wait<1>();
+        reg_fence(s);
+        release(k_empty(sk));
+        if (i == u.n_tiles - 1) release(q_empty);
+        ctx.key0 = t0 + 2 * (lane & 3);
+        softmax_tile<NS, CAP>(masked(t0), s, m, rs, corr, ctx);
+        wgmma_wait<0>();
+        reg_fence(o_acc);
+        reg_fence(p);
+        release(v_empty(sv));
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j) o_acc[j] *= corr[(j >> 1) & 1];
+        l[0] = l[0] * corr[0] + rs[0];
+        l[1] = l[1] * corr[1] + rs[1];
+        pack_p<NS>(p, s);
+      }
+      {
+        const int nv = it + u.n_tiles - 1, sv = nv % ST;
+        mbar_wait(v_full(sv), (nv / ST) & 1);
+        turn_wait();
+        wgmma_fence();
+        pv_product<HD, BKV>(o_acc, p, v_s + sv * T::KV_BYTES);
+        wgmma_commit();
+        turn_pass(last_item);
+        wgmma_wait<0>();
+        reg_fence(o_acc);
+        release(v_empty(sv));
+      }
+      it += u.n_tiles;
+
+      // epilogue: o / max(l, 1e-37) in bf16 through shared memory and TMA
+      // stores, which clip the rows past S
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+        l[rr] = 1.f / fmaxf(l[rr], 1e-37f);
+      }
+      // this consumer's staging buffer holds O_COLS columns in the box's
+      // swizzled layout; it is reused once the last stores have read it
+      const uint32_t os = o_s + cw * 64 * T::O_COLS * 2;
+      const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int ch = 0; ch < HD / T::O_COLS; ++ch) {
+        if (t == 0)
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+#pragma unroll
+        for (int jl = 0; jl < T::O_COLS / 8; ++jl) {
+          const int j = ch * (T::O_COLS / 8) + jl;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int row = 16 * warp + g + 8 * rr;
+            const uint32_t addr = os + (jl >> 3) * 64 * 128 + row * 128 +
+                                  (((jl & 7) ^ (row & 7)) << 4) + 4 * tq;
+            const uint32_t v = pack_bf16(o_acc[4 * j + 2 * rr] * l[rr],
+                                         o_acc[4 * j + 2 * rr + 1] * l[rr]);
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v)
+                         : "memory");
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+        if (t == 0) {
+#pragma unroll
+          for (int c = 0; c < T::O_COLS / 64; ++c)
+            tma_store(&omap, os + c * 64 * 128,
+                      ch * T::O_COLS + 64 * c, u.h, q0c, u.b);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      }
+    }
+    if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, looked up once per process
+// through the runtime (no -lcuda at link time).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult st;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &st);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &st);
+#endif
+    return err == cudaSuccess && st == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, hd) bf16 tensor as a 4-D map, innermost first: (hd,
+// heads, S, B), boxes of (64, 1, rows, 1) with the 128-byte swizzle that
+// the wgmma descriptors read.  The box never crosses a batch row, so rows
+// past S load as zeros and store nothing.
+bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
+                int S, int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
@@ -515,21 +945,48 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KH, float scale, int causal, int window,
-               float cap, cudaStream_t stream) {
-  constexpr int KT = kv_tile<HD>();
-  const int smem = (2 * 2 * KT * HD + (HD > 128 ? BQ * HD : 0)) *
-                   (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int H, int KH, float scale, int causal, int window,
+                 float cap, cudaStream_t stream) {
+  using T = WgTile<HD>;
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qm, km, vm, om;
+  if (!tensor_map(enc, &qm, q, B, S, H, HD, WG_BQ) ||
+      !tensor_map(enc, &km, k, B, S, KH, HD, T::BKV) ||
+      !tensor_map(enc, &vm, v, B, S, KH, HD, T::BKV) ||
+      !tensor_map(enc, &om, o, B, S, H, HD, 64))
+    return (int)cudaErrorInvalidValue;     // e.g. a base not 16-byte aligned
+  auto kernel = cap != 0.f ? flash_fwd_wgmma<HD, true>
+                           : flash_fwd_wgmma<HD, false>;
+  // log2 units: 2^(x log2 e) = e^x
+  const float sc = cap != 0.f ? scale / cap : scale * LOG2E;
+  const float cl = cap * LOG2E;
+  // per device, queried once: its SM count (the persistent grid) and
+  // whether this instantiation's shared-memory limit is raised (host calls
+  // at every launch cost time that a 45 us kernel shows)
+  static int sms[64] = {};
+  static bool smem_set[64][2] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_mma<HD><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, H, KH, scale, causal, window, cap);
+  if (dev >= 64) return -1;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!smem_set[dev][cap != 0.f]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev][cap != 0.f] = true;
+  }
+  const long long n_work = (long long)B * H * ((S + WG_BQ - 1) / WG_BQ);
+  const int grid = (int)std::min<long long>(n_work, sms[dev]);
+  kernel<<<grid, WG_THREADS, T::SMEM, stream>>>(
+      qm, km, vm, om, B, S, H, KH, sc, cl,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -553,16 +1010,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return launch_simt<128>(q, k, v, o, B, S, H, KH, scale, causal,
                                    window, cap, st);
   if (dtype == 1 && hd == 64)
-    return launch_mma<64>(q, k, v, o, B, S, H, KH, scale, causal, window,
-                          cap, st);
+    return launch_wgmma<64>(q, k, v, o, B, S, H, KH, scale, causal,
+                             window, cap, st);
   if (dtype == 0 && hd == 256)
     return launch_simt<256>(q, k, v, o, B, S, H, KH, scale, causal, window,
                             cap, st);
   if (dtype == 1 && hd == 128)
-    return launch_mma<128>(q, k, v, o, B, S, H, KH, scale, causal, window,
-                           cap, st);
+    return launch_wgmma<128>(q, k, v, o, B, S, H, KH, scale, causal,
+                             window, cap, st);
   if (dtype == 1 && hd == 256)
-    return launch_mma<256>(q, k, v, o, B, S, H, KH, scale, causal, window,
-                           cap, st);
+    return launch_wgmma<256>(q, k, v, o, B, S, H, KH, scale, causal,
+                             window, cap, st);
   return -1;
 }

@@ -5,12 +5,16 @@ Pallas ``kernels/flash_attention.py:_flash_kernel``: blocked online-softmax
 attention with GQA (kv head = q head // G), causal and sliding-window
 masks, a tanh logit softcap applied before the mask, fp32 (m, l, acc) and
 dead kv tiles skipped.  The TPU walked its kv blocks as a sequential grid
-axis; here one thread block owns a 64-row q tile of one (batch, head) and
-loops over 64-key kv tiles staged in shared memory.  Both sides take the
-model's (B, S, heads, hd) layout directly, and the kernel masks a ragged
-S itself, so there is no S % 128 gate and no transpose.  Head dims 64 and
-128 (qwen3, paper-overhead) and 256 (the local layers of recurrentgemma,
-16 q heads over one kv head, window 2,048).
+axis; here a loop inside the thread block does.  In bf16 a persistent
+block per SM walks 128-row q tiles of one (batch, head): a producer
+warpgroup loads Q and 128-key kv tiles (64 at hd 256) by TMA into a ring
+of shared-memory stages, and two consumer warpgroups of 64 q rows each
+run both products as wgmma (fp32 has its own CUDA-core walk, for exact
+checks).  Both sides take the model's (B, S, heads, hd) layout directly,
+and the kernel masks a ragged S itself, so there is no S % 128 gate and no
+transpose.  Head dims 64 and 128 (qwen3, paper-overhead) and 256 (the
+local layers of recurrentgemma, 16 q heads over one kv head, window
+2,048).
 
 :func:`flash_attention_torch` is the plain PyTorch version of the same
 contract (the reference's ``flash_attention_jnp``): the CPU path, and the

@@ -73,19 +73,38 @@ def _randn(rng, shape, dev, dt):
         dev, dt)
 
 
+# The bf16 kernel's tile edges: 128-row q tiles (64 rows a consumer
+# warpgroup) and 128-key kv tiles (64 at hd 256).
+FLASH_CASES = [
+    # B, S, H, K, hd, causal, window, cap
+    (2, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 200, 6, 2, 128, True, 0, 0.0),     # ragged S, G 3
+    (1, 333, 4, 2, 64, True, 50, 20.0),    # ragged, window, softcap
+    (2, 64, 16, 8, 128, True, 0, 0.0),
+    *[(1, S, 4, 2, hd, True, 0, 0.0)       # S around the tile edges
+      for hd in (64, 128) for S in (1, 63, 65, 127, 129, 257)],
+    (1, 300, 4, 2, 128, True, 1, 0.0),     # window 1: the diagonal only
+    (1, 300, 4, 2, 64, True, 100, 0.0),    # window shorter than a kv tile
+    (1, 400, 4, 2, 128, True, 128, 0.0),   # window edge on a tile boundary
+    (1, 400, 4, 2, 64, True, 129, 0.0),
+    (2, 200, 4, 2, 128, False, 0, 0.0),    # not causal
+    (1, 129, 8, 8, 64, False, 0, 0.0),     # not causal, G 1
+    (1, 300, 4, 2, 128, False, 100, 0.0),  # not causal, window
+    (1, 260, 4, 4, 128, True, 0, 0.0),     # G 1
+    (1, 260, 16, 1, 128, True, 0, 0.0),    # G 16
+    (1, 300, 6, 2, 128, True, 64, 30.0),   # softcap with a window
+]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,hd,window,cap", [
-    (2, 128, 4, 2, 64, 0, 0.0),
-    (1, 200, 6, 2, 128, 0, 0.0),        # ragged S, G 3
-    (1, 333, 4, 2, 64, 50, 20.0),       # ragged, window, softcap
-    (2, 64, 16, 8, 128, 0, 0.0),
-])
-def test_flash_kernel_matches_plain(cuda, dt, B, S, H, K, hd, window, cap):
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,cap", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dt, B, S, H, K, hd, causal, window,
+                                    cap):
     rng = np.random.default_rng(S)
     q = _randn(rng, (B, S, H, hd), cuda, dt)
     k = _randn(rng, (B, S, K, hd), cuda, dt)
     v = _randn(rng, (B, S, K, hd), cuda, dt)
-    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=cap)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, logit_cap=cap)
     before = ops.launches["flash_attention_bshd"]
     out = ops.flash_attention_bshd(q, k, v, **kw)
     plain = fa.flash_attention_torch(q, k, v, **kw)
@@ -271,19 +290,33 @@ def test_rwkv_engine_serves_on_the_card(cuda):
     assert ops.launches["wkv6_bshn"] == cfg.num_layers * len(rounds) > 0
 
 
+FLASH_HD256_CASES = [
+    # B, S, H, K, causal, window, cap
+    (2, 200, 16, 1, True, 64, 0.0),        # recurrentgemma's MQA: G 16
+    (1, 333, 16, 1, True, 2048, 0.0),      # ragged S, window longer than S
+    (1, 130, 4, 2, True, 50, 0.0),         # G 2
+    *[(1, S, 16, 1, True, 2048, 0.0)       # S around the tile edges
+      for S in (1, 63, 65, 127, 129, 257)],
+    (1, 300, 16, 1, True, 1, 0.0),         # window 1: the diagonal only
+    (1, 300, 16, 1, True, 40, 0.0),        # window shorter than a kv tile
+    (1, 300, 16, 1, True, 128, 0.0),       # window edge on a tile boundary
+    (1, 200, 4, 2, False, 0, 0.0),         # not causal
+    (1, 200, 4, 4, True, 0, 0.0),          # G 1
+    (1, 200, 6, 2, True, 0, 0.0),          # G 3
+    (1, 300, 16, 1, True, 100, 30.0),      # softcap with a window
+]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,window", [
-    (2, 200, 16, 1, 64),       # recurrentgemma's MQA: G 16, window cuts
-    (1, 333, 16, 1, 2048),     # ragged S, window longer than S
-    (1, 130, 4, 2, 50),        # G 2
-])
-def test_flash_kernel_at_hd256_matches_plain(cuda, dt, B, S, H, K, window):
+@pytest.mark.parametrize("B,S,H,K,causal,window,cap", FLASH_HD256_CASES)
+def test_flash_kernel_at_hd256_matches_plain(cuda, dt, B, S, H, K, causal,
+                                             window, cap):
     rng = np.random.default_rng(S + window)
     hd = 256
     q = _randn(rng, (B, S, H, hd), cuda, dt)
     k = _randn(rng, (B, S, K, hd), cuda, dt)
     v = _randn(rng, (B, S, K, hd), cuda, dt)
-    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=0.0)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, logit_cap=cap)
     before = ops.launches["flash_attention_bshd"]
     out = ops.flash_attention_bshd(q, k, v, **kw)
     plain = fa.flash_attention_torch(q, k, v, **kw)
