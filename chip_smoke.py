@@ -12,7 +12,15 @@ Phases, each of which exits non-zero on the first failure:
               it, and times kernel, plain version and (where one PyTorch
               call computes the same function) the library call.  The
               WKV6 and RG-LRU kernels are also held against their
-              step-by-step oracles.
+              step-by-step oracles, WKV6 also at constant lw -3 and -8,
+              at decays down to -e^4 and at S 1, 5 and 9 (around its
+              chunk of 8); the paged decode also at gemma2-9b's global
+              shape (K 8, G 2, hd 256), mistral-large's group (K 8, G 12)
+              and MQA at hd 256 (K 1, G 16), each in bf16 and as fp32 q
+              over bf16 pools, and over long tables (several tiles a
+              range), its two grids bit-equal.
+              The paged decode, MLA decode and WKV6 are also timed with
+              the L2 cold (a 256 MB write before each call).
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -81,8 +89,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
+# (float32 outside the tensor cores, tfloat32 on them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 494.7e12}
+FLUSH_BYTES = 256 * 2 ** 20   # written between calls of an L2-cold timing
 
 # (atol, rtol): every element must satisfy |kernel - plain| <= atol +
 # rtol·|plain|.  Both kernels compute in fp32 and round the output once, so
@@ -170,6 +180,38 @@ def device_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None   # None: nothing recorded
+
+
+_flush = []
+
+
+def cold_device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn()`` with the L2 cold: a 256 MB buffer
+    (five times the 50 MB L2) is written before each call, and only the
+    kernels ``fn`` launched are summed (the profiler's keys of the flush
+    itself, taken from a run of it alone, are left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, device="cuda"))
+    buf = _flush[0]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        buf.fill_(1.0)
+        torch.cuda.synchronize()
+    flush_keys = {e.key for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            buf.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.key not in flush_keys)
     return us / 1e3 / reps if us > 0 else None   # None: nothing recorded
 
 
@@ -306,14 +348,15 @@ def run_flash_phase(dev, gen):
     return rows
 
 
-def decode_inputs(dev, gen, B, K, G, hd, ps, pps, dt, positions):
+def decode_inputs(dev, gen, B, K, G, hd, ps, pps, dt, positions, qdt=None):
     """A ragged paged batch: each active row owns the pages its position
     needs (shuffled physical ids), rows 0 and 1 alias their first page, one
     row has a -1 hole inside its live prefix, and ``positions`` may hold
-    -1 (inactive slot, table all -1)."""
+    -1 (inactive slot, table all -1).  q is in ``qdt`` (default: the
+    pools' ``dt``)."""
     import torch
     P = B * pps
-    q = torch.randn(B, K, G, hd, device=dev, generator=gen).to(dt)
+    q = torch.randn(B, K, G, hd, device=dev, generator=gen).to(qdt or dt)
     kp = torch.randn(P, K, ps, hd, device=dev, generator=gen).to(dt)
     vp = torch.randn(P, K, ps, hd, device=dev, generator=gen).to(dt)
     perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
@@ -322,7 +365,7 @@ def decode_inputs(dev, gen, B, K, G, hd, ps, pps, dt, positions):
         if p >= 0:
             n = p // ps + 1
             table[b, :n] = perm[b * pps:b * pps + n]
-    if positions[0] >= 0 and positions[1] >= 0:
+    if B > 1 and positions[0] >= 0 and positions[1] >= 0:
         table[1, 0] = table[0, 0]                       # aliased prefix page
     holed = [b for b, p in enumerate(positions) if p >= 2 * ps]
     if holed:
@@ -352,15 +395,29 @@ def decode_cases():
     bf16, f32 = torch.bfloat16, torch.float32
     # qwen3 serve shape: 8 slots, prompts up to 1024 + 32 generated tokens
     qwen_pos = [1055, 700, 1023, -1, 512, 127, 128, 900]
-    # (label, B, K, G, hd, ps, pps, dtype, positions)
+    long_pos = [8191, 5000, 8000, -1, 3000, 127, 2048, 6500]
+    # (label, B, K, G, hd, ps, pps, q dtype, pool dtype, positions)
     return [
-        ("qwen3 G2", 8, 8, 2, 128, 128, 9, bf16, qwen_pos),
-        ("paper G3 hd64", 8, 4, 3, 64, 128, 9, bf16, qwen_pos),
-        ("G4", 4, 2, 4, 128, 128, 9, bf16, [1000, 300, -1, 129]),
-        ("G5", 4, 2, 5, 128, 128, 9, bf16, [1000, 300, -1, 129]),
-        ("G8", 4, 2, 8, 128, 128, 9, bf16, [1000, 300, -1, 129]),
-        ("fp32 qwen3 G2", 8, 8, 2, 128, 128, 9, f32, qwen_pos),
-        ("fp32 G3 ps16", 4, 2, 3, 64, 16, 12, f32, [150, 31, -1, 47]),
+        ("qwen3 G2", 8, 8, 2, 128, 128, 9, bf16, bf16, qwen_pos),
+        ("paper G3 hd64", 8, 4, 3, 64, 128, 9, bf16, bf16, qwen_pos),
+        ("G4", 4, 2, 4, 128, 128, 9, bf16, bf16, [1000, 300, -1, 129]),
+        ("G5", 4, 2, 5, 128, 128, 9, bf16, bf16, [1000, 300, -1, 129]),
+        ("G8", 4, 2, 8, 128, 128, 9, bf16, bf16, [1000, 300, -1, 129]),
+        ("fp32 qwen3 G2", 8, 8, 2, 128, 128, 9, f32, f32, qwen_pos),
+        ("fp32 G3 ps16", 4, 2, 3, 64, 16, 12, f32, f32, [150, 31, -1, 47]),
+        # gemma2-9b's global layers, mistral-large's group, MQA at hd 256;
+        # each in bf16 and as fp32 q over bf16 pools
+        ("gemma2 K8 G2 hd256", 8, 8, 2, 256, 128, 9, bf16, bf16, qwen_pos),
+        ("gemma2 fp32 q", 8, 8, 2, 256, 128, 9, f32, bf16, qwen_pos),
+        ("mistral K8 G12", 8, 8, 12, 128, 128, 9, bf16, bf16, qwen_pos),
+        ("mistral fp32 q", 8, 8, 12, 128, 128, 9, f32, bf16, qwen_pos),
+        ("MQA K1 G16 hd256", 8, 1, 16, 256, 128, 9, bf16, bf16, qwen_pos),
+        ("MQA fp32 q", 8, 1, 16, 256, 128, 9, f32, bf16, qwen_pos),
+        # long tables (rows up to 8K and 20K keys): several tiles a range,
+        # so the ring's stages are reused; B 1 merges 320 ranges in rounds
+        ("long B8 pps64", 8, 8, 2, 128, 128, 64, bf16, bf16, long_pos),
+        ("long fp32 B8 pps64", 8, 8, 2, 128, 128, 64, f32, f32, long_pos),
+        ("long B1 pps160", 1, 8, 2, 128, 128, 160, bf16, bf16, [20000]),
     ]
 
 
@@ -370,14 +427,14 @@ def run_decode_phase(dev, gen):
     from repro_torch.kernels import paged_attention as pa
 
     rows = []
-    for label, B, K, G, hd, ps, pps, dt, positions in decode_cases():
+    for label, B, K, G, hd, ps, pps, qdt, dt, positions in decode_cases():
         q, kp, vp, table, pos = decode_inputs(dev, gen, B, K, G, hd, ps,
-                                              pps, dt, positions)
+                                              pps, dt, positions, qdt)
         qm = q.reshape(B, 1, K * G, hd)
         kw = dict(scale=hd ** -0.5, logit_cap=0.0)
         plain = pa.paged_decode_torch(q, kp, vp, table, pos, **kw)
-        tol = DECODE_TOL[dtype_name(dt)]
-        errs = []
+        tol = DECODE_TOL[dtype_name(qdt)]
+        errs, outs = [], []
         for grouped in (True, False):
             out = ops.paged_decode_bhd(qm, kp, vp, table, pos, grouped=grouped,
                                        **kw).reshape(B, K, G, hd)
@@ -389,6 +446,16 @@ def run_decode_phase(dev, gen):
                   f"decode {label} grouped={grouped}: inactive row not zero")
             errs.append(compare(out, plain, tol,
                                 f"decode {label} grouped={grouped}"))
+            outs.append(out)
+        check(torch.equal(outs[0], outs[1]),
+              f"decode {label}: the grouped and per-head grids differ")
+        if label.startswith("long"):
+            plans = [pa.decode_plan(B, K, G, hd, ps, pps, kp.element_size(),
+                                    pa._n_sm(q.device), g)
+                     for g in (True, False)]
+            check(plans[0]["tps"] > 1
+                  and max(p["stages"] for p in plans) >= 2,
+                  f"decode {label}: plans {plans} walk one tile a range")
         capped = ops.paged_decode_bhd(qm, kp, vp, table, pos, scale=hd ** -0.5,
                                       logit_cap=30.0).reshape(B, K, G, hd)
         plain_c = pa.paged_decode_torch(q, kp, vp, table, pos,
@@ -407,23 +474,28 @@ def run_decode_phase(dev, gen):
         plain_ms = time_ms(lambda: pa.paged_decode_torch(q, kp, vp, table,
                                                          pos, **kw),
                            reps=5, warmup=1)
+        cold_ms = cold_device_ms(lambda: ops.paged_decode_bhd(
+            qm, kp, vp, table, pos, **kw)) if label == "qwen3 G2" else None
         keys, pairs = decode_live_keys(table, pos, ps)
         elt = kp.element_size()
         nbytes = keys * K * hd * 2 * elt + 2 * q.numel() * q.element_size() \
             + table.numel() * 4 + pos.numel() * 4
         flops = 4.0 * pairs * K * G * hd
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
-        rows.append(dict(label=label, dtype=dtype_name(dt), max_abs_err=err,
+        t_ops = flops / PEAK_FLOPS[dtype_name(qdt)]
+        dtypes = dtype_name(qdt) if qdt == dt \
+            else f"q {dtype_name(qdt)}, pools {dtype_name(dt)}"
+        rows.append(dict(label=label, dtype=dtypes, max_abs_err=err,
                          tol=tol_text(tol), ms=ms, device_ms=dev_ms,
                          ms_ungrouped=ms_ung, device_ms_ungrouped=dev_ung,
-                         plain_ms=plain_ms, library_ms=None,
+                         cold_ms=cold_ms, plain_ms=plain_ms, library_ms=None,
                          bound_ms=max(t_bytes, t_ops) * 1e3,
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", live_keys=keys, scored=pairs))
-        print(f"  decode {label:<14} {dtype_name(dt):<8} err {err:.3g} "
+        cold = "" if cold_ms is None else f", L2-cold {cold_ms:.4f}"
+        print(f"  decode {label:<18} {dtypes:<8} err {err:.3g} "
               f"(tol {tol_text(tol)}) kernel {ms:.4f} ms (device "
-              f"{fmt_ms(dev_ms)}; ungrouped {ms_ung:.4f}, device "
+              f"{fmt_ms(dev_ms)}{cold}; ungrouped {ms_ung:.4f}, device "
               f"{fmt_ms(dev_ung)}) plain {plain_ms:.4f} ms bound "
               f"{rows[-1]['bound_ms']:.4f} ms ({keys} distinct live keys "
               f"read, {pairs} row-key pairs scored)", flush=True)
@@ -433,27 +505,40 @@ def run_decode_phase(dev, gen):
 def wkv_cases():
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, S, H, N, dtype, nonzero s0, padded row 0 from step)
+    # (label, B, S, H, N, dtype, nonzero s0, padded row 0 from step,
+    #  decays: None = -exp(U(-6, 2)), a constant lw, or "strong" =
+    #  -exp(U(-6, 4)), down to -e^4 a step)
     return [
-        ("rwkv6-7b serving", 8, 1024, 64, 64, bf16, False, None),
-        ("fp32 serving", 8, 1024, 64, 64, f32, False, None),
-        ("ragged S1000 s0 padded", 2, 1000, 64, 64, bf16, True, 700),
-        ("fp32 ragged S77 s0 padded", 2, 77, 8, 64, f32, True, 41),
-        ("fp32 N32 S100", 2, 100, 4, 32, f32, True, 60),
-        ("N16 S40", 2, 40, 4, 16, bf16, True, 25),
+        ("rwkv6-7b serving", 8, 1024, 64, 64, bf16, False, None, None),
+        ("fp32 serving", 8, 1024, 64, 64, f32, False, None, None),
+        ("ragged S1000 s0 padded", 2, 1000, 64, 64, bf16, True, 700, None),
+        ("fp32 ragged S77 s0 padded", 2, 77, 8, 64, f32, True, 41, None),
+        ("fp32 N32 S100", 2, 100, 4, 32, f32, True, 60, None),
+        ("N16 S40", 2, 40, 4, 16, bf16, True, 25, None),
+        ("lw -3", 2, 300, 8, 64, bf16, True, None, -3.0),
+        ("fp32 lw -8", 2, 300, 8, 64, f32, True, None, -8.0),
+        ("lw to -e^4 padded", 2, 300, 8, 64, bf16, True, 150, "strong"),
+        # S within and just past one chunk of 8 (the kernel's TMA box)
+        ("fp32 S1", 1, 1, 4, 64, f32, True, None, None),
+        ("S5 padded", 2, 5, 8, 64, bf16, True, 3, None),
+        ("S9 padded", 2, 9, 8, 64, bf16, True, 8, None),
     ]
 
 
-def wkv_inputs(dev, gen, B, S, H, N, dt, nonzero_s0, pad_from):
+def wkv_inputs(dev, gen, B, S, H, N, dt, nonzero_s0, pad_from, decay=None):
     """r/k/v ~ N(0,1) in ``dt``; lw = -exp(U(-6, 2)), decays from -e^-6 to
-    -e^2 (the model's initial decays sit near -e^-6); u ~ 0.5·N(0,1); s0
-    zero (a prefill) or 0.3·N(0,1); row 0 padded from ``pad_from`` on
+    -e^2 (the model's initial decays sit near -e^-6), or the constant
+    ``decay``, or with ``decay="strong"`` -exp(U(-6, 4)); u ~ 0.5·N(0,1);
+    s0 zero (a prefill) or 0.3·N(0,1); row 0 padded from ``pad_from`` on
     (k = 0, lw = 0), as the ragged prefill pads."""
     import torch
     r, k, v = (torch.randn(B, S, H, N, device=dev, generator=gen).to(dt)
                for _ in range(3))
-    lw = -torch.exp(torch.rand(B, S, H, N, device=dev, generator=gen) * 8
+    span = 10 if decay == "strong" else 8
+    lw = -torch.exp(torch.rand(B, S, H, N, device=dev, generator=gen) * span
                     - 6)
+    if isinstance(decay, float):
+        lw = torch.full_like(lw, decay)
     u = 0.5 * torch.randn(H, N, device=dev, generator=gen)
     s0 = 0.3 * torch.randn(B, H, N, N, device=dev, generator=gen) \
         if nonzero_s0 else torch.zeros(B, H, N, N, device=dev)
@@ -463,14 +548,36 @@ def wkv_inputs(dev, gen, B, S, H, N, dt, nonzero_s0, pad_from):
     return r, k, v, lw, u, s0
 
 
+WKV_CHUNK = 8   # the kernel's chunk of steps (csrc/rwkv6_wkv.cu: L)
+
+
 def wkv_work(B, S, H, N, elt):
-    """(operations, bytes) of WKV6: per step and head the read-out r·S
-    (2N²), the decay and write S·w + k vᵀ (3N²), the bonus r·(u⊙k) and
-    its v term (4N) and exp(lw) (N); r, k, v and o in the compute dtype,
-    lw in fp32, u, s0 and s_fin in fp32, each read or written once."""
-    ops = B * H * S * (5.0 * N * N + 5.0 * N)
+    """The least time (ms) the card could take for WKV6 and what bounds
+    it, as a dict.  Bytes: r, k, v and o in the compute dtype, lw, u, s0
+    and s_fin in fp32, each read or written once, over 3.35 TB/s.
+    Operations, in the chunked form of chunk L = 8 the kernel computes,
+    per step and head: on the tensor cores at the TF32 rate (494.7
+    TFLOP/s) the read-out (r ⊙ Pex)·S, 2N², the update (k ⊙ Psuf)ᵀ·V,
+    2N², and the intra-chunk A·V, 2LN, each counted once (the split-TF32
+    extra products are the kernel's cost, not the function's); at the fp32
+    rate (67 TFLOP/s) the chunk's decay-and-add of the state, 2N²/L, the
+    intra-chunk pairs, (L - 1)N, and exp, the two decay walks and the
+    bonus, 10N.  Bound = max(bytes, tensor + fp32 operations).  Also the
+    per-step recurrence's count at the fp32 rate, B·H·S·(5N² + 5N)
+    (0.1628 ms at the serving shape), the bound stated for the earlier
+    per-step kernel."""
+    L = WKV_CHUNK
+    steps = B * H * S
+    tc = steps * (4.0 * N * N + 2.0 * L * N)
+    simt = steps * (2.0 * N * N / L + (L - 1.0) * N + 10.0 * N)
     nbytes = B * S * H * N * (4 * elt + 4) + H * N * 4 + 2 * B * H * N * N * 4
-    return ops, nbytes
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = tc / PEAK_FLOPS["tfloat32"] + simt / PEAK_FLOPS["float32"]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, tensor_flops=tc, fp32_flops=simt,
+                recurrence_bound_ms=steps * (5.0 * N * N + 5.0 * N)
+                / PEAK_FLOPS["float32"] * 1e3)
 
 
 def wkv_check(out, plain, scale, dt, what):
@@ -486,9 +593,9 @@ def run_wkv_phase(dev, gen):
     from repro_torch.kernels import rwkv6_wkv as wkv
 
     rows = []
-    for label, B, S, H, N, dt, nz, pad_from in wkv_cases():
+    for label, B, S, H, N, dt, nz, pad_from, decay in wkv_cases():
         r, k, v, lw, u, s0 = wkv_inputs(dev, gen, B, S, H, N, dt, nz,
-                                        pad_from)
+                                        pad_from, decay)
         o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o).all() and torch.isfinite(s_fin).all()),
@@ -522,20 +629,19 @@ def run_wkv_phase(dev, gen):
         timing = ""
         if S >= 1000 and pad_from is None:
             call = lambda: ops.wkv6_bshn(r, k, v, lw, u, s0)  # noqa: E731
-            flops, nbytes = wkv_work(B, S, H, N, r.element_size())
-            t_ops = flops / PEAK_FLOPS["float32"]
-            t_bytes = nbytes / HBM_BYTES_PER_S
             row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       cold_ms=cold_device_ms(call),
                        plain_ms=time_ms(lambda: wkv.wkv6_torch(
                            r, k, v, lw, u, s0), reps=3, warmup=1),
                        library_ms=None,
-                       bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       **wkv_work(B, S, H, N, r.element_size()),
                        shape=f"B {B}, S {S}, H {H}, N {N}, {dtype_name(dt)}")
             timing = (f" kernel {row['ms']:.4f} ms (device "
-                      f"{fmt_ms(row['device_ms'])}) plain "
+                      f"{fmt_ms(row['device_ms'])}, L2-cold "
+                      f"{fmt_ms(row['cold_ms'])}) plain "
                       f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
-                      f"ms ({row['bound_by']})")
+                      f"ms ({row['bound_by']}; the per-step recurrence's "
+                      f"fp32 count {row['recurrence_bound_ms']:.4f} ms)")
         rows.append(row)
         print(f"  wkv6 {label:<26} {dtype_name(dt):<8} err o {err:.3g} "
               f"s_fin {s_err:.3g}, vs oracle {o_err:.3g} / {so_err:.3g} "
@@ -713,6 +819,7 @@ def run_mla_phase(dev, gen):
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
             row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       cold_ms=cold_device_ms(call),
                        plain_ms=time_ms(lambda: pa.mla_paged_decode_torch(
                            q, ckv, krope, table, pos, scale=scale),
                            reps=5, warmup=1),
@@ -722,7 +829,8 @@ def run_mla_phase(dev, gen):
                        flops=flops, shape=f"B {B}, H {H}, lora {lora}, rd "
                        f"{rd}, ps {ps}, {row['dtype']}, ragged")
             timing = (f" kernel {row['ms']:.4f} ms (device "
-                      f"{fmt_ms(row['device_ms'])}) plain "
+                      f"{fmt_ms(row['device_ms'])}, L2-cold "
+                      f"{fmt_ms(row['cold_ms'])}) plain "
                       f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
                       f"ms ({row['bound_by']}; {keys} distinct live keys, "
                       f"{pairs} row-key pairs)")
@@ -849,12 +957,21 @@ def run_serve_phase(dev, seed):
     return runs
 
 
+# the port's own CUDA kernels, by a part of their names that earlier
+# designs of each kernel share (the paged decode's split and merge kernels,
+# the per-step WKV6 kernel), so a trace of either design reads alike
+PORT_KERNELS = {"flash": "flash_fwd_", "paged_decode": "paged_decode_",
+                "wkv6": "wkv6_", "rglru": "rglru_scan_",
+                "mla_decode": "mla_decode_"}
+
+
 def trace_window(fn):
     """Run ``fn`` under torch.profiler; returns (wall_s, device-busy s,
     kernel launches, top ops by self CPU time, top device activities by
-    time).  Busy time sums the device-side events alone (kernels, copies),
-    so an operator and the kernel it launched are not counted twice;
-    launches count the host's kernel-launch calls."""
+    time, {port kernel: (launches, device ms)}).  Busy time sums the
+    device-side events alone (kernels, copies), so an operator and the
+    kernel it launched are not counted twice; launches count the host's
+    kernel-launch calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -873,8 +990,14 @@ def trace_window(fn):
             host.append((e.key, e.count, e.self_cpu_time_total))
     busy = sum(r[2] for r in dev) * 1e-6
     launches = sum(n for key, n, _ in host if "LaunchKernel" in key)
+    ours = {}
+    for name, part in PORT_KERNELS.items():
+        hits = [(n, us) for key, n, us in dev if part in key]
+        if hits:
+            ours[name] = (sum(n for n, _ in hits),
+                          sum(us for _, us in hits) / 1e3)
     return (wall, busy, launches, sorted(host, key=lambda r: -r[2])[:10],
-            sorted(dev, key=lambda r: -r[2])[:8])
+            sorted(dev, key=lambda r: -r[2])[:8], ours)
 
 
 def trace_serving(cfg, model, dev, seed, prompt_len=1024):
@@ -895,17 +1018,21 @@ def trace_serving(cfg, model, dev, seed, prompt_len=1024):
     for name, steps, fn in (("prefill_round", 1, eng.admit),
                             ("decode_4_steps", 4,
                              lambda: [eng.step() for _ in range(4)])):
-        wall, busy, launches, by_cpu, by_dev = trace_window(fn)
+        wall, busy, launches, by_cpu, by_dev, ours = trace_window(fn)
         # one stream: busy time beyond the wall means events counted twice
         check(busy <= wall * 1.05, f"traced {name}: device busy {busy} s "
               f"exceeds the window's wall time {wall} s")
         check(busy > 0, f"traced {name}: no device activity recorded")
         out[name] = dict(wall_s=wall, device_busy_s=busy,
                          idle_share=1 - busy / wall,
-                         launches_per_step=launches / steps)
+                         launches_per_step=launches / steps,
+                         port_kernels_ms={k: ms for k, (_, ms) in ours.items()})
         print(f"  traced {name}: wall {wall * 1e3:.2f} ms, device busy "
               f"{busy * 1e3:.2f} ms, idle share {out[name]['idle_share']:.3f}"
-              f", {launches / steps:.0f} kernel launches a step", flush=True)
+              f", {launches / steps:.0f} kernel launches a step; the port's "
+              f"kernels " + ", ".join(f"{k} x{n} {ms:.3f} ms"
+                                      for k, (n, ms) in ours.items()),
+              flush=True)
         for key, n, us in by_cpu:
             print(f"    host {key[:56]:<56} x{n:<6} {us / 1e3:9.3f} ms")
         for key, n, us in by_dev:
@@ -1444,6 +1571,8 @@ def main() -> int:
     wkv_rows = run_wkv_phase(dev, gen)
     rglru_rows = run_rglru_phase(dev, gen)
     mla_rows = run_mla_phase(dev, gen)
+    _flush.clear()              # the L2-cold timings' buffer: out of the
+    torch.cuda.empty_cache()    # serve runs' peak memory
     print("[serve] qwen3-0.6b full width, bf16", flush=True)
     runs = run_serve_phase(dev, seed)
     print("[trace] cell (a), profiler on (not used for the numbers above)",
@@ -1499,7 +1628,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in decode_rows),
              ms=dc["ms"], device_ms=dc["device_ms"], plain_ms=dc["plain_ms"],
              bound_ms=dc["bound_ms"], bound_by=dc["bound_by"],
-             library_ms=None, ms_ungrouped=dc["ms_ungrouped"],
+             library_ms=None, cold_ms=dc["cold_ms"],
+             ms_ungrouped=dc["ms_ungrouped"],
              device_ms_ungrouped=dc["device_ms_ungrouped"],
              also_replaces="src/repro/kernels/paged_attention.py:76",
              shape="B 8, K 8, G 2, hd 128, ps 128, bf16, ragged"),
@@ -1510,7 +1640,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in wkv_rows),
              ms=wk["ms"], device_ms=wk["device_ms"], plain_ms=wk["plain_ms"],
              bound_ms=wk["bound_ms"], bound_by=wk["bound_by"],
-             library_ms=None, shape=wk["shape"]),
+             library_ms=None, cold_ms=wk["cold_ms"],
+             shape=wk["shape"]),
         dict(name="rglru_scan_fwd", route="cuda",
              source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:46",
@@ -1526,7 +1657,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in mla_rows),
              ms=ml["ms"], device_ms=ml["device_ms"], plain_ms=ml["plain_ms"],
              bound_ms=ml["bound_ms"], bound_by=ml["bound_by"],
-             library_ms=None,
+             library_ms=None, cold_ms=ml["cold_ms"],
              library="none: no PyTorch call reads a paged latent pool",
              shape=ml["shape"]),
     ]

@@ -122,8 +122,6 @@ def paged_decode_bhd(
         return out.reshape(B, 1, H, hd)
     _cuda_operands("paged_decode_bhd", (qg, k_pages, v_pages),
                    pa.DTYPE_CODES, hd, pa.HEAD_DIMS)
-    _require(H // K <= pa.MAX_GROUP,
-             f"paged_decode_bhd: group {H // K} > {pa.MAX_GROUP}")
     _require(page_table.device == q.device and pos_q.device == q.device
              and page_table.dtype == torch.int32
              and pos_q.dtype == torch.int32
@@ -237,7 +235,7 @@ def wkv6_bshn(
 ):
     """WKV6 over the model layout.  Returns ``(o (B, S, H, N) in r's
     dtype, s_final (B, H, N, N) fp32)``.  ``chunk`` is the plain version's
-    chunk length; the kernel walks the steps in order and has none."""
+    chunk length; the kernel's own is fixed (8 steps)."""
     _require(r.ndim == 4 and k.shape == r.shape and v.shape == r.shape
              and lw.shape == r.shape,
              f"wkv6_bshn: shapes {tuple(r.shape)} {tuple(k.shape)} "
@@ -256,5 +254,8 @@ def wkv6_bshn(
         return wkv.wkv6_torch(r, k, v, lw, u, s0, chunk=chunk)
     _cuda_operands("wkv6_bshn", operands, wkv.DTYPE_CODES, N,
                    wkv.HEAD_SIZES)
+    _require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, lw)),
+             "wkv6_bshn: r, k, v and lw must be 16-byte aligned (the "
+             "kernel loads them by TMA)")
     launches["wkv6_bshn"] += 1
     return wkv.wkv6_cuda(r, k, v, lw, u, s0)

@@ -6,12 +6,16 @@ The CUDA kernel (``csrc/paged_decode.cu``) replaces both Pallas kernels of
 the reference's ``kernels/paged_attention.py``: ``_decode_kernel_grouped``
 (``grouped=True``, a block per tile of ``group_tile(K, G)`` kv heads) and
 ``_decode_kernel`` (``grouped=False``, a block per kv head).  The two give
-the same numbers.  Each (row, kv head) page walk is cut into
-:func:`split_count` page ranges walked by separate blocks and merged by a
-second small kernel (flash-decoding), so a serving batch fills the card.
-A block loads its own page-table row and position (the TPU
-scalar-prefetched them) and walks pages ``0 .. pos_q // ps`` only, so
-nothing is read past the last live page.
+the same numbers, bit for bit.  It is one launch: the key axis of each
+(row, kv head) is cut into tiles of 32 keys and the tiles into ranges of
+:func:`split_tiles` tiles, sized from the shapes alone so that a serving
+batch fills the card; a warp walks one range of one group of at most
+:func:`decode_plan`'s ``gt`` query rows, copying each live tile's K and V
+rows into shared memory with ``cp.async.bulk``, and the warp that ends a
+(row, kv head, row group) last merges its ranges in the same launch.  A
+warp loads its own page-table row and position (the TPU scalar-prefetched
+them), and a range that starts past ``pos_q`` exits at once, so nothing
+is read past the last live key and the host reads neither.
 
 Contract (shared with :func:`paged_decode_torch` and the reference):
 
@@ -43,11 +47,14 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 8          # query heads per kv head the kernel holds in registers
+HEAD_DIMS = (64, 128, 256)
+TILE_KEYS = 32         # keys a tile: one a lane
+WARPS_PER_SM = 32      # work items a range size aims at, per SM
+SMEM_BYTES = 227 * 1024
+MAX_WARPS = 8          # warps a block of the kernel
 
 _SIGNATURES = {
-    "paged_decode_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+    "paged_decode_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
 }
 # the MLA kernel's widths (deepseek-v2) and its head tile
@@ -116,12 +123,77 @@ def paged_decode_torch(
     return (acc / l.clamp_min(1e-37)[..., None]).to(q.dtype)
 
 
-def split_count(B: int, K: int, pps: int, n_sm: int) -> int:
-    """Contiguous page ranges each (row, kv head) walk is cut into: enough
-    blocks for two per SM, at most one range per page.  It depends on
-    neither the head tile nor the data, so both grids and every call at a
-    shape run the same arithmetic."""
-    return max(1, min(pps, -(-2 * n_sm // (B * K))))
+def split_tiles(B: int, K: int, ps: int, pps: int, n_sm: int) -> int:
+    """Tiles of 32 keys a range of the kernel's key walk holds: enough
+    ranges for WARPS_PER_SM (row, kv head, range) work items an SM if the
+    table were full, at least one tile.  It depends on neither the head
+    tile nor the data, so both grids and every call at a shape run the same
+    arithmetic."""
+    tiles = pps * -(-ps // TILE_KEYS)
+    want = -(-WARPS_PER_SM * n_sm // (B * K))       # ranges a (row, head)
+    return max(1, -(-tiles // want))
+
+
+def decode_plan(B: int, K: int, G: int, hd: int, ps: int, pps: int,
+                elt: int, n_sm: int, grouped: bool) -> dict:
+    """The kernel's work decomposition, from shapes alone.  ``gt``: query
+    rows a warp keeps in registers (a power of two: 8, or 4 at hd 256) for
+    ``n_gg`` row groups of ``ceil(G / n_gg)`` rows a kv head; ``kt`` kv
+    heads and ``ggb`` row groups a block (``group_tile`` for the grouped
+    grid, cut where the block would pass MAX_WARPS warps or the shared
+    memory); ``tps`` tiles a range, ``n_split`` ranges; ``stages`` tiles a
+    head in flight; ``smem`` the block's bytes of dynamic shared memory
+    (the kernel's layout: K and V rings, per-warp probability buffers,
+    mbarriers).  Only ``kt``, ``ggb``, ``stages`` and ``smem`` differ
+    between the grids, and none of them changes a head's arithmetic.  The
+    kernel takes this plan as it is and computes none of it."""
+    gt_max = 4 if hd > 128 else 8
+    n_gg = -(-G // gt_max)
+    rows = -(-G // n_gg)
+    n_gg = -(-G // rows)                     # every row group non-empty
+    gt = 1 << (rows - 1).bit_length()
+    ggb = max(d for d in range(1, MAX_WARPS + 1) if n_gg % d == 0)
+    kt = group_tile(K, G) if grouped else 1
+    tps = split_tiles(B, K, ps, pps, n_sm)
+    tile = 2 * TILE_KEYS * hd * elt          # K and V of one tile
+
+    def smem(kt, stages):
+        return kt * stages * tile + kt * ggb * TILE_KEYS * gt * 4 \
+            + kt * stages * 16
+
+    while kt > 1 and (kt * ggb > MAX_WARPS or smem(kt, 1) > SMEM_BYTES):
+        kt = max(d for d in range(1, kt) if K % d == 0)
+    stages = 1
+    while stages < min(3, tps) and smem(kt, stages + 1) <= SMEM_BYTES:
+        stages += 1
+    n_split = -(-pps * -(-ps // TILE_KEYS) // tps)
+    return dict(gt=gt, n_gg=n_gg, ggb=ggb, kt=kt, tps=tps, stages=stages,
+                n_split=n_split, smem=smem(kt, stages))
+
+
+_sm_count = {}
+_tickets = {}
+
+
+def _n_sm(device) -> int:
+    """SM count of a card, queried once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_count[idx]
+
+
+def _ticket_counters(device, n: int) -> torch.Tensor:
+    """The kernel's merge counters on ``device``: zeroed once, and left at
+    zero by every launch, so they are kept and only grown.  Launches that
+    share them must not overlap: one stream a device (the engine's)."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
 
 
 def paged_decode_cuda(q, k_pages, v_pages, page_table, pos_q, *,
@@ -134,18 +206,20 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, pos_q, *,
     B, K, G, hd = q.shape
     ps = k_pages.shape[2]
     pps = page_table.shape[1]
-    kt = group_tile(K, G) if grouped else 1
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = split_count(B, K, pps, n_sm)
-    ws = torch.empty(n_split * B * K * G * (2 + hd), dtype=torch.float32,
-                     device=q.device)
+    plan = decode_plan(B, K, G, hd, ps, pps, k_pages.element_size(),
+                       _n_sm(q.device), grouped)
+    ws = torch.empty(B * K * G * plan["n_split"] * (2 + hd),
+                     dtype=torch.float32, device=q.device)
+    tickets = _ticket_counters(q.device, B * K * plan["n_gg"])
     out = torch.empty_like(q)
     rc = lib.paged_decode_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), pos_q.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
-        B, K, G, hd, ps, pps, k_pages.shape[0], kt, n_split,
-        float(scale), float(logit_cap),
+        tickets.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+        DTYPE_CODES[k_pages.dtype], B, K, G, hd, ps, pps, k_pages.shape[0],
+        plan["kt"], plan["n_gg"], plan["ggb"], plan["gt"], plan["tps"],
+        plan["n_split"], plan["stages"], plan["smem"], float(scale),
+        float(logit_cap),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode_fwd launch failed: status {rc}")
@@ -215,9 +289,7 @@ def mla_paged_decode_cuda(q_lat, ckv_pages, krope_pages, page_table, pos_q,
     ps, lora = ckv_pages.shape[1], ckv_pages.shape[2]
     rd = krope_pages.shape[2]
     pps = page_table.shape[1]
-    n_sm = torch.cuda.get_device_properties(
-        q_lat.device).multi_processor_count
-    n_split = mla_split_count(B, H, pps, n_sm)
+    n_split = mla_split_count(B, H, pps, _n_sm(q_lat.device))
     ws = torch.empty(n_split * B * H * (2 + lora), dtype=torch.float32,
                      device=q_lat.device)
     out = torch.empty((B, H, lora), dtype=q_lat.dtype, device=q_lat.device)

@@ -6,14 +6,17 @@ Per (batch, head), with the (N, N) state S carried through time:
     S_t = diag(exp lw_t) S_{t-1} + k_t v_tᵀ,        lw_t <= 0
 
 The CUDA kernel (``csrc/rwkv6_wkv.cu``) replaces the reference's Pallas
-``kernels/rwkv6_wkv.py:_wkv_kernel``.  The TPU walked chunks of 32 steps
-as a sequential grid axis with the state in VMEM and the intra-chunk
-pairs as (L, L, N) decay tiles; here one thread block owns one (batch,
-head), thread ``j`` keeps column ``S[:, j]`` in registers, and the block
-walks the steps in order (the per-column recurrence), staging 32 steps of
-r, k, v and exp(lw) in shared memory at a time.  It reads the model
-layout (B, S, H, N) directly, so there is no fold, transpose or chunk
-padding, and a ragged S needs nothing.
+``kernels/rwkv6_wkv.py:_wkv_kernel``.  It computes the same chunked form,
+in chunks of 8 steps, with its matrix products (the read-out of the
+state, the intra-chunk term and the state update) on the tensor cores in
+split TF32 (hi + lo, three products for an fp32 operand, two for a bf16
+one), and with every decay a product of factors exp(lw) <= 1, so nothing
+overflows at any decay.  One thread block owns one (batch, head); TMA
+loads stage r, k, v and lw a few chunks ahead straight from the model
+layout (B, S, H, N), so there is no fold, transpose or chunk padding, and
+steps past a ragged S load as zeros, which leave the state as it was.
+``tests/test_torch_rwkv.py`` holds an emulation of its arithmetic on the
+CPU.
 
 :func:`wkv6_torch` is the plain PyTorch version: the chunked formulation
 of ``_wkv_kernel``, the CPU path and the oracle the kernel is held against
@@ -36,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # r, k, v and o
-HEAD_SIZES = (16, 32, 64)     # N: one thread per state column, in registers
+HEAD_SIZES = (16, 32, 64)     # N: a warp per 16 value columns of the state
 
 _SIGNATURES = {
     "wkv6_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5

@@ -13,7 +13,8 @@ with numpy from a seed, element by element: fp32 to 1e-4 (flash) and 1e-5
 round their fp32 result once) plus 1e-4 (decode) or 4e-3 (flash, which
 also rounds P to bf16 for its tensor-core P·V product).  The WKV6 kernel
 is held against the step-by-step oracle ``ref.wkv6_ref`` within 1e-5 of
-the output's largest magnitude, and against the chunked plain version
+the output's largest magnitude (also at constant lw -3 and -8 and at
+decays down to -e^4), and against the chunked plain version
 within 3e-5 of it (that version's own fp32 error reaches 1e-5 of the
 scale at lw = -e^2, from its log-space cumulative sums); bf16 outputs
 also get one bf16 ulp of the value.  The RG-LRU kernel is held against its
@@ -132,7 +133,7 @@ def _paged(rng, dev, dt, B, K, G, hd, ps, pps, positions):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("G", [2, 3, 4, 5, 8, 12, 16])
 def test_paged_decode_kernel_grids_match_plain(cuda, dt, G):
     rng = np.random.default_rng(G)
     B, K, hd, ps, pps = 4, 2, 64, 16, 10
@@ -162,12 +163,83 @@ def test_paged_decode_kernel_at_the_qwen3_serving_shape(cuda, dt):
     qm = q.reshape(B, 1, K * G, hd)
     kw = dict(scale=hd ** -0.5, logit_cap=0.0)
     plain = pa.paged_decode_torch(q, kp, vp, table, pos, **kw)
+    outs = []
     for grouped in (True, False):
         out = ops.paged_decode_bhd(qm, kp, vp, table, pos, grouped=grouped,
                                    **kw).reshape(B, K, G, hd)
         torch.cuda.synchronize()
         assert _within(out, plain, DECODE_TOL[dt])
         assert bool((out[pos < 0] == 0).all())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32 q"])
+@pytest.mark.parametrize("K,G,hd", [(8, 2, 256), (8, 12, 128), (1, 16, 256),
+                                    (2, 5, 256), (4, 1, 256)])
+def test_paged_decode_kernel_at_hd256_and_large_groups(cuda, qdt, K, G, hd):
+    """gemma2-9b's global layers (K 8, G 2, hd 256), mistral-large's group
+    (G 12), MQA at hd 256 (G 16) and two odd shapes, over bf16 pools with
+    a bf16 or an fp32 query; pages of 128, rows up to 1,056 keys; both
+    grids bit-equal, with and without the softcap."""
+    rng = np.random.default_rng(K * 100 + G)
+    B, ps, pps = 8, 128, 9
+    q, kp, vp, table, pos = _paged(rng, cuda, torch.bfloat16, B, K, G, hd,
+                                   ps, pps,
+                                   [1055, 700, 1023, -1, 512, 127, 128, 900])
+    q = q.to(qdt)
+    qm = q.reshape(B, 1, K * G, hd)
+    for cap in (0.0, 30.0):
+        kw = dict(scale=hd ** -0.5, logit_cap=cap)
+        plain = pa.paged_decode_torch(q, kp, vp, table, pos, **kw)
+        outs = [ops.paged_decode_bhd(qm, kp, vp, table, pos, grouped=g,
+                                     **kw).reshape(B, K, G, hd)
+                for g in (True, False)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert outs[0].dtype == qdt
+        assert _within(outs[0], plain, DECODE_TOL[qdt])
+        assert bool((outs[0][pos < 0] == 0).all())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,pps", [(8, 64), (1, 160)])
+def test_paged_decode_kernel_walks_long_tables(cuda, dt, B, pps):
+    """Tables long enough that a range holds several tiles (qwen3's heads,
+    pages of 128): a warp walks them through its ring, the producer waits
+    on the empty barrier and reuses stages, the ring's parity flips, and at
+    B 1 the merge takes its 320 ranges in rounds of 32.  Rows up to 8,192
+    (B 8) or 20,001 keys (B 1) with a -1 hole; both grids bit-equal (the
+    fp32 grouped grid has one stage, the others two or three)."""
+    rng = np.random.default_rng(B * pps)
+    K, G, hd, ps = 8, 2, 128, 128
+    if B == 8:
+        q, kp, vp, table, pos = _paged(
+            rng, cuda, dt, B, K, G, hd, ps, pps,
+            [8191, 5000, 8000, -1, 3000, 127, 2048, 6500])
+    else:
+        q = _randn(rng, (B, K, G, hd), cuda, dt)
+        kp = _randn(rng, (pps, K, ps, hd), cuda, dt)
+        vp = _randn(rng, (pps, K, ps, hd), cuda, dt)
+        table = rng.permutation(pps).astype(np.int32)[None]
+        table[0, 3] = -1                              # hole mid-prefix
+        table = torch.from_numpy(table).to(cuda)
+        pos = torch.tensor([20000], dtype=torch.int32, device=cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = [pa.decode_plan(B, K, G, hd, ps, pps, kp.element_size(), n_sm,
+                            grouped=g) for g in (True, False)]
+    assert plans[0]["tps"] > 1 and max(p["stages"] for p in plans) >= 2
+    qm = q.reshape(B, 1, K * G, hd)
+    kw = dict(scale=hd ** -0.5, logit_cap=0.0)
+    plain = pa.paged_decode_torch(q, kp, vp, table, pos, **kw)
+    outs = [ops.paged_decode_bhd(qm, kp, vp, table, pos, grouped=g,
+                                 **kw).reshape(B, K, G, hd)
+            for g in (True, False)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert _within(outs[0], plain, DECODE_TOL[dt])
+    assert bool((outs[0][pos < 0] == 0).all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -213,19 +285,25 @@ def _wkv_within(out, plain, scale, dt):
     (1, 77, 4, 64),        # ragged tail
     (2, 40, 2, 16),
     (1, 100, 2, 32),
+    (2, 1, 3, 64),         # S shorter than one chunk of 8 (the TMA box)
+    (1, 5, 4, 64),
+    (2, 8, 2, 32),         # one whole chunk
+    (1, 9, 2, 16),         # a chunk and one step
 ])
 def test_wkv6_kernel_matches_plain_and_oracle(cuda, dt, B, S, H, N):
     """Decays from -e^-6 to -e^2, a nonzero s0, and row 0 padded past
-    step 25 (k = 0, lw = 0): its final state is bit-equal to the kernel's
-    state at step 25."""
+    step min(25, S - 1) (k = 0, lw = 0): its final state is bit-equal to
+    the kernel's state at that step."""
     rng = np.random.default_rng(S * N)
     r, k, v = (_randn(rng, (B, S, H, N), cuda, dt) for _ in range(3))
     lw = -torch.from_numpy(np.exp(rng.uniform(-6, 2, (B, S, H, N))).astype(
         np.float32)).to(cuda)
     u = 0.5 * _randn(rng, (H, N), cuda, torch.float32)
     s0 = 0.3 * _randn(rng, (B, H, N, N), cuda, torch.float32)
-    k[0, 25:] = 0
-    lw[0, 25:] = 0
+    pad = min(25, S - 1)
+    if pad:
+        k[0, pad:] = 0
+        lw[0, pad:] = 0
     before = ops.launches["wkv6_bshn"]
     o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
     torch.cuda.synchronize()
@@ -243,7 +321,48 @@ def test_wkv6_kernel_matches_plain_and_oracle(cuda, dt, B, S, H, N):
     assert _wkv_within(o, ro, WKV_TOL["oracle"], dt)
     assert _wkv_within(s_fin, rs.reshape(B, H, N, N), WKV_TOL["oracle"],
                        torch.float32)
-    cut = [t[:1, :25].contiguous() for t in (r, k, v, lw)]
+    if pad:
+        cut = [t[:1, :pad].contiguous() for t in (r, k, v, lw)]
+        _, s_cut = ops.wkv6_bshn(*cut, u, s0[:1].contiguous())
+        assert torch.equal(s_fin[0], s_cut[0])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", [-3.0, -8.0, "strong"])
+@pytest.mark.parametrize("S", [64, 203])
+def test_wkv6_kernel_at_strong_decays(cuda, dt, decay, S):
+    """Constant lw -3 and -8, and lw = -exp(U(-6, 4)) (down to -e^4 a
+    step): finite, within the tolerances of the chunked plain version and
+    the step oracle; row 0 padded from step 100 (a ragged S with a padded
+    tail) leaves its state bit-equal to the run cut there."""
+    B, H, N = 2, 4, 64
+    rng = np.random.default_rng(S + N)
+    r, k, v = (_randn(rng, (B, S, H, N), cuda, dt) for _ in range(3))
+    if decay == "strong":
+        lw = -np.exp(rng.uniform(-6, 4, (B, S, H, N)))
+    else:
+        lw = np.full((B, S, H, N), decay)
+    lw = torch.from_numpy(lw.astype(np.float32)).to(cuda)
+    u = 0.5 * _randn(rng, (H, N), cuda, torch.float32)
+    s0 = 0.3 * _randn(rng, (B, H, N, N), cuda, torch.float32)
+    pad = min(100, S - 1)
+    k[0, pad:] = 0
+    lw[0, pad:] = 0
+    o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s_fin).all())
+    po, ps = wkv.wkv6_torch(r, k, v, lw, u, s0)
+    assert _wkv_within(o, po, WKV_TOL["chunked"], dt)
+    assert _wkv_within(s_fin, ps, WKV_TOL["chunked"], torch.float32)
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, N)  # noqa: E731
+    ro, rs = ref.wkv6_ref(fold(r), fold(k), fold(v), fold(lw),
+                          u[None].expand(B, H, N).reshape(B * H, 1, N),
+                          s0.reshape(B * H, N, N))
+    assert _wkv_within(o, ro.reshape(B, H, S, N).transpose(1, 2),
+                       WKV_TOL["oracle"], dt)
+    assert _wkv_within(s_fin, rs.reshape(B, H, N, N), WKV_TOL["oracle"],
+                       torch.float32)
+    cut = [t[:1, :pad].contiguous() for t in (r, k, v, lw)]
     _, s_cut = ops.wkv6_bshn(*cut, u, s0[:1].contiguous())
     assert torch.equal(s_fin[0], s_cut[0])
 
@@ -262,6 +381,15 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="different devices"):
         ops.wkv6_bshn(y.contiguous(), y.contiguous(), y.contiguous(),
                       y.contiguous(), u.cpu(), s0)
+    # a contiguous view 4 bytes into its storage: refused before any TMA
+    # map is made, and the card works on after it
+    z = torch.zeros(1 * 8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
+    assert z.is_contiguous() and z.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.wkv6_bshn(z, z, z, z, u, s0)
+    o, s_fin = ops.wkv6_bshn(*(z.clone() for _ in range(4)), u, s0)
+    torch.cuda.synchronize()
+    assert bool((o == 0).all()) and bool((s_fin == 0).all())
 
 
 def test_rwkv_engine_serves_on_the_card(cuda):

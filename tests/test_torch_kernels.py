@@ -153,10 +153,18 @@ def _with_active_hole(pos):
     return pos
 
 
-@pytest.mark.parametrize("G,cap", [(2, 0.0), (3, 0.0), (3, 30.0), (4, 0.0),
-                                   (5, 0.0), (8, 0.0)])
-def test_paged_decode_matches_reference_kernels(G, cap):
-    q, kp, vp, table, pos = _paged_inputs(G, seed=G)
+PAGED_CASES = [  # (G, cap, hd): the CUDA kernel takes hd 64, 128, 256, any G
+    (2, 0.0, 16), (3, 0.0, 16), (3, 30.0, 16), (4, 0.0, 16), (5, 0.0, 16),
+    (8, 0.0, 16), (2, 0.0, 256), (2, 30.0, 256), (16, 0.0, 256),
+    (12, 0.0, 16), (12, 30.0, 128), (16, 0.0, 64)]
+
+
+@pytest.mark.parametrize(
+    "G,cap,hd", PAGED_CASES,
+    ids=[f"{G}-{cap}" if hd == 16 else f"{G}-{cap}-hd{hd}"
+         for G, cap, hd in PAGED_CASES])
+def test_paged_decode_matches_reference_kernels(G, cap, hd):
+    q, kp, vp, table, pos = _paged_inputs(G, seed=G, hd=hd)
     B, K, _, hd = q.shape
     kw = dict(scale=hd ** -0.5, logit_cap=cap)
     for positions in (pos, _with_active_hole(pos)):
@@ -206,10 +214,81 @@ def test_group_tile_matches_reference():
             assert pa.group_tile(K, G) == ref_group_tile(K, G), (K, G)
 
 
-def test_split_count_fills_the_card_within_the_table():
-    for B, K, pps in [(1, 1, 1), (8, 8, 9), (1, 8, 256), (64, 8, 9),
-                      (3, 2, 5)]:
-        n = pa.split_count(B, K, pps, n_sm=132)
-        assert 1 <= n <= pps
-        if n < pps:
-            assert B * K * n >= 2 * 132
+SPLIT_CASES = [  # (B, K, ps, pps)
+    (1, 1, 128, 1), (8, 8, 128, 9), (1, 8, 128, 256), (64, 8, 128, 9),
+    (3, 2, 16, 5), (8, 8, 16, 80), (2, 1, 8, 6), (128, 8, 128, 64)]
+
+
+@pytest.mark.parametrize("B,K,ps,pps", SPLIT_CASES)
+def test_split_tiles_fills_the_card_within_the_table(B, K, ps, pps):
+    """Ranges of 32-key tiles: at least one tile, no more than the table
+    holds, no more ranges than WARPS_PER_SM (row, kv head, range) work
+    items an SM over a full table ask for, and, unless a range is a single
+    tile, at least half as many (ranges are whole tiles)."""
+    n_sm = 132
+    tiles = pps * -(-ps // pa.TILE_KEYS)
+    tps = pa.split_tiles(B, K, ps, pps, n_sm)
+    assert 1 <= tps <= tiles
+    n_split = -(-tiles // tps)
+    want = pa.WARPS_PER_SM * n_sm
+    assert B * K * n_split <= max(want, B * K) + B * K
+    if tps > 1:
+        assert 2 * B * K * n_split >= want
+    plan = pa.decode_plan(B, K, 2, 128, ps, pps, 2, n_sm, grouped=True)
+    assert plan["tps"] == tps and plan["n_split"] == n_split
+
+
+PLAN_CASES = [  # (K, G, hd, elt)
+    (8, 2, 128, 2), (8, 2, 256, 2), (8, 12, 128, 2), (1, 16, 256, 2),
+    (1, 16, 256, 4), (4, 3, 64, 4), (8, 1, 256, 4), (2, 5, 256, 2),
+    (1, 64, 128, 2), (16, 1, 64, 2)]
+
+
+@pytest.mark.parametrize("K,G,hd,elt", PLAN_CASES)
+def test_decode_plan_covers_every_row_and_fits_a_block(K, G, hd, elt):
+    """Both grids cut the query rows alike (only the head tile, the row
+    groups a block and the ring depth differ, none of which changes a
+    head's arithmetic); every row group is non-empty and within a warp's
+    registers; a block fits the card's warps and shared memory; the
+    grouped grid keeps the reference's head tile where it fits."""
+    plans = [pa.decode_plan(8, K, G, hd, 128, 9, elt, 132, grouped=g)
+             for g in (True, False)]
+    for key in ("gt", "n_gg", "tps", "n_split"):
+        assert plans[0][key] == plans[1][key]
+    for p in plans:
+        rows = -(-G // p["n_gg"])
+        assert rows <= p["gt"] <= (4 if hd == 256 else 8)
+        assert rows * (p["n_gg"] - 1) < G            # no empty row group
+        assert K % p["kt"] == 0 and p["n_gg"] % p["ggb"] == 0
+        assert p["kt"] * p["ggb"] <= pa.MAX_WARPS
+        smem = p["kt"] * p["stages"] * 2 * pa.TILE_KEYS * hd * elt \
+            + p["kt"] * p["ggb"] * pa.TILE_KEYS * p["gt"] * 4 \
+            + p["kt"] * p["stages"] * 16
+        assert p["smem"] == smem <= pa.SMEM_BYTES
+    assert plans[1]["kt"] == 1
+    kt = pa.group_tile(K, G)
+    tile = 2 * pa.TILE_KEYS * hd * elt
+    if kt * tile <= pa.SMEM_BYTES // 2:
+        assert plans[0]["kt"] == kt
+
+
+LONG_CASES = [  # (B, K, G, pps, elt, grouped): tables past one tile a range
+    (8, 8, 2, 64, 2, True), (8, 8, 2, 64, 2, False), (8, 8, 2, 64, 4, True),
+    (8, 8, 2, 64, 4, False), (1, 8, 2, 160, 2, True), (1, 8, 2, 160, 2, False)]
+
+
+@pytest.mark.parametrize("B,K,G,pps,elt,grouped", LONG_CASES)
+def test_decode_plan_walks_long_tables_in_several_tiles(B, K, G, pps, elt,
+                                                        grouped):
+    """The long-table shapes the card tests and chip_smoke.py's ``long``
+    cases hold the kernel to: a range holds several tiles, so a warp walks
+    them through its ring and the producer reuses stages (the fp32 grouped
+    grid has room for one stage only, the others for two or three); B 1
+    has more than 32 ranges, so the merge takes its ranges in rounds."""
+    p = pa.decode_plan(B, K, G, 128, 128, pps, elt, 132, grouped)
+    assert p["tps"] > 1
+    assert p["n_split"] * p["tps"] >= pps * 128 // pa.TILE_KEYS
+    assert p["stages"] == (1 if elt == 4 and grouped else min(3, p["tps"]))
+    assert p["smem"] <= pa.SMEM_BYTES
+    if B == 1:
+        assert p["n_split"] > 32

@@ -212,6 +212,113 @@ def test_wkv6_padding_steps_leave_the_state_unchanged():
                                atol=1e-5)
 
 
+# The CUDA kernel's arithmetic, emulated on the CPU: chunks of 8 steps,
+# every decay a running product of exp(lw) factors (never the exp of a
+# difference of cumulative sums), its three products in split TF32 (an fp32
+# operand as hi + lo, both rounded to TF32 by bit operations as
+# cvt.rna.tf32.f32 rounds, or for the state's read-out truncated as the
+# kernel splits it; lo.hi + hi.lo + hi.hi, or lo.V + hi.V when V is bf16
+# and so exact in TF32) and the state update added with one rounding.
+# Held against the step oracle at the kernel's own tolerance on the card
+# (1e-5 of the largest magnitude), this catches a factorisation that
+# overflows or a split that loses precision before the card does.
+KERNEL_CHUNK = 8
+KERNEL_SCALE = 1e-5
+
+
+def _tf32(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _trunc_tf32(x):
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split(a, b, b_exact, a_trunc=False):
+    """a . b from the TF32 parts; ``a_trunc``: a's hi truncated and its lo
+    truncated by the tensor core (the kernel's split of the state)."""
+    if a_trunc:
+        ah = _trunc_tf32(a)
+        al = _trunc_tf32(a - ah)
+    else:
+        ah, al = _split_tf32(a)
+    if b_exact:
+        return al @ b + ah @ b
+    bh, bl = _split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _wkv6_kernel_emulation(r, k, v, lw, u, s0, v_exact):
+    """r, k, v, lw (BH, S, N) fp32 (r, k, v already in their dtype's
+    values), u (BH, N), s0 (BH, N, N); returns (o, s_final) fp32."""
+    BH, S, N = r.shape
+    L = KERNEL_CHUNK
+    pad = (-S) % L
+    r, k, v, lw = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (r, k, v, lw))
+    s = s0.clone()
+    outs = []
+    for c0 in range(0, S + pad, L):
+        rc, kc, vc, lwc = (t[:, c0:c0 + L] for t in (r, k, v, lw))
+        w = torch.exp(lwc)
+        rd, kd = torch.empty_like(rc), torch.empty_like(kc)
+        p = torch.ones(BH, N)
+        for t in range(L):                   # r (*) prod_{s<t} w_s
+            rd[:, t] = rc[:, t] * p
+            p = p * w[:, t]
+        p_chunk = p
+        p = torch.ones(BH, N)
+        for t in reversed(range(L)):         # k (*) prod_{s>t} w_s
+            kd[:, t] = kc[:, t] * p
+            p = p * w[:, t]
+        a = torch.zeros(BH, L, L)
+        for tau in range(L):
+            x = rc[:, tau].clone()
+            a[:, tau, tau] = (x * u * kc[:, tau]).sum(-1)
+            for i in range(tau - 1, -1, -1):
+                a[:, tau, i] = (x * kc[:, i]).sum(-1)
+                x = x * w[:, i]
+        o_inter = _mm_split(s.transpose(1, 2), rd.transpose(1, 2), False,
+                            a_trunc=True).transpose(1, 2)
+        outs.append(o_inter + _mm_split(a, vc, v_exact))
+        upd = _mm_split(kd.transpose(1, 2), vc, v_exact)
+        s = (s.double() * p_chunk[..., None].double()
+             + upd.double()).float()
+    return torch.cat(outs, dim=1)[:, :S], s
+
+
+@pytest.mark.parametrize("decay", ["mixed", -3.0, -8.0, "strong"])
+@pytest.mark.parametrize("N,S", [(16, 77), (64, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_arithmetic_matches_the_oracle(decay, N, S, dtype):
+    """"strong": lw = -exp(U(-6, 4)), decays down to -e^4 a step."""
+    B, H = 2, 2
+    r, k, v, lw, u, s0 = _wkv_inputs(S + N, B, S, H, N,
+                                     "mixed" if decay == "strong" else decay)
+    if decay == "strong":
+        rng = np.random.default_rng(S)
+        lw = -np.exp(rng.uniform(-6, 4, lw.shape)).astype(np.float32)
+    if dtype == "bfloat16":                 # the values a bf16 input holds
+        r, k, v = (_t(a).bfloat16().float().numpy() for a in (r, k, v))
+    uf = np.broadcast_to(u[None], (B, H, N)).reshape(B * H, N)
+    s0f = _t(s0.reshape(B * H, N, N))
+    folded = [_t(_fold(a)) for a in (r, k, v, lw)]
+    o, s_fin = _wkv6_kernel_emulation(*folded, _t(uf.copy()), s0f,
+                                      v_exact=dtype == "bfloat16")
+    assert torch.isfinite(o).all() and torch.isfinite(s_fin).all()
+    ro, rs = ref.wkv6_ref(*folded, _t(uf.reshape(B * H, 1, N).copy()), s0f)
+    for got, want in ((o, ro), (s_fin, rs)):
+        atol = KERNEL_SCALE * want.abs().max().item()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=atol,
+                                   rtol=0)
+
+
 def test_ops_wkv6_bshn_takes_the_plain_version_on_cpu():
     args = [_t(a) for a in _wkv_inputs(0, 1, 40, 2, 16, "mixed")]
     before = dict(ops.launches)

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""In-turn A/B of the port's WKV6 and paged-decode kernels between this
+checkout and another one (an earlier design), on one card.
+
+    mkdir -p build/ab/parent
+    git archive <rev> | tar -x -C build/ab/parent
+    python3 tools/kernel_ab.py --parent build/ab/parent [--trace]
+
+Each checkout is driven through its own ``repro_torch`` package: its
+wrappers ``ops.wkv6_bshn`` and ``ops.paged_decode_bhd`` (the port keeps
+their signatures), its plain versions, its build of its own CUDA sources
+(into that checkout's ``build/``) and, with ``--trace``, its model and
+engine.  So nothing here depends on a kernel's C interface.  Every design
+runs in a worker process of its own, four in turns: parent, this
+checkout, this checkout, parent.  A worker makes the same inputs from a
+seed on the card, holds each kernel to its checkout's plain version at
+``chip_smoke.py``'s tolerances, and times it at the serving shapes with
+this checkout's ``chip_smoke.py`` helpers: device time (torch.profiler, 20
+calls) L2-warm and L2-cold (a 256 MB write before each call).  With
+``--trace`` it also traces the serving windows of cell (a), qwen3-0.6b,
+and cell (c), rwkv6-7b, as ``chip_smoke.py`` does (one warm-up window
+first): each kernel's device time in the window and the launches a step.
+The last line is one JSON object of the numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+WORKER_TIMEOUT_S = 900
+
+
+def time_kernels(cs, dev):
+    """Each kernel of the checkout at its serving shape: held to the plain
+    version, then its device ms warm and L2-cold."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = {}
+    r, k, v, lw, u, s0 = cs.wkv_inputs(dev, gen, 8, 1024, 64, 64,
+                                       torch.bfloat16, False, None)
+    o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
+    plain_o, plain_s = wkv.wkv6_torch(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    cs.wkv_check(o, plain_o, cs.WKV_SCALE["chunked"], torch.bfloat16,
+                 "wkv6 o")
+    cs.wkv_check(s_fin, plain_s, cs.WKV_SCALE["chunked"], torch.float32,
+                 "wkv6 s_fin")
+    call = lambda: ops.wkv6_bshn(r, k, v, lw, u, s0)  # noqa: E731
+    rows["wkv6"] = dict(shape="B 8, S 1024, H 64, N 64, bf16",
+                        warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+
+    B, K, G, hd, ps, pps = 8, 8, 2, 128, 128, 9
+    q, kp, vp, table, pos = cs.decode_inputs(
+        dev, gen, B, K, G, hd, ps, pps, torch.bfloat16,
+        [1055, 700, 1023, -1, 512, 127, 128, 900])
+    qm = q.reshape(B, 1, K * G, hd)
+    kw = dict(scale=hd ** -0.5, logit_cap=0.0)
+    plain = pa.paged_decode_torch(q, kp, vp, table, pos, **kw)
+    for grouped in (True, False):
+        out = ops.paged_decode_bhd(qm, kp, vp, table, pos, grouped=grouped,
+                                   **kw).reshape(B, K, G, hd)
+        torch.cuda.synchronize()
+        cs.compare(out, plain, cs.DECODE_TOL["bfloat16"],
+                   f"paged decode grouped={grouped}")
+        call = lambda g=grouped: ops.paged_decode_bhd(  # noqa: E731
+            qm, kp, vp, table, pos, grouped=g, **kw)
+        rows["paged_decode" + ("" if grouped else "_per_head")] = dict(
+            shape="B 8, K 8, G 2, hd 128, page 128, bf16, ragged",
+            warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+    return rows
+
+
+def trace_cells(cs, dev):
+    """Traced serving windows of (a) and (c) with the checkout's model,
+    engine and kernels, after one warm-up window each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for cell, arch in (("a", "qwen3-0.6b"), ("c", "rwkv6-7b")):
+        cfg = dataclasses.replace(get_config(arch), cache_layout="paged",
+                                  page_size=128)
+        model = build_model(cfg, device=dev, seed=0)
+        cs.trace_serving(cfg, model, dev, 0)                 # warm-up
+        print(f"[cell ({cell}) {arch}]", flush=True)
+        out[cell] = cs.trace_serving(cfg, model, dev, 0)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(tree: Path, trace: bool) -> int:
+    """One turn: this process imports ``tree``'s ``repro_torch``."""
+    sys.path.insert(0, str(tree / "src"))
+    import repro_torch
+    here = Path(repro_torch.__file__).resolve()
+    if tree.resolve() not in here.parents:
+        raise RuntimeError(f"repro_torch came from {here}, not {tree}")
+    sys.path.append(str(ROOT))                 # this checkout's helpers
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import _build
+
+    _build.build(("paged_decode", "rwkv6_wkv"))
+    dev = torch.device("cuda", 0)
+    result = {"kernels": time_kernels(cs, dev)}
+    for name, row in result["kernels"].items():
+        print(f"  {name} ({row['shape']}): device {cs.fmt_ms(row['warm'])} "
+              f"ms, L2-cold {cs.fmt_ms(row['cold'])} ms", flush=True)
+    if trace:
+        result["trace"] = trace_cells(cs, dev)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="an unpacked checkout of the design to compare "
+                    "with (git archive <rev>)")
+    ap.add_argument("--trace", action="store_true",
+                    help="also trace the serving windows of (a) and (c)")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker is not None:
+        return worker(args.worker, args.trace)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not (args.parent / "src" / "repro_torch").is_dir():
+        print(f"kernel_ab: {args.parent} holds no src/repro_torch",
+              file=sys.stderr)
+        return 2
+    sys.path.append(str(ROOT))
+    import chip_smoke as cs
+
+    card = cs.card_line()
+    print(card, flush=True)
+    turns = []
+    for name in ("parent", "new", "new", "parent"):
+        tree = args.parent if name == "parent" else ROOT
+        print(f"[turn {len(turns) + 1}: {name}, {tree}]", flush=True)
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--parent",
+               str(args.parent), "--worker", str(tree)]
+        if args.trace:
+            cmd.append("--trace")
+        p = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=WORKER_TIMEOUT_S)
+        print(p.stdout, end="", flush=True)
+        if p.returncode:
+            print(p.stderr[-4000:], file=sys.stderr)
+            print(f"kernel_ab: the {name} worker failed "
+                  f"(exit {p.returncode})", file=sys.stderr)
+            return 1
+        turns.append(dict(design=name, **json.loads(
+            p.stdout.strip().splitlines()[-1])))
+    print(json.dumps({"card": card, "turns": turns}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
