@@ -18,7 +18,10 @@ Phases, each of which exits non-zero on the first failure:
               shape (K 8, G 2, hd 256), mistral-large's group (K 8, G 12)
               and MQA at hd 256 (K 1, G 16), each in bf16 and as fp32 q
               over bf16 pools, and over long tables (several tiles a
-              range), its two grids bit-equal.
+              range), its two grids bit-equal; the MLA latent decode at
+              deepseek-v2's serving shape, at H 16 and 128 over pages of
+              16, in fp32 and as fp32 q over bf16 pools, and over long
+              tables (B 8 to 8K keys a row, B 1 to 20K; bf16 and fp32).
               The paged decode, MLA decode and WKV6 are also timed with
               the L2 cold (a 256 MB write before each call).
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
@@ -748,6 +751,7 @@ def mla_cases():
     bf16, f32 = torch.bfloat16, torch.float32
     # deepseek-v2 serve shape: 8 slots, prompts up to 1024 + 32 generated
     serve_pos = [1055, 700, 1023, -1, 512, 127, 128, 900]
+    long_pos = [8191, 5000, 8000, -1, 3000, 127, 2048, 6500]
     # (label, B, H, ps, pps, q dtype, pool dtype, positions)
     return [
         ("deepseek-v2 serving", 8, 128, 128, 9, bf16, bf16, serve_pos),
@@ -756,14 +760,21 @@ def mla_cases():
         ("H16 ps16", 4, 16, 16, 12, bf16, bf16, [150, 31, -1, 47]),
         ("fp32 H16 ps16", 4, 16, 16, 12, f32, f32, [150, 31, -1, 47]),
         ("H128 ps16", 4, 128, 16, 12, bf16, bf16, [150, 31, -1, 47]),
+        # long tables (rows up to 8K and 20K keys): several tiles a range,
+        # the ring's stages reused and its mbarrier parity flipping
+        ("long B8 pps64", 8, 128, 128, 64, bf16, bf16, long_pos),
+        ("long fp32 B8 pps64", 8, 128, 128, 64, f32, f32, long_pos),
+        ("long B1 pps160", 1, 128, 128, 160, bf16, bf16, [20000]),
+        ("long fp32 B1 pps160", 1, 128, 128, 160, f32, f32, [20000]),
     ]
 
 
 def mla_inputs(dev, gen, B, H, ps, pps, qdt, dt, positions, lora=512,
                rd=64):
     """A ragged latent batch, laid out as :func:`decode_inputs` lays out
-    the GQA one: shuffled pages, rows 0 and 1 alias their first page, one
-    row has a -1 hole inside its live prefix, ``positions`` may hold -1."""
+    the GQA one: shuffled pages, rows 0 and 1 alias their first page (a
+    single row maps its first page again at slot 2), one row has a -1 hole
+    inside its live prefix, ``positions`` may hold -1."""
     import torch
     P = B * pps
     q = torch.randn(B, H, lora + rd, device=dev, generator=gen).to(qdt)
@@ -775,7 +786,9 @@ def mla_inputs(dev, gen, B, H, ps, pps, qdt, dt, positions, lora=512,
         if p >= 0:
             n = p // ps + 1
             table[b, :n] = perm[b * pps:b * pps + n]
-    if positions[0] >= 0 and positions[1] >= 0:
+    if B == 1 and positions[0] >= 3 * ps:
+        table[0, 2] = table[0, 0]                       # aliased page
+    elif B > 1 and positions[0] >= 0 and positions[1] >= 0:
         table[1, 0] = table[0, 0]                       # aliased prefix page
     holed = [b for b, p in enumerate(positions) if p >= 2 * ps]
     if holed:
@@ -806,8 +819,14 @@ def run_mla_phase(dev, gen):
         err = compare(out, plain, tol, f"mla {label}")
         row = dict(label=label, dtype=f"q {dtype_name(qdt)}, pools "
                    f"{dtype_name(dt)}", max_abs_err=err, tol=tol_text(tol))
+        plan = pa.mla_card_plan(q, ckv, krope, table)
+        row["plan"] = {k: plan[k] for k in ("route", "n_split", "tpr",
+                                            "stages")}
+        if label.startswith("long"):
+            check(plan["tpr"] > max(1, plan["stages"]),
+                  f"mla {label}: plan {plan} does not reuse the ring")
         timing = ""
-        if "serving" in label:
+        if "serving" in label or label.startswith("long"):
             call = lambda: ops.mla_paged_decode_bhd(  # noqa: E731
                 q, ckv, krope, table, pos, scale=scale)
             keys, pairs = decode_live_keys(table, pos, ps)
@@ -836,7 +855,8 @@ def run_mla_phase(dev, gen):
                       f"{pairs} row-key pairs)")
         rows.append(row)
         print(f"  mla {label:<20} {row['dtype']:<26} err {err:.3g} (tol "
-              f"{tol_text(tol)}){timing}", flush=True)
+              f"{tol_text(tol)}; {plan['route']}, {plan['n_split']} ranges "
+              f"of {plan['tpr']} tiles){timing}", flush=True)
     return rows
 
 
@@ -1659,7 +1679,10 @@ def main() -> int:
              bound_ms=ml["bound_ms"], bound_by=ml["bound_by"],
              library_ms=None, cold_ms=ml["cold_ms"],
              library="none: no PyTorch call reads a paged latent pool",
-             shape=ml["shape"]),
+             shape=ml["shape"],
+             long_tables=[{k: r[k] for k in ("label", "device_ms", "cold_ms",
+                                             "bound_ms", "live_keys")}
+                          for r in mla_rows if r["label"].startswith("long")]),
     ]
     serve = {name: {k: v for k, v in r.items()} for name, r in runs.items()}
     print(json.dumps({"serve": serve, "trace": traces, "parity": parity,

@@ -36,10 +36,14 @@ latent pools: the absorbed query ``q_lat (B, H, lora + rd)`` scores the
 keys ``[ckv ‖ krope]`` of ``ckv_pages (P, ps, lora)`` and ``krope_pages
 (P, ps, rd)`` (one latent kv head shared by all H heads), and the latent
 itself is the value: the output is the latent context ``(B, H, lora)``.
+It is one launch too: :func:`mla_decode_plan` cuts a row's keys into
+32-key tiles and the tiles into ranges, the ranges of a (row, head tile)
+form one thread-block cluster and merge in distributed shared memory.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Optional
 
 import torch
 
@@ -57,12 +61,17 @@ _SIGNATURES = {
     "paged_decode_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
 }
-# the MLA kernel's widths (deepseek-v2) and its head tile
+# the MLA kernel's widths (deepseek-v2), tiles, head tiles and merge
 MLA_DIMS = ((512, 64),)        # (lora, rd) pairs the kernel is built for
-MLA_HEAD_TILE = 16
+MLA_MAX_CLUSTER = 8            # ranges a (row, head tile): one cluster
+MLA_WG_HEADS = 64              # heads a block of the bf16 (wgmma) route
+MLA_SIMT_HEADS = 16            # heads a block of the fp32-q (SIMT) route
+MLA_STAGES = 3                 # ring depth of the wgmma route
+MLA_SIMT_BLOCKS = 2            # blocks an SM of the SIMT route
 _MLA_SIGNATURES = {
-    "mla_decode_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    "mla_decode_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 20
     + [ctypes.c_float, ctypes.c_void_p],
+    "mla_decode_cluster_slots": [ctypes.c_int] * 4,
 }
 
 
@@ -272,11 +281,118 @@ def mla_paged_decode_torch(
     return (acc / l.clamp_min(1e-37)[..., None]).to(q_lat.dtype)
 
 
-def mla_split_count(B: int, H: int, pps: int, n_sm: int) -> int:
-    """Page ranges each (row, head tile) walk of the MLA kernel is cut
-    into: enough blocks for two per SM, at most one range per page."""
-    tiles = B * -(-H // MLA_HEAD_TILE)
-    return max(1, min(pps, -(-2 * n_sm // tiles)))
+def _mla_layout(wgmma: bool, ht: int, tpr: int, n_split: int, kv_elt: int,
+                lora: int, rd: int):
+    """(cols, stages, region offsets, dynamic shared memory bytes) of a
+    block of the MLA kernel: see :func:`mla_decode_plan`."""
+    tk, dq = TILE_KEYS, lora + rd
+    cols = -(-lora // (4 * n_split)) * 4
+    staged = 4 * ht * (lora + 4)             # the partial accumulator
+    # the (m, l) block: own m, l; the sources' m, l, weights; 1 / L; the
+    # (SIMT) rescale factors
+    ml = 4 * ht * (2 + 3 * MLA_MAX_CLUSTER + 2)
+    if wgmma:
+        q_bytes = ht * dq * 2
+        stage = tk * dq * 2                  # ckv and krope of a tile
+        stages = min(MLA_STAGES, tpr)
+        pbuf = 2 * (2 * (tk // 16) * 4 * 128 * 4 + 128 * 8)
+        main = -(-max(q_bytes + stages * stage, staged) // 1024) * 1024
+        offs = (q_bytes, main, main + pbuf, main + pbuf + ml)
+        # mbarriers: full and empty a stage, P full and empty a slot; then
+        # room to align the base to 1,024 bytes (the 128-byte swizzle)
+        return cols, stages, offs, offs[3] + 8 * (2 * stages + 4) + 1024
+    key_row = (dq + 16 // kv_elt) * kv_elt   # padded by 16 bytes
+    main = -(-max(ht * dq * 4, staged) // 16) * 16     # the scaled query
+    offs = (main, main + tk * key_row, main + tk * key_row + ht * tk * 4,
+            main + tk * key_row + 2 * ht * tk * 4)
+    return cols, 1, offs, offs[3] + ml
+
+
+def mla_decode_plan(B: int, H: int, ps: int, pps: int, q_elt: int,
+                    kv_elt: int, n_sm: int,
+                    slots: Optional[Callable[[int, int], int]] = None,
+                    lora: int = 512, rd: int = 64) -> dict:
+    """The MLA kernel's work decomposition and shared-memory layout, from
+    the shapes and the card.  ``route``: "wgmma" for a bf16 query over
+    bf16 pools (the serving path), else "simt" (an fp32 query).  ``ht``
+    heads a block (one wgmma row band of 64, or 16), ``n_ht`` head tiles;
+    ``ntp`` tiles of TILE_KEYS a page; a row's ``pps * ntp`` tiles are cut
+    into ``n_split`` ranges of ``tpr`` tiles, and the ranges of a (row,
+    head tile) are one cluster.  ``n_split`` (at most MLA_MAX_CLUSTER) is
+    the one whose critical path, waves of clusters times tiles a range, is
+    shortest (the fewer ranges on a tie: less to merge); ``slots(n,
+    smem)`` is how many clusters of n blocks of smem bytes the card holds
+    at once (by default n_sm / n, or twice that for the SIMT route's two
+    blocks an SM; a card that must fit a cluster into one GPC holds
+    fewer).  ``cols`` latent columns each block of a cluster merges;
+    ``stages`` ring depth; ``offs`` the kernel's region offsets (wgmma:
+    ring, P hand-over slots, (m, l) block, mbarriers; simt: key tile,
+    scores, probabilities, (m, l) block) and ``smem`` the block's dynamic
+    shared memory in bytes.  After the walk the block's partial
+    accumulator, [ht][lora + 4] fp32, overlays the query tile (and the
+    ring), where the other blocks of its cluster read their columns of it.
+    The kernel takes this plan as it is and computes none of it."""
+    wgmma = q_elt == 2 and kv_elt == 2
+    ht = MLA_WG_HEADS if wgmma else MLA_SIMT_HEADS
+    per_sm = 1 if wgmma else MLA_SIMT_BLOCKS
+    if slots is None:
+        slots = lambda n, smem: per_sm * n_sm // n  # noqa: E731
+    n_ht = -(-H // ht)
+    ntp = -(-ps // TILE_KEYS)
+    tiles = pps * ntp
+    best = None
+    for n in range(1, min(MLA_MAX_CLUSTER, tiles) + 1):
+        tpr = -(-tiles // n)
+        if -(-tiles // tpr) != n:            # the ranges of a smaller n
+            continue
+        cols, stages, offs, smem = _mla_layout(wgmma, ht, tpr, n, kv_elt,
+                                               lora, rd)
+        cap = slots(n, smem)
+        if cap < 1:
+            continue
+        cost = -(-B * n_ht // cap) * tpr
+        if best is None or cost < best[0]:
+            best = (cost, n, tpr, cols, stages, offs, smem)
+    _, n_split, tpr, cols, stages, offs, smem = best
+    return dict(route="wgmma" if wgmma else "simt", ht=ht, n_ht=n_ht,
+                ntp=ntp, tpr=tpr, n_split=n_split, cols=cols, stages=stages,
+                offs=offs, smem=smem)
+
+
+_mla_plans = {}
+_cluster_slots = {}
+
+
+def mla_card_plan(q_lat, ckv_pages, krope_pages, page_table) -> dict:
+    """The plan :func:`mla_paged_decode_cuda` launches with: the card's
+    own cluster capacity (asked of the CUDA runtime once per cluster size
+    and layout), kept per shape, so a decode step makes no plan."""
+    lib = _build.load("mla_decode", _MLA_SIGNATURES)
+    device = q_lat.device
+    B, H, _ = q_lat.shape
+    ps, lora = ckv_pages.shape[1], ckv_pages.shape[2]
+    rd, pps = krope_pages.shape[2], page_table.shape[1]
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    qdt, kvdt = DTYPE_CODES[q_lat.dtype], DTYPE_CODES[ckv_pages.dtype]
+    key = (idx, B, H, ps, pps, qdt, kvdt, lora, rd)
+    plan = _mla_plans.get(key)
+    if plan is None:
+        def slots(n, smem):
+            k = (idx, qdt, kvdt, n, smem)
+            if k not in _cluster_slots:
+                with torch.cuda.device(idx):
+                    got = lib.mla_decode_cluster_slots(qdt, kvdt, n, smem)
+                if got < 0:
+                    raise RuntimeError(
+                        f"mla_decode_cluster_slots failed: status {-got}")
+                _cluster_slots[k] = got
+            return _cluster_slots[k]
+        plan = mla_decode_plan(B, H, ps, pps, q_lat.element_size(),
+                               ckv_pages.element_size(), _n_sm(device),
+                               slots, lora, rd)
+        _mla_plans[key] = plan
+    return plan
 
 
 def mla_paged_decode_cuda(q_lat, ckv_pages, krope_pages, page_table, pos_q,
@@ -286,20 +402,19 @@ def mla_paged_decode_cuda(q_lat, ckv_pages, krope_pages, page_table, pos_q,
     contiguity."""
     lib = _build.load("mla_decode", _MLA_SIGNATURES)
     B, H, _ = q_lat.shape
-    ps, lora = ckv_pages.shape[1], ckv_pages.shape[2]
+    n_pool, ps, lora = ckv_pages.shape
     rd = krope_pages.shape[2]
     pps = page_table.shape[1]
-    n_split = mla_split_count(B, H, pps, _n_sm(q_lat.device))
-    ws = torch.empty(n_split * B * H * (2 + lora), dtype=torch.float32,
-                     device=q_lat.device)
+    plan = mla_card_plan(q_lat, ckv_pages, krope_pages, page_table)
     out = torch.empty((B, H, lora), dtype=q_lat.dtype, device=q_lat.device)
     rc = lib.mla_decode_fwd(
         q_lat.data_ptr(), ckv_pages.data_ptr(), krope_pages.data_ptr(),
-        page_table.data_ptr(), pos_q.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), DTYPE_CODES[q_lat.dtype],
-        DTYPE_CODES[ckv_pages.dtype], B, H, lora, rd, ps, pps,
-        ckv_pages.shape[0], n_split, float(scale),
-        torch.cuda.current_stream(q_lat.device).cuda_stream)
+        page_table.data_ptr(), pos_q.data_ptr(), out.data_ptr(),
+        DTYPE_CODES[q_lat.dtype], DTYPE_CODES[ckv_pages.dtype], B, H, lora,
+        rd, ps, pps, n_pool, plan["ht"], plan["n_split"], plan["tpr"],
+        plan["ntp"], plan["stages"], plan["cols"], *plan["offs"],
+        plan["smem"],
+        float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream)
     if rc:
         raise RuntimeError(f"mla_decode_fwd launch failed: status {rc}")
     return out

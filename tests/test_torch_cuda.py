@@ -22,7 +22,8 @@ plain step loop and the oracle ``ref.rglru_ref`` within 1e-5 of the
 carry's largest magnitude plus 1e-5 of the value (the kernel fuses the
 multiply-add, the plain loop rounds twice a step), and a padded tail must
 leave the carry bit-equal.  The MLA latent decode kernel is held to its
-plain version with the decode tolerances.
+plain version with the decode tolerances (its bf16 route splits P into
+bf16 hi + lo for the P·V product, which keeps it within them).
 """
 import dataclasses
 
@@ -552,7 +553,8 @@ def _latent(rng, dev, dt, B, H, ps, pps, positions, lora=512, rd=64,
             qdt=None):
     """A ragged latent batch as the smoke builds it: shuffled pages, rows 0
     and 1 share their first page, row 2 has a -1 hole in its live range,
-    row 3 is inactive."""
+    row 3 is inactive; a single row maps its first page again at slot 2
+    and has the hole at slot 1."""
     P = B * pps
     q = _randn(rng, (B, H, lora + rd), dev, qdt or dt)
     ckv = _randn(rng, (P, ps, lora), dev, dt)
@@ -562,9 +564,14 @@ def _latent(rng, dev, dt, B, H, ps, pps, positions, lora=512, rd=64,
     for b, p in enumerate(positions):
         if p >= 0:
             table[b, :p // ps + 1] = perm[b * pps:b * pps + p // ps + 1]
-    table[1, 0] = table[0, 0]
-    table[2, 1] = -1
-    assert positions[2] >= ps and positions[3] < 0
+    if B == 1:
+        assert positions[0] >= 3 * ps
+        table[0, 2] = table[0, 0]
+        table[0, 1] = -1
+    else:
+        assert positions[2] >= ps and positions[3] < 0
+        table[1, 0] = table[0, 0]
+        table[2, 1] = -1
     return (q, ckv, krope, torch.from_numpy(table).to(dev),
             torch.tensor(positions, dtype=torch.int32, device=dev))
 
@@ -577,13 +584,20 @@ def _latent(rng, dev, dt, B, H, ps, pps, positions, lora=512, rd=64,
     (128, 128, 9, [1055, 700, 1023, -1, 512, 127, 128, 900]),
     (16, 16, 12, [150, 31, 100, -1, 0]),
     (20, 128, 3, [300, 5, 200, -1]),          # a partial head tile
-], ids=["H128-ps128", "H16-ps16", "H20-ps128"])
+    # long tables: several tiles a range, the ring's stages reused
+    (128, 128, 64, [8191, 5000, 8000, -1, 3000, 127, 2048, 6500]),
+    (128, 128, 160, [20000]),
+], ids=["H128-ps128", "H16-ps16", "H20-ps128", "long-B8-pps64",
+        "long-B1-pps160"])
 def test_mla_decode_kernel_matches_plain(cuda, dt, qdt, H, ps, pps,
                                          positions):
     rng = np.random.default_rng(H + ps)
     B = len(positions)
     q, ckv, krope, table, pos = _latent(rng, cuda, dt, B, H, ps, pps,
                                         positions, qdt=qdt)
+    if pps >= 64:
+        plan = pa.mla_card_plan(q, ckv, krope, table)
+        assert plan["tpr"] > max(1, plan["stages"])
     scale = (128 + 64) ** -0.5
     before = ops.launches["mla_paged_decode_bhd"]
     out = ops.mla_paged_decode_bhd(q, ckv, krope, table, pos, scale=scale)
@@ -595,6 +609,28 @@ def test_mla_decode_kernel_matches_plain(cuda, dt, qdt, H, ps, pps,
     assert bool(torch.isfinite(out).all())
     assert _within(out, plain, DECODE_TOL[q.dtype])
     assert bool((out[pos < 0] == 0).all())
+
+
+def test_mla_decode_calls_leave_no_state_behind(cuda):
+    """The ranges merge through each cluster's shared memory and nothing
+    else: calls at different shapes back to back (the serving shape, pages
+    of 16 with a partial head tile, the serving shape again) each match
+    the plain version, and the repeated call is bit-equal to the first."""
+    rng = np.random.default_rng(7)
+    scale = (128 + 64) ** -0.5
+    shapes = [(128, 128, 9, [1055, 700, 1023, -1, 512, 127, 128, 900]),
+              (20, 16, 12, [150, 31, 100, -1, 0])]
+    batches = [_latent(rng, cuda, torch.bfloat16, len(p), H, ps, pps, p)
+               for H, ps, pps, p in shapes]
+    outs = []
+    for args in batches + batches[:1]:
+        out = ops.mla_paged_decode_bhd(*args, scale=scale)
+        plain = pa.mla_paged_decode_torch(*args, scale=scale)
+        torch.cuda.synchronize()
+        assert _within(out, plain, DECODE_TOL[torch.bfloat16])
+        assert bool((out[args[-1] < 0] == 0).all())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[2])
 
 
 def test_mla_wrapper_refuses_what_the_kernel_does_not_take(cuda):

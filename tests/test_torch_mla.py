@@ -148,13 +148,183 @@ def test_mla_decode_wrapper_cpu_path_and_checks():
         ops.mla_paged_decode_bhd(q, ckv, krope[:3], table, pos, scale=0.2)
 
 
-def test_mla_split_count_fills_the_card_within_the_table():
-    for B, H, pps in [(1, 16, 1), (8, 128, 9), (1, 128, 256), (64, 128, 9),
-                      (3, 4, 5)]:
-        n = pa.mla_split_count(B, H, pps, n_sm=132)
-        assert 1 <= n <= pps
-        if n < pps:
-            assert B * -(-H // pa.MLA_HEAD_TILE) * n >= 2 * 132
+def _gpc_slots(n, smem):
+    """A model of an H100's cluster capacity: 132 SMs in GPCs of 16 and
+    18, a cluster within one GPC, one block an SM."""
+    return sum(g // n for g in (16,) * 6 + (18,) * 2)
+
+
+@pytest.mark.parametrize("slots", [None, _gpc_slots], ids=["even", "gpc"])
+@pytest.mark.parametrize("B,H,ps,pps,q_elt,kv_elt", [
+    (8, 128, 128, 9, 2, 2),        # deepseek-v2 serving, bf16
+    (8, 128, 128, 64, 2, 2),       # long tables: rows to 8K keys
+    (1, 128, 128, 160, 2, 2),      # one row of 20K keys
+    (4, 16, 16, 12, 2, 2),         # pages of 16: a tile a page
+    (4, 20, 128, 3, 2, 2),         # a partial head tile
+    (64, 128, 128, 9, 2, 2),       # more rows than the card has SMs
+    (1, 16, 128, 1, 2, 2),         # one tile in all
+    (8, 128, 128, 9, 4, 4),        # fp32
+    (8, 128, 128, 9, 4, 2),        # fp32 q over bf16 pools
+    (3, 4, 5, 5, 4, 4),            # a page smaller than a tile
+])
+def test_mla_decode_plan_fills_the_card_within_the_table(B, H, ps, pps,
+                                                         q_elt, kv_elt,
+                                                         slots):
+    n_sm = 132
+    plan = pa.mla_decode_plan(B, H, ps, pps, q_elt, kv_elt, n_sm, slots)
+    wgmma = q_elt == kv_elt == 2
+    assert plan["route"] == ("wgmma" if wgmma else "simt")
+    ht, n_ht = plan["ht"], plan["n_ht"]
+    assert ht == (pa.MLA_WG_HEADS if wgmma else pa.MLA_SIMT_HEADS)
+    assert (n_ht - 1) * ht < H <= n_ht * ht
+    assert plan["ntp"] == -(-ps // pa.TILE_KEYS)
+    tiles = pps * plan["ntp"]
+    n, tpr = plan["n_split"], plan["tpr"]
+    # the ranges cover the table, and none starts past it
+    assert 1 <= n <= pa.MLA_MAX_CLUSTER
+    assert (n - 1) * tpr < tiles <= n * tpr
+    # the card is used as well as it can be: no other cluster size has a
+    # shorter critical path (waves of clusters x tiles a range), and on a
+    # tie none with fewer ranges
+    cap = slots or (lambda k, smem: (1 if wgmma else 2) * n_sm // k)
+
+    def cost(k, tpr_k):
+        smem = pa._mla_layout(wgmma, ht, tpr_k, k, kv_elt, 512, 64)[3]
+        return -(-B * n_ht // cap(k, smem)) * tpr_k
+    for k in range(1, min(pa.MLA_MAX_CLUSTER, tiles) + 1):
+        tpr_k = -(-tiles // k)
+        if -(-tiles // tpr_k) == k and k != n:
+            assert cost(k, tpr_k) > cost(n, tpr) or \
+                (cost(k, tpr_k) == cost(n, tpr) and k > n)
+    # the ring and the shared memory: regions in order, within 227 KB
+    assert 1 <= plan["stages"] <= min(pa.MLA_STAGES, tpr)
+    offs = plan["offs"]
+    assert list(offs) == sorted(offs) and offs[0] > 0
+    assert offs[-1] < plan["smem"] <= 227 * 1024
+    # the last region, the (m, l) block of the kernel's MlLayout (28 rows
+    # of floats), and on the wgmma route the mbarriers after it, fit
+    ml_end = offs[-1] if wgmma else plan["smem"]
+    assert ml_end - offs[2 if wgmma else 3] >= 4 * ht * 28
+    # the merge: the blocks of a cluster split the 512 latent columns in
+    # 16-byte pieces, and a block's partial accumulator (fp32 rows padded
+    # by 16 bytes) fits where its query tile and ring were
+    cols = plan["cols"]
+    assert cols % 4 == 0 and (n - 1) * cols < 512 <= n * cols
+    assert offs[1 if wgmma else 0] >= 4 * ht * (512 + 4)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _mla_kernel_emulation(q, ckv, krope, table, pos, scale, plan, split=True):
+    """The wgmma route of ``csrc/mla_decode.cu`` step by step in torch:
+    per range of the plan, per live 32-key tile, S = q·kᵀ of the bf16
+    values with fp32 sums, scaled on the fp32 score into log2 units; an
+    online softmax with exp2; P split into bf16 hi and lo = bf16(p − hi)
+    and P·V as hi·V + lo·V in fp32 (``split=False``: P rounded once);
+    then the ranges merged with weights 2^(m_r − M).  Returns q's dtype."""
+    B, H, _ = q.shape
+    P, ps, lora = ckv.shape
+    tk, ntp, tpr = pa.TILE_KEYS, plan["ntp"], plan["tpr"]
+    keys = torch.cat([ckv, krope], dim=-1).float()
+    qf, sc = q.float(), scale * LOG2E
+    neg = torch.tensor(pa.NEG_INF)
+    out = torch.zeros(B, H, lora)
+    for b in range(B):
+        p = int(pos[b])
+        if p < 0:
+            continue
+        page, pps = p // ps, table.shape[1]
+        last = pps * ntp - 1 if page >= pps \
+            else page * ntp + (p - page * ps) // tk
+        parts = []
+        for r in range(plan["n_split"]):
+            m = torch.full((H,), pa.NEG_INF)
+            l = torch.zeros(H)
+            acc = torch.zeros(H, lora)
+            for tau in range(r * tpr, min((r + 1) * tpr, last + 1)):
+                e = int(table[b, tau // ntp])
+                if e < 0 or e >= P:
+                    continue
+                slot = (tau % ntp) * tk
+                nv = min(tk, ps - slot, p - ((tau // ntp) * ps + slot) + 1)
+                s = (qf[b] @ keys[e, slot:slot + nv].T) * sc
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                corr = torch.exp2(m - m_new)
+                pr = torch.exp2(s - m_new[:, None])
+                l = l * corr + pr.sum(dim=-1)
+                v = ckv[e, slot:slot + nv].float()
+                hi = pr.bfloat16().float()
+                pv = hi @ v
+                if split:
+                    pv = pv + (pr - hi).bfloat16().float() @ v
+                acc = acc * corr[:, None] + pv
+                m = m_new
+            parts.append((m, l, acc))
+        M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        L = torch.zeros(H)
+        A = torch.zeros(H, lora)
+        for m, l, acc in parts:
+            w = torch.where(m == neg, 0.0, torch.exp2(m - M))
+            L = L + w * l
+            A = A + w[:, None] * acc
+        out[b] = A / L.clamp_min(1e-37)[:, None]
+    return out.to(q.dtype)
+
+
+def _bf16_latent(seed, B, H, ps, pps, positions, lora=512, rd=64):
+    """The smoke's ragged latent batch in bf16: shuffled pages, rows 0 and
+    1 alias their first page, the last row reaching two pages has a -1
+    hole, -1 positions are inactive."""
+    rng = np.random.default_rng(seed)
+    P = B * pps
+    bf = lambda *shape: _t(rng.normal(size=shape).astype(np.float32)) \
+        .bfloat16()  # noqa: E731
+    q, ckv, krope = bf(B, H, lora + rd), bf(P, ps, lora), bf(P, ps, rd)
+    perm = rng.permutation(P).astype(np.int32)
+    table = np.full((B, pps), -1, np.int32)
+    for b, p in enumerate(positions):
+        if p >= 0:
+            table[b, :p // ps + 1] = perm[b * pps:b * pps + p // ps + 1]
+    table[1, 0] = table[0, 0]
+    holed = [b for b, p in enumerate(positions) if p >= 2 * ps]
+    table[holed[-1], 1] = -1
+    return q, ckv, krope, _t(table), _t(np.array(positions, np.int32))
+
+
+def _within(out, plain, atol, rtol):
+    d = (out.float() - plain.float()).abs()
+    return bool((d <= atol + rtol * plain.float().abs()).all())
+
+
+@pytest.mark.parametrize("B,H,ps,pps,positions", [
+    (8, 128, 128, 9, [1055, 700, 1023, -1, 512, 127, 128, 900]),
+    (4, 128, 16, 12, [150, 31, -1, 47]),
+    (3, 20, 128, 3, [300, 5, 200]),
+], ids=["serving", "H128-ps16", "H20"])
+def test_mla_kernel_bf16_arithmetic_matches_the_plain_version(B, H, ps, pps,
+                                                              positions):
+    """The wgmma route's arithmetic (bf16 scores with fp32 sums, P split
+    hi + lo, the ranges merged) stays within the card's bf16 tolerance of
+    the fp32 plain version, 1e-4 + 2^-7·|plain|, at the smoke's positions;
+    P rounded once to bf16 instead does not, which is why the kernel runs
+    the second (lo) product."""
+    q, ckv, krope, table, pos = _bf16_latent(B + H + ps, B, H, ps, pps,
+                                             positions)
+    scale = (128 + 64) ** -0.5
+    plan = pa.mla_decode_plan(B, H, ps, pps, 2, 2, 132, _gpc_slots)
+    plain = pa.mla_paged_decode_torch(q, ckv, krope, table, pos, scale=scale)
+    emu = _mla_kernel_emulation(q, ckv, krope, table, pos, scale, plan)
+    assert emu.dtype == torch.bfloat16 and torch.isfinite(emu).all()
+    assert _within(emu, plain, 1e-4, 2 ** -7)
+    assert torch.equal(emu[pos < 0], torch.zeros_like(emu[pos < 0]))
+    if B == 8:
+        once = _mla_kernel_emulation(q, ckv, krope, table, pos, scale, plan,
+                                     split=False)
+        assert not _within(once, plain, 1e-4, 2 ** -7)
 
 
 # ---------------------------------------------------------------------------

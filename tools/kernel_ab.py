@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""In-turn A/B of the port's WKV6 and paged-decode kernels between this
-checkout and another one (an earlier design), on one card.
+"""In-turn A/B of the port's WKV6, paged-decode and MLA latent-decode
+kernels between this checkout and another one (an earlier design), on one
+card.
 
     mkdir -p build/ab/parent
     git archive <rev> | tar -x -C build/ab/parent
-    python3 tools/kernel_ab.py --parent build/ab/parent [--trace]
+    python3 tools/kernel_ab.py --parent build/ab/parent [--trace [CELLS]]
 
 Each checkout is driven through its own ``repro_torch`` package: its
-wrappers ``ops.wkv6_bshn`` and ``ops.paged_decode_bhd`` (the port keeps
-their signatures), its plain versions, its build of its own CUDA sources
-(into that checkout's ``build/``) and, with ``--trace``, its model and
-engine.  So nothing here depends on a kernel's C interface.  Every design
-runs in a worker process of its own, four in turns: parent, this
-checkout, this checkout, parent.  A worker makes the same inputs from a
-seed on the card, holds each kernel to its checkout's plain version at
-``chip_smoke.py``'s tolerances, and times it at the serving shapes with
-this checkout's ``chip_smoke.py`` helpers: device time (torch.profiler, 20
-calls) L2-warm and L2-cold (a 256 MB write before each call).  With
-``--trace`` it also traces the serving windows of cell (a), qwen3-0.6b,
-and cell (c), rwkv6-7b, as ``chip_smoke.py`` does (one warm-up window
-first): each kernel's device time in the window and the launches a step.
-The last line is one JSON object of the numbers.
+wrappers ``ops.wkv6_bshn``, ``ops.paged_decode_bhd`` and
+``ops.mla_paged_decode_bhd`` (the port keeps their signatures), its plain
+versions, its build of its own CUDA sources (into that checkout's
+``build/``) and, with ``--trace``, its model and engine.  So nothing here
+depends on a kernel's C interface.  Every design runs in a worker process
+of its own, four in turns: parent, this checkout, this checkout, parent.
+A worker makes the same inputs from a seed on the card, holds each kernel
+to its checkout's plain version at ``chip_smoke.py``'s tolerances, and
+times it at the serving shapes with this checkout's ``chip_smoke.py``
+helpers: device time (torch.profiler, 20 calls) L2-warm and L2-cold (a
+256 MB write before each call).  With ``--trace`` it also traces the
+serving windows of cells (a), qwen3-0.6b, (c), rwkv6-7b, and (e),
+deepseek-v2-236b at 3 layers, as ``chip_smoke.py`` does (one warm-up
+window first; ``--trace e`` or ``--trace a,c`` picks cells): each
+kernel's device time in the window and the launches a step.  The last
+line is one JSON object of the numbers.
 """
 from __future__ import annotations
 
@@ -78,20 +81,41 @@ def time_kernels(cs, dev):
         rows["paged_decode" + ("" if grouped else "_per_head")] = dict(
             shape="B 8, K 8, G 2, hd 128, page 128, bf16, ragged",
             warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+
+    q, ckv, krope, table, pos = cs.mla_inputs(
+        dev, gen, 8, 128, 128, 9, torch.bfloat16, torch.bfloat16,
+        [1055, 700, 1023, -1, 512, 127, 128, 900])
+    kw = dict(scale=(128 + 64) ** -0.5)      # deepseek-v2: (nope + rd)^-0.5
+    out = ops.mla_paged_decode_bhd(q, ckv, krope, table, pos, **kw)
+    plain = pa.mla_paged_decode_torch(q, ckv, krope, table, pos, **kw)
+    torch.cuda.synchronize()
+    cs.compare(out, plain, cs.DECODE_TOL["bfloat16"], "mla decode")
+    call = lambda: ops.mla_paged_decode_bhd(  # noqa: E731
+        q, ckv, krope, table, pos, **kw)
+    rows["mla_decode"] = dict(
+        shape="B 8, H 128, lora 512, rd 64, page 128, bf16, ragged",
+        warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
     return rows
 
 
-def trace_cells(cs, dev):
-    """Traced serving windows of (a) and (c) with the checkout's model,
+CELLS = {"a": ("qwen3-0.6b", None), "c": ("rwkv6-7b", None),
+         "e": ("deepseek-v2-236b", 3)}        # arch, layers (None: all)
+
+
+def trace_cells(cs, dev, cells):
+    """Traced serving windows of ``cells`` with the checkout's model,
     engine and kernels, after one warm-up window each."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
     out = {}
-    for cell, arch in (("a", "qwen3-0.6b"), ("c", "rwkv6-7b")):
+    for cell in cells:
+        arch, layers = CELLS[cell]
         cfg = dataclasses.replace(get_config(arch), cache_layout="paged",
                                   page_size=128)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         model = build_model(cfg, device=dev, seed=0)
         cs.trace_serving(cfg, model, dev, 0)                 # warm-up
         print(f"[cell ({cell}) {arch}]", flush=True)
@@ -102,7 +126,7 @@ def trace_cells(cs, dev):
     return out
 
 
-def worker(tree: Path, trace: bool) -> int:
+def worker(tree: Path, cells: str) -> int:
     """One turn: this process imports ``tree``'s ``repro_torch``."""
     sys.path.insert(0, str(tree / "src"))
     import repro_torch
@@ -114,14 +138,14 @@ def worker(tree: Path, trace: bool) -> int:
     import torch
     from repro_torch.kernels import _build
 
-    _build.build(("paged_decode", "rwkv6_wkv"))
+    _build.build(("paged_decode", "rwkv6_wkv", "mla_decode"))
     dev = torch.device("cuda", 0)
     result = {"kernels": time_kernels(cs, dev)}
     for name, row in result["kernels"].items():
         print(f"  {name} ({row['shape']}): device {cs.fmt_ms(row['warm'])} "
               f"ms, L2-cold {cs.fmt_ms(row['cold'])} ms", flush=True)
-    if trace:
-        result["trace"] = trace_cells(cs, dev)
+    if cells:
+        result["trace"] = trace_cells(cs, dev, cells.split(","))
     print(json.dumps(result), flush=True)
     return 0
 
@@ -131,10 +155,13 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=True,
                     help="an unpacked checkout of the design to compare "
                     "with (git archive <rev>)")
-    ap.add_argument("--trace", action="store_true",
-                    help="also trace the serving windows of (a) and (c)")
+    ap.add_argument("--trace", nargs="?", const="a,c,e", default="",
+                    help="also trace the serving windows of these cells "
+                    "(comma-separated of a, c, e; all three if none given)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if any(c not in CELLS for c in filter(None, args.trace.split(","))):
+        ap.error(f"--trace takes cells of {sorted(CELLS)}")
     if args.worker is not None:
         return worker(args.worker, args.trace)
     import torch
@@ -157,7 +184,7 @@ def main() -> int:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--parent",
                str(args.parent), "--worker", str(tree)]
         if args.trace:
-            cmd.append("--trace")
+            cmd.append(f"--trace={args.trace}")
         p = subprocess.run(cmd, capture_output=True, text=True,
                            timeout=WORKER_TIMEOUT_S)
         print(p.stdout, end="", flush=True)
