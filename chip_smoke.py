@@ -23,7 +23,19 @@ Phases, each of which exits non-zero on the first failure:
               16, in fp32 and as fp32 q over bf16 pools, and over long
               tables (B 8 to 8K keys a row, B 1 to 20K; bf16 and fp32).
               The paged decode, MLA decode and WKV6 are also timed with
-              the L2 cold (a 256 MB write before each call).
+              the L2 cold (a 256 MB write before each call).  The flash
+              forward also at paper-overhead-100m's training shape (B 8,
+              S 1,024, hd 64); the flash backward against its plain
+              backward on the same (q, k, v, O, lse, dO) at the two
+              training shapes (paper: B 8, S 1,024, H 12, K 4, hd 64;
+              qwen3: B 2, S 4,096, H 16, K 8, hd 128), ragged S 1,000 and
+              77, not causal and with a window and softcap, bf16 and
+              fp32, two calls bit-equal, each within a tolerance scaled
+              by its 64-row or 64-key tile that rejects planted faults (a
+              q head of each group or the last q tile dropped from dK and
+              dV, the window's frontier one key off), timed beside SDPA's
+              backward; the forward kernel's log-sum-exp against the
+              plain one.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -73,6 +85,30 @@ Phases, each of which exits non-zero on the first failure:
               routing flip counts as a tie only within PARITY_TIE_TOL) and
               snapshot/restore of the latent pools on ``cuda``.
 
+8. train   -- trains ``paper-overhead-100m`` at full width (12 layers, B 8,
+              S 1,024, 30 steps, lr 1e-3, warmup 3) and ``qwen3-0.6b`` at
+              full width (28 layers, S 4,096, global batch 4 in 2
+              microbatches, full remat, 6 steps) in bf16 with fp32 master
+              weights, through ``repro_torch.launch.train``'s loop, after
+              deepseek-v2's weights are freed: every loss finite, a
+              held-out batch's loss lower after training than at init,
+              one batch's loss more than 1 nat lower after 6 steps on it
+              from a fresh init, and (paper; qwen3's 6 steps move its
+              loss less than its batches differ) the last 5 losses' mean
+              below the first 5's, qwen3's first step under remat equal
+              bit for bit to the same step without it, the flash
+              launches a step (paper 12 forward and 12 backward; qwen3
+              2 x 28 x 2 forward under remat and 28 x 2 backward),
+              steps/s, tokens/s, MFU and peak
+              memory, then one more step under torch.profiler (device busy
+              and idle share, device ms by part).  Then fp32 cuda vs cpu
+              parity of both configs at full width and 2 layers (B 2, S
+              256, 3 steps: losses within 1e-5 relative, the first batch's
+              gradients within 1e-4 of each leaf's largest) and a
+              checkpoint round trip through the reference's tree
+              (``train_state_to_jax`` and back) whose next step's loss
+              equals the unrestored state's.
+
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  With no CUDA device, or
 without the repository's sources beside it, the script exits non-zero and
@@ -83,6 +119,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -127,6 +164,29 @@ WKV_RTOL = {"bfloat16": 2 ** -7, "float32": 0.0}
 # product and the sum, and the carries (up to ~30 at decays near 1) pass
 # the difference on through thousands of steps.
 RGLRU_TOL = (1e-5, 1e-5)
+# The flash backward: |kernel - plain| <= share·T + BWD_NOISE + rtol·|plain|
+# for every element, T the largest |plain| of the element's tile: 64 rows
+# (dq) or 64 keys (dk, dv) of one batch row and head, the tiles the kernel
+# computes.  The scale is the tile's and not the tensor's because a
+# gradient's size falls along the keys (a causal key k gets its dK and dV
+# from S - k rows, each p about 1/row): one scale for the whole tensor
+# would set an allowance as large as the late keys' gradients.
+# bf16: the kernel rounds P and dS to bf16 for its tensor-core products
+# (2^-9 relative each; over sums of many terms of random sign that is
+# about 2^-9 of a typical element, a few times less than 2^-7 of its
+# tile's largest), and both sides round the result to bf16 once (one
+# ulp, 2^-7·|plain|).  fp32: 1e-4 of the tile's largest (sums in another
+# order).  BWD_NOISE covers the gradients that are 0 but for fp32
+# rounding (dQ and dK at S 1: dP - D cancels), whose tile has no scale.
+# The smoke checks that the allowance rejects planted faults: one q head
+# of each group dropped from dK and dV, the last q tile dropped from them
+# (at a ragged S the partial tile), the window's frontier one key off.
+FLASH_BWD_TOL = {"bfloat16": (2 ** -7, 2 ** -7), "float32": (1e-4, 0.0)}
+BWD_NOISE = 1e-5
+BWD_TILE = 64
+# the forward kernel's log-sum-exp against the plain one: 1e-5 of max(1,
+# |lse|) (fp32 statistics in both types; the bf16 walk's ex2.approx)
+LSE_TOL = 1e-5
 PARITY_LOGIT_TOL = 2e-3      # fp32 cuda vs cpu, 2-4 layers, summation order
 PARITY_TIE_TOL = 2e-3        # top-2 gap below which a divergence is a tie
 PEAK_MEM_LIMIT_GB = 70.0     # deepseek-v2 at 3 layers: 56 GB of weights
@@ -228,15 +288,42 @@ def dtype_name(dt) -> str:
 
 def compare(out, plain, tol, what: str) -> float:
     """Max |out - plain|; fails unless every element is within
-    ``atol + rtol·|plain|``."""
+    ``atol + rtol·|plain|`` (``atol`` a number or a tensor of the
+    elements' own)."""
     atol, rtol = tol
     d = (out.float() - plain.float()).abs()
     over = (d > atol + rtol * plain.float().abs()).sum().item()
     err = d.max().item()
     worst = plain.float().flatten()[d.argmax()].item()
-    check(over == 0, f"{what}: {over} elements beyond {tol_text(tol)} "
+    text = tol_text(tol) if isinstance(atol, float) else "the tolerance"
+    check(over == 0, f"{what}: {over} elements beyond {text} "
           f"(max |kernel - plain| {err}, at plain {worst})")
     return err
+
+
+def tol_used(out, plain, tol) -> float:
+    """max |out - plain| / (atol + rtol·|plain|) over the elements: below 1
+    within the tolerance, above 1 beyond it."""
+    atol, rtol = tol
+    p = plain.float()
+    return ((out.float() - p).abs()
+            / (atol + rtol * p.abs())).max().item()
+
+
+def bwd_tol(plain, dt):
+    """The flash backward's (atol per element, rtol) for ``plain`` (B, S,
+    heads, hd): FLASH_BWD_TOL's share of the largest |plain| of each
+    element's tile of BWD_TILE positions of one batch row and head, plus
+    BWD_NOISE."""
+    import torch.nn.functional as F
+    share, rtol = FLASH_BWD_TOL[dtype_name(dt)]
+    B, S, n, hd = plain.shape
+    pad = -S % BWD_TILE
+    a = F.pad(plain.float().abs(), (0, 0, 0, 0, 0, pad))
+    a = a.view(B, (S + pad) // BWD_TILE, BWD_TILE, n, hd)
+    t = a.amax(dim=(2, 4), keepdim=True).expand_as(a)
+    t = t.reshape(B, S + pad, n, hd)[:, :S]
+    return share * t + BWD_NOISE, rtol
 
 
 def tol_text(tol) -> str:
@@ -256,6 +343,8 @@ def flash_cases():
         ("qwen3 S1024", 4, 1024, 16, 8, 128, bf16, True, 0, 0.0),
         ("paper G3 hd64 S512", 4, 512, 12, 4, 64, bf16, True, 0, 0.0),
         ("paper hd64 S1024", 4, 1024, 12, 4, 64, bf16, True, 0, 0.0),
+        # paper-overhead-100m's training shape (the train phase's forward)
+        ("paper train B8 S1024", 8, 1024, 12, 4, 64, bf16, True, 0, 0.0),
         ("qwen3 ragged S1000", 2, 1000, 16, 8, 128, bf16, True, 0, 0.0),
         ("window 256 softcap 30", 2, 640, 16, 8, 128, bf16, True, 256, 30.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
@@ -857,6 +946,196 @@ def run_mla_phase(dev, gen):
         print(f"  mla {label:<20} {row['dtype']:<26} err {err:.3g} (tol "
               f"{tol_text(tol)}; {plan['route']}, {plan['n_split']} ranges "
               f"of {plan['tpr']} tiles){timing}", flush=True)
+    return rows
+
+
+def flash_bwd_cases():
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, K, hd, dtype, causal, window, cap)
+    return [
+        ("paper train", 8, 1024, 12, 4, 64, bf16, True, 0, 0.0),
+        ("qwen3 train", 2, 4096, 16, 8, 128, bf16, True, 0, 0.0),
+        ("ragged S1000", 2, 1000, 16, 8, 128, bf16, True, 0, 0.0),
+        ("ragged S77 G3", 2, 77, 12, 4, 64, bf16, True, 0, 0.0),
+        ("not causal", 2, 512, 12, 4, 64, bf16, False, 0, 0.0),
+        ("window 256 cap 30", 2, 640, 16, 8, 128, bf16, True, 256, 30.0),
+        ("fp32 paper", 2, 1024, 12, 4, 64, f32, True, 0, 0.0),
+        ("fp32 qwen3 S1000", 1, 1000, 16, 8, 128, f32, True, 0, 0.0),
+        ("fp32 S77 not causal", 2, 77, 12, 4, 64, f32, False, 0, 0.0),
+        ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
+    ]
+
+
+def flash_bwd_work(B, S, H, K, hd, elt, causal, window):
+    """(flops, bytes) of the backward: 10·hd per live (q, k) pair and head
+    (S and dP recomputed, dV, dK, dQ), q, k, v, o, dO and lse read once,
+    dq, dk, dv written once."""
+    fwd_flops, _ = flash_work(B, S, H, K, hd, elt, causal, window)
+    flops = fwd_flops * 10 / 4
+    nbytes = (4 * B * S * H * hd + 4 * B * S * K * hd) * elt + 4 * B * H * S
+    return flops, nbytes
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window):
+    """One PyTorch call's backward at the same shape, as a yardstick:
+    autograd through ``F.scaled_dot_product_attention`` (a window as a
+    boolean mask), trying the flash, memory-efficient and math backends in
+    turn with the kv heads shared (``enable_gqa``), then with k and v
+    expanded to H heads.  Returns (ms, which backend ran and how)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    S, hd = q.shape[1], q.shape[3]
+    mask = None
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    G = q.shape[2] // k.shape[2]
+    for expanded in (False, True):
+        if expanded:
+            kt = kt.repeat_interleave(G, dim=1)
+            vt = vt.repeat_interleave(G, dim=1)
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            try:
+                with sdpa_kernel([backend]):
+                    out = F.scaled_dot_product_attention(
+                        *leaves, attn_mask=mask,
+                        is_causal=causal and not window, scale=hd ** -0.5,
+                        enable_gqa=not expanded)
+                    torch.autograd.grad(out, leaves, dot, retain_graph=True)
+                    ms = time_ms(lambda: torch.autograd.grad(
+                        out, leaves, dot, retain_graph=True))
+            except RuntimeError:
+                continue
+            finally:
+                torch.cuda.synchronize()
+            how = (f"{backend.name}, k and v "
+                   f"{'expanded to H heads' if expanded else 'shared (enable_gqa)'}"
+                   + (", boolean window mask" if window else ""))
+            return ms, how
+    return None, "no SDPA backend ran"
+
+
+def bwd_planted_faults(q, k, v, o, lse, do, kw):
+    """The backward kernel's gradients with a fault planted through its
+    inputs, for the tolerance to reject: (what, (dq, dk, dv), the indices
+    of the gradients a kernel with that fault would get wrong).  dO's rows
+    of one q head of each group, or of the last q tile, set to 0 take their
+    terms out of dK and dV, as a kernel that skipped them would; dQ of
+    those rows is then 0, which such a kernel would not give, so only dK
+    and dV are held.  A window one key shorter or longer over the same lse
+    moves its frontier by one key, in all three."""
+    from repro_torch.kernels import ops
+
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    out = []
+    if G > 1:
+        d = do.clone()
+        d[:, :, G - 1::G] = 0
+        out.append(("one q head of each group dropped",
+                    ops.flash_attention_bwd(q, k, v, o, lse, d, **kw), (1, 2)))
+    last = (S - 1) // BWD_TILE * BWD_TILE
+    d = do.clone()
+    d[:, last:] = 0
+    out.append((f"q rows {last}-{S - 1} dropped",
+                ops.flash_attention_bwd(q, k, v, o, lse, d, **kw), (1, 2)))
+    if kw["window"]:
+        for w in (kw["window"] - 1, kw["window"] + 1):
+            out.append((f"window {w}", ops.flash_attention_bwd(
+                q, k, v, o, lse, do, **dict(kw, window=w)), (0, 1, 2)))
+    return out
+
+
+def run_flash_bwd_phase(dev, gen):
+    """The backward kernel against its plain version on the same (q, k, v,
+    O, lse, dO), O and lse from the plain fp32 forward; two calls
+    bit-equal; the tolerance rejects the planted faults of
+    :func:`bwd_planted_faults`; the forward kernel's log-sum-exp against
+    the plain one."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    rows = []
+    for label, B, S, H, K, hd, dt, causal, window, cap in flash_bwd_cases():
+        q, k, v, do = (torch.randn(B, S, n, hd, device=dev,
+                                   generator=gen).to(dt)
+                       for n in (H, K, K, H))
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  logit_cap=cap)
+        o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+        _, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        lse_err = (lse_k - lse).abs().max().item()
+        check(lse_err <= LSE_TOL * max(1.0, lse.abs().max().item()),
+              f"flash lse {label}: max |kernel - plain| {lse_err}")
+        errs, tols = [], [bwd_tol(p, dt) for p in plain]
+        for name, g, g2, p, tol in zip("qkv", got, again, plain, tols):
+            check(bool(torch.isfinite(g).all()),
+                  f"flash bwd {label}: d{name} non-finite")
+            check(torch.equal(g, g2),
+                  f"flash bwd {label}: d{name} differs between two calls")
+            errs.append(compare(g, p, tol, f"flash bwd {label} d{name}"))
+        used = [tol_used(g, p, tol) for g, p, tol in zip(got, plain, tols)]
+        faults = {}
+        for what, wrong, held in bwd_planted_faults(q, k, v, o, lse, do, kw):
+            r = max(tol_used(wrong[i], plain[i], tols[i]) for i in held)
+            check(r > 1, f"flash bwd {label}: the tolerance passes a kernel "
+                  f"with {what} (its largest error is {r:.3g} of it)")
+            faults[what] = r
+        del wrong
+        call = lambda: ops.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, **kw)
+        ms, dev_ms = time_ms(call), device_ms(call)
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
+            q, k, v, o, lse, do, **kw), reps=3, warmup=1)
+        lib_ms, lib = (None, "none: SDPA has no softcap") if cap else \
+            sdpa_backward_ms(q, k, v, do, causal, window)
+        flops, nbytes = flash_bwd_work(B, S, H, K, hd, q.element_size(),
+                                       causal, window)
+        t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        k_ms = dev_ms if dev_ms is not None else ms
+        share, rtol = FLASH_BWD_TOL[dtype_name(dt)]
+        rows.append(dict(label=label, dtype=dtype_name(dt),
+                         max_abs_err=max(errs), errs=errs, lse_err=lse_err,
+                         tol=f"{share:g}·(max |plain| of its {BWD_TILE}-row "
+                         f"or {BWD_TILE}-key tile) + {BWD_NOISE:g} + "
+                         f"{rtol:g}·|plain|", tol_used=used,
+                         faults_tol_used=faults,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library=lib, bound_ms=bound_ms,
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes",
+                         tflops=flops / (k_ms * 1e-3) / 1e12,
+                         bound_share=bound_ms / k_ms,
+                         shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, "
+                         f"{dtype_name(dt)}, "
+                         f"{'causal' if causal else 'not causal'}"
+                         + (f", window {window}" if window else "")
+                         + (f", cap {cap:g}" if cap else "")))
+        print(f"  flash bwd {label:<22} {dtype_name(dt):<8} err dq/dk/dv "
+              f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (of the tolerance "
+              f"{used[0]:.3f}/{used[1]:.3f}/{used[2]:.3f}; planted faults "
+              + ", ".join(f"{w} {r:.3g}" for w, r in faults.items())
+              + f") lse {lse_err:.3g} bit-equal kernel {ms:.4f} ms "
+              f"(device {fmt_ms(dev_ms)}, "
+              f"{rows[-1]['tflops']:.1f} TFLOP/s, "
+              f"{rows[-1]['bound_share']:.1%} of bound) plain "
+              f"{plain_ms:.4f} ms library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
+              f"({lib}) bound {bound_ms:.4f} ms", flush=True)
+        del q, k, v, do, o, lse, lse_k, got, again, plain
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1551,6 +1830,311 @@ def run_deepseek_phase(dev, seed):
                 parity_cuts="2 layers (dense, MoE), 16 experts, page 16")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training (paper-overhead-100m, qwen3-0.6b) at full width
+# ---------------------------------------------------------------------------
+# Kernel names by part, for the traced train step
+TRAIN_KERNEL_GROUPS = (
+    ("flash forward", ("flash_fwd_",)),
+    ("flash backward", ("flash_bwd_",)),
+    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("CE", ("softmax", "nll_loss", "cross_entropy")),
+)
+
+
+def train_flops(cfg, tokens, S, B):
+    """Model FLOPs of a step: 6·N·tokens for the weight products (N the
+    non-embedding parameters plus the vocabulary projection, tied or not)
+    and 12·hd per live causal (q, k) pair and head for attention (4·hd
+    forward, 8·hd backward).  Remat's recomputed forward is not counted."""
+    from repro_torch.models.params import count_params
+    n = count_params(cfg) + cfg.d_model * cfg.padded_vocab
+    pairs = S * (S + 1) // 2
+    attn = 12.0 * cfg.head_dim * pairs * cfg.num_heads * cfg.num_layers \
+        * (tokens // S)
+    return 6.0 * n * tokens + attn, n
+
+
+def trace_train_step(step, state, batch):
+    """One train step under torch.profiler: wall and device-busy time, the
+    idle share and device ms by part (the kernels named in
+    TRAIN_KERNEL_GROUPS, the rest as 'elementwise and other')."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
+    parts["elementwise and other"] = 0.0
+    busy = 0.0
+    launches = 0
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            if "LaunchKernel" in e.key:
+                launches += e.count
+            continue
+        us = e.self_device_time_total
+        busy += us
+        top.append((e.key, e.count, us))
+        key = e.key.lower()
+        for name, parts_of in TRAIN_KERNEL_GROUPS:
+            if any(p in key for p in parts_of):
+                parts[name] += us / 1e3
+                break
+        else:
+            parts["elementwise and other"] += us / 1e3
+    busy *= 1e-6
+    check(busy > 0, "traced train step: no device activity recorded")
+    check(busy <= wall * 1.05, f"traced train step: device busy {busy} s "
+          f"exceeds the wall time {wall} s")
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
+                launches=launches, device_ms_by_part=parts,
+                top_kernels=[(k[:80], n, us / 1e3) for k, n, us in
+                             sorted(top, key=lambda r: -r[2])[:8]])
+
+
+def optimizer_device_ms(state, run):
+    """Device ms of one AdamW update over the state's full parameter set,
+    on copies (the state is left as it was)."""
+    import torch
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    params = {n: p.detach().clone()
+              for n, p in state["params"].named_parameters()}
+    grads = {n: torch.randn_like(p) * 1e-3 for n, p in params.items()}
+    opt = {"m": {n: t.clone() for n, t in state["opt"]["m"].items()},
+           "v": {n: t.clone() for n, t in state["opt"]["v"].items()},
+           "count": state["opt"]["count"].clone()}
+    cfg = AdamWConfig(learning_rate=run.learning_rate,
+                      warmup_steps=run.warmup_steps,
+                      total_steps=run.total_steps)
+    ms = device_ms(lambda: adamw_update(cfg, grads, params, opt), reps=3)
+    del params, grads, opt
+    return ms
+
+
+HELD_OUT_STEP = 10_000      # a batch of the stream no run here trains on
+# One batch trained on 6 times must lose more than 1 nat: the learning
+# check that reads the backward.  A few steps on fresh batches move
+# qwen3's loss (tied embeddings over 151,936 tokens) less than its batches
+# differ, and a held-out batch's loss would also fall with a wrong
+# attention gradient (the embeddings and FFNs still learn).  The drop
+# each run reaches is printed and written to PERF.md §5.
+REPEAT_STEPS, REPEAT_DROP = 6, 1.0
+
+
+def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
+                    remat, lr=1e-3, warmup=3, falling_mean=True):
+    """Train ``arch`` at full width in bf16 (fp32 master weights and
+    moments) through ``repro_torch.launch.train``'s own loop: launch
+    counts per step, finite losses, the loss of a held-out batch lower
+    after training than at init and (``falling_mean``) the mean loss of
+    the last 5 steps below that of the first 5, steps/s, tokens/s, MFU,
+    peak memory; then one more step under the profiler; then, from a
+    fresh init, REPEAT_STEPS steps on one batch, whose loss must fall by
+    more than REPEAT_DROP."""
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.spec import TrainSpec
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import compute_params
+    from repro_torch.train.steps import (
+        init_train_state, loss_fn, make_train_step)
+
+    cfg = train_cli.config_of(arch, reduced=False)
+    ctx = Ctx(device=dev, dtype=torch.bfloat16)
+    data = SyntheticLMData(cfg.vocab_size, seq, batch, seed)
+    held = {k: v[:batch // microbatches] for k, v in
+            data.batch_at(HELD_OUT_STEP, dev).items()}
+
+    def held_out_loss(st):
+        with torch.no_grad():
+            return float(loss_fn(cfg, compute_params(st["params"], ctx.dtype),
+                                 held, ctx)[0])
+
+    t = TrainSpec(total_steps=steps, global_batch=batch, seq_len=seq,
+                  learning_rate=lr, num_microbatches=microbatches,
+                  remat_policy=remat, reduced=False, log_every=5)
+    run = RunConfig(num_microbatches=microbatches, remat_policy=remat,
+                    learning_rate=lr, warmup_steps=warmup, total_steps=steps)
+    no_remat = None
+    if remat != "none":
+        # the first step without remat, for the remat run to equal: the
+        # recomputed forward is the same arithmetic, kernels included
+        state = init_train_state(cfg, seed=seed, run=run, device=dev)
+        m = make_train_step(cfg, ctx, dataclasses.replace(
+            run, remat_policy="none"))(state, data.batch_at(0, dev))[1]
+        no_remat = (float(m["loss"]), float(m["grad_norm"]))
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, seed=seed, run=run, device=dev)
+    held_before = held_out_loss(state)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    r = train_cli.train(cfg, t, seed=seed, device=dev, run=run, state=state,
+                        log=lambda s: print(s, flush=True))
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in r["metrics"]]
+    check(all(map(math.isfinite, losses)),
+          f"train {arch}: non-finite loss in {losses}")
+    held_after = held_out_loss(r["state"])
+    check(held_after < held_before, f"train {arch}: the held-out batch's "
+          f"loss did not fall ({held_before} at init, {held_after} after)")
+    if no_remat is not None:
+        m0 = r["metrics"][0]
+        check((m0["loss"], m0["grad_norm"]) == no_remat,
+              f"train {arch}: the first step's (loss, grad norm) "
+              f"{(m0['loss'], m0['grad_norm'])} under remat {remat} differ "
+              f"from {no_remat} without remat")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(not falling_mean or last < first, f"train {arch}: loss did not "
+          f"fall (first 5 mean {first}, last 5 mean {last})")
+    fwd_per = cfg.num_layers * microbatches * (2 if remat != "none" else 1)
+    bwd_per = cfg.num_layers * microbatches
+    check(launches["flash_attention_bshd"] == fwd_per * steps
+          and launches["flash_attention_bwd"] == bwd_per * steps,
+          f"train {arch}: launches {launches}, expected flash forward "
+          f"{fwd_per} and backward {bwd_per} a step over {steps} steps")
+    tokens = batch * seq
+    flops, n = train_flops(cfg, tokens, seq, batch)
+    mfu = flops * r["steps_per_s"] / PEAK_FLOPS["bfloat16"]
+    opt_ms = optimizer_device_ms(r["state"], run)
+    step = make_train_step(cfg, ctx, run)
+    tr = trace_train_step(step, r["state"], data.batch_at(steps, dev))
+    out = dict(arch=arch, layers=cfg.num_layers, steps=steps, batch=batch,
+               seq=seq, microbatches=microbatches, remat=remat, lr=lr,
+               warmup=warmup, losses=losses, first5=first, last5=last,
+               held_out_before=held_before, held_out_after=held_after,
+               first_step_without_remat=no_remat,
+               first_step_s=r["first_step_s"], steps_per_s=r["steps_per_s"],
+               tokens_per_s=r["tokens_per_s"], timed_steps=r["timed_steps"],
+               model_flops_per_step=flops, matmul_params=n, mfu=mfu,
+               peak_mem_gb=peak_gb, launches=launches,
+               launches_per_step={"flash_attention_bshd": fwd_per,
+                                  "flash_attention_bwd": bwd_per},
+               optimizer_device_ms=opt_ms, trace=tr)
+    print(f"  train {arch}: {steps} steps of B {batch} x S {seq} "
+          f"({microbatches} microbatches, remat {remat}); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean {first:.4f}, "
+          f"last 5 {last:.4f}; held-out batch {held_before:.4f} -> "
+          f"{held_after:.4f}); {r['steps_per_s']:.3f} steps/s, "
+          f"{r['tokens_per_s']:.0f} tokens/s over {r['timed_steps']} steps, "
+          f"MFU {mfu:.3f} ({flops / 1e12:.2f} TFLOP a step vs 989 TFLOP/s "
+          f"bf16), peak {peak_gb:.2f} GB; launches {launches}; AdamW "
+          f"{fmt_ms(opt_ms)} ms device a step", flush=True)
+    print(f"  traced step: wall {tr['wall_s'] * 1e3:.1f} ms, device busy "
+          f"{tr['device_busy_s'] * 1e3:.1f} ms, idle share "
+          f"{tr['idle_share']:.3f}, {tr['launches']} launches; device ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      tr["device_ms_by_part"].items()), flush=True)
+    for key, cnt, ms in tr["top_kernels"]:
+        print(f"    dev  {key[:60]:<60} x{cnt:<5} {ms:9.3f} ms")
+    del r, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, seed=seed, run=run, device=dev)
+    step, one = make_train_step(cfg, ctx, run), data.batch_at(0, dev)
+    rep = [float(step(state, one)[1]["loss"]) for _ in range(REPEAT_STEPS)]
+    check(rep[0] - rep[-1] > REPEAT_DROP, f"train {arch}: one batch trained "
+          f"on {REPEAT_STEPS} times lost {rep[0] - rep[-1]} nats, not more "
+          f"than {REPEAT_DROP} ({rep})")
+    out["repeated_batch_losses"] = rep
+    print(f"  one batch {REPEAT_STEPS} times: loss "
+          + " ".join(f"{x:.4f}" for x in rep), flush=True)
+    del state, step, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_parity_phase(dev, seed):
+    """fp32 on ``cuda`` (the kernels' fp32 paths) against ``cpu`` (the
+    plain versions), TF32 off, both configs at full width cut to 2 layers,
+    B 2, S 256, from the same init (drawn on the CPU: a CUDA generator
+    draws other numbers; carried to the card through the reference's
+    tree) and batches: the first batch's gradients per leaf, 3 steps'
+    losses, then a checkpoint round trip
+    (``train_state_to_jax`` and back) and the next step's loss equal to
+    the unrestored state's on ``cuda``."""
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.convert import train_state_from_jax, train_state_to_jax
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import compute_params
+    from repro_torch.train.steps import (
+        init_train_state, loss_fn, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ("paper-overhead-100m", "qwen3-0.6b"):
+        cfg = train_cli.config_of(arch, reduced=False, layers=2)
+        run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+        data = SyntheticLMData(cfg.vocab_size, 256, 2, seed)
+        res = []
+        init = train_state_to_jax(
+            init_train_state(cfg, seed=seed, run=run, device=cpu), cfg)
+        for d in (dev, cpu):
+            ctx = Ctx(device=d, dtype=torch.float32)
+            state = train_state_from_jax(init, cfg, device=d)
+            model = state["params"]
+            names, leaves = zip(*model.named_parameters())
+            loss, _ = loss_fn(cfg, compute_params(model, torch.float32),
+                              data.batch_at(0, d), ctx)
+            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+            step = make_train_step(cfg, ctx, run)
+            ops.reset_launches()
+            losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
+                      for i in range(3)]
+            res.append((dict(zip(names, grads)), losses, state, step,
+                        dict(ops.launches)))
+        (g_c, l_c, s_c, step_c, launch_c), (g_p, l_p, *_) = res
+        check(launch_c["flash_attention_bwd"] == 2 * 3,
+              f"train parity {arch}: backward launches {launch_c}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_p))
+        check(rel <= 1e-5, f"train parity {arch}: losses {l_c} vs {l_p}")
+        worst = 0.0
+        for n in g_p:
+            scale = g_p[n].abs().max().item()
+            err = (g_c[n] - g_p[n]).abs().max().item()
+            check(err <= 1e-4 * max(scale, 1e-30),
+                  f"train parity {arch}: gradient {n} max |cuda - cpu| "
+                  f"{err}, max |g| {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        restored = train_state_from_jax(train_state_to_jax(s_c, cfg), cfg,
+                                        device=dev)
+        nxt = data.batch_at(3, dev)
+        a = float(step_c(restored, nxt)[1]["loss"])
+        b = float(step_c(s_c, nxt)[1]["loss"])
+        check(a == b, f"train parity {arch}: the restored state's next loss "
+              f"{a} differs from {b}")
+        out[arch] = dict(losses_cuda=l_c, losses_cpu=l_p, loss_rel_err=rel,
+                         grad_rel_err=worst, restored_next_loss=a)
+        print(f"  train parity {arch} (2 layers, fp32): losses cuda {l_c} "
+              f"cpu {l_p} (max rel {rel:.3g}); gradients within "
+              f"{worst:.3g}·max|g| of their leaves; restored state's next "
+              f"loss {a} equal", flush=True)
+        del res, s_c, restored, step_c
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1562,6 +2146,7 @@ def main() -> int:
               f"({SRC / 'repro_torch'} is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.base import SHAPES, get_run_config
     from repro_torch.kernels import _build
 
     card = card_line()
@@ -1591,6 +2176,7 @@ def main() -> int:
     wkv_rows = run_wkv_phase(dev, gen)
     rglru_rows = run_rglru_phase(dev, gen)
     mla_rows = run_mla_phase(dev, gen)
+    bwd_rows = run_flash_bwd_phase(dev, gen)
     _flush.clear()              # the L2-cold timings' buffer: out of the
     torch.cuda.empty_cache()    # serve runs' peak memory
     print("[serve] qwen3-0.6b full width, bf16", flush=True)
@@ -1611,6 +2197,27 @@ def main() -> int:
     print("[deepseek] deepseek-v2-236b full width, 3 layers, bf16",
           flush=True)
     deepseek = run_deepseek_phase(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[train] paper-overhead-100m full width (12 layers), bf16 compute,"
+          " fp32 master", flush=True)
+    train = {"paper-overhead-100m": run_train_phase(
+        dev, seed, "paper-overhead-100m", steps=30, batch=8, seq=1024,
+        microbatches=1, remat="none")}
+    print("[train] qwen3-0.6b full width (28 layers), its train_4k run (S "
+          "4096, 2 microbatches, full remat)", flush=True)
+    # 6 steps on fresh batches move qwen3's loss less than its batches
+    # differ (tied embeddings over a 151,936-token vocabulary), so its
+    # learning is read from the held-out and the repeated batch
+    q_run = get_run_config("qwen3-0.6b", "train_4k")
+    train["qwen3-0.6b"] = run_train_phase(
+        dev, seed, "qwen3-0.6b", steps=6, batch=4,
+        seq=SHAPES["train_4k"].seq_len,
+        microbatches=q_run.num_microbatches, remat=q_run.remat_policy,
+        falling_mean=False)
+    print("[train-parity] fp32 cuda vs cpu, full width, 2 layers",
+          flush=True)
+    train["parity"] = run_train_parity_phase(dev, seed)
 
     main_run = runs["a_no_prefix_cache"]
     fl = next(r for r in flash_rows if r["label"] == "qwen3 S1024")
@@ -1620,6 +2227,10 @@ def main() -> int:
     rl = next(r for r in rglru_rows if r["label"] == "recurrentgemma serving")
     rg_launches = rgemma["serve"]["launches"]
     ml = next(r for r in mla_rows if r["label"] == "deepseek-v2 serving")
+    fl64 = next(r for r in flash_rows if r["label"] == "paper train B8 S1024")
+    pb = next(r for r in bwd_rows if r["label"] == "paper train")
+    qb = next(r for r in bwd_rows if r["label"] == "qwen3 train")
+    paper_train = train["paper-overhead-100m"]
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -1640,7 +2251,30 @@ def main() -> int:
                  plain_ms=fl256["plain_ms"], bound_ms=fl256["bound_ms"],
                  bound_by=fl256["bound_by"],
                  library_ms=fl256["library_ms"],
-                 library="SDPA, boolean causal-window mask, enable_gqa")),
+                 library="SDPA, boolean causal-window mask, enable_gqa"),
+             hd64=dict(
+                 shape="B 8, S 1024, H 12, K 4, hd 64, bf16, causal "
+                 "(paper-overhead-100m's training shape)",
+                 launches=paper_train["launches"]["flash_attention_bshd"],
+                 max_abs_err=fl64["max_abs_err"], ms=fl64["ms"],
+                 device_ms=fl64["device_ms"], plain_ms=fl64["plain_ms"],
+                 bound_ms=fl64["bound_ms"], bound_by=fl64["bound_by"],
+                 library_ms=fl64["library_ms"],
+                 library="SDPA, is_causal, enable_gqa")),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/models/attention.py:34",
+             gradient_of="flash_attention_jnp (src/repro/models/attention.py"
+             ":34) under jax.grad; the reference has no Pallas backward",
+             launches=paper_train["launches"]["flash_attention_bwd"],
+             max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
+             ms=pb["ms"], device_ms=pb["device_ms"], plain_ms=pb["plain_ms"],
+             bound_ms=pb["bound_ms"], bound_by=pb["bound_by"],
+             library_ms=pb["library_ms"], library=pb["library"],
+             shape=pb["shape"],
+             qwen3={k: qb[k] for k in ("shape", "max_abs_err", "ms",
+                                       "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "library")}),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_attention.py:120",
@@ -1689,6 +2323,7 @@ def main() -> int:
                       "wkv6": wkv_rows, "rwkv": rwkv, "rglru": rglru_rows,
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,
+                      "flash_bwd": bwd_rows, "train": train,
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t_start}))
     print(card)

@@ -1,6 +1,6 @@
 """Model configuration of the port: its own copy of the reference's
-``ModelConfig`` (fields, ``padded_vocab``, ``layer_kinds``, ``reduced``)
-and config registry.
+``ModelConfig`` (fields, ``padded_vocab``, ``layer_kinds``, ``reduced``),
+``ShapeConfig`` and ``RunConfig``, and the config and run registries.
 
 The port serves the dense all-global GQA decoders (``qwen3-0.6b`` and
 ``paper-overhead-100m``), the attention-free RWKV6 stack (``rwkv6-7b``),
@@ -8,7 +8,9 @@ the RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
 all-global MLA and MoE stacks (``deepseek-v2-236b``,
 ``granite-moe-1b-a400m``).  The other families keep their fields here so
 a config reads the same as in the reference; :func:`check_ported`
-rejects them when a model is built.
+rejects them when a model is built.  The port trains the all-global dense
+GQA stacks (``paper-overhead-100m``, ``qwen3-0.6b``); :func:`check_trainable`
+refuses the rest by name.
 """
 from __future__ import annotations
 
@@ -144,6 +146,44 @@ class ModelConfig:
         )
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A workload shape: sequence length, global batch, and whether it
+    trains, prefills or decodes (the reference's ``ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+#: The reference's training shape (its serving shapes have no reader here).
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """The per-(arch, shape) training knobs the port reads (the fields of
+    the reference's ``RunConfig`` that its train step uses).  Microbatches
+    and remat are a memory-fit decision; ``master_dtype`` and
+    ``opt_dtype`` are the storage types of the weights (matrices) and of
+    the AdamW moments; ``grad_compression`` other than ``"none"`` comes
+    with the port of ``dist/compression.py``."""
+
+    num_microbatches: int = 1
+    remat_policy: str = "none"       # none | dots | full
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    master_dtype: str = "float32"
+    opt_dtype: str = "float32"
+    grad_compression: str = "none"
+
+
 #: The layer mixes the port serves: all-global attention (GQA or MLA, a
 #: dense or MoE FFN), RWKV6, and the Griffin hybrid of RG-LRU and
 #: sliding-window (local) attention layers.
@@ -181,7 +221,37 @@ def check_ported(cfg: ModelConfig) -> None:
             "the port")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config whose training this port
+    does not have yet: it trains all-global dense GQA stacks without
+    softcaps (``paper-overhead-100m``, ``qwen3-0.6b``)."""
+    check_ported(cfg)
+    missing = []
+    kinds = set(cfg.layer_kinds())
+    if cfg.is_moe:
+        missing.append("MoE (capacity dispatch and the router aux loss)")
+    if cfg.use_mla:
+        missing.append("MLA")
+    if RWKV in kinds:
+        missing.append("RWKV6 (the WKV6 backward)")
+    if RECURRENT in kinds:
+        missing.append("the RG-LRU (the scan's backward)")
+    if LOCAL_ATTN in kinds or cfg.window_size:
+        missing.append("local attention (the hd-256 flash backward)")
+    if cfg.is_encoder_decoder:
+        missing.append("encoder-decoder")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
+        missing.append("logit softcaps")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: training {', '.join(missing)} comes in a later "
+            "training slice of the port")
+
+
 _REGISTRY: Dict[str, ModelConfig] = {}
+_RUN_OVERRIDES: Dict[Tuple[str, str], RunConfig] = {}
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -189,6 +259,21 @@ def register(cfg: ModelConfig) -> ModelConfig:
         raise ValueError(f"duplicate config {cfg.name!r}")
     _REGISTRY[cfg.name] = cfg
     return cfg
+
+
+def register_run(arch: str, shape: str, run: RunConfig) -> None:
+    _RUN_OVERRIDES[(arch, shape)] = run
+
+
+def get_run_config(arch: str, shape: str) -> RunConfig:
+    """The registered run of ``(arch, shape)``; training shapes default to
+    full remat, as in the reference."""
+    _ensure_loaded()
+    if (arch, shape) in _RUN_OVERRIDES:
+        return _RUN_OVERRIDES[(arch, shape)]
+    if shape in SHAPES and SHAPES[shape].kind == "train":
+        return RunConfig(remat_policy="full")
+    return RunConfig()
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,5 +1,7 @@
 """Qwen3-0.6B: dense GQA with per-head qk RMSNorm. [hf:Qwen/Qwen3-0.6B]"""
-from repro_torch.configs.base import GLOBAL_ATTN, ModelConfig, register
+from repro_torch.configs.base import (
+    GLOBAL_ATTN, ModelConfig, RunConfig, register, register_run,
+)
 
 CONFIG = register(ModelConfig(
     name="qwen3-0.6b",
@@ -16,3 +18,6 @@ CONFIG = register(ModelConfig(
     tie_embeddings=True,
     rope_theta=1_000_000.0,
 ))
+
+register_run("qwen3-0.6b", "train_4k",
+             RunConfig(num_microbatches=2, remat_policy="full"))

@@ -1,4 +1,4 @@
-"""Reference weights → the port's state dict.
+"""Reference weights and train states ↔ the port's.
 
 ``params_from_jax`` takes the reference's parameter tree as nested dicts of
 numpy arrays (``jax.device_get(init_params(cfg, key))``) and returns a
@@ -7,7 +7,13 @@ keyed by tree path.  The unrolled ``decoder/prefix/{i}`` (the first
 ``first_k_dense`` layers) is layer ``i``; the stacked ``decoder/groups``
 leaves are unstacked into one block per layer after it (layer
 ``first_k_dense + g * len(pattern) + j`` for group ``g``, pattern position
-``j``); the unrolled ``tail`` follows the groups.
+``j``); the unrolled ``tail`` follows the groups.  ``params_to_jax`` is
+its inverse, restacking ``blocks.{i}`` into ``decoder/{prefix,groups,tail}``.
+
+``train_state_from_jax`` / ``train_state_to_jax`` carry a whole train
+state across (the reference's ``{params, opt: {m, v, count}, step}``, as
+numpy trees; the moments are keyed like the parameters), so a state
+written by one package can continue in the other.
 """
 from __future__ import annotations
 
@@ -33,11 +39,15 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    check_ported(cfg)
+def _layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     pat = len(cfg.block_pattern)
     first = cfg.first_k_dense
-    n_groups = (cfg.num_layers - first) // pat
+    return pat, first, (cfg.num_layers - first) // pat
+
+
+def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    check_ported(cfg)
+    pat, first, n_groups = _layout(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
         if path[0] != "decoder":
@@ -55,3 +65,84 @@ def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
             raise NotImplementedError(
                 f"decoder/{part} comes in a later slice of the port")
     return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                 # numpy's bfloat16, as jax keeps it
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _nest(tree: Dict, path, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def params_to_jax(state: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
+    """The port's state dict (or any tree keyed like it, e.g. the AdamW
+    moments) as the reference's nested tree of numpy arrays: ``blocks.{i}``
+    goes back to ``decoder/prefix/{i}``, to slice ``g`` of the stacked
+    ``decoder/groups/{j}`` or to ``decoder/tail/{j}``."""
+    check_ported(cfg)
+    pat, first, n_groups = _layout(cfg)
+    out: Dict = {}
+    stacks: Dict[Tuple[str, ...], list] = {}
+    for name, t in state.items():
+        path = name.split(".")
+        if path[0] != "blocks":
+            _nest(out, path, _numpy(t))
+            continue
+        i, rest = int(path[1]), path[2:]
+        if i < first:
+            _nest(out, ["decoder", "prefix", str(i)] + rest, _numpy(t))
+            continue
+        g, j = divmod(i - first, pat)
+        if g < n_groups:
+            key = ("decoder", "groups", str(j), *rest)
+            stacks.setdefault(key, [None] * n_groups)[g] = _numpy(t)
+        else:
+            _nest(out, ["decoder", "tail", str(j)] + rest, _numpy(t))
+    for key, arrs in stacks.items():
+        _nest(out, list(key), np.stack(arrs))
+    return out
+
+
+def train_state_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
+    """The reference's train state (numpy tree: ``params``, ``opt.m``,
+    ``opt.v``, ``opt.count``, ``step``) as the port's, on ``device``
+    (``cuda`` unless the caller names one); moments keep their dtype."""
+    from repro_torch.models.layers import resolve_device
+    from repro_torch.models.params import Model, make_trainable
+    from repro_torch.train.steps import new_train_state
+
+    dev = resolve_device(device)
+    model = Model(cfg, device=dev)
+    weights = params_from_jax(tree["params"], cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = weights[name].to(dev)
+    make_trainable(model)
+    state = new_train_state(model)
+    for part in ("m", "v"):
+        state["opt"][part] = {n: t.to(dev) for n, t in params_from_jax(
+            tree["opt"][part], cfg).items()}
+    state["opt"]["count"] = torch.tensor(int(tree["opt"]["count"]),
+                                         dtype=torch.int32, device=dev)
+    state["step"] = torch.tensor(int(tree["step"]), dtype=torch.int32,
+                                 device=dev)
+    return state
+
+
+def train_state_to_jax(state: Dict, cfg: ModelConfig) -> Dict:
+    """The port's train state as the reference's numpy tree."""
+    params = dict(state["params"].named_parameters())
+    return {
+        "params": params_to_jax(params, cfg),
+        "opt": {"m": params_to_jax(state["opt"]["m"], cfg),
+                "v": params_to_jax(state["opt"]["v"], cfg),
+                "count": np.asarray(int(state["opt"]["count"]), np.int32)},
+        "step": np.asarray(int(state["step"]), np.int32),
+    }

@@ -45,6 +45,13 @@
 //   threads, thread (ty, tx) owning q rows ty + 16 i and keys tx + 16 j
 //   (i, j < 4) of the score tile and output dims tx + 16 jj of its rows.
 //
+// Training passes an lse buffer (B, H, S) fp32 and both walks also write
+// each row's softmax log-sum-exp in natural units, the statistic the
+// backward (csrc/flash_attention_bwd.cu) recomputes P from.  The bf16 walk
+// keeps its running max in log2 units of scale * log2 e, so its lse is
+// max * ln 2 + ln l; the fp32 walk's max is already natural.  Serving
+// passes null: no store, the same work as before.
+//
 // Bound on the card: a causal prefill does 4 * hd FLOPs per live (q, k)
 // pair (two products); against 989 TFLOP/s (bf16 tensor cores, H100 SXM)
 // that is the bound at the serving shapes, while q, k, v and o are read or
@@ -80,9 +87,9 @@ constexpr int smem_floats() {
 template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int S,
-               int H, int KH, float scale, int causal, int window,
-               float cap) {
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int S, int H, int KH, float scale,
+               int causal, int window, float cap) {
   constexpr int DJ = HD / 16;               // output dims per thread
   extern __shared__ float smem[];
   float* Qs = smem;                         // [BQ][HD + 1], scaled
@@ -212,6 +219,8 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && tx == 0)          // m is in natural units here
+      lse[((size_t)b * H + h) * S + row] = m[i] + logf(denom);
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
       ob[(size_t)row * qstride + tx + 16 * jj] = acc[i][jj] / denom;
@@ -227,6 +236,7 @@ constexpr int WG_THREADS = 384;         // producer + two consumer warpgroups
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // keys per kv tile and ring depth: at hd 256 a thread's output accumulator
 // is 128 registers, so the score tile is 64 keys (32 more)
@@ -659,8 +669,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                const __grid_constant__ CUtensorMap omap, int B, int S, int H,
-                int KH, float sc, float cl, int causal, int window) {
+                const __grid_constant__ CUtensorMap omap,
+                float* __restrict__ lse, int B, int S, int H, int KH,
+                float sc, float cl, int causal, int window) {
   using T = WgTile<HD>;
   constexpr int BKV = T::BKV, ST = T::STAGES, NS = BKV / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -842,7 +853,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       for (int rr = 0; rr < 2; ++rr) {
         l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
         l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-        l[rr] = 1.f / fmaxf(l[rr], 1e-37f);
+        const float denom = fmaxf(l[rr], 1e-37f);
+        // the log-sum-exp in natural units: m * (CAP ? 1 : sc) is the row
+        // max in log2 units, so lse = that * ln 2 + ln l
+        const int row = q0c + 16 * warp + (lane >> 2) + 8 * rr;
+        if (lse != nullptr && (lane & 3) == 0 && row < S)
+          lse[((size_t)u.b * H + u.h) * S + row] =
+              m[rr] * (CAP ? 1.f : sc) * LN2 + logf(denom);
+        l[rr] = 1.f / denom;
       }
       // this consumer's staging buffer holds O_COLS columns in the box's
       // swizzled layout; it is reused once the last stores have read it
@@ -929,9 +947,9 @@ bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
 }
 
 template <int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KH, float scale, int causal, int window,
-                float cap, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KH, float scale,
+                int causal, int window, float cap, cudaStream_t stream) {
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -939,15 +957,15 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_simt<HD><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, scale,
-      causal, window, cap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KH,
+      scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int KH, float scale, int causal, int window,
-                 float cap, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int H, int KH, float scale,
+                 int causal, int window, float cap, cudaStream_t stream) {
   using T = WgTile<HD>;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -985,41 +1003,43 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const long long n_work = (long long)B * H * ((S + WG_BQ - 1) / WG_BQ);
   const int grid = (int)std::min<long long>(n_work, sms[dev]);
   kernel<<<grid, WG_THREADS, T::SMEM, stream>>>(
-      qm, km, vm, om, B, S, H, KH, sc, cl,
-      causal, window);
+      qm, km, vm, om, lse, B, S, H, KH, sc, cl, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o: (B, S, H, hd); k, v: (B, S, KH,
-// hd); all contiguous.  Returns 0 when the kernel was launched, a CUDA
-// error code when the launch was refused, -1 for an unsupported shape or
-// type.
+// hd); all contiguous.  lse: null, or (B, H, S) fp32 that receives each
+// row's log-sum-exp in natural units, log sum_k exp(s_qk) over the live
+// keys (the training forward; serving passes null and does the same work as
+// without it).  Returns 0 when the kernel was launched, a CUDA error code
+// when the launch was refused, -1 for an unsupported shape or type.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
-                                   int S, int H, int KH, int hd, float scale,
-                                   int causal, int window, float cap,
-                                   void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   int dtype, int B, int S, int H, int KH,
+                                   int hd, float scale, int causal,
+                                   int window, float cap, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && hd == 64)
-    return launch_simt<64>(q, k, v, o, B, S, H, KH, scale, causal,
-                                  window, cap, st);
+    return launch_simt<64>(q, k, v, o, l, B, S, H, KH, scale, causal, window,
+                           cap, st);
   if (dtype == 0 && hd == 128)
-    return launch_simt<128>(q, k, v, o, B, S, H, KH, scale, causal,
-                                   window, cap, st);
-  if (dtype == 1 && hd == 64)
-    return launch_wgmma<64>(q, k, v, o, B, S, H, KH, scale, causal,
-                             window, cap, st);
+    return launch_simt<128>(q, k, v, o, l, B, S, H, KH, scale, causal,
+                            window, cap, st);
   if (dtype == 0 && hd == 256)
-    return launch_simt<256>(q, k, v, o, B, S, H, KH, scale, causal, window,
-                            cap, st);
+    return launch_simt<256>(q, k, v, o, l, B, S, H, KH, scale, causal,
+                            window, cap, st);
+  if (dtype == 1 && hd == 64)
+    return launch_wgmma<64>(q, k, v, o, l, B, S, H, KH, scale, causal,
+                            window, cap, st);
   if (dtype == 1 && hd == 128)
-    return launch_wgmma<128>(q, k, v, o, B, S, H, KH, scale, causal,
+    return launch_wgmma<128>(q, k, v, o, l, B, S, H, KH, scale, causal,
                              window, cap, st);
   if (dtype == 1 && hd == 256)
-    return launch_wgmma<256>(q, k, v, o, B, S, H, KH, scale, causal,
+    return launch_wgmma<256>(q, k, v, o, l, B, S, H, KH, scale, causal,
                              window, cap, st);
   return -1;
 }

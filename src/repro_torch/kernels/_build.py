@@ -20,8 +20,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "mla_decode", "paged_decode", "rglru_scan",
-           "rwkv6_wkv")
+SOURCES = ("flash_attention", "flash_attention_bwd", "mla_decode",
+           "paged_decode", "rglru_scan", "rwkv6_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

@@ -10,6 +10,12 @@ Each wrapper checks devices, dtypes, shapes and contiguity, then:
 
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; :func:`reset_launches` zeroes it.
+
+Training takes ``flash_attention_bshd`` through :class:`FlashAttention`, a
+``torch.autograd.Function`` whose backward is :func:`flash_attention_bwd`
+(the backward kernel on the card, its plain version on the CPU), whenever
+grad is enabled and an input requires it; under ``torch.inference_mode``
+the serving call is the plain forward launch it always was.
 """
 from __future__ import annotations
 
@@ -22,8 +28,9 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_wkv as wkv
 
-launches = {"flash_attention_bshd": 0, "paged_decode_bhd": 0,
-            "mla_paged_decode_bhd": 0, "rglru_scan_bsr": 0, "wkv6_bshn": 0}
+launches = {"flash_attention_bshd": 0, "flash_attention_bwd": 0,
+            "paged_decode_bhd": 0, "mla_paged_decode_bhd": 0,
+            "rglru_scan_bsr": 0, "wkv6_bshn": 0}
 
 
 def reset_launches() -> None:
@@ -74,15 +81,85 @@ def flash_attention_bshd(
              f"{tuple(k.shape)}")
     _require(q.dtype == k.dtype == v.dtype,
              "flash_attention_bshd: q, k, v dtypes differ")
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
-        return fa.flash_attention_torch(q, k, v, scale=scale, causal=causal,
-                                        window=window, logit_cap=logit_cap)
-    _cuda_operands("flash_attention_bshd", (q, k, v), fa.DTYPE_CODES, hd,
-                   fa.HEAD_DIMS)
+    kw = dict(scale=scale, causal=causal, window=window, logit_cap=logit_cap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, kw)
+    return _flash_forward(q, k, v, kw, return_lse=False)
+
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _flash_forward(q, k, v, kw, *, return_lse: bool):
+    if _on_cpu((q, k, v)):
+        return fa.flash_attention_torch(q, k, v, return_lse=return_lse, **kw)
+    _cuda_operands("flash_attention_bshd", (q, k, v), fa.DTYPE_CODES,
+                   q.shape[3], fa.HEAD_DIMS)
     launches["flash_attention_bshd"] += 1
-    return fa.flash_attention_cuda(q, k, v, scale=scale, causal=causal,
-                                   window=window, logit_cap=logit_cap)
+    return fa.flash_attention_cuda(q, k, v, return_lse=return_lse, **kw)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward also writes the
+    log-sum-exp and saves (q, k, v, out, lse); the backward is
+    :func:`flash_attention_bwd` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = _flash_forward(q, k, v, kw, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, S, K, hd)
+    v: torch.Tensor,          # (B, S, K, hd)
+    o: torch.Tensor,          # (B, S, H, hd) the forward's output
+    lse: torch.Tensor,        # (B, H, S) fp32 log-sum-exp
+    do: torch.Tensor,         # (B, S, H, hd) the output's gradient
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    logit_cap: float = 0.0,
+):
+    """(dq, dk, dv) of :func:`flash_attention_bshd`.  The kernel takes hd
+    64 and 128 (``fa.BWD_HEAD_DIMS``)."""
+    B, S, H, hd = q.shape
+    _require(k.shape == v.shape and k.shape[0] == B and k.shape[1] == S
+             and k.shape[3] == hd and H % k.shape[2] == 0
+             and o.shape == q.shape and do.shape == q.shape
+             and tuple(lse.shape) == (B, H, S),
+             f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+             f"o {tuple(o.shape)}, lse {tuple(lse.shape)}, do "
+             f"{tuple(do.shape)}")
+    _require(q.dtype == k.dtype == v.dtype == o.dtype == do.dtype
+             and lse.dtype == torch.float32,
+             "flash_attention_bwd: q, k, v, o, do must share a dtype, lse "
+             "must be fp32")
+    kw = dict(scale=scale, causal=causal, window=window, logit_cap=logit_cap)
+    operands = (q, k, v, o, lse, do)
+    if _on_cpu(operands):
+        return fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    _cuda_operands("flash_attention_bwd", operands[:4] + operands[5:],
+                   fa.DTYPE_CODES, hd, fa.BWD_HEAD_DIMS)
+    _require(lse.device == q.device and lse.is_contiguous(),
+             "flash_attention_bwd: lse must be contiguous on the card")
+    _require(all(t.data_ptr() % 16 == 0 for t in operands),
+             "flash_attention_bwd: operands must be 16-byte aligned (the "
+             "kernel reads 16-byte chunks)")
+    launches["flash_attention_bwd"] += 1
+    return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
 
 
 def paged_decode_bhd(

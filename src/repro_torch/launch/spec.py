@@ -1,8 +1,21 @@
-"""The serving knobs the port's engine and workload read (the fields of
-the reference's ``core/jobspec.py:ServeSpec`` that they use)."""
+"""The training and serving knobs the port's CLIs and engine read (the
+fields of the reference's ``core/jobspec.py:TrainSpec`` and ``ServeSpec``
+that they use)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class TrainSpec:
+    total_steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    learning_rate: float = 1e-3
+    num_microbatches: int = 1
+    remat_policy: str = "none"       # none | dots | full
+    reduced: bool = True             # tiny same-family config, fp32 compute
+    log_every: int = 10
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,153 @@
+"""Training CLI of the port (the reference's ``launch/train.py`` and its
+executor's ``_run_train``): random init from ``--seed``, the synthetic
+data stream, AdamW with warmup (a twentieth of the steps) and cosine
+decay.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 10 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch paper-overhead-100m --steps 30 --batch 8 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --steps 6 --batch 4 --seq 4096 --microbatches 2 --remat full
+
+It runs on ``cuda`` unless ``--device`` names another device; on the card
+every attention layer takes the flash kernels (forward and backward).
+Compute is bf16 at full width and fp32 under ``--reduced``, as in the
+reference's executor; the master weights and moments are fp32.  It prints
+the loss, grad norm and lr of the logged steps, then steps/s and tokens/s
+on a host clock that ends in a device synchronise.  ``--layers`` cuts a
+config's depth and keeps its widths.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.launch.spec import TrainSpec
+from repro_torch.models.layers import Ctx, resolve_device
+from repro_torch.models.params import count_params
+from repro_torch.train.steps import init_train_state, make_train_step
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="paper-overhead-100m")
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config, fp32 compute")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers, widths kept "
+                         "(0 = the config's depth)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="none", choices=["none", "dots", "full"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; cpu must be asked "
+                         "for)")
+    return ap.parse_args(argv)
+
+
+def spec_of(args: argparse.Namespace) -> TrainSpec:
+    return TrainSpec(total_steps=args.steps, global_batch=args.batch,
+                     seq_len=args.seq, learning_rate=args.lr,
+                     num_microbatches=args.microbatches,
+                     remat_policy=args.remat, reduced=args.reduced,
+                     log_every=args.log_every)
+
+
+def config_of(arch: str, *, reduced: bool, layers: int = 0):
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def run_config_of(t: TrainSpec) -> RunConfig:
+    return RunConfig(num_microbatches=t.num_microbatches,
+                     remat_policy=t.remat_policy,
+                     learning_rate=t.learning_rate,
+                     warmup_steps=max(t.total_steps // 20, 1),
+                     total_steps=t.total_steps)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
+          state=None, log=print) -> Dict:
+    """Run ``t.total_steps`` steps from a fresh state (or ``state``);
+    returns ``{"state", "metrics": [per-step floats], "seconds",
+    "steps_per_s", "tokens_per_s"}``.  The clock starts after the first
+    step has been issued and synchronised, so it leaves out the kernels'
+    build and the first step's warm-up (``first_step_s``).  Metrics reach
+    the host only at logged steps and at the end, so steps queue on the
+    device without waiting for each other."""
+    dev = resolve_device(device)
+    run = run or run_config_of(t)
+    ctx = Ctx(device=dev, dtype=torch.float32 if t.reduced
+              else torch.bfloat16)
+    if state is None:
+        state = init_train_state(cfg, seed=seed, run=run, device=dev)
+    data = SyntheticLMData(cfg.vocab_size, t.seq_len, t.global_batch, seed)
+    step = make_train_step(cfg, ctx, run)
+    metrics: List[Dict[str, torch.Tensor]] = []
+    start = int(state["step"])
+    t0 = time.perf_counter()
+    first_s = None
+    for i in range(start, start + t.total_steps):
+        state, m = step(state, data.batch_at(i, dev))
+        metrics.append(m)
+        if i == start:
+            _sync(dev)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        if (i - start) % t.log_every == 0 or i == start + t.total_steps - 1:
+            log(f"  step {i:5d}  loss {float(m['loss']):.4f}  gnorm "
+                f"{float(m['grad_norm']):.3f}  lr {float(m['lr']):.2e}")
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    timed = t.total_steps - 1
+    out = {"state": state, "metrics": metrics, "first_step_s": first_s,
+           "seconds": secs, "timed_steps": timed}
+    if timed > 0:
+        out["steps_per_s"] = timed / secs
+        out["tokens_per_s"] = timed * t.global_batch * t.seq_len / secs
+    return out
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    t = spec_of(args)
+    cfg = config_of(args.arch, reduced=t.reduced, layers=args.layers)
+    dev = resolve_device(args.device)
+    n = count_params(cfg, include_embed=True)
+    cut = f" (cut to {cfg.num_layers} layers)" if args.layers else ""
+    print(f"[train] arch={cfg.name}{cut} params={n / 1e6:.1f}M "
+          f"device={dev} batch={t.global_batch} seq={t.seq_len} "
+          f"microbatches={t.num_microbatches} remat={t.remat_policy}")
+    r = train(cfg, t, seed=args.seed, device=dev)
+    rate = (f"{r['steps_per_s']:.3f} steps/s, {r['tokens_per_s']:.0f} "
+            f"tokens/s over the last {r['timed_steps']} steps"
+            if "steps_per_s" in r else "one step: no rate")
+    print(f"[train] {t.total_steps} steps; first {r['first_step_s']:.2f} s, "
+          f"{rate}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

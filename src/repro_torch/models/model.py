@@ -1,26 +1,33 @@
-"""Model assembly: embedding → decoder blocks → logits, over the serving
-cache (the reference's ``models/model.py``, serving modes).  A block is
+"""Model assembly: embedding → decoder blocks → logits (the reference's
+``models/model.py``): training, and serving over the paged cache.  A block is
 GQA attention (global or sliding-window) or MLA + a dense or MoE FFN, the
 RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix.
 
 Modes
 -----
+* ``train``   — tokens → fp32 logits for every position and the aux loss
+  (0 for the dense stacks this port trains), no cache; per-layer remat
+  (:func:`_remat`).  :func:`repro_torch.configs.base.check_trainable`
+  says which configs train.
 * ``prefill`` — tokens → last-position logits + a filled cache.  With
   ``lengths`` the prefill is ragged, with ``starts`` also chunked (prefix
   caching); see :func:`forward`.
 * ``decode``  — one token per row + cache + per-row positions → next
   logits + the updated cache.
-
-``train`` mode comes with the training slice of the port.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import (
     GLOBAL_ATTN, LOCAL_ATTN, RECURRENT, RWKV, ModelConfig, check_ported,
+    check_trainable,
 )
 from repro_torch.models.attention import gqa_attention, mla_attention
 from repro_torch.models.layers import Ctx, dense_ffn, resolve_device, rms_norm
@@ -28,7 +35,7 @@ from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recurrent import rglru_block
 from repro_torch.models.rwkv import rwkv_channel_mix, rwkv_time_mix
 from repro_torch.models.params import (  # noqa: F401
-    Model, Tree, cast_params, count_params, init_params,
+    Model, Tree, cast_params, compute_params, count_params, init_params,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -81,20 +88,82 @@ def _unembed(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
     return torch.where(pad, logits, -1e9)
 
 
+# The matrix products whose outputs ``remat_policy="dots"`` keeps (the
+# counterpart of jax's ``checkpoint_dots_with_no_batch_dims``: the weight
+# products; the attention's own products run inside the flash Function).
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """A layer's function under the reference's remat policies: ``none``
+    keeps every activation, ``full`` keeps only the layer's input and runs
+    its forward again in the backward (so the flash forward launches twice
+    a layer), ``dots`` keeps the matrix products' outputs and recomputes
+    the rest."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat_policy {policy!r}: none, dots or full")
+
+
+def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """One all-global GQA layer with a dense FFN, no cache (train mode)."""
+    x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
+    y, _ = gqa_attention(cfg, blk["attn"], x, kind=GLOBAL_ATTN, mode="full",
+                         cache=None, pos=pos)
+    h = h + y
+    x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
+    return h + dense_ffn(blk["ffn"], x, cfg.act)
+
+
+def forward_train(cfg: ModelConfig, params: Tree,
+                  batch: Dict[str, torch.Tensor], ctx: Ctx, *,
+                  remat_policy: str = "none"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logits (B, S, V) fp32, aux)`` for every position; ``params`` is
+    the differentiable compute tree (:func:`compute_params`).  Vocabulary
+    padding ids get -1e9, as in the reference's ``_unembed``."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    h = _embed(cfg, params, tokens, ctx)
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                       device=tokens.device)
+    for blk in params["blocks"]:
+        layer = _remat(functools.partial(_dense_layer, cfg, blk), remat_policy)
+        h = layer(h, pos)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _unembed(cfg, params, h), aux
+
+
 def forward(
     cfg: ModelConfig,
     params: Tree,
     batch: Dict[str, torch.Tensor],
     ctx: Ctx,
     *,
-    mode: str = "prefill",                 # prefill | decode
+    mode: str = "prefill",                 # train | prefill | decode
     cache: Optional[Dict] = None,
     pos: Optional[torch.Tensor] = None,    # decode: (B,) positions, -1 idle
     lengths: Optional[torch.Tensor] = None,  # ragged prefill: (B,) lengths
     starts: Optional[torch.Tensor] = None,   # chunked prefill: (B,) starts
+    remat_policy: str = "none",              # train: none | dots | full
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns ``(logits (B, 1, V), cache)``; ``params`` is the compute
-    tree from :func:`cast_params`.  The cache is updated in place: the
+    tree from :func:`cast_params`.  ``mode="train"`` returns ``(logits
+    (B, S, V), aux)`` instead (:func:`forward_train`).  The cache is updated in place: the
     page pools and local rings by the writers, the recurrent state lists
     (RWKV, RG-LRU) by storing each layer's new entries.
 
@@ -108,9 +177,13 @@ def forward(
     ``starts`` makes it chunked: row ``b``'s tokens are the uncached tail
     of its prompt, opening at absolute position ``starts[b]``, and
     attention walks the page table (all-global stacks only)."""
+    if mode == "train":
+        if cache is not None or lengths is not None or starts is not None:
+            raise ValueError("train mode takes no cache, lengths or starts")
+        return forward_train(cfg, params, batch, ctx,
+                             remat_policy=remat_policy)
     if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r} comes in a later slice of the port")
+        raise ValueError(f"mode {mode!r}: train, prefill or decode")
     if lengths is not None and mode != "prefill":
         raise ValueError("lengths is a prefill-only argument")
     if starts is not None and lengths is None:

@@ -15,8 +15,8 @@ in the compute dtype, then fp32 softmax, top-k and renormalisation; each
 expert's SwiGLU in the compute dtype; the combine in fp32 and ONE cast to
 the compute dtype; the shared experts in the compute dtype.
 
-Training's capacity dispatch and its load-balancing loss come with the
-training slice.
+Training's capacity dispatch and its load-balancing loss come in a later
+training slice (this one trains the dense GQA stacks).
 """
 from __future__ import annotations
 
@@ -67,8 +67,8 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     if mode == "train":
         raise NotImplementedError(
             "the MoE's training path (capacity dispatch and the "
-            "load-balancing aux loss) comes with the training slice of the "
-            "port")
+            "load-balancing aux loss) comes in a later training slice of "
+            "the port; this one trains the dense GQA stacks")
     if mode != "serve":
         raise ValueError(mode)
     B, S, D = x.shape

@@ -289,19 +289,42 @@ def count_params(cfg: ModelConfig, include_embed: bool = False) -> int:
                if include_embed or name not in ("embed", "lm_head"))
 
 
-def cast_params(model: nn.Module, dtype: torch.dtype) -> Tree:
-    """The compute copy of the weights as a nested tree (the reference's
-    ``cast_params``): matrices (ndim >= 2) in ``dtype``, 1-D leaves (norm
-    gains, biases) stay fp32.  Made once per engine, not per step."""
-    def cast(p: torch.Tensor) -> torch.Tensor:
-        p = p.detach()
-        return p.to(dtype) if p.ndim >= 2 and p.dtype == torch.float32 else p
-
+def _tree(model: nn.Module, cast) -> Tree:
     def tree(m: nn.Module):
         if isinstance(m, nn.ModuleList):
             return [tree(c) for c in m]
         out: Tree = {n: cast(p) for n, p in m.named_parameters(recurse=False)}
         out.update({n: tree(c) for n, c in m.named_children()})
         return out
-
     return tree(model)
+
+
+def _compute_cast(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return p.to(dtype) if p.ndim >= 2 and p.dtype == torch.float32 else p
+
+
+def cast_params(model: nn.Module, dtype: torch.dtype) -> Tree:
+    """The compute copy of the weights as a nested tree (the reference's
+    ``cast_params``): matrices (ndim >= 2) in ``dtype``, 1-D leaves (norm
+    gains, biases) stay fp32.  Detached: the serving engine makes it once,
+    not per step."""
+    return _tree(model, lambda p: _compute_cast(p.detach(), dtype))
+
+
+def compute_params(model: nn.Module, dtype: torch.dtype) -> Tree:
+    """The same cast for training, made inside the step and differentiable:
+    gradients flow back to the master leaves (the reference casts inside
+    its jitted forward, ``models/model.py:forward``)."""
+    return _tree(model, lambda p: _compute_cast(p, dtype))
+
+
+def make_trainable(model: Model, master_dtype: str = "float32") -> Model:
+    """Master leaves for training: matrices stored in ``master_dtype``
+    (fp32 unless the run says otherwise; 1-D leaves stay fp32, as in the
+    reference's ``init_train_state``), every leaf requiring grad."""
+    dt = getattr(torch, master_dtype)
+    for p in model.parameters():
+        if p.ndim >= 2 and dt != torch.float32:
+            p.data = p.data.to(dt)
+        p.requires_grad_(True)
+    return model

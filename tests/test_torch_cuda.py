@@ -24,6 +24,19 @@ multiply-add, the plain loop rounds twice a step), and a padded tail must
 leave the carry bit-equal.  The MLA latent decode kernel is held to its
 plain version with the decode tolerances (its bf16 route splits P into
 bf16 hi + lo for the P·V product, which keeps it within them).
+
+The flash backward is held against its plain version on the same (q, k,
+v, O, lse, dO), the forward's outputs taken from the plain fp32 forward:
+fp32 within 1e-4 of each gradient's largest magnitude; bf16 within 2^-7
+of it plus 2^-7·|plain| (the kernel rounds P and dS to bf16 for its
+tensor-core products, 2^-9 relative each with random signs over the sums,
+and both sides round the result once).  The largest magnitude is taken
+at least 1: the inputs are unit normals, so the products' terms are of
+order 1, and a gradient that cancels to rounding (dQ at S 1, where P = 1
+and dS = P (dP - D) = 0) is held to that scale.  Two calls are bit-equal (no
+atomics).  The forward kernel's log-sum-exp is held to the plain one
+within 1e-5 (fp32 statistics in both types).  A reduced train step on the
+card in fp32 with TF32 off matches the same step on the CPU.
 """
 import dataclasses
 
@@ -32,7 +45,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -42,7 +56,11 @@ from repro_torch.kernels import rwkv6_wkv as wkv  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     ServingEngine, synthesize_requests)
 from repro_torch.launch.spec import ServeSpec  # noqa: E402
+from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    Model, compute_params, make_trainable)
+from repro_torch.train import steps  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -55,12 +73,29 @@ WKV_TOL = {"oracle": 1e-5, "chunked": 3e-5}
 WKV_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 # RG-LRU: (share of max |plain| as atol, rtol)
 RGLRU_TOL = (1e-5, 1e-5)
+# the flash backward: |kernel - plain| <= share·T + BWD_NOISE + rtol·|plain|,
+# T the largest |plain| of the element's tile of 64 rows (dq) or 64 keys
+# (dk, dv) of one batch row and head (the reasons are in chip_smoke.py);
+# (share, rtol) by dtype
+BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2 ** -7, 2 ** -7)}
+BWD_NOISE = 1e-5
 
 
 def _within(out, plain, tol):
     atol, rtol = tol
     d = (out.float() - plain.float()).abs()
     return bool((d <= atol + rtol * plain.float().abs()).all())
+
+
+def _bwd_tol(plain, dt):
+    """(atol per element, rtol) of the flash backward for ``plain``."""
+    share, rtol = BWD_TOL[dt]
+    B, S, n, hd = plain.shape
+    pad = -S % 64
+    a = torch.nn.functional.pad(plain.float().abs(), (0, 0, 0, 0, 0, pad))
+    a = a.view(B, (S + pad) // 64, 64, n, hd)
+    t = a.amax(dim=(2, 4), keepdim=True).expand_as(a)
+    return share * t.reshape(B, S + pad, n, hd)[:, :S] + BWD_NOISE, rtol
 
 
 @pytest.fixture
@@ -673,3 +708,195 @@ def test_deepseek_engine_serves_on_the_card(cuda):
         cfg.num_layers * eng.decode_steps > 0
     assert ops.launches["flash_attention_bshd"] == \
         ops.launches["paged_decode_bhd"] == 0
+
+
+# B, S, H, K, hd, causal, window, cap: G 2 and 3, hd 64 and 128, the
+# 64-row tiles' edges, ragged S, not causal, a window with a softcap
+BWD_CASES = [
+    (2, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 77, 6, 2, 64, True, 0, 0.0),
+    (1, 128, 6, 2, 128, True, 0, 0.0),
+    (2, 77, 4, 2, 128, False, 0, 0.0),
+    (1, 200, 6, 2, 64, False, 0, 0.0),
+    (1, 128, 4, 2, 64, True, 32, 30.0),
+    (1, 77, 3, 1, 128, True, 32, 30.0),
+    *[(1, S, 6, 2, hd, True, 0, 0.0) for hd in (64, 128)
+      for S in (1, 63, 65, 129)],
+    (1, 300, 16, 1, 128, True, 0, 0.0),    # G 16
+    (1, 300, 4, 2, 64, False, 100, 0.0),   # not causal, window
+]
+
+
+def _bwd_inputs(rng, dev, dt, B, S, H, K, hd, kw):
+    q = _randn(rng, (B, S, H, hd), dev, dt)
+    k = _randn(rng, (B, S, K, hd), dev, dt)
+    v = _randn(rng, (B, S, K, hd), dev, dt)
+    do = _randn(rng, (B, S, H, hd), dev, dt)
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,cap", BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda, dt, B, S, H, K, hd,
+                                             causal, window, cap):
+    rng = np.random.default_rng(S + hd)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, logit_cap=cap)
+    q, k, v, o, lse, do = _bwd_inputs(rng, cuda, dt, B, S, H, K, hd, kw)
+    before = ops.launches["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == before + 2
+    for name, g, g2, p in zip("qkv", got, again, plain):
+        assert g.dtype == dt and g.shape == p.shape, name
+        assert torch.equal(g, g2), f"d{name}: two calls differ"
+        assert _within(g, p, _bwd_tol(p, dt)), name
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,cap", [
+    (1, 200, 6, 2, 64, True, 0, 0.0),       # G 3, a partial last tile
+    (1, 300, 4, 2, 128, False, 0, 0.0),
+    (1, 128, 4, 2, 64, True, 32, 30.0),
+])
+def test_flash_backward_tolerance_rejects_planted_faults(
+        cuda, dt, B, S, H, K, hd, causal, window, cap):
+    """The tolerance the kernel meets rejects a kernel that dropped one q
+    head of each group or the last q tile from dK and dV (planted by
+    setting those rows of dO to 0: dQ of those rows then goes to 0 too,
+    which such a kernel would not give, so only dK and dV are held), or
+    moved the window's frontier by one key (the window one key off over
+    the same lse)."""
+    rng = np.random.default_rng(S + hd)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, logit_cap=cap)
+    q, k, v, o, lse, do = _bwd_inputs(rng, cuda, dt, B, S, H, K, hd, kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    tols = [_bwd_tol(p, dt) for p in plain]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(_within(g, p, t) for g, p, t in zip(got, plain, tols))
+    G, last = H // K, (S - 1) // 64 * 64
+    faults = []
+    for rows in ((slice(None), slice(None), slice(G - 1, None, G)),
+                 (slice(None), slice(last, None))):
+        d = do.clone()
+        d[rows] = 0
+        faults.append((ops.flash_attention_bwd(q, k, v, o, lse, d, **kw),
+                       (1, 2)))
+    for w in ((window - 1, window + 1) if window else ()):
+        faults.append((ops.flash_attention_bwd(
+            q, k, v, o, lse, do, **dict(kw, window=w)), (0, 1, 2)))
+    for i, (wrong, held) in enumerate(faults):
+        assert not all(_within(wrong[j], plain[j], tols[j]) for j in held), i
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,cap",
+                         [c for c in FLASH_CASES if c[4] in (64, 128)]
+                         + [(1, 300, 16, 1, 256, True, 64, 0.0)])
+def test_flash_forward_kernel_writes_the_log_sum_exp(cuda, dt, B, S, H, K,
+                                                     hd, causal, window, cap):
+    """The bf16 kernel keeps its running max in log2 units: a units slip
+    in its lse (a factor ln 2 or scale·log2 e) fails here."""
+    rng = np.random.default_rng(S)
+    q = _randn(rng, (B, S, H, hd), cuda, dt)
+    k = _randn(rng, (B, S, K, hd), cuda, dt)
+    v = _randn(rng, (B, S, K, hd), cuda, dt)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, logit_cap=cap)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    alone = fa.flash_attention_cuda(q, k, v, **kw)
+    _, plain = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert torch.equal(out, alone)       # the lse store changes nothing
+    assert float((lse - plain).abs().max()) <= 1e-5 * max(
+        1.0, float(plain.abs().max()))
+
+
+def test_flash_backward_wrapper_refuses_hd256(cuda):
+    x = torch.zeros(1, 64, 2, 256, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_bwd(x, x, x, x, lse, x, scale=0.0625)
+
+
+def test_serving_does_not_take_the_autograd_function(cuda):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 64, 4, 64), cuda, torch.bfloat16).requires_grad_()
+    k = _randn(rng, (1, 64, 2, 64), cuda, torch.bfloat16).requires_grad_()
+    ops.reset_launches()
+    with torch.inference_mode():
+        out = ops.flash_attention_bshd(q, k, k, scale=0.125)
+    assert out.grad_fn is None
+    out = ops.flash_attention_bshd(q, k, k, scale=0.125)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.float().sum().backward()
+    assert ops.launches == dict(ops.launches, flash_attention_bshd=2,
+                                flash_attention_bwd=1)
+
+
+@pytest.mark.parametrize("arch", ["paper-overhead-100m", "qwen3-0.6b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two fp32 steps (2 microbatches) of a reduced config (hd widened to
+    64, the backward kernel's smallest) from the same init (drawn on the
+    CPU and copied: a CUDA generator draws other numbers) and batches, TF32
+    off: each step's gradients within 1e-4 of each leaf's largest
+    magnitude, losses within 1e-5 relative, and the weights after them
+    within 1e-5 except where Adam amplifies fp32 noise (an element whose
+    gradient was below 1e-4 of its leaf's largest in a step can move by
+    up to 2 lr more: m / sqrt(v) ~ sign(g)), and there within 2 lr a
+    step."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    lr, n_steps = 1e-3, 2
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        run = RunConfig(num_microbatches=2, learning_rate=lr,
+                        warmup_steps=1, total_steps=n_steps)
+        data = SyntheticLMData(cfg.vocab_size, 96, 4, seed=0)
+        out = []
+        init = steps.init_train_state(cfg, seed=0, run=run,
+                                      device=torch.device("cpu"))
+        for dev in (cuda, torch.device("cpu")):
+            model = Model(cfg, device=dev)
+            model.load_state_dict(init["params"].state_dict())
+            state = steps.new_train_state(make_trainable(model), run)
+            ctx = Ctx(device=dev, dtype=torch.float32)
+            step = steps.make_train_step(cfg, ctx, run)
+            ops.reset_launches()
+            losses, grads = [], []
+            for i in range(n_steps):
+                batch = data.batch_at(i, dev)
+                names, leaves = zip(*model.named_parameters())
+                loss, _ = steps.loss_fn(cfg, compute_params(model,
+                                                            torch.float32),
+                                        batch, ctx)
+                grads.append({n: g.cpu() for n, g in zip(
+                    names, torch.autograd.grad(loss, leaves))})
+                losses.append(float(step(state, batch)[1]["loss"]))
+            out.append((losses, grads, dict(ops.launches), {
+                n: p.detach().cpu() for n, p in model.named_parameters()}))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (lc, gc, launches, pc), (lp, gp, _, pp) = out
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    # the train steps' flash calls (the gradient probes' calls add one
+    # forward and one backward a layer a step)
+    assert launches["flash_attention_bshd"] == cfg.num_layers * 3 * n_steps
+    assert launches["flash_attention_bwd"] == cfg.num_layers * 3 * n_steps
+    noisy = {n: torch.zeros_like(p, dtype=torch.bool) for n, p in pp.items()}
+    for g_c, g_p in zip(gc, gp):
+        for n, g in g_p.items():
+            scale = max(g.abs().max().item(), 1e-30)
+            err = (g_c[n] - g).abs().max().item()
+            assert err <= 1e-4 * scale, (n, err, scale)
+            noisy[n] |= g.abs() < 1e-4 * scale
+    for n, w in pp.items():
+        err = (pc[n] - w).abs()
+        assert err.max().item() <= 2 * lr * n_steps, (n, err.max().item())
+        assert not bool((err[~noisy[n]] > 1e-5).any()), \
+            (n, err[~noisy[n]].max().item())
