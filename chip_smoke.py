@@ -29,13 +29,16 @@ Phases, each of which exits non-zero on the first failure:
               backward on the same (q, k, v, O, lse, dO) at the two
               training shapes (paper: B 8, S 1,024, H 12, K 4, hd 64;
               qwen3: B 2, S 4,096, H 16, K 8, hd 128), ragged S 1,000 and
-              77, not causal and with a window and softcap, bf16 and
-              fp32, two calls bit-equal, each within a tolerance scaled
-              by its 64-row or 64-key tile that rejects planted faults (a
-              q head of each group or the last q tile dropped from dK and
-              dV, the window's frontier one key off), timed beside SDPA's
-              backward; the forward kernel's log-sum-exp against the
-              plain one.
+              77, the bf16 kernels' tile edges (S 127, 255, 257 with G 2
+              and 3), more work items than the card runs at once (B 2, S
+              2,048, hd 128), not causal and with a window and softcap,
+              bf16 and fp32, two calls bit-equal, each within a tolerance
+              scaled by its 64-row or 64-key tile that rejects planted
+              faults (a q head of each group or the last q tile dropped
+              from dK and dV, the window's frontier one key off), timed
+              beside SDPA's backward and split by kernel (dQ with the
+              statistics, dK/dV); the forward kernel's log-sum-exp
+              against the plain one.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -958,6 +961,16 @@ def flash_bwd_cases():
         ("qwen3 train", 2, 4096, 16, 8, 128, bf16, True, 0, 0.0),
         ("ragged S1000", 2, 1000, 16, 8, 128, bf16, True, 0, 0.0),
         ("ragged S77 G3", 2, 77, 12, 4, 64, bf16, True, 0, 0.0),
+        # the bf16 kernels' tile edges: 128-key dK/dV items with 64-row
+        # (hd 128) or 128-row (hd 64) q stages, 128-row dQ items with
+        # 128-key K/V stages
+        ("edge S127 G2", 1, 127, 4, 2, 64, bf16, True, 0, 0.0),
+        ("edge S255 G3", 1, 255, 6, 2, 128, bf16, True, 0, 0.0),
+        ("edge S257 G3", 2, 257, 6, 2, 64, bf16, True, 0, 0.0),
+        ("edge S257 G2", 1, 257, 4, 2, 128, bf16, True, 0, 0.0),
+        # more work items than the card runs at once (256 dK/dV, 512 dQ
+        # on 132 SMs): the persistent loops and the rings' phases wrap
+        ("wrap B2 S2048", 2, 2048, 16, 8, 128, bf16, True, 0, 0.0),
         ("not causal", 2, 512, 12, 4, 64, bf16, False, 0, 0.0),
         ("window 256 cap 30", 2, 640, 16, 8, 128, bf16, True, 256, 30.0),
         ("fp32 paper", 2, 1024, 12, 4, 64, f32, True, 0, 0.0),
@@ -1019,6 +1032,37 @@ def sdpa_backward_ms(q, k, v, do, causal, window):
                    + (", boolean window mask" if window else ""))
             return ms, how
     return None, "no SDPA backend ran"
+
+
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn()`` split by kernel name (the summed
+    durations of each kernel over ``reps`` calls, torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def bwd_parts(by_kernel: dict) -> dict:
+    """The backward's device ms by part, from :func:`device_ms_by_kernel`:
+    the dQ kernel (which also writes the statistics) and the dK/dV kernel;
+    in fp32 also the D pass."""
+    parts = {}
+    for name, ms in by_kernel.items():
+        part = next((p for p in ("delta", "dkdv", "dq")
+                     if f"flash_bwd_{p}" in name), "other")
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts
 
 
 def bwd_planted_faults(q, k, v, o, lse, do, kw):
@@ -1095,6 +1139,15 @@ def run_flash_bwd_phase(dev, gen):
         call = lambda: ops.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, do, **kw)
         ms, dev_ms = time_ms(call), device_ms(call)
+        parts = bwd_parts(device_ms_by_kernel(call))
+        plan = fa.flash_bwd_card_plan(q, k, causal, window, cap)[0]
+        plan_text = (f"dK/dV {len(plan['kv']['items'])} items on "
+                     f"{plan['kv']['blocks']} blocks, {plan['kv']['slots']} "
+                     f"slots x {plan['kv']['stages']} stages, "
+                     f"{plan['kv']['smem']} B; dQ "
+                     f"{len(plan['dq']['items'])} items on "
+                     f"{plan['dq']['blocks']} blocks, {plan['dq']['slots']} "
+                     f"x {plan['dq']['stages']}, {plan['dq']['smem']} B")
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
             q, k, v, o, lse, do, **kw), reps=3, warmup=1)
         lib_ms, lib = (None, "none: SDPA has no softcap") if cap else \
@@ -1114,6 +1167,7 @@ def run_flash_bwd_phase(dev, gen):
                          faults_tol_used=faults,
                          ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library=lib, bound_ms=bound_ms,
+                         parts_device_ms=parts, plan=plan_text,
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes",
                          tflops=flops / (k_ms * 1e-3) / 1e12,
@@ -1133,7 +1187,9 @@ def run_flash_bwd_phase(dev, gen):
               f"{rows[-1]['bound_share']:.1%} of bound) plain "
               f"{plain_ms:.4f} ms library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
-              f"({lib}) bound {bound_ms:.4f} ms", flush=True)
+              f"({lib}) bound {bound_ms:.4f} ms; device by part "
+              + ", ".join(f"{n} {t:.4f}" for n, t in parts.items())
+              + f"; plan: {plan_text}", flush=True)
         del q, k, v, do, o, lse, lse_k, got, again, plain
         torch.cuda.empty_cache()
     return rows

@@ -12,73 +12,100 @@
 //
 //   P  = exp(s - lse) on live pairs, s = scale q.k (or cap tanh(scale q.k
 //        / cap) under a softcap), 0 on masked pairs
-//   D  = rowsum(dO o)                                  (fp32, a first pass)
+//   D  = rowsum(dO o)                                               (fp32)
 //   dV = P^T dO                      summed over the G q heads of a kv head
 //   dS = P (dO V^T - D)              times 1 - tanh^2 under a softcap
 //   dQ = scale dS K,  dK = scale dS^T Q                (summed over G too)
 //
 // Causal and sliding-window masks; keys and rows past S are masked and
 // nothing is written past S.  fp32 accumulators; each output is written
-// once in the input's type.
+// once in the input's type.  No atomics anywhere: two calls are bit-equal.
 //
-// Design (simple first; TMA and wgmma are later work).  Three launches:
+// Bound on the card: 10 hd FLOPs per live (q, k) pair and head (S and dP
+// recomputed, dV, dK and dQ: five products of 2 hd each) against 989
+// TFLOP/s in bf16 (H100 SXM tensor cores); q, k, v, o, dO and lse read and
+// dq, dk, dv written once against 3.35 TB/s.  At the training shapes the
+// operations bound (0.0326 ms at B 8, S 1,024, H 12, hd 64; 0.3475 ms at
+// B 2, S 4,096, H 16, hd 128, causal).  So every product runs on wgmma,
+// the loads run ahead of the products through a ring, and only the masked
+// tiles pay for a mask.
 //
-// * flash_bwd_delta: D, one warp a (b, s, h) row.
-// * dK/dV: a block of 4 warps owns (b, kv head, 64-key tile); each warp 16
-//   keys.  It walks the G q heads of its group and, for each, the q tiles
-//   from the causal frontier on (to the window's end), recomputing S^T and
-//   P^T for its keys, and keeps dK and dV in registers across the whole
-//   walk, so the sum over the group needs no atomics.
-// * dQ: a block of 4 warps owns (b, q head, 64-row q tile) and walks the kv
-//   tiles up to the causal frontier.
+// bf16 route (hd 64 and 128): two launches, persistent and
+// warp-specialised like the forward: one block an SM, a producer
+// warpgroup at 24 registers whose one thread issues every load by TMA
+// (4-D maps, 64-row boxes, 128-byte swizzle) into mbarrier-guarded slots
+// and a ring, two consumer warpgroups at 240 registers that run every
+// product as wgmma.  The streamed tiles are BwdTile's BR q rows (dK/dV)
+// and BN keys (dQ), 128 or 64.
 //
-// No atomics anywhere: the result is bit-equal from call to call.  In bf16
-// the products are mma.sync m16n8k16 (bf16 in, fp32 accumulate), operands
-// staged in padded shared memory (row pitch hd + 8, so a quad's fragment
-// loads hit distinct banks); P and dS are rounded to bf16 as the A
-// operands of dV += P^T dO and dK += dS^T Q, dQ += dS K.  fp32 runs the
-// same walks on the CUDA cores, a thread owning 4 x 4 score elements (the
-// exact path the card's parity checks use).
+// * flash_bwd_dq_wgmma, first: a work item is (b, q head, 128 rows), 64 a
+//   consumer.  The producer loads the item's Q, dO and O and streams the K
+//   and V tiles up to the causal frontier (from the window's start).  A
+//   consumer first takes D = rowsum(dO o) of its rows from the dO and O
+//   tiles and writes (lse log2 e, D) of each row, zeros past S, to a
+//   scratch the dK/dV kernel streams (padded to whole 128-row tiles, so a
+//   ring stage takes a tile's statistics by one bulk copy: a ragged S
+//   leaves the lse's rows without the 16-byte strides a tensor map
+//   needs).  Per tile: S = Q K^T and dP = dO V^T (wgmma, both operands
+//   K-major in shared memory), P = 2^(S scale log2 e - lse log2 e) while
+//   dP is still in flight, dS = P (dP - D), dQ += dS K (wgmma with dS
+//   rounded to bf16 A fragments in registers, K MN-major through the
+//   transpose bit).  dQ is scaled, rounded once, written over the
+//   consumer's own Q rows and stored by TMA (rows past S clipped).
+//   Recomputing S and dP here costs 4 hd FLOPs a live pair beyond the
+//   bound's 10 (14 in all): the price of a dQ without atomics, which keeps
+//   two calls bit-equal.
+// * flash_bwd_dkdv_wgmma: a work item is (b, kv head, 128 keys), 64 a
+//   consumer.  The producer loads the item's K and V once (two slots where
+//   they fit, so the next item's load overlaps this one) and streams, for
+//   each of the G q heads of the group, the Q and dO tiles from the causal
+//   frontier to the window's end with their statistics.  Per tile: S^T = K Q^T, dP^T = V
+//   dO^T, P^T, dS^T = P^T (dP^T - D), then dV += P^T dO and dK += dS^T Q
+//   (P^T and dS^T as bf16 A fragments, dO and Q MN-major).  dK and dV stay
+//   in fp32 registers across the G heads, so the sum over the group needs
+//   no atomics; at the end they are scaled, rounded once, written over the
+//   consumer's own K and V rows and stored by TMA.
 //
-// Bound on the card: 10 hd FLOPs per live (q, k) pair (S^T and dP^T
-// recomputed, dV, dK and dQ: five products of 2 hd each; the dQ kernel's
-// second S and dP are extra work the design spends, not counted) against
-// 989 TFLOP/s in bf16 (H100 SXM tensor cores); q, k, v, o, dO read and dq,
-// dk, dv written once against 3.35 TB/s.  At the training shapes the
-// operations bound.  mma.sync reaches a fraction of wgmma's rate and the
-// dQ kernel recomputes S and dP, so this design sits well above the bound.
+// Every product is waited for in the iteration that issued it; the two
+// consumers' products and exponentials overlap each other.  Only the
+// tiles on the causal diagonal, at the window's edge or past S compute a
+// mask.  Tile sizes, ring depths, shared-memory offsets and each block's
+// work items, longest first, come from the host's plan
+// (kernels/flash_attention.py:flash_bwd_plan); the kernels compute none of
+// it.  Roles and items are broadcast by __shfl_sync so that ptxas sees
+// them warp-uniform and does not serialise the wgmma.
+//
+// fp32 route (the card's exact path, for parity runs): a D pass, then the
+// same walks on the CUDA cores, one block a (b, kv head, 64 keys) for
+// dK/dV and a (b, q head, 64 rows) for dQ, a thread owning 4 x 4 score
+// elements.
+//
+// cuTensorMapEncodeTiled comes from the driver through the runtime's
+// cudaGetDriverEntryPoint(ByVersion), so the library links no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// D = rowsum(dO o): one warp a row of hd elements
+// fp32 route: D = rowsum(dO o), one warp a row of hd elements
 // ---------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
                 float* __restrict__ delta, int rows, int S, int H, int hd) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);   // (b * S + s) * H + h
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const T* op = o + (size_t)row * hd;
-  const T* dp = dout + (size_t)row * hd;
+  const float* op = o + (size_t)row * hd;
+  const float* dp = dout + (size_t)row * hd;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f(op[d]), to_f(dp[d]), acc);
+  for (int d = lane; d < hd; d += 32) acc = fmaf(op[d], dp[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -98,18 +125,176 @@ __device__ __forceinline__ bool live_pair(int pq, int pk, int S, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: mma.sync m16n8k16
+// bf16 route: TMA, mbarriers, wgmma; a producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
-constexpr int MMA_THREADS = 128;   // 4 warps, 16 rows of the tile each
-constexpr int MMA_ROWS = 64;       // the tile a block owns (keys or q rows)
+constexpr int BC = 128;   // dK/dV: keys of a work item (64 a consumer)
+constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
+// The streamed tiles: q rows of a dK/dV ring stage (BR) and keys of a dQ
+// ring stage (BN), the N of the score products (m64nBR, m64nBN).  Wider
+// tiles halve the products, ring rounds and waits a FLOP, but a consumer
+// holds its accumulators (dK and dV: hd fp32 a thread; dQ: hd / 2) beside
+// two score tiles (N / 2 each), and the softcap's passes need more.  So a
+// tile is 128 wide where that fits in 240 registers without spilling
+// (-Xptxas -v), else 64: the softcapped hd-64 dK/dV consumer spilled at
+// 128 rows, the softcapped hd-128 dQ consumer at 128 keys.
+template <int HD, bool CAP>
+struct BwdTile {
+  static constexpr int BR = HD == 64 && !CAP ? 128 : 64;
+  static constexpr int BN = HD == 128 && CAP ? 64 : 128;
+};
+constexpr int WG_THREADS = 384;
+// setmaxnreg: (24 + 2 x 240) x 128 = 64,512 of the SM's 65,536 registers
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int SMEM_LIMIT = 232448;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// The host's plan, field by field in the order of
+// kernels/flash_attention.py:BWD_PLAN_FIELDS.  Offsets are bytes from the
+// 1,024-aligned start of dynamic shared memory; items and starts are int
+// offsets into the work buffer (items: 4 ints each, (b * heads + head,
+// tile, first, end) with first..end - 1 the tiles the item walks; starts:
+// a block's first item, one more entry than blocks).
+struct BwdPlan {
+  int br, bc, bm, bn, s_pad;
+  int kv_blocks, kv_slots, kv_stages, kv_off_kv, kv_off_ring, kv_off_stats,
+      kv_off_bars, kv_smem, kv_items, kv_starts;
+  int dq_blocks, dq_slots, dq_stages, dq_off_q, dq_off_ring, dq_off_bars,
+      dq_smem, dq_items, dq_starts;
+};
+constexpr int BWD_PLAN_INTS = sizeof(BwdPlan) / sizeof(int);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Blocks until the phase of parity ``parity`` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box (64 columns of hd, 1 head, 64 rows, 1 batch row) of a 4-D tensor
+// map into shared memory; rows past S arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head),
+      "r"(row), "r"(batch), "r"(bar)
+      : "memory");
+}
+// The reverse, from shared memory: rows past S are clipped.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int col, int head, int row,
+                                          int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+// ``bytes`` contiguous bytes (a multiple of 16, both ends 16-aligned).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// The dot product of 8 bf16 pairs, added to acc.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    acc = fmaf(u.x, v.x, acc);
+    acc = fmaf(u.y, v.y, acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma registers across
+// the fence, commit and wait instructions.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: every operand here is
+// stored as blocks of 64 hd columns (128 bytes a row, the TMA box), 8-row
+// groups 1,024 bytes apart (the stride byte offset).  ``lbo`` is the byte
+// distance between two such column blocks, read only for an MN-major
+// operand whose N spans several of them.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -117,357 +302,744 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d[0 .. 32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared,
+// K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// The fragments, for lane = 4 g + t: A (16 x 16, row-major rows r0..) holds
-// (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..); B (16 x 8) holds
-// (k 2t..2t+1, n g) and (k 2t+8.., n g); C (16 x 8) holds (g, 2t..2t+1)
-// and (g+8, 2t..2t+1).
+// d[0 .. 64) (+)= A (64 x 16, shared, K-major) . B (16 x 128, shared,
+// K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0 .. 32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major: the
+// transpose-B bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0 .. 64) += A (64 x 16, registers) . B (16 x 128, shared, MN-major: the
+// transpose-B bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// A 64-row score-like tile (64 x N accumulator) = A . B^T over HD: A's 64
+// rows at ``a`` (its column blocks ``a_rows`` * 128 bytes apart), B's N
+// rows at ``b`` (column blocks N * 128 bytes apart), both K-major.  Within
+// a 128-byte swizzle atom a k-step advances the start address by 32 bytes;
+// every 4 k-steps move to the next 64-column block.
+template <int HD, int N>
+__device__ __forceinline__ void ss_tile(float (&d)[N / 2], uint32_t a,
+                                        int a_rows, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint64_t da =
+        sw128_desc(a + (ks >> 2) * a_rows * 128 + (ks & 3) * 32, 16);
+    const uint64_t db = sw128_desc(b + (ks >> 2) * N * 128 + (ks & 3) * 32, 16);
+    if constexpr (N == 64)
+      wgmma_ss_n64(d, da, db, ks > 0);
+    else
+      wgmma_ss_n128(d, da, db, ks > 0);
+  }
+}
+
+// acc (64 x HD) += A (64 x K, bf16 fragments in registers) . B (K x HD at
+// ``b``, MN-major: K rows of the product's k, column blocks K * 128 bytes
+// apart); a k-step is 16 rows, 2,048 bytes of a column block.
+template <int HD, int K>
+__device__ __forceinline__ void rs_tile(float (&acc)[HD / 2],
+                                        const uint32_t (&a)[K / 16][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = sw128_desc(b + kk * 16 * 128, K * 128);
+    if constexpr (HD == 64)
+      wgmma_rs_n64(acc, a[kk], db);
+    else
+      wgmma_rs_n128(acc, a[kk], db);
+  }
+}
+
+// The fp32 accumulator of a 64 x (2 NS) tile, rounded to bf16, as the A
+// fragments of a product over its columns: the accumulators of columns
+// 16 kk .. 16 kk + 15 are exactly the A fragment of k-step kk.
+template <int NS>
+__device__ __forceinline__ void pack_a(uint32_t (&p)[NS / 8][4],
+                                       const float (&s)[NS]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// 2^x on the MUFU unit; results below 2^-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// In a 64 x N accumulator a thread (warp w, lane 4 g + t) holds element i
+// at row 16 w + g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 t + (i & 1).
 //
-// A from X[r][k] (pitch ld), rows r0.., k columns k0..
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
-                                       int ld, int r0, int k0, int g, int t) {
-  const bf16* p = x + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-// B(k, n) = Y[n][k]: the product's k runs along Y's rows (pairs in a word)
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* y, int ld, int n0,
-                                          int k0, int g, int t) {
-  const bf16* p = y + (n0 + g) * ld + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-// B(k, n) = Z[k][n]: two 16-bit loads a word
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* z, int ld, int k0,
-                                          int n0, int g, int t) {
-  const unsigned short* p =
-      reinterpret_cast<const unsigned short*>(z) + (k0 + 2 * t) * ld + n0 + g;
-  b0 = (uint32_t)p[0] | ((uint32_t)p[ld] << 16);
-  b1 = (uint32_t)p[8 * ld] | ((uint32_t)p[9 * ld] << 16);
-}
-// The C fragments of n-tiles 2 kk and 2 kk + 1, rounded to bf16, are the A
-// fragment of k-step kk.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&c)[NT][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Rows row0 .. row0 + ROWS - 1 of a (b, S, heads, HD) head slice ``src``
-// (row pitch ``stride`` elements) into X[ROWS][HD + 8], 16 bytes a thread;
-// rows past S are zeros.
-template <int HD, int ROWS, int NTHREADS>
-__device__ __forceinline__ void stage_rows(bf16* x, const bf16* src,
-                                           size_t stride, int row0, int S) {
-  constexpr int CHUNKS = HD / 8;          // 16-byte chunks a row
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i - r * CHUNKS, s = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (s < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)s * stride + 8 * c);
-    *reinterpret_cast<uint4*>(x + r * (HD + 8) + 8 * c) = val;
-  }
-}
-
-template <int HD, int BQ>
-struct DkdvSmem {
-  static constexpr int LD = HD + 8;
-  static constexpr int BYTES =
-      (2 * MMA_ROWS * LD + 2 * BQ * LD) * 2 + 2 * BQ * 4;
-};
-
-// dK, dV of 64 keys of one (b, kv head): warp w owns keys 16 w .. 16 w + 15;
-// per (q head of the group, q tile of BQ rows): S^T = K Q^T, P^T, dV +=
-// P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q.
-template <int HD, int BQ, bool CAP>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int S, int H, int KH, float scale,
-                   int causal, int window, float cap) {
-  constexpr int LD = HD + 8, NQ = BQ / 8, ND = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + MMA_ROWS * LD;
-  bf16* Qs = Vs + MMA_ROWS * LD;
-  bf16* Os = Qs + BQ * LD;                  // dO
-  float* Ls = reinterpret_cast<float*>(Os + BQ * LD);
-  float* Ds = Ls + BQ;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int G = H / KH;
-  const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
-  const int k0 = blockIdx.x * MMA_ROWS;
-  const size_t qstride = (size_t)H * HD, kstride = (size_t)KH * HD;
-  const size_t kv_off = (size_t)b * S * kstride + (size_t)kh * HD;
-
-  stage_rows<HD, MMA_ROWS, MMA_THREADS>(Ks, k + kv_off, kstride, k0, S);
-  stage_rows<HD, MMA_ROWS, MMA_THREADS>(Vs, v + kv_off, kstride, k0, S);
-
-  float dk_acc[ND][4], dv_acc[ND][4];
+// dK/dV tiles are transposed (rows are keys, columns q rows), and a
+// column's statistics come from the ring stage: lds4 at column 8 j + 2 t
+// gives (lse log2 e, D) of columns 8 j + 2 t and 8 j + 2 t + 1.  A masked
+// tile keeps, in row r, the columns in [lo[r], hi[r]) (absolute positions).
+//
+// P^T in place of S^T (no softcap).
+template <bool MASK, int NS>
+__device__ __forceinline__ void p_cols(float (&s)[NS], uint32_t st, float sc,
+                                       int col0, const int (&lo)[2],
+                                       const int (&hi)[2]) {
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int j = 0; j < NS / 4; ++j) {
+    const float4 v = lds4(st + (8 * j) * 8);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  const int key_r = k0 + 16 * warp + g;     // this thread's keys: +0, +8
-  const int q_first = causal ? k0 : 0;
-  const int q_end = window ? min(S, k0 + MMA_ROWS - 1 + window) : S;
-  const float inv_cap = CAP ? 1.f / cap : 0.f;
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kh * G + gi;
-    const size_t q_off = (size_t)b * S * qstride + (size_t)h * HD;
-    const float* lse_h = lse + ((size_t)b * H + h) * S;
-    const float* d_h = delta + ((size_t)b * H + h) * S;
-    for (int q0 = (q_first / BQ) * BQ; q0 < q_end; q0 += BQ) {
-      __syncthreads();                      // the last tile is consumed
-      stage_rows<HD, BQ, MMA_THREADS>(Qs, q + q_off, qstride, q0, S);
-      stage_rows<HD, BQ, MMA_THREADS>(Os, dout + q_off, qstride, q0, S);
-      for (int i = threadIdx.x; i < BQ; i += MMA_THREADS) {
-        const int s = q0 + i;
-        Ls[i] = s < S ? lse_h[s] : 0.f;
-        Ds[i] = s < S ? d_h[s] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T (16 keys x BQ queries a warp)
-      float p[NQ][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, Ks, LD, 16 * warp, 16 * kk, g, t);
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          uint32_t b0, b1;
-          load_b_nk(b0, b1, Qs, LD, 8 * j, 16 * kk, g, t);
-          mma_bf16(p[j], a, b0, b1);
-        }
-      }
-      // P^T; under a softcap keep 1 - tanh^2 for dS
-      float dcap[CAP ? NQ : 1][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);
-          const int key = key_r + 8 * (e >> 1);
-          float x = p[j][e] * scale;
-          if constexpr (CAP) {
-            const float th = tanhf(x * inv_cap);
-            x = cap * th;
-            dcap[j][e] = 1.f - th * th;
-          }
-          p[j][e] = live_pair(q0 + qi, key, S, causal, window)
-                        ? expf(x - Ls[qi])
-                        : 0.f;
-        }
-      // dV += P^T dO
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t a[4];
-        acc_to_a<NQ>(a, p, kk);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          uint32_t b0, b1;
-          load_b_kn(b0, b1, Os, LD, 16 * kk, 8 * j, g, t);
-          mma_bf16(dv_acc[j], a, b0, b1);
-        }
-      }
-      // dP^T = V dO^T
-      float ds[NQ][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, Vs, LD, 16 * warp, 16 * kk, g, t);
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          uint32_t b0, b1;
-          load_b_nk(b0, b1, Os, LD, 8 * j, 16 * kk, g, t);
-          mma_bf16(ds[j], a, b0, b1);
-        }
-      }
-      // dS^T = P^T (dP^T - D)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);
-          float x = p[j][e] * (ds[j][e] - Ds[qi]);
-          if constexpr (CAP) x *= dcap[j][e];
-          ds[j][e] = x;
-        }
-      // dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t a[4];
-        acc_to_a<NQ>(a, ds, kk);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          uint32_t b0, b1;
-          load_b_kn(b0, b1, Qs, LD, 16 * kk, 8 * j, g, t);
-          mma_bf16(dk_acc[j], a, b0, b1);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, r = e >> 1, col = col0 + 8 * j + (e & 1);
+      float p = ex2(fmaf(s[i], sc, -((e & 1) ? v.z : v.x)));
+      if constexpr (MASK) p = col >= lo[r] && col < hi[r] ? p : 0.f;
+      s[i] = p;
     }
   }
-
+}
+// dS^T = P^T (dP^T - D), in place of dP^T.
+template <int NS>
+__device__ __forceinline__ void ds_cols(const float (&p)[NS], float (&dp)[NS],
+                                        uint32_t st) {
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int key = key_r + 8 * rr;
-    if (key >= S) continue;
-    bf16* dkp = dk + kv_off + (size_t)key * kstride + 2 * t;
-    bf16* dvp = dv + kv_off + (size_t)key * kstride + 2 * t;
+  for (int j = 0; j < NS / 4; ++j) {
+    const float4 v = lds4(st + (8 * j) * 8);
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(dkp + 8 * j) =
-          pack_bf16(dk_acc[j][2 * rr] * scale, dk_acc[j][2 * rr + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvp + 8 * j) =
-          pack_bf16(dv_acc[j][2 * rr], dv_acc[j][2 * rr + 1]);
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      dp[i] = p[i] * (dp[i] - ((e & 1) ? v.w : v.y));
     }
   }
 }
 
+// tanh(x) = 1 - 2 / (1 + e^2x) on the MUFU unit, branch-free and lighter
+// in registers than tanhf: its absolute error (about 1e-7) moves P by cap
+// log2 e times that in the exponent, far inside the tolerance.
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + ex2(x * (2.f * LOG2E)));
+}
+
+// Under a softcap, three passes, each reading two of a column's four
+// statistics as the plain passes do: th = tanh(s scale / cap) in place of
+// the score (while dP is in flight), then (dP - D)(1 - th^2) in place of
+// dP, then P = 2^(th cap log2 e - lse log2 e) in place of th and dS = P
+// times the second.
+template <int NS>
+__device__ __forceinline__ void tanh_tile(float (&s)[NS], float sc) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = tanh_fast(s[i] * sc);
+}
+template <int NS>
+__device__ __forceinline__ void dcap_cols(const float (&th)[NS],
+                                          float (&dp)[NS], uint32_t st) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const float4 v = lds4(st + (8 * j) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      dp[i] = (dp[i] - ((e & 1) ? v.w : v.y)) * (1.f - th[i] * th[i]);
+    }
+  }
+}
+template <bool MASK, int NS>
+__device__ __forceinline__ void pcap_cols(float (&th)[NS], float (&dp)[NS],
+                                          uint32_t st, float cl, int col0,
+                                          const int (&lo)[2],
+                                          const int (&hi)[2]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const float4 v = lds4(st + (8 * j) * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, r = e >> 1, col = col0 + 8 * j + (e & 1);
+      float p = ex2(fmaf(th[i], cl, -((e & 1) ? v.z : v.x)));
+      if constexpr (MASK) p = col >= lo[r] && col < hi[r] ? p : 0.f;
+      th[i] = p;
+      dp[i] *= p;
+    }
+  }
+}
+
+// dQ tiles are not transposed: rows are q rows, whose statistics a thread
+// keeps in registers (l2: lse log2 e, d: D), columns keys.
+template <bool MASK, int NS>
+__device__ __forceinline__ void p_rows(float (&s)[NS], float sc,
+                                       const float (&l2)[2], int col0,
+                                       const int (&lo)[2], const int (&hi)[2]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + (i & 1);
+    float p = ex2(fmaf(s[i], sc, -l2[r]));
+    if constexpr (MASK) p = col >= lo[r] && col < hi[r] ? p : 0.f;
+    s[i] = p;
+  }
+}
+template <int NS>
+__device__ __forceinline__ void ds_rows(const float (&p)[NS], float (&dp)[NS],
+                                        const float (&d)[2]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) dp[i] = p[i] * (dp[i] - d[(i >> 1) & 1]);
+}
+// The softcap's second and third passes over rows (as the columns').
+template <int NS>
+__device__ __forceinline__ void dcap_rows(const float (&th)[NS],
+                                          float (&dp)[NS],
+                                          const float (&d)[2]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    dp[i] = (dp[i] - d[(i >> 1) & 1]) * (1.f - th[i] * th[i]);
+}
+template <bool MASK, int NS>
+__device__ __forceinline__ void pcap_rows(float (&th)[NS], float (&dp)[NS],
+                                          float cl, const float (&l2)[2],
+                                          int col0, const int (&lo)[2],
+                                          const int (&hi)[2]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + (i & 1);
+    float p = ex2(fmaf(th[i], cl, -l2[r]));
+    if constexpr (MASK) p = col >= lo[r] && col < hi[r] ? p : 0.f;
+    th[i] = p;
+    dp[i] *= p;
+  }
+}
+
+// A work item of the plan, the same in every thread of a warp: lane 0
+// reads it, the others take it by shuffle (so ptxas sees it warp-uniform).
+__device__ __forceinline__ int4 uniform_item(const int* work, int at) {
+  int4 u = make_int4(0, 0, 0, 0);
+  if ((threadIdx.x & 31) == 0) u = *reinterpret_cast<const int4*>(work + at);
+  u.x = __shfl_sync(0xffffffffu, u.x, 0);
+  u.y = __shfl_sync(0xffffffffu, u.y, 0);
+  u.z = __shfl_sync(0xffffffffu, u.z, 0);
+  u.w = __shfl_sync(0xffffffffu, u.w, 0);
+  return u;
+}
+__device__ __forceinline__ int uniform_int(const int* p) {
+  int v = 0;
+  if ((threadIdx.x & 31) == 0) v = *p;
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// A consumer's bf16 result (64 rows x HD, fp32 accumulator times ``mul``)
+// into its rows of a shared-memory tile in the TMA box layout (column
+// blocks ``rows`` * 128 bytes apart, 128-byte swizzle), from where a TMA
+// store writes it.
 template <int HD>
-struct DqSmem {
-  static constexpr int LD = HD + 8;
-  static constexpr int BYTES = 4 * MMA_ROWS * LD * 2;
-};
+__device__ __forceinline__ void stage_out(uint32_t dst, int rows,
+                                          const float (&acc)[HD / 2],
+                                          float mul, int warp, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = 16 * warp + g + 8 * rr;
+      const uint32_t addr = dst + (j >> 3) * rows * 128 + row * 128 +
+                            (((j & 7) ^ (row & 7)) << 4) + 4 * tq;
+      const uint32_t v = pack_bf16(acc[4 * j + 2 * rr] * mul,
+                                   acc[4 * j + 2 * rr + 1] * mul);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v)
+                   : "memory");
+    }
+}
 
-// dQ of 64 rows of one (b, q head): warp w owns rows 16 w .. 16 w + 15;
-// per 64-key tile: S = Q K^T, P, dP = dO V^T, dS = P (dP - D), dQ += dS K.
+// A warp's release of a barrier, once its wgmma reads are complete.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// dK, dV.  Warpgroup 0 is the producer (one thread issues every load),
+// warpgroups 1 and 2 the consumers, each owning 64 of an item's 128 keys.
+// Both consumers walk the same ring stages; a stage goes back to the
+// producer after the 8 consumer warps have read it.
 template <int HD, bool CAP>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                 int S, int H, int KH, float scale, int causal, int window,
-                 float cap) {
-  constexpr int LD = HD + 8, BK = MMA_ROWS, NK = BK / 8, ND = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Os = Qs + MMA_ROWS * LD;            // dO
-  bf16* Ks = Os + MMA_ROWS * LD;
-  bf16* Vs = Ks + BK * LD;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap dmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap dkmap,
+                     const __grid_constant__ CUtensorMap dvmap,
+                     const float2* __restrict__ stats,
+                     const int* __restrict__ work, const BwdPlan p, int S,
+                     int H, int KH, float sc, float cl, float scale,
+                     int causal, int window) {
+  constexpr int BR = BwdTile<HD, CAP>::BR, NS = BR / 2;
+  constexpr int KV_BYTES = BC * HD * 2;        // an item's K (or V)
+  constexpr int QT_BYTES = BR * HD * 2;        // a stage's Q (or dO)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv_s = base + p.kv_off_kv, ring = base + p.kv_off_ring;
+  const uint32_t st_s = base + p.kv_off_stats, bars = base + p.kv_off_bars;
+  const int KVS = p.kv_slots, NST = p.kv_stages, G = H / KH;
+  auto kv_full = [&](int i) { return bars + 8 * i; };
+  auto kv_empty = [&](int i) { return bars + 8 * (KVS + i); };
+  auto full = [&](int s) { return bars + 8 * (2 * KVS + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * KVS + NST + s); };
+  const int r_begin = uniform_int(work + p.kv_starts + blockIdx.x);
+  const int r_end = uniform_int(work + p.kv_starts + blockIdx.x + 1);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / KH);
-  const int q0 = blockIdx.x * MMA_ROWS;
-  const size_t qstride = (size_t)H * HD, kstride = (size_t)KH * HD;
-  const size_t q_off = (size_t)b * S * qstride + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * S * kstride + (size_t)kh * HD;
-
-  stage_rows<HD, MMA_ROWS, MMA_THREADS>(Qs, q + q_off, qstride, q0, S);
-  stage_rows<HD, MMA_ROWS, MMA_THREADS>(Os, dout + q_off, qstride, q0, S);
-
-  const int row_r = q0 + 16 * warp + g;     // this thread's rows: +0, +8
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int s = row_r + 8 * rr;
-    const size_t i = ((size_t)b * H + h) * S + s;
-    lse_r[rr] = s < S ? lse[i] : 0.f;
-    d_r[rr] = s < S ? delta[i] : 0.f;
-  }
-
-  float dq_acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-
-  const int k_first = window ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q0 + MMA_ROWS) : S;
-  const float inv_cap = CAP ? 1.f / cap : 0.f;
-
-  for (int t0 = (k_first / BK) * BK; t0 < k_end; t0 += BK) {
-    __syncthreads();                        // the last tile is consumed
-    stage_rows<HD, BK, MMA_THREADS>(Ks, k + kv_off, kstride, t0, S);
-    stage_rows<HD, BK, MMA_THREADS>(Vs, v + kv_off, kstride, t0, S);
-    __syncthreads();
-
-    float p[NK][4], ds[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] = ds[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4], c[4];
-      load_a(a, Qs, LD, 16 * warp, 16 * kk, g, t);
-      load_a(c, Os, LD, 16 * warp, 16 * kk, g, t);
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, Ks, LD, 8 * j, 16 * kk, g, t);
-        mma_bf16(p[j], a, b0, b1);          // S = Q K^T
-        load_b_nk(b0, b1, Vs, LD, 8 * j, 16 * kk, g, t);
-        mma_bf16(ds[j], c, b0, b1);         // dP = dO V^T
-      }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < KVS; ++i) {
+      mbar_init(kv_full(i), 1);
+      mbar_init(kv_empty(i), 2);       // thread 0 of each consumer
     }
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);          // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: per item K and V, then per (q head, q tile) Q, dO and
+    // the tile's statistics ------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int it = 0;                              // ring stages filled so far
+      for (int r = r_begin; r < r_end; ++r) {
+        const int4 u = *reinterpret_cast<const int4*>(work + p.kv_items +
+                                                      4 * r);
+        const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
+        const int slot = n % KVS;
+        mbar_wait(kv_empty(slot), ((n / KVS) & 1) ^ 1);
+        mbar_expect_tx(kv_full(slot), 2 * KV_BYTES);
+        const uint32_t ks = kv_s + slot * 2 * KV_BYTES;
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+        for (int c = 0; c < HD / 64; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const int key = t0 + 8 * j + 2 * t + (e & 1);
-        float x = p[j][e] * scale, dc = 1.f;
-        if constexpr (CAP) {
-          const float th = tanhf(x * inv_cap);
-          x = cap * th;
-          dc = 1.f - th * th;
+          for (int half = 0; half < 2; ++half) {
+            const uint32_t o = c * BC * 128 + half * 64 * 128;
+            const int row = u.y * BC + 64 * half;
+            tma_load(ks + o, &kmap, kv_full(slot), 64 * c, kh, row, b);
+            tma_load(ks + KV_BYTES + o, &vmap, kv_full(slot), 64 * c, kh,
+                     row, b);
+          }
+        for (int gi = 0; gi < G; ++gi) {
+          const int h = kh * G + gi;
+          const float2* st_h = stats + (size_t)(b * H + h) * p.s_pad;
+          for (int qt = u.z; qt < u.w; ++qt, ++it) {
+            const int s = it % NST;
+            mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
+            mbar_expect_tx(full(s), 2 * QT_BYTES + BR * 8);
+            const uint32_t qs = ring + s * 2 * QT_BYTES;
+#pragma unroll
+            for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+              for (int part = 0; part < BR / 64; ++part) {
+                const uint32_t o = c * BR * 128 + part * 64 * 128;
+                const int row = qt * BR + 64 * part;
+                tma_load(qs + o, &qmap, full(s), 64 * c, h, row, b);
+                tma_load(qs + QT_BYTES + o, &dmap, full(s), 64 * c, h, row, b);
+              }
+            bulk_load(st_s + s * BR * 8, st_h + qt * BR, BR * 8, full(s));
+          }
         }
-        const float pp = live_pair(row_r + 8 * rr, key, S, causal, window)
-                             ? expf(x - lse_r[rr])
-                             : 0.f;
-        ds[j][e] = pp * (ds[j][e] - d_r[rr]) * dc;
-      }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a<NK>(a, ds, kk);
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t b0, b1;
-        load_b_kn(b0, b1, Ks, LD, 16 * kk, 8 * j, g, t);
-        mma_bf16(dq_acc[j], a, b0, b1);
       }
     }
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128 * wg, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    int it = 0;                                // ring stages consumed
+    for (int r = r_begin; r < r_end; ++r) {
+      const int4 u = uniform_item(work, p.kv_items + 4 * r);
+      const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
+      const int slot = n % KVS;
+      const int kc = u.y * BC + 64 * cw;       // this consumer's first key
+      const uint32_t ka = kv_s + slot * 2 * KV_BYTES + 64 * cw * 128;
+      const uint32_t va = ka + KV_BYTES;
+      // the q rows [lo, hi) each of this thread's two keys sees
+      int lo[2], hi[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = kc + 16 * warp + g + 8 * rr;
+        lo[rr] = causal ? key : 0;
+        hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
+      }
+      float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(kv_full(slot), (n / KVS) & 1);
+      for (int gi = 0; gi < G; ++gi) {
+        for (int qt = u.z; qt < u.w; ++qt, ++it) {
+          const int s = it % NST, q0 = qt * BR;
+          const uint32_t qs = ring + s * 2 * QT_BYTES, os = qs + QT_BYTES;
+          const uint32_t st = st_s + s * BR * 8 + (2 * tq) * 8;
+          // a mask iff some pair of the tile is dead: keys or rows past S,
+          // a row before the key (causal), a row past the window
+          const bool mask = kc + 64 > S || q0 + BR > S ||
+                            (causal && q0 < kc + 63) ||
+                            (window && q0 + BR - 1 - kc >= window);
+          const int col0 = q0 + 2 * tq;
+          float sv[NS], dp[NS];
+          mbar_wait(full(s), (it / NST) & 1);
+          wgmma_fence();
+          ss_tile<HD, BR>(sv, ka, BC, qs);     // S^T = K Q^T
+          wgmma_commit();
+          ss_tile<HD, BR>(dp, va, BC, os);     // dP^T = V dO^T
+          wgmma_commit();
+          if constexpr (CAP) {
+            wgmma_wait<1>();                   // S^T; dP^T in flight
+            reg_fence(sv);
+            tanh_tile(sv, sc);
+            wgmma_wait<0>();
+            reg_fence(dp);
+            dcap_cols(sv, dp, st);
+            if (mask)
+              pcap_cols<true, NS>(sv, dp, st, cl, col0, lo, hi);
+            else
+              pcap_cols<false, NS>(sv, dp, st, cl, col0, lo, hi);
+          } else {
+            wgmma_wait<1>();                   // S^T; dP^T in flight
+            reg_fence(sv);
+            if (mask)
+              p_cols<true, NS>(sv, st, sc, col0, lo, hi);
+            else
+              p_cols<false, NS>(sv, st, sc, col0, lo, hi);
+            wgmma_wait<0>();
+            reg_fence(dp);
+            ds_cols(sv, dp, st);
+          }
+          uint32_t pa[BR / 16][4], da[BR / 16][4];
+          pack_a<NS>(pa, sv);
+          pack_a<NS>(da, dp);
+          wgmma_fence();
+          rs_tile<HD, BR>(dv, pa, os);         // dV += P^T dO
+          rs_tile<HD, BR>(dk, da, qs);         // dK += dS^T Q
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dv);
+          reg_fence(dk);
+          reg_fence(pa);
+          reg_fence(da);
+          release(empty(s), lane);
+        }
+      }
+      // epilogue: dK scale and dV in bf16 over this consumer's own K and V
+      // rows (no product reads them any more), then TMA stores, which clip
+      // the keys past S; the slot goes back to the producer once the
+      // stores have read it
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      stage_out<HD>(ka, BC, dk, scale, warp, lane);
+      stage_out<HD>(va, BC, dv, 1.f, warp, lane);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      if (t == 0) {
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          tma_store(&dkmap, ka + c * BC * 128, 64 * c, kh, kc, b);
+          tma_store(&dvmap, va + c * BC * 128, 64 * c, kh, kc, b);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(kv_empty(slot));
+      }
+    }
+    if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
 
+// dQ, and the statistics the dK/dV kernel reads.  Warpgroup 0 is the
+// producer, warpgroups 1 and 2 the consumers, each owning 64 of an item's
+// 128 q rows; both walk the same K and V stages.  A consumer first
+// computes D = rowsum(dO o) of its rows from the item's dO and O tiles and
+// writes (lse log2 e, D) of every row of the item, zeros past S, to
+// ``stats`` (B, H, s_pad) for the dK/dV kernel, launched after this one.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap dmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap dqmap,
+                   const float* __restrict__ lse,
+                   float2* __restrict__ stats,
+                   const int* __restrict__ work, const BwdPlan p, int S,
+                   int H, int KH, float sc, float cl, float scale, int causal,
+                   int window) {
+  constexpr int BN = BwdTile<HD, CAP>::BN, NS = BN / 2;
+  constexpr int Q_BYTES = BM * HD * 2;         // an item's Q (or dO, or O)
+  constexpr int KT_BYTES = BN * HD * 2;        // a stage's K (or V)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base + p.dq_off_q, ring = base + p.dq_off_ring;
+  const uint32_t bars = base + p.dq_off_bars;
+  const int QS = p.dq_slots, NST = p.dq_stages, G = H / KH;
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto q_empty = [&](int i) { return bars + 8 * (QS + i); };
+  auto full = [&](int s) { return bars + 8 * (2 * QS + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * QS + NST + s); };
+  const int r_begin = uniform_int(work + p.dq_starts + blockIdx.x);
+  const int r_end = uniform_int(work + p.dq_starts + blockIdx.x + 1);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < QS; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), 2);        // thread 0 of each consumer
+    }
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);          // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: per item Q, dO and O, then the K and V tiles --------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int r = r_begin; r < r_end; ++r) {
+        const int4 u = *reinterpret_cast<const int4*>(work + p.dq_items +
+                                                      4 * r);
+        const int b = u.x / H, h = u.x % H, kh = h / G, n = r - r_begin;
+        const int slot = n % QS;
+        mbar_wait(q_empty(slot), ((n / QS) & 1) ^ 1);
+        mbar_expect_tx(q_full(slot), 3 * Q_BYTES);
+        const uint32_t qsl = q_s + slot * 3 * Q_BYTES;
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int s = row_r + 8 * rr;
-    if (s >= S) continue;
-    bf16* dqp = dq + q_off + (size_t)s * qstride + 2 * t;
+        for (int c = 0; c < HD / 64; ++c)
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(dqp + 8 * j) =
-          pack_bf16(dq_acc[j][2 * rr] * scale, dq_acc[j][2 * rr + 1] * scale);
+          for (int half = 0; half < 2; ++half) {
+            const uint32_t o = c * BM * 128 + half * 64 * 128;
+            const int row = u.y * BM + 64 * half;
+            tma_load(qsl + o, &qmap, q_full(slot), 64 * c, h, row, b);
+            tma_load(qsl + Q_BYTES + o, &dmap, q_full(slot), 64 * c, h, row,
+                     b);
+            tma_load(qsl + 2 * Q_BYTES + o, &omap, q_full(slot), 64 * c, h,
+                     row, b);
+          }
+        for (int j = u.z; j < u.w; ++j, ++it) {
+          const int s = it % NST;
+          mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * KT_BYTES);
+          const uint32_t ks = ring + s * 2 * KT_BYTES;
+#pragma unroll
+          for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+            for (int part = 0; part < BN / 64; ++part) {
+              const uint32_t o = c * BN * 128 + part * 64 * 128;
+              const int row = j * BN + 64 * part;
+              tma_load(ks + o, &kmap, full(s), 64 * c, kh, row, b);
+              tma_load(ks + KT_BYTES + o, &vmap, full(s), 64 * c, kh, row, b);
+            }
+        }
+      }
+    }
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128 * wg, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    int it = 0;
+    for (int r = r_begin; r < r_end; ++r) {
+      const int4 u = uniform_item(work, p.dq_items + 4 * r);
+      const int b = u.x / H, h = u.x % H, n = r - r_begin;
+      const int slot = n % QS;
+      const int r0 = u.y * BM + 64 * cw;       // this consumer's first row
+      const uint32_t qa = q_s + slot * 3 * Q_BYTES + 64 * cw * 128;
+      const uint32_t oa = qa + Q_BYTES;
+      const size_t bh = (size_t)b * H + h;
+      // this thread's two rows: lse log2 e and the keys [lo, hi) each sees
+      float l2[2], dd[2];
+      int lo[2], hi[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = r0 + 16 * warp + g + 8 * rr;
+        l2[rr] = row < S ? lse[bh * S + row] * LOG2E : 0.f;
+        lo[rr] = window ? row - window + 1 : 0;
+        hi[rr] = row >= S ? -(1 << 30) : (causal ? row + 1 : S);
+      }
+      float dq[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+      mbar_wait(q_full(slot), (n / QS) & 1);
+      {
+        // D of row rl (two threads a row, half of hd each, from the
+        // swizzled dO and O tiles; rows past S are zeros there); warp w
+        // holds rows 16 w .. 16 w + 15, so this thread's rows 16 w + g and
+        // + 8 come from lanes 2 g and 2 g + 16
+        const int rl = t >> 1, half = t & 1, row = r0 + rl;
+        float d = 0.f;
+#pragma unroll
+        for (int j = half * (HD / 16); j < (half + 1) * (HD / 16); ++j) {
+          const uint32_t off = (j >> 3) * BM * 128 + rl * 128 +
+                               (((j & 7) ^ (rl & 7)) << 4);
+          d = dot8(lds128(oa + off), lds128(oa + Q_BYTES + off), d);
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        if (half == 0)
+          stats[bh * p.s_pad + row] =
+              make_float2(row < S ? lse[bh * S + row] * LOG2E : 0.f, d);
+        dd[0] = __shfl_sync(0xffffffffu, d, 2 * g);
+        dd[1] = __shfl_sync(0xffffffffu, d, 2 * g + 16);
+      }
+      for (int j = u.z; j < u.w; ++j, ++it) {
+        const int s = it % NST, t0 = j * BN;
+        const uint32_t ks = ring + s * 2 * KT_BYTES, vs = ks + KT_BYTES;
+        const bool mask = t0 + BN > S || r0 + 64 > S ||
+                          (causal && t0 + BN - 1 > r0) ||
+                          (window && r0 + 63 - t0 >= window);
+        const int col0 = t0 + 2 * tq;
+        float sv[NS], dp[NS];
+        mbar_wait(full(s), (it / NST) & 1);
+        wgmma_fence();
+        ss_tile<HD, BN>(sv, qa, BM, ks);       // S = Q K^T
+        wgmma_commit();
+        ss_tile<HD, BN>(dp, oa, BM, vs);       // dP = dO V^T
+        wgmma_commit();
+        if constexpr (CAP) {
+          wgmma_wait<1>();
+          reg_fence(sv);
+          tanh_tile(sv, sc);
+          wgmma_wait<0>();
+          reg_fence(dp);
+          dcap_rows(sv, dp, dd);
+          if (mask)
+            pcap_rows<true, NS>(sv, dp, cl, l2, col0, lo, hi);
+          else
+            pcap_rows<false, NS>(sv, dp, cl, l2, col0, lo, hi);
+        } else {
+          wgmma_wait<1>();
+          reg_fence(sv);
+          if (mask)
+            p_rows<true, NS>(sv, sc, l2, col0, lo, hi);
+          else
+            p_rows<false, NS>(sv, sc, l2, col0, lo, hi);
+          wgmma_wait<0>();
+          reg_fence(dp);
+          ds_rows(sv, dp, dd);
+        }
+        uint32_t da[BN / 16][4];
+        pack_a<NS>(da, dp);
+        wgmma_fence();
+        rs_tile<HD, BN>(dq, da, ks);           // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dq);
+        reg_fence(da);
+        release(empty(s), lane);
+      }
+      // epilogue: dQ scale in bf16 over this consumer's own Q rows, then a
+      // TMA store (rows past S clipped); the slot goes back to the producer
+      // once the store has read it
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      stage_out<HD>(qa, BM, dq, scale, warp, lane);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      if (t == 0) {
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_store(&dqmap, qa + c * BM * 128, 64 * c, h, r0, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(q_empty(slot));
+      }
+    }
+    if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -716,42 +1288,148 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-template <typename T>
 int launch_delta(const void* o, const void* dout, float* delta, int B, int S,
                  int H, int hd, cudaStream_t st) {
   const int rows = B * S * H;
-  flash_bwd_delta<T><<<(rows + 7) / 8, 256, 0, st>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, S,
-      H, hd);
+  flash_bwd_delta<<<(rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), delta,
+      rows, S, H, hd);
   return (int)cudaGetLastError();
 }
 
-template <int HD, int BQ, bool CAP>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, int B, int S, int H, int KH, float scale, int causal,
-               int window, float cap, cudaStream_t st) {
-  const int kv_bytes = DkdvSmem<HD, BQ>::BYTES, q_bytes = DqSmem<HD>::BYTES;
-  auto dkdv = flash_bwd_dkdv_mma<HD, BQ, CAP>;
-  auto dqk = flash_bwd_dq_mma<HD, CAP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+// cuTensorMapEncodeTiled from the driver, looked up once per process
+// through the runtime (no -lcuda at link time).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult st;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &st);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &st);
+#endif
+    return err == cudaSuccess && st == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, hd) bf16 tensor as a 4-D map, innermost first: (hd,
+// heads, S, B), boxes of (64, 1, 64, 1) with the 128-byte swizzle that the
+// wgmma descriptors read.  The box never crosses a batch row, so rows past
+// S load as zeros and store nothing.
+bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
+                int S, int heads, int hd) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raises a kernel's dynamic shared-memory limit to ``bytes`` once per
+// (device, kernel): host calls at every launch cost time a short kernel
+// shows.
+cudaError_t allow_smem(const void* kernel, int bytes) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    int bytes;
+  };
+  static Entry done[64];
+  static int n_done = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_done; ++i)
+    if (done[i].dev == dev && done[i].fn == kernel && done[i].bytes >= bytes)
+      return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && n_done < 64) done[n_done++] = {dev, kernel, bytes};
+  return err;
+}
+
+// The plan as the kernels were compiled for it: tile sizes, a ring of at
+// least one slot and stage, regions inside the block's shared memory.
+template <int HD, bool CAP>
+bool plan_fits(const BwdPlan& p) {
+  constexpr int BR = BwdTile<HD, CAP>::BR, BN = BwdTile<HD, CAP>::BN;
+  constexpr int hd = HD;
+  const int kv_bar = p.kv_off_bars + 8 * 2 * (p.kv_slots + p.kv_stages);
+  const int dq_bar = p.dq_off_bars + 8 * 2 * (p.dq_slots + p.dq_stages);
+  return p.br == BR && p.bc == BC && p.bm == BM && p.bn == BN &&
+         p.s_pad % BM == 0 && p.kv_slots >= 1 && p.kv_stages >= 1 &&
+         p.dq_slots >= 1 && p.dq_stages >= 1 && p.kv_blocks >= 1 &&
+         p.dq_blocks >= 1 &&
+         p.kv_off_ring >= p.kv_off_kv + p.kv_slots * 2 * BC * hd * 2 &&
+         p.kv_off_stats >= p.kv_off_ring + p.kv_stages * 2 * BR * hd * 2 &&
+         p.kv_off_bars >= p.kv_off_stats + p.kv_stages * BR * 8 &&
+         p.dq_off_ring >= p.dq_off_q + p.dq_slots * 3 * BM * hd * 2 &&
+         p.dq_off_bars >= p.dq_off_ring + p.dq_stages * 2 * BN * hd * 2 &&
+         kv_bar + 1023 <= p.kv_smem && dq_bar + 1023 <= p.dq_smem &&
+         p.kv_smem <= SMEM_LIMIT && p.dq_smem <= SMEM_LIMIT;
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const float* lse, const void* dout, void* dq, void* dk,
+                 void* dv, float* stats, int B, int S, int H, int KH,
+                 float scale, int causal, int window, float cap,
+                 const BwdPlan& p, const int* work, cudaStream_t st) {
+  const bool c = cap != 0.f;
+  if (!(c ? plan_fits<HD, true>(p) : plan_fits<HD, false>(p))) return -1;
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qm, dm, om, km, vm, dqm, dkm, dvm;
+  if (!tensor_map(enc, &qm, q, B, S, H, HD) ||
+      !tensor_map(enc, &dm, dout, B, S, H, HD) ||
+      !tensor_map(enc, &om, o, B, S, H, HD) ||
+      !tensor_map(enc, &km, k, B, S, KH, HD) ||
+      !tensor_map(enc, &vm, v, B, S, KH, HD) ||
+      !tensor_map(enc, &dqm, dq, B, S, H, HD) ||
+      !tensor_map(enc, &dkm, dk, B, S, KH, HD) ||
+      !tensor_map(enc, &dvm, dv, B, S, KH, HD))
+    return (int)cudaErrorInvalidValue;     // e.g. a base not 16-byte aligned
+  float2* stats2 = reinterpret_cast<float2*>(stats);
+  // log2 units: 2^(x log2 e) = e^x; under a softcap th = tanh(s scale / cap)
+  // and the score in log2 units is th cap log2 e
+  const float sc = c ? scale / cap : scale * LOG2E;
+  const float cl = cap * LOG2E;
+  auto dkdv = c ? flash_bwd_dkdv_wgmma<HD, true>
+                : flash_bwd_dkdv_wgmma<HD, false>;
+  auto dqk = c ? flash_bwd_dq_wgmma<HD, true> : flash_bwd_dq_wgmma<HD, false>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(dkdv),
+                               p.kv_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             q_bytes);
+  err = allow_smem(reinterpret_cast<const void*>(dqk), p.dq_smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (S + MMA_ROWS - 1) / MMA_ROWS;
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v),
-             *op = static_cast<const bf16*>(dout);
-  dkdv<<<dim3(tiles, B * KH), MMA_THREADS, kv_bytes, st>>>(
-      qp, kp, vp, op, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, KH, scale, causal, window, cap);
+  // dQ first: it writes the statistics the dK/dV kernel streams
+  dqk<<<p.dq_blocks, WG_THREADS, p.dq_smem, st>>>(
+      qm, dm, om, km, vm, dqm, lse, stats2, work, p, S, H, KH, sc, cl, scale,
+      causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3(tiles, B * H), MMA_THREADS, q_bytes, st>>>(
-      qp, kp, vp, op, lse, delta, static_cast<bf16*>(dq), S, H, KH, scale,
-      causal, window, cap);
+  dkdv<<<p.kv_blocks, WG_THREADS, p.kv_smem, st>>>(
+      qm, dm, km, vm, dkm, dvm, stats2, work, p, S, H, KH, sc, cl, scale,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -788,43 +1466,44 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: (B, S, H, hd); k, v,
-// dk, dv: (B, S, KH, hd); lse: (B, H, S) fp32 (natural log); delta: (B, H,
-// S) fp32 scratch that this call fills.  All contiguous; bf16 operands
-// 16-byte aligned.  Returns 0 when every kernel was launched, a CUDA error
-// code when a launch was refused, -1 for an unsupported shape or type.
+// dk, dv: (B, S, KH, hd); lse: (B, H, S) fp32 (natural log); delta: fp32
+// scratch that this call fills, (B, H, S) floats for fp32 and (B, H,
+// s_pad, 2) for bf16.  plan: ``n_plan`` ints in host memory, the fields of
+// BwdPlan (kernels/flash_attention.py:flash_bwd_plan), and work: the
+// plan's work items and block starts on the card; the bf16 route reads
+// both, the fp32 route neither.  All contiguous; bf16 operands 16-byte
+// aligned.  Returns 0 when every kernel was launched, a CUDA error code
+// when a launch was refused, -1 for an unsupported shape, type or plan.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int dtype, int B,
                                    int S, int H, int KH, int hd, float scale,
                                    int causal, int window, float cap,
-                                   void* stream) {
+                                   void* stream, const int* plan, int n_plan,
+                                   const void* work) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
   if (hd != 64 && hd != 128) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
-  int rc = dtype == 1 ? launch_delta<bf16>(o, dout, dp, B, S, H, hd, st)
-                      : launch_delta<float>(o, dout, dp, B, S, H, hd, st);
-  if (rc) return rc;
-  const bool c = cap != 0.f;
-  if (dtype == 0)
+  if (dtype == 0) {
+    const int rc = launch_delta(o, dout, dp, B, S, H, hd, st);
+    if (rc) return rc;
     return hd == 64
                ? launch_simt<64>(q, k, v, dout, lp, dp, dq, dk, dv, B, S, H,
                                  KH, scale, causal, window, cap, st)
                : launch_simt<128>(q, k, v, dout, lp, dp, dq, dk, dv, B, S, H,
                                   KH, scale, causal, window, cap, st);
-  if (hd == 64)
-    return c ? launch_mma<64, 64, true>(q, k, v, dout, lp, dp, dq, dk, dv, B,
-                                        S, H, KH, scale, causal, window, cap,
-                                        st)
-             : launch_mma<64, 64, false>(q, k, v, dout, lp, dp, dq, dk, dv,
-                                         B, S, H, KH, scale, causal, window,
-                                         cap, st);
-  return c ? launch_mma<128, 32, true>(q, k, v, dout, lp, dp, dq, dk, dv, B, S,
-                                       H, KH, scale, causal, window, cap, st)
-           : launch_mma<128, 32, false>(q, k, v, dout, lp, dp, dq, dk, dv, B,
-                                        S, H, KH, scale, causal, window, cap,
-                                        st);
+  }
+  if (plan == nullptr || n_plan != BWD_PLAN_INTS || work == nullptr) return -1;
+  BwdPlan p;
+  memcpy(&p, plan, sizeof(BwdPlan));
+  const int* w = static_cast<const int*>(work);
+  return hd == 64
+             ? launch_wgmma<64>(q, k, v, o, lp, dout, dq, dk, dv, dp, B, S, H,
+                                KH, scale, causal, window, cap, p, w, st)
+             : launch_wgmma<128>(q, k, v, o, lp, dout, dq, dk, dv, dp, B, S,
+                                 H, KH, scale, causal, window, cap, p, w, st);
 }

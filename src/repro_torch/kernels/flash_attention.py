@@ -25,9 +25,14 @@ backward.
 The backward (``csrc/flash_attention_bwd.cu``) is the gradient of the
 reference's ``flash_attention_jnp`` as ``jax.grad`` takes it when the
 reference trains; the reference has no Pallas backward.  It recomputes P
-from the log-sum-exp and walks key tiles (dK, dV, summed over the G q
-heads of a kv head in registers) and q tiles (dQ) in separate launches,
-with ``mma.sync`` bf16 products and an fp32 CUDA-core path, no atomics.
+from the log-sum-exp.  In bf16 it is two kernels built like the forward:
+persistent blocks of a TMA producer warpgroup and two wgmma consumer
+warpgroups, one walking (b, q head, 128-row) items over their key tiles
+(dQ, and each row's D = rowsum(dO o) for the other), one walking (b, kv
+head, 128-key) items over the G q heads and their q tiles (dK, dV summed
+in registers); :func:`flash_bwd_plan` gives both their work items,
+longest first, and every tile size and shared-memory offset.  fp32 has a
+CUDA-core path; there are no atomics.
 :func:`flash_attention_bwd_torch` is its plain version, blockwise in fp32:
 the CPU path and the card's oracle.  The backward takes hd 64 and 128
 (:data:`BWD_HEAD_DIMS`).
@@ -35,6 +40,7 @@ the CPU path and the card's oracle.  The backward takes hd 64 and 128
 from __future__ import annotations
 
 import ctypes
+import heapq
 
 import torch
 
@@ -53,8 +59,35 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
        ctypes.c_void_p],
 }
+
+# The bf16 backward's tiles: the dK/dV kernel's items are BWD_BC keys (64
+# a consumer warpgroup), the dQ kernel's items BWD_BM q rows (64 a
+# consumer); the streamed tiles are :func:`bwd_stream_tiles` (``BwdTile``
+# in the CUDA source).
+BWD_BC, BWD_BM = 128, 128
+BWD_SMEM_LIMIT = 232_448      # dynamic shared memory a block may take
+BWD_MAX_STAGES = 4
+# The plan's integers in the order of ``BwdPlan`` in the CUDA source.
+BWD_PLAN_FIELDS = (
+    "br", "bc", "bm", "bn", "s_pad",
+    "kv_blocks", "kv_slots", "kv_stages", "kv_off_kv", "kv_off_ring",
+    "kv_off_stats", "kv_off_bars", "kv_smem", "kv_items", "kv_starts",
+    "dq_blocks", "dq_slots", "dq_stages", "dq_off_q", "dq_off_ring",
+    "dq_off_bars", "dq_smem", "dq_items", "dq_starts")
+
+
+def bwd_stream_tiles(hd: int, softcap: bool = False):
+    """(q rows of a dK/dV ring stage, keys of a dQ ring stage) of the bf16
+    backward: 128 where a consumer's registers hold the 128-wide score
+    tiles beside its accumulators without spilling, else 64 (the
+    softcapped hd-64 dK/dV and hd-128 dQ consumers; ``BwdTile`` in the
+    CUDA source)."""
+    br = 64 if hd == 128 or softcap else 128
+    bn = 64 if hd == 128 and softcap else 128
+    return br, bn
 
 
 def _live(S: int, t0: int, t1: int, causal: bool, window: int,
@@ -172,6 +205,161 @@ def flash_attention_bwd_torch(
             dv.to(v.dtype))
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _longest_first(costs, n_blocks: int):
+    """Items dealt to ``n_blocks`` blocks, longest first, each to the block
+    with the least work so far (ties to the lower block): per block, its
+    items in the order it runs them."""
+    order = sorted(range(len(costs)), key=lambda i: (-costs[i], i))
+    heap = [(0, blk) for blk in range(n_blocks)]
+    lists = [[] for _ in range(n_blocks)]
+    for i in order:
+        load, blk = heapq.heappop(heap)
+        lists[blk].append(i)
+        heapq.heappush(heap, (load + costs[i], blk))
+    return lists
+
+
+def _bwd_ring(slot: int, stage: int):
+    """(slots, stages, smem) of a kernel whose shared memory is ``slot``
+    bytes a slot and ``stage`` a ring stage, with a full and an empty
+    mbarrier each: two slots if they fit with two stages, then as many
+    stages (up to BWD_MAX_STAGES) as fit; 1,024 bytes of slack align the
+    block's base."""
+    for slots in (2, 1):
+        for stages in range(BWD_MAX_STAGES, 1, -1):
+            smem = (slots * slot + stages * stage + 2 * 8 * (slots + stages)
+                    + 1024)
+            if smem <= BWD_SMEM_LIMIT:
+                return slots, stages, smem
+    raise ValueError("flash backward: no ring fits in shared memory")
+
+
+def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
+                   window: int, n_sm: int, softcap: bool = False) -> dict:
+    """The bf16 backward's work and shared-memory layout, from the shapes
+    and the card's SM count.  The kernels take it as it is and compute
+    none of it.
+
+    ``kv`` is the dK/dV kernel: an item (b K + kv head, key tile, first,
+    end) owns BWD_BC keys and walks, for each of the G q heads of its
+    group, the ``br``-row q tiles first .. end - 1 (from the causal
+    frontier to the window's end).  ``dq`` is the dQ kernel: an item (b H
+    + q head, row tile, first, end) owns BWD_BM q rows and walks the
+    ``bn``-key tiles first .. end - 1 (``br``, ``bn``:
+    :func:`bwd_stream_tiles`).  In each, ``blocks`` persistent
+    blocks (at most one an SM) take the items longest first, each item to
+    the block with the least work so far; ``items`` lists them block by
+    block in the order they run, ``starts`` each block's first.  ``slots``
+    buffers hold an item's K and V (dK/dV) or Q and dO (dQ), ``stages``
+    ring stages the streamed tiles; ``offs`` are byte offsets of the
+    regions (kv: K/V slots, Q/dO stages, the stages' (lse log2 e, D) rows,
+    mbarriers; dq: Q/dO/O slots, K/V stages, mbarriers) and ``smem`` a
+    block's dynamic shared memory.  ``s_pad`` is S rounded up to BWD_BM:
+    the statistics scratch is (B, H, s_pad, 2) fp32.  ``fields`` are the
+    plan's integers in BWD_PLAN_FIELDS order, ``work`` the int32 buffer
+    the kernels read (kv items, dq items, kv starts, dq starts)."""
+    G = H // K
+    br, bn = bwd_stream_tiles(hd, softcap)
+    n_kt, n_mt = _cdiv(S, BWD_BC), _cdiv(S, BWD_BM)
+    s_pad = n_mt * BWD_BM
+    kv_items, kv_cost = [], []
+    for bh in range(B * K):
+        for kt in range(n_kt):
+            q_lo = kt * BWD_BC if causal else 0
+            k_last = min(S, (kt + 1) * BWD_BC) - 1
+            q_hi = min(S, k_last + window) if window else S
+            first, end = q_lo // br, _cdiv(q_hi, br)
+            kv_items.append((bh, kt, first, end))
+            kv_cost.append(G * (end - first) + 1)
+    dq_items, dq_cost = [], []
+    for bh in range(B * H):
+        for mt in range(n_mt):
+            r_last = min(S, (mt + 1) * BWD_BM) - 1
+            k_lo = max(0, mt * BWD_BM - window + 1) if window else 0
+            k_hi = r_last + 1 if causal else S
+            first, end = k_lo // bn, _cdiv(k_hi, bn)
+            dq_items.append((bh, mt, first, end))
+            dq_cost.append(end - first + 1)
+
+    def deal(items, costs):
+        lists = _longest_first(costs, min(len(items), n_sm))
+        order = [items[i] for blk in lists for i in blk]
+        starts = [0]
+        for blk in lists:
+            starts.append(starts[-1] + len(blk))
+        return order, starts, [[costs[i] for i in blk] for blk in lists]
+
+    kv_order, kv_starts, kv_costs = deal(kv_items, kv_cost)
+    dq_order, dq_starts, dq_costs = deal(dq_items, dq_cost)
+    # dK/dV: a slot holds K and V of BWD_BC keys, a stage Q and dO of br
+    # rows, and each stage its rows' statistics (8 bytes a row)
+    kv_slot, q_tile = 2 * BWD_BC * hd * 2, br * hd * 2
+    kv_slots, kv_stages, kv_smem = _bwd_ring(kv_slot, 2 * q_tile + br * 8)
+    kv_offs = dict(kv=0, ring=kv_slots * kv_slot)
+    kv_offs["stats"] = kv_offs["ring"] + kv_stages * 2 * q_tile
+    kv_offs["bars"] = kv_offs["stats"] + kv_stages * br * 8
+    # dQ: a slot holds Q, dO and O of BWD_BM rows, a stage K and V of bn
+    # keys
+    dq_slot, k_tile = 3 * BWD_BM * hd * 2, bn * hd * 2
+    dq_slots, dq_stages, dq_smem = _bwd_ring(dq_slot, 2 * k_tile)
+    dq_offs = dict(q=0, ring=dq_slots * dq_slot)
+    dq_offs["bars"] = dq_offs["ring"] + dq_stages * 2 * k_tile
+
+    work = [x for it in kv_order for x in it] + \
+        [x for it in dq_order for x in it]
+    at = dict(kv_items=0, dq_items=4 * len(kv_order), kv_starts=len(work))
+    work += kv_starts
+    at["dq_starts"] = len(work)
+    work += dq_starts
+    kv = dict(items=kv_order, starts=kv_starts, costs=kv_costs,
+              blocks=len(kv_starts) - 1, slots=kv_slots, stages=kv_stages,
+              offs=kv_offs, smem=kv_smem)
+    dq = dict(items=dq_order, starts=dq_starts, costs=dq_costs,
+              blocks=len(dq_starts) - 1, slots=dq_slots, stages=dq_stages,
+              offs=dq_offs, smem=dq_smem)
+    values = dict(
+        br=br, bc=BWD_BC, bm=BWD_BM, bn=bn, s_pad=s_pad,
+        kv_blocks=kv["blocks"], kv_slots=kv_slots, kv_stages=kv_stages,
+        kv_off_kv=kv_offs["kv"], kv_off_ring=kv_offs["ring"],
+        kv_off_stats=kv_offs["stats"], kv_off_bars=kv_offs["bars"],
+        kv_smem=kv_smem, kv_items=at["kv_items"], kv_starts=at["kv_starts"],
+        dq_blocks=dq["blocks"], dq_slots=dq_slots, dq_stages=dq_stages,
+        dq_off_q=dq_offs["q"], dq_off_ring=dq_offs["ring"],
+        dq_off_bars=dq_offs["bars"], dq_smem=dq_smem,
+        dq_items=at["dq_items"], dq_starts=at["dq_starts"])
+    return dict(br=br, bc=BWD_BC, bm=BWD_BM, bn=bn,
+                s_pad=s_pad, kv=kv, dq=dq,
+                fields=[values[f] for f in BWD_PLAN_FIELDS], work=work)
+
+
+_bwd_plans = {}
+
+
+def flash_bwd_card_plan(q, k, causal: bool, window: int, logit_cap: float):
+    """(plan, its fields as a ctypes array, its work buffer on q's card)
+    for :func:`flash_attention_bwd_cuda`, kept per shape, so a training
+    step makes no plan and copies nothing to the card."""
+    B, S, H, hd = q.shape
+    idx = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    key = (idx, B, S, H, k.shape[2], hd, bool(causal), int(window),
+           bool(logit_cap))
+    got = _bwd_plans.get(key)
+    if got is None:
+        n_sm = torch.cuda.get_device_properties(idx).multi_processor_count
+        plan = flash_bwd_plan(B, S, H, k.shape[2], hd, causal, window, n_sm,
+                              bool(logit_cap))
+        fields = (ctypes.c_int * len(plan["fields"]))(*plan["fields"])
+        work = torch.tensor(plan["work"], dtype=torch.int32,
+                            device=q.device)
+        got = _bwd_plans[key] = (plan, fields, work)
+    return got
+
+
 def flash_attention_cuda(q, k, v, *, scale: float, causal: bool,
                          window: int, logit_cap: float,
                          return_lse: bool = False):
@@ -197,21 +385,25 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool,
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
                              causal: bool, window: int, logit_cap: float):
-    """Launch the backward's three kernels on the current stream; returns
-    (dq, dk, dv).  The caller (``ops.flash_attention_bwd``) has checked
+    """Launch the backward's kernels on the current stream; returns (dq,
+    dk, dv).  The caller (``ops.flash_attention_bwd``) has checked
     devices, dtypes, shapes, contiguity and alignment."""
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     B, S, H, hd = q.shape
+    plan, fields, work = flash_bwd_card_plan(q, k, causal, window, logit_cap)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # (B, H, S) D for fp32; (B, H, s_pad, 2) (lse log2 e, D) for bf16
+    delta = torch.empty(B * H * plan["s_pad"] * 2, dtype=torch.float32,
+                        device=q.device)
     rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), DTYPE_CODES[q.dtype], B, S, H,
         k.shape[2], hd, float(scale), int(causal), int(window),
-        float(logit_cap), torch.cuda.current_stream(q.device).cuda_stream)
+        float(logit_cap), torch.cuda.current_stream(q.device).cuda_stream,
+        fields, len(fields), work.data_ptr())
     if rc:
         raise RuntimeError(f"flash_attention_bwd launch failed: status {rc}")
     return dq, dk, dv

@@ -724,6 +724,16 @@ BWD_CASES = [
       for S in (1, 63, 65, 129)],
     (1, 300, 16, 1, 128, True, 0, 0.0),    # G 16
     (1, 300, 4, 2, 64, False, 100, 0.0),   # not causal, window
+    # the bf16 kernels' tile edges: 128-key dK/dV items with 64-row (hd
+    # 128) or 128-row (hd 64) q stages, 128-row dQ items with 128-key K/V
+    # stages
+    (1, 127, 4, 2, 64, True, 0, 0.0),
+    (1, 255, 6, 2, 128, True, 0, 0.0),
+    (2, 257, 6, 2, 64, True, 0, 0.0),
+    (1, 257, 4, 2, 128, True, 0, 0.0),
+    # more work items than an H100 runs at once (256 dK/dV, 512 dQ on 132
+    # SMs): the persistent loops and the rings' phases wrap
+    (2, 2048, 16, 8, 128, True, 0, 0.0),
 ]
 
 

@@ -11,6 +11,15 @@ and 128, G 2 and 3, S 128 and a ragged 77, causal and not, and a window of
 largest magnitude of each gradient (the three compute the same sums in
 other orders).  The card's kernel is held against this plain version in
 ``tests/test_torch_cuda.py``.
+
+The bf16 kernels' plan (``flash_bwd_plan``) is checked on its own: every
+live (q, k) pair of every head falls in exactly one dK/dV item's walk and
+in exactly one dQ item's walk, blocks run their items longest first, and
+a block's shared memory fits the card.  An emulation of the bf16 route
+that walks the plan's items with the kernels' roundings (P^T and dS^T
+rounded to bf16 before their products, fp32 sums, the exponent in log2
+units, each output rounded once) stays within the card's tolerance of
+the plain version and of ``jax.grad``.
 """
 import numpy as np
 import pytest
@@ -25,6 +34,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 TOL = 1e-5
+LOG2E = 1.4426950408889634
 
 # (B, S, K, G, hd, causal, window, cap)
 CASES = [
@@ -148,3 +158,218 @@ def test_backward_wrapper_checks_its_operands():
         ops.flash_attention_bwd(q, k, v, o, lse[:, :, :8], do, scale=0.125)
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention_bwd(q, k, v, o, lse.double(), do, scale=0.125)
+
+
+# -- the bf16 route's plan --------------------------------------------------
+PLAN_S = (1, 63, 77, 127, 128, 129, 1000, 4096)
+PLAN_MASKS = ((True, 0), (False, 0), (True, 100), (True, 256), (False, 100))
+_BLK = 64          # every tile of the plan is a multiple of 64 rows or keys
+
+
+def _live_blocks(S, causal, window):
+    """(nb, nb) bool: whether the 64-row x 64-key block has a live pair."""
+    i = np.arange(S)
+    live = np.ones((S, S), bool)
+    if causal:
+        live &= i[None, :] <= i[:, None]
+    if window:
+        live &= i[:, None] - i[None, :] < window
+    nb = -(-S // _BLK)
+    pad = np.zeros((nb * _BLK, nb * _BLK), bool)
+    pad[:S, :S] = live
+    return pad.reshape(nb, _BLK, nb, _BLK).any(axis=(1, 3))
+
+
+def _coverage(plan, B, S, H, K):
+    """Times each (b, head, 64-row block, 64-key block) is walked by the
+    dK/dV items and by the dQ items."""
+    G, nb = H // K, -(-S // _BLK)
+    br, bc, bm, bn = (plan[x] // _BLK for x in ("br", "bc", "bm", "bn"))
+    kv = np.zeros((B, H, nb, nb), np.int32)
+    for bh, kt, first, end in plan["kv"]["items"]:
+        b, kh = divmod(bh, K)
+        assert 0 <= first < end <= -(-S // plan["br"])
+        for gi in range(G):
+            kv[b, kh * G + gi, first * br:end * br, kt * bc:(kt + 1) * bc] += 1
+    dq = np.zeros((B, H, nb, nb), np.int32)
+    for bh, mt, first, end in plan["dq"]["items"]:
+        b, h = divmod(bh, H)
+        assert 0 <= first < end <= -(-S // plan["bn"])
+        dq[b, h, mt * bm:(mt + 1) * bm, first * bn:end * bn] += 1
+    return kv, dq
+
+
+@pytest.mark.parametrize("causal,window", PLAN_MASKS,
+                         ids=lambda x: str(x))
+@pytest.mark.parametrize("S", PLAN_S)
+def test_backward_plan_walks_every_live_pair_once(S, causal, window):
+    live = _live_blocks(S, causal, window)
+    for G in (1, 2, 3, 16):
+        for hd, softcap in ((64, False), (64, True), (128, False)):
+            B, K = (2, 2) if S <= 1000 else (1, 2)
+            H = K * G
+            n_sm = 132 if hd == 128 else 7
+            plan = fa.flash_bwd_plan(B, S, H, K, hd, causal, window, n_sm,
+                                     softcap)
+            kv, dq = _coverage(plan, B, S, H, K)
+            what = f"S {S} G {G} hd {hd} softcap {softcap}"
+            for name, cov in (("dK/dV", kv), ("dQ", dq)):
+                assert cov.max() <= 1, f"{what}: {name} walks a block twice"
+                assert (cov[:, :, live] == 1).all(), \
+                    f"{what}: {name} misses a live block"
+            for kern in ("kv", "dq"):
+                part = plan[kern]
+                assert part["smem"] <= 232_448, (what, kern, part["smem"])
+                assert 1 <= part["blocks"] <= n_sm
+                assert part["starts"][0] == 0 \
+                    and part["starts"][-1] == len(part["items"])
+                for costs in part["costs"]:
+                    assert costs == sorted(costs, reverse=True), \
+                        f"{what}: a {kern} block's items are not longest first"
+                offs = sorted(part["offs"].values())
+                assert offs[0] == 0 and all(o % 8 == 0 for o in offs)
+                assert all(part["offs"][r] % 1024 == 0 for r in
+                           (("kv", "ring") if kern == "kv" else ("q", "ring")))
+            assert plan["s_pad"] % plan["bm"] == 0 and plan["s_pad"] >= S
+            fields = dict(zip(fa.BWD_PLAN_FIELDS, plan["fields"]))
+            work = plan["work"]
+            n_kv = len(plan["kv"]["items"])
+            assert work[fields["kv_items"]:fields["kv_items"] + 4 * n_kv] \
+                == [x for it in plan["kv"]["items"] for x in it]
+            assert work[fields["dq_starts"]:] == plan["dq"]["starts"]
+
+
+def test_backward_plan_deals_the_training_shapes_evenly():
+    """At the two training shapes on 132 SMs every block gets work and the
+    busiest block has at most 5 % more than the average."""
+    for B, S, H, K, hd in ((8, 1024, 12, 4, 64), (2, 4096, 16, 8, 128)):
+        plan = fa.flash_bwd_plan(B, S, H, K, hd, True, 0, 132)
+        for kern in ("kv", "dq"):
+            loads = [sum(c) for c in plan[kern]["costs"]]
+            assert len(loads) == 132 and min(loads) > 0
+            assert max(loads) <= 1.05 * sum(loads) / len(loads), (kern, loads)
+
+
+# -- the bf16 route's arithmetic ----------------------------------------------
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
+                        logit_cap):
+    """The bf16 kernels' arithmetic, walking the plan's items: scores and
+    dP from bf16 operands with fp32 sums; P = 2^(s scale log2 e - lse log2
+    e) (under a softcap 2^(tanh(s scale / cap) cap log2 e - lse log2 e));
+    dS = P (dP - D) (times 1 - tanh^2); P^T and dS^T rounded to bf16 for
+    dV += P^T dO, dK += dS^T Q and dQ += dS K; each output scaled and
+    rounded to bf16 once.  Returns (dq, dk, dv) in bf16; an element no item
+    writes stays NaN."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dd = (dof * o.float()).sum(-1)                        # (B, S, H)
+    l2 = lse * LOG2E                                      # (B, H, S)
+    pos = torch.arange(S)
+
+    def live(rows, keys):
+        ok = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+        if causal:
+            ok &= keys[None, :] <= rows[:, None]
+        if window:
+            ok &= rows[:, None] - keys[None, :] < window
+        return ok
+
+    def p_ds(s, dp, l2r, dr, ok):
+        if logit_cap:
+            th = torch.tanh(s * (scale / logit_cap))
+            p = torch.exp2(th * (logit_cap * LOG2E) - l2r)
+            ds = p * (dp - dr) * (1.0 - th * th)
+        else:
+            p = torch.exp2(s * (scale * LOG2E) - l2r)
+            ds = p * (dp - dr)
+        return torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
+
+    nan = float("nan")
+    dq = torch.full((B, S, H, hd), nan)
+    dk = torch.full((B, S, K, hd), nan)
+    dv = torch.full((B, S, K, hd), nan)
+    for bh, kt, first, end in plan["kv"]["items"]:
+        b, kh = divmod(bh, K)
+        k0, k1 = kt * plan["bc"], min(S, (kt + 1) * plan["bc"])
+        acc_k = torch.zeros(k1 - k0, hd)
+        acc_v = torch.zeros(k1 - k0, hd)
+        for h in range(kh * G, kh * G + G):
+            for qt in range(first, end):
+                q0, q1 = qt * plan["br"], min(S, (qt + 1) * plan["br"])
+                st = kf[b, k0:k1, kh] @ qf[b, q0:q1, h].T     # S^T
+                dpt = vf[b, k0:k1, kh] @ dof[b, q0:q1, h].T   # dP^T
+                p, ds = p_ds(st, dpt, l2[b, h, q0:q1][None, :],
+                             dd[b, q0:q1, h][None, :],
+                             live(pos[q0:q1], pos[k0:k1]).T)
+                acc_v += _bf(p) @ dof[b, q0:q1, h]
+                acc_k += _bf(ds) @ qf[b, q0:q1, h]
+        dk[b, k0:k1, kh] = _bf(acc_k * scale)
+        dv[b, k0:k1, kh] = _bf(acc_v)
+    for bh, mt, first, end in plan["dq"]["items"]:
+        b, h = divmod(bh, H)
+        kh = h // G
+        r0, r1 = mt * plan["bm"], min(S, (mt + 1) * plan["bm"])
+        acc = torch.zeros(r1 - r0, hd)
+        for j in range(first, end):
+            t0, t1 = j * plan["bn"], min(S, (j + 1) * plan["bn"])
+            s = qf[b, r0:r1, h] @ kf[b, t0:t1, kh].T
+            dp = dof[b, r0:r1, h] @ vf[b, t0:t1, kh].T
+            _, ds = p_ds(s, dp, l2[b, h, r0:r1][:, None],
+                         dd[b, r0:r1, h][:, None], live(pos[r0:r1], pos[t0:t1]))
+            acc += _bf(ds) @ kf[b, t0:t1, kh]
+        dq[b, r0:r1, h] = _bf(acc * scale)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _card_tol(plain):
+    """The card's bf16 tolerance (``tests/test_torch_cuda.py:_bwd_tol``,
+    ``chip_smoke.py:bwd_tol``): 2^-7 of the largest |plain| of the
+    element's 64-row or 64-key tile + 1e-5 + 2^-7·|plain|."""
+    B, S, n, hd = plain.shape
+    pad = -S % 64
+    a = torch.nn.functional.pad(plain.float().abs(), (0, 0, 0, 0, 0, pad))
+    a = a.view(B, (S + pad) // 64, 64, n, hd)
+    t = a.amax(dim=(2, 4), keepdim=True).expand_as(a)
+    t = t.reshape(B, S + pad, n, hd)[:, :S]
+    return 2 ** -7 * t + 1e-5 + 2 ** -7 * plain.float().abs()
+
+
+EMU_CASES = [
+    # B, S, K, G, hd, causal, window, cap
+    (1, 200, 2, 3, 64, True, 0, 0.0),
+    (2, 77, 2, 2, 128, True, 0, 0.0),
+    (1, 300, 2, 2, 128, False, 100, 0.0),
+    (1, 257, 1, 3, 64, True, 100, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=_ids)
+def test_bf16_route_emulation_stays_within_the_card_tolerance(case):
+    B, S, K, G, hd, causal, window, cap = case
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, logit_cap=cap)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(B, S, K, G, hd, seed=3))
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plan = fa.flash_bwd_plan(B, S, K * G, K, hd, causal, window, n_sm=3,
+                             softcap=bool(cap))
+    got = _emulate_bf16_route(q, k, v, o, lse, do, plan, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+
+    def ref(q_, k_, v_):
+        return flash_attention_jnp(q_, k_, v_, **kw)
+    _, vjp = jax.vjp(ref, *(jnp.asarray(t.float().numpy())
+                            for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for name, g, p, w in zip("qkv", got, plain, want):
+        assert not torch.isnan(g.float()).any(), f"d{name}: unwritten"
+        for what, r in (("plain", p.float()),
+                        ("jax.grad", torch.from_numpy(np.array(w)))):
+            over = (g.float() - r).abs() / _card_tol(r)
+            assert float(over.max()) <= 1.0, \
+                f"d{name} vs {what}: {float(over.max()):.3f} of the tolerance"

@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""In-turn A/B of the port's WKV6, paged-decode and MLA latent-decode
-kernels between this checkout and another one (an earlier design), on one
-card.
+"""In-turn A/B of the port's WKV6, paged-decode, MLA latent-decode and
+flash-backward kernels between this checkout and another one (an earlier
+design), on one card.
 
     mkdir -p build/ab/parent
     git archive <rev> | tar -x -C build/ab/parent
-    python3 tools/kernel_ab.py --parent build/ab/parent [--trace [CELLS]]
+    python3 tools/kernel_ab.py --parent build/ab/parent [--kernels K,...]
+        [--trace [CELLS]]
 
 Each checkout is driven through its own ``repro_torch`` package: its
-wrappers ``ops.wkv6_bshn``, ``ops.paged_decode_bhd`` and
-``ops.mla_paged_decode_bhd`` (the port keeps their signatures), its plain
-versions, its build of its own CUDA sources (into that checkout's
-``build/``) and, with ``--trace``, its model and engine.  So nothing here
-depends on a kernel's C interface.  Every design runs in a worker process
-of its own, four in turns: parent, this checkout, this checkout, parent.
-A worker makes the same inputs from a seed on the card, holds each kernel
-to its checkout's plain version at ``chip_smoke.py``'s tolerances, and
-times it at the serving shapes with this checkout's ``chip_smoke.py``
-helpers: device time (torch.profiler, 20 calls) L2-warm and L2-cold (a
-256 MB write before each call).  With ``--trace`` it also traces the
-serving windows of cells (a), qwen3-0.6b, (c), rwkv6-7b, and (e),
+wrappers ``ops.wkv6_bshn``, ``ops.paged_decode_bhd``,
+``ops.mla_paged_decode_bhd`` and ``ops.flash_attention_bwd`` (the port
+keeps their signatures), its plain versions, its build of its own CUDA
+sources (into that checkout's ``build/``) and, with ``--trace``, its model
+and engine.  So nothing here depends on a kernel's C interface.  Every
+design runs in a worker process of its own, four in turns: parent, this
+checkout, this checkout, parent.  A worker makes the same inputs from a
+seed on the card, holds each kernel to its checkout's plain version at
+``chip_smoke.py``'s tolerances, and times it with this checkout's
+``chip_smoke.py`` helpers: device time (torch.profiler, 20 calls)
+L2-warm and L2-cold (a 256 MB write before each call).  ``--kernels``
+picks some of wkv6, paged_decode, mla_decode and flash_bwd (all four by
+default); flash_bwd is the backward at the two training shapes
+(paper-overhead-100m: B 8, S 1,024, H 12, K 4, hd 64; qwen3-0.6b's
+train_4k: B 2, S 4,096, H 16, K 8, hd 128, causal, bf16), each gradient
+held to the plain backward at ``chip_smoke.bwd_tol``, with SDPA's
+backward timed beside it in every turn.  With ``--trace`` it also traces
+the serving windows of cells (a), qwen3-0.6b, (c), rwkv6-7b, and (e),
 deepseek-v2-236b at 3 layers, as ``chip_smoke.py`` does (one warm-up
 window first; ``--trace e`` or ``--trace a,c`` picks cells): each
 kernel's device time in the window and the launches a step.  The last
@@ -39,17 +46,53 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER_TIMEOUT_S = 900
 
 
-def time_kernels(cs, dev):
-    """Each kernel of the checkout at its serving shape: held to the plain
-    version, then its device ms warm and L2-cold."""
+KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash_bwd")
+SOURCES = {"wkv6": "rwkv6_wkv", "paged_decode": "paged_decode",
+           "mla_decode": "mla_decode", "flash_bwd": "flash_attention_bwd"}
+BWD_SHAPES = {"paper train": (8, 1024, 12, 4, 64),
+              "qwen3 train": (2, 4096, 16, 8, 128)}
+
+
+def time_flash_bwd(cs, dev, gen):
+    """The flash backward at both training shapes: held to the plain
+    backward, then its device ms warm and L2-cold, and SDPA's backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    rows = {}
+    for label, (B, S, H, K, hd) in BWD_SHAPES.items():
+        q, k, v, do = (torch.randn(B, S, n, hd, device=dev,
+                                   generator=gen).to(torch.bfloat16)
+                       for n in (H, K, K, H))
+        kw = dict(scale=hd ** -0.5, causal=True, window=0, logit_cap=0.0)
+        o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        used = []
+        for name, g, p in zip("qkv", got, plain):
+            tol = cs.bwd_tol(p, torch.bfloat16)
+            cs.compare(g, p, tol, f"flash bwd {label} d{name}")
+            used.append(cs.tol_used(g, p, tol))
+        del got, plain
+        call = lambda: ops.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, **kw)
+        sdpa_ms, _ = cs.sdpa_backward_ms(q, k, v, do, True, 0)
+        rows["flash_bwd " + label] = dict(
+            shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, bf16, causal",
+            warm=cs.device_ms(call), cold=cs.cold_device_ms(call),
+            sdpa_ms=sdpa_ms, tol_used=used)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_wkv6(cs, dev, gen):
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rwkv6_wkv as wkv
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    rows = {}
     r, k, v, lw, u, s0 = cs.wkv_inputs(dev, gen, 8, 1024, 64, 64,
                                        torch.bfloat16, False, None)
     o, s_fin = ops.wkv6_bshn(r, k, v, lw, u, s0)
@@ -60,9 +103,17 @@ def time_kernels(cs, dev):
     cs.wkv_check(s_fin, plain_s, cs.WKV_SCALE["chunked"], torch.float32,
                  "wkv6 s_fin")
     call = lambda: ops.wkv6_bshn(r, k, v, lw, u, s0)  # noqa: E731
-    rows["wkv6"] = dict(shape="B 8, S 1024, H 64, N 64, bf16",
-                        warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+    return {"wkv6": dict(shape="B 8, S 1024, H 64, N 64, bf16",
+                         warm=cs.device_ms(call),
+                         cold=cs.cold_device_ms(call))}
 
+
+def time_paged_decode(cs, dev, gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+
+    rows = {}
     B, K, G, hd, ps, pps = 8, 8, 2, 128, 128, 9
     q, kp, vp, table, pos = cs.decode_inputs(
         dev, gen, B, K, G, hd, ps, pps, torch.bfloat16,
@@ -81,6 +132,13 @@ def time_kernels(cs, dev):
         rows["paged_decode" + ("" if grouped else "_per_head")] = dict(
             shape="B 8, K 8, G 2, hd 128, page 128, bf16, ragged",
             warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+    return rows
+
+
+def time_mla_decode(cs, dev, gen):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
 
     q, ckv, krope, table, pos = cs.mla_inputs(
         dev, gen, 8, 128, 128, 9, torch.bfloat16, torch.bfloat16,
@@ -92,9 +150,26 @@ def time_kernels(cs, dev):
     cs.compare(out, plain, cs.DECODE_TOL["bfloat16"], "mla decode")
     call = lambda: ops.mla_paged_decode_bhd(  # noqa: E731
         q, ckv, krope, table, pos, **kw)
-    rows["mla_decode"] = dict(
+    return {"mla_decode": dict(
         shape="B 8, H 128, lora 512, rd 64, page 128, bf16, ragged",
-        warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+        warm=cs.device_ms(call), cold=cs.cold_device_ms(call))}
+
+
+TIMERS = {"wkv6": time_wkv6, "paged_decode": time_paged_decode,
+          "mla_decode": time_mla_decode, "flash_bwd": time_flash_bwd}
+
+
+def time_kernels(cs, dev, kernels):
+    """Each kernel of ``kernels`` at its serving or training shape: held
+    to the plain version, then its device ms warm and L2-cold."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = {}
+    for name in KERNELS:
+        if name in kernels:
+            rows.update(TIMERS[name](cs, dev, gen))
     return rows
 
 
@@ -126,7 +201,7 @@ def trace_cells(cs, dev, cells):
     return out
 
 
-def worker(tree: Path, cells: str) -> int:
+def worker(tree: Path, kernels: list, cells: str) -> int:
     """One turn: this process imports ``tree``'s ``repro_torch``."""
     sys.path.insert(0, str(tree / "src"))
     import repro_torch
@@ -138,12 +213,14 @@ def worker(tree: Path, cells: str) -> int:
     import torch
     from repro_torch.kernels import _build
 
-    _build.build(("paged_decode", "rwkv6_wkv", "mla_decode"))
+    _build.build(tuple(SOURCES[k] for k in kernels))
     dev = torch.device("cuda", 0)
-    result = {"kernels": time_kernels(cs, dev)}
+    result = {"kernels": time_kernels(cs, dev, kernels)}
     for name, row in result["kernels"].items():
         print(f"  {name} ({row['shape']}): device {cs.fmt_ms(row['warm'])} "
-              f"ms, L2-cold {cs.fmt_ms(row['cold'])} ms", flush=True)
+              f"ms, L2-cold {cs.fmt_ms(row['cold'])} ms"
+              + (f", SDPA's backward {cs.fmt_ms(row['sdpa_ms'])} ms"
+                 if "sdpa_ms" in row else ""), flush=True)
     if cells:
         result["trace"] = trace_cells(cs, dev, cells.split(","))
     print(json.dumps(result), flush=True)
@@ -158,12 +235,18 @@ def main() -> int:
     ap.add_argument("--trace", nargs="?", const="a,c,e", default="",
                     help="also trace the serving windows of these cells "
                     "(comma-separated of a, c, e; all three if none given)")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated of " + ", ".join(KERNELS)
+                    + " (all by default)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if any(c not in CELLS for c in filter(None, args.trace.split(","))):
         ap.error(f"--trace takes cells of {sorted(CELLS)}")
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not kernels or any(k not in KERNELS for k in kernels):
+        ap.error(f"--kernels takes some of {', '.join(KERNELS)}")
     if args.worker is not None:
-        return worker(args.worker, args.trace)
+        return worker(args.worker, kernels, args.trace)
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -182,7 +265,8 @@ def main() -> int:
         tree = args.parent if name == "parent" else ROOT
         print(f"[turn {len(turns) + 1}: {name}, {tree}]", flush=True)
         cmd = [sys.executable, str(Path(__file__).resolve()), "--parent",
-               str(args.parent), "--worker", str(tree)]
+               str(args.parent), "--worker", str(tree),
+               "--kernels", ",".join(kernels)]
         if args.trace:
             cmd.append(f"--trace={args.trace}")
         p = subprocess.run(cmd, capture_output=True, text=True,
