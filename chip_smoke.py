@@ -111,6 +111,28 @@ Phases, each of which exits non-zero on the first failure:
               checkpoint round trip through the reference's tree
               (``train_state_to_jax`` and back) whose next step's loss
               equals the unrestored state's.
+9. platform -- the learner and the server as real payloads under the
+              port's copy of the platform (``repro_torch.core``): (p1)
+              paper-overhead-100m at full width (B 8, S 1,024, bf16
+              compute, fp32 master) as a 40-step job (0.5 virtual s a
+              step, a checkpoint every 5 virtual s), the learner pod killed
+              two steps after the first checkpoint at or past step 20: the
+              job completes with one restart, the log restores the last
+              checkpoint before the kill, the state right after the restore
+              is byte-equal to the saved tree, every loss (replayed steps
+              included) and the final state are bit-equal to an
+              uninterrupted 40-step run of the same payload, the flash
+              launches are 12 forward and 12 backward a step run; the job's
+              wall seconds split into steps, checkpoint saves (device to
+              host, serialise, hash and store), the restore and the rest
+              (the simulation), beside the uninterrupted run's steps/s.
+              (p2) a qwen3-0.6b serve job at full width in bf16 (8 slots,
+              16 requests, prompts up to 1,024 tokens, a snapshot every 8
+              decode steps, no prefix cache), once uninterrupted and once
+              with the server pod killed after its first snapshot: both
+              complete, every request shipped once with its full budget,
+              the streams equal (where they part, at a recorded top-2 gap
+              within PARITY_TIE_TOL).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  With no CUDA device, or
@@ -2191,6 +2213,481 @@ def run_train_parity_phase(dev, seed):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: the learner and the server as real payloads under the platform
+# ---------------------------------------------------------------------------
+PLATFORM_STEPS = 40          # (p1): the job's steps
+PLATFORM_KILL_AFTER = 20     # (p1): kill after the first checkpoint at or
+PLATFORM_KILL_BEFORE = 30    # past step 20, before one at or past step 30,
+PLATFORM_KILL_LAG = 2        # two steps after it (so two steps replay)
+PLATFORM_BATCH, PLATFORM_SEQ = 8, 1024     # (p1): (t1)'s training shape
+PLATFORM_PROMPT = 1024       # (p2): prompts up to 1,024 tokens, as (a)
+PLATFORM_DEADLINE_S = 600.0  # virtual seconds a kill may wait for its moment
+
+
+class MethodTimer:
+    """While active, wraps methods of classes so that each call adds its
+    wall seconds (and one call) to ``seconds[key]`` (``calls[key]``); the
+    originals are put back on exit.  Host-side instrumentation of the
+    platform phase: every timed method ends in a host-device sync (a copy
+    to the host, a loss read) or runs on the host."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(cls, method name, key)]
+        self.seconds = {key: 0.0 for _, _, key in targets}
+        self.calls = {key: 0 for _, _, key in targets}
+        self.saved = []
+
+    def __enter__(self):
+        for cls, name, key in self.targets:
+            orig = getattr(cls, name)
+            self.saved.append((cls, name, orig))
+
+            def timed(*a, _orig=orig, _key=key, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    self.seconds[_key] += time.perf_counter() - t0
+                    self.calls[_key] += 1
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self.saved):
+            setattr(cls, name, orig)
+        return False
+
+
+def tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def trees_byte_equal(a, b) -> bool:
+    """Every leaf of two numpy trees (the reference's layout) equal in
+    path, dtype, shape and bytes."""
+    import numpy as np
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    return len(la) == len(lb) and all(
+        pa == pb and np.asarray(x).dtype == np.asarray(y).dtype
+        and np.asarray(x).shape == np.asarray(y).shape
+        and np.asarray(x).tobytes() == np.asarray(y).tobytes()
+        for (pa, x), (pb, y) in zip(la, lb))
+
+
+def run_platform_train(dev, seed):
+    """(p1): paper-overhead-100m at full width (bf16 compute, fp32 master
+    and moments, B 8 x S 1,024, the synthetic stream at seed 0) as a real
+    payload of a 40-step job under the port's platform (seed 21, one
+    learner, 0.5 s virtual steps, a checkpoint every 5 virtual seconds);
+    the learner pod is killed two steps after the first checkpoint at or
+    past step 20, restores and finishes.  Checks: COMPLETED with one
+    restart; the log's ``restored checkpoint step N`` for the last step
+    saved before the kill; the state right after the restore byte-equal,
+    leaf by leaf, to the tree that was saved; every loss of the job (the
+    replayed steps included) and the final state bit-equal to an
+    uninterrupted 40-step run of the same payload; the flash forward and
+    backward launches 12 a step actually run.  Times the job's wall
+    seconds by part."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import DLaaSPlatform, JobManifest
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.learner import RealPayload
+    from repro_torch.core.objectstore import ObjectStore
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.layers import Ctx
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = train_cli.config_of("paper-overhead-100m", reduced=False)
+    run = RunConfig(learning_rate=1e-3, warmup_steps=3,
+                    total_steps=PLATFORM_STEPS)
+    train_step = make_train_step(cfg, Ctx(device=dev, dtype=torch.bfloat16),
+                                 run)
+    data = SyntheticLMData(cfg.vocab_size, PLATFORM_SEQ, PLATFORM_BATCH,
+                           seed=0)
+    saved = {}                       # step -> the tree handed to save()
+    plain_snapshot = RealPayload.snapshot      # not timed
+
+    class Payload(RealPayload):
+        """Records every step's loss and checks each restore (outside the
+        timed ``RealPayload`` methods)."""
+
+        def __init__(self):
+            super().__init__(
+                lambda: init_train_state(cfg, seed=seed, run=run, device=dev),
+                train_step, data)
+            self.losses, self.restores = [], []
+
+        def step(self, i):
+            loss = super().step(i)
+            self.losses.append((i, loss))
+            return loss
+
+        def restore(self, tree):
+            out = super().restore(tree)
+            if tree is not None:
+                self.restores.append((out, trees_byte_equal(
+                    plain_snapshot(self), saved[out])))
+            return out
+
+    def save_hook(orig):
+        def save(ck, step, tree):
+            saved[step] = tree
+            return orig(ck, step, tree)
+        return save
+
+    payload = Payload()
+    orig_save = CheckpointManager.save
+    CheckpointManager.save = save_hook(orig_save)
+    timer = MethodTimer([
+        (RealPayload, "step", "steps"), (RealPayload, "snapshot", "ckpt_d2h"),
+        (CheckpointManager, "save", "ckpt_save"),
+        (ObjectStore, "put", "ckpt_hash_store"),
+        (RealPayload, "restore", "restore"),
+        (CheckpointManager, "load", "restore_load"),
+        (CheckpointManager, "_valid", "restore_verify")])
+    try:
+        p = DLaaSPlatform(seed=21)
+        p.run(10)
+        h = p.submit(JobManifest(
+            name="p1", framework="paper-overhead-100m", learners=1,
+            total_steps=PLATFORM_STEPS, step_time_s=0.5,
+            checkpoint_interval_s=5, real_compute=True))
+        p.run(5)
+        check(h.acked, f"platform: the train job was not acked "
+              f"({h.rejected})")
+        ck = CheckpointManager(p.objectstore, h.job_id)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with timer:
+            t0 = time.perf_counter()
+            p.register_payload(h.job_id, payload)
+            deadline = p.sim.now + PLATFORM_DEADLINE_S
+            while True:
+                check(p.sim.now < deadline, "platform: no checkpoint at or "
+                      f"past step {PLATFORM_KILL_AFTER} by virtual time "
+                      f"{p.sim.now} (job state "
+                      f"{p.metadata.get('jobs', h.job_id)['state']})")
+                p.run(0.25)
+                vol = p.volumes.get(f"vol-{h.job_id}")
+                done = [s for s in ck.steps() if s >= PLATFORM_KILL_AFTER]
+                at = vol.read("progress/0", {"step": 0})["step"] \
+                    if vol is not None else 0
+                if done and at >= done[0] + PLATFORM_KILL_LAG:
+                    break
+            kill_step, ckpt_before = at, max(ck.steps())
+            check(ckpt_before < PLATFORM_KILL_BEFORE,
+                  f"platform: the kill came after checkpoint {ckpt_before}")
+            t_kill_sim, t_kill = p.sim.now, time.perf_counter()
+            check(p.kill_pod(f"learner-{h.job_id}-0"),
+                  "platform: no learner pod to kill")
+            final = p.run_until_terminal(h.job_id, timeout=900)
+            wall = time.perf_counter() - t0
+            after_kill = time.perf_counter() - t_kill
+        launches = dict(ops.launches)
+    finally:
+        CheckpointManager.save = orig_save
+    sec = timer.seconds
+    logs = p.client.logs(h.job_id, 0)
+    restarts = p.client.status(h.job_id)["restarts"]
+    recovery = p.recovery_time(f"learner-{h.job_id}-0", t_kill_sim)
+    check(final == "COMPLETED" and restarts == 1,
+          f"platform: the train job ended {final} with {restarts} restarts")
+    check(f"restored checkpoint step {ckpt_before}" in logs,
+          f"platform: no 'restored checkpoint step {ckpt_before}' in the "
+          f"log:\n{logs}")
+    check([s for s, _ in payload.restores] == [ckpt_before]
+          and all(ok for _, ok in payload.restores),
+          f"platform: restores {payload.restores}, expected step "
+          f"{ckpt_before} byte-equal to the saved tree")
+    ran = [i for i, _ in payload.losses]
+    check(sorted(set(ran)) == list(range(PLATFORM_STEPS))
+          and len(ran) > PLATFORM_STEPS,
+          f"platform: the job ran steps {ran}")
+    n_run = len(ran)
+    check(launches["flash_attention_bshd"] == cfg.num_layers * n_run
+          and launches["flash_attention_bwd"] == cfg.num_layers * n_run,
+          f"platform: launches {launches}, expected {cfg.num_layers} a step "
+          f"over {n_run} steps run")
+    job_losses = list(payload.losses)
+    final_tree = RealPayload.snapshot(payload)
+    ckpt_bytes = sum(np.asarray(x).nbytes for _, x in
+                     tree_leaves(saved[ckpt_before]))
+    n_saved = timer.calls["ckpt_save"]
+    del p, saved, ck
+    gc.collect()
+
+    # the same payload, uninterrupted, in this call
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    RealPayload.restore(payload, None)
+    straight = [RealPayload.step(payload, i) for i in range(PLATFORM_STEPS)]
+    torch.cuda.synchronize()
+    straight_s = time.perf_counter() - t0
+    straight_launches = dict(ops.launches)
+    check(straight_launches["flash_attention_bwd"]
+          == cfg.num_layers * PLATFORM_STEPS,
+          f"platform: the uninterrupted run's launches {straight_launches}")
+    diffs = [abs(loss - straight[i]) for i, loss in job_losses]
+    worst = max(diffs)
+    state_equal = trees_byte_equal(RealPayload.snapshot(payload), final_tree)
+    check(worst == 0.0 and state_equal,
+          f"platform: the job's losses differ from the uninterrupted run's "
+          f"by up to {worst} (state byte-equal: {state_equal}); every op "
+          "of the step is deterministic on the card, so they must be "
+          "bit-equal")
+    steps_s = sec["steps"]
+    ckpt_s = sec["ckpt_d2h"] + sec["ckpt_save"]
+    restore_s = sec["restore"] + sec["restore_load"] + sec["restore_verify"]
+    other_s = wall - steps_s - ckpt_s - restore_s
+    out = dict(
+        job=dict(steps=PLATFORM_STEPS, batch=PLATFORM_BATCH, seq=PLATFORM_SEQ,
+                 step_time_s=0.5,
+                 checkpoint_interval_s=5, platform_seed=21),
+        final=final, restarts=restarts, kill_at_step=kill_step,
+        restored_step=ckpt_before, steps_run=n_run,
+        checkpoints=n_saved, checkpoint_bytes=ckpt_bytes,
+        recovery_virtual_s=recovery, wall_s=wall, after_kill_wall_s=after_kill,
+        seconds=dict(steps=steps_s, checkpoint=ckpt_s,
+                     checkpoint_d2h=sec["ckpt_d2h"],
+                     checkpoint_serialize=sec["ckpt_save"]
+                     - sec["ckpt_hash_store"],
+                     checkpoint_hash_store=sec["ckpt_hash_store"],
+                     restore=restore_s, restore_rebuild=sec["restore"],
+                     restore_load=sec["restore_load"],
+                     restore_verify=sec["restore_verify"],
+                     simulation_and_other=other_s),
+        steps_per_s=n_run / wall, useful_steps_per_s=PLATFORM_STEPS / wall,
+        uninterrupted_s=straight_s,
+        uninterrupted_steps_per_s=PLATFORM_STEPS / straight_s,
+        launches=launches, losses_bit_equal=worst == 0.0,
+        final_state_byte_equal=state_equal,
+        loss_first=job_losses[0][1], loss_last=job_losses[-1][1])
+    print(f"  (p1) paper-overhead-100m, {PLATFORM_STEPS}-step job: killed at "
+          f"step {kill_step}, restored checkpoint step {ckpt_before} "
+          f"(byte-equal to the saved tree), {final} with {restarts} "
+          f"restart; {n_run} steps run; losses {job_losses[0][1]:.4f} -> "
+          f"{job_losses[-1][1]:.4f}, every one and the final state "
+          f"bit-equal to the uninterrupted run; launches {launches} "
+          f"({cfg.num_layers} a step)", flush=True)
+    print(f"  (p1) wall {wall:.3f} s: steps {steps_s:.3f}, checkpoints "
+          f"{ckpt_s:.3f} ({n_saved} x {ckpt_bytes / 1e9:.3f} GB: device to "
+          f"host {sec['ckpt_d2h']:.3f}, serialise "
+          f"{sec['ckpt_save'] - sec['ckpt_hash_store']:.3f}, hash and store "
+          f"{sec['ckpt_hash_store']:.3f}), restore {restore_s:.3f} "
+          f"(rebuild {sec['restore']:.3f}, load {sec['restore_load']:.3f}, "
+          f"verify {sec['restore_verify']:.3f}), simulation and other "
+          f"{other_s:.3f}; {n_run / wall:.3f} steps/s under the platform "
+          f"({PLATFORM_STEPS / wall:.3f} useful) vs "
+          f"{PLATFORM_STEPS / straight_s:.3f} uninterrupted; recovery "
+          f"{recovery:.2f} virtual s", flush=True)
+    del payload, final_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class GapRecorder:
+    """Wraps a serving engine's prefill or decode step: for each live row,
+    the gap between its two largest last-position logits, keyed by
+    (request, tokens generated before the step)."""
+
+    def __init__(self, engine, fn, kind, sink):
+        self.engine, self.fn, self.kind, self.sink = engine, fn, kind, sink
+
+    def __call__(self, params, batch, cache, rows, *rest):
+        logits, cache = self.fn(params, batch, cache, rows, *rest)
+        live = (rows > 0) if self.kind == "prefill" else (rows >= 0)
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).cpu()
+        for b in live.nonzero().flatten().tolist():
+            rec = self.engine.slots[b]
+            self.sink[(rec.request.req, len(rec.out_tokens))] = \
+                float(gaps[b])
+        return logits, cache
+
+
+def run_platform_serve(dev, seed):
+    """(p2): a qwen3-0.6b serve job at full width in bf16 (8 slots, 16
+    requests, prompts up to 1,024 tokens, a snapshot every 8 decode
+    steps, no prefix cache: prefill takes the flash kernel, decode the
+    paged decode) under the port's platform, twice from the same seed: once
+    uninterrupted (its top-2 logit gaps recorded) and once with the
+    server pod killed after its first snapshot and before the drain (the
+    platform builds that job's payload itself).  Checks: both complete,
+    every request shipped once with its full budget, the streams equal
+    (where they part, at a tie within PARITY_TIE_TOL)."""
+    import torch
+    from repro_torch.core import DLaaSPlatform, JobSpec, ServeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import RealServePayload, ServingEngine
+
+    spec = JobSpec(name="p2", kind="serve", framework="qwen3-0.6b", seed=seed,
+                   serve=ServeSpec(batch=8, prompt_len=PLATFORM_PROMPT, gen=32,
+                                   requests=16, snapshot_every=8,
+                                   prefix_cache=False, reduced=False,
+                                   real_compute=True))
+    n_req = spec.serve.requests
+    gaps = {}
+
+    class Recorded(RealServePayload):
+        def build(self):
+            engine, requests = super().build()
+            engine.prefill = GapRecorder(engine, engine.prefill, "prefill",
+                                         gaps)
+            engine.decode = GapRecorder(engine, engine.decode, "decode",
+                                        gaps)
+            return engine, requests
+
+    def serve_job(kill):
+        p = DLaaSPlatform(seed=21)
+        p.run(10)
+        h = p.submit(spec)
+        p.run(5)
+        check(h.acked, f"platform: the serve job was not acked "
+              f"({h.rejected})")
+        if not kill:
+            p.register_payload(h.job_id, Recorded(spec, device=dev))
+        timer = MethodTimer([
+            (RealServePayload, "build", "build"),
+            (ServingEngine, "snapshot", "snapshot"),
+            (ServingEngine, "restore", "restore")])
+        ops.reset_launches()
+        t_kill = kill_served = snap_bytes = None
+        with timer:
+            t0 = time.perf_counter()
+            if kill:
+                deadline = p.sim.now + PLATFORM_DEADLINE_S
+                while True:
+                    check(p.sim.now < deadline, "platform: the serve job "
+                          f"took no snapshot by virtual time {p.sim.now}")
+                    vol = p.volumes.get(f"vol-{h.job_id}")
+                    if vol is not None and \
+                            vol.read("engine/0/snapshot") is not None:
+                        break
+                    p.run(0.05)
+                kill_served = vol.read("served", 0)
+                check(kill_served < n_req, "platform: the serve job drained "
+                      "before its first snapshot")
+                snap = vol.read("engine/0/snapshot")
+                snap_bytes = sum(t.numel() * t.element_size()
+                                 for leaf in snap["cache"].values()
+                                 for t in (leaf if isinstance(leaf, list)
+                                           else [leaf]))
+                t_kill = p.sim.now
+                check(p.kill_pod(f"server-{h.job_id}-0"),
+                      "platform: no server pod to kill")
+                del snap, vol
+            final = p.run_until_terminal(h.job_id, timeout=900)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        streams = {}
+        for r in range(n_req):
+            key = f"cos/{h.job_id}/responses/{r}"
+            check(p.objectstore.exists(key),
+                  f"platform: request {r} was never shipped")
+            doc = json.loads(p.objectstore.get(key).decode())
+            streams[doc["req"]] = doc["tokens"]
+        logs = p.client.logs(h.job_id, 0)
+        rec = dict(final=final, restarts=p.client.status(h.job_id)["restarts"],
+                   wall_s=wall, launches=dict(ops.launches),
+                   seconds=dict(timer.seconds), calls=dict(timer.calls),
+                   served_line=[ln for ln in logs.splitlines()
+                                if "done (" in ln])
+        if kill:
+            rec.update(killed_after_served=kill_served,
+                       snapshot_cache_bytes=snap_bytes,
+                       recovery_virtual_s=p.recovery_time(
+                           f"server-{h.job_id}-0", t_kill),
+                       engine_restored="engine restored" in logs)
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        return streams, rec
+
+    golden, g = serve_job(kill=False)
+    streams, v = serve_job(kill=True)
+    for name, rec in (("uninterrupted", g), ("killed", v)):
+        check(rec["final"] == "COMPLETED", f"platform: the {name} serve job "
+              f"ended {rec['final']}")
+        check(any(f"({n_req} served" in ln for ln in rec["served_line"]),
+              f"platform: the {name} job's log does not show {n_req} "
+              f"served: {rec['served_line']}")
+    for name, rec in (("uninterrupted", g), ("killed", v)):
+        la = rec["launches"]
+        check(la["flash_attention_bshd"] > 0 and la["paged_decode_bhd"] > 0
+              and la["flash_attention_bshd"] % 28 == 0
+              and la["paged_decode_bhd"] % 28 == 0,
+              f"platform: the {name} serve job's launches {la}: flash 28 a "
+              "prefill round and the paged decode 28 a decode step")
+    check(v["restarts"] == 1 and v["engine_restored"],
+          f"platform: the killed serve job restarted {v['restarts']} times "
+          f"(engine restored: {v['engine_restored']})")
+    budgets = {r.req: r.gen_len for r in synthesize_for(spec)}
+    for name, st in (("uninterrupted", golden), ("killed", streams)):
+        check(sorted(st) == list(range(n_req)) and all(
+            len(st[r]) == budgets[r] for r in st),
+            f"platform: the {name} job shipped {sorted(st)} with lengths "
+            f"{ {r: len(t) for r, t in st.items()} }, budgets {budgets}")
+    parted = []
+    for r in range(n_req):
+        a, b = golden[r], streams[r]
+        if a != b:
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            parted.append((r, j, gaps.get((r, j))))
+    for r, j, gap in parted:
+        check(gap is not None and gap <= PARITY_TIE_TOL,
+              f"platform: request {r}'s streams part at token {j} with a "
+              f"top-2 gap of {gap}, above {PARITY_TIE_TOL}")
+    where = "equal" if not parted else \
+        "part at ties " + ", ".join(f"request {r} token {j} (gap {gap:.3g})"
+                                    for r, j, gap in parted)
+    print(f"  (p2) qwen3-0.6b serve job, 16 requests: killed after "
+          f"{v['killed_after_served']} served (snapshot "
+          f"{v['snapshot_cache_bytes'] / 1e9:.3f} GB of cache), "
+          f"{v['final']} with {v['restarts']} restart, engine restored; "
+          f"every request shipped once with its full budget; streams "
+          f"{where} against the uninterrupted job; wall {v['wall_s']:.3f} s "
+          f"(uninterrupted {g['wall_s']:.3f}): build "
+          f"{v['seconds']['build']:.3f} ({v['calls']['build']} x), "
+          f"snapshots {v['seconds']['snapshot']:.3f} "
+          f"({v['calls']['snapshot']} x), restore "
+          f"{v['seconds']['restore']:.3f}; recovery "
+          f"{v['recovery_virtual_s']:.2f} virtual s; launches {v['launches']}",
+          flush=True)
+    return dict(uninterrupted=g, killed=v, streams_parted=parted)
+
+
+def synthesize_for(spec):
+    """The requests of a serve job's spec (the workload draws on the host
+    from the job seed; prompt_len and gen set their lengths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import synthesize_requests
+    cfg = dataclasses.replace(get_config(spec.framework),
+                              cache_layout="paged")
+    return synthesize_requests(cfg, spec.serve, spec.seed)
+
+
+def platform_launches(platform, name):
+    """A kernel's launches in the platform phase's runs: (p1) the killed
+    job (replayed steps included) and (p2) the uninterrupted and the
+    killed serve job."""
+    return {"p1_job": platform["train"]["launches"][name],
+            "p2_uninterrupted": platform["serve"]["uninterrupted"]
+            ["launches"][name],
+            "p2_killed": platform["serve"]["killed"]["launches"][name]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2274,6 +2771,12 @@ def main() -> int:
     print("[train-parity] fp32 cuda vs cpu, full width, 2 layers",
           flush=True)
     train["parity"] = run_train_parity_phase(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[platform] the learner and the server as real payloads under "
+          "the port's platform", flush=True)
+    platform = {"train": run_platform_train(dev, seed),
+                "serve": run_platform_serve(dev, seed)}
 
     main_run = runs["a_no_prefix_cache"]
     fl = next(r for r in flash_rows if r["label"] == "qwen3 S1024")
@@ -2316,7 +2819,8 @@ def main() -> int:
                  device_ms=fl64["device_ms"], plain_ms=fl64["plain_ms"],
                  bound_ms=fl64["bound_ms"], bound_by=fl64["bound_by"],
                  library_ms=fl64["library_ms"],
-                 library="SDPA, is_causal, enable_gqa")),
+                 library="SDPA, is_causal, enable_gqa"),
+             platform=platform_launches(platform, "flash_attention_bshd")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/models/attention.py:34",
@@ -2330,7 +2834,8 @@ def main() -> int:
              shape=pb["shape"],
              qwen3={k: qb[k] for k in ("shape", "max_abs_err", "ms",
                                        "device_ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms", "library")}),
+                                       "bound_by", "library_ms", "library")},
+             platform=platform_launches(platform, "flash_attention_bwd")),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_attention.py:120",
@@ -2342,6 +2847,7 @@ def main() -> int:
              ms_ungrouped=dc["ms_ungrouped"],
              device_ms_ungrouped=dc["device_ms_ungrouped"],
              also_replaces="src/repro/kernels/paged_attention.py:76",
+             platform=platform_launches(platform, "paged_decode_bhd"),
              shape="B 8, K 8, G 2, hd 128, ps 128, bf16, ragged"),
         dict(name="wkv6_fwd", route="cuda",
              source="src/repro_torch/csrc/rwkv6_wkv.cu",
@@ -2380,6 +2886,7 @@ def main() -> int:
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,
                       "flash_bwd": bwd_rows, "train": train,
+                      "platform": platform,
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t_start}))
     print(card)

@@ -157,9 +157,13 @@ class ShapeConfig:
     kind: str                         # train | prefill | decode
 
 
-#: The reference's training shape (its serving shapes have no reader here).
+#: The reference's shapes: the train shape sizes the train runs, and a
+#: platform dryrun cell names one of the four (``core/jobspec.py``).
 SHAPES: Dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
 

@@ -13,7 +13,9 @@ its inverse, restacking ``blocks.{i}`` into ``decoder/{prefix,groups,tail}``.
 ``train_state_from_jax`` / ``train_state_to_jax`` carry a whole train
 state across (the reference's ``{params, opt: {m, v, count}, step}``, as
 numpy trees; the moments are keyed like the parameters), so a state
-written by one package can continue in the other.
+written by one package can continue in the other;
+``overlay_train_state`` loads such a tree into an existing state in place
+(the platform learner's restore, ``core/learner.py``).
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ def _flatten(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
         yield path, np.asarray(tree)
 
 
-def _tensor(a: np.ndarray) -> torch.Tensor:
+def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):      # a bf16 leaf of a port checkpoint
+        return a.detach().clone()
     if a.dtype.name == "bfloat16":       # ml_dtypes leaf: exact via fp32
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True, order="C"))
@@ -68,11 +72,13 @@ def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` (a device tensor's ``cpu()`` is one already)."""
+    copied = t.device.type != "cpu"
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes                 # numpy's bfloat16, as jax keeps it
         return t.float().numpy().astype(ml_dtypes.bfloat16)
-    return t.numpy().copy()
+    return t.numpy() if copied else t.numpy().copy()
 
 
 def _nest(tree: Dict, path, leaf) -> None:
@@ -133,6 +139,37 @@ def train_state_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
                                          dtype=torch.int32, device=dev)
     state["step"] = torch.tensor(int(tree["step"]), dtype=torch.int32,
                                  device=dev)
+    return state
+
+
+def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
+               what: str) -> None:
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: the tree holds "
+                         f"{sorted(set(src) - set(dst))} beyond the state "
+                         f"and lacks {sorted(set(dst) - set(src))}")
+    for name, t in dst.items():
+        if tuple(t.shape) != tuple(src[name].shape):
+            raise ValueError(f"{what} {name}: shape {tuple(src[name].shape)}"
+                             f", the state's {tuple(t.shape)}")
+        t.copy_(src[name])
+
+
+@torch.no_grad()
+def overlay_train_state(state: Dict, tree) -> Dict:
+    """Load the reference's train state (numpy tree, as
+    :func:`train_state_from_jax` takes it) into the port's ``state`` in
+    place: every leaf is copied into the tensor the state holds, on its
+    device and in its dtype (the reference's restore casts to the current
+    leaf's dtype the same way).  Returns ``state``."""
+    cfg = state["params"].cfg
+    _copy_into(dict(state["params"].named_parameters()),
+               params_from_jax(tree["params"], cfg), "params")
+    for part in ("m", "v"):
+        _copy_into(state["opt"][part], params_from_jax(tree["opt"][part], cfg),
+                   f"opt/{part}")
+    state["opt"]["count"].fill_(int(tree["opt"]["count"]))
+    state["step"].fill_(int(tree["step"]))
     return state
 
 

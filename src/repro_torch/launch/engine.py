@@ -26,6 +26,7 @@ the reference asserts on such a row (``models.moe.check_row_length``).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from collections import deque
 from dataclasses import dataclass, field
@@ -34,10 +35,11 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.base import GLOBAL_ATTN, check_ported
-from repro_torch.launch.spec import ServeSpec
+from repro_torch.launch.spec import ServeSpec, check_serve_spec
 from repro_torch.models.layers import Ctx, resolve_device
-from repro_torch.models.model import init_cache, num_pages
+from repro_torch.models.model import build_model, init_cache, num_pages
 from repro_torch.models.moe import check_row_length
 from repro_torch.models.params import cast_params
 from repro_torch.train.steps import make_serve_steps
@@ -218,6 +220,7 @@ class ServingEngine:
     def __init__(self, cfg, model, sv: ServeSpec, *, device=None,
                  dtype: torch.dtype = torch.bfloat16):
         check_ported(cfg)
+        check_serve_spec(sv, cfg)
         dev = resolve_device(device)
         held = {p.device for p in model.parameters()}
         if held != {dev}:
@@ -286,9 +289,15 @@ class ServingEngine:
                 f"the pool holds {self.per_shard}")
         self.queue.append(request)
 
+    def free_slot_count(self) -> int:
+        return sum(1 for s in self.slots if s is None)
+
     @property
     def idle(self) -> bool:
         return not self.queue and all(s is None for s in self.slots)
+
+    def active_records(self) -> List[SeqRecord]:
+        return [s for s in self.slots if s is not None]
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.ctx.device)
@@ -696,3 +705,39 @@ def synthesize_requests(cfg, sv: ServeSpec, seed: int) -> List[Request]:
         if C == 0 else np.full(n_req, P, np.int64)
     return [Request(req=r, tokens=prompts[r, :int(prompt_lens[r])].copy(),
                     gen_len=int(gen_lens[r])) for r in range(n_req)]
+
+
+# ---------------------------------------------------------------------------
+# The real payload of a platform serve job (core/jobspec.py:
+# ArchitectureAdapter.payload)
+# ---------------------------------------------------------------------------
+class RealServePayload:
+    """Builds the real serving engine for one platform serve job (the
+    reference's ``launch/engine.py:RealServePayload``).  Each pod
+    incarnation calls :meth:`build` fresh: the weights are drawn again
+    from the job seed, so a restarted container holds the exact model the
+    dead one did, and ``ServingEngine.restore`` plus the journal replay
+    (``core/server.py``) recover the serving state.  It runs on ``cuda``
+    unless constructed with another ``device``, on one card (no mesh)."""
+
+    def __init__(self, spec, device=None):
+        self.spec = spec
+        self.device = device
+
+    def build(self):
+        """``(engine, requests)`` for this job's ServeSpec: fp32 compute
+        under ``reduced``, bf16 otherwise, as in the reference."""
+        spec, sv = self.spec, self.spec.serve
+        cfg = get_config(spec.framework)
+        if sv.reduced:
+            cfg = cfg.reduced()
+        overrides = {"cache_layout": sv.cache_layout or "paged"}
+        if sv.page_size:
+            overrides["page_size"] = sv.page_size
+        cfg = dataclasses.replace(cfg, **overrides)
+        dev = resolve_device(self.device)
+        model = build_model(cfg, device=dev, seed=spec.seed)
+        engine = ServingEngine(
+            cfg, model, sv, device=dev,
+            dtype=torch.float32 if sv.reduced else torch.bfloat16)
+        return engine, synthesize_requests(cfg, sv, spec.seed)

@@ -1,36 +1,47 @@
-"""The training and serving knobs the port's CLIs and engine read (the
-fields of the reference's ``core/jobspec.py:TrainSpec`` and ``ServeSpec``
-that they use)."""
+"""The training and serving knobs of the port: the reference's
+``TrainSpec`` and ``ServeSpec``, from the port's copy of the job resource
+model (``core/jobspec.py``), so a platform job and a CLI run read one
+definition with the reference's fields and defaults.
+
+A field the port's engine or train loop does not implement is refused,
+never silently ignored (:func:`check_serve_spec`,
+:func:`check_train_spec`).  ``use_pallas`` is accepted and chooses
+nothing: on the card every kernel runs, on the CPU its plain version
+(ROADMAP, deliberate differences).  The platform knobs
+(``real_compute``, ``step_time_s``, ``request_time_s``, ``snapshot_every``,
+...) are read by the platform's workload pods, not here.
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from repro_torch.core.jobspec import ServeSpec, TrainSpec  # noqa: F401
 
 
-@dataclass(frozen=True)
-class TrainSpec:
-    total_steps: int = 100
-    global_batch: int = 8
-    seq_len: int = 128
-    learning_rate: float = 1e-3
-    num_microbatches: int = 1
-    remat_policy: str = "none"       # none | dots | full
-    reduced: bool = True             # tiny same-family config, fp32 compute
-    log_every: int = 10
+def check_serve_spec(sv: ServeSpec, cfg) -> None:
+    """Raise ``NotImplementedError`` for a ServeSpec field the port's
+    serving engine does not implement."""
+    if sv.cache_layout not in (None, "paged"):
+        raise NotImplementedError(
+            f"serve.cache_layout {sv.cache_layout!r}: the port serves the "
+            "paged cache only (the dense layout is ROADMAP Queue 1 item 4)")
+    if sv.mesh != "host":
+        raise NotImplementedError(
+            f"serve.mesh {sv.mesh!r}: the port serves on one card (meshes "
+            "come with dist/, ROADMAP Queue 1 item 6)")
+    if sv.ragged_prefill is False:
+        raise NotImplementedError(
+            "serve.ragged_prefill=False: the port's prefill is always "
+            "ragged")
+    if sv.page_size not in (0, cfg.page_size):
+        raise NotImplementedError(
+            f"serve.page_size {sv.page_size}: the engine pages by its "
+            f"config's page_size ({cfg.page_size}); set it on the config "
+            "(RealServePayload and the serve CLI do)")
 
 
-@dataclass(frozen=True)
-class ServeSpec:
-    batch: int = 4                   # concurrent decode slots
-    prompt_len: int = 64
-    gen: int = 32
-    requests: int = 8
-    page_budget: int = 0             # physical pages in the pool; 0 = worst case
-    # optimistic admission: reserve worst-case pages up to overcommit ×
-    # budget; on page exhaustion the engine evicts the youngest sequence
-    # back to the queue (1.0 = conservative, never evicts)
-    overcommit: float = 1.0
-    # hash-addressed prefix caching with copy-on-write pages
-    prefix_cache: bool = True
-    # synthetic workload: fraction of prompt_len every request shares as a
-    # common leading prefix
-    shared_prefix_frac: float = 0.0
+def check_train_spec(t: TrainSpec) -> None:
+    """Raise ``NotImplementedError`` for a TrainSpec field the port's train
+    loop does not implement."""
+    if t.mesh != "host":
+        raise NotImplementedError(
+            f"train.mesh {t.mesh!r}: the port trains on one card (meshes "
+            "come with dist/, ROADMAP Queue 1 item 6)")

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data.pipeline import SyntheticLMData
-from repro_torch.launch.spec import TrainSpec
+from repro_torch.launch.spec import TrainSpec, check_train_spec
 from repro_torch.models.layers import Ctx, resolve_device
 from repro_torch.models.params import count_params
 from repro_torch.train.steps import init_train_state, make_train_step
@@ -96,6 +96,7 @@ def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
     build and the first step's warm-up (``first_step_s``).  Metrics reach
     the host only at logged steps and at the end, so steps queue on the
     device without waiting for each other."""
+    check_train_spec(t)
     dev = resolve_device(device)
     run = run or run_config_of(t)
     ctx = Ctx(device=dev, dtype=torch.float32 if t.reduced

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -61,6 +62,39 @@ def test_importing_the_serve_cli_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_importing_the_platform_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.core, repro_torch.core.learner, "
+            "repro_torch.core.server, repro_torch.core.elastic, "
+            "repro_torch.launch.engine, repro_torch.launch.train; "
+            "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
+            "m.startswith(('jax.', 'repro.'))]; "
+            "assert not bad, bad; print('clean')")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_platform_payloads_need_an_explicit_cpu(monkeypatch):
+    """The platform's stock serve payload runs on ``cuda`` unless it is
+    built with another device; without a card that is an error inside
+    the pod (a pod failure the Guardian sees), never a run on the CPU."""
+    from repro_torch.core import JobSpec, ServeSpec
+    from repro_torch.core.jobspec import ArchitectureAdapter
+    from repro_torch.launch.engine import RealServePayload
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = JobSpec(name="s", kind="serve", framework="qwen3-0.6b",
+                   serve=ServeSpec(real_compute=True, requests=2))
+    payload = ArchitectureAdapter("qwen3-0.6b").payload(
+        SimpleNamespace(payloads={}), "job-1", spec)
+    assert isinstance(payload, RealServePayload) and payload.device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        payload.build()
+    engine, requests = RealServePayload(spec, device="cpu").build()
+    assert engine.ctx.device == torch.device("cpu") and len(requests) == 2
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch):
