@@ -25,10 +25,12 @@ Phases, each of which exits non-zero on the first failure:
               The paged decode, MLA decode and WKV6 are also timed with
               the L2 cold (a 256 MB write before each call).  The flash
               forward also at paper-overhead-100m's training shape (B 8,
-              S 1,024, hd 64); the flash backward against its plain
-              backward on the same (q, k, v, O, lse, dO) at the two
+              S 1,024, hd 64) and granite-moe's (B 4, S 4,096, H 16, K 8,
+              hd 64); the flash backward against its plain
+              backward on the same (q, k, v, O, lse, dO) at the three
               training shapes (paper: B 8, S 1,024, H 12, K 4, hd 64;
-              qwen3: B 2, S 4,096, H 16, K 8, hd 128), ragged S 1,000 and
+              qwen3: B 2, S 4,096, H 16, K 8, hd 128; granite: B 4, S
+              4,096, H 16, K 8, hd 64), ragged S 1,000 and
               77, the bf16 kernels' tile edges (S 127, 255, 257 with G 2
               and 3), more work items than the card runs at once (B 2, S
               2,048, hd 128), not causal and with a window and softcap,
@@ -49,14 +51,18 @@ Phases, each of which exits non-zero on the first failure:
               steps of (a) run again under torch.profiler (where the time
               goes, the device's idle share); the numbers above are
               taken with the profiler off.
-4. parity  -- the same weights and requests through the engine on ``cuda``
-              and on ``cpu`` in fp32 with TF32 off (full width, 4 layers):
+4. parity  -- the same weights (built on each device, equal bit for bit:
+              the draws are the host's) and requests through the engine
+              on ``cuda`` and on ``cpu`` in fp32 with TF32 off (full
+              width, 4 layers):
               the live logits of every prefill and decode step within
               tolerance (up to the first divergent step, which must be a
               tie, if the token streams part), then a byte-identical
               snapshot/restore on ``cuda``.
 5. rwkv    -- the same for ``rwkv6-7b`` (32 layers, d 4096, 64 heads of 64,
-              7.04 B parameters without the embeddings): serve at full
+              7.04 B parameters without the embeddings; its build, the
+              weights drawn on the host, timed beside the same draws by a
+              CUDA generator on the card): serve at full
               width in bf16 with the WKV6 kernel in every prefill of every
               layer (its launches must be 32 a prefill round), one traced
               prefill round and four decode steps, then fp32 cuda vs cpu
@@ -89,9 +95,15 @@ Phases, each of which exits non-zero on the first failure:
               snapshot/restore of the latent pools on ``cuda``.
 
 8. train   -- trains ``paper-overhead-100m`` at full width (12 layers, B 8,
-              S 1,024, 30 steps, lr 1e-3, warmup 3) and ``qwen3-0.6b`` at
+              S 1,024, 30 steps, lr 1e-3, warmup 3), ``qwen3-0.6b`` at
               full width (28 layers, S 4,096, global batch 4 in 2
-              microbatches, full remat, 6 steps) in bf16 with fp32 master
+              microbatches, full remat, 6 steps) and
+              ``granite-moe-1b-a400m`` at full width (24 layers, 32
+              experts top-8, S 4,096, global batch 4, full remat, 6
+              steps; its remat check on one row, B 4 does not fit
+              without remat; aux beside the CE; MFU over the active
+              parameters; the traced step split by the MoE's profiler
+              ranges) in bf16 with fp32 master
               weights, through ``repro_torch.launch.train``'s loop, after
               deepseek-v2's weights are freed: every loss finite, a
               held-out batch's loss lower after training than at init,
@@ -104,11 +116,15 @@ Phases, each of which exits non-zero on the first failure:
               2 x 28 x 2 forward under remat and 28 x 2 backward),
               steps/s, tokens/s, MFU and peak
               memory, then one more step under torch.profiler (device busy
-              and idle share, device ms by part).  Then fp32 cuda vs cpu
-              parity of both configs at full width and 2 layers (B 2, S
-              256, 3 steps: losses within 1e-5 relative, the first batch's
-              gradients within 1e-4 of each leaf's largest) and a
-              checkpoint round trip through the reference's tree
+              and idle share, device ms by part).  Before granite, one
+              MoE FFN at its width and shape runs forward and backward
+              with ``torch.cuda.set_sync_debug_mode("error")`` (no host
+              sync), twice bit-equal.  Then fp32 cuda vs cpu
+              parity of the three configs at full width and 2 layers (B 2,
+              S 256, 3 steps: the initial states equal, granite's routing
+              equal or parted at a tie, losses within 1e-5 relative, the
+              first batch's gradients within 1e-4 of each leaf's largest)
+              and a checkpoint round trip through the reference's tree
               (``train_state_to_jax`` and back) whose next step's loss
               equals the unrestored state's.
 9. platform -- the learner and the server as real payloads under the
@@ -126,6 +142,9 @@ Phases, each of which exits non-zero on the first failure:
               wall seconds split into steps, checkpoint saves (device to
               host, serialise, hash and store), the restore and the rest
               (the simulation), beside the uninterrupted run's steps/s.
+              (p3) the same job for granite-moe-1b-a400m at full width
+              cut to 2 layers (B 4, S 4,096; a checkpoint of 1.9 GB), the
+              same checks.
               (p2) a qwen3-0.6b serve job at full width in bf16 (8 slots,
               16 requests, prompts up to 1,024 tokens, a snapshot every 8
               decode steps, no prefix cache), once uninterrupted and once
@@ -370,6 +389,8 @@ def flash_cases():
         ("paper hd64 S1024", 4, 1024, 12, 4, 64, bf16, True, 0, 0.0),
         # paper-overhead-100m's training shape (the train phase's forward)
         ("paper train B8 S1024", 8, 1024, 12, 4, 64, bf16, True, 0, 0.0),
+        # granite-moe-1b-a400m's training shape ((t3): G 2, hd 64, S 4,096)
+        ("granite train B4 S4096", 4, 4096, 16, 8, 64, bf16, True, 0, 0.0),
         ("qwen3 ragged S1000", 2, 1000, 16, 8, 128, bf16, True, 0, 0.0),
         ("window 256 softcap 30", 2, 640, 16, 8, 128, bf16, True, 256, 30.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
@@ -981,6 +1002,7 @@ def flash_bwd_cases():
     return [
         ("paper train", 8, 1024, 12, 4, 64, bf16, True, 0, 0.0),
         ("qwen3 train", 2, 4096, 16, 8, 128, bf16, True, 0, 0.0),
+        ("granite train", 4, 4096, 16, 8, 64, bf16, True, 0, 0.0),
         ("ragged S1000", 2, 1000, 16, 8, 128, bf16, True, 0, 0.0),
         ("ragged S77 G3", 2, 77, 12, 4, 64, bf16, True, 0, 0.0),
         # the bf16 kernels' tile edges: 128-key dK/dV items with 64-row
@@ -1461,19 +1483,21 @@ class LogitRecorder:
 
 
 class RouteRecorder:
-    """Wraps ``repro_torch.models.moe.route``: while ``sink`` is a list,
-    each call appends the chosen experts of every token (sorted, on the
-    host) and the margin between its k-th and (k+1)-th router
-    probability."""
+    """Wraps ``repro_torch.models.moe.route`` (router logits in) or, with
+    ``of_probs``, ``moe._top_k`` (the training path's; probabilities in):
+    while ``sink`` is a list, each call appends the chosen experts of
+    every token (sorted, on the host) and the margin between its k-th and
+    (k+1)-th router probability."""
 
-    def __init__(self, fn):
-        self.fn, self.sink = fn, None
+    def __init__(self, fn, of_probs=False):
+        self.fn, self.sink, self.of_probs = fn, None, of_probs
 
     def __call__(self, logits, k):
         import torch
         weights, experts = self.fn(logits, k)
         if self.sink is not None:
-            top = torch.softmax(logits, dim=-1).topk(k + 1, dim=-1).values
+            probs = logits if self.of_probs else torch.softmax(logits, -1)
+            top = probs.topk(k + 1, dim=-1).values
             self.sink.append((experts.sort(dim=-1).values.cpu(),
                               (top[:, k - 1] - top[:, k]).cpu()))
         return weights, experts
@@ -1546,6 +1570,15 @@ def caches_equal(a, b) -> bool:
     return True
 
 
+def models_equal(a, b) -> bool:
+    """Every parameter of two models equal bit for bit (``b`` may live on
+    another device)."""
+    import torch
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    return pa.keys() == pb.keys() and all(
+        torch.equal(t, pb[n].detach().cpu()) for n, t in pa.items())
+
+
 def parity_run(cfg, sv, dev, seed, requests=None, routes=False):
     """The same weights and requests (``requests``, by default
     ``synthesize_requests``) through the engine on ``cuda`` and on ``cpu``
@@ -1561,7 +1594,9 @@ def parity_run(cfg, sv, dev, seed, requests=None, routes=False):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu_model = build_model(cfg, device="cpu", seed=seed)
-    gpu_model = build_model(cfg, device="cpu", seed=seed).to(dev)
+    gpu_model = build_model(cfg, device=dev, seed=seed)
+    check(models_equal(cpu_model, gpu_model), f"parity {cfg.name}: the "
+          "model built on cuda differs from the one built on cpu")
     if requests is None:
         requests = synthesize_requests(cfg, sv, seed)
     recorder = RouteRecorder(moe.route) if routes else None
@@ -1673,11 +1708,15 @@ def run_rwkv_phase(dev, seed):
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=seed)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    draw_s = device_draw_s(model, seed)
     print(f"  built {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{count_params(cfg) / 1e9:.2f} B parameters without the "
-          f"embeddings, in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"embeddings, in {build_s:.2f} s (host draws; the same leaves "
+          f"drawn by a CUDA generator on the card: {draw_s:.2f} s)",
+          flush=True)
     serve_once(cfg, model, ServeSpec(batch=2, prompt_len=256, gen=4,
                                      requests=2, prefix_cache=False),
                dev, seed)                                      # warm-up
@@ -1718,7 +1757,32 @@ def run_rwkv_phase(dev, seed):
     parity = parity_run(pcfg, ServeSpec(batch=4, prompt_len=90, gen=8,
                                         requests=6, prefix_cache=False),
                         dev, seed)
-    return dict(serve=r, trace=trace, parity=parity)
+    return dict(serve=r, trace=trace, parity=parity, build_s=build_s,
+                device_draw_s=draw_s)
+
+
+def device_draw_s(model, seed):
+    """Seconds to draw every drawn leaf of ``model`` on its device with a
+    CUDA generator, leaf by leaf, into one scratch buffer (what a build
+    cost before the draws moved to the host; the model is left as it
+    was)."""
+    import torch
+    from repro_torch.models.params import _recipe
+    leaves = [p for n, p in model.named_parameters()
+              if _recipe(n) not in ("ones", "zeros")]
+    buf = torch.empty(max(p.numel() for p in leaves),
+                      device=leaves[0].device)
+    gen = torch.Generator(device=buf.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(leaves):
+        gen.manual_seed(seed + i)
+        buf[:p.numel()].normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del buf
+    torch.cuda.empty_cache()
+    return secs
 
 
 # ---------------------------------------------------------------------------
@@ -1922,20 +1986,80 @@ TRAIN_KERNEL_GROUPS = (
 
 def train_flops(cfg, tokens, S, B):
     """Model FLOPs of a step: 6·N·tokens for the weight products (N the
-    non-embedding parameters plus the vocabulary projection, tied or not)
-    and 12·hd per live causal (q, k) pair and head for attention (4·hd
-    forward, 8·hd backward).  Remat's recomputed forward is not counted."""
+    active non-embedding parameters plus the vocabulary projection, tied
+    or not) and 12·hd per live causal (q, k) pair and head for attention
+    (4·hd forward, 8·hd backward).  An MoE layer counts the k experts a
+    token runs, not the other E - k, nor the router or the capacity
+    padding.  Remat's recomputed forward is not counted."""
     from repro_torch.models.params import count_params
     n = count_params(cfg) + cfg.d_model * cfg.padded_vocab
+    if cfg.is_moe:
+        moe_layers = cfg.num_layers - cfg.first_k_dense
+        idle = (cfg.num_experts - cfg.num_experts_per_tok) \
+            * 3 * cfg.d_model * cfg.moe_d_ff
+        n -= moe_layers * (idle + cfg.d_model * cfg.num_experts)
     pairs = S * (S + 1) // 2
     attn = 12.0 * cfg.head_dim * pairs * cfg.num_heads * cfg.num_layers \
         * (tokens // S)
     return 6.0 * n * tokens + attn, n
 
 
+# The MoE train path's profiler ranges (models/moe.py:moe_ffn_train) and
+# the part of a traced step each one's kernels, forward and backward, go to
+MOE_RANGES = {"moe.route": "MoE route and dispatch",
+              "moe.dispatch": "MoE route and dispatch",
+              "moe.experts": "MoE expert SwiGLU (GEMMs and gating)",
+              "moe.combine": "MoE combine", "moe.aux": "MoE aux loss"}
+
+
+def moe_parts(events):
+    """Device ms of the MoE train path's parts in a profile's events: a
+    kernel belongs to the part of the nearest enclosing ``moe.*`` range or,
+    where a backward node comes first, to the part of the range that ran
+    the node's forward op (matched by thread and sequence number); remat's
+    recomputed forward outside the ranges belongs to no part.
+    Returns (ms by part, ids of the events whose kernels were counted)."""
+    def backward_node(e):
+        return e.name.endswith(("Backward0", "Backward1"))
+
+    def nearest(e):
+        # an op that records autograd (a sequence number) below the
+        # backward node is remat's recomputed forward, not the node's work
+        forward_op = False
+        while e is not None:
+            if e.name in MOE_RANGES:
+                return e
+            if backward_node(e):
+                return None if forward_op else e
+            forward_op |= e.sequence_nr >= 0
+            e = e.cpu_parent
+        return None
+    forward = {}                     # (thread, sequence nr) -> part
+    for e in events:
+        if e.sequence_nr >= 0 and not backward_node(e):
+            owner = nearest(e)
+            if owner is not None and owner.name in MOE_RANGES:
+                forward[(e.thread, e.sequence_nr)] = MOE_RANGES[owner.name]
+    parts, counted = {}, set()
+    for e in events:
+        us = sum(k.duration for k in getattr(e, "kernels", ()))
+        if not us:
+            continue
+        owner = nearest(e)
+        if owner is None:
+            continue
+        part = MOE_RANGES.get(owner.name) or forward.get(
+            (owner.fwd_thread, owner.sequence_nr))
+        if part is not None:
+            parts[part] = parts.get(part, 0.0) + us / 1e3
+            counted.add(e.id)
+    return parts, counted
+
+
 def trace_train_step(step, state, batch):
     """One train step under torch.profiler: wall and device-busy time, the
-    idle share and device ms by part (the kernels named in
+    idle share and device ms by part (an MoE stack's parts from its
+    profiler ranges, ``moe_parts``; then the kernels named in
     TRAIN_KERNEL_GROUPS, the rest as 'elementwise and other')."""
     import torch
     from torch.autograd import DeviceType
@@ -1947,9 +2071,23 @@ def trace_train_step(step, state, batch):
         step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    parts = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
+    events = prof.events()
+    moe, counted = moe_parts(events)
+    parts = dict(moe)
+    parts.update({name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS})
     parts["elementwise and other"] = 0.0
-    busy = 0.0
+    for e in events:
+        if e.id in counted:
+            continue
+        for k in getattr(e, "kernels", ()):
+            key = k.name.lower()
+            for name, parts_of in TRAIN_KERNEL_GROUPS:
+                if any(p in key for p in parts_of):
+                    parts[name] += k.duration / 1e3
+                    break
+            else:
+                parts["elementwise and other"] += k.duration / 1e3
+    summed = 0.0
     launches = 0
     top = []
     for e in prof.key_averages():
@@ -1957,21 +2095,29 @@ def trace_train_step(step, state, batch):
             if "LaunchKernel" in e.key:
                 launches += e.count
             continue
+        if e.key in MOE_RANGES:      # a range's span on the device timeline
+            continue
         us = e.self_device_time_total
-        busy += us
+        summed += us
         top.append((e.key, e.count, us))
-        key = e.key.lower()
-        for name, parts_of in TRAIN_KERNEL_GROUPS:
-            if any(p in key for p in parts_of):
-                parts[name] += us / 1e3
-                break
-        else:
-            parts["elementwise and other"] += us / 1e3
+    # busy: the union of the device activities' intervals (summed
+    # durations count twice where two run at once)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in MOE_RANGES)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    # kernels no CPU op claimed (none expected)
+    parts["unattributed"] = summed / 1e3 - sum(parts.values())
     busy *= 1e-6
     check(busy > 0, "traced train step: no device activity recorded")
     check(busy <= wall * 1.05, f"traced train step: device busy {busy} s "
           f"exceeds the wall time {wall} s")
     return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
+                device_summed_s=summed * 1e-6,
                 launches=launches, device_ms_by_part=parts,
                 top_kernels=[(k[:80], n, us / 1e3) for k, n, us in
                              sorted(top, key=lambda r: -r[2])[:8]])
@@ -1996,6 +2142,86 @@ def optimizer_device_ms(state, run):
     return ms
 
 
+def run_moe_layer_phase(dev, seed):
+    """One MoE FFN of (t3) (granite-moe-1b-a400m's width: 32 experts,
+    top-8, moe_d_ff 512, d 1,024; B 4 x S 4,096 in bf16, random weights)
+    forward and backward under ``torch.cuda.set_sync_debug_mode("error")``
+    (a host sync raises), twice, outputs and gradients bit-equal; then
+    its device ms by part (the ``moe.*`` ranges, forward and backward) and
+    the share of (token, choice) pairs that capacity drops."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-1b-a400m")
+    B, S, D, E, F = 4, 4096, cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def draw(*shape, std=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * std).to(
+            torch.bfloat16).requires_grad_(True)
+    p = {"router": draw(D, E, std=0.02), "we_g": draw(E, D, F, std=D ** -.5),
+         "we_u": draw(E, D, F, std=D ** -.5),
+         "we_d": draw(E, F, D, std=F ** -.5)}
+    x = draw(B, S, D)
+    w = torch.randn(B, S, D, device=dev, generator=g)
+    leaves = [x] + [p[n] for n in sorted(p)]
+
+    def fwd_bwd():
+        out, aux = moe.moe_ffn(cfg, p, x, mode="train")
+        return [out, aux] + list(torch.autograd.grad(
+            (out.float() * w).sum() + aux, leaves))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, again = fwd_bwd(), fwd_bwd()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "MoE layer: two forward-backward passes differ")
+    check(all(bool(torch.isfinite(t).all()) for t in first),
+          "MoE layer: non-finite output or gradient")
+    reps = 5
+    wall = time_ms(fwd_bwd, reps=reps, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fwd_bwd()
+        torch.cuda.synchronize()
+    parts, _ = moe_parts(prof.events())
+    parts = {k: v / reps for k, v in parts.items()}
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and e.key not in MOE_RANGES) / 1e3 / reps
+    with torch.no_grad():
+        probs = torch.softmax((x.reshape(-1, D) @ p["router"]).float(), -1)
+        experts = moe._top_k(probs, cfg.num_experts_per_tok)[1]
+        Sg = moe.group_size(cfg, S)
+        C = moe.capacity(cfg, Sg)
+        counts = torch.nn.functional.one_hot(
+            experts.reshape(-1, Sg * cfg.num_experts_per_tok), E).sum(1)
+        dropped = int((counts - C).clamp_min(0).sum())
+    pairs = B * S * cfg.num_experts_per_tok
+    out = dict(shape=f"B {B}, S {S}, d {D}, E {E}, k "
+               f"{cfg.num_experts_per_tok}, moe_d_ff {F}, bf16",
+               group=Sg, capacity=C, dropped_pairs=dropped, pairs=pairs,
+               sync_free=True, bit_equal=True, ms=wall, device_ms=busy,
+               device_ms_by_part=parts)
+    print(f"  MoE layer ({out['shape']}; groups of {Sg}, capacity {C}): "
+          f"forward and backward ran with no host sync "
+          f"(set_sync_debug_mode error), twice bit-equal; {wall:.3f} ms "
+          f"(device {busy:.3f} ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(parts.items()))
+          + f"); {dropped} of {pairs} pairs dropped by capacity", flush=True)
+    del first, again, p, x, w, leaves, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 HELD_OUT_STEP = 10_000      # a batch of the stream no run here trains on
 # One batch trained on 6 times must lose more than 1 nat: the learning
 # check that reads the backward.  A few steps on fresh batches move
@@ -2007,7 +2233,8 @@ REPEAT_STEPS, REPEAT_DROP = 6, 1.0
 
 
 def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
-                    remat, lr=1e-3, warmup=3, falling_mean=True):
+                    remat, lr=1e-3, warmup=3, falling_mean=True,
+                    remat_rows=None):
     """Train ``arch`` at full width in bf16 (fp32 master weights and
     moments) through ``repro_torch.launch.train``'s own loop: launch
     counts per step, finite losses, the loss of a held-out batch lower
@@ -2015,7 +2242,10 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     the last 5 steps below that of the first 5, steps/s, tokens/s, MFU,
     peak memory; then one more step under the profiler; then, from a
     fresh init, REPEAT_STEPS steps on one batch, whose loss must fall by
-    more than REPEAT_DROP."""
+    more than REPEAT_DROP.  Under remat, the run's first step must equal
+    the same step without remat bit for bit; with ``remat_rows`` (a batch
+    whose activations do not fit without remat) the two first steps are
+    taken on the batch's first ``remat_rows`` rows instead."""
     import torch
     from repro_torch.configs import RunConfig
     from repro_torch.data.pipeline import SyntheticLMData
@@ -2043,17 +2273,26 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                   remat_policy=remat, reduced=False, log_every=5)
     run = RunConfig(num_microbatches=microbatches, remat_policy=remat,
                     learning_rate=lr, warmup_steps=warmup, total_steps=steps)
-    no_remat = None
+    no_remat = with_remat = None
     if remat != "none":
         # the first step without remat, for the remat run to equal: the
         # recomputed forward is the same arithmetic, kernels included
-        state = init_train_state(cfg, seed=seed, run=run, device=dev)
-        m = make_train_step(cfg, ctx, dataclasses.replace(
-            run, remat_policy="none"))(state, data.batch_at(0, dev))[1]
-        no_remat = (float(m["loss"]), float(m["grad_norm"]))
-        del state, m
-        gc.collect()
-        torch.cuda.empty_cache()
+        first = data.batch_at(0, dev)
+        policies = ("none",)
+        if remat_rows:
+            first = {k: v[:remat_rows] for k, v in first.items()}
+            policies = ("none", remat)
+        pair = []
+        for policy in policies:
+            state = init_train_state(cfg, seed=seed, run=run, device=dev)
+            m = make_train_step(cfg, ctx, dataclasses.replace(
+                run, remat_policy=policy))(state, first)[1]
+            pair.append((float(m["loss"]), float(m["grad_norm"])))
+            del state, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        no_remat = pair[0]
+        with_remat = pair[1] if remat_rows else None
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, seed=seed, run=run, device=dev)
     held_before = held_out_loss(state)
@@ -2070,11 +2309,13 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     check(held_after < held_before, f"train {arch}: the held-out batch's "
           f"loss did not fall ({held_before} at init, {held_after} after)")
     if no_remat is not None:
-        m0 = r["metrics"][0]
-        check((m0["loss"], m0["grad_norm"]) == no_remat,
+        if with_remat is None:
+            m0 = r["metrics"][0]
+            with_remat = (m0["loss"], m0["grad_norm"])
+        check(with_remat == no_remat,
               f"train {arch}: the first step's (loss, grad norm) "
-              f"{(m0['loss'], m0['grad_norm'])} under remat {remat} differ "
-              f"from {no_remat} without remat")
+              f"{with_remat} under remat {remat} differ from {no_remat} "
+              f"without remat")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     check(not falling_mean or last < first, f"train {arch}: loss did not "
           f"fall (first 5 mean {first}, last 5 mean {last})")
@@ -2090,11 +2331,20 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     opt_ms = optimizer_device_ms(r["state"], run)
     step = make_train_step(cfg, ctx, run)
     tr = trace_train_step(step, r["state"], data.batch_at(steps, dev))
+    if cfg.is_moe:
+        check(all(tr["device_ms_by_part"].get(part, 0.0) > 0
+                  for part in set(MOE_RANGES.values())),
+              f"train {arch}: the traced step's MoE parts are missing "
+              f"({tr['device_ms_by_part']})")
+    aux = [m["aux"] for m in r["metrics"]]
+    ce = [m["ce"] for m in r["metrics"]]
     out = dict(arch=arch, layers=cfg.num_layers, steps=steps, batch=batch,
                seq=seq, microbatches=microbatches, remat=remat, lr=lr,
                warmup=warmup, losses=losses, first5=first, last5=last,
                held_out_before=held_before, held_out_after=held_after,
                first_step_without_remat=no_remat,
+               first_step_with_remat=with_remat, remat_rows=remat_rows,
+               ce=ce, aux=aux,
                first_step_s=r["first_step_s"], steps_per_s=r["steps_per_s"],
                tokens_per_s=r["tokens_per_s"], timed_steps=r["timed_steps"],
                model_flops_per_step=flops, matmul_params=n, mfu=mfu,
@@ -2106,13 +2356,16 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
           f"({microbatches} microbatches, remat {remat}); loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean {first:.4f}, "
           f"last 5 {last:.4f}; held-out batch {held_before:.4f} -> "
-          f"{held_after:.4f}); {r['steps_per_s']:.3f} steps/s, "
+          f"{held_after:.4f}); CE {ce[0]:.4f} -> {ce[-1]:.4f}, aux "
+          f"{aux[0]:.6f} -> {aux[-1]:.6f}; {r['steps_per_s']:.3f} steps/s, "
           f"{r['tokens_per_s']:.0f} tokens/s over {r['timed_steps']} steps, "
-          f"MFU {mfu:.3f} ({flops / 1e12:.2f} TFLOP a step vs 989 TFLOP/s "
+          f"MFU {mfu:.3f} ({flops / 1e12:.2f} TFLOP a step over "
+          f"{n / 1e6:.1f} M active matmul parameters vs 989 TFLOP/s "
           f"bf16), peak {peak_gb:.2f} GB; launches {launches}; AdamW "
           f"{fmt_ms(opt_ms)} ms device a step", flush=True)
     print(f"  traced step: wall {tr['wall_s'] * 1e3:.1f} ms, device busy "
-          f"{tr['device_busy_s'] * 1e3:.1f} ms, idle share "
+          f"{tr['device_busy_s'] * 1e3:.1f} ms (kernels summed "
+          f"{tr['device_summed_s'] * 1e3:.1f} ms), idle share "
           f"{tr['idle_share']:.3f}, {tr['launches']} launches; device ms "
           + ", ".join(f"{k} {v:.2f}" for k, v in
                       tr["device_ms_by_part"].items()), flush=True)
@@ -2138,19 +2391,23 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
 
 def run_train_parity_phase(dev, seed):
     """fp32 on ``cuda`` (the kernels' fp32 paths) against ``cpu`` (the
-    plain versions), TF32 off, both configs at full width cut to 2 layers,
-    B 2, S 256, from the same init (drawn on the CPU: a CUDA generator
-    draws other numbers; carried to the card through the reference's
-    tree) and batches: the first batch's gradients per leaf, 3 steps'
-    losses, then a checkpoint round trip
+    plain versions), TF32 off, each config at full width cut to 2 layers,
+    B 2, S 256, from the same init (built on each device: the draws are
+    the host's, so they must be equal) and batches: the first batch's
+    gradients per leaf, 3 steps' losses, then a checkpoint round trip
     (``train_state_to_jax`` and back) and the next step's loss equal to
-    the unrestored state's on ``cuda``."""
+    the unrestored state's on ``cuda``.  granite-moe's routing (the
+    experts of every token in every MoE layer call) is compared first:
+    it must be the same on both devices, or part at a tie (a margin
+    within PARITY_TIE_TOL), where the two devices compute different
+    functions from then on and nothing after it is compared."""
     import torch
     from repro_torch.configs import RunConfig
     from repro_torch.convert import train_state_from_jax, train_state_to_jax
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
+    from repro_torch.models import moe
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import compute_params
     from repro_torch.train.steps import (
@@ -2160,40 +2417,65 @@ def run_train_parity_phase(dev, seed):
     torch.backends.cudnn.allow_tf32 = False
     cpu = torch.device("cpu")
     out = {}
-    for arch in ("paper-overhead-100m", "qwen3-0.6b"):
+    for arch in ("paper-overhead-100m", "qwen3-0.6b", "granite-moe-1b-a400m"):
         cfg = train_cli.config_of(arch, reduced=False, layers=2)
         run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
         data = SyntheticLMData(cfg.vocab_size, 256, 2, seed)
         res = []
         init = train_state_to_jax(
             init_train_state(cfg, seed=seed, run=run, device=cpu), cfg)
-        for d in (dev, cpu):
-            ctx = Ctx(device=d, dtype=torch.float32)
-            state = train_state_from_jax(init, cfg, device=d)
-            model = state["params"]
-            names, leaves = zip(*model.named_parameters())
-            loss, _ = loss_fn(cfg, compute_params(model, torch.float32),
-                              data.batch_at(0, d), ctx)
-            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
-            step = make_train_step(cfg, ctx, run)
-            ops.reset_launches()
-            losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
-                      for i in range(3)]
-            res.append((dict(zip(names, grads)), losses, state, step,
-                        dict(ops.launches)))
-        (g_c, l_c, s_c, step_c, launch_c), (g_p, l_p, *_) = res
+        on_card = train_state_to_jax(
+            init_train_state(cfg, seed=seed, run=run, device=dev), cfg)
+        check(trees_byte_equal(init, on_card), f"train parity {arch}: the "
+              "state initialised on cuda differs from the one on cpu")
+        del on_card
+        recorder = RouteRecorder(moe._top_k, of_probs=True)
+        plain_top_k, moe._top_k = moe._top_k, recorder
+        try:
+            for d in (dev, cpu):
+                ctx = Ctx(device=d, dtype=torch.float32)
+                state = train_state_from_jax(init, cfg, device=d)
+                model = state["params"]
+                names, leaves = zip(*model.named_parameters())
+                recorder.sink = []
+                loss, _ = loss_fn(cfg, compute_params(model, torch.float32),
+                                  data.batch_at(0, d), ctx)
+                grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+                step = make_train_step(cfg, ctx, run)
+                ops.reset_launches()
+                losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
+                          for i in range(3)]
+                res.append((dict(zip(names, grads)), losses, state, step,
+                            dict(ops.launches), recorder.sink))
+                recorder.sink = None
+        finally:
+            moe._top_k = plain_top_k
+        (g_c, l_c, s_c, step_c, launch_c, r_c), (g_p, l_p, *_, r_p) = res
         check(launch_c["flash_attention_bwd"] == 2 * 3,
               f"train parity {arch}: backward launches {launch_c}")
-        rel = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_p))
-        check(rel <= 1e-5, f"train parity {arch}: losses {l_c} vs {l_p}")
-        worst = 0.0
-        for n in g_p:
-            scale = g_p[n].abs().max().item()
-            err = (g_c[n] - g_p[n]).abs().max().item()
-            check(err <= 1e-4 * max(scale, 1e-30),
-                  f"train parity {arch}: gradient {n} max |cuda - cpu| "
-                  f"{err}, max |g| {scale}")
-            worst = max(worst, err / max(scale, 1e-30))
+        flip = margin = None
+        if cfg.is_moe:
+            check(len(r_c) == 2 * 4, f"train parity {arch}: {len(r_c)} "
+                  "routings recorded, expected 2 layers x 4 passes")
+            tok, m, margin = route_flip((r_c, torch.ones(512, dtype=bool)),
+                                        (r_p, None))
+            if tok is not None:
+                flip = (tok, m)
+                check(m <= PARITY_TIE_TOL, f"train parity {arch}: token "
+                      f"{tok} routed differently with a router margin {m} "
+                      f"above the tie limit {PARITY_TIE_TOL}")
+        rel = worst = a = None
+        if flip is None:
+            rel = max(abs(x - y) / abs(y) for x, y in zip(l_c, l_p))
+            check(rel <= 1e-5, f"train parity {arch}: losses {l_c} vs {l_p}")
+            worst = 0.0
+            for n in g_p:
+                scale = g_p[n].abs().max().item()
+                err = (g_c[n] - g_p[n]).abs().max().item()
+                check(err <= 1e-4 * max(scale, 1e-30),
+                      f"train parity {arch}: gradient {n} max |cuda - cpu| "
+                      f"{err}, max |g| {scale}")
+                worst = max(worst, err / max(scale, 1e-30))
         restored = train_state_from_jax(train_state_to_jax(s_c, cfg), cfg,
                                         device=dev)
         nxt = data.batch_at(3, dev)
@@ -2202,11 +2484,19 @@ def run_train_parity_phase(dev, seed):
         check(a == b, f"train parity {arch}: the restored state's next loss "
               f"{a} differs from {b}")
         out[arch] = dict(losses_cuda=l_c, losses_cpu=l_p, loss_rel_err=rel,
-                         grad_rel_err=worst, restored_next_loss=a)
+                         grad_rel_err=worst, restored_next_loss=a,
+                         route_flip=flip, least_router_margin=margin)
+        routing = "" if not cfg.is_moe else (
+            f"; routing equal in {len(r_c)} MoE layer calls (least router "
+            f"margin {margin:.3g})" if flip is None else
+            f"; routing parted at token {flip[0]} (margin {flip[1]:.3g}, a "
+            "tie): losses and gradients not compared")
         print(f"  train parity {arch} (2 layers, fp32): losses cuda {l_c} "
-              f"cpu {l_p} (max rel {rel:.3g}); gradients within "
-              f"{worst:.3g}·max|g| of their leaves; restored state's next "
-              f"loss {a} equal", flush=True)
+              f"cpu {l_p}" + ("" if rel is None else
+                              f" (max rel {rel:.3g}); gradients within "
+                              f"{worst:.3g}·max|g| of their leaves")
+              + f"{routing}; init equal on both devices; restored state's "
+              f"next loss {a} equal", flush=True)
         del res, s_c, restored, step_c
         gc.collect()
         torch.cuda.empty_cache()
@@ -2280,9 +2570,12 @@ def trees_byte_equal(a, b) -> bool:
         for (pa, x), (pb, y) in zip(la, lb))
 
 
-def run_platform_train(dev, seed):
-    """(p1): paper-overhead-100m at full width (bf16 compute, fp32 master
-    and moments, B 8 x S 1,024, the synthetic stream at seed 0) as a real
+def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
+                       batch=PLATFORM_BATCH, seq=PLATFORM_SEQ, label="p1"):
+    """(p1): ``arch`` at full width, cut to ``layers`` if given
+    (paper-overhead-100m; (p3): granite-moe-1b-a400m at 2 layers), in bf16
+    compute with fp32 master and moments, B ``batch`` x S ``seq`` (8 x
+    1,024; 4 x 4,096), the synthetic stream at seed 0, as a real
     payload of a 40-step job under the port's platform (seed 21, one
     learner, 0.5 s virtual steps, a checkpoint every 5 virtual seconds);
     the learner pod is killed two steps after the first checkpoint at or
@@ -2292,8 +2585,8 @@ def run_platform_train(dev, seed):
     leaf by leaf, to the tree that was saved; every loss of the job (the
     replayed steps included) and the final state bit-equal to an
     uninterrupted 40-step run of the same payload; the flash forward and
-    backward launches 12 a step actually run.  Times the job's wall
-    seconds by part."""
+    backward launches one a layer a step actually run.  Times the job's
+    wall seconds by part."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
@@ -2307,12 +2600,12 @@ def run_platform_train(dev, seed):
     from repro_torch.models.layers import Ctx
     from repro_torch.train.steps import init_train_state, make_train_step
 
-    cfg = train_cli.config_of("paper-overhead-100m", reduced=False)
+    cfg = train_cli.config_of(arch, reduced=False, layers=layers)
     run = RunConfig(learning_rate=1e-3, warmup_steps=3,
                     total_steps=PLATFORM_STEPS)
     train_step = make_train_step(cfg, Ctx(device=dev, dtype=torch.bfloat16),
                                  run)
-    data = SyntheticLMData(cfg.vocab_size, PLATFORM_SEQ, PLATFORM_BATCH,
+    data = SyntheticLMData(cfg.vocab_size, seq, batch,
                            seed=0)
     saved = {}                       # step -> the tree handed to save()
     plain_snapshot = RealPayload.snapshot      # not timed
@@ -2359,11 +2652,11 @@ def run_platform_train(dev, seed):
         p = DLaaSPlatform(seed=21)
         p.run(10)
         h = p.submit(JobManifest(
-            name="p1", framework="paper-overhead-100m", learners=1,
+            name=label, framework=arch, learners=1,
             total_steps=PLATFORM_STEPS, step_time_s=0.5,
             checkpoint_interval_s=5, real_compute=True))
         p.run(5)
-        check(h.acked, f"platform: the train job was not acked "
+        check(h.acked, f"platform ({label}): the train job was not acked "
               f"({h.rejected})")
         ck = CheckpointManager(p.objectstore, h.job_id)
         torch.cuda.synchronize()
@@ -2373,7 +2666,8 @@ def run_platform_train(dev, seed):
             p.register_payload(h.job_id, payload)
             deadline = p.sim.now + PLATFORM_DEADLINE_S
             while True:
-                check(p.sim.now < deadline, "platform: no checkpoint at or "
+                check(p.sim.now < deadline, f"platform ({label}): no "
+                      f"checkpoint at or "
                       f"past step {PLATFORM_KILL_AFTER} by virtual time "
                       f"{p.sim.now} (job state "
                       f"{p.metadata.get('jobs', h.job_id)['state']})")
@@ -2386,10 +2680,11 @@ def run_platform_train(dev, seed):
                     break
             kill_step, ckpt_before = at, max(ck.steps())
             check(ckpt_before < PLATFORM_KILL_BEFORE,
-                  f"platform: the kill came after checkpoint {ckpt_before}")
+                  f"platform ({label}): the kill came after checkpoint "
+                  f"{ckpt_before}")
             t_kill_sim, t_kill = p.sim.now, time.perf_counter()
             check(p.kill_pod(f"learner-{h.job_id}-0"),
-                  "platform: no learner pod to kill")
+                  f"platform ({label}): no learner pod to kill")
             final = p.run_until_terminal(h.job_id, timeout=900)
             wall = time.perf_counter() - t0
             after_kill = time.perf_counter() - t_kill
@@ -2401,22 +2696,25 @@ def run_platform_train(dev, seed):
     restarts = p.client.status(h.job_id)["restarts"]
     recovery = p.recovery_time(f"learner-{h.job_id}-0", t_kill_sim)
     check(final == "COMPLETED" and restarts == 1,
-          f"platform: the train job ended {final} with {restarts} restarts")
+          f"platform ({label}): the train job ended {final} with "
+          f"{restarts} restarts")
     check(f"restored checkpoint step {ckpt_before}" in logs,
-          f"platform: no 'restored checkpoint step {ckpt_before}' in the "
+          f"platform ({label}): no 'restored checkpoint step "
+          f"{ckpt_before}' in the "
           f"log:\n{logs}")
     check([s for s, _ in payload.restores] == [ckpt_before]
           and all(ok for _, ok in payload.restores),
-          f"platform: restores {payload.restores}, expected step "
+          f"platform ({label}): restores {payload.restores}, expected step "
           f"{ckpt_before} byte-equal to the saved tree")
     ran = [i for i, _ in payload.losses]
     check(sorted(set(ran)) == list(range(PLATFORM_STEPS))
           and len(ran) > PLATFORM_STEPS,
-          f"platform: the job ran steps {ran}")
+          f"platform ({label}): the job ran steps {ran}")
     n_run = len(ran)
     check(launches["flash_attention_bshd"] == cfg.num_layers * n_run
           and launches["flash_attention_bwd"] == cfg.num_layers * n_run,
-          f"platform: launches {launches}, expected {cfg.num_layers} a step "
+          f"platform ({label}): launches {launches}, expected "
+          f"{cfg.num_layers} a step "
           f"over {n_run} steps run")
     job_losses = list(payload.losses)
     final_tree = RealPayload.snapshot(payload)
@@ -2437,12 +2735,14 @@ def run_platform_train(dev, seed):
     straight_launches = dict(ops.launches)
     check(straight_launches["flash_attention_bwd"]
           == cfg.num_layers * PLATFORM_STEPS,
-          f"platform: the uninterrupted run's launches {straight_launches}")
+          f"platform ({label}): the uninterrupted run's launches "
+          f"{straight_launches}")
     diffs = [abs(loss - straight[i]) for i, loss in job_losses]
     worst = max(diffs)
     state_equal = trees_byte_equal(RealPayload.snapshot(payload), final_tree)
     check(worst == 0.0 and state_equal,
-          f"platform: the job's losses differ from the uninterrupted run's "
+          f"platform ({label}): the job's losses differ from the "
+          f"uninterrupted run's "
           f"by up to {worst} (state byte-equal: {state_equal}); every op "
           "of the step is deterministic on the card, so they must be "
           "bit-equal")
@@ -2451,7 +2751,8 @@ def run_platform_train(dev, seed):
     restore_s = sec["restore"] + sec["restore_load"] + sec["restore_verify"]
     other_s = wall - steps_s - ckpt_s - restore_s
     out = dict(
-        job=dict(steps=PLATFORM_STEPS, batch=PLATFORM_BATCH, seq=PLATFORM_SEQ,
+        job=dict(arch=arch, layers=cfg.num_layers, steps=PLATFORM_STEPS,
+                 batch=batch, seq=seq,
                  step_time_s=0.5,
                  checkpoint_interval_s=5, platform_seed=21),
         final=final, restarts=restarts, kill_at_step=kill_step,
@@ -2473,14 +2774,15 @@ def run_platform_train(dev, seed):
         launches=launches, losses_bit_equal=worst == 0.0,
         final_state_byte_equal=state_equal,
         loss_first=job_losses[0][1], loss_last=job_losses[-1][1])
-    print(f"  (p1) paper-overhead-100m, {PLATFORM_STEPS}-step job: killed at "
+    print(f"  ({label}) {arch} ({cfg.num_layers} layers), "
+          f"{PLATFORM_STEPS}-step job: killed at "
           f"step {kill_step}, restored checkpoint step {ckpt_before} "
           f"(byte-equal to the saved tree), {final} with {restarts} "
           f"restart; {n_run} steps run; losses {job_losses[0][1]:.4f} -> "
           f"{job_losses[-1][1]:.4f}, every one and the final state "
           f"bit-equal to the uninterrupted run; launches {launches} "
           f"({cfg.num_layers} a step)", flush=True)
-    print(f"  (p1) wall {wall:.3f} s: steps {steps_s:.3f}, checkpoints "
+    print(f"  ({label}) wall {wall:.3f} s: steps {steps_s:.3f}, checkpoints "
           f"{ckpt_s:.3f} ({n_saved} x {ckpt_bytes / 1e9:.3f} GB: device to "
           f"host {sec['ckpt_d2h']:.3f}, serialise "
           f"{sec['ckpt_save'] - sec['ckpt_hash_store']:.3f}, hash and store "
@@ -2768,6 +3070,22 @@ def main() -> int:
         seq=SHAPES["train_4k"].seq_len,
         microbatches=q_run.num_microbatches, remat=q_run.remat_policy,
         falling_mean=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[moe-layer] granite-moe-1b-a400m's MoE FFN at (t3)'s shape, "
+          "bf16", flush=True)
+    moe_layer = run_moe_layer_phase(dev, seed)
+    print("[train] granite-moe-1b-a400m full width (24 layers), its "
+          "train_4k run (S 4096, 1 microbatch, full remat)", flush=True)
+    # B 4 does not fit without remat: the remat check takes one row
+    g_run = get_run_config("granite-moe-1b-a400m", "train_4k")
+    train["granite-moe-1b-a400m"] = run_train_phase(
+        dev, seed, "granite-moe-1b-a400m", steps=6, batch=4,
+        seq=SHAPES["train_4k"].seq_len,
+        microbatches=g_run.num_microbatches, remat=g_run.remat_policy,
+        falling_mean=False, remat_rows=1)
+    gc.collect()
+    torch.cuda.empty_cache()
     print("[train-parity] fp32 cuda vs cpu, full width, 2 layers",
           flush=True)
     train["parity"] = run_train_parity_phase(dev, seed)
@@ -2775,7 +3093,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("[platform] the learner and the server as real payloads under "
           "the port's platform", flush=True)
+    # (p3): the MoE learner under the platform, cut to 2 layers (a
+    # checkpoint of all 24 would hold 16 GB)
     platform = {"train": run_platform_train(dev, seed),
+                "train_moe": run_platform_train(
+                    dev, seed, arch="granite-moe-1b-a400m", layers=2,
+                    batch=4, seq=4096, label="p3"),
                 "serve": run_platform_serve(dev, seed)}
 
     main_run = runs["a_no_prefix_cache"]
@@ -2789,7 +3112,11 @@ def main() -> int:
     fl64 = next(r for r in flash_rows if r["label"] == "paper train B8 S1024")
     pb = next(r for r in bwd_rows if r["label"] == "paper train")
     qb = next(r for r in bwd_rows if r["label"] == "qwen3 train")
+    fl_g = next(r for r in flash_rows if r["label"] ==
+                "granite train B4 S4096")
+    gb = next(r for r in bwd_rows if r["label"] == "granite train")
     paper_train = train["paper-overhead-100m"]
+    granite_launches = train["granite-moe-1b-a400m"]["launches"]
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -2820,6 +3147,15 @@ def main() -> int:
                  bound_ms=fl64["bound_ms"], bound_by=fl64["bound_by"],
                  library_ms=fl64["library_ms"],
                  library="SDPA, is_causal, enable_gqa"),
+             granite=dict(
+                 shape="B 4, S 4096, H 16, K 8, hd 64, bf16, causal "
+                 "(granite-moe-1b-a400m's training shape)",
+                 launches=granite_launches["flash_attention_bshd"],
+                 max_abs_err=fl_g["max_abs_err"], ms=fl_g["ms"],
+                 device_ms=fl_g["device_ms"], plain_ms=fl_g["plain_ms"],
+                 bound_ms=fl_g["bound_ms"], bound_by=fl_g["bound_by"],
+                 library_ms=fl_g["library_ms"],
+                 library="SDPA, is_causal, enable_gqa"),
              platform=platform_launches(platform, "flash_attention_bshd")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2835,6 +3171,10 @@ def main() -> int:
              qwen3={k: qb[k] for k in ("shape", "max_abs_err", "ms",
                                        "device_ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "library")},
+             granite=dict({k: gb[k] for k in (
+                 "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "library")},
+                 launches=granite_launches["flash_attention_bwd"]),
              platform=platform_launches(platform, "flash_attention_bwd")),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
@@ -2886,6 +3226,7 @@ def main() -> int:
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,
                       "flash_bwd": bwd_rows, "train": train,
+                      "moe_layer": moe_layer,
                       "platform": platform,
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t_start}))

@@ -8,9 +8,10 @@ the RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
 all-global MLA and MoE stacks (``deepseek-v2-236b``,
 ``granite-moe-1b-a400m``).  The other families keep their fields here so
 a config reads the same as in the reference; :func:`check_ported`
-rejects them when a model is built.  The port trains the all-global dense
-GQA stacks (``paper-overhead-100m``, ``qwen3-0.6b``); :func:`check_trainable`
-refuses the rest by name.
+rejects them when a model is built.  The port trains the all-global GQA
+stacks, dense or MoE (``paper-overhead-100m``, ``qwen3-0.6b``,
+``granite-moe-1b-a400m``); :func:`check_trainable` refuses the rest by
+name.
 """
 from __future__ import annotations
 
@@ -227,13 +228,14 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose training this port
-    does not have yet: it trains all-global dense GQA stacks without
-    softcaps (``paper-overhead-100m``, ``qwen3-0.6b``)."""
+    does not have yet: it trains all-global GQA stacks without softcaps,
+    with a dense FFN or an MoE FFN under capacity dispatch with the
+    router's load-balancing loss (``paper-overhead-100m``, ``qwen3-0.6b``,
+    ``granite-moe-1b-a400m``).  MLA (``deepseek-v2-236b``) is refused by
+    name, as are the recurrent, RWKV6 and local-attention layers."""
     check_ported(cfg)
     missing = []
     kinds = set(cfg.layer_kinds())
-    if cfg.is_moe:
-        missing.append("MoE (capacity dispatch and the router aux loss)")
     if cfg.use_mla:
         missing.append("MLA")
     if RWKV in kinds:

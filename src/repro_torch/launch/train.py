@@ -9,11 +9,17 @@ decay.
         --arch paper-overhead-100m --steps 30 --batch 8 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 6 --batch 4 --seq 4096 --microbatches 2 --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-1b-a400m --steps 6 --batch 4 --seq 4096 \\
+        --remat full
 
 It runs on ``cuda`` unless ``--device`` names another device; on the card
 every attention layer takes the flash kernels (forward and backward).
 Compute is bf16 at full width and fp32 under ``--reduced``, as in the
-reference's executor; the master weights and moments are fp32.  It prints
+reference's executor; the master weights and moments are fp32.  An MoE
+config trains under capacity dispatch, its rows a whole number of
+dispatch groups (``--seq`` otherwise refused before the first step, as
+the reference asserts), and its loss adds the router's aux loss.  It prints
 the loss, grad norm and lr of the logged steps, then steps/s and tokens/s
 on a host clock that ends in a device synchronise.  ``--layers`` cuts a
 config's depth and keeps its widths.
@@ -31,6 +37,7 @@ from repro_torch.configs import RunConfig, get_config
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.launch.spec import TrainSpec, check_train_spec
 from repro_torch.models.layers import Ctx, resolve_device
+from repro_torch.models.moe import check_row_length
 from repro_torch.models.params import count_params
 from repro_torch.train.steps import init_train_state, make_train_step
 
@@ -97,6 +104,8 @@ def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
     the host only at logged steps and at the end, so steps queue on the
     device without waiting for each other."""
     check_train_spec(t)
+    if cfg.is_moe:
+        check_row_length(cfg, t.seq_len)
     dev = resolve_device(device)
     run = run or run_config_of(t)
     ctx = Ctx(device=dev, dtype=torch.float32 if t.reduced
@@ -117,7 +126,8 @@ def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
             first_s = time.perf_counter() - t0
             t0 = time.perf_counter()
         if (i - start) % t.log_every == 0 or i == start + t.total_steps - 1:
-            log(f"  step {i:5d}  loss {float(m['loss']):.4f}  gnorm "
+            aux = f"  aux {float(m['aux']):.6f}" if cfg.is_moe else ""
+            log(f"  step {i:5d}  loss {float(m['loss']):.4f}{aux}  gnorm "
                 f"{float(m['grad_norm']):.3f}  lr {float(m['lr']):.2e}")
     _sync(dev)
     secs = time.perf_counter() - t0

@@ -6,9 +6,10 @@ RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix.
 Modes
 -----
 * ``train``   — tokens → fp32 logits for every position and the aux loss
-  (0 for the dense stacks this port trains), no cache; per-layer remat
-  (:func:`_remat`).  :func:`repro_torch.configs.base.check_trainable`
-  says which configs train.
+  (the MoE layers' load-balancing losses summed in layer order, 0 for a
+  dense stack), no cache; per-layer remat (:func:`_remat`).
+  :func:`repro_torch.configs.base.check_trainable` says which configs
+  train.
 * ``prefill`` — tokens → last-position logits + a filled cache.  With
   ``lengths`` the prefill is ragged, with ``starts`` also chunked (prefix
   caching); see :func:`forward`.
@@ -31,7 +32,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.models.attention import gqa_attention, mla_attention
 from repro_torch.models.layers import Ctx, dense_ffn, resolve_device, rms_norm
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import check_row_length, moe_ffn
 from repro_torch.models.recurrent import rglru_block
 from repro_torch.models.rwkv import rwkv_channel_mix, rwkv_time_mix
 from repro_torch.models.params import (  # noqa: F401
@@ -90,7 +91,8 @@ def _unembed(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
 
 # The matrix products whose outputs ``remat_policy="dots"`` keeps (the
 # counterpart of jax's ``checkpoint_dots_with_no_batch_dims``: the weight
-# products; the attention's own products run inside the flash Function).
+# products, the experts' batched ones and the MoE combine included; the
+# attention's own products run inside the flash Function).
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
 
@@ -118,15 +120,32 @@ def _remat(fn, policy: str):
     raise ValueError(f"remat_policy {policy!r}: none, dots or full")
 
 
-def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
-                 pos: torch.Tensor) -> torch.Tensor:
-    """One all-global GQA layer with a dense FFN, no cache (train mode)."""
+def _attend(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
+            pos: torch.Tensor) -> torch.Tensor:
+    """The residual stream after a layer's global GQA attention, no cache
+    (train mode)."""
     x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
     y, _ = gqa_attention(cfg, blk["attn"], x, kind=GLOBAL_ATTN, mode="full",
                          cache=None, pos=pos)
-    h = h + y
+    return h + y
+
+
+def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """One all-global GQA layer with a dense FFN, no cache (train mode)."""
+    h = _attend(cfg, blk, h, pos)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     return h + dense_ffn(blk["ffn"], x, cfg.act)
+
+
+def _moe_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
+               pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One all-global GQA layer with an MoE FFN under capacity dispatch
+    (train mode): ``(h, aux)``, ``aux`` the layer's load-balancing loss."""
+    h = _attend(cfg, blk, h, pos)
+    x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
+    y, aux = moe_ffn(cfg, blk["moe"], x, mode="train")
+    return h + y, aux
 
 
 def forward_train(cfg: ModelConfig, params: Tree,
@@ -135,16 +154,28 @@ def forward_train(cfg: ModelConfig, params: Tree,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(logits (B, S, V) fp32, aux)`` for every position; ``params`` is
     the differentiable compute tree (:func:`compute_params`).  Vocabulary
-    padding ids get -1e9, as in the reference's ``_unembed``."""
+    padding ids get -1e9, as in the reference's ``_unembed``.  ``aux`` is
+    the fp32 sum of the MoE layers' load-balancing losses in layer order
+    (the reference's ``run_stack``); a layer's forward that remat runs
+    again in the backward adds nothing to it."""
     check_trainable(cfg)
     tokens = batch["tokens"]
+    if cfg.is_moe:
+        check_row_length(cfg, tokens.shape[1])
     h = _embed(cfg, params, tokens, ctx)
     pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                        device=tokens.device)
-    for blk in params["blocks"]:
-        layer = _remat(functools.partial(_dense_layer, cfg, blk), remat_policy)
-        h = layer(h, pos)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for blk in params["blocks"]:
+        if "moe" in blk:
+            layer = _remat(functools.partial(_moe_layer, cfg, blk),
+                           remat_policy)
+            h, a = layer(h, pos)
+            aux = aux + a
+        else:
+            layer = _remat(functools.partial(_dense_layer, cfg, blk),
+                           remat_policy)
+            h = layer(h, pos)
     return _unembed(cfg, params, h), aux
 
 

@@ -12,6 +12,8 @@ layer in a ``ModuleList``.  State-dict keys therefore read
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Union
 
 import torch
@@ -214,11 +216,18 @@ class Model(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Init: the reference's per-leaf recipes, drawn from a torch.Generator
-# seeded per leaf from the model seed and the leaf's name.  The numbers
-# differ from the reference's jax.random draws; tests that compare the
-# two packages load converted reference weights instead.
+# Init: the reference's per-leaf recipes, drawn on the host from CPU
+# generators, one a chunk of DRAW_CHUNK elements of a leaf, each seeded from
+# the model seed, the leaf's name and the chunk's index, and copied to the
+# leaf's device.  A seed therefore gives the same weights on every device
+# (a CUDA generator draws other numbers), and the chunks are drawn in
+# parallel threads with at most one chunk a thread on the host.  The
+# numbers differ from the reference's jax.random draws; tests that compare
+# the two packages load converted reference weights instead.
 # ---------------------------------------------------------------------------
+DRAW_CHUNK = 1 << 22
+DRAW_THREADS = min(8, os.cpu_count() or 1)
+
 # The reference's explicit recipes; every other leaf is "fan_in" (norm
 # gains "ones", biases "zeros").
 _RECIPES = {
@@ -253,30 +262,45 @@ def _stable_hash(s: str) -> int:
 
 
 @torch.no_grad()
+def _draw_chunk(p: torch.Tensor, name: str, recipe: str, seed: int,
+                i: int) -> None:
+    """Draw elements ``[i·DRAW_CHUNK, (i+1)·DRAW_CHUNK)`` of leaf ``p``
+    (flattened) on the host and write them into it."""
+    dst = p.view(-1)[i * DRAW_CHUNK:(i + 1) * DRAW_CHUNK]
+    out = dst if dst.device.type == "cpu" else torch.empty(dst.shape)
+    gen = torch.Generator()
+    gen.manual_seed(seed * 1_000_003 + _stable_hash(f"{name}#{i}"))
+    kind, *args = recipe.split(":")
+    if kind == "rglru_lambda":
+        # Λ with σ(Λ) ~ U(0.9, 0.999), the Griffin decay range
+        a = torch.empty_like(out).uniform_(0.9, 0.999, generator=gen)
+        out.copy_(torch.log(a / (1.0 - a)))
+    elif kind == "uniform":
+        out.uniform_(float(args[0]), float(args[1]), generator=gen)
+    else:
+        std = float(args[0]) if kind == "normal" else \
+            1.0 / math.sqrt(max(math.prod(p.shape[:-1]), 1))
+        out.normal_(0.0, std, generator=gen)
+    if out is not dst:
+        dst.copy_(out)
+
+
+@torch.no_grad()
 def init_params(model: Model, seed: int) -> Model:
-    """Initialise every leaf in place on its own device."""
+    """Initialise every leaf in place: the same numbers on every device."""
+    draws = []
     for name, p in model.named_parameters():
         recipe = _recipe(name)
         if recipe == "ones":
             p.fill_(1.0)
-            continue
-        if recipe == "zeros":
+        elif recipe == "zeros":
             p.zero_()
-            continue
-        gen = torch.Generator(device=p.device)
-        gen.manual_seed(seed * 1_000_003 + _stable_hash(name))
-        kind, *args = recipe.split(":")
-        if kind == "rglru_lambda":
-            # Λ with σ(Λ) ~ U(0.9, 0.999), the Griffin decay range
-            a = torch.empty_like(p).uniform_(0.9, 0.999, generator=gen)
-            p.copy_(torch.log(a / (1.0 - a)))
-            continue
-        if kind == "uniform":
-            p.uniform_(float(args[0]), float(args[1]), generator=gen)
-            continue
-        std = float(args[0]) if kind == "normal" else \
-            1.0 / math.sqrt(max(math.prod(p.shape[:-1]), 1))
-        p.normal_(0.0, std, generator=gen)
+        else:
+            draws += [(p, name, recipe, seed, i)
+                      for i in range(-(-p.numel() // DRAW_CHUNK))]
+    with ThreadPoolExecutor(DRAW_THREADS) as pool:
+        for f in [pool.submit(_draw_chunk, *d) for d in draws]:
+            f.result()
     return model
 
 

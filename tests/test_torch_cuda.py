@@ -910,3 +910,18 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
         assert err.max().item() <= 2 * lr * n_steps, (n, err.max().item())
         assert not bool((err[~noisy[n]] > 1e-5).any()), \
             (n, err[~noisy[n]].max().item())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b",
+                                  "recurrentgemma-9b", "deepseek-v2-236b",
+                                  "granite-moe-1b-a400m",
+                                  "paper-overhead-100m"])
+def test_a_model_built_on_the_card_equals_the_cpu_s(cuda, arch):
+    """The weights are drawn on the host and copied, so one seed gives
+    the same reduced model on both devices, bit for bit."""
+    cfg = get_config(arch).reduced()
+    on_cpu = build_model(cfg, device="cpu", seed=5)
+    on_card = build_model(cfg, device=cuda, seed=5)
+    for (n, a), (_, b) in zip(on_cpu.named_parameters(),
+                              on_card.named_parameters()):
+        assert torch.equal(a, b.cpu()), n

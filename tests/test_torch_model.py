@@ -208,3 +208,29 @@ def test_unported_configs_raise():
                       block_pattern=("recurrent", "recurrent", "local"))):
         with pytest.raises(NotImplementedError, match="later slice"):
             Model(dataclasses.replace(base, **over), device="meta")
+
+
+def test_weight_draws_are_the_host_s_whatever_the_threads(monkeypatch):
+    """A seed's weights are a function of the seed and the leaf names only:
+    each DRAW_CHUNK-element chunk of a leaf comes from its own CPU
+    generator, so the thread count does not change them, and a leaf larger
+    than a chunk is drawn chunk by chunk from those generators (what a
+    device build copies up; ``tests/test_torch_cuda.py`` and the card's
+    smoke hold a ``cuda`` build equal to the ``cpu`` one)."""
+    from repro_torch.models import params as P
+    cfg = get_config("qwen3-0.6b").reduced()
+    monkeypatch.setattr(P, "DRAW_CHUNK", 1000)     # leaves span chunks
+    built = {}
+    for threads in (1, 5):
+        monkeypatch.setattr(P, "DRAW_THREADS", threads)
+        built[threads] = P.init_params(Model(cfg, device=CPU), 7)
+    for (n, a), (_, b) in zip(built[1].named_parameters(),
+                              built[5].named_parameters()):
+        assert torch.equal(a, b), n
+    embed = built[1].embed.detach().reshape(-1)
+    assert embed.numel() > 3 * 1000
+    for i in range(3):
+        gen = torch.Generator()
+        gen.manual_seed(7 * 1_000_003 + P._stable_hash(f"embed#{i}"))
+        want = torch.empty(1000).normal_(0.0, 0.02, generator=gen)
+        assert torch.equal(embed[i * 1000:(i + 1) * 1000], want), i

@@ -123,19 +123,28 @@ def test_route_matches_lax_top_k_on_bf16_logits():
     assert ties > 0                     # the draw does hold tied rows
 
 
-def test_moe_ffn_refuses_training_and_a_row_past_one_group():
+def test_moe_ffn_trains_and_refuses_a_row_past_one_group():
+    """``mode="train"`` runs (capacity dispatch: ``(out, aux)``; its
+    values are held to the reference in ``tests/test_torch_moe_train.py``);
+    a row longer than one group must be a whole number of groups in both
+    modes, as the reference asserts."""
     rcfg, tcfg, rp = _moe_weights("granite-moe-1b-a400m")
     tp = {n: _t(_np(a)) for n, a in rp.items()}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        moe.moe_ffn(tcfg, tp, torch.zeros(1, 4, tcfg.d_model), mode="train")
+    out, aux = moe.moe_ffn(tcfg, tp, torch.ones(1, 4, tcfg.d_model),
+                           mode="train")
+    assert out.shape == (1, 4, tcfg.d_model) and aux.shape == ()
+    assert torch.isfinite(out).all() and float(aux) > 0
+    with pytest.raises(ValueError, match="mode"):
+        moe.moe_ffn(tcfg, tp, torch.ones(1, 4, tcfg.d_model), mode="eval")
     small = dataclasses.replace(tcfg, moe_group_size=8)
     rsmall = dataclasses.replace(rcfg, moe_group_size=8)
     x = np.zeros((1, 12, tcfg.d_model), np.float32)
     with pytest.raises(AssertionError, match="not divisible"):
         ref_moe.moe_ffn(rsmall, rp, jnp.asarray(x),
                         RefCtx(mesh=None, dtype=jnp.float32), dropless=True)
-    with pytest.raises(ValueError, match="whole number of MoE dispatch"):
-        moe.moe_ffn(small, tp, _t(x))
+    for mode in ("serve", "train"):
+        with pytest.raises(ValueError, match="whole number of MoE dispatch"):
+            moe.moe_ffn(small, tp, _t(x), mode=mode)
     # two whole groups, and a row shorter than one group, pass on both sides
     for S in (16, 5):
         x = np.random.default_rng(S).normal(

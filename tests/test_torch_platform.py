@@ -282,7 +282,7 @@ def test_virtual_time_platform_equals_the_reference(scenario):
 
 
 def test_port_registry_knows_its_configs_and_refuses_the_rest():
-    """D11: the port's registry holds 6 of the reference's 12 configs; a
+    """D11: the port's registry holds 6 of the reference's 11 configs; a
     job naming another framework is refused at the gateway."""
     assert FrameworkRegistry.default().known() == (
         "deepseek-v2-236b", "granite-moe-1b-a400m", "paper-overhead-100m",
