@@ -1,5 +1,7 @@
 """RWKV6-7B ("Finch"): attention-free, data-dependent decay. [arXiv:2404.05892]"""
-from repro_torch.configs.base import RWKV, ModelConfig, register
+from repro_torch.configs.base import (
+    RWKV, ModelConfig, RunConfig, register, register_run,
+)
 
 CONFIG = register(ModelConfig(
     name="rwkv6-7b",
@@ -16,3 +18,6 @@ CONFIG = register(ModelConfig(
     rwkv_ddlerp_rank=32,
     rwkv_decay_rank=64,
 ))
+
+register_run("rwkv6-7b", "train_4k",
+             RunConfig(num_microbatches=2, remat_policy="full"))

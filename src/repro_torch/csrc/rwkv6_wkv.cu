@@ -69,6 +69,11 @@
 // shape it runs at about 2.4x the bytes' time, held by instruction issue
 // and latency.
 //
+// Training passes a checkpoint buffer: the product warps then also write
+// the state before every segment of seg steps (a multiple of L), which
+// the backward (csrc/rwkv6_wkv_bwd.cu) rebuilds its steps from.  Serving
+// passes none and the kernel writes what it always did.
+//
 // cuTensorMapEncodeTiled comes from the driver through the runtime's
 // cudaGetDriverEntryPoint(ByVersion), so the library links no -lcuda.
 
@@ -240,7 +245,8 @@ wkv6_chunked(const __grid_constant__ CUtensorMap rmap,
              const __grid_constant__ CUtensorMap vmap,
              const __grid_constant__ CUtensorMap lwmap,
              const float* __restrict__ u, const float* __restrict__ s0,
-             TI* __restrict__ o, float* __restrict__ s_fin, int S, int H) {
+             TI* __restrict__ o, float* __restrict__ s_fin,
+             float* __restrict__ ckpt, int seg_chunks, int S, int H) {
   static_assert(N % 16 == 0 && N <= 64, "N");
   using SM = Smem<TI, N>;
   constexpr int NWR = SM::NWR;          // walk warps = product warps
@@ -398,8 +404,27 @@ wkv6_chunked(const __grid_constant__ CUtensorMap rmap,
     if (lane < 4) ad[warp * L + 4 + lane] = pd;
   };
 
+  // the state before chunk ch, written by the product warps at the start
+  // of every segment of seg_chunks chunks when a checkpoint buffer is
+  // passed (training; serving passes none)
+  auto checkpoint = [&](int ch) {
+    const int nseg = (nch + seg_chunks - 1) / seg_chunks;
+    float* cp = ckpt + ((size_t)bh * nseg + ch / seg_chunks) * N * N;
+#pragma unroll
+    for (int mt = 0; mt < NMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTILE; ++nt) {
+        const int cc = 8 * nt + 2 * q, jj = j0 + 16 * mt + g;
+        cp[(size_t)cc * N + jj] = st[mt][nt][0];
+        cp[(size_t)(cc + 1) * N + jj] = st[mt][nt][1];
+        cp[(size_t)cc * N + jj + 8] = st[mt][nt][2];
+        cp[(size_t)(cc + 1) * N + jj + 8] = st[mt][nt][3];
+      }
+  };
+
   // -- a product warp, chunk ch: o^T = S^T rd^T + V^T A^T, and the state --
   auto products = [&](int ch) {
+    if (ckpt != nullptr && ch % seg_chunks == 0) checkpoint(ch);
     const TI* vs = reinterpret_cast<const TI*>(stage(ch % NST)) + 2 * L * N;
     const unsigned char* bb = buf(ch);
     const uint32_t* rd = reinterpret_cast<const uint32_t*>(bb + SM::RD);
@@ -600,8 +625,8 @@ bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
 
 template <typename TI, int N>
 int launch(const void* r, const void* k, const void* v, const void* lw,
-           const void* u, const void* s0, void* o, void* s_fin, int B, int S,
-           int H, cudaStream_t stream) {
+           const void* u, const void* s0, void* o, void* s_fin, void* ckpt,
+           int seg, int B, int S, int H, cudaStream_t stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const CUtensorMapDataType ty = sizeof(TI) == 2
@@ -632,21 +657,26 @@ int launch(const void* r, const void* k, const void* v, const void* lw,
   wkv6_chunked<TI, N><<<B * H, threads<N>(), smem, stream>>>(
       rm, km, vm, lwm, static_cast<const float*>(u),
       static_cast<const float*>(s0), static_cast<TI*>(o),
-      static_cast<float*>(s_fin), S, H);
+      static_cast<float*>(s_fin), static_cast<float*>(ckpt),
+      ckpt == nullptr ? 1 : seg / L, S, H);
   return (int)cudaGetLastError();
 }
 
 template <typename TI>
 int dispatch_n(int N, const void* r, const void* k, const void* v,
                const void* lw, const void* u, const void* s0, void* o,
-               void* s_fin, int B, int S, int H, cudaStream_t stream) {
+               void* s_fin, void* ckpt, int seg, int B, int S, int H,
+               cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch<TI, 16>(r, k, v, lw, u, s0, o, s_fin, B, S, H, stream);
+      return launch<TI, 16>(r, k, v, lw, u, s0, o, s_fin, ckpt, seg, B, S, H,
+                            stream);
     case 32:
-      return launch<TI, 32>(r, k, v, lw, u, s0, o, s_fin, B, S, H, stream);
+      return launch<TI, 32>(r, k, v, lw, u, s0, o, s_fin, ckpt, seg, B, S, H,
+                            stream);
     case 64:
-      return launch<TI, 64>(r, k, v, lw, u, s0, o, s_fin, B, S, H, stream);
+      return launch<TI, 64>(r, k, v, lw, u, s0, o, s_fin, ckpt, seg, B, S, H,
+                            stream);
     default:
       return -1;
   }
@@ -655,20 +685,24 @@ int dispatch_n(int N, const void* r, const void* k, const void* v,
 }  // namespace
 
 // dt: 0 = fp32, 1 = bf16 (r, k, v and o).  All operands contiguous, the
-// inputs 16-byte aligned (TMA).  Returns 0 when launched, a CUDA error
-// code when the launch or a tensor map was refused, -1 for an unsupported
-// shape or type.
+// inputs 16-byte aligned (TMA).  ckpt: null (serving), or a (B, H,
+// ceil(S / seg), N, N) fp32 buffer that receives the state before every
+// seg-th step (training; seg a multiple of the chunk, 8).  Returns 0 when
+// launched, a CUDA error code when the launch or a tensor map was refused,
+// -1 for an unsupported shape or type.
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const void* lw, const void* u, const void* s0,
-                        void* o, void* s_fin, int dt, int B, int S, int H,
-                        int N, void* stream) {
+                        void* o, void* s_fin, void* ckpt, int dt, int B,
+                        int S, int H, int N, int seg, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || (long long)B * H > 0x7fffffffLL)
     return -1;
+  if (ckpt != nullptr && (seg <= 0 || seg % L != 0)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dt == 0)
-    return dispatch_n<float>(N, r, k, v, lw, u, s0, o, s_fin, B, S, H, st);
+    return dispatch_n<float>(N, r, k, v, lw, u, s0, o, s_fin, ckpt, seg, B,
+                             S, H, st);
   if (dt == 1)
-    return dispatch_n<__nv_bfloat16>(N, r, k, v, lw, u, s0, o, s_fin, B, S,
-                                     H, st);
+    return dispatch_n<__nv_bfloat16>(N, r, k, v, lw, u, s0, o, s_fin, ckpt,
+                                     seg, B, S, H, st);
   return -1;
 }

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "flash_attention_bwd", "mla_decode",
-           "paged_decode", "rglru_scan", "rwkv6_wkv")
+           "paged_decode", "rglru_scan", "rwkv6_wkv", "rwkv6_wkv_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

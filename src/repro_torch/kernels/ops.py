@@ -11,9 +11,10 @@ Each wrapper checks devices, dtypes, shapes and contiguity, then:
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; :func:`reset_launches` zeroes it.
 
-Training takes ``flash_attention_bshd`` through :class:`FlashAttention`, a
-``torch.autograd.Function`` whose backward is :func:`flash_attention_bwd`
-(the backward kernel on the card, its plain version on the CPU), whenever
+Training takes ``flash_attention_bshd`` through :class:`FlashAttention` and
+``wkv6_bshn`` through :class:`WKV6`, ``torch.autograd.Function``s whose
+backwards are :func:`flash_attention_bwd` and :func:`wkv6_bwd` (the
+backward kernels on the card, their plain versions on the CPU), whenever
 grad is enabled and an input requires it; under ``torch.inference_mode``
 the serving call is the plain forward launch it always was.
 """
@@ -30,7 +31,7 @@ from repro_torch.kernels import rwkv6_wkv as wkv
 
 launches = {"flash_attention_bshd": 0, "flash_attention_bwd": 0,
             "paged_decode_bhd": 0, "mla_paged_decode_bhd": 0,
-            "rglru_scan_bsr": 0, "wkv6_bshn": 0}
+            "rglru_scan_bsr": 0, "wkv6_bshn": 0, "wkv6_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -312,7 +313,8 @@ def wkv6_bshn(
 ):
     """WKV6 over the model layout.  Returns ``(o (B, S, H, N) in r's
     dtype, s_final (B, H, N, N) fp32)``.  ``chunk`` is the plain version's
-    chunk length; the kernel's own is fixed (8 steps)."""
+    chunk length; the kernel's own is fixed (8 steps).  With grad enabled
+    and an input requiring it, the call goes through :class:`WKV6`."""
     _require(r.ndim == 4 and k.shape == r.shape and v.shape == r.shape
              and lw.shape == r.shape,
              f"wkv6_bshn: shapes {tuple(r.shape)} {tuple(k.shape)} "
@@ -327,12 +329,82 @@ def wkv6_bshn(
     _require(lw.dtype == u.dtype == s0.dtype == torch.float32,
              "wkv6_bshn: lw, u and s0 must be fp32")
     operands = (r, k, v, lw, u, s0)
-    if all(t.device.type == "cpu" for t in operands):
-        return wkv.wkv6_torch(r, k, v, lw, u, s0, chunk=chunk)
-    _cuda_operands("wkv6_bshn", operands, wkv.DTYPE_CODES, N,
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return WKV6.apply(r, k, v, lw, u, s0, chunk)
+    return _wkv6_forward(operands, chunk, seg=0)
+
+
+def _wkv6_forward(operands, chunk: int, *, seg: int):
+    """The forward kernel on the card, its plain version on the CPU; with
+    ``seg`` also the state checkpoints (:func:`wkv.wkv6_torch`)."""
+    if _on_cpu(operands):
+        return wkv.wkv6_torch(*operands, chunk=chunk, seg=seg)
+    r, k, v, lw = operands[:4]
+    _cuda_operands("wkv6_bshn", operands, wkv.DTYPE_CODES, r.shape[3],
                    wkv.HEAD_SIZES)
     _require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, lw)),
              "wkv6_bshn: r, k, v and lw must be 16-byte aligned (the "
              "kernel loads them by TMA)")
     launches["wkv6_bshn"] += 1
-    return wkv.wkv6_cuda(r, k, v, lw, u, s0)
+    return wkv.wkv6_cuda(*operands, seg=seg)
+
+
+class WKV6(torch.autograd.Function):
+    """WKV6 with its backward: the forward also writes the state before
+    every ``wkv.SEG``-th step and saves (r, k, v, lw, u, checkpoints); the
+    backward is :func:`wkv6_bwd` on them.  A gradient that autograd does
+    not pass (s_final unused, as in training) is a zero one."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0, chunk):
+        o, s_fin, ckpt = _wkv6_forward((r, k, v, lw, u, s0), chunk,
+                                       seg=wkv.SEG)
+        ctx.save_for_backward(r, k, v, lw, u, ckpt)
+        ctx.set_materialize_grads(False)
+        return o, s_fin
+
+    @staticmethod
+    def backward(ctx, do, ds_fin):
+        r, k, v, lw, u, ckpt = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.contiguous()
+        grads = wkv6_bwd(r, k, v, lw, u, ckpt, do,
+                         None if ds_fin is None else ds_fin.contiguous())
+        return (*grads, None)
+
+
+def wkv6_bwd(
+    r: torch.Tensor,          # (B, S, H, N)
+    k: torch.Tensor,          # (B, S, H, N)
+    v: torch.Tensor,          # (B, S, H, N)
+    lw: torch.Tensor,         # (B, S, H, N) fp32
+    u: torch.Tensor,          # (H, N) fp32
+    ckpt: torch.Tensor,       # (B, H, ceil(S / SEG), N, N) fp32
+    do: torch.Tensor,         # (B, S, H, N) the output's gradient
+    ds_fin: Optional[torch.Tensor] = None,   # (B, H, N, N) fp32; None = 0
+):
+    """(dr, dk, dv, dlw, du, ds0) of :func:`wkv6_bshn` from the forward's
+    checkpoints (``wkv.wkv6_bwd_torch`` says what each is).  The kernel
+    takes N in ``wkv.HEAD_SIZES``, as the forward."""
+    B, S, H, N = r.shape
+    _require(k.shape == r.shape and v.shape == r.shape
+             and lw.shape == r.shape and do.shape == r.shape
+             and tuple(u.shape) == (H, N)
+             and tuple(ckpt.shape) == (B, H, -(-S // wkv.SEG), N, N)
+             and (ds_fin is None or tuple(ds_fin.shape) == (B, H, N, N)),
+             f"wkv6_bwd: r {tuple(r.shape)}, u {tuple(u.shape)}, ckpt "
+             f"{tuple(ckpt.shape)}, do {tuple(do.shape)}")
+    _require(r.dtype == k.dtype == v.dtype == do.dtype,
+             "wkv6_bwd: r, k, v and do dtypes differ")
+    fp32 = (lw, u, ckpt) if ds_fin is None else (lw, u, ckpt, ds_fin)
+    _require(all(t.dtype == torch.float32 for t in fp32),
+             "wkv6_bwd: lw, u, the checkpoints and ds_fin must be fp32")
+    operands = (r, k, v, do) + fp32
+    if _on_cpu(operands):
+        return wkv.wkv6_bwd_torch(r, k, v, lw, u, ckpt, do, ds_fin)
+    _cuda_operands("wkv6_bwd", (r, k, v, do), wkv.DTYPE_CODES, N,
+                   wkv.HEAD_SIZES)
+    _require(all(t.device == r.device and t.is_contiguous() for t in fp32),
+             "wkv6_bwd: lw, u, the checkpoints and ds_fin must be "
+             "contiguous on the card")
+    launches["wkv6_bwd"] += 1
+    return wkv.wkv6_bwd_cuda(r, k, v, lw, u, ckpt, do, ds_fin)

@@ -12,9 +12,13 @@ decay.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-1b-a400m --steps 6 --batch 4 --seq 4096 \\
         --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+        --layers 12 --steps 6 --batch 4 --seq 4096 --microbatches 2 \\
+        --remat full --lr 3e-4
 
 It runs on ``cuda`` unless ``--device`` names another device; on the card
-every attention layer takes the flash kernels (forward and backward).
+every attention layer takes the flash kernels (forward and backward), every
+RWKV6 layer the WKV6 kernels (forward and backward).
 Compute is bf16 at full width and fp32 under ``--reduced``, as in the
 reference's executor; the master weights and moments are fp32.  An MoE
 config trains under capacity dispatch, its rows a whole number of

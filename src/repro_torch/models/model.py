@@ -92,7 +92,7 @@ def _unembed(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
 # The matrix products whose outputs ``remat_policy="dots"`` keeps (the
 # counterpart of jax's ``checkpoint_dots_with_no_batch_dims``: the weight
 # products, the experts' batched ones and the MoE combine included; the
-# attention's own products run inside the flash Function).
+# attention's and WKV6's own products run inside their Functions).
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
 
@@ -105,8 +105,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, policy: str):
     """A layer's function under the reference's remat policies: ``none``
     keeps every activation, ``full`` keeps only the layer's input and runs
-    its forward again in the backward (so the flash forward launches twice
-    a layer), ``dots`` keeps the matrix products' outputs and recomputes
+    its forward again in the backward (so the flash or WKV6 forward
+    launches twice a layer), ``dots`` keeps the matrix products' outputs and recomputes
     the rest."""
     if policy == "none":
         return fn
@@ -148,6 +148,18 @@ def _moe_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
     return h + y, aux
 
 
+def _rwkv_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
+                h: torch.Tensor) -> torch.Tensor:
+    """One RWKV6 layer, no cache (train mode): time mix and channel mix,
+    each after its norm and added to the residual, as in prefill."""
+    x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
+    y, _ = rwkv_time_mix(cfg, blk["tm"], x, ctx, mode="full", cache=None)
+    h = h + y
+    x = rms_norm(h, blk["cm_norm"], cfg.norm_eps)
+    y, _ = rwkv_channel_mix(cfg, blk["cm"], x, ctx, mode="full", cache=None)
+    return h + y
+
+
 def forward_train(cfg: ModelConfig, params: Tree,
                   batch: Dict[str, torch.Tensor], ctx: Ctx, *,
                   remat_policy: str = "none"
@@ -167,7 +179,10 @@ def forward_train(cfg: ModelConfig, params: Tree,
                        device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in params["blocks"]:
-        if "moe" in blk:
+        if "tm" in blk:
+            h = _remat(functools.partial(_rwkv_layer, cfg, ctx, blk),
+                       remat_policy)(h)
+        elif "moe" in blk:
             layer = _remat(functools.partial(_moe_layer, cfg, blk),
                            remat_policy)
             h, a = layer(h, pos)

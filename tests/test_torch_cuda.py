@@ -37,6 +37,17 @@ and dS = P (dP - D) = 0) is held to that scale.  Two calls are bit-equal (no
 atomics).  The forward kernel's log-sum-exp is held to the plain one
 within 1e-5 (fp32 statistics in both types).  A reduced train step on the
 card in fp32 with TF32 off matches the same step on the CPU.
+
+The WKV6 backward is held against its plain backward on the same inputs
+and the forward kernel's state checkpoints: within 1e-5 of the largest
+|plain| of the element's tile (64 steps of one batch row and head; du:
+its head; ds0: its state) plus 1e-6, and bf16 dr, dk, dv one bf16 ulp of
+the value more (both sides rebuild the states by the same fp32 step
+recurrence and round once; they sum in other orders).  The forward's o
+and s_final are bit-equal with and without the checkpoints, which are
+held to the plain forward's within 3e-5 of their largest (the chunked
+plain version's own error, as for the forward).  Two backward calls are
+bit-equal (no atomics).
 """
 import dataclasses
 
@@ -71,6 +82,8 @@ DECODE_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-4, 2 ** -7)}
 # chunked plain version
 WKV_TOL = {"oracle": 1e-5, "chunked": 3e-5}
 WKV_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+# the WKV6 backward: (share of its tile's max |plain|, rtol) by dtype
+WKV_BWD_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2 ** -7)}
 # RG-LRU: (share of max |plain| as atol, rtol)
 RGLRU_TOL = (1e-5, 1e-5)
 # the flash backward: |kernel - plain| <= share·T + BWD_NOISE + rtol·|plain|,
@@ -426,6 +439,119 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     o, s_fin = ops.wkv6_bshn(*(z.clone() for _ in range(4)), u, s0)
     torch.cuda.synchronize()
     assert bool((o == 0).all()) and bool((s_fin == 0).all())
+
+
+def _wkv_bwd_tol(plain, dt):
+    """(atol per element, rtol) of the WKV6 backward for each of (dr, dk,
+    dv, dlw, du, ds0)."""
+    share, rtol = WKV_BWD_TOL[dt]
+    out = []
+    for i, p in enumerate(plain):
+        a = p.float().abs()
+        if i < 4:
+            B, S, H, N = a.shape
+            pad = -S % 64
+            t = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad)).view(
+                B, (S + pad) // 64, 64, H, N)
+            t = t.amax(dim=(2, 4), keepdim=True).expand_as(t)
+            t = t.reshape(B, S + pad, H, N)[:, :S]
+        else:
+            t = a.amax(dim=(-2, -1) if i == 5 else -1,
+                       keepdim=True).expand_as(a)
+        out.append((share * t + 1e-6, rtol if i < 3 else 0.0))
+    return out
+
+
+def _wkv_bwd_inputs(rng, B, S, H, N, dev, dt, decay="mixed"):
+    r, k, v, do = (_randn(rng, (B, S, H, N), dev, dt) for _ in range(4))
+    if decay == "mixed":
+        lw = -np.exp(rng.uniform(-6, 2, (B, S, H, N)))
+    elif decay == "strong":
+        lw = -np.exp(rng.uniform(-6, 4, (B, S, H, N)))
+    else:
+        lw = np.full((B, S, H, N), decay)
+    lw = torch.from_numpy(lw.astype(np.float32)).to(dev)
+    u = 0.5 * _randn(rng, (H, N), dev, torch.float32)
+    s0, dsf = (0.3 * _randn(rng, (B, H, N, N), dev, torch.float32)
+               for _ in range(2))
+    return r, k, v, lw, u, s0, do, dsf
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N,decay", [
+    (2, 300, 4, 64, "mixed"),
+    (1, 77, 4, 64, "mixed"),          # ragged: segments of 16 and a tail
+    (2, 1, 3, 64, "mixed"),
+    (2, 17, 2, 64, "mixed"),          # a segment and one step
+    (1, 9, 2, 16, "mixed"),
+    (2, 100, 2, 32, "mixed"),
+    (2, 130, 4, 64, "strong"),        # down to -e^4
+    (1, 64, 2, 64, -8.0),
+])
+def test_wkv6_bwd_kernel_matches_plain(cuda, dt, B, S, H, N, decay):
+    rng = np.random.default_rng(S * N + 1)
+    r, k, v, lw, u, s0, do, dsf = _wkv_bwd_inputs(rng, B, S, H, N, cuda, dt,
+                                                  decay)
+    o, s_fin = wkv.wkv6_cuda(r, k, v, lw, u, s0)
+    o_c, s_fin_c, ck = wkv.wkv6_cuda(r, k, v, lw, u, s0, seg=wkv.SEG)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_c) and torch.equal(s_fin, s_fin_c)
+    _, _, pck = wkv.wkv6_torch(r, k, v, lw, u, s0, seg=wkv.SEG)
+    assert _wkv_within(ck, pck, WKV_TOL["chunked"], torch.float32)
+    before = ops.launches["wkv6_bwd"]
+    got = ops.wkv6_bwd(r, k, v, lw, u, ck, do, dsf)
+    again = ops.wkv6_bwd(r, k, v, lw, u, ck, do, dsf)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6_bwd"] == before + 2
+    plain = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do, dsf)
+    for name, g, g2, p, tol in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
+                                   got, again, plain,
+                                   _wkv_bwd_tol(plain, dt)):
+        assert g.dtype == p.dtype and g.shape == p.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert torch.equal(g, g2), name
+        assert _within(g, p, tol), name
+
+
+def test_wkv6_autograd_launches_both_kernels_and_no_plain_version(
+        cuda, monkeypatch):
+    """With grad on, a CUDA tensor goes through ops.WKV6: the forward
+    kernel with checkpoints, then the backward kernel; the plain versions
+    are never called."""
+    rng = np.random.default_rng(3)
+    r, k, v, lw, u, s0, do, _ = _wkv_bwd_inputs(rng, 2, 50, 2, 64, cuda,
+                                                torch.bfloat16)
+    _, _, ck = wkv.wkv6_cuda(r, k, v, lw, u, s0, seg=wkv.SEG)
+    want = ops.wkv6_bwd(r, k, v, lw, u, ck, do)
+
+    def plain(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(wkv, "wkv6_torch", plain)
+    monkeypatch.setattr(wkv, "wkv6_bwd_torch", plain)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, lw, u)]
+    before = dict(ops.launches)
+    o, _ = ops.wkv6_bshn(*leaves, s0)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6_bshn"] == before["wkv6_bshn"] + 1
+    assert ops.launches["wkv6_bwd"] == before["wkv6_bwd"] + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_wkv6_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 8, 2, 48, device=cuda)
+    u = torch.zeros(2, 48, device=cuda)
+    ck = torch.zeros(1, 2, 1, 48, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.wkv6_bwd(x, x, x, x, u, ck, x)
+    x = torch.zeros(1, 8, 2, 64, device=cuda)
+    u = torch.zeros(2, 64, device=cuda)
+    ck = torch.zeros(1, 2, 1, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="on the card"):
+        ops.wkv6_bwd(x, x, x, x, u.cpu(), ck, x)
+    with pytest.raises(ValueError, match="fp32"):
+        ops.wkv6_bwd(x, x, x, x, u, ck.bfloat16(), x)
 
 
 def test_rwkv_engine_serves_on_the_card(cuda):
@@ -846,7 +972,8 @@ def test_serving_does_not_take_the_autograd_function(cuda):
                                 flash_attention_bwd=1)
 
 
-@pytest.mark.parametrize("arch", ["paper-overhead-100m", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["paper-overhead-100m", "qwen3-0.6b",
+                                  "rwkv6-7b"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     """Two fp32 steps (2 microbatches) of a reduced config (hd widened to
     64, the backward kernel's smallest) from the same init (drawn on the
@@ -856,7 +983,11 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     within 1e-5 except where Adam amplifies fp32 noise (an element whose
     gradient was below 1e-4 of its leaf's largest in a step can move by
     up to 2 lr more: m / sqrt(v) ~ sign(g)), and there within 2 lr a
-    step."""
+    step.  rwkv6-7b's gradients amplify rounding in the WKV6 output, which
+    the forward kernel (3xTF32) rounds otherwise than the plain version
+    (``tools/rwkv_grad_sensitivity.py``): its gradients are held within
+    5e-4 of each leaf's largest and its weights within 1e-4, as in
+    ``chip_smoke.py``'s train parity and ``tests/test_torch_rwkv_train.py``."""
     cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
     lr, n_steps = 1e-3, 2
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -894,21 +1025,25 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
          torch.backends.cudnn.allow_tf32) = tf32
     (lc, gc, launches, pc), (lp, gp, _, pp) = out
     np.testing.assert_allclose(lc, lp, rtol=1e-5)
-    # the train steps' flash calls (the gradient probes' calls add one
-    # forward and one backward a layer a step)
-    assert launches["flash_attention_bshd"] == cfg.num_layers * 3 * n_steps
-    assert launches["flash_attention_bwd"] == cfg.num_layers * 3 * n_steps
+    # the train steps' flash or WKV6 calls (the gradient probes' calls add
+    # one forward and one backward a layer a step)
+    fwd, bwd = ("wkv6_bshn", "wkv6_bwd") if arch == "rwkv6-7b" \
+        else ("flash_attention_bshd", "flash_attention_bwd")
+    assert launches[fwd] == cfg.num_layers * 3 * n_steps
+    assert launches[bwd] == cfg.num_layers * 3 * n_steps
+    grad_tol, weight_tol = (5e-4, 1e-4) if arch == "rwkv6-7b" \
+        else (1e-4, 1e-5)
     noisy = {n: torch.zeros_like(p, dtype=torch.bool) for n, p in pp.items()}
     for g_c, g_p in zip(gc, gp):
         for n, g in g_p.items():
             scale = max(g.abs().max().item(), 1e-30)
             err = (g_c[n] - g).abs().max().item()
-            assert err <= 1e-4 * scale, (n, err, scale)
+            assert err <= grad_tol * scale, (n, err, scale)
             noisy[n] |= g.abs() < 1e-4 * scale
     for n, w in pp.items():
         err = (pc[n] - w).abs()
         assert err.max().item() <= 2 * lr * n_steps, (n, err.max().item())
-        assert not bool((err[~noisy[n]] > 1e-5).any()), \
+        assert not bool((err[~noisy[n]] > weight_tol).any()), \
             (n, err[~noisy[n]].max().item())
 
 
