@@ -45,7 +45,7 @@ Phases, each of which exits non-zero on the first failure:
               forward kernel's, which must leave o and s_final as they
               are without them) at rwkv6-7b's training shape (B 2, S
               4,096, H 64, N 64) in bf16 and fp32, N 16 and 32, ragged S
-              (1,000, 77, 17, 9, 1), nonzero s0 and ds_final, decays
+              (1,000, 77, 65, 63, 1), nonzero s0 and ds_final, decays
               down to -e^4 and constant -3 and -8, two calls bit-equal,
               each within a tolerance scaled by its 64-step tile that
               planted faults (a step's dO dropped, a checkpoint zeroed,
@@ -181,6 +181,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -839,9 +840,10 @@ def wkv_bwd_cases():
         ("lw to -e^4", 2, 300, 8, 64, bf16, True, "strong", False),
         ("fp32 lw -8", 2, 300, 8, 64, f32, True, -8.0, False),
         ("fp32 lw -3", 2, 300, 8, 64, f32, True, -3.0, False),
-        # a segment of 16 steps and one past it; S within one chunk of 8
-        ("S17", 2, 17, 8, 64, bf16, True, None, False),
-        ("S9", 2, 9, 8, 64, bf16, True, None, False),
+        # a segment (wkv.SEG, 64 steps) and one step past it; one short
+        # of a segment
+        ("S65", 2, 65, 8, 64, bf16, True, None, False),
+        ("S63", 2, 63, 8, 64, bf16, True, None, False),
         ("fp32 S1", 1, 1, 4, 64, f32, True, None, False),
     ]
 
@@ -858,8 +860,9 @@ def wkv_bwd_work(B, S, H, N, elt):
     terms, 6LN; at the fp32 rate the chunk's decay-and-add of dS and the
     state term of dlw, 4N²/L, and the decay walks, bonus and cumulative
     sums, 20N.  Bound = max(bytes, tensor + fp32 operations).  Also the
-    step recurrence's count at the fp32 rate, B·H·S·14N², which is what
-    the kernel computes."""
+    step recurrence's fp32 count, B·H·S·14N² (what PR 22's kernel
+    computed), and what the two-pass kernel moves (``moved_bytes``, see
+    wkv_bwd_moved)."""
     L = WKV_CHUNK
     steps = B * H * S
     tc = steps * (8.0 * N * N + 6.0 * L * N)
@@ -872,7 +875,25 @@ def wkv_bwd_work(B, S, H, N, elt):
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, tensor_flops=tc, fp32_flops=simt,
                 recurrence_ms=steps * 14.0 * N * N / PEAK_FLOPS["float32"]
-                * 1e3)
+                * 1e3, moved_bytes=wkv_bwd_moved(B, S, H, N, elt))
+
+
+def wkv_bwd_moved(B, S, H, N, elt):
+    """The bytes the backward kernel (csrc/rwkv6_wkv_bwd.cu) moves, by
+    part: pass 1 reads r, lw and dO and writes dS at every segment's end
+    (``dsb``, the checkpoints' size) and ds0; pass 2 reads r, k, v, dO,
+    lw, the checkpoints and dsb and writes dr, dk, dv, dlw and du's
+    partials per (b, h, segment).  Not the bound: the function needs
+    none of the checkpoints, dsb or the second reads."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    seq = B * S * H * N
+    states = B * H * -(-S // wkv.SEG) * N * N * 4
+    return dict(pass1_inputs=seq * (2 * elt + 4),
+                pass2_inputs=seq * (4 * elt + 4),
+                outputs=seq * (3 * elt + 4),
+                checkpoints=states, dsb_written=states, dsb_read=states,
+                du_partials=B * H * -(-S // wkv.SEG) * N * 4,
+                states=3 * B * H * N * N * 4)
 
 
 def wkv_bwd_tol(plain, dt):
@@ -985,6 +1006,10 @@ def run_wkv_bwd_phase(dev, gen):
             call = lambda: ops.wkv6_bwd(  # noqa: E731
                 r, k, v, lw, u, ck, do, dsf)
             row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       device_ms_by_kernel={
+                           re.search(r"wkv6_bwd_\w+", k)[0]: x
+                           for k, x in device_ms_by_kernel(call).items()
+                           if "wkv6_bwd_" in k},
                        plain_ms=time_ms(lambda: wkv.wkv6_bwd_torch(
                            r, k, v, lw, u, ck, do, dsf), reps=1, warmup=0),
                        library_ms=None,
@@ -992,16 +1017,30 @@ def run_wkv_bwd_phase(dev, gen):
                            r, k, v, lw, u, s0)),
                        fwd_ckpt_ms=time_ms(lambda: wkv.wkv6_cuda(
                            r, k, v, lw, u, s0, seg=wkv.SEG)),
+                       fwd_ckpt_device_ms=device_ms(lambda: wkv.wkv6_cuda(
+                           r, k, v, lw, u, s0, seg=wkv.SEG)),
+                       fwd_ckpt_plain_ms=time_ms(lambda: wkv.wkv6_torch(
+                           r, k, v, lw, u, s0, seg=wkv.SEG), reps=3,
+                           warmup=1),
                        checkpoint_every=wkv.SEG,
                        **wkv_bwd_work(B, S, H, N, r.element_size()))
+            moved = row["moved_bytes"]
             timing = (f" kernel {row['ms']:.4f} ms (device "
                       f"{fmt_ms(row['device_ms'])}) plain "
                       f"{row['plain_ms']:.4f} ms bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}; the "
-                      f"step recurrence's fp32 count "
-                      f"{row['recurrence_ms']:.4f} ms); the forward "
-                      f"{row['fwd_ms']:.4f} ms, with checkpoints every "
-                      f"{wkv.SEG} steps {row['fwd_ckpt_ms']:.4f} ms")
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                      f"{row['bytes'] / 1e9:.3f} GB; the step recurrence's "
+                      f"fp32 count {row['recurrence_ms']:.4f} ms; the "
+                      f"kernel moves {sum(moved.values()) / 1e9:.3f} GB: "
+                      + ", ".join(f"{k} {x / 1e9:.3f}"
+                                  for k, x in moved.items())
+                      + f"); the forward {row['fwd_ms']:.4f} ms, with "
+                      f"checkpoints every {wkv.SEG} steps "
+                      f"{row['fwd_ckpt_ms']:.4f} ms (device "
+                      f"{fmt_ms(row['fwd_ckpt_device_ms'])}, plain "
+                      f"{row['fwd_ckpt_plain_ms']:.4f} ms); by kernel "
+                      + ", ".join(f"{k} {x:.4f}" for k, x in
+                                  row["device_ms_by_kernel"].items()))
         rows.append(row)
         print(f"  wkv6 bwd {label:<26} {dtype_name(dt):<8} err "
               + "/".join(f"{e:.3g}" for e in errs) + " (of the tolerance "
@@ -3583,6 +3622,8 @@ def main() -> int:
                  shape=wb["shape"] + f", state checkpoints every "
                  f"{wb['checkpoint_every']} steps",
                  launches=rwkv_launches["wkv6_bshn"], ms=wb["fwd_ckpt_ms"],
+                 device_ms=wb["fwd_ckpt_device_ms"],
+                 plain_ms=wb["fwd_ckpt_plain_ms"],
                  ms_without_checkpoints=wb["fwd_ms"])),
         dict(name="wkv6_bwd", route="cuda",
              source="src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
@@ -3595,6 +3636,8 @@ def main() -> int:
              bound_ms=wb["bound_ms"], bound_by=wb["bound_by"],
              library_ms=None,
              library="none: no PyTorch call computes WKV6's gradient",
+             moved_bytes=sum(wb["moved_bytes"].values()),
+             device_ms_by_kernel=wb["device_ms_by_kernel"],
              shape=wb["shape"]),
         dict(name="rglru_scan_fwd", route="cuda",
              source="src/repro_torch/csrc/rglru_scan.cu",

@@ -367,6 +367,8 @@ class WKV6(torch.autograd.Function):
     def backward(ctx, do, ds_fin):
         r, k, v, lw, u, ckpt = ctx.saved_tensors
         do = torch.zeros_like(r) if do is None else do.contiguous()
+        if do.data_ptr() % 16:      # a view into a gradient's storage
+            do = do.clone()
         grads = wkv6_bwd(r, k, v, lw, u, ckpt, do,
                          None if ds_fin is None else ds_fin.contiguous())
         return (*grads, None)
@@ -406,5 +408,8 @@ def wkv6_bwd(
     _require(all(t.device == r.device and t.is_contiguous() for t in fp32),
              "wkv6_bwd: lw, u, the checkpoints and ds_fin must be "
              "contiguous on the card")
+    _require(all(t.data_ptr() % 16 == 0 for t in (r, k, v, do, lw, ckpt)),
+             "wkv6_bwd: r, k, v, do, lw and the checkpoints must be 16-byte "
+             "aligned (the kernels stage them by cp.async)")
     launches["wkv6_bwd"] += 1
     return wkv.wkv6_bwd_cuda(r, k, v, lw, u, ckpt, do, ds_fin)

@@ -30,11 +30,14 @@ A step with k = 0 and lw = 0 (a padding step of a ragged prefill) leaves
 the state exactly as it was in both versions.
 
 Training: given ``seg``, both versions also return the state before every
-``seg``-th step (:data:`SEG`), and the backward, :func:`wkv6_bwd_torch`
-and its kernel ``csrc/rwkv6_wkv_bwd.cu`` (:func:`wkv6_bwd_cuda`),
+``seg``-th step (:data:`SEG`).  The plain backward :func:`wkv6_bwd_torch`
 rebuilds each segment's states from them by the step recurrence and walks
-the steps in reverse.  The reference has no Pallas backward: it
-differentiates its jnp ``models/rwkv.py:wkv6_chunked`` with ``jax.grad``.
+the steps in reverse; its kernel ``csrc/rwkv6_wkv_bwd.cu``
+(:func:`wkv6_bwd_cuda`) first scans the segments in reverse for the
+state's gradient at each segment's end, then takes every (batch, head,
+segment) on its own in the chunked form on the tensor cores.  The
+reference has no Pallas backward: it differentiates its jnp
+``models/rwkv.py:wkv6_chunked`` with ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -49,18 +52,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # r, k, v and o
 HEAD_SIZES = (16, 32, 64)     # N: a warp per 16 value columns of the state
 
 #: Steps between two of the forward's state checkpoints in training: a
-#: multiple of the kernel's chunk of 8.  The backward rebuilds a
-#: segment's states from its checkpoint, so SEG trades the buffer (B·H·
-#: ceil(S/SEG)·N² fp32, 537 MB at B 2, S 4,096, H 64, N 64) against the
-#: rebuild (1.5× the steps at 16: two sub-segments of 8).
-SEG = 16
+#: multiple of the forward kernel's chunk of 8 and of the backward
+#: kernel's chunk of 16, compiled into the backward kernel.  Each segment
+#: is one block of the backward, which also writes the state's gradient
+#: at every segment's end: two (B, H, ceil(S/SEG), N, N) fp32 buffers,
+#: 134 MB each at B 2, S 4,096, H 64, N 64 (537 MB at 16), against a
+#: segment's rebuild in shared memory (its four chunk states).
+SEG = 64
 
 _SIGNATURES = {
     "wkv6_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "wkv6_bwd": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    "wkv6_bwd": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -199,24 +204,28 @@ def wkv6_cuda(r, k, v, lw, u, s0, *, seg: int = 0):
 
 
 def wkv6_bwd_cuda(r, k, v, lw, u, ckpt, do, ds_fin):
-    """Launch the backward kernel (``csrc/rwkv6_wkv_bwd.cu``) on the
+    """Launch the backward kernels (``csrc/rwkv6_wkv_bwd.cu``) on the
     current stream; ``ds_fin`` None is a zero gradient.  The caller
-    (``ops.wkv6_bwd``) has checked devices, dtypes, shapes and
-    contiguity.  ``du`` comes from the kernel per (batch, head) and is
-    summed over the batch here (no atomics: two calls are bit-equal)."""
+    (``ops.wkv6_bwd``) has checked devices, dtypes, shapes, contiguity and
+    alignment.  The kernels also write the state's gradient at every
+    segment's end (a scratch buffer the size of ``ckpt``) and ``du`` per
+    (batch, head, segment), summed here (no atomics: two calls are
+    bit-equal)."""
     lib = _build.load("rwkv6_wkv_bwd", _BWD_SIGNATURES)
     B, S, H, N = r.shape
+    nseg = ckpt.shape[2]
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlw = torch.empty_like(lw)
-    du = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    du = torch.empty((B, H, nseg, N), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    dsb = torch.empty_like(ckpt)
     rc = lib.wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
         u.data_ptr(), ckpt.data_ptr(), do.data_ptr(),
         None if ds_fin is None else ds_fin.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
-        du.data_ptr(), ds0.data_ptr(), DTYPE_CODES[r.dtype], B, S, H, N, SEG,
-        torch.cuda.current_stream(r.device).cuda_stream)
+        du.data_ptr(), ds0.data_ptr(), dsb.data_ptr(), DTYPE_CODES[r.dtype],
+        B, S, H, N, SEG, torch.cuda.current_stream(r.device).cuda_stream)
     if rc:
         raise RuntimeError(f"wkv6_bwd launch failed: status {rc}")
-    return dr, dk, dv, dlw, du.sum(0), ds0
+    return dr, dk, dv, dlw, du.sum((0, 2)), ds0

@@ -479,10 +479,11 @@ def _wkv_bwd_inputs(rng, B, S, H, N, dev, dt, decay="mixed"):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,N,decay", [
-    (2, 300, 4, 64, "mixed"),
-    (1, 77, 4, 64, "mixed"),          # ragged: segments of 16 and a tail
+    (2, 300, 4, 64, "mixed"),         # four segments of 64 and a tail
+    (1, 77, 4, 64, "mixed"),          # a segment and a ragged chunk
     (2, 1, 3, 64, "mixed"),
-    (2, 17, 2, 64, "mixed"),          # a segment and one step
+    (2, 65, 2, 64, "mixed"),          # a segment and one step
+    (2, 63, 2, 64, "mixed"),          # one step short of a segment
     (1, 9, 2, 16, "mixed"),
     (2, 100, 2, 32, "mixed"),
     (2, 130, 4, 64, "strong"),        # down to -e^4

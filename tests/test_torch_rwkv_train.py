@@ -139,8 +139,9 @@ def _plain_grads(r, k, v, lw, u, s0, do, dsf):
 @pytest.mark.parametrize("N", [16, 32, 64])
 @pytest.mark.parametrize("S", [1, 37, 80])
 def test_wkv6_plain_backward_matches_jax_grad(S, N):
-    """S 1, a ragged S (two segments of 16 and a tail of 5), and five
-    segments; the reference at its chunk of 32."""
+    """S 1, S below one segment of ``wkv.SEG`` (64) steps, and a segment
+    and a ragged tail (80); the reference at its chunk of 32
+    (``tests/test_torch_wkv_bwd.py`` covers more lengths)."""
     r, k, v, lw, u, s0, do, dsf = _wkv_case(S + N, 2, S, 3, N)
 
     def loss(r, k, v, lw, u, s0):
@@ -213,8 +214,11 @@ def test_wkv6_function_gives_the_plain_backward_on_cpu():
 
 def test_wkv6_bwd_wrapper_refuses_and_never_takes_the_plain_version_off_cpu(
         monkeypatch):
-    r, k, v, lw, u, s0, do, dsf = map(_t, _wkv_case(3, 1, 20, 2, 16))
+    # two segments, so a buffer cut to one is short
+    r, k, v, lw, u, s0, do, dsf = map(_t, _wkv_case(3, 1, wkv.SEG + 4, 2,
+                                                    16))
     _, _, ckpt = wkv.wkv6_torch(r, k, v, lw, u, s0, seg=wkv.SEG)
+    assert ckpt.shape[2] == 2
     with pytest.raises(ValueError, match="ckpt"):
         ops.wkv6_bwd(r, k, v, lw, u, ckpt[:, :, :1], do)
     with pytest.raises(ValueError, match="dtypes differ"):
@@ -254,8 +258,9 @@ def _weights(rcfg, tcfg):
 @pytest.mark.parametrize("mixer", ["time", "channel"])
 def test_mixer_gradients_match_jax_grad(mixer, N):
     """Gradients of a weighted sum of a mixer's output (full mode, no
-    cache; 45 steps: a 32-step chunk of the reference and three segments
-    of the port) with respect to its input and every leaf."""
+    cache; 45 steps: a 32-step chunk of the reference and a ragged one,
+    part of one segment of the port) with respect to its input and every
+    leaf."""
     rcfg, tcfg = _configs(rwkv_head_dim=N)
     rparams, model = _weights(rcfg, tcfg)
     key = "tm" if mixer == "time" else "cm"

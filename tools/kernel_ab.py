@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""In-turn A/B of the port's WKV6, paged-decode, MLA latent-decode and
-flash-backward kernels between this checkout and another one (an earlier
-design), on one card.
+"""In-turn A/B of the port's WKV6, paged-decode, MLA latent-decode,
+flash-backward and WKV6-backward kernels between this checkout and another
+one (an earlier design), on one card.
 
     mkdir -p build/ab/parent
     git archive <rev> | tar -x -C build/ab/parent
@@ -10,8 +10,9 @@ design), on one card.
 
 Each checkout is driven through its own ``repro_torch`` package: its
 wrappers ``ops.wkv6_bshn``, ``ops.paged_decode_bhd``,
-``ops.mla_paged_decode_bhd`` and ``ops.flash_attention_bwd`` (the port
-keeps their signatures), its plain versions, its build of its own CUDA
+``ops.mla_paged_decode_bhd``, ``ops.flash_attention_bwd`` and
+``ops.wkv6_bwd`` (the port keeps their signatures), its plain versions,
+its forward's state checkpoints at its own ``SEG``, its build of its own CUDA
 sources (into that checkout's ``build/``) and, with ``--trace``, its model
 and engine.  So nothing here depends on a kernel's C interface.  Every
 design runs in a worker process of its own, four in turns: parent, this
@@ -20,8 +21,11 @@ seed on the card, holds each kernel to its checkout's plain version at
 ``chip_smoke.py``'s tolerances, and times it with this checkout's
 ``chip_smoke.py`` helpers: device time (torch.profiler, 20 calls)
 L2-warm and L2-cold (a 256 MB write before each call).  ``--kernels``
-picks some of wkv6, paged_decode, mla_decode and flash_bwd (all four by
-default); flash_bwd is the backward at the two training shapes
+picks some of wkv6, paged_decode, mla_decode, flash_bwd and wkv6_bwd (all
+five by default); wkv6_bwd is the WKV6 backward at rwkv6-7b's training
+shape in bf16 and fp32, from the checkout's forward with checkpoints,
+beside that forward's time with and without them; flash_bwd is the
+backward at the two training shapes
 (paper-overhead-100m: B 8, S 1,024, H 12, K 4, hd 64; qwen3-0.6b's
 train_4k: B 2, S 4,096, H 16, K 8, hd 128, causal, bf16), each gradient
 held to the plain backward at ``chip_smoke.bwd_tol``, with SDPA's
@@ -46,9 +50,11 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER_TIMEOUT_S = 900
 
 
-KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash_bwd")
-SOURCES = {"wkv6": "rwkv6_wkv", "paged_decode": "paged_decode",
-           "mla_decode": "mla_decode", "flash_bwd": "flash_attention_bwd"}
+KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash_bwd", "wkv6_bwd")
+SOURCES = {"wkv6": ("rwkv6_wkv",), "paged_decode": ("paged_decode",),
+           "mla_decode": ("mla_decode",),
+           "flash_bwd": ("flash_attention_bwd",),
+           "wkv6_bwd": ("rwkv6_wkv", "rwkv6_wkv_bwd")}
 BWD_SHAPES = {"paper train": (8, 1024, 12, 4, 64),
               "qwen3 train": (2, 4096, 16, 8, 128)}
 
@@ -155,8 +161,50 @@ def time_mla_decode(cs, dev, gen):
         warm=cs.device_ms(call), cold=cs.cold_device_ms(call))}
 
 
+def time_wkv6_bwd(cs, dev, gen):
+    """The WKV6 backward at rwkv6-7b's training shape (B 2, S 4,096, H 64,
+    N 64) in bf16 and fp32, from the checkout's own forward with
+    checkpoints every ``SEG`` steps of that checkout: each gradient held
+    to the checkout's plain backward at ``chip_smoke.wkv_bwd_tol``, then
+    the backward's device ms warm and L2-cold and the forward's with and
+    without checkpoints."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        B, S, H, N = 2, 4096, 64, 64
+        r, k, v, lw, u, s0 = cs.wkv_inputs(dev, gen, B, S, H, N, dt, False,
+                                           None)
+        do = torch.randn(B, S, H, N, device=dev, generator=gen).to(dt)
+        _, _, ck = wkv.wkv6_cuda(r, k, v, lw, u, s0, seg=wkv.SEG)
+        got = ops.wkv6_bwd(r, k, v, lw, u, ck, do)
+        plain = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do)
+        torch.cuda.synchronize()
+        used = []
+        for name, g, p, tol in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
+                                   got, plain, cs.wkv_bwd_tol(plain, dt)):
+            cs.compare(g, p, tol, f"wkv6 bwd {name}")
+            used.append(cs.tol_used(g, p, tol))
+        del got, plain
+        call = lambda: ops.wkv6_bwd(r, k, v, lw, u, ck, do)  # noqa: E731
+        name = cs.dtype_name(dt)
+        rows[f"wkv6_bwd {name}"] = dict(
+            shape=f"B {B}, S {S}, H {H}, N {N}, {name}, checkpoints every "
+            f"{wkv.SEG} steps", warm=cs.device_ms(call),
+            cold=cs.cold_device_ms(call), tol_used=used,
+            fwd_ckpt=cs.device_ms(lambda: wkv.wkv6_cuda(
+                r, k, v, lw, u, s0, seg=wkv.SEG)),
+            fwd=cs.device_ms(lambda: wkv.wkv6_cuda(r, k, v, lw, u, s0)))
+        del r, k, v, lw, u, s0, do, ck
+        torch.cuda.empty_cache()
+    return rows
+
+
 TIMERS = {"wkv6": time_wkv6, "paged_decode": time_paged_decode,
-          "mla_decode": time_mla_decode, "flash_bwd": time_flash_bwd}
+          "mla_decode": time_mla_decode, "flash_bwd": time_flash_bwd,
+          "wkv6_bwd": time_wkv6_bwd}
 
 
 def time_kernels(cs, dev, kernels):
@@ -213,14 +261,17 @@ def worker(tree: Path, kernels: list, cells: str) -> int:
     import torch
     from repro_torch.kernels import _build
 
-    _build.build(tuple(SOURCES[k] for k in kernels))
+    _build.build(tuple(sorted({n for k in kernels for n in SOURCES[k]})))
     dev = torch.device("cuda", 0)
     result = {"kernels": time_kernels(cs, dev, kernels)}
     for name, row in result["kernels"].items():
         print(f"  {name} ({row['shape']}): device {cs.fmt_ms(row['warm'])} "
               f"ms, L2-cold {cs.fmt_ms(row['cold'])} ms"
               + (f", SDPA's backward {cs.fmt_ms(row['sdpa_ms'])} ms"
-                 if "sdpa_ms" in row else ""), flush=True)
+                 if "sdpa_ms" in row else "")
+              + (f"; the forward {cs.fmt_ms(row['fwd'])} ms, with "
+                 f"checkpoints {cs.fmt_ms(row['fwd_ckpt'])} ms"
+                 if "fwd_ckpt" in row else ""), flush=True)
     if cells:
         result["trace"] = trace_cells(cs, dev, cells.split(","))
     print(json.dumps(result), flush=True)
