@@ -31,7 +31,13 @@ Phases, each of which exits non-zero on the first failure:
               training shapes (paper: B 8, S 1,024, H 12, K 4, hd 64;
               qwen3: B 2, S 4,096, H 16, K 8, hd 128; granite: B 4, S
               4,096, H 16, K 8, hd 64), ragged S 1,000 and
-              77, the bf16 kernels' tile edges (S 127, 255, 257 with G 2
+              77, deepseek-v2's (t5) (B 2, S 4,096, H 128, q and k 192
+              wide over v 128; bf16 and fp32, ragged S 1,000, 77 and 1;
+              the forward also there, with its log-sum-exp, beside the
+              SDPA backend that takes the shape, if one does; a planted
+              fault more: k's rope columns dropped, and every fault at
+              least 10 times over the tolerance), the bf16 kernels' tile
+              edges (S 127, 255, 257 with G 2
               and 3), more work items than the card runs at once (B 2, S
               2,048, hd 128), not causal and with a window and softcap,
               bf16 and fp32, two calls bit-equal, each within a tolerance
@@ -113,13 +119,21 @@ Phases, each of which exits non-zero on the first failure:
               steps; its remat check on one row, B 4 does not fit
               without remat; aux beside the CE; MFU over the active
               parameters; the traced step split by the MoE's profiler
-              ranges) and ``rwkv6-7b`` at full width cut to 12 layers
+              ranges), ``deepseek-v2-236b`` at full width cut to 2 layers
+              ((t5): the dense layer and an MoE layer of 160 experts,
+              top-6, 2 shared; MLA through the flash kernels at qk 192 /
+              v 128, 2 x 2 forward and 2 backward a step; its train_4k run
+              at B 2, S 4,096, 1 microbatch of its 16, full remat, bf16
+              master weights and moments; peak memory at most 70 GB; its
+              remat check on one row) and ``rwkv6-7b`` at full width cut
+              to 12 layers
               (the most that leave 8 GB of the card free; its train_4k
               run: S 4,096, global batch 4 in 2 microbatches, full
               remat, 6 steps; WKV6 forward 2 x 12 x 2 and backward 12 x
               2 a step; its remat check on one row) in bf16 with fp32
               master
-              weights, through ``repro_torch.launch.train``'s loop (the
+              weights (deepseek-v2's bf16), through
+              ``repro_torch.launch.train``'s loop (the
               trained kernels' plain versions barred), after
               deepseek-v2's weights are freed: every loss finite, a
               held-out batch's loss lower after training than at init,
@@ -132,13 +146,16 @@ Phases, each of which exits non-zero on the first failure:
               2 x 28 x 2 forward under remat and 28 x 2 backward),
               steps/s, tokens/s, MFU and peak
               memory, then one more step under torch.profiler (device busy
-              and idle share, device ms by part).  Before granite, one
+              and idle share, device ms by part).  (t5) runs after (t4).
+              Before granite, one
               MoE FFN at its width and shape runs forward and backward
               with ``torch.cuda.set_sync_debug_mode("error")`` (no host
               sync), twice bit-equal.  Then fp32 cuda vs cpu
-              parity of the four configs at full width and 2 layers (B 2,
-              S 256, 3 steps; rwkv6-7b at lr 3e-4, its gradients within
-              5e-4: the initial states equal, granite's routing
+              parity of the five configs at full width and 2 layers (B 2,
+              S 256, 3 steps; deepseek-v2 with 8 experts, d_ff 1,536, a
+              vocabulary of 16,384 and B 1; rwkv6-7b at lr 3e-4, its
+              gradients within
+              5e-4: the initial states equal, the MoE's routing
               equal or parted at a tie, losses within 1e-5 relative, the
               first batch's gradients within 1e-4 of each leaf's largest)
               and a checkpoint round trip through the reference's tree
@@ -270,6 +287,21 @@ PARITY_TIE_TOL = 2e-3        # top-2 gap below which a divergence is a tie
 # compute copy)
 RWKV_TRAIN_LAYERS = 12
 PEAK_MEM_LIMIT_GB = 70.0     # deepseek-v2 at 3 layers: 56 GB of weights
+# deepseek-v2's (t5) depth: layer 0 dense, layer 1 MoE; 5.36 B parameters
+# at 8 bytes in training (bf16 weights, moments and gradients), 42.9 GB;
+# a third layer adds 3.97 B (31.8 GB) and does not fit
+DEEPSEEK_TRAIN_LAYERS = 2
+# the train parity's cuts beyond 2 layers: deepseek-v2's experts 160 -> 8,
+# dense d_ff 12,288 -> 1,536, vocabulary 102,400 -> 16,384 and one row of
+# 256 tokens keep its CPU side near a minute (at 8 experts, 16,384 and B 2
+# it took 150 s) and its host memory (fp32 state and trees) well inside
+# the host's; the attention keeps its widths (d 5,120, H 128, qk 192, v
+# 128, lora 512)
+PARITY_CUTS = {"deepseek-v2-236b": dict(num_experts=8, d_ff=1_536,
+                                        vocab_size=16_384)}
+PARITY_BATCH = {"deepseek-v2-236b": 1}
+TRAIN_PARITY_ARCHS = ("paper-overhead-100m", "qwen3-0.6b",
+                      "granite-moe-1b-a400m", "rwkv6-7b", "deepseek-v2-236b")
 
 
 class SmokeFailure(RuntimeError):
@@ -415,10 +447,13 @@ def tol_text(tol) -> str:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def flash_cases():
+    """(label, B, S, H, K, hd, hdv, dtype, causal, window, cap): hdv the
+    v width, hd's but for deepseek-v2's training attention
+    (:func:`mla_train_cases`)."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, B, S, H, K, hd, dtype, causal, window, cap)
-    return [
+    square = [
         ("qwen3 S512", 4, 512, 16, 8, 128, bf16, True, 0, 0.0),
         ("qwen3 S1024", 4, 1024, 16, 8, 128, bf16, True, 0, 0.0),
         ("paper G3 hd64 S512", 4, 512, 12, 4, 64, bf16, True, 0, 0.0),
@@ -441,19 +476,76 @@ def flash_cases():
         ("edge hd128 S129", 2, 129, 16, 8, 128, bf16, True, 0, 0.0),
         ("edge hd256 S129", 2, 129, 16, 1, 256, bf16, True, 2048, 0.0),
     ]
+    return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases()
 
 
-def flash_work(B, S, H, K, hd, elt, causal, window):
-    """(flops, bytes) the function needs: live (q, k) pairs times 4·hd,
-    and q, k, v read once, o written once."""
+MLA_T5 = "mla t5 B2 S4096"
+
+
+def mla_train_cases():
+    """deepseek-v2's training attention, (t5)'s shape: B 2, S 4,096, 128
+    heads (K = H: the latent is expanded per head), q and k 192 wide (128
+    nope + 64 rope) over v 128, causal; bf16 and fp32, ragged S 1,000, 77
+    and 1.  The same cases for the forward and the backward."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [(MLA_T5, 2, 4096, 128, 128, 192, 128, bf16, True, 0, 0.0),
+            ("fp32 mla t5", 2, 4096, 128, 128, 192, 128, f32, True, 0, 0.0),
+            ("mla ragged S1000", 2, 1000, 128, 128, 192, 128, bf16, True, 0,
+             0.0),
+            ("mla ragged S77", 2, 77, 128, 128, 192, 128, bf16, True, 0,
+             0.0),
+            ("mla S1", 2, 1, 128, 128, 192, 128, bf16, True, 0, 0.0)]
+
+
+def timing_reps(dt, rows) -> int:
+    """Calls a flash timing averages: 20, but 3 in fp32 past 2^19 (batch,
+    row, head) rows, where a CUDA-core walk takes 0.1 s (forward) to 0.5 s
+    (backward) a call at (t5)'s shape."""
+    import torch
+    return 3 if dt == torch.float32 and rows > 2 ** 19 else 20
+
+
+def flash_work(B, S, H, K, hd, elt, causal, window, hdv=0):
+    """(flops, bytes) the function needs: live (q, k) pairs times 2·(hd +
+    hdv) (4·hd at equal widths), and q, k, v read once, o written once
+    (q, k hd wide; v, o hdv)."""
+    hdv = hdv or hd
     pairs = 0
     for i in range(S):
         lo = max(0, i - window + 1) if window else 0
         hi = i + 1 if causal else S
         pairs += hi - lo
-    flops = 4.0 * hd * B * H * pairs
-    nbytes = (2 * B * S * H * hd + 2 * B * S * K * hd) * elt
+    flops = 2.0 * (hd + hdv) * B * H * pairs
+    nbytes = (B * S * H * (hd + hdv) + B * S * K * (hd + hdv)) * elt
     return flops, nbytes
+
+
+def sdpa_forward_ms(q, k, v, causal, reps=20):
+    """One PyTorch call at the same shape, as a yardstick:
+    ``F.scaled_dot_product_attention`` trying the flash, memory-efficient,
+    cuDNN and math backends in turn.  Returns (ms, the backend that ran),
+    or (None, "none: ...") if none takes these head dims."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    tried = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=q.shape[3] ** -0.5),
+                    reps=reps)
+            return ms, backend.name
+        except RuntimeError as e:
+            tried.append(f"{backend.name}: {str(e).splitlines()[0][:60]}")
+        finally:
+            torch.cuda.synchronize()
+    return None, "none: " + "; ".join(tried)
 
 
 def run_flash_phase(dev, gen):
@@ -463,14 +555,15 @@ def run_flash_phase(dev, gen):
     from repro_torch.kernels import ops
 
     rows = []
-    for label, B, S, H, K, hd, dt, causal, window, cap in flash_cases():
+    for label, B, S, H, K, hd, hdv, dt, causal, window, cap in flash_cases():
         q = torch.randn(B, S, H, hd, device=dev, generator=gen).to(dt)
         k = torch.randn(B, S, K, hd, device=dev, generator=gen).to(dt)
-        v = torch.randn(B, S, K, hd, device=dev, generator=gen).to(dt)
+        v = torch.randn(B, S, K, hdv, device=dev, generator=gen).to(dt)
         kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                   logit_cap=cap)
         out = ops.flash_attention_bshd(q, k, v, **kw)
-        plain = fa.flash_attention_torch(q, k, v, **kw)
+        plain, plain_lse = fa.flash_attention_torch(q, k, v, return_lse=True,
+                                                    **kw)
         torch.cuda.synchronize()
         tol = FLASH_TOL[dtype_name(dt)]
         if hd == 256 and dt == torch.bfloat16:
@@ -478,12 +571,31 @@ def run_flash_phase(dev, gen):
                    2 ** -7)
         check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite")
         err = compare(out, plain, tol, f"flash {label}")
-        ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
-        dev_ms = device_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
+        lse_err = None
+        if hdv != hd:
+            # the training forward's log-sum-exp, and its output equal to
+            # the serving call's
+            out_t, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(out_t, out), f"flash {label}: the output with "
+                  "the lse differs from the one without")
+            lse_err = (lse - plain_lse).abs().max().item()
+            check(lse_err <= LSE_TOL * max(1.0, plain_lse.abs().max().item()),
+                  f"flash lse {label}: max |kernel - plain| {lse_err}")
+            del out_t, lse
+        del plain_lse
+        reps = timing_reps(dt, B * S * H)
+        ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw),
+                     reps=reps)
+        dev_ms = device_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw),
+                           reps=reps)
         plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
-                           reps=5, warmup=1)
-        lib_ms = None
-        if not cap:
+                           reps=min(reps, 5), warmup=1)
+        lib_ms, lib = None, None
+        if hdv != hd:
+            lib_ms, lib = sdpa_forward_ms(q, k, v, causal, reps=reps)
+        elif not cap:
             # SDPA on the same inputs; a window goes in as a boolean
             # causal-window mask (True = attend)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -497,7 +609,7 @@ def run_flash_phase(dev, gen):
                 scale=hd ** -0.5, enable_gqa=True))
             del qt, kt, vt, mask
         flops, nbytes = flash_work(B, S, H, K, hd, q.element_size(), causal,
-                                   window)
+                                   window, hdv)
         t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
@@ -506,7 +618,12 @@ def run_flash_phase(dev, gen):
         rows.append(dict(label=label, dtype=dtype_name(dt), max_abs_err=err,
                          tol=tol_text(tol), ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms,
+                         bound_ms=bound_ms, lse_err=lse_err, library=lib,
+                         shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}"
+                         + (f", hdv {hdv}" if hdv != hd else "")
+                         + f", {dtype_name(dt)}"
+                         + (", causal" if causal else "")
+                         + (f", window {window}" if window else ""),
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes",
                          tflops=flops / (k_ms * 1e-3) / 1e12,
@@ -518,7 +635,11 @@ def run_flash_phase(dev, gen):
               f"{fmt_ms(dev_ms)}{rate}) "
               f"plain {plain_ms:.4f} ms "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
-              f"bound {bound_ms:.4f} ms", flush=True)
+              + (f"({lib}) " if lib else "")
+              + ("" if lse_err is None else f"lse {lse_err:.3g} ")
+              + f"bound {bound_ms:.4f} ms", flush=True)
+        del q, k, v, out, plain
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1261,10 +1382,12 @@ def run_mla_phase(dev, gen):
 
 
 def flash_bwd_cases():
+    """(label, B, S, H, K, hd, hdv, dtype, causal, window, cap), as
+    :func:`flash_cases`."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, B, S, H, K, hd, dtype, causal, window, cap)
-    return [
+    square = [
         ("paper train", 8, 1024, 12, 4, 64, bf16, True, 0, 0.0),
         ("qwen3 train", 2, 4096, 16, 8, 128, bf16, True, 0, 0.0),
         ("granite train", 4, 4096, 16, 8, 64, bf16, True, 0, 0.0),
@@ -1287,15 +1410,18 @@ def flash_bwd_cases():
         ("fp32 S77 not causal", 2, 77, 12, 4, 64, f32, False, 0, 0.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
     ]
+    return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases()
 
 
-def flash_bwd_work(B, S, H, K, hd, elt, causal, window):
-    """(flops, bytes) of the backward: 10·hd per live (q, k) pair and head
-    (S and dP recomputed, dV, dK, dQ), q, k, v, o, dO and lse read once,
-    dq, dk, dv written once."""
-    fwd_flops, _ = flash_work(B, S, H, K, hd, elt, causal, window)
-    flops = fwd_flops * 10 / 4
-    nbytes = (4 * B * S * H * hd + 4 * B * S * K * hd) * elt + 4 * B * H * S
+def flash_bwd_work(B, S, H, K, hd, elt, causal, window, hdv=0):
+    """(flops, bytes) of the backward: 2·(3·hd + 2·hdv) per live (q, k)
+    pair and head (S, dK, dQ over hd; dP, dV over hdv; 10·hd at equal
+    widths), q, k, v, o, dO and lse read once, dq, dk, dv written once."""
+    hdv = hdv or hd
+    fwd_flops, _ = flash_work(B, S, H, K, hd, elt, causal, window, hdv)
+    flops = fwd_flops * (3 * hd + 2 * hdv) / (hd + hdv)
+    nbytes = (2 * B * S * H * (hd + hdv) + 2 * B * S * K * (hd + hdv)) \
+        * elt + 4 * B * H * S
     return flops, nbytes
 
 
@@ -1387,6 +1513,14 @@ def bwd_planted_faults(q, k, v, o, lse, do, kw):
 
     S, G = q.shape[1], q.shape[2] // k.shape[2]
     out = []
+    if q.shape[3] != v.shape[3]:
+        # MLA: the rope part of the keys (columns 128-191) zeroed, as a
+        # kernel that contracted S over the first 128 columns only would
+        kz = k.clone()
+        kz[..., 128:] = 0
+        out.append(("the rope columns of k dropped",
+                    ops.flash_attention_bwd(q, kz, v, o, lse, do, **kw),
+                    (0, 1, 2)))
     if G > 1:
         d = do.clone()
         d[:, :, G - 1::G] = 0
@@ -1415,12 +1549,16 @@ def run_flash_bwd_phase(dev, gen):
     from repro_torch.kernels import ops
 
     rows = []
-    for label, B, S, H, K, hd, dt, causal, window, cap in flash_bwd_cases():
-        q, k, v, do = (torch.randn(B, S, n, hd, device=dev,
+    for label, B, S, H, K, hd, hdv, dt, causal, window, cap in \
+            flash_bwd_cases():
+        q, k, v, do = (torch.randn(B, S, n, d, device=dev,
                                    generator=gen).to(dt)
-                       for n in (H, K, K, H))
+                       for n, d in ((H, hd), (K, hd), (K, hdv), (H, hdv)))
         kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                   logit_cap=cap)
+        # planted faults must land FAULT_MIN times over the tolerance at
+        # MLA's pair (any excess at the square ones, as before)
+        fault_min = 10.0 if hdv != hd else 1.0
         o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
         _, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1441,15 +1579,17 @@ def run_flash_bwd_phase(dev, gen):
         faults = {}
         for what, wrong, held in bwd_planted_faults(q, k, v, o, lse, do, kw):
             r = max(tol_used(wrong[i], plain[i], tols[i]) for i in held)
-            check(r > 1, f"flash bwd {label}: the tolerance passes a kernel "
-                  f"with {what} (its largest error is {r:.3g} of it)")
+            check(r > fault_min, f"flash bwd {label}: the tolerance passes a "
+                  f"kernel with {what} by less than {fault_min:g} times "
+                  f"(its largest error is {r:.3g} of it)")
             faults[what] = r
         del wrong
         call = lambda: ops.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, do, **kw)
-        ms, dev_ms = time_ms(call), device_ms(call)
-        parts = bwd_parts(device_ms_by_kernel(call))
-        plan = fa.flash_bwd_card_plan(q, k, causal, window, cap)[0]
+        reps = timing_reps(dt, B * S * H)
+        ms, dev_ms = time_ms(call, reps=reps), device_ms(call, reps=reps)
+        parts = bwd_parts(device_ms_by_kernel(call, reps=reps))
+        plan = fa.flash_bwd_card_plan(q, k, v, causal, window, cap)[0]
         plan_text = (f"dK/dV {len(plan['kv']['items'])} items on "
                      f"{plan['kv']['blocks']} blocks, {plan['kv']['slots']} "
                      f"slots x {plan['kv']['stages']} stages, "
@@ -1462,7 +1602,7 @@ def run_flash_bwd_phase(dev, gen):
         lib_ms, lib = (None, "none: SDPA has no softcap") if cap else \
             sdpa_backward_ms(q, k, v, do, causal, window)
         flops, nbytes = flash_bwd_work(B, S, H, K, hd, q.element_size(),
-                                       causal, window)
+                                       causal, window, hdv)
         t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
@@ -1482,7 +1622,8 @@ def run_flash_bwd_phase(dev, gen):
                          tflops=flops / (k_ms * 1e-3) / 1e12,
                          bound_share=bound_ms / k_ms,
                          shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, "
-                         f"{dtype_name(dt)}, "
+                         + (f"hdv {hdv}, " if hdv != hd else "")
+                         + f"{dtype_name(dt)}, "
                          f"{'causal' if causal else 'not causal'}"
                          + (f", window {window}" if window else "")
                          + (f", cap {cap:g}" if cap else "")))
@@ -2271,7 +2412,8 @@ def train_flops(cfg, tokens, S, B):
     """Model FLOPs of a step: 6·N·tokens for the weight products (N the
     active non-embedding parameters plus the vocabulary projection, tied
     or not) and 12·hd per live causal (q, k) pair and head for attention
-    (4·hd forward, 8·hd backward), or for RWKV6 12·N² per token and head
+    (4·hd forward, 8·hd backward; under MLA 6·(qk + v), the expanded
+    heads' 192 and 128), or for RWKV6 12·N² per token and head
     for the recurrence (the state's read-out and update, 4·N² forward;
     dr, dk, dv and dS, 8·N² backward; N the head size).  An MoE layer
     counts the k experts a token runs, not the other E - k, nor the
@@ -2290,7 +2432,9 @@ def train_flops(cfg, tokens, S, B):
             * tokens
     else:
         pairs = S * (S + 1) // 2
-        mix = 12.0 * cfg.head_dim * pairs * cfg.num_heads * cfg.num_layers \
+        widths = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                  + cfg.v_head_dim) if cfg.use_mla else 2 * cfg.head_dim
+        mix = 6.0 * widths * pairs * cfg.num_heads * cfg.num_layers \
             * (tokens // S)
     return 6.0 * n * tokens + mix, n
 
@@ -2455,24 +2599,29 @@ def trace_train_step(step, state, batch):
 def optimizer_device_ms(state, run):
     """Device ms of one AdamW update over the state's parameter set, on
     copies (the state is left as it was).  Where the copies (params, m,
-    v and a gradient: 16 bytes a parameter) and the update's temporaries
-    do not fit beside the state,
+    v and a gradient: 16 bytes a parameter in fp32, 8 in bf16) and the
+    update's temporaries do not fit beside the state,
     the update is timed over the leading leaves that do and scaled by the
     parameter count (AdamW is elementwise: its time is linear in it).
     Returns (ms, the share of the parameters timed)."""
     import torch
-    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.optim.adamw import (
+        SLICE_ELEMENTS, AdamWConfig, adamw_update)
     gc.collect()
     torch.cuda.empty_cache()
     named = list(state["params"].named_parameters())
-    # the update's fp32 temporaries of one leaf (g, the moments, the step;
-    # 10 of them as a margin) and 2 GB more stay free
-    largest = max(p.numel() for _, p in named)
-    budget = (torch.cuda.mem_get_info()[0] - 40 * largest - 2e9) / 16
+    # the update's fp32 temporaries of one leaf, or of one slice of a
+    # leaf past SLICE_ELEMENTS (g, the moments, the step; 10 of them as a
+    # margin) and 2 GB more stay free; a leaf's copies are its weights, a
+    # gradient in its dtype and its two moments
+    largest = min(max(p.numel() for _, p in named), SLICE_ELEMENTS)
+    budget = torch.cuda.mem_get_info()[0] - 40 * largest - 2e9
     total = sum(p.numel() for _, p in named)
-    take, n = [], 0
+    take, n, nbytes = [], 0, 0
     for name, p in named:
-        if n + p.numel() > budget:
+        nbytes += p.numel() * (2 * p.element_size() + sum(
+            state["opt"][part][name].element_size() for part in ("m", "v")))
+        if nbytes > budget:
             break
         take.append(name)
         n += p.numel()
@@ -2596,9 +2745,11 @@ REPEAT_STEPS, REPEAT_DROP = 6, 1.0
 
 def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                     remat, lr=1e-3, warmup=3, falling_mean=True,
-                    remat_rows=None, layers=0, min_free_gb=None):
-    """Train ``arch`` at full width in bf16 (fp32 master weights and
-    moments) through ``repro_torch.launch.train``'s own loop: launch
+                    remat_rows=None, layers=0, min_free_gb=None,
+                    max_peak_gb=None):
+    """Train ``arch`` at full width in bf16 (the master weights and
+    moments in the dtypes of its registered ``train_4k`` run: fp32, bf16
+    for deepseek-v2) through ``repro_torch.launch.train``'s own loop: launch
     counts per step, finite losses, the loss of a held-out batch lower
     after training than at init and (``falling_mean``) the mean loss of
     the last 5 steps below that of the first 5, steps/s, tokens/s, MFU,
@@ -2610,10 +2761,11 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     taken on the batch's first ``remat_rows`` rows instead (in as many
     microbatches as the rows allow).  ``layers`` cuts the config's depth;
     with ``min_free_gb`` the run's peak memory must leave that much of the
-    card free.  The plain versions of the trained kernels are barred
+    card free, with ``max_peak_gb`` stay at or below it.  The plain
+    versions of the trained kernels are barred
     during the run (:class:`PlainVersionsBarred`)."""
     import torch
-    from repro_torch.configs import RunConfig
+    from repro_torch.configs import RunConfig, get_run_config
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
@@ -2624,6 +2776,7 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
         init_train_state, loss_fn, make_train_step)
 
     cfg = train_cli.config_of(arch, reduced=False, layers=layers)
+    registered = get_run_config(arch, "train_4k")
     ctx = Ctx(device=dev, dtype=torch.bfloat16)
     data = SyntheticLMData(cfg.vocab_size, seq, batch, seed)
     held = {k: v[:batch // microbatches] for k, v in
@@ -2638,7 +2791,9 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                   learning_rate=lr, num_microbatches=microbatches,
                   remat_policy=remat, reduced=False, log_every=5)
     run = RunConfig(num_microbatches=microbatches, remat_policy=remat,
-                    learning_rate=lr, warmup_steps=warmup, total_steps=steps)
+                    learning_rate=lr, warmup_steps=warmup, total_steps=steps,
+                    master_dtype=registered.master_dtype,
+                    opt_dtype=registered.opt_dtype)
     no_remat = with_remat = None
     if remat != "none":
         # the first step without remat, for the remat run to equal: the
@@ -2675,6 +2830,8 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     check(min_free_gb is None or card_gb - peak_gb >= min_free_gb,
           f"train {arch}: peak {peak_gb:.2f} GB leaves less than "
           f"{min_free_gb} GB of the card's {card_gb:.2f} GB free")
+    check(max_peak_gb is None or peak_gb <= max_peak_gb,
+          f"train {arch}: peak {peak_gb:.2f} GB above {max_peak_gb} GB")
     losses = [m["loss"] for m in r["metrics"]]
     check(all(map(math.isfinite, losses)),
           f"train {arch}: non-finite loss in {losses}")
@@ -2712,6 +2869,7 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     ce = [m["ce"] for m in r["metrics"]]
     out = dict(arch=arch, layers=cfg.num_layers, steps=steps, batch=batch,
                seq=seq, microbatches=microbatches, remat=remat, lr=lr,
+               master_dtype=run.master_dtype, opt_dtype=run.opt_dtype,
                warmup=warmup, losses=losses, first5=first, last5=last,
                held_out_before=held_before, held_out_after=held_after,
                first_step_without_remat=no_remat,
@@ -2726,7 +2884,8 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                trace=tr)
     print(f"  train {arch} ({cfg.num_layers} layers): {steps} steps of B "
           f"{batch} x S {seq} "
-          f"({microbatches} microbatches, remat {remat}); loss "
+          f"({microbatches} microbatches, remat {remat}, master "
+          f"{run.master_dtype}, moments {run.opt_dtype}); loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean {first:.4f}, "
           f"last 5 {last:.4f}; held-out batch {held_before:.4f} -> "
           f"{held_after:.4f}); CE {ce[0]:.4f} -> {ce[-1]:.4f}, aux "
@@ -2767,7 +2926,8 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
 
 def run_train_parity_phase(dev, seed):
     """fp32 on ``cuda`` (the kernels' fp32 paths) against ``cpu`` (the
-    plain versions), TF32 off, each config at full width cut to 2 layers,
+    plain versions), TF32 off, each config at full width cut to 2 layers
+    (deepseek-v2 also cut as PARITY_CUTS and PARITY_BATCH say),
     B 2, S 256, from the same init (built on each device: the draws are
     the host's, so they must be equal) and batches: the first batch's
     gradients per leaf, 3 steps' losses, then a checkpoint round trip
@@ -2793,12 +2953,15 @@ def run_train_parity_phase(dev, seed):
     torch.backends.cudnn.allow_tf32 = False
     cpu = torch.device("cpu")
     out = {}
-    for arch in ("paper-overhead-100m", "qwen3-0.6b", "granite-moe-1b-a400m",
-                 "rwkv6-7b"):
-        cfg = train_cli.config_of(arch, reduced=False, layers=2)
+    for arch in TRAIN_PARITY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(
+            train_cli.config_of(arch, reduced=False, layers=2),
+            **PARITY_CUTS.get(arch, {}))
         run = RunConfig(learning_rate=TRAIN_LR.get(arch, 1e-3),
                         warmup_steps=1, total_steps=4)
-        data = SyntheticLMData(cfg.vocab_size, 256, 2, seed)
+        B = PARITY_BATCH.get(arch, 2)
+        data = SyntheticLMData(cfg.vocab_size, 256, B, seed)
         res = []
         init = train_state_to_jax(
             init_train_state(cfg, seed=seed, run=run, device=cpu), cfg)
@@ -2836,10 +2999,12 @@ def run_train_parity_phase(dev, seed):
               f"{per_step} a step")
         flip = margin = None
         if cfg.is_moe:
-            check(len(r_c) == 2 * 4, f"train parity {arch}: {len(r_c)} "
-                  "routings recorded, expected 2 layers x 4 passes")
-            tok, m, margin = route_flip((r_c, torch.ones(512, dtype=bool)),
-                                        (r_p, None))
+            moe_layers = cfg.num_layers - cfg.first_k_dense
+            check(len(r_c) == moe_layers * 4, f"train parity {arch}: "
+                  f"{len(r_c)} routings recorded, expected {moe_layers} MoE "
+                  "layers x 4 passes")
+            tok, m, margin = route_flip(
+                (r_c, torch.ones(B * 256, dtype=bool)), (r_p, None))
             if tok is not None:
                 flip = (tok, m)
                 check(m <= PARITY_TIE_TOL, f"train parity {arch}: token "
@@ -2867,18 +3032,22 @@ def run_train_parity_phase(dev, seed):
               f"{a} differs from {b}")
         out[arch] = dict(losses_cuda=l_c, losses_cpu=l_p, loss_rel_err=rel,
                          grad_rel_err=worst, restored_next_loss=a,
-                         route_flip=flip, least_router_margin=margin)
+                         route_flip=flip, least_router_margin=margin,
+                         seconds=time.perf_counter() - t_arch)
         routing = "" if not cfg.is_moe else (
             f"; routing equal in {len(r_c)} MoE layer calls (least router "
             f"margin {margin:.3g})" if flip is None else
             f"; routing parted at token {flip[0]} (margin {flip[1]:.3g}, a "
             "tie): losses and gradients not compared")
-        print(f"  train parity {arch} (2 layers, fp32): losses cuda {l_c} "
+        cuts = "".join(f", {k} {v:,}" for k, v in PARITY_CUTS.get(
+            arch, {}).items()) + f", B {B}"
+        print(f"  train parity {arch} (2 layers{cuts}, fp32): losses cuda {l_c} "
               f"cpu {l_p}" + ("" if rel is None else
                               f" (max rel {rel:.3g}); gradients within "
                               f"{worst:.3g}·max|g| of their leaves")
               + f"{routing}; init equal on both devices; restored state's "
-              f"next loss {a} equal", flush=True)
+              f"next loss {a} equal; {out[arch]['seconds']:.1f} s",
+              flush=True)
         del res, s_c, restored, step_c
         gc.collect()
         torch.cuda.empty_cache()
@@ -3502,6 +3671,22 @@ def main() -> int:
     mark("train (t4)")
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"[train] deepseek-v2-236b full width cut to "
+          f"{DEEPSEEK_TRAIN_LAYERS} layers, its train_4k run at B 2 (S "
+          "4096, 1 microbatch, full remat, bf16 master and moments)",
+          flush=True)
+    # B 2 does not fit without remat: the remat check takes one row.  One
+    # microbatch, not the run's 16: a second would add an fp32 gradient
+    # sum of 21.4 GB (train/steps.py)
+    d_run = get_run_config("deepseek-v2-236b", "train_4k")
+    train["deepseek-v2-236b"] = run_train_phase(
+        dev, seed, "deepseek-v2-236b", steps=6, batch=2,
+        seq=SHAPES["train_4k"].seq_len, microbatches=1,
+        remat=d_run.remat_policy, falling_mean=False, remat_rows=1,
+        layers=DEEPSEEK_TRAIN_LAYERS, max_peak_gb=PEAK_MEM_LIMIT_GB)
+    mark("train (t5)")
+    gc.collect()
+    torch.cuda.empty_cache()
     print("[train-parity] fp32 cuda vs cpu, full width, 2 layers",
           flush=True)
     train["parity"] = run_train_parity_phase(dev, seed)
@@ -3537,6 +3722,19 @@ def main() -> int:
     granite_launches = train["granite-moe-1b-a400m"]["launches"]
     wb = next(r for r in wkv_bwd_rows if r["label"] == "rwkv6-7b train (t4)")
     rwkv_launches = train["rwkv6-7b"]["launches"]
+    ds_launches = train["deepseek-v2-236b"]["launches"]
+    keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library")
+    mf = next(r for r in flash_rows if r["label"] == MLA_T5)
+    mb = next(r for r in bwd_rows if r["label"] == MLA_T5)
+    mla_fwd = dict({k: mf[k] for k in keys},
+                   launches=ds_launches["flash_attention_bshd"],
+                   max_abs_err=max(r["max_abs_err"] for r in flash_rows
+                                   if "mla" in r["label"]))
+    mla_bwd = dict({k: mb[k] for k in keys},
+                   launches=ds_launches["flash_attention_bwd"],
+                   max_abs_err=max(r["max_abs_err"] for r in bwd_rows
+                                   if "mla" in r["label"]))
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -3576,6 +3774,7 @@ def main() -> int:
                  bound_ms=fl_g["bound_ms"], bound_by=fl_g["bound_by"],
                  library_ms=fl_g["library_ms"],
                  library="SDPA, is_causal, enable_gqa"),
+             mla=mla_fwd,
              platform=platform_launches(platform, "flash_attention_bshd")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3595,6 +3794,7 @@ def main() -> int:
                  "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms", "library")},
                  launches=granite_launches["flash_attention_bwd"]),
+             mla=mla_bwd,
              platform=platform_launches(platform, "flash_attention_bwd")),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",

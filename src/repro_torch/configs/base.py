@@ -231,14 +231,15 @@ def check_trainable(cfg: ModelConfig) -> None:
     does not have yet: it trains all-global GQA stacks without softcaps,
     with a dense FFN or an MoE FFN under capacity dispatch with the
     router's load-balancing loss (``paper-overhead-100m``, ``qwen3-0.6b``,
-    ``granite-moe-1b-a400m``), and the RWKV6 stack through the WKV6
-    backward (``rwkv6-7b``).  MLA (``deepseek-v2-236b``) is refused by
-    name, as are the RG-LRU and local-attention layers."""
+    ``granite-moe-1b-a400m``), the MLA stack with its dense first layer
+    and MoE layers with shared experts, attention through the flash
+    kernels at qk 192 / v 128 (``deepseek-v2-236b``), and the RWKV6 stack
+    through the WKV6 backward (``rwkv6-7b``).  The RG-LRU and
+    local-attention layers are refused by name, as are encoder-decoders,
+    frontends and softcaps."""
     check_ported(cfg)
     missing = []
     kinds = set(cfg.layer_kinds())
-    if cfg.use_mla:
-        missing.append("MLA")
     if RECURRENT in kinds:
         missing.append("the RG-LRU (the scan's backward)")
     if LOCAL_ATTN in kinds or cfg.window_size:

@@ -1,6 +1,8 @@
 """DeepSeek-V2 (236B, 21B active): MLA (kv_lora=512) + MoE 160 routed top-6
 with 2 shared experts; first layer dense. [arXiv:2405.04434]"""
-from repro_torch.configs.base import GLOBAL_ATTN, ModelConfig, register
+from repro_torch.configs.base import (
+    GLOBAL_ATTN, ModelConfig, RunConfig, register, register_run,
+)
 
 CONFIG = register(ModelConfig(
     name="deepseek-v2-236b",
@@ -26,3 +28,11 @@ CONFIG = register(ModelConfig(
     first_k_dense=1,
     rope_theta=10_000.0,
 ))
+
+# The reference's train_4k run: bf16 master weights and bf16 moments (fp32
+# master and moments would not fit its 256-chip mesh), 16 microbatches,
+# full remat.  Its sharding override (the residual stream's sequence axis
+# over "model") waits for the port of the mesh.
+register_run("deepseek-v2-236b", "train_4k",
+             RunConfig(num_microbatches=16, remat_policy="full",
+                       master_dtype="bfloat16", opt_dtype="bfloat16"))

@@ -31,6 +31,8 @@ def _flatten(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], path + (str(k),))
+    elif isinstance(tree, torch.Tensor):  # a bf16 leaf of a port checkpoint
+        yield path, tree
     else:
         yield path, np.asarray(tree)
 

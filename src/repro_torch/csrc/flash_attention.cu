@@ -15,7 +15,8 @@
 //
 // Two instantiations of that walk:
 //
-// * bf16 (the serving path; hd 64, 128, 256): a persistent,
+// * bf16 (the serving and training path; hd 64, 128, 256, and MLA's q and
+//   k 192 wide over v 128, a template of two widths): a persistent,
 //   warp-specialised kernel of three warpgroups, one block an SM.  A work
 //   item is a 128-row q tile of one (b, h); a block walks its items longest
 //   first (a static zig-zag over the grid).  Warpgroup 0 is the producer:
@@ -53,7 +54,8 @@
 // passes null: no store, the same work as before.
 //
 // Bound on the card: a causal prefill does 4 * hd FLOPs per live (q, k)
-// pair (two products); against 989 TFLOP/s (bf16 tensor cores, H100 SXM)
+// pair (two products; 2 (192 + 128) for MLA); against 989 TFLOP/s (bf16
+// tensor cores, H100 SXM)
 // that is the bound at the serving shapes, while q, k, v and o are read or
 // written once (bytes / 3.35 TB/s).  The exponentials are the next limit:
 // one MUFU op per pair at 16 a clock per SM, half the tensor-core time of
@@ -79,37 +81,39 @@ constexpr float NEG_INF = -2.0e38f;
 // fp32 path (CUDA cores)
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int DQK, int DV>
 constexpr int smem_floats() {
-  return BQ * (HD + 1) + BKV * (HD + 1) + BKV * HD + BQ * (BKV + 1);
+  return BQ * (DQK + 1) + BKV * (DQK + 1) + BKV * DV + BQ * (BKV + 1);
 }
 
-template <int HD>
+// q, k: DQK wide; v, o: DV wide (equal but for MLA's 192 / 128)
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int S, int H, int KH, float scale,
                int causal, int window, float cap) {
-  constexpr int DJ = HD / 16;               // output dims per thread
+  constexpr int DJ = DV / 16;               // output dims per thread
   extern __shared__ float smem[];
-  float* Qs = smem;                         // [BQ][HD + 1], scaled
-  float* Ks = Qs + BQ * (HD + 1);           // [BKV][HD + 1]
-  float* Vs = Ks + BKV * (HD + 1);          // [BKV][HD]
-  float* Ps = Vs + BKV * HD;                // [BQ][BKV + 1]
+  float* Qs = smem;                         // [BQ][DQK + 1], scaled
+  float* Ks = Qs + BQ * (DQK + 1);          // [BKV][DQK + 1]
+  float* Vs = Ks + BKV * (DQK + 1);         // [BKV][DV]
+  float* Ps = Vs + BKV * DV;                // [BQ][BKV + 1]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kh = h / (H / KH);
   const int q0 = blockIdx.y * BQ;
-  const size_t qstride = (size_t)H * HD, kstride = (size_t)KH * HD;
-  const float* qb = q + (size_t)b * S * qstride + (size_t)h * HD;
-  const float* kb = k + (size_t)b * S * kstride + (size_t)kh * HD;
-  const float* vb = v + (size_t)b * S * kstride + (size_t)kh * HD;
-  float* ob = o + (size_t)b * S * qstride + (size_t)h * HD;
+  const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
+  const size_t vstride = (size_t)KH * DV, ostride = (size_t)H * DV;
+  const float* qb = q + (size_t)b * S * qstride + (size_t)h * DQK;
+  const float* kb = k + (size_t)b * S * kstride + (size_t)kh * DQK;
+  const float* vb = v + (size_t)b * S * vstride + (size_t)kh * DV;
+  float* ob = o + (size_t)b * S * ostride + (size_t)h * DV;
 
-  for (int idx = tid; idx < BQ * HD; idx += NT) {
-    const int r = idx / HD, d = idx - r * HD, s = q0 + r;
-    Qs[r * (HD + 1) + d] =
+  for (int idx = tid; idx < BQ * DQK; idx += NT) {
+    const int r = idx / DQK, d = idx - r * DQK, s = q0 + r;
+    Qs[r * (DQK + 1) + d] =
         s < S ? qb[(size_t)s * qstride + d] * scale : 0.f;
   }
 
@@ -129,15 +133,13 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int t0 = kv_begin; t0 < kv_end; t0 += BKV) {
     __syncthreads();  // Q staged; the previous tile's K, V, P consumed
-    for (int idx = tid; idx < BKV * HD; idx += NT) {
-      const int r = idx / HD, d = idx - r * HD, t = t0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (t < S) {
-        kk = kb[(size_t)t * kstride + d];
-        vv = vb[(size_t)t * kstride + d];
-      }
-      Ks[r * (HD + 1) + d] = kk;
-      Vs[r * HD + d] = vv;
+    for (int idx = tid; idx < BKV * DQK; idx += NT) {
+      const int r = idx / DQK, d = idx - r * DQK, t = t0 + r;
+      Ks[r * (DQK + 1) + d] = t < S ? kb[(size_t)t * kstride + d] : 0.f;
+    }
+    for (int idx = tid; idx < BKV * DV; idx += NT) {
+      const int r = idx / DV, d = idx - r * DV, t = t0 + r;
+      Vs[r * DV + d] = t < S ? vb[(size_t)t * vstride + d] : 0.f;
     }
     __syncthreads();
 
@@ -147,12 +149,12 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (HD + 1) + d];
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (DQK + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (DQK + 1) + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -207,7 +209,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BKV + 1) + t];
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
-        const float vv = Vs[t * HD + tx + 16 * jj];
+        const float vv = Vs[t * DV + tx + 16 * jj];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
       }
@@ -223,7 +225,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
       lse[((size_t)b * H + h) * S + row] = m[i] + logf(denom);
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
-      ob[(size_t)row * qstride + tx + 16 * jj] = acc[i][jj] / denom;
+      ob[(size_t)row * ostride + tx + 16 * jj] = acc[i][jj] / denom;
   }
 }
 
@@ -238,21 +240,31 @@ constexpr int CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// keys per kv tile and ring depth: at hd 256 a thread's output accumulator
-// is 128 registers, so the score tile is 64 keys (32 more)
-template <int HD>
+// keys per kv tile and ring depth: at a v width of 256 a thread's output
+// accumulator is 128 registers, so the score tile is 64 keys (32 more).
+// q and k are DQK wide, v and o DV wide: equal, but for MLA's 192 / 128.
+template <int DQK, int DV>
 struct WgTile {
-  static constexpr int BKV = HD > 128 ? 64 : 128;
-  static constexpr int STAGES = HD > 64 ? 2 : 3;
-  static constexpr int Q_BYTES = WG_BQ * HD * 2;
-  static constexpr int KV_BYTES = BKV * HD * 2;          // one K or V tile
+  static constexpr int BKV = DV > 128 ? 64 : 128;
+  static constexpr int STAGES = DQK > 64 ? 2 : 3;
+  static constexpr int Q_BYTES = WG_BQ * DQK * 2;
+  static constexpr int K_BYTES = BKV * DQK * 2;          // one K tile
+  static constexpr int V_BYTES = BKV * DV * 2;           // one V tile
+  static constexpr int RING = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   // the epilogue stages O in boxes of 64 rows x 64 columns, up to 128
-  // columns a consumer at a time (224 KB in all at hd 256)
-  static constexpr int O_COLS = HD < 128 ? HD : 128;
+  // columns a consumer at a time (224 KB in all at hd 256), 64 where 128
+  // would not fit (MLA: Q 48 KB and two stages of K and V, 160 KB, leave
+  // 16 KB of the 227 for O)
+  static constexpr int O_WIDE = DV < 128 ? DV : 128;
+  static constexpr int O_COLS =
+      RING + 2 * 64 * O_WIDE * 2 + 8 * (2 + 4 * STAGES) + 1024 <= 232448
+          ? O_WIDE
+          : 64;
   static constexpr int O_BYTES = 2 * 64 * O_COLS * 2;
-  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES + O_BYTES;
+  static constexpr int BAR_OFF = RING + O_BYTES;
   // q_full, q_empty, then k_full, k_empty, v_full, v_empty per stage
   static constexpr int SMEM = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;
+  static_assert(SMEM <= 232448, "flash forward: shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -487,7 +499,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[T],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// S = Q K^T for one consumer's 64 rows and a kv tile: HD / 16 k-steps.
+// S = Q K^T for one consumer's 64 rows and a kv tile: HD / 16 k-steps
+// (HD the qk width: 12 at MLA's 192).
 // Within a 128-byte swizzle atom a k-step advances the start address by
 // 32 bytes; every 4 k-steps move to the next 64-column block.
 template <int HD, int BKV>
@@ -508,7 +521,8 @@ __device__ __forceinline__ void qk_product(float (&s)[BKV / 2], uint32_t qa,
 
 // O += P V: P (bf16) from registers, V MN-major from shared memory; a
 // k-step is 16 keys (2,048 bytes of a column block), and n spans HD columns
-// (column blocks BKV * 128 bytes apart), at most 128 an instruction.
+// (HD the v width; column blocks BKV * 128 bytes apart), at most 128 an
+// instruction.
 template <int HD, int BKV>
 __device__ __forceinline__ void pv_product(float (&o)[HD / 2],
                                            const uint32_t (&p)[BKV / 16][4],
@@ -664,7 +678,7 @@ __device__ __forceinline__ int work_index(int r) {
 // arrivals from both each round; the ring's stage and phase run on across
 // items, and the next item's Q and first tiles load while the consumers
 // finish the last one.
-template <int HD, bool CAP>
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
@@ -672,14 +686,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap omap,
                 float* __restrict__ lse, int B, int S, int H, int KH,
                 float sc, float cl, int causal, int window) {
-  using T = WgTile<HD>;
+  using T = WgTile<DQK, DV>;
   constexpr int BKV = T::BKV, ST = T::STAGES, NS = BKV / 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base;
   const uint32_t k_s = base + T::Q_BYTES;
-  const uint32_t v_s = k_s + ST * T::KV_BYTES;
-  const uint32_t o_s = v_s + ST * T::KV_BYTES;
+  const uint32_t v_s = k_s + ST * T::K_BYTES;
+  const uint32_t o_s = v_s + ST * T::V_BYTES;
   const uint32_t bars = base + T::BAR_OFF;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto k_full = [&](int s) { return bars + 8 * (2 + s); };
@@ -715,7 +729,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(q_empty, (r & 1) ^ 1);   // item 0 passes at once
         mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
+        for (int c = 0; c < DQK / 64; ++c)
           tma_load(q_s + c * WG_BQ * 128, &qmap, q_full, 64 * c, u.h, u.q0,
                    u.b);
         for (int i = 0; i <= u.n_tiles; ++i) {
@@ -726,10 +740,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
             const int n = it + j, s = n % ST;
             const uint32_t full = kv ? v_full(s) : k_full(s);
             mbar_wait(kv ? v_empty(s) : k_empty(s), ((n / ST) & 1) ^ 1);
-            mbar_expect_tx(full, T::KV_BYTES);
-            const uint32_t dst = (kv ? v_s : k_s) + s * T::KV_BYTES;
-#pragma unroll
-            for (int c = 0; c < HD / 64; ++c)
+            mbar_expect_tx(full, kv ? T::V_BYTES : T::K_BYTES);
+            const uint32_t dst =
+                kv ? v_s + s * T::V_BYTES : k_s + s * T::K_BYTES;
+            const int n_boxes = (kv ? DV : DQK) / 64;
+            for (int c = 0; c < n_boxes; ++c)
               tma_load(dst + c * BKV * 128, kv ? &vmap : &kmap, full, 64 * c,
                        kh, (u.t_lo + j) * BKV, u.b);
           }
@@ -761,7 +776,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) mbar_arrive(bar);
     };
 
-    float o_acc[HD / 2], s[NS];
+    float o_acc[DV / 2], s[NS];
     uint32_t p[BKV / 16][4];
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = 0.f;
@@ -780,7 +795,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                (window && q0c + 63 - t0 >= window);
       };
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, rs[2], corr[2];
 
       mbar_wait(q_full, r & 1);
@@ -790,7 +805,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(k_full(sk), (it / ST) & 1);
         turn_wait();
         wgmma_fence();
-        qk_product<HD, BKV>(s, qa, k_s + sk * T::KV_BYTES);
+        qk_product<DQK, BKV>(s, qa, k_s + sk * T::K_BYTES);
         wgmma_commit();
         turn_pass(false);
         wgmma_wait<0>();
@@ -812,9 +827,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(v_full(sv), ((nk - 1) / ST) & 1);
         turn_wait();
         wgmma_fence();
-        qk_product<HD, BKV>(s, qa, k_s + sk * T::KV_BYTES);
+        qk_product<DQK, BKV>(s, qa, k_s + sk * T::K_BYTES);
         wgmma_commit();
-        pv_product<HD, BKV>(o_acc, p, v_s + sv * T::KV_BYTES);
+        pv_product<DV, BKV>(o_acc, p, v_s + sv * T::V_BYTES);
         wgmma_commit();
         turn_pass(false);
         wgmma_wait<1>();
@@ -828,7 +843,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         reg_fence(p);
         release(v_empty(sv));
 #pragma unroll
-        for (int j = 0; j < HD / 2; ++j) o_acc[j] *= corr[(j >> 1) & 1];
+        for (int j = 0; j < DV / 2; ++j) o_acc[j] *= corr[(j >> 1) & 1];
         l[0] = l[0] * corr[0] + rs[0];
         l[1] = l[1] * corr[1] + rs[1];
         pack_p<NS>(p, s);
@@ -838,7 +853,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(v_full(sv), (nv / ST) & 1);
         turn_wait();
         wgmma_fence();
-        pv_product<HD, BKV>(o_acc, p, v_s + sv * T::KV_BYTES);
+        pv_product<DV, BKV>(o_acc, p, v_s + sv * T::V_BYTES);
         wgmma_commit();
         turn_pass(last_item);
         wgmma_wait<0>();
@@ -867,7 +882,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       const uint32_t os = o_s + cw * 64 * T::O_COLS * 2;
       const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-      for (int ch = 0; ch < HD / T::O_COLS; ++ch) {
+      for (int ch = 0; ch < DV / T::O_COLS; ++ch) {
         if (t == 0)
           asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
@@ -946,37 +961,41 @@ bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int H, int KH, float scale,
                 int causal, int window, float cap, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * (int)sizeof(float);
+  const int smem = smem_floats<DQK, DV>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_simt<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_simt<HD><<<grid, NT, smem, stream>>>(
+  flash_fwd_simt<DQK, DV><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KH,
       scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int S, int H, int KH, float scale,
                  int causal, int window, float cap, cudaStream_t stream) {
-  using T = WgTile<HD>;
+  using T = WgTile<DQK, DV>;
+  // MLA's pair is compiled without the softcap (no config has both)
+  if (DQK != DV && cap != 0.f) return -1;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
-  if (!tensor_map(enc, &qm, q, B, S, H, HD, WG_BQ) ||
-      !tensor_map(enc, &km, k, B, S, KH, HD, T::BKV) ||
-      !tensor_map(enc, &vm, v, B, S, KH, HD, T::BKV) ||
-      !tensor_map(enc, &om, o, B, S, H, HD, 64))
+  if (!tensor_map(enc, &qm, q, B, S, H, DQK, WG_BQ) ||
+      !tensor_map(enc, &km, k, B, S, KH, DQK, T::BKV) ||
+      !tensor_map(enc, &vm, v, B, S, KH, DV, T::BKV) ||
+      !tensor_map(enc, &om, o, B, S, H, DV, 64))
     return (int)cudaErrorInvalidValue;     // e.g. a base not 16-byte aligned
-  auto kernel = cap != 0.f ? flash_fwd_wgmma<HD, true>
-                           : flash_fwd_wgmma<HD, false>;
+  auto kernel = flash_fwd_wgmma<DQK, DV, false>;
+  if constexpr (DQK == DV)
+    if (cap != 0.f) kernel = flash_fwd_wgmma<DQK, DV, true>;
   // log2 units: 2^(x log2 e) = e^x
   const float sc = cap != 0.f ? scale / cap : scale * LOG2E;
   const float cl = cap * LOG2E;
@@ -1009,37 +1028,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o: (B, S, H, hd); k, v: (B, S, KH,
-// hd); all contiguous.  lse: null, or (B, H, S) fp32 that receives each
-// row's log-sum-exp in natural units, log sum_k exp(s_qk) over the live
-// keys (the training forward; serving passes null and does the same work as
+// dtype: 0 = float32, 1 = bfloat16.  q: (B, S, H, hd); k: (B, S, KH, hd);
+// v: (B, S, KH, hdv); o: (B, S, H, hdv); all contiguous.  (hd, hdv) is
+// (64, 64), (128, 128), (256, 256) or MLA's (192, 128), which takes no
+// softcap.  lse: null, or (B, H, S) fp32 that receives each row's
+// log-sum-exp in natural units, log sum_k exp(s_qk) over the live keys
+// (the training forward; serving passes null and does the same work as
 // without it).  Returns 0 when the kernel was launched, a CUDA error code
 // when the launch was refused, -1 for an unsupported shape or type.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    int dtype, int B, int S, int H, int KH,
-                                   int hd, float scale, int causal,
+                                   int hd, int hdv, float scale, int causal,
                                    int window, float cap, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && hd == 64)
-    return launch_simt<64>(q, k, v, o, l, B, S, H, KH, scale, causal, window,
-                           cap, st);
-  if (dtype == 0 && hd == 128)
-    return launch_simt<128>(q, k, v, o, l, B, S, H, KH, scale, causal,
-                            window, cap, st);
-  if (dtype == 0 && hd == 256)
-    return launch_simt<256>(q, k, v, o, l, B, S, H, KH, scale, causal,
-                            window, cap, st);
-  if (dtype == 1 && hd == 64)
-    return launch_wgmma<64>(q, k, v, o, l, B, S, H, KH, scale, causal,
-                            window, cap, st);
-  if (dtype == 1 && hd == 128)
-    return launch_wgmma<128>(q, k, v, o, l, B, S, H, KH, scale, causal,
-                             window, cap, st);
-  if (dtype == 1 && hd == 256)
-    return launch_wgmma<256>(q, k, v, o, l, B, S, H, KH, scale, causal,
-                             window, cap, st);
+#define FLASH_FWD_CASE(DQK, DV)                                             \
+  if (hd == DQK && hdv == DV)                                               \
+    return dtype == 0 ? launch_simt<DQK, DV>(q, k, v, o, l, B, S, H, KH,    \
+                                             scale, causal, window, cap, st) \
+         : dtype == 1 ? launch_wgmma<DQK, DV>(q, k, v, o, l, B, S, H, KH,   \
+                                              scale, causal, window, cap,   \
+                                              st)                           \
+                      : -1;
+  FLASH_FWD_CASE(64, 64)
+  FLASH_FWD_CASE(128, 128)
+  FLASH_FWD_CASE(256, 256)
+  FLASH_FWD_CASE(192, 128)
+#undef FLASH_FWD_CASE
   return -1;
 }

@@ -30,7 +30,15 @@
 // the loads run ahead of the products through a ring, and only the masked
 // tiles pay for a mask.
 //
-// bf16 route (hd 64 and 128): two launches, persistent and
+// MLA trains through the same kernels with q and k 192 wide (128 nope +
+// 64 rope) and v 128 (DQK, DV): S and dP contract over 192 and 128, dV
+// and dK are 128 and 192 wide, and the streamed tiles narrow to fit the
+// wider accumulators (BwdTile).  Its bound is 2 (3 DQK + 2 DV) = 1,664
+// FLOPs a live pair and head (S, dK and dQ over 192; dP and dV over 128),
+// 2.6 times the forward's 2 (DQK + DV): at B 2, S 4,096, H 128, causal,
+// 3.57 TFLOP, 3.6 ms at 989 TFLOP/s.
+//
+// bf16 route (hd 64 and 128, and MLA's pair): two launches, persistent and
 // warp-specialised like the forward: one block an SM, a producer
 // warpgroup at 24 registers whose one thread issues every load by TMA
 // (4-D maps, 64-row boxes, 128-byte swizzle) into mbarrier-guarded slots
@@ -137,10 +145,21 @@ constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
 // tile is 128 wide where that fits in 240 registers without spilling
 // (-Xptxas -v), else 64: the softcapped hd-64 dK/dV consumer spilled at
 // 128 rows, the softcapped hd-128 dQ consumer at 128 keys.
-template <int HD, bool CAP>
+//
+// MLA (q and k 192 wide, v 128; no softcap) holds more: a dK/dV consumer's
+// dK and dV are 64 x 192 + 64 x 128 fp32 over 128 threads, 160 registers
+// a thread, so its streamed tile is 32 q rows (S^T and dP^T 16 each, their
+// bf16 fragments 8 each: 200 in all); at 64 rows (32 + 32 + 16 + 16) it
+// would need 256.  A dQ consumer's dQ is 64 x 192, 96 a thread, and its
+// tile is 64 keys (S and dP 32 each, dS's fragments 16: 176); at 128 keys
+// it would need 256.  The Q and dO boxes of a 32-row stage are 32 rows
+// (QBOX).
+template <int DQK, int DV, bool CAP>
 struct BwdTile {
-  static constexpr int BR = HD == 64 && !CAP ? 128 : 64;
-  static constexpr int BN = HD == 128 && CAP ? 64 : 128;
+  static constexpr int BR =
+      DQK != DV ? 32 : (DQK == 64 && !CAP ? 128 : 64);
+  static constexpr int BN = DQK != DV ? 64 : (DQK == 128 && CAP ? 64 : 128);
+  static constexpr int QBOX = BR < 64 ? BR : 64;
 };
 constexpr int WG_THREADS = 384;
 // setmaxnreg: (24 + 2 x 240) x 128 = 64,512 of the SM's 65,536 registers
@@ -302,6 +321,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// d[0 .. 16) (+)= A (64 x 16, shared, K-major) . B (16 x 32, shared,
+// K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[0 .. 32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared,
 // K-major); scale_d 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -353,9 +389,10 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[0 .. 32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major: the
-// transpose-B bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+// d[OFF .. OFF + 32) += A (64 x 16, registers) . B (16 x 64, shared,
+// MN-major: the transpose-B bit).
+template <int OFF, int T>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[T],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
   asm volatile(
@@ -365,19 +402,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]),
+        "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]),
+        "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]), "+f"(d[OFF + 24]),
+        "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d[0 .. 64) += A (64 x 16, registers) . B (16 x 128, shared, MN-major: the
-// transpose-B bit).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// d[OFF .. OFF + 64) += A (64 x 16, registers) . B (16 x 128, shared,
+// MN-major: the transpose-B bit).
+template <int OFF, int T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[T],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(
@@ -390,19 +428,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
       "%60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]),
+        "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]),
+        "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]), "+f"(d[OFF + 24]),
+        "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]),
+        "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]), "+f"(d[OFF + 48]), "+f"(d[OFF + 49]),
+        "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]),
+        "+f"(d[OFF + 55]), "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -419,7 +457,9 @@ __device__ __forceinline__ void ss_tile(float (&d)[N / 2], uint32_t a,
     const uint64_t da =
         sw128_desc(a + (ks >> 2) * a_rows * 128 + (ks & 3) * 32, 16);
     const uint64_t db = sw128_desc(b + (ks >> 2) * N * 128 + (ks & 3) * 32, 16);
-    if constexpr (N == 64)
+    if constexpr (N == 32)
+      wgmma_ss_n32(d, da, db, ks > 0);
+    else if constexpr (N == 64)
       wgmma_ss_n64(d, da, db, ks > 0);
     else
       wgmma_ss_n128(d, da, db, ks > 0);
@@ -428,7 +468,10 @@ __device__ __forceinline__ void ss_tile(float (&d)[N / 2], uint32_t a,
 
 // acc (64 x HD) += A (64 x K, bf16 fragments in registers) . B (K x HD at
 // ``b``, MN-major: K rows of the product's k, column blocks K * 128 bytes
-// apart); a k-step is 16 rows, 2,048 bytes of a column block.
+// apart); a k-step is 16 rows, 2,048 bytes of a column block.  HD 192 is
+// an n128 product over column blocks 0 and 1 and an n64 over block 2,
+// whose accumulators follow on (element 64 + i of the n64 is column 128 +
+// the column of its element i).
 template <int HD, int K>
 __device__ __forceinline__ void rs_tile(float (&acc)[HD / 2],
                                         const uint32_t (&a)[K / 16][4],
@@ -436,10 +479,15 @@ __device__ __forceinline__ void rs_tile(float (&acc)[HD / 2],
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
     const uint64_t db = sw128_desc(b + kk * 16 * 128, K * 128);
-    if constexpr (HD == 64)
-      wgmma_rs_n64(acc, a[kk], db);
-    else
-      wgmma_rs_n128(acc, a[kk], db);
+    if constexpr (HD == 64) {
+      wgmma_rs_n64<0>(acc, a[kk], db);
+    } else {
+      wgmma_rs_n128<0>(acc, a[kk], db);
+      if constexpr (HD == 192)
+        wgmma_rs_n64<64>(acc, a[kk],
+                         sw128_desc(b + 2 * K * 128 + kk * 16 * 128,
+                                    K * 128));
+    }
   }
 }
 
@@ -646,7 +694,7 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 // warpgroups 1 and 2 the consumers, each owning 64 of an item's 128 keys.
 // Both consumers walk the same ring stages; a stage goes back to the
 // producer after the 8 consumer warps have read it.
-template <int HD, bool CAP>
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap dmap,
@@ -658,9 +706,12 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                      const int* __restrict__ work, const BwdPlan p, int S,
                      int H, int KH, float sc, float cl, float scale,
                      int causal, int window) {
-  constexpr int BR = BwdTile<HD, CAP>::BR, NS = BR / 2;
-  constexpr int KV_BYTES = BC * HD * 2;        // an item's K (or V)
-  constexpr int QT_BYTES = BR * HD * 2;        // a stage's Q (or dO)
+  using Tile = BwdTile<DQK, DV, CAP>;
+  constexpr int BR = Tile::BR, NS = BR / 2, QBOX = Tile::QBOX;
+  constexpr int K_BYTES = BC * DQK * 2;        // an item's K
+  constexpr int KV_BYTES = K_BYTES + BC * DV * 2;   // ... and its V
+  constexpr int QT_BYTES = BR * DQK * 2;       // a stage's Q
+  constexpr int ST_BYTES = QT_BYTES + BR * DV * 2;  // ... and its dO
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t kv_s = base + p.kv_off_kv, ring = base + p.kv_off_ring;
@@ -699,35 +750,40 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
         const int slot = n % KVS;
         mbar_wait(kv_empty(slot), ((n / KVS) & 1) ^ 1);
-        mbar_expect_tx(kv_full(slot), 2 * KV_BYTES);
-        const uint32_t ks = kv_s + slot * 2 * KV_BYTES;
+        mbar_expect_tx(kv_full(slot), KV_BYTES);
+        const uint32_t ks = kv_s + slot * KV_BYTES;
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
+        for (int half = 0; half < 2; ++half) {
+          const int row = u.y * BC + 64 * half;
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const uint32_t o = c * BC * 128 + half * 64 * 128;
-            const int row = u.y * BC + 64 * half;
-            tma_load(ks + o, &kmap, kv_full(slot), 64 * c, kh, row, b);
-            tma_load(ks + KV_BYTES + o, &vmap, kv_full(slot), 64 * c, kh,
-                     row, b);
-          }
+          for (int c = 0; c < DQK / 64; ++c)
+            tma_load(ks + c * BC * 128 + half * 64 * 128, &kmap,
+                     kv_full(slot), 64 * c, kh, row, b);
+#pragma unroll
+          for (int c = 0; c < DV / 64; ++c)
+            tma_load(ks + K_BYTES + c * BC * 128 + half * 64 * 128, &vmap,
+                     kv_full(slot), 64 * c, kh, row, b);
+        }
         for (int gi = 0; gi < G; ++gi) {
           const int h = kh * G + gi;
           const float2* st_h = stats + (size_t)(b * H + h) * p.s_pad;
           for (int qt = u.z; qt < u.w; ++qt, ++it) {
             const int s = it % NST;
             mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
-            mbar_expect_tx(full(s), 2 * QT_BYTES + BR * 8);
-            const uint32_t qs = ring + s * 2 * QT_BYTES;
+            mbar_expect_tx(full(s), ST_BYTES + BR * 8);
+            const uint32_t qs = ring + s * ST_BYTES;
 #pragma unroll
-            for (int c = 0; c < HD / 64; ++c)
+            for (int part = 0; part < BR / QBOX; ++part) {
+              const int row = qt * BR + QBOX * part;
 #pragma unroll
-              for (int part = 0; part < BR / 64; ++part) {
-                const uint32_t o = c * BR * 128 + part * 64 * 128;
-                const int row = qt * BR + 64 * part;
-                tma_load(qs + o, &qmap, full(s), 64 * c, h, row, b);
-                tma_load(qs + QT_BYTES + o, &dmap, full(s), 64 * c, h, row, b);
-              }
+              for (int c = 0; c < DQK / 64; ++c)
+                tma_load(qs + c * BR * 128 + part * QBOX * 128, &qmap,
+                         full(s), 64 * c, h, row, b);
+#pragma unroll
+              for (int c = 0; c < DV / 64; ++c)
+                tma_load(qs + QT_BYTES + c * BR * 128 + part * QBOX * 128,
+                         &dmap, full(s), 64 * c, h, row, b);
+            }
             bulk_load(st_s + s * BR * 8, st_h + qt * BR, BR * 8, full(s));
           }
         }
@@ -745,8 +801,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
       const int slot = n % KVS;
       const int kc = u.y * BC + 64 * cw;       // this consumer's first key
-      const uint32_t ka = kv_s + slot * 2 * KV_BYTES + 64 * cw * 128;
-      const uint32_t va = ka + KV_BYTES;
+      const uint32_t ka = kv_s + slot * KV_BYTES + 64 * cw * 128;
+      const uint32_t va = ka + K_BYTES;
       // the q rows [lo, hi) each of this thread's two keys sees
       int lo[2], hi[2];
 #pragma unroll
@@ -755,14 +811,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         lo[rr] = causal ? key : 0;
         hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
       }
-      float dk[HD / 2], dv[HD / 2];
+      float dk[DQK / 2], dv[DV / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < DQK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
       mbar_wait(kv_full(slot), (n / KVS) & 1);
       for (int gi = 0; gi < G; ++gi) {
         for (int qt = u.z; qt < u.w; ++qt, ++it) {
           const int s = it % NST, q0 = qt * BR;
-          const uint32_t qs = ring + s * 2 * QT_BYTES, os = qs + QT_BYTES;
+          const uint32_t qs = ring + s * ST_BYTES, os = qs + QT_BYTES;
           const uint32_t st = st_s + s * BR * 8 + (2 * tq) * 8;
           // a mask iff some pair of the tile is dead: keys or rows past S,
           // a row before the key (causal), a row past the window
@@ -773,9 +831,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
           float sv[NS], dp[NS];
           mbar_wait(full(s), (it / NST) & 1);
           wgmma_fence();
-          ss_tile<HD, BR>(sv, ka, BC, qs);     // S^T = K Q^T
+          ss_tile<DQK, BR>(sv, ka, BC, qs);    // S^T = K Q^T
           wgmma_commit();
-          ss_tile<HD, BR>(dp, va, BC, os);     // dP^T = V dO^T
+          ss_tile<DV, BR>(dp, va, BC, os);     // dP^T = V dO^T
           wgmma_commit();
           if constexpr (CAP) {
             wgmma_wait<1>();                   // S^T; dP^T in flight
@@ -803,8 +861,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
           pack_a<NS>(pa, sv);
           pack_a<NS>(da, dp);
           wgmma_fence();
-          rs_tile<HD, BR>(dv, pa, os);         // dV += P^T dO
-          rs_tile<HD, BR>(dk, da, qs);         // dK += dS^T Q
+          rs_tile<DV, BR>(dv, pa, os);         // dV += P^T dO
+          rs_tile<DQK, BR>(dk, da, qs);        // dK += dS^T Q
           wgmma_commit();
           wgmma_wait<0>();
           reg_fence(dv);
@@ -819,16 +877,17 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       // the keys past S; the slot goes back to the producer once the
       // stores have read it
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-      stage_out<HD>(ka, BC, dk, scale, warp, lane);
-      stage_out<HD>(va, BC, dv, 1.f, warp, lane);
+      stage_out<DQK>(ka, BC, dk, scale, warp, lane);
+      stage_out<DV>(va, BC, dv, 1.f, warp, lane);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
       if (t == 0) {
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c) {
+        for (int c = 0; c < DQK / 64; ++c)
           tma_store(&dkmap, ka + c * BC * 128, 64 * c, kh, kc, b);
+#pragma unroll
+        for (int c = 0; c < DV / 64; ++c)
           tma_store(&dvmap, va + c * BC * 128, 64 * c, kh, kc, b);
-        }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         mbar_arrive(kv_empty(slot));
@@ -844,7 +903,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
 // computes D = rowsum(dO o) of its rows from the item's dO and O tiles and
 // writes (lse log2 e, D) of every row of the item, zeros past S, to
 // ``stats`` (B, H, s_pad) for the dK/dV kernel, launched after this one.
-template <int HD, bool CAP>
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap dmap,
@@ -857,9 +916,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const int* __restrict__ work, const BwdPlan p, int S,
                    int H, int KH, float sc, float cl, float scale, int causal,
                    int window) {
-  constexpr int BN = BwdTile<HD, CAP>::BN, NS = BN / 2;
-  constexpr int Q_BYTES = BM * HD * 2;         // an item's Q (or dO, or O)
-  constexpr int KT_BYTES = BN * HD * 2;        // a stage's K (or V)
+  constexpr int BN = BwdTile<DQK, DV, CAP>::BN, NS = BN / 2;
+  constexpr int Q_BYTES = BM * DQK * 2;        // an item's Q
+  constexpr int D_BYTES = BM * DV * 2;         // ... its dO (or O)
+  constexpr int SLOT_BYTES = Q_BYTES + 2 * D_BYTES;
+  constexpr int KT_BYTES = BN * DQK * 2;       // a stage's K
+  constexpr int ST_BYTES = KT_BYTES + BN * DV * 2;  // ... and its V
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base + p.dq_off_q, ring = base + p.dq_off_ring;
@@ -897,34 +959,40 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         const int b = u.x / H, h = u.x % H, kh = h / G, n = r - r_begin;
         const int slot = n % QS;
         mbar_wait(q_empty(slot), ((n / QS) & 1) ^ 1);
-        mbar_expect_tx(q_full(slot), 3 * Q_BYTES);
-        const uint32_t qsl = q_s + slot * 3 * Q_BYTES;
+        mbar_expect_tx(q_full(slot), SLOT_BYTES);
+        const uint32_t qsl = q_s + slot * SLOT_BYTES;
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
+        for (int half = 0; half < 2; ++half) {
+          const int row = u.y * BM + 64 * half;
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const uint32_t o = c * BM * 128 + half * 64 * 128;
-            const int row = u.y * BM + 64 * half;
-            tma_load(qsl + o, &qmap, q_full(slot), 64 * c, h, row, b);
-            tma_load(qsl + Q_BYTES + o, &dmap, q_full(slot), 64 * c, h, row,
+          for (int c = 0; c < DQK / 64; ++c)
+            tma_load(qsl + c * BM * 128 + half * 64 * 128, &qmap,
+                     q_full(slot), 64 * c, h, row, b);
+#pragma unroll
+          for (int c = 0; c < DV / 64; ++c) {
+            const uint32_t o = Q_BYTES + c * BM * 128 + half * 64 * 128;
+            tma_load(qsl + o, &dmap, q_full(slot), 64 * c, h, row, b);
+            tma_load(qsl + D_BYTES + o, &omap, q_full(slot), 64 * c, h, row,
                      b);
-            tma_load(qsl + 2 * Q_BYTES + o, &omap, q_full(slot), 64 * c, h,
-                     row, b);
           }
+        }
         for (int j = u.z; j < u.w; ++j, ++it) {
           const int s = it % NST;
           mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
-          mbar_expect_tx(full(s), 2 * KT_BYTES);
-          const uint32_t ks = ring + s * 2 * KT_BYTES;
+          mbar_expect_tx(full(s), ST_BYTES);
+          const uint32_t ks = ring + s * ST_BYTES;
 #pragma unroll
-          for (int c = 0; c < HD / 64; ++c)
+          for (int part = 0; part < BN / 64; ++part) {
+            const int row = j * BN + 64 * part;
 #pragma unroll
-            for (int part = 0; part < BN / 64; ++part) {
-              const uint32_t o = c * BN * 128 + part * 64 * 128;
-              const int row = j * BN + 64 * part;
-              tma_load(ks + o, &kmap, full(s), 64 * c, kh, row, b);
-              tma_load(ks + KT_BYTES + o, &vmap, full(s), 64 * c, kh, row, b);
-            }
+            for (int c = 0; c < DQK / 64; ++c)
+              tma_load(ks + c * BN * 128 + part * 64 * 128, &kmap, full(s),
+                       64 * c, kh, row, b);
+#pragma unroll
+            for (int c = 0; c < DV / 64; ++c)
+              tma_load(ks + KT_BYTES + c * BN * 128 + part * 64 * 128, &vmap,
+                       full(s), 64 * c, kh, row, b);
+          }
         }
       }
     }
@@ -940,8 +1008,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       const int b = u.x / H, h = u.x % H, n = r - r_begin;
       const int slot = n % QS;
       const int r0 = u.y * BM + 64 * cw;       // this consumer's first row
-      const uint32_t qa = q_s + slot * 3 * Q_BYTES + 64 * cw * 128;
-      const uint32_t oa = qa + Q_BYTES;
+      const uint32_t qa = q_s + slot * SLOT_BYTES + 64 * cw * 128;
+      const uint32_t oa = qa + Q_BYTES;        // dO; O follows at D_BYTES
       const size_t bh = (size_t)b * H + h;
       // this thread's two rows: lse log2 e and the keys [lo, hi) each sees
       float l2[2], dd[2];
@@ -953,22 +1021,22 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         lo[rr] = window ? row - window + 1 : 0;
         hi[rr] = row >= S ? -(1 << 30) : (causal ? row + 1 : S);
       }
-      float dq[HD / 2];
+      float dq[DQK / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+      for (int i = 0; i < DQK / 2; ++i) dq[i] = 0.f;
       mbar_wait(q_full(slot), (n / QS) & 1);
       {
-        // D of row rl (two threads a row, half of hd each, from the
+        // D of row rl (two threads a row, half of DV each, from the
         // swizzled dO and O tiles; rows past S are zeros there); warp w
         // holds rows 16 w .. 16 w + 15, so this thread's rows 16 w + g and
         // + 8 come from lanes 2 g and 2 g + 16
         const int rl = t >> 1, half = t & 1, row = r0 + rl;
         float d = 0.f;
 #pragma unroll
-        for (int j = half * (HD / 16); j < (half + 1) * (HD / 16); ++j) {
+        for (int j = half * (DV / 16); j < (half + 1) * (DV / 16); ++j) {
           const uint32_t off = (j >> 3) * BM * 128 + rl * 128 +
                                (((j & 7) ^ (rl & 7)) << 4);
-          d = dot8(lds128(oa + off), lds128(oa + Q_BYTES + off), d);
+          d = dot8(lds128(oa + off), lds128(oa + D_BYTES + off), d);
         }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         if (half == 0)
@@ -979,7 +1047,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       }
       for (int j = u.z; j < u.w; ++j, ++it) {
         const int s = it % NST, t0 = j * BN;
-        const uint32_t ks = ring + s * 2 * KT_BYTES, vs = ks + KT_BYTES;
+        const uint32_t ks = ring + s * ST_BYTES, vs = ks + KT_BYTES;
         const bool mask = t0 + BN > S || r0 + 64 > S ||
                           (causal && t0 + BN - 1 > r0) ||
                           (window && r0 + 63 - t0 >= window);
@@ -987,9 +1055,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         float sv[NS], dp[NS];
         mbar_wait(full(s), (it / NST) & 1);
         wgmma_fence();
-        ss_tile<HD, BN>(sv, qa, BM, ks);       // S = Q K^T
+        ss_tile<DQK, BN>(sv, qa, BM, ks);      // S = Q K^T
         wgmma_commit();
-        ss_tile<HD, BN>(dp, oa, BM, vs);       // dP = dO V^T
+        ss_tile<DV, BN>(dp, oa, BM, vs);       // dP = dO V^T
         wgmma_commit();
         if constexpr (CAP) {
           wgmma_wait<1>();
@@ -1016,7 +1084,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         uint32_t da[BN / 16][4];
         pack_a<NS>(da, dp);
         wgmma_fence();
-        rs_tile<HD, BN>(dq, da, ks);           // dQ += dS K
+        rs_tile<DQK, BN>(dq, da, ks);          // dQ += dS K
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(dq);
@@ -1027,12 +1095,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       // TMA store (rows past S clipped); the slot goes back to the producer
       // once the store has read it
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-      stage_out<HD>(qa, BM, dq, scale, warp, lane);
+      stage_out<DQK>(qa, BM, dq, scale, warp, lane);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
       if (t == 0) {
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
+        for (int c = 0; c < DQK / 64; ++c)
           tma_store(&dqmap, qa + c * BM * 128, 64 * c, h, r0, b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -1101,12 +1169,15 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
   }
 }
 
-template <int HD>
+// two DQK-wide and two DV-wide staged tiles, a score tile and two rows of
+// statistics
+template <int DQK, int DV>
 constexpr int simt_smem_bytes() {
-  return (4 * ST * (HD + 1) + ST * (ST + 1) + 2 * ST) * 4;
+  return (2 * ST * (DQK + 1) + 2 * ST * (DV + 1) + ST * (ST + 1) + 2 * ST) *
+         4;
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -1115,13 +1186,13 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int S, int H, int KH,
                     float scale, int causal, int window, float cap) {
-  constexpr int DJ = HD / 16;
+  constexpr int DJK = DQK / 16, DJV = DV / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;                         // [ST][HD + 1]
-  float* Vs = Ks + ST * (HD + 1);
-  float* Qs = Vs + ST * (HD + 1);
-  float* Os = Qs + ST * (HD + 1);           // dO
-  float* Ps = Os + ST * (HD + 1);           // [keys][queries]: P^T, then dS^T
+  float* Ks = smem;                         // [ST][DQK + 1]
+  float* Qs = Ks + ST * (DQK + 1);          // [ST][DQK + 1]
+  float* Vs = Qs + ST * (DQK + 1);          // [ST][DV + 1]
+  float* Os = Vs + ST * (DV + 1);           // dO, [ST][DV + 1]
+  float* Ps = Os + ST * (DV + 1);           // [keys][queries]: P^T, then dS^T
   float* Ls = Ps + ST * (ST + 1);
   float* Ds = Ls + ST;
 
@@ -1129,37 +1200,43 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int G = H / KH;
   const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
   const int k0 = blockIdx.x * ST;
-  const size_t qstride = (size_t)H * HD, kstride = (size_t)KH * HD;
-  const size_t kv_off = (size_t)b * S * kstride + (size_t)kh * HD;
-  stage_f32<HD>(Ks, k + kv_off, kstride, k0, S);
-  stage_f32<HD>(Vs, v + kv_off, kstride, k0, S);
+  const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
+  const size_t ostride = (size_t)H * DV, vstride = (size_t)KH * DV;
+  const size_t k_off = (size_t)b * S * kstride + (size_t)kh * DQK;
+  const size_t v_off = (size_t)b * S * vstride + (size_t)kh * DV;
+  stage_f32<DQK>(Ks, k + k_off, kstride, k0, S);
+  stage_f32<DV>(Vs, v + v_off, vstride, k0, S);
 
-  float dk_acc[4][DJ], dv_acc[4][DJ];
+  float dk_acc[4][DJK], dv_acc[4][DJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+    for (int jj = 0; jj < DJK; ++jj) dk_acc[i][jj] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < DJV; ++jj) dv_acc[i][jj] = 0.f;
+  }
 
   const int q_first = causal ? k0 : 0;
   const int q_end = window ? min(S, k0 + ST - 1 + window) : S;
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = kh * G + gi;
-    const size_t q_off = (size_t)b * S * qstride + (size_t)h * HD;
+    const size_t q_off = (size_t)b * S * qstride + (size_t)h * DQK;
+    const size_t o_off = (size_t)b * S * ostride + (size_t)h * DV;
     const float* lse_h = lse + ((size_t)b * H + h) * S;
     const float* d_h = delta + ((size_t)b * H + h) * S;
     for (int q0 = (q_first / ST) * ST; q0 < q_end; q0 += ST) {
       __syncthreads();
-      stage_f32<HD>(Qs, q + q_off, qstride, q0, S);
-      stage_f32<HD>(Os, dout + q_off, qstride, q0, S);
+      stage_f32<DQK>(Qs, q + q_off, qstride, q0, S);
+      stage_f32<DV>(Os, dout + o_off, ostride, q0, S);
       for (int i = tid; i < ST; i += SIMT_THREADS) {
         Ls[i] = q0 + i < S ? lse_h[q0 + i] : 0.f;
         Ds[i] = q0 + i < S ? d_h[q0 + i] : 0.f;
       }
       __syncthreads();
       float s[4][4], dp[4][4];
-      tile_dot<HD>(s, Ks, Qs, tx, ty);      // S^T: keys ty.., queries tx..
-      tile_dot<HD>(dp, Vs, Os, tx, ty);     // dP^T
+      tile_dot<DQK>(s, Ks, Qs, tx, ty);     // S^T: keys ty.., queries tx..
+      tile_dot<DV>(dp, Vs, Os, tx, ty);     // dP^T
       float ds[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -1180,7 +1257,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
           ds[i][j] = p * (dp[i][j] - Ds[qi]) * dc;
         }
       __syncthreads();
-      tile_acc<HD>(dv_acc, Ps, Os, tx, ty);  // dV += P^T dO
+      tile_acc<DV>(dv_acc, Ps, Os, tx, ty);  // dV += P^T dO
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -1188,7 +1265,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j)
           Ps[(ty + 16 * i) * (ST + 1) + tx + 16 * j] = ds[i][j];
       __syncthreads();
-      tile_acc<HD>(dk_acc, Ps, Qs, tx, ty);  // dK += dS^T Q
+      tile_acc<DQK>(dk_acc, Ps, Qs, tx, ty);  // dK += dS^T Q
     }
   }
 
@@ -1197,15 +1274,16 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
     const int key = k0 + ty + 16 * i;
     if (key >= S) continue;
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const size_t o = kv_off + (size_t)key * kstride + tx + 16 * jj;
-      dk[o] = dk_acc[i][jj] * scale;
-      dv[o] = dv_acc[i][jj];
-    }
+    for (int jj = 0; jj < DJK; ++jj)
+      dk[k_off + (size_t)key * kstride + tx + 16 * jj] =
+          dk_acc[i][jj] * scale;
+#pragma unroll
+    for (int jj = 0; jj < DJV; ++jj)
+      dv[v_off + (size_t)key * vstride + tx + 16 * jj] = dv_acc[i][jj];
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
@@ -1213,22 +1291,25 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ delta, float* __restrict__ dq,
                   int S, int H, int KH, float scale, int causal, int window,
                   float cap) {
-  constexpr int DJ = HD / 16;
+  constexpr int DJ = DQK / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;                         // [ST][HD + 1]
-  float* Os = Qs + ST * (HD + 1);           // dO
-  float* Ks = Os + ST * (HD + 1);
-  float* Vs = Ks + ST * (HD + 1);
-  float* Ps = Vs + ST * (HD + 1);           // [queries][keys]: dS
+  float* Qs = smem;                         // [ST][DQK + 1]
+  float* Ks = Qs + ST * (DQK + 1);          // [ST][DQK + 1]
+  float* Os = Ks + ST * (DQK + 1);          // dO, [ST][DV + 1]
+  float* Vs = Os + ST * (DV + 1);           // [ST][DV + 1]
+  float* Ps = Vs + ST * (DV + 1);           // [queries][keys]: dS
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / KH);
   const int q0 = blockIdx.x * ST;
-  const size_t qstride = (size_t)H * HD, kstride = (size_t)KH * HD;
-  const size_t q_off = (size_t)b * S * qstride + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * S * kstride + (size_t)kh * HD;
-  stage_f32<HD>(Qs, q + q_off, qstride, q0, S);
-  stage_f32<HD>(Os, dout + q_off, qstride, q0, S);
+  const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
+  const size_t ostride = (size_t)H * DV, vstride = (size_t)KH * DV;
+  const size_t q_off = (size_t)b * S * qstride + (size_t)h * DQK;
+  const size_t o_off = (size_t)b * S * ostride + (size_t)h * DV;
+  const size_t k_off = (size_t)b * S * kstride + (size_t)kh * DQK;
+  const size_t v_off = (size_t)b * S * vstride + (size_t)kh * DV;
+  stage_f32<DQK>(Qs, q + q_off, qstride, q0, S);
+  stage_f32<DV>(Os, dout + o_off, ostride, q0, S);
 
   float lse_r[4], d_r[4];
 #pragma unroll
@@ -1248,12 +1329,12 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int k_end = causal ? min(S, q0 + ST) : S;
   for (int t0 = (k_first / ST) * ST; t0 < k_end; t0 += ST) {
     __syncthreads();
-    stage_f32<HD>(Ks, k + kv_off, kstride, t0, S);
-    stage_f32<HD>(Vs, v + kv_off, kstride, t0, S);
+    stage_f32<DQK>(Ks, k + k_off, kstride, t0, S);
+    stage_f32<DV>(Vs, v + v_off, vstride, t0, S);
     __syncthreads();
     float s[4][4], dp[4][4];
-    tile_dot<HD>(s, Qs, Ks, tx, ty);        // S: rows ty.., keys tx..
-    tile_dot<HD>(dp, Os, Vs, tx, ty);       // dP
+    tile_dot<DQK>(s, Qs, Ks, tx, ty);       // S: rows ty.., keys tx..
+    tile_dot<DV>(dp, Os, Vs, tx, ty);       // dP
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1272,7 +1353,7 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
             p * (dp[i][j] - d_r[i]) * dc;
       }
     __syncthreads();
-    tile_acc<HD>(dq_acc, Ps, Ks, tx, ty);   // dQ += dS K
+    tile_acc<DQK>(dq_acc, Ps, Ks, tx, ty);  // dQ += dS K
   }
 
 #pragma unroll
@@ -1325,17 +1406,18 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A (B, S, heads, hd) bf16 tensor as a 4-D map, innermost first: (hd,
-// heads, S, B), boxes of (64, 1, 64, 1) with the 128-byte swizzle that the
-// wgmma descriptors read.  The box never crosses a batch row, so rows past
-// S load as zeros and store nothing.
+// heads, S, B), boxes of (64, 1, rows, 1) with the 128-byte swizzle that
+// the wgmma descriptors read (64 rows but for MLA's 32-row Q and dO
+// stages).  The box never crosses a batch row, so rows past S load as
+// zeros and store nothing.
 bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
-                int S, int heads, int hd) {
+                int S, int heads, int hd, int rows = 64) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1369,53 +1451,65 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
 
 // The plan as the kernels were compiled for it: tile sizes, a ring of at
 // least one slot and stage, regions inside the block's shared memory.
-template <int HD, bool CAP>
+template <int DQK, int DV, bool CAP>
 bool plan_fits(const BwdPlan& p) {
-  constexpr int BR = BwdTile<HD, CAP>::BR, BN = BwdTile<HD, CAP>::BN;
-  constexpr int hd = HD;
+  using Tile = BwdTile<DQK, DV, CAP>;
+  constexpr int BR = Tile::BR, BN = Tile::BN, W = DQK + DV;
   const int kv_bar = p.kv_off_bars + 8 * 2 * (p.kv_slots + p.kv_stages);
   const int dq_bar = p.dq_off_bars + 8 * 2 * (p.dq_slots + p.dq_stages);
   return p.br == BR && p.bc == BC && p.bm == BM && p.bn == BN &&
          p.s_pad % BM == 0 && p.kv_slots >= 1 && p.kv_stages >= 1 &&
          p.dq_slots >= 1 && p.dq_stages >= 1 && p.kv_blocks >= 1 &&
          p.dq_blocks >= 1 &&
-         p.kv_off_ring >= p.kv_off_kv + p.kv_slots * 2 * BC * hd * 2 &&
-         p.kv_off_stats >= p.kv_off_ring + p.kv_stages * 2 * BR * hd * 2 &&
+         p.kv_off_ring >= p.kv_off_kv + p.kv_slots * BC * W * 2 &&
+         p.kv_off_stats >= p.kv_off_ring + p.kv_stages * BR * W * 2 &&
          p.kv_off_bars >= p.kv_off_stats + p.kv_stages * BR * 8 &&
-         p.dq_off_ring >= p.dq_off_q + p.dq_slots * 3 * BM * hd * 2 &&
-         p.dq_off_bars >= p.dq_off_ring + p.dq_stages * 2 * BN * hd * 2 &&
+         p.dq_off_ring >= p.dq_off_q + p.dq_slots * BM * (DQK + 2 * DV) * 2 &&
+         p.dq_off_bars >= p.dq_off_ring + p.dq_stages * BN * W * 2 &&
          kv_bar + 1023 <= p.kv_smem && dq_bar + 1023 <= p.dq_smem &&
          p.kv_smem <= SMEM_LIMIT && p.dq_smem <= SMEM_LIMIT;
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const float* lse, const void* dout, void* dq, void* dk,
                  void* dv, float* stats, int B, int S, int H, int KH,
                  float scale, int causal, int window, float cap,
                  const BwdPlan& p, const int* work, cudaStream_t st) {
   const bool c = cap != 0.f;
-  if (!(c ? plan_fits<HD, true>(p) : plan_fits<HD, false>(p))) return -1;
+  // MLA's pair is compiled without the softcap (no config has both)
+  if (DQK != DV && c) return -1;
+  if (!(c ? plan_fits<DQK, DV, true>(p) : plan_fits<DQK, DV, false>(p)))
+    return -1;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap qm, dm, om, km, vm, dqm, dkm, dvm;
-  if (!tensor_map(enc, &qm, q, B, S, H, HD) ||
-      !tensor_map(enc, &dm, dout, B, S, H, HD) ||
-      !tensor_map(enc, &om, o, B, S, H, HD) ||
-      !tensor_map(enc, &km, k, B, S, KH, HD) ||
-      !tensor_map(enc, &vm, v, B, S, KH, HD) ||
-      !tensor_map(enc, &dqm, dq, B, S, H, HD) ||
-      !tensor_map(enc, &dkm, dk, B, S, KH, HD) ||
-      !tensor_map(enc, &dvm, dv, B, S, KH, HD))
+  // the dK/dV kernel's Q and dO stages come in boxes of QBOX rows
+  const int qbox = c ? BwdTile<DQK, DV, true>::QBOX
+                     : BwdTile<DQK, DV, false>::QBOX;
+  CUtensorMap qm, dm, qrm, drm, om, km, vm, dqm, dkm, dvm;
+  if (!tensor_map(enc, &qm, q, B, S, H, DQK) ||
+      !tensor_map(enc, &dm, dout, B, S, H, DV) ||
+      !tensor_map(enc, &qrm, q, B, S, H, DQK, qbox) ||
+      !tensor_map(enc, &drm, dout, B, S, H, DV, qbox) ||
+      !tensor_map(enc, &om, o, B, S, H, DV) ||
+      !tensor_map(enc, &km, k, B, S, KH, DQK) ||
+      !tensor_map(enc, &vm, v, B, S, KH, DV) ||
+      !tensor_map(enc, &dqm, dq, B, S, H, DQK) ||
+      !tensor_map(enc, &dkm, dk, B, S, KH, DQK) ||
+      !tensor_map(enc, &dvm, dv, B, S, KH, DV))
     return (int)cudaErrorInvalidValue;     // e.g. a base not 16-byte aligned
   float2* stats2 = reinterpret_cast<float2*>(stats);
   // log2 units: 2^(x log2 e) = e^x; under a softcap th = tanh(s scale / cap)
   // and the score in log2 units is th cap log2 e
   const float sc = c ? scale / cap : scale * LOG2E;
   const float cl = cap * LOG2E;
-  auto dkdv = c ? flash_bwd_dkdv_wgmma<HD, true>
-                : flash_bwd_dkdv_wgmma<HD, false>;
-  auto dqk = c ? flash_bwd_dq_wgmma<HD, true> : flash_bwd_dq_wgmma<HD, false>;
+  auto dkdv = flash_bwd_dkdv_wgmma<DQK, DV, false>;
+  auto dqk = flash_bwd_dq_wgmma<DQK, DV, false>;
+  if constexpr (DQK == DV)
+    if (c) {
+      dkdv = flash_bwd_dkdv_wgmma<DQK, DV, true>;
+      dqk = flash_bwd_dq_wgmma<DQK, DV, true>;
+    }
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(dkdv),
                                p.kv_smem);
   if (err != cudaSuccess) return (int)err;
@@ -1428,22 +1522,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dkdv<<<p.kv_blocks, WG_THREADS, p.kv_smem, st>>>(
-      qm, dm, km, vm, dkm, dvm, stats2, work, p, S, H, KH, sc, cl, scale,
+      qrm, drm, km, vm, dkm, dvm, stats2, work, p, S, H, KH, sc, cl, scale,
       causal, window);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dq, void* dk,
                 void* dv, int B, int S, int H, int KH, float scale,
                 int causal, int window, float cap, cudaStream_t st) {
-  const int bytes = simt_smem_bytes<HD>();
+  const int bytes = simt_smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_simt<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_dkdv_simt<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_simt<HD>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_simt<DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1452,12 +1546,13 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
               *kp = static_cast<const float*>(k),
               *vp = static_cast<const float*>(v),
               *op = static_cast<const float*>(dout);
-  flash_bwd_dkdv_simt<HD><<<dim3(tiles, B * KH), SIMT_THREADS, bytes, st>>>(
-      qp, kp, vp, op, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, H, KH, scale, causal, window, cap);
+  flash_bwd_dkdv_simt<DQK, DV>
+      <<<dim3(tiles, B * KH), SIMT_THREADS, bytes, st>>>(
+          qp, kp, vp, op, lse, delta, static_cast<float*>(dk),
+          static_cast<float*>(dv), S, H, KH, scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_simt<HD><<<dim3(tiles, B * H), SIMT_THREADS, bytes, st>>>(
+  flash_bwd_dq_simt<DQK, DV><<<dim3(tiles, B * H), SIMT_THREADS, bytes, st>>>(
       qp, kp, vp, op, lse, delta, static_cast<float*>(dq), S, H, KH, scale,
       causal, window, cap);
   return (int)cudaGetLastError();
@@ -1465,45 +1560,54 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: (B, S, H, hd); k, v,
-// dk, dv: (B, S, KH, hd); lse: (B, H, S) fp32 (natural log); delta: fp32
-// scratch that this call fills, (B, H, S) floats for fp32 and (B, H,
-// s_pad, 2) for bf16.  plan: ``n_plan`` ints in host memory, the fields of
-// BwdPlan (kernels/flash_attention.py:flash_bwd_plan), and work: the
-// plan's work items and block starts on the card; the bf16 route reads
-// both, the fp32 route neither.  All contiguous; bf16 operands 16-byte
-// aligned.  Returns 0 when every kernel was launched, a CUDA error code
-// when a launch was refused, -1 for an unsupported shape, type or plan.
+// dtype: 0 = float32, 1 = bfloat16.  q, dq: (B, S, H, hd); o, dout: (B, S,
+// H, hdv); k, dk: (B, S, KH, hd); v, dv: (B, S, KH, hdv); (hd, hdv) is (64,
+// 64), (128, 128) or MLA's (192, 128), which takes no softcap.  lse: (B, H,
+// S) fp32 (natural log); delta: fp32 scratch that this call fills, (B, H,
+// S) floats for fp32 and (B, H, s_pad, 2) for bf16.  plan: ``n_plan`` ints
+// in host memory, the fields of BwdPlan
+// (kernels/flash_attention.py:flash_bwd_plan), and work: the plan's work
+// items and block starts on the card; the bf16 route reads both, the fp32
+// route neither.  All contiguous; bf16 operands 16-byte aligned.  Returns
+// 0 when every kernel was launched, a CUDA error code when a launch was
+// refused, -1 for an unsupported shape, type or plan.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int dtype, int B,
-                                   int S, int H, int KH, int hd, float scale,
-                                   int causal, int window, float cap,
-                                   void* stream, const int* plan, int n_plan,
-                                   const void* work) {
+                                   int S, int H, int KH, int hd, int hdv,
+                                   float scale, int causal, int window,
+                                   float cap, void* stream, const int* plan,
+                                   int n_plan, const void* work) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
-  if (hd != 64 && hd != 128) return -1;
   if (dtype != 0 && dtype != 1) return -1;
+  if (!((hd == 64 && hdv == 64) || (hd == 128 && hdv == 128) ||
+        (hd == 192 && hdv == 128)))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
-  if (dtype == 0) {
-    const int rc = launch_delta(o, dout, dp, B, S, H, hd, st);
-    if (rc) return rc;
-    return hd == 64
-               ? launch_simt<64>(q, k, v, dout, lp, dp, dq, dk, dv, B, S, H,
-                                 KH, scale, causal, window, cap, st)
-               : launch_simt<128>(q, k, v, dout, lp, dp, dq, dk, dv, B, S, H,
-                                  KH, scale, causal, window, cap, st);
-  }
-  if (plan == nullptr || n_plan != BWD_PLAN_INTS || work == nullptr) return -1;
   BwdPlan p;
-  memcpy(&p, plan, sizeof(BwdPlan));
+  if (dtype == 1) {
+    if (plan == nullptr || n_plan != BWD_PLAN_INTS || work == nullptr)
+      return -1;
+    memcpy(&p, plan, sizeof(BwdPlan));
+  } else {
+    const int rc = launch_delta(o, dout, dp, B, S, H, hdv, st);
+    if (rc) return rc;
+  }
   const int* w = static_cast<const int*>(work);
-  return hd == 64
-             ? launch_wgmma<64>(q, k, v, o, lp, dout, dq, dk, dv, dp, B, S, H,
-                                KH, scale, causal, window, cap, p, w, st)
-             : launch_wgmma<128>(q, k, v, o, lp, dout, dq, dk, dv, dp, B, S,
-                                 H, KH, scale, causal, window, cap, p, w, st);
+#define FLASH_BWD_CASE(DQK, DV)                                               \
+  if (hd == DQK && hdv == DV)                                                 \
+    return dtype == 0                                                         \
+               ? launch_simt<DQK, DV>(q, k, v, dout, lp, dp, dq, dk, dv, B, S, \
+                                      H, KH, scale, causal, window, cap, st)  \
+               : launch_wgmma<DQK, DV>(q, k, v, o, lp, dout, dq, dk, dv, dp,  \
+                                       B, S, H, KH, scale, causal, window,    \
+                                       cap, p, w, st);
+  FLASH_BWD_CASE(64, 64)
+  FLASH_BWD_CASE(128, 128)
+  FLASH_BWD_CASE(192, 128)
+#undef FLASH_BWD_CASE
+  return -1;
 }

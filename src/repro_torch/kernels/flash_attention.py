@@ -12,9 +12,10 @@ of shared-memory stages, and two consumer warpgroups of 64 q rows each
 run both products as wgmma (fp32 has its own CUDA-core walk, for exact
 checks).  Both sides take the model's (B, S, heads, hd) layout directly,
 and the kernel masks a ragged S itself, so there is no S % 128 gate and no
-transpose.  Head dims 64 and 128 (qwen3, paper-overhead) and 256 (the
+transpose.  Head dims 64 and 128 (qwen3, paper-overhead), 256 (the
 local layers of recurrentgemma, 16 q heads over one kv head, window
-2,048).
+2,048) and MLA's pair, q and k 192 wide (128 nope + 64 rope) over v 128,
+the shape deepseek-v2 trains at (:data:`HEAD_DIM_PAIRS`).
 
 :func:`flash_attention_torch` is the plain PyTorch version of the same
 contract (the reference's ``flash_attention_jnp``): the CPU path, and the
@@ -35,7 +36,7 @@ longest first, and every tile size and shared-memory offset.  fp32 has a
 CUDA-core path; there are no atomics.
 :func:`flash_attention_bwd_torch` is its plain version, blockwise in fp32:
 the CPU path and the card's oracle.  The backward takes hd 64 and 128
-(:data:`BWD_HEAD_DIMS`).
+and MLA's pair (:data:`BWD_HEAD_DIM_PAIRS`).
 """
 from __future__ import annotations
 
@@ -48,16 +49,19 @@ from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+# (qk head dim, v head dim) of each kernel: square, or MLA's (192, 128),
+# which takes no softcap (no config has both)
+MLA_PAIR = (192, 128)
+HEAD_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), MLA_PAIR)
+BWD_HEAD_DIM_PAIRS = ((64, 64), (128, 128), MLA_PAIR)
 
 _SIGNATURES = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
        ctypes.c_void_p],
@@ -79,12 +83,16 @@ BWD_PLAN_FIELDS = (
     "dq_off_bars", "dq_smem", "dq_items", "dq_starts")
 
 
-def bwd_stream_tiles(hd: int, softcap: bool = False):
+def bwd_stream_tiles(hd: int, softcap: bool = False, hd_v: int = 0):
     """(q rows of a dK/dV ring stage, keys of a dQ ring stage) of the bf16
-    backward: 128 where a consumer's registers hold the 128-wide score
-    tiles beside its accumulators without spilling, else 64 (the
-    softcapped hd-64 dK/dV and hd-128 dQ consumers; ``BwdTile`` in the
-    CUDA source)."""
+    backward for qk width ``hd`` and v width ``hd_v`` (``hd`` if 0): 128
+    where a consumer's registers hold the 128-wide score tiles beside its
+    accumulators without spilling, else 64 (the softcapped hd-64 dK/dV and
+    hd-128 dQ consumers); MLA's pair (192, 128) 32 and 64, its dK and dV
+    accumulators taking 160 of a consumer's 240 registers (``BwdTile`` in
+    the CUDA source)."""
+    if (hd, hd_v or hd) == MLA_PAIR:
+        return 32, 64
     br = 64 if hd == 128 or softcap else 128
     bn = 64 if hd == 128 and softcap else 128
     return br, bn
@@ -107,7 +115,7 @@ def _live(S: int, t0: int, t1: int, causal: bool, window: int,
 def flash_attention_torch(
     q: torch.Tensor,          # (B, S, H, hd), positions 0..S-1
     k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hd)
+    v: torch.Tensor,          # (B, S, K, hdv)
     *,
     scale: float,
     causal: bool = True,
@@ -120,15 +128,17 @@ def flash_attention_torch(
     (all q rows at once).  Masked probabilities are zeroed explicitly and
     the result is ``acc / max(l, 1e-37)``, as in the kernel.  With
     ``return_lse`` returns ``(out, lse)``, lse (B, H, S) fp32 = m + log
-    max(l, 1e-37), the log of the row's sum of exp(score) over live keys."""
+    max(l, 1e-37), the log of the row's sum of exp(score) over live keys.
+    The output is (B, S, H, hdv): v's width may differ from q's and k's
+    (MLA)."""
     B, S, H, hd = q.shape
-    Sk, K = k.shape[1], k.shape[2]
+    Sk, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
     dev = q.device
     qg = q.reshape(B, S, K, G, hd).float() * scale
     m = torch.full((B, S, K, G), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, S, K, G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, S, K, G, hd), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, S, K, G, hdv), dtype=torch.float32, device=dev)
     for t0 in range(0, Sk, kv_block):
         t1 = min(t0 + kv_block, Sk)
         kc = k[:, t0:t1].float()
@@ -145,7 +155,7 @@ def flash_attention_torch(
         acc = acc * corr[..., None] + torch.einsum("bskgt,btkd->bskgd", p, vc)
         m = m_new
     out = acc / l.clamp_min(1e-37)[..., None]
-    out = out.reshape(B, S, H, hd).to(q.dtype)
+    out = out.reshape(B, S, H, hdv).to(q.dtype)
     if not return_lse:
         return out
     lse = m + torch.log(l.clamp_min(1e-37))
@@ -155,10 +165,10 @@ def flash_attention_torch(
 def flash_attention_bwd_torch(
     q: torch.Tensor,          # (B, S, H, hd)
     k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hd)
-    o: torch.Tensor,          # (B, S, H, hd) the forward's output
+    v: torch.Tensor,          # (B, S, K, hdv)
+    o: torch.Tensor,          # (B, S, H, hdv) the forward's output
     lse: torch.Tensor,        # (B, H, S) fp32 the forward's log-sum-exp
-    do: torch.Tensor,         # (B, S, H, hd) the output's gradient
+    do: torch.Tensor,         # (B, S, H, hdv) the output's gradient
     *,
     scale: float,
     causal: bool = True,
@@ -170,18 +180,19 @@ def flash_attention_bwd_torch(
     over kv tiles of ``kv_block`` keys: P = exp(s - lse) on live pairs, D
     = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - D) (times 1 - tanh^2
     under a softcap), dQ = scale dS K, dK = scale dS^T Q, dK and dV summed
-    over the G q heads of each kv head."""
+    over the G q heads of each kv head.  v, o and dO may be narrower than q
+    and k (MLA's hdv)."""
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    K, hdv = k.shape[2], v.shape[3]
     G = H // K
     dev = q.device
     qf = q.reshape(B, S, K, G, hd).float()
-    dof = do.reshape(B, S, K, G, hd).float()
+    dof = do.reshape(B, S, K, G, hdv).float()
     lse_g = lse.permute(0, 2, 1).reshape(B, S, K, G)
-    delta = (dof * o.reshape(B, S, K, G, hd).float()).sum(-1)
+    delta = (dof * o.reshape(B, S, K, G, hdv).float()).sum(-1)
     dq = torch.zeros_like(qf)
     dk = torch.zeros((B, S, K, hd), dtype=torch.float32, device=dev)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros((B, S, K, hdv), dtype=torch.float32, device=dev)
     for t0 in range(0, S, kv_block):
         t1 = min(t0 + kv_block, S)
         kc = k[:, t0:t1].float()
@@ -239,7 +250,8 @@ def _bwd_ring(slot: int, stage: int):
 
 
 def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
-                   window: int, n_sm: int, softcap: bool = False) -> dict:
+                   window: int, n_sm: int, softcap: bool = False,
+                   hd_v: int = 0) -> dict:
     """The bf16 backward's work and shared-memory layout, from the shapes
     and the card's SM count.  The kernels take it as it is and compute
     none of it.
@@ -261,9 +273,11 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     block's dynamic shared memory.  ``s_pad`` is S rounded up to BWD_BM:
     the statistics scratch is (B, H, s_pad, 2) fp32.  ``fields`` are the
     plan's integers in BWD_PLAN_FIELDS order, ``work`` the int32 buffer
-    the kernels read (kv items, dq items, kv starts, dq starts)."""
+    the kernels read (kv items, dq items, kv starts, dq starts).  ``hd``
+    is the qk width, ``hd_v`` the v width (``hd`` if 0)."""
     G = H // K
-    br, bn = bwd_stream_tiles(hd, softcap)
+    hd_v = hd_v or hd
+    br, bn = bwd_stream_tiles(hd, softcap, hd_v)
     n_kt, n_mt = _cdiv(S, BWD_BC), _cdiv(S, BWD_BM)
     s_pad = n_mt * BWD_BM
     kv_items, kv_cost = [], []
@@ -297,17 +311,17 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     dq_order, dq_starts, dq_costs = deal(dq_items, dq_cost)
     # dK/dV: a slot holds K and V of BWD_BC keys, a stage Q and dO of br
     # rows, and each stage its rows' statistics (8 bytes a row)
-    kv_slot, q_tile = 2 * BWD_BC * hd * 2, br * hd * 2
-    kv_slots, kv_stages, kv_smem = _bwd_ring(kv_slot, 2 * q_tile + br * 8)
+    kv_slot, q_tile = BWD_BC * (hd + hd_v) * 2, br * (hd + hd_v) * 2
+    kv_slots, kv_stages, kv_smem = _bwd_ring(kv_slot, q_tile + br * 8)
     kv_offs = dict(kv=0, ring=kv_slots * kv_slot)
-    kv_offs["stats"] = kv_offs["ring"] + kv_stages * 2 * q_tile
+    kv_offs["stats"] = kv_offs["ring"] + kv_stages * q_tile
     kv_offs["bars"] = kv_offs["stats"] + kv_stages * br * 8
     # dQ: a slot holds Q, dO and O of BWD_BM rows, a stage K and V of bn
     # keys
-    dq_slot, k_tile = 3 * BWD_BM * hd * 2, bn * hd * 2
-    dq_slots, dq_stages, dq_smem = _bwd_ring(dq_slot, 2 * k_tile)
+    dq_slot, k_tile = BWD_BM * (hd + 2 * hd_v) * 2, bn * (hd + hd_v) * 2
+    dq_slots, dq_stages, dq_smem = _bwd_ring(dq_slot, k_tile)
     dq_offs = dict(q=0, ring=dq_slots * dq_slot)
-    dq_offs["bars"] = dq_offs["ring"] + dq_stages * 2 * k_tile
+    dq_offs["bars"] = dq_offs["ring"] + dq_stages * k_tile
 
     work = [x for it in kv_order for x in it] + \
         [x for it in dq_order for x in it]
@@ -339,20 +353,22 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
 _bwd_plans = {}
 
 
-def flash_bwd_card_plan(q, k, causal: bool, window: int, logit_cap: float):
+def flash_bwd_card_plan(q, k, v, causal: bool, window: int,
+                        logit_cap: float):
     """(plan, its fields as a ctypes array, its work buffer on q's card)
     for :func:`flash_attention_bwd_cuda`, kept per shape, so a training
     step makes no plan and copies nothing to the card."""
     B, S, H, hd = q.shape
+    hd_v = v.shape[3]
     idx = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
-    key = (idx, B, S, H, k.shape[2], hd, bool(causal), int(window),
+    key = (idx, B, S, H, k.shape[2], hd, hd_v, bool(causal), int(window),
            bool(logit_cap))
     got = _bwd_plans.get(key)
     if got is None:
         n_sm = torch.cuda.get_device_properties(idx).multi_processor_count
         plan = flash_bwd_plan(B, S, H, k.shape[2], hd, causal, window, n_sm,
-                              bool(logit_cap))
+                              bool(logit_cap), hd_v)
         fields = (ctypes.c_int * len(plan["fields"]))(*plan["fields"])
         work = torch.tensor(plan["work"], dtype=torch.int32,
                             device=q.device)
@@ -369,13 +385,14 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool,
     and contiguity."""
     lib = _build.load("flash_attention", _SIGNATURES)
     B, S, H, hd = q.shape
-    out = torch.empty_like(q)
+    hd_v = v.shape[3]
+    out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd,
+        DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, hd_v,
         float(scale), int(causal), int(window), float(logit_cap),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
@@ -390,7 +407,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
     devices, dtypes, shapes, contiguity and alignment."""
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     B, S, H, hd = q.shape
-    plan, fields, work = flash_bwd_card_plan(q, k, causal, window, logit_cap)
+    plan, fields, work = flash_bwd_card_plan(q, k, v, causal, window,
+                                             logit_cap)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -401,7 +419,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), DTYPE_CODES[q.dtype], B, S, H,
-        k.shape[2], hd, float(scale), int(causal), int(window),
+        k.shape[2], hd, v.shape[3], float(scale), int(causal), int(window),
         float(logit_cap), torch.cuda.current_stream(q.device).cuda_stream,
         fields, len(fields), work.data_ptr())
     if rc:

@@ -65,15 +65,19 @@ def _cuda_operands(name: str, tensors, dtypes, head_dim: int = 0,
 def flash_attention_bshd(
     q: torch.Tensor,          # (B, S, H, hd)
     k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hd)
+    v: torch.Tensor,          # (B, S, K, hdv)
     *,
     scale: float,
     causal: bool = True,
     window: int = 0,
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
-    """Self-attention over positions ``0..S-1`` (prefill), any S."""
-    _require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
+    """Self-attention over positions ``0..S-1`` (prefill), any S; returns
+    (B, S, H, hdv).  v may be narrower than q and k (MLA trains at hd 192
+    over hdv 128); on the card (hd, hdv) must be one of
+    ``fa.HEAD_DIM_PAIRS``."""
+    _require(q.ndim == 4 and k.ndim == 4 and v.ndim == 4
+             and k.shape[:3] == v.shape[:3],
              f"flash_attention_bshd: shapes {q.shape} {k.shape} {v.shape}")
     B, S, H, hd = q.shape
     _require(k.shape[0] == B and k.shape[1] == S and k.shape[3] == hd
@@ -92,11 +96,21 @@ def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _flash_pair(name: str, q, v, kw, pairs) -> None:
+    """The card's (qk, v) head-dim pairs, and no softcap on MLA's."""
+    pair = (q.shape[3], v.shape[3])
+    _require(pair in pairs,
+             f"{name}: head_dim (qk, v) {pair}, kernel takes {pairs}")
+    _require(pair[0] == pair[1] or not kw["logit_cap"],
+             f"{name}: a softcap at head dims {pair}; the kernel takes one "
+             "only with equal head dims")
+
+
 def _flash_forward(q, k, v, kw, *, return_lse: bool):
     if _on_cpu((q, k, v)):
         return fa.flash_attention_torch(q, k, v, return_lse=return_lse, **kw)
-    _cuda_operands("flash_attention_bshd", (q, k, v), fa.DTYPE_CODES,
-                   q.shape[3], fa.HEAD_DIMS)
+    _cuda_operands("flash_attention_bshd", (q, k, v), fa.DTYPE_CODES)
+    _flash_pair("flash_attention_bshd", q, v, kw, fa.HEAD_DIM_PAIRS)
     launches["flash_attention_bshd"] += 1
     return fa.flash_attention_cuda(q, k, v, return_lse=return_lse, **kw)
 
@@ -124,25 +138,29 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_bwd(
     q: torch.Tensor,          # (B, S, H, hd)
     k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hd)
-    o: torch.Tensor,          # (B, S, H, hd) the forward's output
+    v: torch.Tensor,          # (B, S, K, hdv)
+    o: torch.Tensor,          # (B, S, H, hdv) the forward's output
     lse: torch.Tensor,        # (B, H, S) fp32 log-sum-exp
-    do: torch.Tensor,         # (B, S, H, hd) the output's gradient
+    do: torch.Tensor,         # (B, S, H, hdv) the output's gradient
     *,
     scale: float,
     causal: bool = True,
     window: int = 0,
     logit_cap: float = 0.0,
 ):
-    """(dq, dk, dv) of :func:`flash_attention_bshd`.  The kernel takes hd
-    64 and 128 (``fa.BWD_HEAD_DIMS``)."""
+    """(dq, dk, dv) of :func:`flash_attention_bshd`.  The kernel takes
+    (hd, hdv) in ``fa.BWD_HEAD_DIM_PAIRS``: (64, 64), (128, 128) and MLA's
+    (192, 128)."""
     B, S, H, hd = q.shape
-    _require(k.shape == v.shape and k.shape[0] == B and k.shape[1] == S
+    hdv = v.shape[-1]
+    _require(v.ndim == 4 and k.shape[:3] == v.shape[:3]
+             and k.shape[0] == B and k.shape[1] == S
              and k.shape[3] == hd and H % k.shape[2] == 0
-             and o.shape == q.shape and do.shape == q.shape
+             and tuple(o.shape) == (B, S, H, hdv) and do.shape == o.shape
              and tuple(lse.shape) == (B, H, S),
              f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-             f"o {tuple(o.shape)}, lse {tuple(lse.shape)}, do "
+             f"v {tuple(v.shape)}, o {tuple(o.shape)}, lse "
+             f"{tuple(lse.shape)}, do "
              f"{tuple(do.shape)}")
     _require(q.dtype == k.dtype == v.dtype == o.dtype == do.dtype
              and lse.dtype == torch.float32,
@@ -153,7 +171,8 @@ def flash_attention_bwd(
     if _on_cpu(operands):
         return fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
     _cuda_operands("flash_attention_bwd", operands[:4] + operands[5:],
-                   fa.DTYPE_CODES, hd, fa.BWD_HEAD_DIMS)
+                   fa.DTYPE_CODES)
+    _flash_pair("flash_attention_bwd", q, v, kw, fa.BWD_HEAD_DIM_PAIRS)
     _require(lse.device == q.device and lse.is_contiguous(),
              "flash_attention_bwd: lse must be contiguous on the card")
     _require(all(t.data_ptr() % 16 == 0 for t in operands),

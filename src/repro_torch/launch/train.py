@@ -15,12 +15,17 @@ decay.
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --layers 12 --steps 6 --batch 4 --seq 4096 --microbatches 2 \\
         --remat full --lr 3e-4
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-236b --layers 2 --steps 6 --batch 2 --seq 4096 \\
+        --remat full
 
 It runs on ``cuda`` unless ``--device`` names another device; on the card
-every attention layer takes the flash kernels (forward and backward), every
-RWKV6 layer the WKV6 kernels (forward and backward).
-Compute is bf16 at full width and fp32 under ``--reduced``, as in the
-reference's executor; the master weights and moments are fp32.  An MoE
+every attention layer takes the flash kernels (forward and backward; MLA's
+at qk 192 / v 128), every RWKV6 layer the WKV6 kernels (forward and
+backward).  Compute is bf16 at full width and fp32 under ``--reduced``, as
+in the reference's executor; the master weights and moments take the
+dtypes of the config's registered ``train_4k`` run (bf16 for
+deepseek-v2-236b, as the reference's run has them; fp32 for the others).  An MoE
 config trains under capacity dispatch, its rows a whole number of
 dispatch groups (``--seq`` otherwise refused before the first step, as
 the reference asserts), and its loss adds the router's aux loss.  It prints
@@ -37,7 +42,7 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.configs import RunConfig, get_config
+from repro_torch.configs import RunConfig, get_config, get_run_config
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.launch.spec import TrainSpec, check_train_spec
 from repro_torch.models.layers import Ctx, resolve_device
@@ -85,12 +90,18 @@ def config_of(arch: str, *, reduced: bool, layers: int = 0):
     return cfg
 
 
-def run_config_of(t: TrainSpec) -> RunConfig:
+def run_config_of(t: TrainSpec, arch: str) -> RunConfig:
+    """The run of ``t``: its microbatches, remat and learning rate, warmup
+    a twentieth of the steps, and the master weights' and moments' dtypes
+    of ``arch``'s registered ``train_4k`` run (fp32 without one)."""
+    registered = get_run_config(arch, "train_4k")
     return RunConfig(num_microbatches=t.num_microbatches,
                      remat_policy=t.remat_policy,
                      learning_rate=t.learning_rate,
                      warmup_steps=max(t.total_steps // 20, 1),
-                     total_steps=t.total_steps)
+                     total_steps=t.total_steps,
+                     master_dtype=registered.master_dtype,
+                     opt_dtype=registered.opt_dtype)
 
 
 def _sync(dev: torch.device) -> None:
@@ -111,7 +122,7 @@ def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
     if cfg.is_moe:
         check_row_length(cfg, t.seq_len)
     dev = resolve_device(device)
-    run = run or run_config_of(t)
+    run = run or run_config_of(t, cfg.name.removesuffix("-reduced"))
     ctx = Ctx(device=dev, dtype=torch.float32 if t.reduced
               else torch.bfloat16)
     if state is None:
@@ -151,11 +162,13 @@ def main(argv=None) -> int:
     cfg = config_of(args.arch, reduced=t.reduced, layers=args.layers)
     dev = resolve_device(args.device)
     n = count_params(cfg, include_embed=True)
+    run = run_config_of(t, args.arch)
     cut = f" (cut to {cfg.num_layers} layers)" if args.layers else ""
     print(f"[train] arch={cfg.name}{cut} params={n / 1e6:.1f}M "
           f"device={dev} batch={t.global_batch} seq={t.seq_len} "
-          f"microbatches={t.num_microbatches} remat={t.remat_policy}")
-    r = train(cfg, t, seed=args.seed, device=dev)
+          f"microbatches={t.num_microbatches} remat={t.remat_policy} "
+          f"master={run.master_dtype} moments={run.opt_dtype}")
+    r = train(cfg, t, seed=args.seed, device=dev, run=run)
     rate = (f"{r['steps_per_s']:.3f} steps/s, {r['tokens_per_s']:.0f} "
             f"tokens/s over the last {r['timed_steps']} steps"
             if "steps_per_s" in r else "one step: no rate")

@@ -501,17 +501,26 @@ def mla_attention(
     pos: torch.Tensor,               # full: (S,) or (B, S0); decode: (B,)
     lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """MLA self-attention of one layer over the paged latent cache
-    ``{"ckv_pages", "krope_pages", "page_table"}``; returns (out (B, S, D),
-    cache).  Prefill writes the chunk's latents, then scores the fresh
-    latents (``pos`` 1-D, from position 0) or walks the page table
-    (``pos`` 2-D, chunked prefix prefill); decode writes the new latent
-    and runs ``ops.mla_paged_decode_bhd`` (the Hopper kernel on the card,
-    its plain version on the CPU)."""
-    if cache is None or "ckv_pages" not in cache:
+    """MLA self-attention of one layer; returns (out (B, S, D), cache).
+
+    Train mode (``mode="full"``, ``cache=None``, ``pos`` 1-D from position
+    0) expands the latent into per-head keys and values, as the reference
+    trains: q and k at nope + rd (the shared rope key broadcast over the
+    heads), v at vd, through ``ops.flash_attention_bshd`` (causal, scale
+    (nope + rd)^-1/2; the flash kernels at qk 192 / v 128 on the card,
+    forward and backward).
+
+    Serving runs over the paged latent cache ``{"ckv_pages",
+    "krope_pages", "page_table"}``.  Prefill writes the chunk's latents,
+    then scores the fresh latents (``pos`` 1-D, from position 0) or walks
+    the page table (``pos`` 2-D, chunked prefix prefill); decode writes the
+    new latent and runs ``ops.mla_paged_decode_bhd`` (the Hopper kernel on
+    the card, its plain version on the CPU)."""
+    train = mode == "full" and cache is None
+    if not train and (cache is None or "ckv_pages" not in cache):
         raise NotImplementedError(
-            "MLA without the paged latent cache (train mode, the dense "
-            "cache) comes in a later slice of the port")
+            "MLA decode without the paged latent cache (the dense cache) "
+            "comes in a later slice of the port")
     B, S = x.shape[:2]
     H = cfg.num_heads
     nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -524,7 +533,15 @@ def mla_attention(
     ckv = rms_norm(kv_a[..., :lora], p["kv_norm"], cfg.norm_eps)
     k_rope = kv_a[..., None, lora:]                       # (B, S, 1, rd)
 
-    if mode == "full":
+    if train:
+        q_nope, q_rope = _mla_q(cfg, p, x, pos)
+        k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
+        kv = torch.einsum("bsl,lhe->bshe", ckv, p["kv_b"])  # expand
+        k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rd)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.flash_attention_bshd(q, k, kv[..., nope:].contiguous(),
+                                       scale=scale, causal=True)
+    elif mode == "full":
         pos_q = pos if pos.ndim == 2 else pos[None, :].expand(B, S)
         lens = torch.full((B,), S, dtype=torch.int32, device=x.device) \
             if lengths is None else lengths

@@ -122,17 +122,22 @@ def _remat(fn, policy: str):
 
 def _attend(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
             pos: torch.Tensor) -> torch.Tensor:
-    """The residual stream after a layer's global GQA attention, no cache
-    (train mode)."""
+    """The residual stream after a layer's global attention, GQA or MLA,
+    no cache (train mode)."""
     x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
-    y, _ = gqa_attention(cfg, blk["attn"], x, kind=GLOBAL_ATTN, mode="full",
-                         cache=None, pos=pos)
+    if cfg.use_mla:
+        y, _ = mla_attention(cfg, blk["attn"], x, mode="full", cache=None,
+                             pos=pos)
+    else:
+        y, _ = gqa_attention(cfg, blk["attn"], x, kind=GLOBAL_ATTN,
+                             mode="full", cache=None, pos=pos)
     return h + y
 
 
 def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
                  pos: torch.Tensor) -> torch.Tensor:
-    """One all-global GQA layer with a dense FFN, no cache (train mode)."""
+    """One all-global layer (GQA or MLA) with a dense FFN, no cache (train
+    mode)."""
     h = _attend(cfg, blk, h, pos)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     return h + dense_ffn(blk["ffn"], x, cfg.act)
@@ -140,8 +145,9 @@ def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
 
 def _moe_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
                pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One all-global GQA layer with an MoE FFN under capacity dispatch
-    (train mode): ``(h, aux)``, ``aux`` the layer's load-balancing loss."""
+    """One all-global layer (GQA or MLA) with an MoE FFN under capacity
+    dispatch, shared experts included (train mode): ``(h, aux)``, ``aux``
+    the layer's load-balancing loss."""
     h = _attend(cfg, blk, h, pos)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     y, aux = moe_ffn(cfg, blk["moe"], x, mode="train")

@@ -324,13 +324,15 @@ def _tree(model: nn.Module, cast) -> Tree:
 
 
 def _compute_cast(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p.to(dtype) if p.ndim >= 2 and p.dtype == torch.float32 else p
+    # a bf16 master matrix under fp32 compute goes up to fp32, as the
+    # reference's products promote it
+    return p.to(dtype) if p.ndim >= 2 and p.dtype != dtype else p
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> Tree:
     """The compute copy of the weights as a nested tree (the reference's
     ``cast_params``): matrices (ndim >= 2) in ``dtype``, 1-D leaves (norm
-    gains, biases) stay fp32.  Detached: the serving engine makes it once,
+    gains, biases) stay in theirs (fp32).  Detached: the serving engine makes it once,
     not per step."""
     return _tree(model, lambda p: _compute_cast(p.detach(), dtype))
 
@@ -344,11 +346,21 @@ def compute_params(model: nn.Module, dtype: torch.dtype) -> Tree:
 
 def make_trainable(model: Model, master_dtype: str = "float32") -> Model:
     """Master leaves for training: matrices stored in ``master_dtype``
-    (fp32 unless the run says otherwise; 1-D leaves stay fp32, as in the
-    reference's ``init_train_state``), every leaf requiring grad."""
+    (fp32 unless the run says otherwise), every leaf requiring grad.  The
+    reference's ``init_train_state`` casts every leaf of two or more
+    dimensions of its tree, and its ``decoder/groups`` leaves are stacked
+    over the layers, so there a layer's 1-D leaves (norm gains, biases)
+    are cast too; the unstacked ones (the embedding's side, the first
+    ``first_k_dense`` layers, the tail) stay fp32.  The port casts the
+    same leaves."""
     dt = getattr(torch, master_dtype)
-    for p in model.parameters():
-        if p.ndim >= 2 and dt != torch.float32:
+    cfg = model.cfg
+    pat, first = len(cfg.block_pattern), cfg.first_k_dense
+    stacked_end = first + (cfg.num_layers - first) // pat * pat
+    for name, p in model.named_parameters():
+        path = name.split(".")
+        stacked = path[0] == "blocks" and first <= int(path[1]) < stacked_end
+        if dt != torch.float32 and (p.ndim >= 2 or stacked):
             p.data = p.data.to(dt)
         p.requires_grad_(True)
     return model

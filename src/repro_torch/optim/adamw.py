@@ -9,6 +9,14 @@ fp32 moments, the bias-corrected step and weight decay on every leaf (1-D
 leaves included).  Unlike the reference's pure function it updates the
 parameters and the moments in place (the moments are as large as the
 weights twice over).
+
+A leaf of more than :data:`SLICE_ELEMENTS` elements is squared and
+summed for the norm, and updated, in slices along its first axis, so its
+fp32 temporaries never span the whole leaf: deepseek-v2's expert leaves
+hold 1.26 B elements (160 x 5,120 x 1,536), and a whole-leaf update of
+one in bf16 would make about six fp32 copies of it, 30 GB.  The update's
+arithmetic is elementwise, so a sliced update is bit-equal to a whole
+one; the norm sums the same squares in another order.
 """
 from __future__ import annotations
 
@@ -19,6 +27,10 @@ from typing import Dict, Tuple
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+
+#: leaves above this many elements are summed and updated in slices of at
+#: most this many (a whole number of rows of the first axis, at least one)
+SLICE_ELEMENTS = 1 << 28
 
 
 @dataclass(frozen=True)
@@ -48,9 +60,19 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
                        cfg.learning_rate * cos)
 
 
+def _slices(t: torch.Tensor):
+    """``t`` whole, or in slices along its first axis of at most
+    :data:`SLICE_ELEMENTS` elements (one row at the least)."""
+    if t.numel() <= SLICE_ELEMENTS or t.ndim == 0:
+        return [t]
+    rows = max(1, SLICE_ELEMENTS // (t.numel() // t.shape[0]))
+    return list(torch.split(t, rows))
+
+
 def global_norm(tree: Tensors) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tree.values()))
+    return torch.sqrt(sum(x.float().square().sum() for t in tree.values()
+                          for x in _slices(t)))
 
 
 def adamw_init(params: Tensors, opt_dtype=torch.float32) -> Dict:
@@ -79,14 +101,15 @@ def adamw_update(cfg: AdamWConfig, grads: Tensors, params: Tensors,
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
     for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].float() * scale
-        mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        vf = cfg.b2 * v.float() + (1 - cfg.b2) * g.square()
-        step = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step)
-        m.copy_(mf)
-        v.copy_(vf)
+        for p_, g_, m, v in zip(*(_slices(t) for t in (
+                p, grads[name], state["m"][name], state["v"][name]))):
+            g = g_.float() * scale
+            mf = cfg.b1 * m.float() + (1 - cfg.b1) * g
+            vf = cfg.b2 * v.float() + (1 - cfg.b2) * g.square()
+            step = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps) \
+                + cfg.weight_decay * p_.float()
+            p_.copy_(p_.float() - lr * step)
+            m.copy_(mf)
+            v.copy_(vf)
     state["count"] = count
     return state, {"grad_norm": gnorm, "lr": lr}

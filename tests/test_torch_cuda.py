@@ -951,6 +951,119 @@ def test_flash_forward_kernel_writes_the_log_sum_exp(cuda, dt, B, S, H, K,
         1.0, float(plain.abs().max()))
 
 
+# MLA's pair: q and k 192 wide (128 nope + 64 rope) over v 128, the
+# expanded heads deepseek-v2 trains at (K = H); the bf16 backward streams
+# 32-row q tiles (dK/dV) and 64-key tiles (dQ)
+MLA_CASES = [(1, S, 4, 4, True) for S in (1, 31, 77, 129, 257)] \
+    + [(2, 1000, 8, 8, True), (1, 300, 4, 2, True), (1, 200, 4, 4, False)]
+
+
+def _mla_inputs(rng, dev, dt, B, S, H, K):
+    q = _randn(rng, (B, S, H, 192), dev, dt)
+    k = _randn(rng, (B, S, K, 192), dev, dt)
+    v = _randn(rng, (B, S, K, 128), dev, dt)
+    do = _randn(rng, (B, S, H, 128), dev, dt)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,causal", MLA_CASES)
+def test_flash_kernels_at_mla_s_pair_match_plain(cuda, dt, B, S, H, K,
+                                                 causal):
+    """The forward (output within FLASH_TOL, the lse within 1e-5 of
+    max(1, |lse|), the output with the lse equal to the one without) and
+    the backward (within the tile-scaled tolerance, two calls bit-equal)
+    at qk 192 / v 128."""
+    rng = np.random.default_rng(S + H)
+    kw = dict(scale=192 ** -0.5, causal=causal, window=0, logit_cap=0.0)
+    q, k, v, do = _mla_inputs(rng, cuda, dt, B, S, H, K)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    alone = ops.flash_attention_bshd(q, k, v, **kw)
+    plain, plain_lse = fa.flash_attention_torch(q, k, v, return_lse=True,
+                                                **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, H, 128) and torch.equal(out, alone)
+    assert _within(out, plain, FLASH_TOL[dt])
+    assert float((lse - plain_lse).abs().max()) <= 1e-5 * max(
+        1.0, float(plain_lse.abs().max()))
+    got = ops.flash_attention_bwd(q, k, v, plain, plain_lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, plain, plain_lse, do, **kw)
+    want = fa.flash_attention_bwd_torch(q, k, v, plain, plain_lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, g, g2, p in zip("qkv", got, again, want):
+        assert g.dtype == dt and g.shape == p.shape, name
+        assert torch.equal(g, g2), f"d{name}: two calls differ"
+        assert _within(g, p, _bwd_tol(p, dt)), name
+
+
+def _tol_used(g, p, tol):
+    atol, rtol = tol
+    return float(((g.float() - p.float()).abs()
+                  / (atol + rtol * p.float().abs())).max())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_backward_tolerance_rejects_planted_faults_at_mla_s_pair(
+        cuda, dt):
+    """At qk 192 / v 128 the tolerance rejects, at least 10 times over, a
+    kernel that contracted S over the nope columns only (k's rope columns
+    zeroed) or dropped the last q tile from dK and dV."""
+    B, S, H, K = 1, 300, 4, 4
+    rng = np.random.default_rng(7)
+    kw = dict(scale=192 ** -0.5, causal=True, window=0, logit_cap=0.0)
+    q, k, v, do = _mla_inputs(rng, cuda, dt, B, S, H, K)
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    tols = [_bwd_tol(p, dt) for p in plain]
+    kz = k.clone()
+    kz[..., 128:] = 0
+    d = do.clone()
+    d[:, (S - 1) // 64 * 64:] = 0
+    for wrong, held in ((ops.flash_attention_bwd(q, kz, v, o, lse, do, **kw),
+                         (0, 1, 2)),
+                        (ops.flash_attention_bwd(q, k, v, o, lse, d, **kw),
+                         (1, 2))):
+        assert max(_tol_used(wrong[j], plain[j], tols[j])
+                   for j in held) >= 10
+
+
+def test_autograd_at_mla_s_pair_launches_both_kernels_and_no_plain_version(
+        cuda, monkeypatch):
+    rng = np.random.default_rng(3)
+    q, k, v, do = _mla_inputs(rng, cuda, torch.bfloat16, 2, 200, 4, 4)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+
+    def barred(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    monkeypatch.setattr(fa, "flash_attention_torch", barred)
+    monkeypatch.setattr(fa, "flash_attention_bwd_torch", barred)
+    ops.reset_launches()
+    out = ops.flash_attention_bshd(*leaves, scale=192 ** -0.5)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [g.shape for g in grads] == [t.shape for t in (q, k, v)]
+    assert ops.launches == dict(ops.launches, flash_attention_bshd=1,
+                                flash_attention_bwd=1)
+
+
+def test_flash_wrappers_refuse_other_unequal_pairs_and_mla_softcaps(cuda):
+    rng = np.random.default_rng(0)
+    q, k, v, do = _mla_inputs(rng, cuda, torch.bfloat16, 1, 64, 2, 2)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    q2, k2, v2, do2 = (t[..., :n].contiguous()
+                       for t, n in ((q, 128), (k, 128), (v, 64), (do, 64)))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_bshd(q2, k2, v2, scale=0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_bwd(q2, k2, v2, do2, lse, do2, scale=0.1)
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention_bshd(q, k, v, scale=0.1, logit_cap=30.0)
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention_bwd(q, k, v, do, lse, do, scale=0.1,
+                                logit_cap=30.0)
+
+
 def test_flash_backward_wrapper_refuses_hd256(cuda):
     x = torch.zeros(1, 64, 2, 256, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 64, device=cuda)
@@ -974,7 +1087,7 @@ def test_serving_does_not_take_the_autograd_function(cuda):
 
 
 @pytest.mark.parametrize("arch", ["paper-overhead-100m", "qwen3-0.6b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "deepseek-v2-236b"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     """Two fp32 steps (2 microbatches) of a reduced config (hd widened to
     64, the backward kernel's smallest) from the same init (drawn on the
@@ -988,8 +1101,13 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     the forward kernel (3xTF32) rounds otherwise than the plain version
     (``tools/rwkv_grad_sensitivity.py``): its gradients are held within
     5e-4 of each leaf's largest and its weights within 1e-4, as in
-    ``chip_smoke.py``'s train parity and ``tests/test_torch_rwkv_train.py``."""
+    ``chip_smoke.py``'s train parity and ``tests/test_torch_rwkv_train.py``.
+    deepseek-v2's MLA is widened to the kernels' pair instead: q and k
+    192 (128 nope + 64 rope), v 128."""
     cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, qk_nope_head_dim=128,
+                                  qk_rope_head_dim=64, v_head_dim=128)
     lr, n_steps = 1e-3, 2
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)

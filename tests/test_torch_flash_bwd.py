@@ -54,12 +54,14 @@ def _ids(c):
             + (f"-w{window}-cap{cap:g}" if window else ""))
 
 
-def _inputs(B, S, K, G, hd, seed=0):
+def _inputs(B, S, K, G, hd, seed=0, hdv=0):
+    """q, k at ``hd``; v and dO at ``hdv`` (``hd`` if 0)."""
+    hdv = hdv or hd
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, S, K * G, hd)).astype(np.float32)
     k = rng.normal(size=(B, S, K, hd)).astype(np.float32)
-    v = rng.normal(size=(B, S, K, hd)).astype(np.float32)
-    do = rng.normal(size=(B, S, K * G, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, K, hdv)).astype(np.float32)
+    do = rng.normal(size=(B, S, K * G, hdv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -164,27 +166,29 @@ def test_backward_wrapper_checks_its_operands():
 PLAN_S = (1, 63, 77, 127, 128, 129, 1000, 4096)
 PLAN_MASKS = ((True, 0), (False, 0), (True, 100), (True, 256), (False, 100))
 _BLK = 64          # every tile of the plan is a multiple of 64 rows or keys
+# (but MLA's 32-row dK/dV stages: its plan is walked in 32-blocks)
 
 
-def _live_blocks(S, causal, window):
-    """(nb, nb) bool: whether the 64-row x 64-key block has a live pair."""
+def _live_blocks(S, causal, window, blk=_BLK):
+    """(nb, nb) bool: whether the blk-row x blk-key block has a live
+    pair."""
     i = np.arange(S)
     live = np.ones((S, S), bool)
     if causal:
         live &= i[None, :] <= i[:, None]
     if window:
         live &= i[:, None] - i[None, :] < window
-    nb = -(-S // _BLK)
-    pad = np.zeros((nb * _BLK, nb * _BLK), bool)
+    nb = -(-S // blk)
+    pad = np.zeros((nb * blk, nb * blk), bool)
     pad[:S, :S] = live
-    return pad.reshape(nb, _BLK, nb, _BLK).any(axis=(1, 3))
+    return pad.reshape(nb, blk, nb, blk).any(axis=(1, 3))
 
 
-def _coverage(plan, B, S, H, K):
-    """Times each (b, head, 64-row block, 64-key block) is walked by the
-    dK/dV items and by the dQ items."""
-    G, nb = H // K, -(-S // _BLK)
-    br, bc, bm, bn = (plan[x] // _BLK for x in ("br", "bc", "bm", "bn"))
+def _coverage(plan, B, S, H, K, blk=_BLK):
+    """Times each (b, head, blk-row block, blk-key block) is walked by
+    the dK/dV items and by the dQ items."""
+    G, nb = H // K, -(-S // blk)
+    br, bc, bm, bn = (plan[x] // blk for x in ("br", "bc", "bm", "bn"))
     kv = np.zeros((B, H, nb, nb), np.int32)
     for bh, kt, first, end in plan["kv"]["items"]:
         b, kh = divmod(bh, K)
@@ -265,7 +269,7 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
     rounded to bf16 once.  Returns (dq, dk, dv) in bf16; an element no item
     writes stays NaN."""
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    K, hdv = k.shape[2], v.shape[3]
     G = H // K
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     dd = (dof * o.float()).sum(-1)                        # (B, S, H)
@@ -293,12 +297,12 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
     nan = float("nan")
     dq = torch.full((B, S, H, hd), nan)
     dk = torch.full((B, S, K, hd), nan)
-    dv = torch.full((B, S, K, hd), nan)
+    dv = torch.full((B, S, K, hdv), nan)
     for bh, kt, first, end in plan["kv"]["items"]:
         b, kh = divmod(bh, K)
         k0, k1 = kt * plan["bc"], min(S, (kt + 1) * plan["bc"])
         acc_k = torch.zeros(k1 - k0, hd)
-        acc_v = torch.zeros(k1 - k0, hd)
+        acc_v = torch.zeros(k1 - k0, hdv)
         for h in range(kh * G, kh * G + G):
             for qt in range(first, end):
                 q0, q1 = qt * plan["br"], min(S, (qt + 1) * plan["br"])
@@ -367,6 +371,55 @@ def test_bf16_route_emulation_stays_within_the_card_tolerance(case):
                             for t in (q, k, v)))
     want = vjp(jnp.asarray(do.float().numpy()))
     for name, g, p, w in zip("qkv", got, plain, want):
+        assert not torch.isnan(g.float()).any(), f"d{name}: unwritten"
+        for what, r in (("plain", p.float()),
+                        ("jax.grad", torch.from_numpy(np.array(w)))):
+            over = (g.float() - r).abs() / _card_tol(r)
+            assert float(over.max()) <= 1.0, \
+                f"d{name} vs {what}: {float(over.max()):.3f} of the tolerance"
+
+
+# -- MLA's pair: q and k 192 wide over v 128 ---------------------------------
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S", (1, 31, 77, 129, 1000))
+def test_backward_plan_walks_every_live_pair_once_at_mla_s_pair(S, causal):
+    """The plan at (192, 128), 32-row dK/dV stages and 64-key dQ stages,
+    walked in 32-blocks: every live pair once per kernel, G 1 and 2."""
+    live = _live_blocks(S, causal, 0, blk=32)
+    for G in (1, 2):
+        B, K = 2, 2
+        plan = fa.flash_bwd_plan(B, S, K * G, K, 192, causal, 0, 7,
+                                 hd_v=128)
+        assert (plan["br"], plan["bn"]) == (32, 64)
+        kv, dq = _coverage(plan, B, S, K * G, K, blk=32)
+        for name, cov in (("dK/dV", kv), ("dQ", dq)):
+            assert cov.max() <= 1, f"S {S} G {G}: {name} walks a block twice"
+            assert (cov[:, :, live] == 1).all(), \
+                f"S {S} G {G}: {name} misses a live block"
+        for kern in ("kv", "dq"):
+            assert plan[kern]["smem"] <= 232_448
+            assert plan[kern]["offs"]["ring"] % 1024 == 0
+
+
+@pytest.mark.parametrize("S,G", [(77, 1), (257, 2)])
+def test_bf16_route_emulation_at_mla_s_pair_stays_within_the_card_tolerance(
+        S, G):
+    """The bf16 kernels' arithmetic at (192, 128), walking MLA's plan,
+    against the plain backward and ``jax.grad``, within the card's
+    tolerance."""
+    B, K, hd, hdv = 1, 2, 192, 128
+    kw = dict(scale=hd ** -0.5, causal=True, window=0, logit_cap=0.0)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(B, S, K, G, hd, seed=5, hdv=hdv))
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plan = fa.flash_bwd_plan(B, S, K * G, K, hd, True, 0, n_sm=3, hd_v=hdv)
+    got = _emulate_bf16_route(q, k, v, o, lse, do, plan, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_jnp(a, b, c, **kw),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for name, g, p, w in zip("qkv", got, plain, want):
+        assert g.shape == p.shape, name
         assert not torch.isnan(g.float()).any(), f"d{name}: unwritten"
         for what, r in (("plain", p.float()),
                         ("jax.grad", torch.from_numpy(np.array(w)))):

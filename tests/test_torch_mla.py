@@ -571,12 +571,14 @@ def test_mla_attention_matches_reference_in_every_mode(pair, monkeypatch,
 
 
 def test_mla_attention_needs_the_paged_latent_cache(pair):
+    """Decode reads the paged latent cache (``mode="full"`` without a
+    cache is train mode: ``tests/test_torch_mla_train.py``)."""
     _, tcfg, _, tparams = pair
-    x = torch.zeros(1, 4, tcfg.d_model)
+    x = torch.zeros(1, 1, tcfg.d_model)
     with pytest.raises(NotImplementedError, match="paged latent cache"):
         port_attn.mla_attention(tcfg, tparams["blocks"][0]["attn"], x,
-                                mode="full", cache=None,
-                                pos=torch.arange(4))
+                                mode="decode", cache=None,
+                                pos=torch.zeros(1, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
