@@ -55,7 +55,21 @@ Phases, each of which exits non-zero on the first failure:
               down to -e^4 and constant -3 and -8, two calls bit-equal,
               each within a tolerance scaled by its 64-step tile that
               planted faults (a step's dO dropped, a checkpoint zeroed,
-              ds_final dropped) pass at least 10 times over.
+              ds_final dropped) pass at least 10 times over.  The flash
+              backward also at recurrentgemma's (t6) (B 1, S 4,096, 16 q
+              heads over one kv head of 256, window 2,048; bf16 and fp32,
+              ragged S 1,000, 77 and 1, S 2,047, 2,049 and 4,095 around the
+              window, K 8 G 2), its planted faults at least 10 times over
+              (the window's frontier on a case of sharp scores); the
+              forward at (t6)'s shape.  The RG-LRU forward at (t6)'s shape
+              and the RG-LRU backward against its plain reverse loop at
+              (t6)'s microbatch (B 1, S 4,096, R 4,096) and at B 2,
+              ragged S 1,000, 17, 15 and 1, nonzero h0 (dh0), padding
+              steps, decays down to -8·e^4 and up to 0, two calls
+              bit-equal, each element within a tolerance scaled by its
+              64-step tile that planted faults (a step's dh dropped, h
+              read one step late) pass at least 10 times over, timed
+              against its bound.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -130,7 +144,13 @@ Phases, each of which exits non-zero on the first failure:
               (the most that leave 8 GB of the card free; its train_4k
               run: S 4,096, global batch 4 in 2 microbatches, full
               remat, 6 steps; WKV6 forward 2 x 12 x 2 and backward 12 x
-              2 a step; its remat check on one row) in bf16 with fp32
+              2 a step; its remat check on one row) and
+              ``recurrentgemma-9b`` at full width cut to 6 layers ((t6):
+              two (R, R, L) groups, 2.36 B parameters; its train_4k run:
+              S 4,096, global batch 2 in 2 microbatches, full remat, 6
+              steps; RG-LRU forward 2 x 4 x 2 and backward 4 x 2 a step,
+              flash at hd 256 forward 2 x 2 x 2 and backward 2 x 2; peak
+              at most 70 GB; its remat check on one row) in bf16 with fp32
               master
               weights (deepseek-v2's bf16), through
               ``repro_torch.launch.train``'s loop (the
@@ -146,14 +166,17 @@ Phases, each of which exits non-zero on the first failure:
               2 x 28 x 2 forward under remat and 28 x 2 backward),
               steps/s, tokens/s, MFU and peak
               memory, then one more step under torch.profiler (device busy
-              and idle share, device ms by part).  (t5) runs after (t4).
+              and idle share, device ms by part).  (t5) runs after (t4),
+              (t6) after (t5).
               Before granite, one
               MoE FFN at its width and shape runs forward and backward
               with ``torch.cuda.set_sync_debug_mode("error")`` (no host
               sync), twice bit-equal.  Then fp32 cuda vs cpu
-              parity of the five configs at full width and 2 layers (B 2,
+              parity of the six configs at full width and 2 layers (B 2,
               S 256, 3 steps; deepseek-v2 with 8 experts, d_ff 1,536, a
-              vocabulary of 16,384 and B 1; rwkv6-7b at lr 3e-4, its
+              vocabulary of 16,384 and B 1; recurrentgemma-9b at 3 layers
+              (R, R, L), its window cut to 64 and a vocabulary of 16,384;
+              rwkv6-7b at 1 layer, a vocabulary of 16,384 and lr 3e-4, its
               gradients within
               5e-4: the initial states equal, the MoE's routing
               equal or parted at a tie, losses within 1e-5 relative, the
@@ -243,6 +266,18 @@ WKV_RTOL = {"bfloat16": 2 ** -7, "float32": 0.0}
 # product and the sum, and the carries (up to ~30 at decays near 1) pass
 # the difference on through thousands of steps.
 RGLRU_TOL = (1e-5, 1e-5)
+# The RG-LRU backward: |kernel - plain| <= share·T + RGLRU_BWD_NOISE for
+# every element, T the largest |plain| of the element's tile: BWD_TILE steps
+# of one batch row over every channel (dlog_a, db), or the row's channels
+# (dh0).  Both sides walk the same fp32 reverse recurrence; the kernel fuses
+# the carry's multiply-add (one rounding where the plain loop has two), and
+# carries near decay 1 pass the difference on over thousands of steps
+# (measured: 1.3e-7 of the largest at (t6)'s shape).  Planted faults (one
+# step's dh dropped, h read one step late) must land at least
+# RGLRU_BWD_FAULT times over it.
+RGLRU_BWD_TOL = 1e-5
+RGLRU_BWD_NOISE = 1e-6
+RGLRU_BWD_FAULT = 10.0
 # The flash backward: |kernel - plain| <= share·T + BWD_NOISE + rtol·|plain|
 # for every element, T the largest |plain| of the element's tile: 64 rows
 # (dq) or 64 keys (dk, dv) of one batch row and head, the tiles the kernel
@@ -297,11 +332,26 @@ DEEPSEEK_TRAIN_LAYERS = 2
 # it took 150 s) and its host memory (fp32 state and trees) well inside
 # the host's; the attention keeps its widths (d 5,120, H 128, qk 192, v
 # 128, lora 512)
+# recurrentgemma-9b's: 3 layers (R, R, L), the window 2,048 -> 64 (S 256
+# crosses it) and the vocabulary 256,000 -> 16,384 (its CPU side's logits).
+# rwkv6-7b's: 1 layer and the vocabulary 65,536 -> 16,384, so that the
+# smoke stays in its time limit with recurrentgemma's parity added (at 2
+# layers and 65,536 its CPU side took 140-153 s of the smoke's ~1,060-1,090)
 PARITY_CUTS = {"deepseek-v2-236b": dict(num_experts=8, d_ff=1_536,
-                                        vocab_size=16_384)}
+                                        vocab_size=16_384),
+               "recurrentgemma-9b": dict(window_size=64,
+                                         vocab_size=16_384),
+               "rwkv6-7b": dict(vocab_size=16_384)}
 PARITY_BATCH = {"deepseek-v2-236b": 1}
+PARITY_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-7b": 1}
 TRAIN_PARITY_ARCHS = ("paper-overhead-100m", "qwen3-0.6b",
-                      "granite-moe-1b-a400m", "rwkv6-7b", "deepseek-v2-236b")
+                      "granite-moe-1b-a400m", "rwkv6-7b", "deepseek-v2-236b",
+                      "recurrentgemma-9b")
+# recurrentgemma-9b's (t6) depth: two (R, R, L) groups, 2.36 B parameters
+# with the tied 256,000 x 4,096 embedding; fp32 master weights and
+# moments, two microbatches' fp32 gradients and a row's 4,096 x 256,000
+# fp32 logits with their softmax and gradient
+RG_TRAIN_LAYERS = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -471,6 +521,8 @@ def flash_cases():
         ("rg hd256 ragged S2501", 8, 2501, 16, 1, 256, bf16, True, 2048,
          0.0),
         ("fp32 rg hd256 S2560", 8, 2560, 16, 1, 256, f32, True, 2048, 0.0),
+        # recurrentgemma's training shape ((t6): B 1, S 4,096)
+        (RG_FWD_T6, 1, 4096, 16, 1, 256, bf16, True, 2048, 0.0),
         # one q tile and one row past it (the bf16 kernel's 128-row tiles)
         ("edge hd64 S129", 2, 129, 12, 4, 64, bf16, True, 0, 0.0),
         ("edge hd128 S129", 2, 129, 16, 8, 128, bf16, True, 0, 0.0),
@@ -480,6 +532,7 @@ def flash_cases():
 
 
 MLA_T5 = "mla t5 B2 S4096"
+RG_FWD_T6 = "rg train (t6) S4096 w2048"
 
 
 def mla_train_cases():
@@ -1174,10 +1227,15 @@ def run_wkv_bwd_phase(dev, gen):
     return rows
 
 
+RGLRU_T6 = "recurrentgemma train (t6)"
+
+
 def rglru_cases():
     # (label, B, S, R, nonzero h0, padded row 0 from step)
     return [
         ("recurrentgemma serving", 8, 2560, 4096, False, None),
+        # (t6)'s microbatch: the forward of every RG-LRU layer in training
+        (RGLRU_T6, 1, 4096, 4096, False, None),
         ("serving h0 padded", 8, 2560, 4096, True, 2040),
         ("ragged S77 R100 h0 padded", 2, 77, 100, True, 41),
         ("S5 R4096 h0", 3, 5, 4096, True, None),
@@ -1242,7 +1300,7 @@ def run_rglru_phase(dev, gen):
                    tol=f"{RGLRU_TOL[0]:g}·max|plain| + "
                    f"{RGLRU_TOL[1]:g}·|plain|")
         timing = ""
-        if label == "recurrentgemma serving":
+        if label in ("recurrentgemma serving", RGLRU_T6):
             call = lambda: ops.rglru_scan_bsr(log_a, b, h0)  # noqa: E731
             # log_a and b read once, h written once, fp32; exp and FMA
             # per element are far below the bytes
@@ -1264,6 +1322,152 @@ def run_rglru_phase(dev, gen):
         print(f"  rglru {label:<26} err {err:.3g}, vs oracle {o_err:.3g} "
               f"(max |h| {row['max_abs_plain']:.4g}; tol {row['tol']})"
               f"{timing}", flush=True)
+    return rows
+
+
+def rglru_bwd_cases():
+    # (label, B, S, R, nonzero h0, padded row 0 from step, decays, timed)
+    return [
+        (RGLRU_T6, 1, 4096, 4096, False, None, "init", True),
+        ("(t6) B2 h0", 2, 4096, 4096, True, None, "init", True),
+        ("S1000 h0 padded", 2, 1000, 4096, True, 977, "init", False),
+        ("S17 R100 h0", 2, 17, 100, True, None, "init", False),
+        ("S15 padded", 3, 15, 4096, False, 9, "init", False),
+        ("S1 h0", 2, 1, 4096, True, None, "init", False),
+        ("decays -8e^4 to 0", 2, 700, 4096, True, 650, "strong", False),
+    ]
+
+
+def rglru_bwd_tol(plain):
+    """The RG-LRU backward's atol per element for each of (dlog_a, db,
+    dh0): RGLRU_BWD_TOL of the largest |plain| of its tile (BWD_TILE steps
+    of a batch row, all channels; dh0: the row) plus RGLRU_BWD_NOISE."""
+    import torch.nn.functional as F
+    out = []
+    for p in plain:
+        if p is None:
+            out.append(None)
+            continue
+        a = p.float().abs()
+        if a.ndim == 3:
+            B, S, R = a.shape
+            pad = -S % BWD_TILE
+            t = F.pad(a, (0, 0, 0, pad)).view(B, (S + pad) // BWD_TILE,
+                                              BWD_TILE, R)
+            t = t.amax(dim=(2, 3), keepdim=True).expand_as(t)
+            t = t.reshape(B, S + pad, R)[:, :S]
+        else:
+            t = a.amax(dim=-1, keepdim=True).expand_as(a)
+        out.append((RGLRU_BWD_TOL * t + RGLRU_BWD_NOISE, 0.0))
+    return out
+
+
+def run_rglru_bwd_phase(dev, gen):
+    """The RG-LRU backward kernel against its plain reverse loop on the
+    same (log_a, h, dh, h0), h the forward kernel's; two calls bit-equal;
+    planted faults (one step's dh dropped; h read one step late, as a
+    kernel that took h_t for h_{t-1}) at least RGLRU_BWD_FAULT times over
+    the tolerance; kernel, device and plain ms at the timed shapes beside
+    the bound (20 bytes a step and channel)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+
+    names = ("dlog_a", "db", "dh0")
+    rows = []
+    for label, B, S, R, nz, pad_from, decay, timed in rglru_bwd_cases():
+        log_a, b, h0 = rglru_inputs(dev, gen, B, S, R, nz, pad_from)
+        if decay == "strong":
+            # -exp(U(-6, ln 8 + 4)): down to -8·e^4; every 7th channel 0
+            log_a = -torch.exp(torch.empty_like(log_a).uniform_(
+                -6.0, math.log(8.0) + 4.0, generator=gen))
+            log_a[..., ::7] = 0
+            if pad_from is not None:
+                log_a[0, pad_from:] = 0
+        dh = torch.randn(B, S, R, device=dev, generator=gen)
+        h = ops.rglru_scan_bsr(log_a, b, h0)
+        got = ops.rglru_scan_bwd(log_a, h, dh, h0)
+        again = ops.rglru_scan_bwd(log_a, h, dh, h0)
+        plain = rg.rglru_scan_bwd_torch(log_a, h, dh, h0)
+        torch.cuda.synchronize()
+        tols = rglru_bwd_tol(plain)
+        errs, used = {}, {}
+        for name, g, g2, p, tol in zip(names, got, again, plain, tols):
+            if p is None:
+                check(g is None, f"rglru bwd {label}: dh0 without an h0")
+                continue
+            check(bool(torch.isfinite(g).all()),
+                  f"rglru bwd {label}: {name} non-finite")
+            check(torch.equal(g, g2),
+                  f"rglru bwd {label}: {name} differs between two calls")
+            errs[name] = compare(g, p, tol, f"rglru bwd {label} {name}")
+            used[name] = tol_used(g, p, tol)
+        if pad_from is not None:
+            # past the row's length the carry is the running sum of dh
+            tail = dh[0, pad_from:].flip(0).cumsum(0).flip(0)
+            check(bool(((got[1][0, pad_from:] - tail).abs()
+                        <= 1e-5 * tail.abs().max() + 1e-5).all()),
+                  f"rglru bwd {label}: padding steps changed the carry")
+        faults = {}
+        t_mid = S // 2
+        d = dh.clone()
+        d[:, t_mid] = 0
+        wrong = ops.rglru_scan_bwd(log_a, h, d, h0)
+        faults[f"dh of step {t_mid} dropped"] = tol_used(
+            wrong[1], plain[1], tols[1])
+        if S > 1:
+            late = torch.roll(h, -1, dims=1).contiguous()
+            wrong = ops.rglru_scan_bwd(log_a, late, dh, h0)
+            faults["h read one step late"] = tol_used(wrong[0], plain[0],
+                                                      tols[0])
+        for what, x in faults.items():
+            check(x >= RGLRU_BWD_FAULT, f"rglru bwd {label}: a kernel with "
+                  f"{what} lands only {x:.3g} times over the tolerance")
+        del wrong, d
+        row = dict(label=label, max_abs_err=max(errs.values()), errs=errs,
+                   tol_used=used, faults_tol_used=faults,
+                   tol=f"{RGLRU_BWD_TOL:g}·(max |plain| of its {BWD_TILE}-"
+                   f"step tile of a batch row; dh0: of the row) + "
+                   f"{RGLRU_BWD_NOISE:g}",
+                   shape=f"B {B}, S {S}, R {R}, fp32"
+                   + (", h0" if nz else "")
+                   + (f", row 0 padded from {pad_from}" if pad_from else "")
+                   + (", decays to -8e^4 and 0" if decay == "strong" else ""))
+        timing = ""
+        if timed:
+            call = lambda: ops.rglru_scan_bwd(log_a, h, dh, h0)  # noqa: E731
+            # log_a, h and dh read, dlog_a and db written once, fp32 (h0
+            # and dh0 a row each); the exponentials and the carry's FMA are
+            # far below the bytes
+            nbytes = 20 * B * S * R + (8 * B * R if nz else 0)
+            flops = 5.0 * B * S * R
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS["float32"]
+            row.update(ms=time_ms(call), device_ms=device_ms(call),
+                       plain_ms=time_ms(lambda: rg.rglru_scan_bwd_torch(
+                           log_a, h, dh, h0), reps=1, warmup=0),
+                       library_ms=None,
+                       library="none: no PyTorch call computes the scan's "
+                       "gradient",
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            k_ms = row["device_ms"] or row["ms"]
+            row["bound_share"] = row["bound_ms"] / k_ms
+            timing = (f" kernel {row['ms']:.4f} ms (device "
+                      f"{fmt_ms(row['device_ms'])}, "
+                      f"{row['bound_share']:.1%} of bound) plain "
+                      f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']}, {nbytes / 1e6:.1f} MB)")
+        rows.append(row)
+        print(f"  rglru bwd {label:<22} err "
+              + "/".join(f"{e:.3g}" for e in errs.values())
+              + " (of the tolerance "
+              + "/".join(f"{x:.3f}" for x in used.values())
+              + "; planted faults "
+              + ", ".join(f"{w} {x:.3g}x" for w, x in faults.items())
+              + f") bit-equal{timing}", flush=True)
+        del log_a, b, h0, dh, h, got, again, plain
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1410,7 +1614,42 @@ def flash_bwd_cases():
         ("fp32 S77 not causal", 2, 77, 12, 4, 64, f32, False, 0, 0.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
     ]
-    return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases()
+    return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases() \
+        + rg_train_cases()
+
+
+RG_T6 = "rg train (t6)"
+# hd 256's window faults are planted on one case whose scores are sharp (q
+# drawn 4 times wider: scale·q·k ~ N(0, 16)), where a row's weight can sit
+# on its window's frontier key.  At unit scores a frontier pair carries
+# about 1/2,048 of its row, far under any tile-scaled tolerance, so the
+# other hd-256 cases plant the head and tile faults only.
+RG_SHARP = "rg (t6) sharp scores"
+Q_SCALE = {RG_SHARP: 4.0}
+
+
+def rg_train_cases():
+    """recurrentgemma's local layers in training, (t6)'s microbatch: B 1,
+    S 4,096, 16 q heads over one kv head of 256, window 2,048, causal;
+    bf16 and fp32, ragged S 1,000, 77 and 1, S 2,047, 2,049 and 4,095
+    around the window, K 8 G 2 (any G), and the sharp-score case of the
+    window faults.  The same cases for the forward's log-sum-exp (checked
+    in every backward case) and the backward."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, K, hd, hdv, dtype, causal, window, cap)
+    return [(RG_T6, 1, 4096, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("fp32 rg (t6)", 1, 4096, 16, 1, 256, 256, f32, True, 2048, 0.0),
+            (RG_SHARP, 1, 4096, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("rg ragged S1000", 1, 1000, 16, 1, 256, 256, bf16, True, 2048,
+             0.0),
+            ("rg ragged S77", 2, 77, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("rg S1", 2, 1, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("rg S2047", 1, 2047, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("rg S2049", 1, 2049, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("rg S4095", 1, 4095, 16, 1, 256, 256, bf16, True, 2048, 0.0),
+            ("hd256 K8 G2", 2, 1000, 16, 8, 256, 256, bf16, True, 2048, 0.0),
+            ("fp32 hd256 S77", 2, 77, 16, 1, 256, 256, f32, True, 32, 0.0)]
 
 
 def flash_bwd_work(B, S, H, K, hd, elt, causal, window, hdv=0):
@@ -1491,16 +1730,16 @@ def device_ms_by_kernel(fn, reps: int = 20) -> dict:
 def bwd_parts(by_kernel: dict) -> dict:
     """The backward's device ms by part, from :func:`device_ms_by_kernel`:
     the dQ kernel (which also writes the statistics) and the dK/dV kernel;
-    in fp32 also the D pass."""
+    in fp32 also the D pass, at hd 256 in bf16 the partials' sum."""
     parts = {}
     for name, ms in by_kernel.items():
-        part = next((p for p in ("delta", "dkdv", "dq")
+        part = next((p for p in ("delta", "dkdv_sum", "dkdv", "dq")
                      if f"flash_bwd_{p}" in name), "other")
         parts[part] = parts.get(part, 0.0) + ms
     return parts
 
 
-def bwd_planted_faults(q, k, v, o, lse, do, kw):
+def bwd_planted_faults(q, k, v, o, lse, do, kw, window_faults=True):
     """The backward kernel's gradients with a fault planted through its
     inputs, for the tolerance to reject: (what, (dq, dk, dv), the indices
     of the gradients a kernel with that fault would get wrong).  dO's rows
@@ -1508,7 +1747,8 @@ def bwd_planted_faults(q, k, v, o, lse, do, kw):
     terms out of dK and dV, as a kernel that skipped them would; dQ of
     those rows is then 0, which such a kernel would not give, so only dK
     and dV are held.  A window one key shorter or longer over the same lse
-    moves its frontier by one key, in all three."""
+    moves its frontier by one key, in all three (with ``window_faults``,
+    where the window is shorter than S)."""
     from repro_torch.kernels import ops
 
     S, G = q.shape[1], q.shape[2] // k.shape[2]
@@ -1531,7 +1771,7 @@ def bwd_planted_faults(q, k, v, o, lse, do, kw):
     d[:, last:] = 0
     out.append((f"q rows {last}-{S - 1} dropped",
                 ops.flash_attention_bwd(q, k, v, o, lse, d, **kw), (1, 2)))
-    if kw["window"]:
+    if window_faults and kw["window"] and kw["window"] < S:
         for w in (kw["window"] - 1, kw["window"] + 1):
             out.append((f"window {w}", ops.flash_attention_bwd(
                 q, k, v, o, lse, do, **dict(kw, window=w)), (0, 1, 2)))
@@ -1554,11 +1794,13 @@ def run_flash_bwd_phase(dev, gen):
         q, k, v, do = (torch.randn(B, S, n, d, device=dev,
                                    generator=gen).to(dt)
                        for n, d in ((H, hd), (K, hd), (K, hdv), (H, hdv)))
+        if label in Q_SCALE:
+            q = (q.float() * Q_SCALE[label]).to(dt)
         kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                   logit_cap=cap)
         # planted faults must land FAULT_MIN times over the tolerance at
-        # MLA's pair (any excess at the square ones, as before)
-        fault_min = 10.0 if hdv != hd else 1.0
+        # MLA's pair and at hd 256 (any excess at the others, as before)
+        fault_min = 10.0 if hdv != hd or hd == 256 else 1.0
         o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
         _, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1577,7 +1819,9 @@ def run_flash_bwd_phase(dev, gen):
             errs.append(compare(g, p, tol, f"flash bwd {label} d{name}"))
         used = [tol_used(g, p, tol) for g, p, tol in zip(got, plain, tols)]
         faults = {}
-        for what, wrong, held in bwd_planted_faults(q, k, v, o, lse, do, kw):
+        for what, wrong, held in bwd_planted_faults(
+                q, k, v, o, lse, do, kw,
+                window_faults=hd != 256 or label in Q_SCALE):
             r = max(tol_used(wrong[i], plain[i], tols[i]) for i in held)
             check(r > fault_min, f"flash bwd {label}: the tolerance passes a "
                   f"kernel with {what} by less than {fault_min:g} times "
@@ -2403,6 +2647,8 @@ TRAIN_KERNEL_GROUPS = (
     ("flash backward", ("flash_bwd_",)),
     ("WKV6 forward", ("wkv6_chunked",)),
     ("WKV6 backward", ("wkv6_bwd_",)),
+    ("RG-LRU forward", ("rglru_scan_kernel",)),
+    ("RG-LRU backward", ("rglru_scan_bwd_kernel",)),
     ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("CE", ("softmax", "nll_loss", "cross_entropy")),
 )
@@ -2413,13 +2659,13 @@ def train_flops(cfg, tokens, S, B):
     active non-embedding parameters plus the vocabulary projection, tied
     or not) and 12·hd per live causal (q, k) pair and head for attention
     (4·hd forward, 8·hd backward; under MLA 6·(qk + v), the expanded
-    heads' 192 and 128), or for RWKV6 12·N² per token and head
-    for the recurrence (the state's read-out and update, 4·N² forward;
-    dr, dk, dv and dS, 8·N² backward; N the head size).  An MoE layer
-    counts the k experts a token runs, not the other E - k, nor the
-    router or the capacity padding.  Remat's recomputed forward is not
-    counted."""
-    from repro_torch.configs.base import RWKV
+    heads' 192 and 128; a local layer's pairs within its window), or for
+    RWKV6 12·N² per token and head for the recurrence (the state's
+    read-out and update, 4·N² forward; dr, dk, dv and dS, 8·N² backward;
+    N the head size).  An MoE layer counts the k experts a token runs, not
+    the other E - k, nor the router or the capacity padding.  The RG-LRU's
+    elementwise scan is not counted, nor remat's recomputed forward."""
+    from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, RWKV
     from repro_torch.models.params import count_params
     n = count_params(cfg) + cfg.d_model * cfg.padded_vocab
     if cfg.is_moe:
@@ -2431,33 +2677,45 @@ def train_flops(cfg, tokens, S, B):
         mix = 12.0 * cfg.rwkv_head_dim * cfg.d_model * cfg.num_layers \
             * tokens
     else:
-        pairs = S * (S + 1) // 2
+        kinds = cfg.layer_kinds()
+        full, w = S * (S + 1) // 2, cfg.window_size
+        windowed = full if not w or w >= S else \
+            w * (w + 1) // 2 + (S - w) * w
+        pairs = kinds.count(GLOBAL_ATTN) * full \
+            + kinds.count(LOCAL_ATTN) * windowed
         widths = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
                   + cfg.v_head_dim) if cfg.use_mla else 2 * cfg.head_dim
-        mix = 6.0 * widths * pairs * cfg.num_heads * cfg.num_layers \
-            * (tokens // S)
+        mix = 6.0 * widths * pairs * cfg.num_heads * (tokens // S)
     return 6.0 * n * tokens + mix, n
 
 
 def train_launches_per_step(cfg, microbatches, remat):
-    """The kernel launches a train step must make: the sequence mixer's
-    forward once a layer and microbatch (twice under remat) and its
-    backward once; every other kernel none."""
-    from repro_torch.configs.base import RWKV
-    fwd, bwd = ("wkv6_bshn", "wkv6_bwd") if RWKV in cfg.layer_kinds() \
-        else ("flash_attention_bshd", "flash_attention_bwd")
-    n = cfg.num_layers * microbatches
-    return {fwd: n * (2 if remat != "none" else 1), bwd: n}
+    """The kernel launches a train step must make: each layer's sequence
+    mixer's forward once a layer and microbatch (twice under remat) and
+    its backward once (WKV6; RG-LRU; flash for the attention layers);
+    every other kernel none."""
+    from repro_torch.configs.base import RECURRENT, RWKV
+    kernels = {RWKV: ("wkv6_bshn", "wkv6_bwd"),
+               RECURRENT: ("rglru_scan_bsr", "rglru_scan_bwd")}
+    out = {}
+    for kind in cfg.layer_kinds():
+        fwd, bwd = kernels.get(kind, ("flash_attention_bshd",
+                                      "flash_attention_bwd"))
+        out[fwd] = out.get(fwd, 0) \
+            + microbatches * (2 if remat != "none" else 1)
+        out[bwd] = out.get(bwd, 0) + microbatches
+    return out
 
 
 class PlainVersionsBarred:
-    """While on, a call of a trained kernel's plain version (the flash and
-    WKV6 forwards and backwards) fails the smoke: the card's train path
-    must go through the kernels."""
+    """While on, a call of a trained kernel's plain version (the flash,
+    WKV6 and RG-LRU forwards and backwards) fails the smoke: the card's
+    train path must go through the kernels."""
 
     NAMES = {"flash_attention": ("flash_attention_torch",
                                  "flash_attention_bwd_torch"),
-             "rwkv6_wkv": ("wkv6_torch", "wkv6_bwd_torch")}
+             "rwkv6_wkv": ("wkv6_torch", "wkv6_bwd_torch"),
+             "rglru_scan": ("rglru_scan_torch", "rglru_scan_bwd_torch")}
 
     def __enter__(self):
         import importlib
@@ -2924,13 +3182,28 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     return out
 
 
+class FirstGrads:
+    """Wraps ``train/steps.py``'s ``adamw_update``: keeps (on the host) the
+    gradients of the first update after ``grads`` is reset to None, the
+    first batch's gradients of a one-microbatch step."""
+
+    def __init__(self, fn):
+        self.fn, self.grads = fn, None
+
+    def __call__(self, cfg, grads, params, opt):
+        if self.grads is None:
+            self.grads = {n: g.detach().cpu() for n, g in grads.items()}
+        return self.fn(cfg, grads, params, opt)
+
+
 def run_train_parity_phase(dev, seed):
     """fp32 on ``cuda`` (the kernels' fp32 paths) against ``cpu`` (the
     plain versions), TF32 off, each config at full width cut to 2 layers
     (deepseek-v2 also cut as PARITY_CUTS and PARITY_BATCH say),
     B 2, S 256, from the same init (built on each device: the draws are
     the host's, so they must be equal) and batches: the first batch's
-    gradients per leaf, 3 steps' losses, then a checkpoint round trip
+    gradients per leaf (those the first step's AdamW update receives,
+    :class:`FirstGrads`), 3 steps' losses, then a checkpoint round trip
     (``train_state_to_jax`` and back) and the next step's loss equal to
     the unrestored state's on ``cuda``.  granite-moe's routing (the
     experts of every token in every MoE layer call) is compared first:
@@ -2945,9 +3218,8 @@ def run_train_parity_phase(dev, seed):
     from repro_torch.launch import train as train_cli
     from repro_torch.models import moe
     from repro_torch.models.layers import Ctx
-    from repro_torch.models.params import compute_params
-    from repro_torch.train.steps import (
-        init_train_state, loss_fn, make_train_step)
+    from repro_torch.train import steps
+    from repro_torch.train.steps import init_train_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2956,7 +3228,8 @@ def run_train_parity_phase(dev, seed):
     for arch in TRAIN_PARITY_ARCHS:
         t_arch = time.perf_counter()
         cfg = dataclasses.replace(
-            train_cli.config_of(arch, reduced=False, layers=2),
+            train_cli.config_of(arch, reduced=False,
+                                layers=PARITY_LAYERS.get(arch, 2)),
             **PARITY_CUTS.get(arch, {}))
         run = RunConfig(learning_rate=TRAIN_LR.get(arch, 1e-3),
                         warmup_steps=1, total_steps=4)
@@ -2972,25 +3245,24 @@ def run_train_parity_phase(dev, seed):
         del on_card
         recorder = RouteRecorder(moe._top_k, of_probs=True)
         plain_top_k, moe._top_k = moe._top_k, recorder
+        first_grads = FirstGrads(steps.adamw_update)
+        steps.adamw_update = first_grads
         try:
             for d in (dev, cpu):
                 ctx = Ctx(device=d, dtype=torch.float32)
                 state = train_state_from_jax(init, cfg, device=d)
-                model = state["params"]
-                names, leaves = zip(*model.named_parameters())
                 recorder.sink = []
-                loss, _ = loss_fn(cfg, compute_params(model, torch.float32),
-                                  data.batch_at(0, d), ctx)
-                grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+                first_grads.grads = None
                 step = make_train_step(cfg, ctx, run)
                 ops.reset_launches()
                 losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
                           for i in range(3)]
-                res.append((dict(zip(names, grads)), losses, state, step,
+                res.append((first_grads.grads, losses, state, step,
                             dict(ops.launches), recorder.sink))
                 recorder.sink = None
         finally:
             moe._top_k = plain_top_k
+            steps.adamw_update = first_grads.fn
         (g_c, l_c, s_c, step_c, launch_c, r_c), (g_p, l_p, *_, r_p) = res
         per_step = train_launches_per_step(cfg, 1, "none")
         check(all(n == per_step.get(name, 0) * 3
@@ -3000,9 +3272,9 @@ def run_train_parity_phase(dev, seed):
         flip = margin = None
         if cfg.is_moe:
             moe_layers = cfg.num_layers - cfg.first_k_dense
-            check(len(r_c) == moe_layers * 4, f"train parity {arch}: "
+            check(len(r_c) == moe_layers * 3, f"train parity {arch}: "
                   f"{len(r_c)} routings recorded, expected {moe_layers} MoE "
-                  "layers x 4 passes")
+                  "layers x 3 steps")
             tok, m, margin = route_flip(
                 (r_c, torch.ones(B * 256, dtype=bool)), (r_p, None))
             if tok is not None:
@@ -3041,7 +3313,10 @@ def run_train_parity_phase(dev, seed):
             "tie): losses and gradients not compared")
         cuts = "".join(f", {k} {v:,}" for k, v in PARITY_CUTS.get(
             arch, {}).items()) + f", B {B}"
-        print(f"  train parity {arch} (2 layers{cuts}, fp32): losses cuda {l_c} "
+        layers = f"{cfg.num_layers} layer" + ("s" if cfg.num_layers > 1
+                                               else "")
+        print(f"  train parity {arch} ({layers}{cuts}, fp32): "
+              f"losses cuda {l_c} "
               f"cpu {l_p}" + ("" if rel is None else
                               f" (max rel {rel:.3g}); gradients within "
                               f"{worst:.3g}·max|g| of their leaves")
@@ -3595,6 +3870,8 @@ def main() -> int:
     mark("flash backward")
     wkv_bwd_rows = run_wkv_bwd_phase(dev, gen)
     mark("WKV6 backward")
+    rglru_bwd_rows = run_rglru_bwd_phase(dev, gen)
+    mark("RG-LRU backward")
     _flush.clear()              # the L2-cold timings' buffer: out of the
     torch.cuda.empty_cache()    # serve runs' peak memory
     print("[serve] qwen3-0.6b full width, bf16", flush=True)
@@ -3687,8 +3964,23 @@ def main() -> int:
     mark("train (t5)")
     gc.collect()
     torch.cuda.empty_cache()
-    print("[train-parity] fp32 cuda vs cpu, full width, 2 layers",
-          flush=True)
+    print(f"[train] recurrentgemma-9b full width cut to {RG_TRAIN_LAYERS} "
+          "layers, its train_4k run (S 4096, global batch 2 in 2 "
+          "microbatches, full remat)", flush=True)
+    # B 2 without remat would not leave the 70 GB limit: the remat check
+    # takes one row
+    r_run = get_run_config("recurrentgemma-9b", "train_4k")
+    train["recurrentgemma-9b"] = run_train_phase(
+        dev, seed, "recurrentgemma-9b", steps=6, batch=2,
+        seq=SHAPES["train_4k"].seq_len,
+        microbatches=r_run.num_microbatches, remat=r_run.remat_policy,
+        falling_mean=False, remat_rows=1, layers=RG_TRAIN_LAYERS,
+        max_peak_gb=PEAK_MEM_LIMIT_GB)
+    mark("train (t6)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[train-parity] fp32 cuda vs cpu, full width, 2 layers "
+          "(recurrentgemma-9b 3, rwkv6-7b 1)", flush=True)
     train["parity"] = run_train_parity_phase(dev, seed)
     mark("train parity")
     gc.collect()
@@ -3723,6 +4015,11 @@ def main() -> int:
     wb = next(r for r in wkv_bwd_rows if r["label"] == "rwkv6-7b train (t4)")
     rwkv_launches = train["rwkv6-7b"]["launches"]
     ds_launches = train["deepseek-v2-236b"]["launches"]
+    rg_train = train["recurrentgemma-9b"]["launches"]
+    rgb = next(r for r in rglru_bwd_rows if r["label"] == RGLRU_T6)
+    rlt = next(r for r in rglru_rows if r["label"] == RGLRU_T6)
+    fbt = next(r for r in bwd_rows if r["label"] == RG_T6)
+    fft = next(r for r in flash_rows if r["label"] == RG_FWD_T6)
     keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library")
     mf = next(r for r in flash_rows if r["label"] == MLA_T5)
@@ -3775,6 +4072,12 @@ def main() -> int:
                  library_ms=fl_g["library_ms"],
                  library="SDPA, is_causal, enable_gqa"),
              mla=mla_fwd,
+             rg_train=dict({k: fft[k] for k in keys},
+                           launches=rg_train["flash_attention_bshd"],
+                           max_abs_err=fft["max_abs_err"],
+                           lse_err=max(r["lse_err"] for r in bwd_rows
+                                       if r["label"] in {c[0] for c in
+                                                         rg_train_cases()})),
              platform=platform_launches(platform, "flash_attention_bshd")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3796,6 +4099,24 @@ def main() -> int:
                  launches=granite_launches["flash_attention_bwd"]),
              mla=mla_bwd,
              platform=platform_launches(platform, "flash_attention_bwd")),
+        dict(name="flash_attention_bwd_hd256", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/models/attention.py:34",
+             gradient_of="flash_attention_jnp (src/repro/models/attention.py"
+             ":34) under jax.grad at recurrentgemma-9b's local layers (hd "
+             "256, MQA, window 2,048); the reference has no Pallas backward",
+             launches=rg_train["flash_attention_bwd"],
+             max_abs_err=max(r["max_abs_err"] for r in bwd_rows
+                             if r["label"] in {c[0] for c in
+                                               rg_train_cases()}),
+             ms=fbt["ms"], device_ms=fbt["device_ms"],
+             plain_ms=fbt["plain_ms"], bound_ms=fbt["bound_ms"],
+             bound_by=fbt["bound_by"], library_ms=fbt["library_ms"],
+             library=fbt["library"], shape=fbt["shape"],
+             parts_device_ms=fbt["parts_device_ms"], plan=fbt["plan"],
+             faults_tol_used={r["label"]: r["faults_tol_used"]
+                              for r in bwd_rows if r["label"] in
+                              {c[0] for c in rg_train_cases()}}),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_attention.py:120",
@@ -3846,7 +4167,26 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in rglru_rows),
              ms=rl["ms"], device_ms=rl["device_ms"], plain_ms=rl["plain_ms"],
              bound_ms=rl["bound_ms"], bound_by=rl["bound_by"],
-             library_ms=None, shape=rl["shape"]),
+             library_ms=None, shape=rl["shape"],
+             training=dict({k: rlt[k] for k in (
+                 "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")},
+                 launches=rg_train["rglru_scan_bsr"])),
+        dict(name="rglru_scan_bwd", route="cuda",
+             source="src/repro_torch/csrc/rglru_scan.cu",
+             replaces="src/repro/models/recurrent.py:40",
+             gradient_of="rglru_scan_assoc (src/repro/models/recurrent.py:40)"
+             " under jax.grad; the reference has no Pallas backward",
+             launches=rg_train["rglru_scan_bwd"],
+             max_abs_err=max(r["max_abs_err"] for r in rglru_bwd_rows),
+             ms=rgb["ms"], device_ms=rgb["device_ms"],
+             plain_ms=rgb["plain_ms"], bound_ms=rgb["bound_ms"],
+             bound_by=rgb["bound_by"], library_ms=None,
+             library=rgb["library"], shape=rgb["shape"],
+             b2={k: r[k] for r in rglru_bwd_rows if r["label"] == "(t6) B2 h0"
+                 for k in ("shape", "ms", "device_ms", "bound_ms")},
+             faults_tol_used={r["label"]: r["faults_tol_used"]
+                              for r in rglru_bwd_rows}),
         dict(name="mla_paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/mla_decode.cu",
              replaces="src/repro/kernels/paged_attention.py:182",
@@ -3867,6 +4207,7 @@ def main() -> int:
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,
                       "flash_bwd": bwd_rows, "wkv6_bwd": wkv_bwd_rows,
+                      "rglru_bwd": rglru_bwd_rows,
                       "train": train,
                       "moe_layer": moe_layer,
                       "platform": platform,

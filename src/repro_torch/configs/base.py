@@ -228,22 +228,20 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose training this port
-    does not have yet: it trains all-global GQA stacks without softcaps,
+    does not have yet: it trains GQA stacks without softcaps, all-global
     with a dense FFN or an MoE FFN under capacity dispatch with the
     router's load-balancing loss (``paper-overhead-100m``, ``qwen3-0.6b``,
     ``granite-moe-1b-a400m``), the MLA stack with its dense first layer
     and MoE layers with shared experts, attention through the flash
-    kernels at qk 192 / v 128 (``deepseek-v2-236b``), and the RWKV6 stack
-    through the WKV6 backward (``rwkv6-7b``).  The RG-LRU and
-    local-attention layers are refused by name, as are encoder-decoders,
-    frontends and softcaps."""
+    kernels at qk 192 / v 128 (``deepseek-v2-236b``), the RWKV6 stack
+    through the WKV6 backward (``rwkv6-7b``), and the RG-LRU hybrid: its
+    recurrent layers through the RG-LRU scan's backward and its
+    sliding-window MQA layers through the flash backward at hd 256
+    (``recurrentgemma-9b``).  Softcaps (gemma2), encoder-decoders and
+    frontends are refused by name, and :func:`check_ported` refuses a mix
+    of local and global layers (gemma2's) by its block kinds."""
     check_ported(cfg)
     missing = []
-    kinds = set(cfg.layer_kinds())
-    if RECURRENT in kinds:
-        missing.append("the RG-LRU (the scan's backward)")
-    if LOCAL_ATTN in kinds or cfg.window_size:
-        missing.append("local attention (the hd-256 flash backward)")
     if cfg.is_encoder_decoder:
         missing.append("encoder-decoder")
     if cfg.frontend != "none":

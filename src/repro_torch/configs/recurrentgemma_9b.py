@@ -1,7 +1,7 @@
 """RecurrentGemma-9B (Griffin): RG-LRU + local attention, 1 attn : 2 recurrent.
 [arXiv:2402.19427]"""
 from repro_torch.configs.base import (
-    LOCAL_ATTN, RECURRENT, ModelConfig, register,
+    LOCAL_ATTN, RECURRENT, ModelConfig, RunConfig, register, register_run,
 )
 
 CONFIG = register(ModelConfig(
@@ -23,3 +23,9 @@ CONFIG = register(ModelConfig(
     tie_embeddings=True,
     rope_theta=10_000.0,
 ))
+
+# The reference's train_4k run: 2 microbatches, full remat, fp32 master
+# weights and moments.  Its sharding override (the residual stream's
+# sequence axis over "model") waits for the port of the mesh.
+register_run("recurrentgemma-9b", "train_4k",
+             RunConfig(num_microbatches=2, remat_policy="full"))

@@ -38,7 +38,13 @@
 // 2.6 times the forward's 2 (DQK + DV): at B 2, S 4,096, H 128, causal,
 // 3.57 TFLOP, 3.6 ms at 989 TFLOP/s.
 //
-// bf16 route (hd 64 and 128, and MLA's pair): two launches, persistent and
+// recurrentgemma's local layers train at hd 256 (MQA, G 16, window 2,048):
+// at B 1, S 4,096, 6,292,480 live pairs a head, 257.7 GFLOP at 10 hd, 0.261
+// ms at 989 TFLOP/s.  Its consumers split an item's dK and dV between them
+// and its dK/dV items also split the group's q heads (BwdTile, SPLIT):
+// three launches, the third summing the parts.
+//
+// bf16 route (hd 64, 128 and 256, and MLA's pair): persistent and
 // warp-specialised like the forward: one block an SM, a producer
 // warpgroup at 24 registers whose one thread issues every load by TMA
 // (4-D maps, 64-row boxes, 128-byte swizzle) into mbarrier-guarded slots
@@ -135,7 +141,6 @@ __device__ __forceinline__ bool live_pair(int pq, int pk, int S, int causal,
 // ---------------------------------------------------------------------------
 // bf16 route: TMA, mbarriers, wgmma; a producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
-constexpr int BC = 128;   // dK/dV: keys of a work item (64 a consumer)
 constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
 // The streamed tiles: q rows of a dK/dV ring stage (BR) and keys of a dQ
 // ring stage (BN), the N of the score products (m64nBR, m64nBN).  Wider
@@ -154,13 +159,40 @@ constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
 // tile is 64 keys (S and dP 32 each, dS's fragments 16: 176); at 128 keys
 // it would need 256.  The Q and dO boxes of a 32-row stage are 32 rows
 // (QBOX).
+//
+// hd 256 (recurrentgemma's local layers: MQA, 16 q heads over one kv head,
+// window 2,048; no softcap) holds still more: dK and dV of 64 keys are 256
+// fp32 a thread, past the 240 a consumer has.  So the two consumers split
+// the work of one 64-key item (BC 64) instead of its keys: consumer 0
+// computes S^T, P^T and dV += P^T dO (SPLIT, ROLE_DV), consumer 1 S^T, dP^T,
+// dS^T and dK += dS^T Q (ROLE_DK), both over the same Q/dO stages of 32
+// rows.  S^T is computed twice: 10 hd FLOPs a live pair in this kernel,
+// 16 hd with the dQ kernel's S, dP and dQ (14 hd at the other widths),
+// against the bound's 10 hd.  Each
+// holds 128 accumulators a thread (dV: + S^T 16 + its fragments 8; dK: + S^T
+// and dP^T 16 each + dS^T's fragments 8).  Under MQA the (b, kv head, 64
+// keys) items are too few for the card (64 at B 1, S 4,096), so an item
+// also takes one of ``kv_split`` equal parts of the group's q heads; the
+// consumers write fp32 partials of dK and dV, and a short pass sums the
+// parts in a fixed order (no atomics) and rounds once.  The dQ consumer's
+// dQ is 64 x 256, 128 a thread, and its tile is 32 keys (S and dP 16
+// each, dS's fragments 8: 168); its item's Q and dO take 128 KB, so O is
+// not staged: D = rowsum(dO O) reads the rows from device memory (O_SMEM
+// false), and three 32-key K/V stages of 32 KB fit beside them.
 template <int DQK, int DV, bool CAP>
 struct BwdTile {
+  static constexpr bool SPLIT = DQK == 256;
   static constexpr int BR =
-      DQK != DV ? 32 : (DQK == 64 && !CAP ? 128 : 64);
-  static constexpr int BN = DQK != DV ? 64 : (DQK == 128 && CAP ? 64 : 128);
+      SPLIT || DQK != DV ? 32 : (DQK == 64 && !CAP ? 128 : 64);
+  static constexpr int BN =
+      SPLIT ? 32 : DQK != DV ? 64 : (DQK == 128 && CAP ? 64 : 128);
+  static constexpr int BC = SPLIT ? 64 : 128;   // dK/dV: keys of an item
   static constexpr int QBOX = BR < 64 ? BR : 64;
+  static constexpr int KBOX = BN < 64 ? BN : 64;
+  static constexpr bool O_SMEM = !SPLIT;        // dQ: O staged with dO
 };
+// What a split dK/dV consumer (hd 256) computes for its item's 64 keys.
+constexpr int ROLE_DV = 1, ROLE_DK = 2;
 constexpr int WG_THREADS = 384;
 // setmaxnreg: (24 + 2 x 240) x 128 = 64,512 of the SM's 65,536 registers
 constexpr int PRODUCER_REGS = 24;
@@ -172,12 +204,13 @@ constexpr int SMEM_LIMIT = 232448;
 // kernels/flash_attention.py:BWD_PLAN_FIELDS.  Offsets are bytes from the
 // 1,024-aligned start of dynamic shared memory; items and starts are int
 // offsets into the work buffer (items: 4 ints each, (b * heads + head,
-// tile, first, end) with first..end - 1 the tiles the item walks; starts:
-// a block's first item, one more entry than blocks).
+// tile, first, end) with first..end - 1 the tiles the item walks, a dK/dV
+// item's first int (b * KH + kv head) * kv_split + its part of the group's
+// q heads; starts: a block's first item, one more entry than blocks).
 struct BwdPlan {
   int br, bc, bm, bn, s_pad;
   int kv_blocks, kv_slots, kv_stages, kv_off_kv, kv_off_ring, kv_off_stats,
-      kv_off_bars, kv_smem, kv_items, kv_starts;
+      kv_off_bars, kv_smem, kv_items, kv_starts, kv_split;
   int dq_blocks, dq_slots, dq_stages, dq_off_q, dq_off_ring, dq_off_bars,
       dq_smem, dq_items, dq_starts;
 };
@@ -471,7 +504,8 @@ __device__ __forceinline__ void ss_tile(float (&d)[N / 2], uint32_t a,
 // apart); a k-step is 16 rows, 2,048 bytes of a column block.  HD 192 is
 // an n128 product over column blocks 0 and 1 and an n64 over block 2,
 // whose accumulators follow on (element 64 + i of the n64 is column 128 +
-// the column of its element i).
+// the column of its element i); HD 256 two n128 products, over blocks 0
+// and 1 and over blocks 2 and 3.
 template <int HD, int K>
 __device__ __forceinline__ void rs_tile(float (&acc)[HD / 2],
                                         const uint32_t (&a)[K / 16][4],
@@ -483,10 +517,11 @@ __device__ __forceinline__ void rs_tile(float (&acc)[HD / 2],
       wgmma_rs_n64<0>(acc, a[kk], db);
     } else {
       wgmma_rs_n128<0>(acc, a[kk], db);
+      const uint64_t db2 = sw128_desc(b + 2 * K * 128 + kk * 16 * 128, K * 128);
       if constexpr (HD == 192)
-        wgmma_rs_n64<64>(acc, a[kk],
-                         sw128_desc(b + 2 * K * 128 + kk * 16 * 128,
-                                    K * 128));
+        wgmma_rs_n64<64>(acc, a[kk], db2);
+      else if constexpr (HD == 256)
+        wgmma_rs_n128<64>(acc, a[kk], db2);
     }
   }
 }
@@ -690,8 +725,147 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
+// What a split dK/dV consumer (hd 256) needs beyond the plan:
+// shared-memory regions, the shapes, the scales and where its partial goes.
+struct KvArgs {
+  uint32_t kv_s, ring, st_s, bars;
+  int KVS, NST, G, B, S, KH, causal, window, r_begin, r_end;
+  float sc, scale;
+  const int* work;
+  float* part;              // fp32 partials of dK, then of dV
+};
+
+// A consumer's fp32 result (64 keys x HD) into its part of the partials
+// (kv_split, B, S, KH, HD), keys past S skipped.
+template <int HD>
+__device__ __forceinline__ void store_part(float* dst,
+                                           const float (&acc)[HD / 2],
+                                           int key0, int S, int KH, int warp,
+                                           int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key0 + 16 * warp + g + 8 * rr;
+    if (key >= S) continue;
+    float* row = dst + (size_t)key * KH * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * tq) =
+          make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+  }
+}
+
+// A split dK/dV consumer warpgroup's walk over its block's items (hd 256,
+// no softcap): ROLE_DV accumulates dV += P^T dO, ROLE_DK dK += dS^T Q (S^T
+// computed by both), over the same ring stages; a stage goes back to the
+// producer after the 8 consumer warps have read it.  Each writes its fp32
+// partial of the item's 64 keys (dK unscaled: the sum pass scales it).
+template <int DQK, int DV, int ROLE>
+__device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
+                                             const KvArgs& a, int cw) {
+  using Tile = BwdTile<DQK, DV, false>;
+  constexpr int BR = Tile::BR, NS = BR / 2, BC = Tile::BC;
+  constexpr bool DK = ROLE == ROLE_DK;
+  constexpr int ACC = DK ? DQK / 2 : DV / 2;
+  constexpr int K_BYTES = BC * DQK * 2;        // an item's K
+  constexpr int KV_BYTES = K_BYTES + BC * DV * 2;   // ... and its V
+  constexpr int QT_BYTES = BR * DQK * 2;       // a stage's Q
+  constexpr int ST_BYTES = QT_BYTES + BR * DV * 2;  // ... and its dO
+  auto kv_full = [&](int i) { return a.bars + 8 * i; };
+  auto kv_empty = [&](int i) { return a.bars + 8 * (a.KVS + i); };
+  auto full = [&](int s) { return a.bars + 8 * (2 * a.KVS + s); };
+  auto empty = [&](int s) { return a.bars + 8 * (2 * a.KVS + a.NST + s); };
+  const int t = threadIdx.x - 128 * (cw + 1), warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int split = p.kv_split, heads = a.G / split;
+  const int S = a.S, causal = a.causal, window = a.window;
+  int it = 0;                                // ring stages consumed
+  for (int r = a.r_begin; r < a.r_end; ++r) {
+    const int4 u = uniform_item(a.work, p.kv_items + 4 * r);
+    const int bh = u.x / split, part = u.x % split;
+    const int b = bh / a.KH, kh = bh % a.KH, n = r - a.r_begin;
+    const int slot = n % a.KVS;
+    const int kc = u.y * BC;                   // the item's first key
+    const uint32_t ka = a.kv_s + slot * KV_BYTES;
+    const uint32_t va = ka + K_BYTES;
+    // the q rows [lo, hi) each of this thread's two keys sees
+    int lo[2], hi[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = kc + 16 * warp + g + 8 * rr;
+      lo[rr] = causal ? key : 0;
+      hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
+    }
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full(slot), (n / a.KVS) & 1);
+    for (int gi = part * heads; gi < (part + 1) * heads; ++gi) {
+      for (int qt = u.z; qt < u.w; ++qt, ++it) {
+        const int s = it % a.NST, q0 = qt * BR;
+        const uint32_t qs = a.ring + s * ST_BYTES, os = qs + QT_BYTES;
+        const uint32_t st = a.st_s + s * BR * 8 + (2 * tq) * 8;
+        // a mask iff some pair of the tile is dead: keys or rows past S,
+        // a row before the key (causal), a row past the window
+        const bool mask = kc + 64 > S || q0 + BR > S ||
+                          (causal && q0 < kc + 63) ||
+                          (window && q0 + BR - 1 - kc >= window);
+        const int col0 = q0 + 2 * tq;
+        float sv[NS], dp[DK ? NS : 1];
+        mbar_wait(full(s), (it / a.NST) & 1);
+        wgmma_fence();
+        ss_tile<DQK, BR>(sv, ka, BC, qs);    // S^T = K Q^T
+        wgmma_commit();
+        if constexpr (DK) {
+          ss_tile<DV, BR>(dp, va, BC, os);   // dP^T = V dO^T
+          wgmma_commit();
+          wgmma_wait<1>();                   // S^T; dP^T in flight
+        } else {
+          wgmma_wait<0>();
+        }
+        reg_fence(sv);
+        if (mask)
+          p_cols<true, NS>(sv, st, a.sc, col0, lo, hi);
+        else
+          p_cols<false, NS>(sv, st, a.sc, col0, lo, hi);
+        uint32_t fa[BR / 16][4];
+        if constexpr (DK) {
+          wgmma_wait<0>();
+          reg_fence(dp);
+          ds_cols(sv, dp, st);
+          pack_a<NS>(fa, dp);
+        } else {
+          pack_a<NS>(fa, sv);
+        }
+        wgmma_fence();
+        if constexpr (DK)
+          rs_tile<DQK, BR>(acc, fa, qs);     // dK += dS^T Q
+        else
+          rs_tile<DV, BR>(acc, fa, os);      // dV += P^T dO
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+        reg_fence(fa);
+        release(empty(s), lane);
+      }
+    }
+    // epilogue: this part's fp32 partial from registers; the slot goes
+    // back once every warp of the consumer is past its last product
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    const size_t at = (((size_t)part * a.B + b) * S) * a.KH + kh;
+    if constexpr (DK)
+      store_part<DQK>(a.part + at * DQK, acc, kc, S, a.KH, warp, lane);
+    else
+      store_part<DV>(a.part + (size_t)split * a.B * S * a.KH * DQK +
+                         at * DV,
+                     acc, kc, S, a.KH, warp, lane);
+    if (t == 0) mbar_arrive(kv_empty(slot));
+  }
+}
+
 // dK, dV.  Warpgroup 0 is the producer (one thread issues every load),
-// warpgroups 1 and 2 the consumers, each owning 64 of an item's 128 keys.
+// warpgroups 1 and 2 the consumers, each owning 64 of an item's 128 keys,
+// or at hd 256 (SPLIT) one of dK and dV of its 64 keys (dkdv_consume).
 // Both consumers walk the same ring stages; a stage goes back to the
 // producer after the 8 consumer warps have read it.
 template <int DQK, int DV, bool CAP>
@@ -703,11 +877,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap dkmap,
                      const __grid_constant__ CUtensorMap dvmap,
                      const float2* __restrict__ stats,
-                     const int* __restrict__ work, const BwdPlan p, int S,
-                     int H, int KH, float sc, float cl, float scale,
-                     int causal, int window) {
+                     const int* __restrict__ work, const BwdPlan p, int B,
+                     int S, int H, int KH, float sc, float cl, float scale,
+                     int causal, int window, float* __restrict__ part) {
   using Tile = BwdTile<DQK, DV, CAP>;
-  constexpr int BR = Tile::BR, NS = BR / 2, QBOX = Tile::QBOX;
+  constexpr int BR = Tile::BR, NS = BR / 2, QBOX = Tile::QBOX, BC = Tile::BC;
   constexpr int K_BYTES = BC * DQK * 2;        // an item's K
   constexpr int KV_BYTES = K_BYTES + BC * DV * 2;   // ... and its V
   constexpr int QT_BYTES = BR * DQK * 2;       // a stage's Q
@@ -717,6 +891,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
   const uint32_t kv_s = base + p.kv_off_kv, ring = base + p.kv_off_ring;
   const uint32_t st_s = base + p.kv_off_stats, bars = base + p.kv_off_bars;
   const int KVS = p.kv_slots, NST = p.kv_stages, G = H / KH;
+  // the parts of a group's q heads (hd 256; 1 at the other widths)
+  const int split = Tile::SPLIT ? p.kv_split : 1;
   auto kv_full = [&](int i) { return bars + 8 * i; };
   auto kv_empty = [&](int i) { return bars + 8 * (KVS + i); };
   auto full = [&](int s) { return bars + 8 * (2 * KVS + s); };
@@ -739,21 +915,23 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
 
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   if (wg == 0) {
-    // ---- producer: per item K and V, then per (q head, q tile) Q, dO and
-    // the tile's statistics ------------------------------------------------
+    // ---- producer: per item K and V, then per (q head of its part, q
+    // tile) Q, dO and the tile's statistics --------------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
       int it = 0;                              // ring stages filled so far
+      const int heads = G / split;
       for (int r = r_begin; r < r_end; ++r) {
         const int4 u = *reinterpret_cast<const int4*>(work + p.kv_items +
                                                       4 * r);
-        const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
+        const int bh = u.x / split, gp = u.x % split;
+        const int b = bh / KH, kh = bh % KH, n = r - r_begin;
         const int slot = n % KVS;
         mbar_wait(kv_empty(slot), ((n / KVS) & 1) ^ 1);
         mbar_expect_tx(kv_full(slot), KV_BYTES);
         const uint32_t ks = kv_s + slot * KV_BYTES;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < BC / 64; ++half) {
           const int row = u.y * BC + 64 * half;
 #pragma unroll
           for (int c = 0; c < DQK / 64; ++c)
@@ -764,7 +942,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
             tma_load(ks + K_BYTES + c * BC * 128 + half * 64 * 128, &vmap,
                      kv_full(slot), 64 * c, kh, row, b);
         }
-        for (int gi = 0; gi < G; ++gi) {
+        for (int gi = gp * heads; gi < (gp + 1) * heads; ++gi) {
           const int h = kh * G + gi;
           const float2* st_h = stats + (size_t)(b * H + h) * p.s_pad;
           for (int qt = u.z; qt < u.w; ++qt, ++it) {
@@ -773,15 +951,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
             mbar_expect_tx(full(s), ST_BYTES + BR * 8);
             const uint32_t qs = ring + s * ST_BYTES;
 #pragma unroll
-            for (int part = 0; part < BR / QBOX; ++part) {
-              const int row = qt * BR + QBOX * part;
+            for (int prt = 0; prt < BR / QBOX; ++prt) {
+              const int row = qt * BR + QBOX * prt;
 #pragma unroll
               for (int c = 0; c < DQK / 64; ++c)
-                tma_load(qs + c * BR * 128 + part * QBOX * 128, &qmap,
+                tma_load(qs + c * BR * 128 + prt * QBOX * 128, &qmap,
                          full(s), 64 * c, h, row, b);
 #pragma unroll
               for (int c = 0; c < DV / 64; ++c)
-                tma_load(qs + QT_BYTES + c * BR * 128 + part * QBOX * 128,
+                tma_load(qs + QT_BYTES + c * BR * 128 + prt * QBOX * 128,
                          &dmap, full(s), 64 * c, h, row, b);
             }
             bulk_load(st_s + s * BR * 8, st_h + qt * BR, BR * 8, full(s));
@@ -793,108 +971,143 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     // ---- consumers -------------------------------------------------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int cw = wg - 1;
-    const int t = threadIdx.x - 128 * wg, warp = t >> 5, lane = t & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    int it = 0;                                // ring stages consumed
-    for (int r = r_begin; r < r_end; ++r) {
-      const int4 u = uniform_item(work, p.kv_items + 4 * r);
-      const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
-      const int slot = n % KVS;
-      const int kc = u.y * BC + 64 * cw;       // this consumer's first key
-      const uint32_t ka = kv_s + slot * KV_BYTES + 64 * cw * 128;
-      const uint32_t va = ka + K_BYTES;
-      // the q rows [lo, hi) each of this thread's two keys sees
-      int lo[2], hi[2];
+    if constexpr (Tile::SPLIT) {
+      const KvArgs a{kv_s, ring, st_s, bars, KVS, NST, G, B, S, KH, causal,
+                     window, r_begin, r_end, sc, scale, work, part};
+      if (cw == 0)
+        dkdv_consume<DQK, DV, ROLE_DV>(p, a, cw);
+      else
+        dkdv_consume<DQK, DV, ROLE_DK>(p, a, cw);
+    } else {
+      const int t = threadIdx.x - 128 * wg, warp = t >> 5, lane = t & 31;
+      const int g = lane >> 2, tq = lane & 3;
+      int it = 0;                                // ring stages consumed
+      for (int r = r_begin; r < r_end; ++r) {
+        const int4 u = uniform_item(work, p.kv_items + 4 * r);
+        const int b = u.x / KH, kh = u.x % KH, n = r - r_begin;
+        const int slot = n % KVS;
+        const int kc = u.y * BC + 64 * cw;       // this consumer's first key
+        const uint32_t ka = kv_s + slot * KV_BYTES + 64 * cw * 128;
+        const uint32_t va = ka + K_BYTES;
+        // the q rows [lo, hi) each of this thread's two keys sees
+        int lo[2], hi[2];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int key = kc + 16 * warp + g + 8 * rr;
-        lo[rr] = causal ? key : 0;
-        hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
-      }
-      float dk[DQK / 2], dv[DV / 2];
+        for (int rr = 0; rr < 2; ++rr) {
+          const int key = kc + 16 * warp + g + 8 * rr;
+          lo[rr] = causal ? key : 0;
+          hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
+        }
+        float dk[DQK / 2], dv[DV / 2];
 #pragma unroll
-      for (int i = 0; i < DQK / 2; ++i) dk[i] = 0.f;
+        for (int i = 0; i < DQK / 2; ++i) dk[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
-      mbar_wait(kv_full(slot), (n / KVS) & 1);
-      for (int gi = 0; gi < G; ++gi) {
-        for (int qt = u.z; qt < u.w; ++qt, ++it) {
-          const int s = it % NST, q0 = qt * BR;
-          const uint32_t qs = ring + s * ST_BYTES, os = qs + QT_BYTES;
-          const uint32_t st = st_s + s * BR * 8 + (2 * tq) * 8;
-          // a mask iff some pair of the tile is dead: keys or rows past S,
-          // a row before the key (causal), a row past the window
-          const bool mask = kc + 64 > S || q0 + BR > S ||
-                            (causal && q0 < kc + 63) ||
-                            (window && q0 + BR - 1 - kc >= window);
-          const int col0 = q0 + 2 * tq;
-          float sv[NS], dp[NS];
-          mbar_wait(full(s), (it / NST) & 1);
-          wgmma_fence();
-          ss_tile<DQK, BR>(sv, ka, BC, qs);    // S^T = K Q^T
-          wgmma_commit();
-          ss_tile<DV, BR>(dp, va, BC, os);     // dP^T = V dO^T
-          wgmma_commit();
-          if constexpr (CAP) {
-            wgmma_wait<1>();                   // S^T; dP^T in flight
-            reg_fence(sv);
-            tanh_tile(sv, sc);
+        for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+        mbar_wait(kv_full(slot), (n / KVS) & 1);
+        for (int gi = 0; gi < G; ++gi) {
+          for (int qt = u.z; qt < u.w; ++qt, ++it) {
+            const int s = it % NST, q0 = qt * BR;
+            const uint32_t qs = ring + s * ST_BYTES, os = qs + QT_BYTES;
+            const uint32_t st = st_s + s * BR * 8 + (2 * tq) * 8;
+            // a mask iff some pair of the tile is dead: keys or rows past S,
+            // a row before the key (causal), a row past the window
+            const bool mask = kc + 64 > S || q0 + BR > S ||
+                              (causal && q0 < kc + 63) ||
+                              (window && q0 + BR - 1 - kc >= window);
+            const int col0 = q0 + 2 * tq;
+            float sv[NS], dp[NS];
+            mbar_wait(full(s), (it / NST) & 1);
+            wgmma_fence();
+            ss_tile<DQK, BR>(sv, ka, BC, qs);    // S^T = K Q^T
+            wgmma_commit();
+            ss_tile<DV, BR>(dp, va, BC, os);     // dP^T = V dO^T
+            wgmma_commit();
+            if constexpr (CAP) {
+              wgmma_wait<1>();                   // S^T; dP^T in flight
+              reg_fence(sv);
+              tanh_tile(sv, sc);
+              wgmma_wait<0>();
+              reg_fence(dp);
+              dcap_cols(sv, dp, st);
+              if (mask)
+                pcap_cols<true, NS>(sv, dp, st, cl, col0, lo, hi);
+              else
+                pcap_cols<false, NS>(sv, dp, st, cl, col0, lo, hi);
+            } else {
+              wgmma_wait<1>();                   // S^T; dP^T in flight
+              reg_fence(sv);
+              if (mask)
+                p_cols<true, NS>(sv, st, sc, col0, lo, hi);
+              else
+                p_cols<false, NS>(sv, st, sc, col0, lo, hi);
+              wgmma_wait<0>();
+              reg_fence(dp);
+              ds_cols(sv, dp, st);
+            }
+            uint32_t pa[BR / 16][4], da[BR / 16][4];
+            pack_a<NS>(pa, sv);
+            pack_a<NS>(da, dp);
+            wgmma_fence();
+            rs_tile<DV, BR>(dv, pa, os);         // dV += P^T dO
+            rs_tile<DQK, BR>(dk, da, qs);        // dK += dS^T Q
+            wgmma_commit();
             wgmma_wait<0>();
-            reg_fence(dp);
-            dcap_cols(sv, dp, st);
-            if (mask)
-              pcap_cols<true, NS>(sv, dp, st, cl, col0, lo, hi);
-            else
-              pcap_cols<false, NS>(sv, dp, st, cl, col0, lo, hi);
-          } else {
-            wgmma_wait<1>();                   // S^T; dP^T in flight
-            reg_fence(sv);
-            if (mask)
-              p_cols<true, NS>(sv, st, sc, col0, lo, hi);
-            else
-              p_cols<false, NS>(sv, st, sc, col0, lo, hi);
-            wgmma_wait<0>();
-            reg_fence(dp);
-            ds_cols(sv, dp, st);
+            reg_fence(dv);
+            reg_fence(dk);
+            reg_fence(pa);
+            reg_fence(da);
+            release(empty(s), lane);
           }
-          uint32_t pa[BR / 16][4], da[BR / 16][4];
-          pack_a<NS>(pa, sv);
-          pack_a<NS>(da, dp);
-          wgmma_fence();
-          rs_tile<DV, BR>(dv, pa, os);         // dV += P^T dO
-          rs_tile<DQK, BR>(dk, da, qs);        // dK += dS^T Q
-          wgmma_commit();
-          wgmma_wait<0>();
-          reg_fence(dv);
-          reg_fence(dk);
-          reg_fence(pa);
-          reg_fence(da);
-          release(empty(s), lane);
+        }
+        // epilogue: dK scale and dV in bf16 over this consumer's own K and V
+        // rows (no product reads them any more), then TMA stores, which clip
+        // the keys past S; the slot goes back to the producer once the
+        // stores have read it
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+        stage_out<DQK>(ka, BC, dk, scale, warp, lane);
+        stage_out<DV>(va, BC, dv, 1.f, warp, lane);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+        if (t == 0) {
+#pragma unroll
+          for (int c = 0; c < DQK / 64; ++c)
+            tma_store(&dkmap, ka + c * BC * 128, 64 * c, kh, kc, b);
+#pragma unroll
+          for (int c = 0; c < DV / 64; ++c)
+            tma_store(&dvmap, va + c * BC * 128, 64 * c, kh, kc, b);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          mbar_arrive(kv_empty(slot));
         }
       }
-      // epilogue: dK scale and dV in bf16 over this consumer's own K and V
-      // rows (no product reads them any more), then TMA stores, which clip
-      // the keys past S; the slot goes back to the producer once the
-      // stores have read it
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-      stage_out<DQK>(ka, BC, dk, scale, warp, lane);
-      stage_out<DV>(va, BC, dv, 1.f, warp, lane);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-      if (t == 0) {
-#pragma unroll
-        for (int c = 0; c < DQK / 64; ++c)
-          tma_store(&dkmap, ka + c * BC * 128, 64 * c, kh, kc, b);
-#pragma unroll
-        for (int c = 0; c < DV / 64; ++c)
-          tma_store(&dvmap, va + c * BC * 128, 64 * c, kh, kc, b);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        mbar_arrive(kv_empty(slot));
-      }
+      if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
     }
-    if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+// hd 256: dK = scale x the sum of its kv_split fp32 partials and dV the sum
+// of its, in part order, rounded once to bf16; ``n`` elements of each (B,
+// S, KH, 256), a multiple of 4, 4 a thread.
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_sum(const float* __restrict__ part, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int split, size_t n, float scale) {
+  const size_t i = ((size_t)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const bool is_v = i >= n;
+  const size_t e = is_v ? i - n : i;
+  const float* src = part + (is_v ? (size_t)split * n : 0) + e;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < split; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (size_t)k * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mul = is_v ? 1.f : scale;
+  uint2 out;
+  out.x = pack_bf16(acc.x * mul, acc.y * mul);
+  out.y = pack_bf16(acc.z * mul, acc.w * mul);
+  *reinterpret_cast<uint2*>((is_v ? dv : dk) + e) = out;
 }
 
 // dQ, and the statistics the dK/dV kernel reads.  Warpgroup 0 is the
@@ -902,7 +1115,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
 // 128 q rows; both walk the same K and V stages.  A consumer first
 // computes D = rowsum(dO o) of its rows from the item's dO and O tiles and
 // writes (lse log2 e, D) of every row of the item, zeros past S, to
-// ``stats`` (B, H, s_pad) for the dK/dV kernel, launched after this one.
+// ``stats`` (B, H, s_pad) for the dK/dV kernel, launched after this one
+// (at hd 256 from the rows of dO and O in device memory, ``og``, ``dog``).
 template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -915,11 +1129,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    float2* __restrict__ stats,
                    const int* __restrict__ work, const BwdPlan p, int S,
                    int H, int KH, float sc, float cl, float scale, int causal,
-                   int window) {
-  constexpr int BN = BwdTile<DQK, DV, CAP>::BN, NS = BN / 2;
+                   int window, const bf16* __restrict__ og,
+                   const bf16* __restrict__ dog) {
+  using Tile = BwdTile<DQK, DV, CAP>;
+  constexpr int BN = Tile::BN, NS = BN / 2, KBOX = Tile::KBOX;
+  constexpr bool O_SMEM = Tile::O_SMEM;
   constexpr int Q_BYTES = BM * DQK * 2;        // an item's Q
-  constexpr int D_BYTES = BM * DV * 2;         // ... its dO (or O)
-  constexpr int SLOT_BYTES = Q_BYTES + 2 * D_BYTES;
+  constexpr int D_BYTES = BM * DV * 2;         // ... its dO (and O)
+  constexpr int SLOT_BYTES = Q_BYTES + (O_SMEM ? 2 : 1) * D_BYTES;
   constexpr int KT_BYTES = BN * DQK * 2;       // a stage's K
   constexpr int ST_BYTES = KT_BYTES + BN * DV * 2;  // ... and its V
   extern __shared__ unsigned char smem_raw[];
@@ -972,8 +1189,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
           for (int c = 0; c < DV / 64; ++c) {
             const uint32_t o = Q_BYTES + c * BM * 128 + half * 64 * 128;
             tma_load(qsl + o, &dmap, q_full(slot), 64 * c, h, row, b);
-            tma_load(qsl + D_BYTES + o, &omap, q_full(slot), 64 * c, h, row,
-                     b);
+            if constexpr (O_SMEM)
+              tma_load(qsl + D_BYTES + o, &omap, q_full(slot), 64 * c, h,
+                       row, b);
           }
         }
         for (int j = u.z; j < u.w; ++j, ++it) {
@@ -982,16 +1200,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
           mbar_expect_tx(full(s), ST_BYTES);
           const uint32_t ks = ring + s * ST_BYTES;
 #pragma unroll
-          for (int part = 0; part < BN / 64; ++part) {
-            const int row = j * BN + 64 * part;
+          for (int part = 0; part < BN / KBOX; ++part) {
+            const int row = j * BN + KBOX * part;
 #pragma unroll
             for (int c = 0; c < DQK / 64; ++c)
-              tma_load(ks + c * BN * 128 + part * 64 * 128, &kmap, full(s),
+              tma_load(ks + c * BN * 128 + part * KBOX * 128, &kmap, full(s),
                        64 * c, kh, row, b);
 #pragma unroll
             for (int c = 0; c < DV / 64; ++c)
-              tma_load(ks + KT_BYTES + c * BN * 128 + part * 64 * 128, &vmap,
-                       full(s), 64 * c, kh, row, b);
+              tma_load(ks + KT_BYTES + c * BN * 128 + part * KBOX * 128,
+                       &vmap, full(s), 64 * c, kh, row, b);
           }
         }
       }
@@ -1032,11 +1250,21 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         // + 8 come from lanes 2 g and 2 g + 16
         const int rl = t >> 1, half = t & 1, row = r0 + rl;
         float d = 0.f;
+        if constexpr (O_SMEM) {
 #pragma unroll
-        for (int j = half * (DV / 16); j < (half + 1) * (DV / 16); ++j) {
-          const uint32_t off = (j >> 3) * BM * 128 + rl * 128 +
-                               (((j & 7) ^ (rl & 7)) << 4);
-          d = dot8(lds128(oa + off), lds128(oa + D_BYTES + off), d);
+          for (int j = half * (DV / 16); j < (half + 1) * (DV / 16); ++j) {
+            const uint32_t off = (j >> 3) * BM * 128 + rl * 128 +
+                                 (((j & 7) ^ (rl & 7)) << 4);
+            d = dot8(lds128(oa + off), lds128(oa + D_BYTES + off), d);
+          }
+        } else if (row < S) {
+          // 16-byte chunks of the row in device memory, in the same order
+          const size_t at = (((size_t)b * S + row) * H + h) * DV;
+          const uint4* orow = reinterpret_cast<const uint4*>(og + at);
+          const uint4* drow = reinterpret_cast<const uint4*>(dog + at);
+#pragma unroll 4
+          for (int j = half * (DV / 16); j < (half + 1) * (DV / 16); ++j)
+            d = dot8(__ldg(drow + j), __ldg(orow + j), d);
         }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         if (half == 0)
@@ -1113,58 +1341,65 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 // ---------------------------------------------------------------------------
 // fp32 path (CUDA cores): 256 threads, thread (ty, tx) owning rows ty + 16 i
-// and columns tx + 16 j (i, j < 4) of a 64 x 64 score tile, and output dims
-// tx + 16 jj of its rows.
+// and columns tx + 16 j (i, j < T / 16) of a T x T score tile, and output
+// dims tx + 16 jj of its rows.  T is 64, or 32 at hd 256, where four 64-row
+// fp32 tiles of 256 columns would take 257 KB of shared memory.
 // ---------------------------------------------------------------------------
 constexpr int SIMT_THREADS = 256;
-constexpr int ST = 64;                     // tile rows and columns
+template <int DQK>
+struct SimtTile {
+  static constexpr int T = DQK >= 256 ? 32 : 64;   // tile rows and columns
+};
 
-template <int HD>
+template <int HD, int T>
 __device__ __forceinline__ void stage_f32(float* x, const float* src,
                                           size_t stride, int row0, int S) {
-  for (int i = threadIdx.x; i < ST * HD; i += SIMT_THREADS) {
+  for (int i = threadIdx.x; i < T * HD; i += SIMT_THREADS) {
     const int r = i / HD, d = i - r * HD, s = row0 + r;
     x[r * (HD + 1) + d] = s < S ? src[(size_t)s * stride + d] : 0.f;
   }
 }
 
 // c[i][j] = sum_d X[ty + 16 i][d] Y[tx + 16 j][d] over two staged tiles
-template <int HD>
-__device__ __forceinline__ void tile_dot(float (&c)[4][4], const float* x,
-                                         const float* y, int tx, int ty) {
+template <int HD, int T>
+__device__ __forceinline__ void tile_dot(float (&c)[T / 16][T / 16],
+                                         const float* x, const float* y,
+                                         int tx, int ty) {
+  constexpr int R = T / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) c[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; ++d) {
-    float xv[4], yv[4];
+    float xv[R], yv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = x[(ty + 16 * i) * (HD + 1) + d];
+    for (int i = 0; i < R; ++i) xv[i] = x[(ty + 16 * i) * (HD + 1) + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yv[j] = y[(tx + 16 * j) * (HD + 1) + d];
+    for (int j = 0; j < R; ++j) yv[j] = y[(tx + 16 * j) * (HD + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[i][j] = fmaf(xv[i], yv[j], c[i][j]);
+      for (int j = 0; j < R; ++j) c[i][j] = fmaf(xv[i], yv[j], c[i][j]);
   }
 }
 
 // acc[i][jj] += sum_c P[ty + 16 i][c] Z[c][tx + 16 jj]
-template <int HD>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
+template <int HD, int T>
+__device__ __forceinline__ void tile_acc(float (&acc)[T / 16][HD / 16],
                                          const float* p, const float* z,
                                          int tx, int ty) {
+  constexpr int R = T / 16;
 #pragma unroll 4
-  for (int c = 0; c < ST; ++c) {
-    float pv[4];
+  for (int c = 0; c < T; ++c) {
+    float pv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * (ST + 1) + c];
+    for (int i = 0; i < R; ++i) pv[i] = p[(ty + 16 * i) * (T + 1) + c];
 #pragma unroll
     for (int jj = 0; jj < HD / 16; ++jj) {
       const float zv = z[c * (HD + 1) + tx + 16 * jj];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], zv, acc[i][jj]);
+      for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(pv[i], zv, acc[i][jj]);
     }
   }
 }
@@ -1173,8 +1408,8 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
 // statistics
 template <int DQK, int DV>
 constexpr int simt_smem_bytes() {
-  return (2 * ST * (DQK + 1) + 2 * ST * (DV + 1) + ST * (ST + 1) + 2 * ST) *
-         4;
+  constexpr int T = SimtTile<DQK>::T;
+  return (2 * T * (DQK + 1) + 2 * T * (DV + 1) + T * (T + 1) + 2 * T) * 4;
 }
 
 template <int DQK, int DV>
@@ -1186,30 +1421,31 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int S, int H, int KH,
                     float scale, int causal, int window, float cap) {
+  constexpr int T = SimtTile<DQK>::T, R = T / 16;
   constexpr int DJK = DQK / 16, DJV = DV / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;                         // [ST][DQK + 1]
-  float* Qs = Ks + ST * (DQK + 1);          // [ST][DQK + 1]
-  float* Vs = Qs + ST * (DQK + 1);          // [ST][DV + 1]
-  float* Os = Vs + ST * (DV + 1);           // dO, [ST][DV + 1]
-  float* Ps = Os + ST * (DV + 1);           // [keys][queries]: P^T, then dS^T
-  float* Ls = Ps + ST * (ST + 1);
-  float* Ds = Ls + ST;
+  float* Ks = smem;                         // [T][DQK + 1]
+  float* Qs = Ks + T * (DQK + 1);           // [T][DQK + 1]
+  float* Vs = Qs + T * (DQK + 1);           // [T][DV + 1]
+  float* Os = Vs + T * (DV + 1);            // dO, [T][DV + 1]
+  float* Ps = Os + T * (DV + 1);            // [keys][queries]: P^T, then dS^T
+  float* Ls = Ps + T * (T + 1);
+  float* Ds = Ls + T;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int G = H / KH;
   const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
-  const int k0 = blockIdx.x * ST;
+  const int k0 = blockIdx.x * T;
   const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
   const size_t ostride = (size_t)H * DV, vstride = (size_t)KH * DV;
   const size_t k_off = (size_t)b * S * kstride + (size_t)kh * DQK;
   const size_t v_off = (size_t)b * S * vstride + (size_t)kh * DV;
-  stage_f32<DQK>(Ks, k + k_off, kstride, k0, S);
-  stage_f32<DV>(Vs, v + v_off, vstride, k0, S);
+  stage_f32<DQK, T>(Ks, k + k_off, kstride, k0, S);
+  stage_f32<DV, T>(Vs, v + v_off, vstride, k0, S);
 
-  float dk_acc[4][DJK], dv_acc[4][DJV];
+  float dk_acc[R][DJK], dv_acc[R][DJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
     for (int jj = 0; jj < DJK; ++jj) dk_acc[i][jj] = 0.f;
 #pragma unroll
@@ -1217,7 +1453,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int q_first = causal ? k0 : 0;
-  const int q_end = window ? min(S, k0 + ST - 1 + window) : S;
+  const int q_end = window ? min(S, k0 + T - 1 + window) : S;
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = kh * G + gi;
@@ -1225,23 +1461,23 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
     const size_t o_off = (size_t)b * S * ostride + (size_t)h * DV;
     const float* lse_h = lse + ((size_t)b * H + h) * S;
     const float* d_h = delta + ((size_t)b * H + h) * S;
-    for (int q0 = (q_first / ST) * ST; q0 < q_end; q0 += ST) {
+    for (int q0 = (q_first / T) * T; q0 < q_end; q0 += T) {
       __syncthreads();
-      stage_f32<DQK>(Qs, q + q_off, qstride, q0, S);
-      stage_f32<DV>(Os, dout + o_off, ostride, q0, S);
-      for (int i = tid; i < ST; i += SIMT_THREADS) {
+      stage_f32<DQK, T>(Qs, q + q_off, qstride, q0, S);
+      stage_f32<DV, T>(Os, dout + o_off, ostride, q0, S);
+      for (int i = tid; i < T; i += SIMT_THREADS) {
         Ls[i] = q0 + i < S ? lse_h[q0 + i] : 0.f;
         Ds[i] = q0 + i < S ? d_h[q0 + i] : 0.f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<DQK>(s, Ks, Qs, tx, ty);     // S^T: keys ty.., queries tx..
-      tile_dot<DV>(dp, Vs, Os, tx, ty);     // dP^T
-      float ds[4][4];
+      float s[R][R], dp[R][R];
+      tile_dot<DQK, T>(s, Ks, Qs, tx, ty);  // S^T: keys ty.., queries tx..
+      tile_dot<DV, T>(dp, Vs, Os, tx, ty);  // dP^T
+      float ds[R][R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int qi = tx + 16 * j;
           float x = s[i][j] * scale, dc = 1.f;
           if (cap != 0.f) {
@@ -1253,24 +1489,24 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
               live_pair(q0 + qi, k0 + ty + 16 * i, S, causal, window)
                   ? expf(x - Ls[qi])
                   : 0.f;
-          Ps[(ty + 16 * i) * (ST + 1) + qi] = p;
+          Ps[(ty + 16 * i) * (T + 1) + qi] = p;
           ds[i][j] = p * (dp[i][j] - Ds[qi]) * dc;
         }
       __syncthreads();
-      tile_acc<DV>(dv_acc, Ps, Os, tx, ty);  // dV += P^T dO
+      tile_acc<DV, T>(dv_acc, Ps, Os, tx, ty);   // dV += P^T dO
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Ps[(ty + 16 * i) * (ST + 1) + tx + 16 * j] = ds[i][j];
+        for (int j = 0; j < R; ++j)
+          Ps[(ty + 16 * i) * (T + 1) + tx + 16 * j] = ds[i][j];
       __syncthreads();
-      tile_acc<DQK>(dk_acc, Ps, Qs, tx, ty);  // dK += dS^T Q
+      tile_acc<DQK, T>(dk_acc, Ps, Qs, tx, ty);  // dK += dS^T Q
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= S) continue;
 #pragma unroll
@@ -1291,54 +1527,55 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ delta, float* __restrict__ dq,
                   int S, int H, int KH, float scale, int causal, int window,
                   float cap) {
+  constexpr int T = SimtTile<DQK>::T, R = T / 16;
   constexpr int DJ = DQK / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;                         // [ST][DQK + 1]
-  float* Ks = Qs + ST * (DQK + 1);          // [ST][DQK + 1]
-  float* Os = Ks + ST * (DQK + 1);          // dO, [ST][DV + 1]
-  float* Vs = Os + ST * (DV + 1);           // [ST][DV + 1]
-  float* Ps = Vs + ST * (DV + 1);           // [queries][keys]: dS
+  float* Qs = smem;                         // [T][DQK + 1]
+  float* Ks = Qs + T * (DQK + 1);           // [T][DQK + 1]
+  float* Os = Ks + T * (DQK + 1);           // dO, [T][DV + 1]
+  float* Vs = Os + T * (DV + 1);            // [T][DV + 1]
+  float* Ps = Vs + T * (DV + 1);            // [queries][keys]: dS
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / KH);
-  const int q0 = blockIdx.x * ST;
+  const int q0 = blockIdx.x * T;
   const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
   const size_t ostride = (size_t)H * DV, vstride = (size_t)KH * DV;
   const size_t q_off = (size_t)b * S * qstride + (size_t)h * DQK;
   const size_t o_off = (size_t)b * S * ostride + (size_t)h * DV;
   const size_t k_off = (size_t)b * S * kstride + (size_t)kh * DQK;
   const size_t v_off = (size_t)b * S * vstride + (size_t)kh * DV;
-  stage_f32<DQK>(Qs, q + q_off, qstride, q0, S);
-  stage_f32<DV>(Os, dout + o_off, ostride, q0, S);
+  stage_f32<DQK, T>(Qs, q + q_off, qstride, q0, S);
+  stage_f32<DV, T>(Os, dout + o_off, ostride, q0, S);
 
-  float lse_r[4], d_r[4];
+  float lse_r[R], d_r[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int s = q0 + ty + 16 * i;
     const size_t idx = ((size_t)b * H + h) * S + s;
     lse_r[i] = s < S ? lse[idx] : 0.f;
     d_r[i] = s < S ? delta[idx] : 0.f;
   }
-  float dq_acc[4][DJ];
+  float dq_acc[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) dq_acc[i][jj] = 0.f;
 
   const int k_first = window ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q0 + ST) : S;
-  for (int t0 = (k_first / ST) * ST; t0 < k_end; t0 += ST) {
+  const int k_end = causal ? min(S, q0 + T) : S;
+  for (int t0 = (k_first / T) * T; t0 < k_end; t0 += T) {
     __syncthreads();
-    stage_f32<DQK>(Ks, k + k_off, kstride, t0, S);
-    stage_f32<DV>(Vs, v + v_off, vstride, t0, S);
+    stage_f32<DQK, T>(Ks, k + k_off, kstride, t0, S);
+    stage_f32<DV, T>(Vs, v + v_off, vstride, t0, S);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<DQK>(s, Qs, Ks, tx, ty);       // S: rows ty.., keys tx..
-    tile_dot<DV>(dp, Os, Vs, tx, ty);       // dP
+    float s[R][R], dp[R][R];
+    tile_dot<DQK, T>(s, Qs, Ks, tx, ty);    // S: rows ty.., keys tx..
+    tile_dot<DV, T>(dp, Os, Vs, tx, ty);    // dP
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         float x = s[i][j] * scale, dc = 1.f;
         if (cap != 0.f) {
           const float th = tanhf(x / cap);
@@ -1349,15 +1586,15 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
             live_pair(q0 + ty + 16 * i, t0 + tx + 16 * j, S, causal, window)
                 ? expf(x - lse_r[i])
                 : 0.f;
-        Ps[(ty + 16 * i) * (ST + 1) + tx + 16 * j] =
+        Ps[(ty + 16 * i) * (T + 1) + tx + 16 * j] =
             p * (dp[i][j] - d_r[i]) * dc;
       }
     __syncthreads();
-    tile_acc<DQK>(dq_acc, Ps, Ks, tx, ty);  // dQ += dS K
+    tile_acc<DQK, T>(dq_acc, Ps, Ks, tx, ty);  // dQ += dS K
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int s = q0 + ty + 16 * i;
     if (s >= S) continue;
 #pragma unroll
@@ -1454,17 +1691,19 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
 template <int DQK, int DV, bool CAP>
 bool plan_fits(const BwdPlan& p) {
   using Tile = BwdTile<DQK, DV, CAP>;
-  constexpr int BR = Tile::BR, BN = Tile::BN, W = DQK + DV;
+  constexpr int BR = Tile::BR, BN = Tile::BN, BC = Tile::BC, W = DQK + DV;
+  constexpr int DQ_SLOT = BM * (DQK + (Tile::O_SMEM ? 2 : 1) * DV) * 2;
   const int kv_bar = p.kv_off_bars + 8 * 2 * (p.kv_slots + p.kv_stages);
   const int dq_bar = p.dq_off_bars + 8 * 2 * (p.dq_slots + p.dq_stages);
   return p.br == BR && p.bc == BC && p.bm == BM && p.bn == BN &&
          p.s_pad % BM == 0 && p.kv_slots >= 1 && p.kv_stages >= 1 &&
          p.dq_slots >= 1 && p.dq_stages >= 1 && p.kv_blocks >= 1 &&
-         p.dq_blocks >= 1 &&
+         p.dq_blocks >= 1 && p.kv_split >= 1 &&
+         (Tile::SPLIT || p.kv_split == 1) &&
          p.kv_off_ring >= p.kv_off_kv + p.kv_slots * BC * W * 2 &&
          p.kv_off_stats >= p.kv_off_ring + p.kv_stages * BR * W * 2 &&
          p.kv_off_bars >= p.kv_off_stats + p.kv_stages * BR * 8 &&
-         p.dq_off_ring >= p.dq_off_q + p.dq_slots * BM * (DQK + 2 * DV) * 2 &&
+         p.dq_off_ring >= p.dq_off_q + p.dq_slots * DQ_SLOT &&
          p.dq_off_bars >= p.dq_off_ring + p.dq_stages * BN * W * 2 &&
          kv_bar + 1023 <= p.kv_smem && dq_bar + 1023 <= p.dq_smem &&
          p.kv_smem <= SMEM_LIMIT && p.dq_smem <= SMEM_LIMIT;
@@ -1476,17 +1715,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  void* dv, float* stats, int B, int S, int H, int KH,
                  float scale, int causal, int window, float cap,
                  const BwdPlan& p, const int* work, cudaStream_t st) {
+  using Plain = BwdTile<DQK, DV, false>;
   const bool c = cap != 0.f;
-  // MLA's pair is compiled without the softcap (no config has both)
-  if (DQK != DV && c) return -1;
+  // MLA's pair and hd 256 are compiled without the softcap (no config
+  // trains either with one: gemma2's softcapped hd 256 is a later slice)
+  if ((DQK != DV || Plain::SPLIT) && c) return -1;
   if (!(c ? plan_fits<DQK, DV, true>(p) : plan_fits<DQK, DV, false>(p)))
     return -1;
+  if (Plain::SPLIT && (H / KH) % p.kv_split != 0) return -1;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  // the dK/dV kernel's Q and dO stages come in boxes of QBOX rows
-  const int qbox = c ? BwdTile<DQK, DV, true>::QBOX
-                     : BwdTile<DQK, DV, false>::QBOX;
-  CUtensorMap qm, dm, qrm, drm, om, km, vm, dqm, dkm, dvm;
+  // the dK/dV kernel's Q and dO stages come in boxes of QBOX rows, the dQ
+  // kernel's K and V stages in boxes of KBOX keys
+  const int qbox = c ? BwdTile<DQK, DV, true>::QBOX : Plain::QBOX;
+  const int kbox = c ? BwdTile<DQK, DV, true>::KBOX : Plain::KBOX;
+  CUtensorMap qm, dm, qrm, drm, om, km, vm, kqm, vqm, dqm, dkm, dvm;
   if (!tensor_map(enc, &qm, q, B, S, H, DQK) ||
       !tensor_map(enc, &dm, dout, B, S, H, DV) ||
       !tensor_map(enc, &qrm, q, B, S, H, DQK, qbox) ||
@@ -1494,6 +1737,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
       !tensor_map(enc, &om, o, B, S, H, DV) ||
       !tensor_map(enc, &km, k, B, S, KH, DQK) ||
       !tensor_map(enc, &vm, v, B, S, KH, DV) ||
+      !tensor_map(enc, &kqm, k, B, S, KH, DQK, kbox) ||
+      !tensor_map(enc, &vqm, v, B, S, KH, DV, kbox) ||
       !tensor_map(enc, &dqm, dq, B, S, H, DQK) ||
       !tensor_map(enc, &dkm, dk, B, S, KH, DQK) ||
       !tensor_map(enc, &dvm, dv, B, S, KH, DV))
@@ -1505,7 +1750,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const float cl = cap * LOG2E;
   auto dkdv = flash_bwd_dkdv_wgmma<DQK, DV, false>;
   auto dqk = flash_bwd_dq_wgmma<DQK, DV, false>;
-  if constexpr (DQK == DV)
+  if constexpr (DQK == DV && !Plain::SPLIT)
     if (c) {
       dkdv = flash_bwd_dkdv_wgmma<DQK, DV, true>;
       dqk = flash_bwd_dq_wgmma<DQK, DV, true>;
@@ -1517,13 +1762,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return (int)err;
   // dQ first: it writes the statistics the dK/dV kernel streams
   dqk<<<p.dq_blocks, WG_THREADS, p.dq_smem, st>>>(
-      qm, dm, om, km, vm, dqm, lse, stats2, work, p, S, H, KH, sc, cl, scale,
-      causal, window);
+      qm, dm, om, kqm, vqm, dqm, lse, stats2, work, p, S, H, KH, sc, cl,
+      scale, causal, window, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // hd 256: the dK/dV partials follow the statistics in the scratch
+  float* part = stats + (size_t)B * H * p.s_pad * 2;
   dkdv<<<p.kv_blocks, WG_THREADS, p.kv_smem, st>>>(
-      qrm, drm, km, vm, dkm, dvm, stats2, work, p, S, H, KH, sc, cl, scale,
-      causal, window);
+      qrm, drm, km, vm, dkm, dvm, stats2, work, p, B, S, H, KH, sc, cl,
+      scale, causal, window, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !Plain::SPLIT) return (int)err;
+  const size_t n = (size_t)B * S * KH * DQK;
+  flash_bwd_dkdv_sum<<<(unsigned)((2 * n / 4 + 255) / 256), 256, 0, st>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.kv_split, n,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -1541,7 +1795,8 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (S + ST - 1) / ST;
+  constexpr int T = SimtTile<DQK>::T;
+  const int tiles = (S + T - 1) / T;
   const float *qp = static_cast<const float*>(q),
               *kp = static_cast<const float*>(k),
               *vp = static_cast<const float*>(v),
@@ -1562,9 +1817,10 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16.  q, dq: (B, S, H, hd); o, dout: (B, S,
 // H, hdv); k, dk: (B, S, KH, hd); v, dv: (B, S, KH, hdv); (hd, hdv) is (64,
-// 64), (128, 128) or MLA's (192, 128), which takes no softcap.  lse: (B, H,
-// S) fp32 (natural log); delta: fp32 scratch that this call fills, (B, H,
-// S) floats for fp32 and (B, H, s_pad, 2) for bf16.  plan: ``n_plan`` ints
+// 64), (128, 128), (256, 256) or MLA's (192, 128); the last two take no
+// softcap in bf16.  lse: (B, H, S) fp32 (natural log); delta: fp32 scratch
+// that this call fills, (B, H, S) floats for fp32 and (B, H, s_pad, 2) for
+// bf16, followed at hd 256 by 2 kv_split B S KH 256 floats of partials.  plan: ``n_plan`` ints
 // in host memory, the fields of BwdPlan
 // (kernels/flash_attention.py:flash_bwd_plan), and work: the plan's work
 // items and block starts on the card; the bf16 route reads both, the fp32
@@ -1582,7 +1838,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   if (!((hd == 64 && hdv == 64) || (hd == 128 && hdv == 128) ||
-        (hd == 192 && hdv == 128)))
+        (hd == 256 && hdv == 256) || (hd == 192 && hdv == 128)))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
@@ -1607,6 +1863,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                        cap, p, w, st);
   FLASH_BWD_CASE(64, 64)
   FLASH_BWD_CASE(128, 128)
+  FLASH_BWD_CASE(256, 256)
   FLASH_BWD_CASE(192, 128)
 #undef FLASH_BWD_CASE
   return -1;

@@ -77,7 +77,9 @@
 // products (one for Bm in bf16).  The products that carry on (dS and S
 // across chunks, G across segments) split by rounding (cvt.rna); the ones
 // whose result is an output split by truncation (two integer operations,
-// 2^-20 relative, as the forward's read-out).  A state's update is summed
+// 2^-20 relative, as the forward's read-out); Bm's diagonal do_t . v_t,
+// which du and the bonus terms of dr and dk take alone and which can
+// cancel, is an fp32 dot product on the CUDA cores.  A state's update is summed
 // in a fresh accumulator and added with one fp32 fmaf.  No atomics: every
 // output element is written once and du's partials are summed by the
 // wrapper in a fixed order, so two calls are bit-equal.
@@ -299,7 +301,8 @@ struct Chunks {
   static constexpr int AP = AM + L * (L + 8) * 4;     // [NW][NGRP][32]
   static constexpr int TP = AP + NW * NGRP * 32 * 4;  // [NG][N]
   static constexpr int PH = TP + NG * N * 4;          // [2][N]
-  static constexpr int BYTES = PH + 2 * N * 4;
+  static constexpr int DG = PH + 2 * N * 4;           // [SEG] do_t . v_t
+  static constexpr int BYTES = DG + SEG * 4;
   static_assert(BYTES <= SMEM_MAX, "pass 2 shared memory");
   static_assert(NG == 2 && NNT * NG * 8 == N, "warp tiling");
   static_assert(NGRP == 3 && NT == 4 * N && L == 16, "walk parts");
@@ -511,6 +514,7 @@ wkv6_bwd_chunks(const TI* __restrict__ r, const TI* __restrict__ k,
   float* sap = reinterpret_cast<float*>(sm + SM::AP);
   float* stp = reinterpret_cast<float*>(sm + SM::TP);
   float* sph = reinterpret_cast<float*>(sm + SM::PH);
+  float* sdg = reinterpret_cast<float*>(sm + SM::DG);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -617,6 +621,24 @@ wkv6_bwd_chunks(const TI* __restrict__ r, const TI* __restrict__ k,
   __syncthreads();
 
   // -- the chunks in reverse -----------------------------------------------
+  // Bm's diagonal do_t . v_t of every step of the segment once more, as an
+  // fp32 dot product on the CUDA cores (each term rounded once), for the
+  // terms of dr, dk and du that take it alone: the split-TF32 product
+  // keeps 2^-20 of each term, which a cancelling do_t . v_t shows in du
+  // (at S 1 du is r k (do . v)).  Four neighbouring lanes take a step,
+  // N / 4 channels each, N steps a pass; rows past n are zeros.  The
+  // chunks' first barrier orders it before the walks that read it.
+  for (int t = tid >> 2; t < SEG; t += NT / 4) {
+    const int c0 = (tid & 3) * (N / 4);
+    float d = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      d = fmaf(to_f(sdo[t * LD + c0 + j]), to_f(sv[t * LD + c0 + j]), d);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if ((tid & 3) == 0) sdg[t] = d;
+  }
+
   float du = 0.f;
   for (int ch = nch - 1; ch >= 0; --ch) {
     const int r0 = ch * L;
@@ -981,11 +1003,11 @@ wkv6_bwd_chunks(const TI* __restrict__ r, const TI* __restrict__ k,
           }
         };
         bm_row(t);
-        float gr = fmaf(pex[m], xx[t], uc * kk[t] * brow[t]);
+        float gr = fmaf(pex[m], xx[t], uc * kk[t] * sdg[r0 + t]);
 #pragma unroll
         for (int i = h0; i < t; ++i) gr = fmaf(alpha[i], brow[i], gr);
-        float gk = fmaf(psuf[m], yy[t], uc * rr[t] * brow[t]);
-        du = fmaf(rr[t] * kk[t], brow[t], du);
+        float gk = fmaf(psuf[m], yy[t], uc * rr[t] * sdg[r0 + t]);
+        du = fmaf(rr[t] * kk[t], sdg[r0 + t], du);
         float tri = 0.f;
         d = 1.f;
 #pragma unroll

@@ -35,8 +35,11 @@ in registers); :func:`flash_bwd_plan` gives both their work items,
 longest first, and every tile size and shared-memory offset.  fp32 has a
 CUDA-core path; there are no atomics.
 :func:`flash_attention_bwd_torch` is its plain version, blockwise in fp32:
-the CPU path and the card's oracle.  The backward takes hd 64 and 128
-and MLA's pair (:data:`BWD_HEAD_DIM_PAIRS`).
+the CPU path and the card's oracle.  The backward takes hd 64, 128 and
+256 and MLA's pair (:data:`BWD_HEAD_DIM_PAIRS`); at hd 256 (recurrentgemma's
+local layers) its dK/dV consumers split an item's dK and dV between them,
+its items also split the group's q heads into ``kv_split`` parts, and a
+third launch sums the parts' fp32 partials.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # which takes no softcap (no config has both)
 MLA_PAIR = (192, 128)
 HEAD_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), MLA_PAIR)
-BWD_HEAD_DIM_PAIRS = ((64, 64), (128, 128), MLA_PAIR)
+BWD_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), MLA_PAIR)
 
 _SIGNATURES = {
     "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
@@ -68,10 +71,14 @@ _BWD_SIGNATURES = {
 }
 
 # The bf16 backward's tiles: the dK/dV kernel's items are BWD_BC keys (64
-# a consumer warpgroup), the dQ kernel's items BWD_BM q rows (64 a
-# consumer); the streamed tiles are :func:`bwd_stream_tiles` (``BwdTile``
-# in the CUDA source).
+# a consumer warpgroup; at hd 256 BWD_BC_SPLIT, both consumers on the same
+# keys), the dQ kernel's items BWD_BM q rows (64 a consumer); the streamed
+# tiles are :func:`bwd_stream_tiles` (``BwdTile`` in the CUDA source).
 BWD_BC, BWD_BM = 128, 128
+BWD_BC_SPLIT = 64
+# hd 256's dK/dV items are split over the group's q heads until there are
+# at least this many items an SM (or every head is a part of its own)
+BWD_SPLIT_ITEMS_PER_SM = 2
 BWD_SMEM_LIMIT = 232_448      # dynamic shared memory a block may take
 BWD_MAX_STAGES = 4
 # The plan's integers in the order of ``BwdPlan`` in the CUDA source.
@@ -79,7 +86,7 @@ BWD_PLAN_FIELDS = (
     "br", "bc", "bm", "bn", "s_pad",
     "kv_blocks", "kv_slots", "kv_stages", "kv_off_kv", "kv_off_ring",
     "kv_off_stats", "kv_off_bars", "kv_smem", "kv_items", "kv_starts",
-    "dq_blocks", "dq_slots", "dq_stages", "dq_off_q", "dq_off_ring",
+    "kv_split", "dq_blocks", "dq_slots", "dq_stages", "dq_off_q", "dq_off_ring",
     "dq_off_bars", "dq_smem", "dq_items", "dq_starts")
 
 
@@ -89,10 +96,12 @@ def bwd_stream_tiles(hd: int, softcap: bool = False, hd_v: int = 0):
     where a consumer's registers hold the 128-wide score tiles beside its
     accumulators without spilling, else 64 (the softcapped hd-64 dK/dV and
     hd-128 dQ consumers); MLA's pair (192, 128) 32 and 64, its dK and dV
-    accumulators taking 160 of a consumer's 240 registers (``BwdTile`` in
-    the CUDA source)."""
+    accumulators taking 160 of a consumer's 240 registers; hd 256 32 and
+    32, its dK, dV or dQ taking 128 (``BwdTile`` in the CUDA source)."""
     if (hd, hd_v or hd) == MLA_PAIR:
         return 32, 64
+    if hd == 256:
+        return 32, 32
     br = 64 if hd == 128 or softcap else 128
     bn = 64 if hd == 128 and softcap else 128
     return br, bn
@@ -249,6 +258,16 @@ def _bwd_ring(slot: int, stage: int):
     raise ValueError("flash backward: no ring fits in shared memory")
 
 
+def _kv_split(n_items: int, G: int, n_sm: int) -> int:
+    """The parts hd 256's dK/dV items split the group's q heads into: the
+    fewest (a divisor of G) that make BWD_SPLIT_ITEMS_PER_SM items an SM,
+    else G."""
+    for d in range(1, G + 1):
+        if G % d == 0 and n_items * d >= BWD_SPLIT_ITEMS_PER_SM * n_sm:
+            return d
+    return G
+
+
 def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
                    window: int, n_sm: int, softcap: bool = False,
                    hd_v: int = 0) -> dict:
@@ -256,39 +275,46 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     and the card's SM count.  The kernels take it as it is and compute
     none of it.
 
-    ``kv`` is the dK/dV kernel: an item (b K + kv head, key tile, first,
-    end) owns BWD_BC keys and walks, for each of the G q heads of its
-    group, the ``br``-row q tiles first .. end - 1 (from the causal
-    frontier to the window's end).  ``dq`` is the dQ kernel: an item (b H
-    + q head, row tile, first, end) owns BWD_BM q rows and walks the
+    ``kv`` is the dK/dV kernel: an item (x, key tile, first, end) owns
+    ``bc`` keys (BWD_BC, at hd 256 BWD_BC_SPLIT) and walks, for each q head
+    of its part of the group, the ``br``-row q tiles first .. end - 1 (from
+    the causal frontier to the window's end); x is (b K + kv head)
+    ``kv_split`` + part, the part's q heads G / ``kv_split`` of the G
+    (``kv_split`` is 1 but at hd 256).  ``dq`` is the dQ kernel: an item (b
+    H + q head, row tile, first, end) owns BWD_BM q rows and walks the
     ``bn``-key tiles first .. end - 1 (``br``, ``bn``:
     :func:`bwd_stream_tiles`).  In each, ``blocks`` persistent
     blocks (at most one an SM) take the items longest first, each item to
     the block with the least work so far; ``items`` lists them block by
     block in the order they run, ``starts`` each block's first.  ``slots``
-    buffers hold an item's K and V (dK/dV) or Q and dO (dQ), ``stages``
-    ring stages the streamed tiles; ``offs`` are byte offsets of the
-    regions (kv: K/V slots, Q/dO stages, the stages' (lse log2 e, D) rows,
-    mbarriers; dq: Q/dO/O slots, K/V stages, mbarriers) and ``smem`` a
-    block's dynamic shared memory.  ``s_pad`` is S rounded up to BWD_BM:
-    the statistics scratch is (B, H, s_pad, 2) fp32.  ``fields`` are the
-    plan's integers in BWD_PLAN_FIELDS order, ``work`` the int32 buffer
-    the kernels read (kv items, dq items, kv starts, dq starts).  ``hd``
-    is the qk width, ``hd_v`` the v width (``hd`` if 0)."""
+    buffers hold an item's K and V (dK/dV) or Q and dO, and O but at hd 256
+    (dQ), ``stages`` ring stages the streamed tiles; ``offs`` are byte
+    offsets of the regions (kv: K/V slots, Q/dO stages, the stages' (lse
+    log2 e, D) rows, mbarriers; dq: Q/dO/O slots, K/V stages, mbarriers)
+    and ``smem`` a block's dynamic shared memory.  ``s_pad`` is S rounded
+    up to BWD_BM: the statistics scratch is (B, H, s_pad, 2) fp32, followed
+    at hd 256 by ``part_floats`` floats of dK and dV partials.  ``fields``
+    are the plan's integers in BWD_PLAN_FIELDS order, ``work`` the int32
+    buffer the kernels read (kv items, dq items, kv starts, dq starts).
+    ``hd`` is the qk width, ``hd_v`` the v width (``hd`` if 0)."""
     G = H // K
     hd_v = hd_v or hd
     br, bn = bwd_stream_tiles(hd, softcap, hd_v)
-    n_kt, n_mt = _cdiv(S, BWD_BC), _cdiv(S, BWD_BM)
+    split = hd == 256                # BwdTile::SPLIT in the CUDA source
+    bc = BWD_BC_SPLIT if split else BWD_BC
+    n_kt, n_mt = _cdiv(S, bc), _cdiv(S, BWD_BM)
     s_pad = n_mt * BWD_BM
+    kv_split = _kv_split(B * K * n_kt, G, n_sm) if split else 1
     kv_items, kv_cost = [], []
     for bh in range(B * K):
         for kt in range(n_kt):
-            q_lo = kt * BWD_BC if causal else 0
-            k_last = min(S, (kt + 1) * BWD_BC) - 1
+            q_lo = kt * bc if causal else 0
+            k_last = min(S, (kt + 1) * bc) - 1
             q_hi = min(S, k_last + window) if window else S
             first, end = q_lo // br, _cdiv(q_hi, br)
-            kv_items.append((bh, kt, first, end))
-            kv_cost.append(G * (end - first) + 1)
+            for part in range(kv_split):
+                kv_items.append((bh * kv_split + part, kt, first, end))
+                kv_cost.append(G // kv_split * (end - first) + 1)
     dq_items, dq_cost = [], []
     for bh in range(B * H):
         for mt in range(n_mt):
@@ -309,16 +335,17 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
 
     kv_order, kv_starts, kv_costs = deal(kv_items, kv_cost)
     dq_order, dq_starts, dq_costs = deal(dq_items, dq_cost)
-    # dK/dV: a slot holds K and V of BWD_BC keys, a stage Q and dO of br
-    # rows, and each stage its rows' statistics (8 bytes a row)
-    kv_slot, q_tile = BWD_BC * (hd + hd_v) * 2, br * (hd + hd_v) * 2
+    # dK/dV: a slot holds K and V of bc keys, a stage Q and dO of br rows,
+    # and each stage its rows' statistics (8 bytes a row)
+    kv_slot, q_tile = bc * (hd + hd_v) * 2, br * (hd + hd_v) * 2
     kv_slots, kv_stages, kv_smem = _bwd_ring(kv_slot, q_tile + br * 8)
     kv_offs = dict(kv=0, ring=kv_slots * kv_slot)
     kv_offs["stats"] = kv_offs["ring"] + kv_stages * q_tile
     kv_offs["bars"] = kv_offs["stats"] + kv_stages * br * 8
-    # dQ: a slot holds Q, dO and O of BWD_BM rows, a stage K and V of bn
-    # keys
-    dq_slot, k_tile = BWD_BM * (hd + 2 * hd_v) * 2, bn * (hd + hd_v) * 2
+    # dQ: a slot holds Q, dO and (but at hd 256, which reads D's O from
+    # device memory) O of BWD_BM rows, a stage K and V of bn keys
+    dq_slot = BWD_BM * (hd + (1 if split else 2) * hd_v) * 2
+    k_tile = bn * (hd + hd_v) * 2
     dq_slots, dq_stages, dq_smem = _bwd_ring(dq_slot, k_tile)
     dq_offs = dict(q=0, ring=dq_slots * dq_slot)
     dq_offs["bars"] = dq_offs["ring"] + dq_stages * k_tile
@@ -336,17 +363,19 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
               blocks=len(dq_starts) - 1, slots=dq_slots, stages=dq_stages,
               offs=dq_offs, smem=dq_smem)
     values = dict(
-        br=br, bc=BWD_BC, bm=BWD_BM, bn=bn, s_pad=s_pad,
+        br=br, bc=bc, bm=BWD_BM, bn=bn, s_pad=s_pad,
         kv_blocks=kv["blocks"], kv_slots=kv_slots, kv_stages=kv_stages,
         kv_off_kv=kv_offs["kv"], kv_off_ring=kv_offs["ring"],
         kv_off_stats=kv_offs["stats"], kv_off_bars=kv_offs["bars"],
         kv_smem=kv_smem, kv_items=at["kv_items"], kv_starts=at["kv_starts"],
+        kv_split=kv_split,
         dq_blocks=dq["blocks"], dq_slots=dq_slots, dq_stages=dq_stages,
         dq_off_q=dq_offs["q"], dq_off_ring=dq_offs["ring"],
         dq_off_bars=dq_offs["bars"], dq_smem=dq_smem,
         dq_items=at["dq_items"], dq_starts=at["dq_starts"])
-    return dict(br=br, bc=BWD_BC, bm=BWD_BM, bn=bn,
-                s_pad=s_pad, kv=kv, dq=dq,
+    part_floats = 2 * kv_split * B * S * K * hd if split else 0
+    return dict(br=br, bc=bc, bm=BWD_BM, bn=bn, s_pad=s_pad,
+                kv_split=kv_split, part_floats=part_floats, kv=kv, dq=dq,
                 fields=[values[f] for f in BWD_PLAN_FIELDS], work=work)
 
 
@@ -412,9 +441,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    # (B, H, S) D for fp32; (B, H, s_pad, 2) (lse log2 e, D) for bf16
-    delta = torch.empty(B * H * plan["s_pad"] * 2, dtype=torch.float32,
-                        device=q.device)
+    # (B, H, S) D for fp32; (B, H, s_pad, 2) (lse log2 e, D) for bf16, at
+    # hd 256 followed by the dK/dV partials
+    delta = torch.empty(B * H * plan["s_pad"] * 2 + plan["part_floats"],
+                        dtype=torch.float32, device=q.device)
     rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),

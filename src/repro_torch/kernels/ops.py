@@ -11,10 +11,11 @@ Each wrapper checks devices, dtypes, shapes and contiguity, then:
 ``launches`` counts kernel launches per wrapper, so a run can show that
 its path went through the kernels; :func:`reset_launches` zeroes it.
 
-Training takes ``flash_attention_bshd`` through :class:`FlashAttention` and
-``wkv6_bshn`` through :class:`WKV6`, ``torch.autograd.Function``s whose
-backwards are :func:`flash_attention_bwd` and :func:`wkv6_bwd` (the
-backward kernels on the card, their plain versions on the CPU), whenever
+Training takes ``flash_attention_bshd`` through :class:`FlashAttention`,
+``wkv6_bshn`` through :class:`WKV6` and ``rglru_scan_bsr`` through
+:class:`RGLRUScan`, ``torch.autograd.Function``s whose backwards are
+:func:`flash_attention_bwd`, :func:`wkv6_bwd` and :func:`rglru_scan_bwd`
+(the backward kernels on the card, their plain versions on the CPU), whenever
 grad is enabled and an input requires it; under ``torch.inference_mode``
 the serving call is the plain forward launch it always was.
 """
@@ -31,7 +32,8 @@ from repro_torch.kernels import rwkv6_wkv as wkv
 
 launches = {"flash_attention_bshd": 0, "flash_attention_bwd": 0,
             "paged_decode_bhd": 0, "mla_paged_decode_bhd": 0,
-            "rglru_scan_bsr": 0, "wkv6_bshn": 0, "wkv6_bwd": 0}
+            "rglru_scan_bsr": 0, "rglru_scan_bwd": 0, "wkv6_bshn": 0,
+            "wkv6_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -96,14 +98,18 @@ def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _flash_pair(name: str, q, v, kw, pairs) -> None:
-    """The card's (qk, v) head-dim pairs, and no softcap on MLA's."""
+def _flash_pair(name: str, q, v, kw, pairs, uncapped=()) -> None:
+    """The card's (qk, v) head-dim pairs, and no softcap on MLA's or on
+    those of ``uncapped``."""
     pair = (q.shape[3], v.shape[3])
     _require(pair in pairs,
              f"{name}: head_dim (qk, v) {pair}, kernel takes {pairs}")
     _require(pair[0] == pair[1] or not kw["logit_cap"],
              f"{name}: a softcap at head dims {pair}; the kernel takes one "
              "only with equal head dims")
+    _require(pair not in uncapped or not kw["logit_cap"],
+             f"{name}: a softcap at head dims {pair}; the kernel takes none "
+             "there (gemma2's softcapped hd 256 trains in a later slice)")
 
 
 def _flash_forward(q, k, v, kw, *, return_lse: bool):
@@ -149,8 +155,8 @@ def flash_attention_bwd(
     logit_cap: float = 0.0,
 ):
     """(dq, dk, dv) of :func:`flash_attention_bshd`.  The kernel takes
-    (hd, hdv) in ``fa.BWD_HEAD_DIM_PAIRS``: (64, 64), (128, 128) and MLA's
-    (192, 128)."""
+    (hd, hdv) in ``fa.BWD_HEAD_DIM_PAIRS``: (64, 64), (128, 128), (256,
+    256) and MLA's (192, 128); no softcap at the last two."""
     B, S, H, hd = q.shape
     hdv = v.shape[-1]
     _require(v.ndim == 4 and k.shape[:3] == v.shape[:3]
@@ -172,7 +178,8 @@ def flash_attention_bwd(
         return fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
     _cuda_operands("flash_attention_bwd", operands[:4] + operands[5:],
                    fa.DTYPE_CODES)
-    _flash_pair("flash_attention_bwd", q, v, kw, fa.BWD_HEAD_DIM_PAIRS)
+    _flash_pair("flash_attention_bwd", q, v, kw, fa.BWD_HEAD_DIM_PAIRS,
+                uncapped=((256, 256),))
     _require(lse.device == q.device and lse.is_contiguous(),
              "flash_attention_bwd: lse must be contiguous on the card")
     _require(all(t.data_ptr() % 16 == 0 for t in operands),
@@ -289,35 +296,86 @@ def mla_paged_decode_bhd(
                                     page_table, pos_q, scale=scale)
 
 
+def _rglru_operands(name: str, log_a, others, h0) -> tuple:
+    """The scan's operands checked as its kernels take them: (B, S, R)
+    tensors of log_a's shape, h0 (B, R) or None, all fp32; on the card one
+    device and contiguous.  Returns them; whether they lie on the CPU is
+    for the caller."""
+    _require(log_a.ndim == 3 and all(t.shape == log_a.shape for t in others),
+             f"{name}: shapes {tuple(log_a.shape)} "
+             + " ".join(str(tuple(t.shape)) for t in others))
+    B, S, R = log_a.shape
+    _require(S > 0, f"{name}: S {S}")
+    _require(h0 is None or tuple(h0.shape) == (B, R),
+             f"{name}: h0 {None if h0 is None else tuple(h0.shape)} "
+             f"for ({B}, {R})")
+    operands = (log_a, *others) + (() if h0 is None else (h0,))
+    _require(all(t.dtype == torch.float32 for t in operands),
+             f"{name}: operands must be fp32, got "
+             f"{[t.dtype for t in operands]}")
+    if not _on_cpu(operands):
+        dev = log_a.device
+        _require(dev.type == "cuda", f"{name}: tensors on {dev}, expected "
+                 "cpu or cuda")
+        _require(all(t.device == dev for t in operands),
+                 f"{name}: operands on different devices")
+        _require(all(t.is_contiguous() for t in operands),
+                 f"{name}: operands must be contiguous")
+    return operands
+
+
 def rglru_scan_bsr(
     log_a: torch.Tensor,                 # (B, S, R) fp32, <= 0
     b: torch.Tensor,                     # (B, S, R) fp32
     h0: Optional[torch.Tensor] = None,   # (B, R) fp32; None = zero state
 ) -> torch.Tensor:
     """The RG-LRU scan h_t = exp(log_a_t)·h_{t-1} + b_t over dim 1; returns
-    h (B, S, R) fp32.  Any S: nothing is padded."""
-    _require(log_a.ndim == 3 and b.shape == log_a.shape,
-             f"rglru_scan_bsr: shapes {tuple(log_a.shape)} "
-             f"{tuple(b.shape)}")
-    B, S, R = log_a.shape
-    _require(S > 0, f"rglru_scan_bsr: S {S}")
-    _require(h0 is None or tuple(h0.shape) == (B, R),
-             f"rglru_scan_bsr: h0 {None if h0 is None else tuple(h0.shape)} "
-             f"for ({B}, {R})")
-    operands = (log_a, b) if h0 is None else (log_a, b, h0)
-    _require(all(t.dtype == torch.float32 for t in operands),
-             "rglru_scan_bsr: log_a, b and h0 must be fp32")
-    if all(t.device.type == "cpu" for t in operands):
+    h (B, S, R) fp32.  Any S: nothing is padded.  With grad enabled and an
+    input requiring it, the call goes through :class:`RGLRUScan`."""
+    operands = _rglru_operands("rglru_scan_bsr", log_a, (b,), h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return RGLRUScan.apply(log_a, b, h0)
+    return _rglru_forward(log_a, b, h0)
+
+
+def _rglru_forward(log_a, b, h0):
+    if _on_cpu((log_a, b) if h0 is None else (log_a, b, h0)):
         return rg.rglru_scan_torch(log_a, b, h0)
-    dev = log_a.device
-    _require(dev.type == "cuda", f"rglru_scan_bsr: tensors on {dev}, "
-             "expected cpu or cuda")
-    _require(all(t.device == dev for t in operands),
-             "rglru_scan_bsr: operands on different devices")
-    _require(all(t.is_contiguous() for t in operands),
-             "rglru_scan_bsr: operands must be contiguous")
     launches["rglru_scan_bsr"] += 1
     return rg.rglru_scan_cuda(log_a, b, h0)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan with its backward: the forward saves (log_a, h,
+    h0); the backward is :func:`rglru_scan_bwd` on them."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, h0):
+        h = _rglru_forward(log_a, b, h0)
+        ctx.save_for_backward(log_a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        log_a, h, h0 = ctx.saved_tensors
+        dlog_a, db, dh0 = rglru_scan_bwd(log_a, h, dh.contiguous(), h0)
+        return dlog_a, db, dh0
+
+
+def rglru_scan_bwd(
+    log_a: torch.Tensor,                 # (B, S, R) fp32
+    h: torch.Tensor,                     # (B, S, R) fp32 the forward's output
+    dh: torch.Tensor,                    # (B, S, R) fp32 the output's gradient
+    h0: Optional[torch.Tensor] = None,   # (B, R) fp32; None = zero state
+):
+    """``(dlog_a, db, dh0)`` of :func:`rglru_scan_bsr`
+    (``rg.rglru_scan_bwd_torch`` says what each is); ``dh0`` is ``None``
+    without an ``h0``."""
+    operands = _rglru_operands("rglru_scan_bwd", log_a, (h, dh), h0)
+    if _on_cpu(operands):
+        return rg.rglru_scan_bwd_torch(log_a, h, dh, h0)
+    launches["rglru_scan_bwd"] += 1
+    return rg.rglru_scan_bwd_cuda(log_a, h, dh, h0)
 
 
 def wkv6_bshn(

@@ -18,11 +18,18 @@ decay.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-236b --layers 2 --steps 6 --batch 2 --seq 4096 \\
         --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-9b --layers 6 --steps 6 --batch 2 --seq 4096 \\
+        --microbatches 2 --remat full
 
-It runs on ``cuda`` unless ``--device`` names another device; on the card
-every attention layer takes the flash kernels (forward and backward; MLA's
-at qk 192 / v 128), every RWKV6 layer the WKV6 kernels (forward and
-backward).  Compute is bf16 at full width and fp32 under ``--reduced``, as
+It trains paper-overhead-100m, qwen3-0.6b, granite-moe-1b-a400m,
+rwkv6-7b, deepseek-v2-236b and recurrentgemma-9b
+(``configs.base.check_trainable``).  It runs on ``cuda`` unless
+``--device`` names another device; on the card every attention layer
+takes the flash kernels (forward and backward; MLA's at qk 192 / v 128,
+recurrentgemma's local layers at hd 256 over their window), every RWKV6
+layer the WKV6 kernels and every RG-LRU layer the RG-LRU scan's kernels
+(forward and backward).  Compute is bf16 at full width and fp32 under ``--reduced``, as
 in the reference's executor; the master weights and moments take the
 dtypes of the config's registered ``train_4k`` run (bf16 for
 deepseek-v2-236b, as the reference's run has them; fp32 for the others).  An MoE

@@ -7,7 +7,8 @@ Modes
 -----
 * ``train``   — tokens → fp32 logits for every position and the aux loss
   (the MoE layers' load-balancing losses summed in layer order, 0 for a
-  dense stack), no cache; per-layer remat (:func:`_remat`).
+  dense stack), no cache; per-layer remat (:func:`_remat`); each layer
+  by its kind, as in prefill.
   :func:`repro_torch.configs.base.check_trainable` says which configs
   train.
 * ``prefill`` — tokens → last-position logits + a filled cache.  With
@@ -105,8 +106,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, policy: str):
     """A layer's function under the reference's remat policies: ``none``
     keeps every activation, ``full`` keeps only the layer's input and runs
-    its forward again in the backward (so the flash or WKV6 forward
-    launches twice a layer), ``dots`` keeps the matrix products' outputs and recomputes
+    its forward again in the backward (so the flash, WKV6 or RG-LRU
+    forward launches twice a layer), ``dots`` keeps the matrix products' outputs and recomputes
     the rest."""
     if policy == "none":
         return fn
@@ -121,24 +122,25 @@ def _remat(fn, policy: str):
 
 
 def _attend(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
-            pos: torch.Tensor) -> torch.Tensor:
-    """The residual stream after a layer's global attention, GQA or MLA,
-    no cache (train mode)."""
+            pos: torch.Tensor, kind: str = GLOBAL_ATTN) -> torch.Tensor:
+    """The residual stream after a layer's attention, no cache (train
+    mode): global GQA or MLA, or (``kind`` LOCAL_ATTN) GQA over the
+    config's sliding window."""
     x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
     if cfg.use_mla:
         y, _ = mla_attention(cfg, blk["attn"], x, mode="full", cache=None,
                              pos=pos)
     else:
-        y, _ = gqa_attention(cfg, blk["attn"], x, kind=GLOBAL_ATTN,
-                             mode="full", cache=None, pos=pos)
+        y, _ = gqa_attention(cfg, blk["attn"], x, kind=kind, mode="full",
+                             cache=None, pos=pos)
     return h + y
 
 
 def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
-                 pos: torch.Tensor) -> torch.Tensor:
-    """One all-global layer (GQA or MLA) with a dense FFN, no cache (train
-    mode)."""
-    h = _attend(cfg, blk, h, pos)
+                 pos: torch.Tensor, kind: str = GLOBAL_ATTN) -> torch.Tensor:
+    """One attention layer (GQA or MLA, global or local) with a dense FFN,
+    no cache (train mode)."""
+    h = _attend(cfg, blk, h, pos, kind)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     return h + dense_ffn(blk["ffn"], x, cfg.act)
 
@@ -152,6 +154,18 @@ def _moe_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     y, aux = moe_ffn(cfg, blk["moe"], x, mode="train")
     return h + y, aux
+
+
+def _recurrent_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
+                     h: torch.Tensor) -> torch.Tensor:
+    """One RG-LRU layer, no cache (train mode): the recurrent block and
+    the dense FFN, each after its norm and added to the residual, as in
+    prefill."""
+    x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
+    y, _ = rglru_block(cfg, blk["rec"], x, ctx, mode="full", cache=None)
+    h = h + y
+    x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
+    return h + dense_ffn(blk["ffn"], x, cfg.act)
 
 
 def _rwkv_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
@@ -184,9 +198,12 @@ def forward_train(cfg: ModelConfig, params: Tree,
     pos = torch.arange(tokens.shape[1], dtype=torch.int32,
                        device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for blk in params["blocks"]:
-        if "tm" in blk:
+    for kind, blk in zip(cfg.layer_kinds(), params["blocks"]):
+        if kind == RWKV:
             h = _remat(functools.partial(_rwkv_layer, cfg, ctx, blk),
+                       remat_policy)(h)
+        elif kind == RECURRENT:
+            h = _remat(functools.partial(_recurrent_layer, cfg, ctx, blk),
                        remat_policy)(h)
         elif "moe" in blk:
             layer = _remat(functools.partial(_moe_layer, cfg, blk),
@@ -194,8 +211,8 @@ def forward_train(cfg: ModelConfig, params: Tree,
             h, a = layer(h, pos)
             aux = aux + a
         else:
-            layer = _remat(functools.partial(_dense_layer, cfg, blk),
-                           remat_policy)
+            layer = _remat(functools.partial(_dense_layer, cfg, blk,
+                                             kind=kind), remat_policy)
             h = layer(h, pos)
     return _unembed(cfg, params, h), aux
 

@@ -36,7 +36,16 @@ order 1, and a gradient that cancels to rounding (dQ at S 1, where P = 1
 and dS = P (dP - D) = 0) is held to that scale.  Two calls are bit-equal (no
 atomics).  The forward kernel's log-sum-exp is held to the plain one
 within 1e-5 (fp32 statistics in both types).  A reduced train step on the
-card in fp32 with TF32 off matches the same step on the CPU.
+card in fp32 with TF32 off matches the same step on the CPU.  At hd 256
+(recurrentgemma's local layers) the backward is held the same way, and
+its tolerance rejects planted faults at least 10 times over.
+
+The RG-LRU backward is held against its plain reverse loop on the same
+(log_a, h, dh, h0): within 1e-5 of the largest |plain| of the element's
+64-step tile of a batch row (dh0: of the row) plus 1e-6 (the kernel fuses
+the carry's multiply-add, the plain loop rounds twice a step); two calls
+bit-equal; planted faults (a step's dh dropped, h read one step late) at
+least 10 times over.
 
 The WKV6 backward is held against its plain backward on the same inputs
 and the forward kernel's state checkpoints: within 1e-5 of the largest
@@ -538,6 +547,37 @@ def test_wkv6_autograd_launches_both_kernels_and_no_plain_version(
     assert ops.launches["wkv6_bwd"] == before["wkv6_bwd"] + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_wkv6_backward_du_at_s1_is_as_accurate_as_fp32(cuda):
+    """At S 1, du = r k (dO · v): a dot product over the value channels
+    that can cancel, so the kernel computes Bm's diagonal dO_t · v_t as an
+    fp32 dot product.  Over 100 draws (B 1, H 4, N 64, fp32) du is held to
+    an fp64 du within 2.5e-7 of the sum of its terms' magnitudes: the
+    plain backward's fp32 reaches 1.1e-7 of it, the split-TF32 diagonal
+    (truncated operands, 2^-20 of each term) 6.3e-7, which put du of a
+    head whose dO · v cancelled past the smoke's tolerance in 22 of 300
+    draws."""
+    rng = np.random.default_rng(25)
+    worst = 0.0
+    for _ in range(100):
+        r, k, v, do = (torch.from_numpy(rng.normal(size=(1, 1, 4, 64)).astype(
+            np.float32)).to(cuda) for _ in range(4))
+        lw = -torch.exp(torch.from_numpy(rng.uniform(-6, 2, (1, 1, 4, 64))
+                                         .astype(np.float32))).to(cuda)
+        u = torch.from_numpy(0.5 * rng.normal(size=(4, 64)).astype(
+            np.float32)).to(cuda)
+        s0 = torch.from_numpy(0.3 * rng.normal(size=(1, 4, 64, 64)).astype(
+            np.float32)).to(cuda)
+        _, _, ck = wkv.wkv6_cuda(r, k, v, lw, u, s0, seg=wkv.SEG)
+        du = ops.wkv6_bwd(r, k, v, lw, u, ck, do)[4].double()
+        d = lambda t: t.double()  # noqa: E731
+        exact = (d(r) * d(k) * (d(do) * d(v)).sum(-1, keepdim=True)).sum(
+            (0, 1))
+        terms = (d(r).abs() * d(k).abs()
+                 * (d(do) * d(v)).abs().sum(-1, keepdim=True)).sum((0, 1))
+        worst = max(worst, float(((du - exact).abs() / terms).max()))
+    assert worst <= 2.5e-7, worst
 
 
 def test_wkv6_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -1065,10 +1105,202 @@ def test_flash_wrappers_refuse_other_unequal_pairs_and_mla_softcaps(cuda):
 
 
 def test_flash_backward_wrapper_refuses_hd256(cuda):
+    """hd 256 trains without a softcap (recurrentgemma); a softcap there
+    (gemma2) and an unequal pair at 256 are refused before any launch."""
     x = torch.zeros(1, 64, 2, 256, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 64, device=cuda)
+    before = ops.launches["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention_bwd(x, x, x, x, lse, x, scale=0.0625,
+                                logit_cap=30.0)
+    v = x[..., :128].contiguous()
     with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention_bwd(x, x, x, x, lse, x, scale=0.0625)
+        ops.flash_attention_bwd(x, x, v, v, lse, v, scale=0.0625)
+    assert ops.launches["flash_attention_bwd"] == before
+
+
+# recurrentgemma's local layers: MQA (K 1, G 16) at hd 256 with a window;
+# also K 8, G 2, around the window's edge and past it
+FLASH_BWD_HD256_CASES = [(1, S, 16, 1, 64) for S in (1, 31, 77, 129, 300)] \
+    + [(1, 1000, 16, 1, 512), (2, 257, 16, 8, 100), (1, 2049, 16, 1, 2048)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,window", FLASH_BWD_HD256_CASES)
+def test_flash_backward_at_hd256_matches_plain(cuda, dt, B, S, H, K, window):
+    """The backward at hd 256 (dK/dV items split over parts of the q
+    heads, their fp32 partials summed) within the tile-scaled tolerance,
+    two calls bit-equal, one wrapper call counted; the forward's lse
+    within 1e-5 of max(1, |lse|)."""
+    rng = np.random.default_rng(S + K + window)
+    hd = 256
+    q, k, v, do = (_randn(rng, (B, S, n, hd), cuda, dt)
+                   for n in (H, K, K, H))
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=0.0)
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    _, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    before = ops.launches["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == before + 2
+    assert float((lse_k - lse).abs().max()) <= 1e-5 * max(
+        1.0, float(lse.abs().max()))
+    for name, g, g2, p in zip("qkv", got, again, want):
+        assert g.dtype == dt and g.shape == p.shape, name
+        assert torch.equal(g, g2), f"d{name}: two calls differ"
+        assert _within(g, p, _bwd_tol(p, dt)), name
+
+
+def test_flash_backward_tolerance_rejects_planted_faults_at_hd256(cuda):
+    """At hd 256 (MQA, window 64 under S 300; sharp scores, q drawn 4
+    times wider, so that a row's weight can sit on its frontier key) the
+    tolerance rejects, at least 10 times over, a kernel that dropped one
+    q head of the group or the last q tile from dK and dV, or put the
+    window's frontier one key off."""
+    B, S, H, K, hd, w = 1, 300, 16, 1, 256, 64
+    rng = np.random.default_rng(11)
+    kw = dict(scale=hd ** -0.5, causal=True, window=w, logit_cap=0.0)
+    q, k, v, do = (_randn(rng, (B, S, n, hd), cuda, torch.bfloat16)
+                   for n in (H, K, K, H))
+    q = (q.float() * 4).bfloat16()
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    tols = [_bwd_tol(p, torch.bfloat16) for p in plain]
+    head, tile = do.clone(), do.clone()
+    head[:, :, H - 1] = 0
+    tile[:, (S - 1) // 64 * 64:] = 0
+    faults = [(ops.flash_attention_bwd(q, k, v, o, lse, head, **kw), (1, 2)),
+              (ops.flash_attention_bwd(q, k, v, o, lse, tile, **kw), (1, 2))]
+    for ww in (w - 1, w + 1):
+        faults.append((ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                               **dict(kw, window=ww)),
+                       (0, 1, 2)))
+    for wrong, held in faults:
+        assert max(_tol_used(wrong[j], plain[j], tols[j])
+                   for j in held) >= 10
+
+
+def test_autograd_at_hd256_launches_both_kernels_and_no_plain_version(
+        cuda, monkeypatch):
+    rng = np.random.default_rng(4)
+    q, k, v, do = (_randn(rng, (1, 200, n, 256), cuda, torch.bfloat16)
+                   for n in (16, 1, 1, 16))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+
+    def barred(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    monkeypatch.setattr(fa, "flash_attention_torch", barred)
+    monkeypatch.setattr(fa, "flash_attention_bwd_torch", barred)
+    ops.reset_launches()
+    out = ops.flash_attention_bshd(*leaves, scale=1 / 16, window=64)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [g.shape for g in grads] == [t.shape for t in (q, k, v)]
+    assert ops.launches == dict(ops.launches, flash_attention_bshd=1,
+                                flash_attention_bwd=1)
+
+
+# the RG-LRU backward: |kernel - plain| <= 1e-5 of the largest |plain| of
+# the element's 64-step tile of a batch row (dh0: of the row) + 1e-6
+RGLRU_BWD_TOL, RGLRU_BWD_NOISE = 1e-5, 1e-6
+
+
+def _rglru_bwd_within(g, p):
+    a = p.abs()
+    if a.ndim == 3:
+        B, S, R = a.shape
+        pad = -S % 64
+        t = torch.nn.functional.pad(a, (0, 0, 0, pad)).view(
+            B, (S + pad) // 64, 64, R)
+        t = t.amax(dim=(2, 3), keepdim=True).expand_as(t)
+        t = t.reshape(B, S + pad, R)[:, :S]
+    else:
+        t = a.amax(dim=-1, keepdim=True).expand_as(a)
+    return bool(((g - p).abs() <= RGLRU_BWD_TOL * t + RGLRU_BWD_NOISE).all())
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("B,S,R", [
+    (2, 64, 256),
+    (1, 77, 100),          # ragged S and R
+    (3, 5, 4096),          # shorter than one pass
+    (2, 1, 33),
+    (1, 1000, 4096),       # the training width
+])
+def test_rglru_backward_kernel_matches_plain(cuda, with_h0, B, S, R):
+    """Row 0 is padded past step n (log_a = 0, b = 0): its carry there is
+    the running sum of dh.  Two calls bit-equal; the Function launches the
+    forward and the backward kernel once each and no plain version."""
+    rng = np.random.default_rng(S * R + with_h0 + 1)
+    log_a, b, h0 = _rglru_inputs(rng, cuda, B, S, R)
+    n = max(S - 20, 1)
+    log_a[0, n:] = 0
+    b[0, n:] = 0
+    h0 = h0 if with_h0 else None
+    dh = torch.from_numpy(rng.normal(size=(B, S, R)).astype(
+        np.float32)).to(cuda)
+    h = ops.rglru_scan_bsr(log_a, b, h0)
+    before = ops.launches["rglru_scan_bwd"]
+    got = ops.rglru_scan_bwd(log_a, h, dh, h0)
+    again = ops.rglru_scan_bwd(log_a, h, dh, h0)
+    want = rg.rglru_scan_bwd_torch(log_a, h, dh, h0)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan_bwd"] == before + 2
+    assert (got[2] is None) == (h0 is None)
+    for name, g, g2, p in zip(("dlog_a", "db", "dh0"), got, again, want):
+        if p is None:
+            continue
+        assert g.dtype == torch.float32 and g.shape == p.shape, name
+        assert torch.equal(g, g2), f"{name}: two calls differ"
+        assert _rglru_bwd_within(g, p), name
+    if S > n:
+        tail = dh[0, n:].flip(0).cumsum(0).flip(0)
+        assert bool(((got[1][0, n:] - tail).abs()
+                     <= 1e-5 * tail.abs().max() + 1e-5).all())
+    leaves = [t.clone().requires_grad_() for t in (log_a, b)]
+    ops.reset_launches()
+    out = ops.rglru_scan_bsr(*leaves, h0)
+    assert type(out.grad_fn).__name__ == "RGLRUScanBackward"
+    fn = torch.autograd.grad(out, leaves, dh)
+    torch.cuda.synchronize()
+    assert ops.launches == dict(ops.launches, rglru_scan_bsr=1,
+                                rglru_scan_bwd=1)
+    for g, p in zip(fn, got):
+        assert torch.equal(g, p)
+
+
+def test_rglru_backward_tolerance_rejects_planted_faults(cuda):
+    """At the training width the tolerance rejects, at least 10 times
+    over, a kernel that dropped one step's dh or read h one step late."""
+    rng = np.random.default_rng(9)
+    log_a, b, h0 = _rglru_inputs(rng, cuda, 2, 300, 4096)
+    dh = torch.from_numpy(rng.normal(size=(2, 300, 4096)).astype(
+        np.float32)).to(cuda)
+    h = ops.rglru_scan_bsr(log_a, b, h0)
+    plain = rg.rglru_scan_bwd_torch(log_a, h, dh, h0)
+    d = dh.clone()
+    d[:, 150] = 0
+    late = torch.roll(h, -1, dims=1).contiguous()
+    for wrong, j in ((ops.rglru_scan_bwd(log_a, h, d, h0), 1),
+                     (ops.rglru_scan_bwd(log_a, late, dh, h0), 0)):
+        p = plain[j]
+        assert not _rglru_bwd_within(wrong[j], p)
+        over = (wrong[j] - p).abs().max() / (
+            RGLRU_BWD_TOL * p.abs().max() + RGLRU_BWD_NOISE)
+        assert float(over) >= 10
+
+
+def test_rglru_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan_bwd(x[:, :, ::2], x[:, :, ::2], x[:, :, ::2])
+    with pytest.raises(ValueError, match="different devices"):
+        ops.rglru_scan_bwd(x, x, x, torch.zeros(2, 64))
+    with pytest.raises(ValueError, match="fp32"):
+        ops.rglru_scan_bwd(x, x, x.bfloat16())
 
 
 def test_serving_does_not_take_the_autograd_function(cuda):

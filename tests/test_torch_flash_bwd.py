@@ -15,7 +15,10 @@ other orders).  The card's kernel is held against this plain version in
 The bf16 kernels' plan (``flash_bwd_plan``) is checked on its own: every
 live (q, k) pair of every head falls in exactly one dK/dV item's walk and
 in exactly one dQ item's walk, blocks run their items longest first, and
-a block's shared memory fits the card.  An emulation of the bf16 route
+a block's shared memory fits the card.  Also at hd 256 (recurrentgemma's
+local layers: MQA, G 16, a window), where the dK/dV items split the
+group's q heads into parts whose fp32 partials are summed: the plain
+backward against ``jax.grad``, the plan, and the emulation.  An emulation of the bf16 route
 that walks the plan's items with the kernels' roundings (P^T and dS^T
 rounded to bf16 before their products, fp32 sums, the exponent in log2
 units, each output rounded once) stays within the card's tolerance of
@@ -186,14 +189,16 @@ def _live_blocks(S, causal, window, blk=_BLK):
 
 def _coverage(plan, B, S, H, K, blk=_BLK):
     """Times each (b, head, blk-row block, blk-key block) is walked by
-    the dK/dV items and by the dQ items."""
+    the dK/dV items (each over its part of the group's q heads: all of
+    them but at hd 256) and by the dQ items."""
     G, nb = H // K, -(-S // blk)
     br, bc, bm, bn = (plan[x] // blk for x in ("br", "bc", "bm", "bn"))
+    split = plan["kv_split"]
     kv = np.zeros((B, H, nb, nb), np.int32)
-    for bh, kt, first, end in plan["kv"]["items"]:
-        b, kh = divmod(bh, K)
+    for x, kt, first, end in plan["kv"]["items"]:
+        (b, kh), part = divmod(x // split, K), x % split
         assert 0 <= first < end <= -(-S // plan["br"])
-        for gi in range(G):
+        for gi in range(part * G // split, (part + 1) * G // split):
             kv[b, kh * G + gi, first * br:end * br, kt * bc:(kt + 1) * bc] += 1
     dq = np.zeros((B, H, nb, nb), np.int32)
     for bh, mt, first, end in plan["dq"]["items"]:
@@ -266,8 +271,10 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
     e) (under a softcap 2^(tanh(s scale / cap) cap log2 e - lse log2 e));
     dS = P (dP - D) (times 1 - tanh^2); P^T and dS^T rounded to bf16 for
     dV += P^T dO, dK += dS^T Q and dQ += dS K; each output scaled and
-    rounded to bf16 once.  Returns (dq, dk, dv) in bf16; an element no item
-    writes stays NaN."""
+    rounded to bf16 once.  At hd 256 an item sums its part of the group's q
+    heads and the parts' fp32 sums are added in part order before the
+    rounding.  Returns (dq, dk, dv) in bf16; an element no item writes
+    stays NaN."""
     B, S, H, hd = q.shape
     K, hdv = k.shape[2], v.shape[3]
     G = H // K
@@ -298,12 +305,15 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
     dq = torch.full((B, S, H, hd), nan)
     dk = torch.full((B, S, K, hd), nan)
     dv = torch.full((B, S, K, hdv), nan)
-    for bh, kt, first, end in plan["kv"]["items"]:
-        b, kh = divmod(bh, K)
+    split = plan["kv_split"]
+    parts = {}
+    for x, kt, first, end in plan["kv"]["items"]:
+        (b, kh), part = divmod(x // split, K), x % split
         k0, k1 = kt * plan["bc"], min(S, (kt + 1) * plan["bc"])
         acc_k = torch.zeros(k1 - k0, hd)
         acc_v = torch.zeros(k1 - k0, hdv)
-        for h in range(kh * G, kh * G + G):
+        for h in range(kh * G + part * G // split,
+                       kh * G + (part + 1) * G // split):
             for qt in range(first, end):
                 q0, q1 = qt * plan["br"], min(S, (qt + 1) * plan["br"])
                 st = kf[b, k0:k1, kh] @ qf[b, q0:q1, h].T     # S^T
@@ -313,6 +323,12 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
                              live(pos[q0:q1], pos[k0:k1]).T)
                 acc_v += _bf(p) @ dof[b, q0:q1, h]
                 acc_k += _bf(ds) @ qf[b, q0:q1, h]
+        parts.setdefault((b, kh, k0, k1), [None] * split)[part] = \
+            (acc_k, acc_v)
+    for (b, kh, k0, k1), got in parts.items():
+        acc_k, acc_v = got[0]
+        for more_k, more_v in got[1:]:
+            acc_k, acc_v = acc_k + more_k, acc_v + more_v
         dk[b, k0:k1, kh] = _bf(acc_k * scale)
         dv[b, k0:k1, kh] = _bf(acc_v)
     for bh, mt, first, end in plan["dq"]["items"]:
@@ -426,3 +442,126 @@ def test_bf16_route_emulation_at_mla_s_pair_stays_within_the_card_tolerance(
             over = (g.float() - r).abs() / _card_tol(r)
             assert float(over.max()) <= 1.0, \
                 f"d{name} vs {what}: {float(over.max()):.3f} of the tolerance"
+
+
+# -- hd 256: recurrentgemma's local layers (MQA, G 16, a window) -------------
+@pytest.mark.parametrize("S,window", [(5, 4), (77, 32), (200, 64)])
+def test_plain_backward_at_hd256_matches_jax_grad(S, window):
+    """K 1, G 16, causal with a window shorter than S: the
+    plain backward against ``jax.grad`` of ``flash_attention_jnp`` and
+    autograd of the plain forward, within 1e-5 of each gradient's
+    largest magnitude."""
+    B, K, G, hd = 1, 1, 16, 256
+    q, k, v, do = _inputs(B, S, K, G, hd, seed=S)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=0.0)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_jnp(a, b, c, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    auto = torch.autograd.grad(fa.flash_attention_torch(qt, kt, vt, **kw),
+                               (qt, kt, vt), torch.from_numpy(do))
+    o, lse = fa.flash_attention_torch(*(torch.from_numpy(a) for a in
+                                        (q, k, v)), return_lse=True, **kw)
+    got = fa.flash_attention_bwd_torch(
+        *(torch.from_numpy(a) for a in (q, k, v)), o, lse,
+        torch.from_numpy(do), **kw)
+    for name, g, w, a in zip("qkv", got, want, auto):
+        _close(g.numpy(), w, f"d{name} vs jax.grad")
+        _close(g.numpy(), a.numpy(), f"d{name} vs autograd")
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (True, 100), (False, 64)],
+                         ids=lambda x: str(x))
+@pytest.mark.parametrize("S", (1, 31, 63, 64, 65, 127, 200, 1000))
+def test_backward_plan_walks_every_live_pair_once_at_hd256(S, causal, window):
+    """64-key dK/dV items split over parts of the group's q heads,
+    32-row q stages and 32-key dQ stages, walked in 32-blocks: every live
+    pair of every head once per kernel, at G 1, 2 and 16 (MQA) and on 7
+    and 132 SMs; the dQ slot holds Q and dO only (D's O is read from
+    device memory) and three stages fit beside it."""
+    live = _live_blocks(S, causal, window, blk=32)
+    for G in (1, 2, 16):
+        for n_sm in (7, 132):
+            B, K = 2, 1
+            plan = fa.flash_bwd_plan(B, S, K * G, K, 256, causal, window,
+                                     n_sm)
+            what = f"S {S} G {G} n_sm {n_sm}"
+            assert (plan["br"], plan["bc"], plan["bn"]) == (32, 64, 32)
+            split = plan["kv_split"]
+            assert G % split == 0, what
+            n_base = B * K * -(-S // 64)
+            assert split == G or n_base * split >= 2 * n_sm, what
+            assert plan["part_floats"] == 2 * split * B * S * K * 256
+            kv, dq = _coverage(plan, B, S, K * G, K, blk=32)
+            for name, cov in (("dK/dV", kv), ("dQ", dq)):
+                assert cov.max() <= 1, f"{what}: {name} walks a block twice"
+                assert (cov[:, :, live] == 1).all(), \
+                    f"{what}: {name} misses a live block"
+            assert (plan["dq"]["slots"], plan["dq"]["stages"]) == (1, 3)
+            assert plan["dq"]["offs"]["ring"] == 128 * 512 * 2
+            for kern in ("kv", "dq"):
+                assert plan[kern]["smem"] <= 232_448, (what, kern)
+                assert plan[kern]["offs"]["ring"] % 1024 == 0
+                assert plan[kern]["stages"] >= 3
+            fields = dict(zip(fa.BWD_PLAN_FIELDS, plan["fields"]))
+            assert fields["kv_split"] == split and fields["bc"] == 64
+
+
+def test_backward_plan_at_recurrentgemma_s_training_shape():
+    """(t6)'s microbatch on 132 SMs: 64 key tiles of one kv head split
+    into 8 parts of 2 q heads (512 dK/dV items, none longer than 66 q
+    tiles of 2 heads) and 512 dQ items."""
+    plan = fa.flash_bwd_plan(1, 4096, 16, 1, 256, True, 2048, 132)
+    assert plan["kv_split"] == 8
+    assert len(plan["kv"]["items"]) == 512
+    assert max(it[3] - it[2] for it in plan["kv"]["items"]) == 66
+    assert len(plan["dq"]["items"]) == 512
+    assert plan["kv"]["blocks"] == plan["dq"]["blocks"] == 132
+    loads = [sum(c) for c in plan["kv"]["costs"]]
+    assert max(loads) <= 1.05 * sum(loads) / len(loads)
+
+
+@pytest.mark.parametrize("S,G", [(77, 16), (200, 16), (130, 2)])
+def test_bf16_route_emulation_at_hd256_stays_within_the_card_tolerance(S, G):
+    """The bf16 kernels' arithmetic at hd 256 with a window, walking the
+    plan's items (their q heads split into parts, the parts' fp32 sums
+    added in order), against the plain backward and ``jax.grad``, within
+    the card's tolerance."""
+    B, K, hd = 1, 1, 256
+    kw = dict(scale=hd ** -0.5, causal=True, window=64, logit_cap=0.0)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(B, S, K, G, hd, seed=6))
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plan = fa.flash_bwd_plan(B, S, K * G, K, hd, True, 64, n_sm=3)
+    assert G == 2 or plan["kv_split"] > 1
+    got = _emulate_bf16_route(q, k, v, o, lse, do, plan, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_jnp(a, b, c, **kw),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for name, g, p, w in zip("qkv", got, plain, want):
+        assert not torch.isnan(g.float()).any(), f"d{name}: unwritten"
+        for what, r in (("plain", p.float()),
+                        ("jax.grad", torch.from_numpy(np.array(w)))):
+            over = (g.float() - r).abs() / _card_tol(r)
+            assert float(over.max()) <= 1.0, \
+                f"d{name} vs {what}: {float(over.max()):.3f} of the tolerance"
+
+
+def test_backward_wrapper_refuses_a_softcap_at_hd256():
+    """hd 256 trains without a softcap (recurrentgemma); gemma2's
+    softcapped hd 256 is refused on the card before any launch.  The CPU
+    takes the plain version, which has the softcap."""
+    q = torch.zeros(1, 16, 2, 256, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError, match="softcap"):
+        ops._flash_pair("flash_attention_bwd", q, q,
+                        dict(logit_cap=30.0), fa.BWD_HEAD_DIM_PAIRS,
+                        uncapped=((256, 256),))
+    ops._flash_pair("flash_attention_bwd", q, q, dict(logit_cap=0.0),
+                    fa.BWD_HEAD_DIM_PAIRS, uncapped=((256, 256),))
+    got = ops.flash_attention_bwd(q, q[:, :, :1], q[:, :, :1], q, lse, q,
+                                  scale=0.0625, logit_cap=30.0)
+    assert [g.shape for g in got] == [q.shape, (1, 16, 1, 256),
+                                      (1, 16, 1, 256)]

@@ -305,7 +305,7 @@ def test_cli_trains_on_the_cpu_and_needs_a_device_without_a_card(
 
 def test_configs_this_slice_does_not_train_are_refused():
     trained = {"paper-overhead-100m", "qwen3-0.6b", "granite-moe-1b-a400m",
-               "rwkv6-7b", "deepseek-v2-236b"}
+               "rwkv6-7b", "deepseek-v2-236b", "recurrentgemma-9b"}
     for arch in list_configs():
         cfg = get_config(arch)
         if arch in trained:

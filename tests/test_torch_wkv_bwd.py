@@ -17,7 +17,9 @@ below is that algebra in plain PyTorch, its matrix products in split TF32
 as the tensor cores take them (an fp32 operand as hi + lo, rounded by bit
 operations as ``cvt.rna.tf32.f32`` rounds; lo.hi + hi.lo + hi.hi; the
 kernel truncates instead where a product's result is an output, which
-moves it by less than 2^-20 of each term).  It is
+moves it by less than 2^-20 of each term), but for Bm's diagonal do_t ·
+v_t, which du and the bonus terms of dr and dk take alone: an fp32 dot
+product, as the kernel computes it on the CUDA cores.  It is
 held against ``jax.grad`` of the reference's ``models/rwkv.py:
 wkv6_chunked`` and against the plain backward ``wkv6_bwd_torch``, over
 N 16, 32 and 64, S 1, S below, at and one past a segment, a ragged S over
@@ -189,7 +191,7 @@ def _chunk(a, b, s0, ds, w, r, k, v, do, u, dr, dk, dv, dlw, du):
         alpha = {i: _prod(wc, i + 1, t, ones) * kc[:, i] for i in range(h0, t)}
         beta = {s: _prod(wc, t + 1, s, ones) * rc[:, s]
                 for s in range(t + 1, h1)}
-        diag = bm[:, t, t, None]
+        diag = (dc[:, t] * vc[:, t]).sum(-1, keepdim=True)
         g_r = pex[:, t] * x[:, t] + u * kc[:, t] * diag
         for i in alpha:
             g_r = g_r + alpha[i] * bm[:, t, i, None]
