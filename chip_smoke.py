@@ -311,6 +311,42 @@ BWD_TILE = 64
 WKV_BWD_TOL = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 0.0)}
 WKV_BWD_NOISE = 1e-6
 WKV_BWD_FAULT = 10.0
+# du = sum over (b, t) of r_t ⊙ k_t (dO_t · v_t), per head and channel.
+# A share of its head's largest |du| covers the sum over steps, but not a
+# step's own term where dO_t · v_t cancels (S 1: du is that one term, far
+# below its terms' magnitudes, and both sides' rounding of the dot product
+# reached 3.8 times the share).  So du's allowance also holds each term to
+# the rounding of what it takes alone: each side rounds the N products and
+# N - 1 partial sums of dO_t · v_t and the two products with r_t and k_t,
+# at most N + 3 roundings of relative size u = 2^-24 over the term's
+# summed magnitude tau_t = |r_t k_t| · sum_j |dO_tj v_tj| (the forward
+# error bound of a recursive dot product, gamma_{N+3} = (N + 3) u / (1 -
+# (N + 3) u), Higham, Accuracy and Stability of Numerical Algorithms,
+# §3.1); the kernel and the plain side are two such, so the factor is
+# 2·gamma_{N+3} (8.0e-6 at N 64: 35 times what the two sides reach
+# against fp64 over 300 draws at S 1, 1.15e-7 and 1.12e-7 of their summed
+# terms).  The steps' roundings are independent, so their bounds add in
+# quadrature: 2·gamma_{N+3}·sqrt(sum over (b, t) of tau_t²).  A planted
+# fault (one step's dO dropped) must land WKV_BWD_FAULT times over du's
+# allowance too.
+
+
+def wkv_du_rounding(N: int) -> float:
+    """2·gamma_{N+3}: both sides' rounding of a du term over its summed
+    magnitude (see WKV_BWD_TOL)."""
+    g = (N + 3) * 2.0 ** -24
+    return 2.0 * g / (1.0 - g)
+
+
+def wkv_du_terms(r, k, v, do):
+    """sqrt(sum over (b, t) of tau_t²) for every (head, channel): tau_t =
+    |r_t k_t| · sum_j |dO_tj v_tj|, du's terms' summed magnitudes, in
+    fp32 (an allowance, not an output)."""
+    f = lambda x: x.float()  # noqa: E731
+    tau = (f(r) * f(k)).abs() * (f(do) * f(v)).abs().sum(-1, keepdim=True)
+    return tau.square().sum((0, 1)).sqrt()
+
+
 # the forward kernel's log-sum-exp against the plain one: 1e-5 of max(1,
 # |lse|) (fp32 statistics in both types; the bf16 walk's ex2.approx)
 LSE_TOL = 1e-5
@@ -771,6 +807,7 @@ def decode_cases():
 
 def run_decode_phase(dev, gen):
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
 
@@ -799,7 +836,7 @@ def run_decode_phase(dev, gen):
               f"decode {label}: the grouped and per-head grids differ")
         if label.startswith("long"):
             plans = [pa.decode_plan(B, K, G, hd, ps, pps, kp.element_size(),
-                                    pa._n_sm(q.device), g)
+                                    _build.sm_count(q.device), g)
                      for g in (True, False)]
             check(plans[0]["tps"] > 1
                   and max(p["stages"] for p in plans) >= 2,
@@ -1070,11 +1107,12 @@ def wkv_bwd_moved(B, S, H, N, elt):
                 states=3 * B * H * N * N * 4)
 
 
-def wkv_bwd_tol(plain, dt):
+def wkv_bwd_tol(plain, dt, du_terms):
     """The WKV6 backward's (atol per element, rtol) for each of (dr, dk,
     dv, dlw, du, ds0): WKV_BWD_TOL's share of the largest |plain| of the
-    element's tile (see WKV_BWD_TOL) plus WKV_BWD_NOISE; rtol only for
-    the outputs in ``dt``."""
+    element's tile (see WKV_BWD_TOL) plus WKV_BWD_NOISE, and for du also
+    ``wkv_du_rounding(N)`` times ``du_terms`` (``wkv_du_terms`` of the
+    inputs); rtol only for the outputs in ``dt``."""
     import torch.nn.functional as F
     share, rtol = WKV_BWD_TOL[dtype_name(dt)]
     out = []
@@ -1090,7 +1128,10 @@ def wkv_bwd_tol(plain, dt):
         else:                                       # du (H, N), ds0 per (b, h)
             t = a.amax(dim=(-2, -1) if i == 5 else -1,
                        keepdim=True).expand_as(a)
-        out.append((share * t + WKV_BWD_NOISE, rtol if i < 3 else 0.0))
+        atol = share * t + WKV_BWD_NOISE
+        if i == 4:
+            atol = atol + wkv_du_rounding(a.shape[-1]) * du_terms
+        out.append((atol, rtol if i < 3 else 0.0))
     return out
 
 
@@ -1103,8 +1144,9 @@ def wkv_bwd_faults(r, k, v, lw, u, ck, do, dsf):
     out = []
     d = do.clone()
     d[:, S // 2] = 0
-    out.append((f"dO of step {S // 2} dropped",
-                ops.wkv6_bwd(r, k, v, lw, u, ck, d, dsf), (0, 2)))
+    wrong = ops.wkv6_bwd(r, k, v, lw, u, ck, d, dsf)
+    out.append((f"dO of step {S // 2} dropped", wrong, (0, 2)))
+    out.append((f"dO of step {S // 2} dropped, du", wrong, (4,)))
     c = ck.clone()
     c[:, :, -1] = 0
     if bool(ck[:, :, -1].any()):
@@ -1150,7 +1192,7 @@ def run_wkv_bwd_phase(dev, gen):
         again = ops.wkv6_bwd(r, k, v, lw, u, ck, do, dsf)
         plain = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do, dsf)
         torch.cuda.synchronize()
-        tols = wkv_bwd_tol(plain, dt)
+        tols = wkv_bwd_tol(plain, dt, wkv_du_terms(r, k, v, do))
         errs, used = [], []
         for name, g, g2, p, tol in zip(names, got, again, plain, tols):
             check(bool(torch.isfinite(g).all()),
@@ -1173,7 +1215,9 @@ def run_wkv_bwd_phase(dev, gen):
                    faults_tol_used=faults, checkpoint_err=ck_err,
                    tol=f"{share:g}·(max |plain| of its {BWD_TILE}-step tile "
                    f"of a (batch, head); du: of its head; ds0: of its state) "
-                   f"+ {WKV_BWD_NOISE:g} + {rtol:g}·|plain| (dr, dk, dv)",
+                   f"+ {WKV_BWD_NOISE:g} + {rtol:g}·|plain| (dr, dk, dv) + "
+                   f"{wkv_du_rounding(N):.3g}·sqrt(sum of du's squared "
+                   f"term magnitudes) (du)",
                    shape=f"B {B}, S {S}, H {H}, N {N}, {dtype_name(dt)}")
         timing = ""
         if timed:
@@ -1239,7 +1283,27 @@ def rglru_cases():
         ("serving h0 padded", 8, 2560, 4096, True, 2040),
         ("ragged S77 R100 h0 padded", 2, 77, 100, True, 41),
         ("S5 R4096 h0", 3, 5, 4096, True, None),
+        # (t6)'s microbatch with a ragged last tile; rows that are not
+        # 16-byte multiples (R 4,094: the kernel's cp.async path)
+        ("(t6) S4095", 1, 4095, 4096, False, None),
+        ("R4094 h0 padded", 2, 300, 4094, True, 250),
     ]
+
+
+def rglru_plan_of(dev, B, S, R, backward):
+    """The kernel's plan for a (B, S, R) scan on ``dev`` (fp32 operands
+    from the allocator, so 16-byte aligned): the fields a row prints."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rglru_scan as rg
+    p = rg.rglru_plan(B, S, R, _build.sm_count(dev), backward)
+    return {k: p[k] for k in ("channels", "steps", "stages", "tma",
+                              "blocks", "smem")}
+
+
+def fmt_plan(p):
+    return (f"plan C {p['channels']}, {p['steps']} steps x {p['stages']} "
+            f"stages, {'TMA' if p['tma'] else 'cp.async'}, {p['blocks']} "
+            f"blocks, {p['smem']} B")
 
 
 def rglru_inputs(dev, gen, B, S, R, nonzero_h0, pad_from):
@@ -1313,11 +1377,12 @@ def run_rglru_phase(dev, gen):
                            log_a, b, h0), reps=3, warmup=1),
                        library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       shape=f"B {B}, S {S}, R {R}, fp32")
+                       shape=f"B {B}, S {S}, R {R}, fp32",
+                       plan=rglru_plan_of(dev, B, S, R, False))
             timing = (f" kernel {row['ms']:.4f} ms (device "
                       f"{fmt_ms(row['device_ms'])}) plain "
                       f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
-                      f"ms ({row['bound_by']})")
+                      f"ms ({row['bound_by']}; {fmt_plan(row['plan'])})")
         rows.append(row)
         print(f"  rglru {label:<26} err {err:.3g}, vs oracle {o_err:.3g} "
               f"(max |h| {row['max_abs_plain']:.4g}; tol {row['tol']})"
@@ -1335,6 +1400,8 @@ def rglru_bwd_cases():
         ("S15 padded", 3, 15, 4096, False, 9, "init", False),
         ("S1 h0", 2, 1, 4096, True, None, "init", False),
         ("decays -8e^4 to 0", 2, 700, 4096, True, 650, "strong", False),
+        ("(t6) S4095", 1, 4095, 4096, False, None, "init", False),
+        ("R4094 h0 padded", 2, 300, 4094, True, 250, "init", False),
     ]
 
 
@@ -1450,14 +1517,16 @@ def run_rglru_bwd_phase(dev, gen):
                        library="none: no PyTorch call computes the scan's "
                        "gradient",
                        bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       plan=rglru_plan_of(dev, B, S, R, True))
             k_ms = row["device_ms"] or row["ms"]
             row["bound_share"] = row["bound_ms"] / k_ms
             timing = (f" kernel {row['ms']:.4f} ms (device "
                       f"{fmt_ms(row['device_ms'])}, "
                       f"{row['bound_share']:.1%} of bound) plain "
                       f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
-                      f"ms ({row['bound_by']}, {nbytes / 1e6:.1f} MB)")
+                      f"ms ({row['bound_by']}, {nbytes / 1e6:.1f} MB; "
+                      f"{fmt_plan(row['plan'])})")
         rows.append(row)
         print(f"  rglru bwd {label:<22} err "
               + "/".join(f"{e:.3g}" for e in errs.values())
@@ -4167,10 +4236,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in rglru_rows),
              ms=rl["ms"], device_ms=rl["device_ms"], plain_ms=rl["plain_ms"],
              bound_ms=rl["bound_ms"], bound_by=rl["bound_by"],
-             library_ms=None, shape=rl["shape"],
+             library_ms=None, shape=rl["shape"], plan=rl["plan"],
              training=dict({k: rlt[k] for k in (
                  "shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")},
+                 "bound_by", "library_ms", "plan")},
                  launches=rg_train["rglru_scan_bsr"])),
         dict(name="rglru_scan_bwd", route="cuda",
              source="src/repro_torch/csrc/rglru_scan.cu",
@@ -4182,9 +4251,9 @@ def main() -> int:
              ms=rgb["ms"], device_ms=rgb["device_ms"],
              plain_ms=rgb["plain_ms"], bound_ms=rgb["bound_ms"],
              bound_by=rgb["bound_by"], library_ms=None,
-             library=rgb["library"], shape=rgb["shape"],
+             library=rgb["library"], shape=rgb["shape"], plan=rgb["plan"],
              b2={k: r[k] for r in rglru_bwd_rows if r["label"] == "(t6) B2 h0"
-                 for k in ("shape", "ms", "device_ms", "bound_ms")},
+                 for k in ("shape", "ms", "device_ms", "bound_ms", "plan")},
              faults_tol_used={r["label"]: r["faults_tol_used"]
                               for r in rglru_bwd_rows}),
         dict(name="mla_paged_decode_fwd", route="cuda",

@@ -27,6 +27,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of ``device``'s card, queried once per device (the
+    kernels' plans size their grids by it)."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def _nvcc() -> str:

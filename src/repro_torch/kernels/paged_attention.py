@@ -180,18 +180,7 @@ def decode_plan(B: int, K: int, G: int, hd: int, ps: int, pps: int,
                 n_split=n_split, smem=smem(kt, stages))
 
 
-_sm_count = {}
 _tickets = {}
-
-
-def _n_sm(device) -> int:
-    """SM count of a card, queried once per device."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_count[idx]
 
 
 def _ticket_counters(device, n: int) -> torch.Tensor:
@@ -216,7 +205,7 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, pos_q, *,
     ps = k_pages.shape[2]
     pps = page_table.shape[1]
     plan = decode_plan(B, K, G, hd, ps, pps, k_pages.element_size(),
-                       _n_sm(q.device), grouped)
+                       _build.sm_count(q.device), grouped)
     ws = torch.empty(B * K * G * plan["n_split"] * (2 + hd),
                      dtype=torch.float32, device=q.device)
     tickets = _ticket_counters(q.device, B * K * plan["n_gg"])
@@ -389,7 +378,7 @@ def mla_card_plan(q_lat, ckv_pages, krope_pages, page_table) -> dict:
                 _cluster_slots[k] = got
             return _cluster_slots[k]
         plan = mla_decode_plan(B, H, ps, pps, q_lat.element_size(),
-                               ckv_pages.element_size(), _n_sm(device),
+                               ckv_pages.element_size(), _build.sm_count(device),
                                slots, lora, rd)
         _mla_plans[key] = plan
     return plan

@@ -50,8 +50,10 @@ least 10 times over.
 The WKV6 backward is held against its plain backward on the same inputs
 and the forward kernel's state checkpoints: within 1e-5 of the largest
 |plain| of the element's tile (64 steps of one batch row and head; du:
-its head; ds0: its state) plus 1e-6, and bf16 dr, dk, dv one bf16 ulp of
-the value more (both sides rebuild the states by the same fp32 step
+its head; ds0: its state) plus 1e-6, du also within both sides' rounding
+of its terms (2·gamma_{N+3} times the root-sum-square over steps of
+|r k|·sum_j |dO_j v_j|, ``chip_smoke.wkv_bwd_tol``), and bf16 dr, dk, dv
+one bf16 ulp of the value more (both sides rebuild the states by the same fp32 step
 recurrence and round once; they sum in other orders).  The forward's o
 and s_final are bit-equal with and without the checkpoints, which are
 held to the plain forward's within 3e-5 of their largest (the chunked
@@ -450,9 +452,19 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert bool((o == 0).all()) and bool((s_fin == 0).all())
 
 
-def _wkv_bwd_tol(plain, dt):
+def _wkv_du_terms(r, k, v, do):
+    """sqrt(sum over (b, t) of tau_t²) per (head, channel), tau_t = |r_t
+    k_t| · sum_j |dO_tj v_tj|: du's terms' summed magnitudes
+    (``chip_smoke.wkv_du_terms``)."""
+    f = lambda x: x.float()  # noqa: E731
+    tau = (f(r) * f(k)).abs() * (f(do) * f(v)).abs().sum(-1, keepdim=True)
+    return tau.square().sum((0, 1)).sqrt()
+
+
+def _wkv_bwd_tol(plain, dt, du_terms):
     """(atol per element, rtol) of the WKV6 backward for each of (dr, dk,
-    dv, dlw, du, ds0)."""
+    dv, dlw, du, ds0), as ``chip_smoke.wkv_bwd_tol``: du also gets both
+    sides' rounding of its terms, 2·gamma_{N+3} times ``du_terms``."""
     share, rtol = WKV_BWD_TOL[dt]
     out = []
     for i, p in enumerate(plain):
@@ -467,7 +479,11 @@ def _wkv_bwd_tol(plain, dt):
         else:
             t = a.amax(dim=(-2, -1) if i == 5 else -1,
                        keepdim=True).expand_as(a)
-        out.append((share * t + 1e-6, rtol if i < 3 else 0.0))
+        atol = share * t + 1e-6
+        if i == 4:
+            g = (a.shape[-1] + 3) * 2.0 ** -24
+            atol = atol + 2 * g / (1 - g) * du_terms
+        out.append((atol, rtol if i < 3 else 0.0))
     return out
 
 
@@ -516,7 +532,8 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, dt, B, S, H, N, decay):
     plain = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do, dsf)
     for name, g, g2, p, tol in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
                                    got, again, plain,
-                                   _wkv_bwd_tol(plain, dt)):
+                                   _wkv_bwd_tol(plain, dt, _wkv_du_terms(
+                                       r, k, v, do))):
         assert g.dtype == p.dtype and g.shape == p.shape, name
         assert bool(torch.isfinite(g).all()), name
         assert torch.equal(g, g2), name
@@ -681,6 +698,8 @@ def _rglru_within(out, plain):
     (3, 5, 4096),          # shorter than one pass
     (2, 1, 33),
     (8, 300, 4096),        # the serving width
+    (1, 4095, 4096),       # (t6)'s microbatch, a ragged last tile
+    (2, 300, 4094),        # rows not 16-byte multiples: the cp.async path
 ])
 def test_rglru_kernel_matches_plain_and_oracle(cuda, with_h0, B, S, R):
     """Row 0 is padded past step n (log_a = 0, b = 0): its carry stays
@@ -706,6 +725,30 @@ def test_rglru_kernel_matches_plain_and_oracle(cuda, with_h0, B, S, R):
                              b[:1, :n].contiguous(),
                              None if h0 is None else h0[:1].contiguous())
     assert torch.equal(h[0, -1], cut[0, -1])
+
+
+def test_rglru_kernels_take_operands_off_a_16_byte_boundary(cuda):
+    """log_a 4 bytes past a 16-byte boundary (a view into a larger
+    buffer) cannot go through a TMA map: the plan takes the cp.async path,
+    whose outputs equal the TMA path's bit for bit, forward and
+    backward."""
+    rng = np.random.default_rng(17)
+    log_a, b, h0 = _rglru_inputs(rng, cuda, 2, 300, 4096)
+    buf = torch.empty(log_a.numel() + 1, device=cuda)
+    buf[1:] = log_a.flatten()
+    off = buf[1:].view_as(log_a)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    assert rg._card_plan(log_a, (log_a, b), False)["tma"]
+    assert not rg._card_plan(off, (off, b), False)["tma"]
+    h = ops.rglru_scan_bsr(log_a, b, h0)
+    assert torch.equal(ops.rglru_scan_bsr(off, b, h0), h)
+    dh = torch.from_numpy(rng.normal(size=tuple(h.shape)).astype(
+        np.float32)).to(cuda)
+    want = ops.rglru_scan_bwd(log_a, h, dh, h0)
+    got = ops.rglru_scan_bwd(off, h, dh, h0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -1229,6 +1272,8 @@ def _rglru_bwd_within(g, p):
     (3, 5, 4096),          # shorter than one pass
     (2, 1, 33),
     (1, 1000, 4096),       # the training width
+    (1, 4095, 4096),       # (t6)'s microbatch, a ragged last tile
+    (2, 300, 4094),        # rows not 16-byte multiples: the cp.async path
 ])
 def test_rglru_backward_kernel_matches_plain(cuda, with_h0, B, S, R):
     """Row 0 is padded past step n (log_a = 0, b = 0): its carry there is

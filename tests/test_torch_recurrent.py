@@ -706,3 +706,74 @@ def test_serve_cli_serves_recurrentgemma_on_cpu(capsys):
     with pytest.raises(SystemExit, match="shorter than the local window"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                     "--prompt-len", "8", "--gen", "4"])
+
+
+# The CUDA kernels' plan (``kernels/rglru_scan.py:rglru_plan``): pure
+# Python, checked over every R from 1 to 4,096 at the training microbatch
+# ((t6): B 1, S 4,096), the serving prefill ((d): B 8, S 2,560) and short
+# and ragged S, for the forward and the backward, on an H100's 132 SMs.
+H100_SMS = 132
+PLAN_SHAPES = [(1, 4096), (8, 2560), (1, 1), (8, 77), (1, 4095)]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("B,S", PLAN_SHAPES,
+                         ids=[f"B{b}-S{s}" for b, s in PLAN_SHAPES])
+def test_rglru_plan_covers_every_channel_and_step_once(B, S, backward):
+    """The blocks' channels (grid x: C channels each, masked past R) and
+    the ring's tiles (steps each, the last one cut at S) cover every
+    (channel, step) once; the ring and its barriers fit the 232,448
+    bytes a block may use; the kernel's limits hold (C a warp multiple,
+    steps a TMA box's 256 at most, 1 to 8 stages)."""
+    from repro_torch.kernels.rglru_scan import SMEM_BYTES, rglru_plan
+    for R in range(1, 4097):
+        p = rglru_plan(B, S, R, H100_SMS, backward)
+        C, steps, stages = p["channels"], p["steps"], p["stages"]
+        assert C in (32, 64, 128) and 1 <= steps <= 256
+        assert 1 <= stages <= 8 and p["threads"] == 2 * C + 32
+        nx = p["grid"][0]
+        assert p["grid"] == (nx, B) and p["blocks"] == nx * B
+        # channels: block x owns [x·C, x·C + C) ∩ [0, R), every block some
+        assert (nx - 1) * C < R <= nx * C
+        owned = np.zeros(nx * C, dtype=np.int64)
+        owned[:R] += 1
+        assert (owned.reshape(nx, C).sum(1) > 0).all()
+        assert (owned[:R] == 1).all()
+        # steps: tile k holds [k·steps, min(k·steps + steps, S))
+        starts = np.arange(p["tiles"]) * steps
+        lens = np.minimum(steps, S - starts)
+        assert (lens > 0).all() and lens.sum() == S
+        assert p["smem"] <= SMEM_BYTES
+        assert p["smem"] >= 128 + stages * p["stage_bytes"]
+
+
+def test_rglru_plan_fills_the_card_at_the_training_microbatch():
+    """At (t6)'s microbatch (B 1, S 4,096, R 4,096) both directions run
+    at least 100 blocks on 132 SMs (the previous design ran 32 blocks of
+    128 channels), and at (d)'s serving batch at least one block an SM."""
+    from repro_torch.kernels.rglru_scan import rglru_plan
+    for backward in (False, True):
+        t6 = rglru_plan(1, 4096, 4096, H100_SMS, backward)
+        assert t6["blocks"] >= 100 and t6["channels"] == 32
+        d = rglru_plan(8, 2560, 4096, H100_SMS, backward)
+        assert d["blocks"] >= H100_SMS
+        # each SM's share of the ring: the blocks it runs at once, all
+        # held within the SM's 228 KB
+        for p in (t6, d):
+            resident = -(-p["blocks"] // H100_SMS)
+            assert resident * p["smem"] <= 228 * 1024
+
+
+def test_rglru_plan_takes_cp_async_where_tma_cannot():
+    """TMA needs 16-byte row strides and operands: R % 4 != 0 (R 4,094,
+    R 33) or an operand off a 16-byte boundary takes the cp.async path,
+    which the kernel takes at any R."""
+    from repro_torch.kernels.rglru_scan import rglru_plan
+    for backward in (False, True):
+        for R in range(1, 4097):
+            p = rglru_plan(1, 77, R, H100_SMS, backward)
+            assert p["tma"] == (R % 4 == 0)
+        assert not rglru_plan(1, 4096, 4096, H100_SMS, backward,
+                              aligned=False)["tma"]
+    with pytest.raises(ValueError):
+        rglru_plan(1, 0, 4096, H100_SMS)

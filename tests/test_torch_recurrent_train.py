@@ -128,12 +128,13 @@ def _jax_scan_grads(log_a, b, dh, h0):
     """``jax.grad`` of sum(h · dh) through the reference's associative
     scan: (dlog_a, db) and dh0 when ``h0`` is given."""
     if h0 is None:
-        return jax.grad(lambda la, bb: (ref_rec.rglru_scan_assoc(la, bb)
-                                        * dh).sum(), argnums=(0, 1))(
+        return jax.jit(jax.grad(lambda la, bb: (
+            ref_rec.rglru_scan_assoc(la, bb) * dh).sum(), argnums=(0, 1)))(
             jnp.asarray(log_a), jnp.asarray(b))
-    return jax.grad(lambda la, bb, h: (ref_rec.rglru_scan_assoc(la, bb, h)
-                                       * dh).sum(), argnums=(0, 1, 2))(
-        jnp.asarray(log_a), jnp.asarray(b), jnp.asarray(h0))
+    return jax.jit(jax.grad(lambda la, bb, h: (
+        ref_rec.rglru_scan_assoc(la, bb, h) * dh).sum(),
+        argnums=(0, 1, 2)))(jnp.asarray(log_a), jnp.asarray(b),
+                            jnp.asarray(h0))
 
 
 @pytest.mark.parametrize("decay", ["init", "strong"])
@@ -236,26 +237,61 @@ def _configs(**over):
             dataclasses.replace(get_config(ARCH).reduced(), **over))
 
 
-def _weights(rcfg, tcfg, seed=0):
-    rparams = ref_init_params(rcfg, jax.random.key(seed))
+@pytest.fixture(scope="module")
+def ref_init():
+    """The reference's initial train state at key 0 on the host, made once
+    for the module: its params are ``init_params(rcfg, key 0)`` (fp32
+    master weights), which the block's and the model's gradient tests
+    take, and the platform job starts from the whole state.  Nothing
+    writes to it (the port's conversion copies)."""
+    rcfg, _ = _configs()
+    return jax.device_get(ref_steps.init_train_state(rcfg,
+                                                     jax.random.key(0)))
+
+
+@pytest.fixture(scope="module")
+def ref_init_steps():
+    """The reference's initial train state at key 1 on the host, which the
+    three-step tests start from at one and at two microbatches (their run
+    configs differ only in the microbatches, which the state does not
+    depend on)."""
+    rcfg, _ = _configs()
+    return jax.device_get(ref_steps.init_train_state(rcfg,
+                                                     jax.random.key(1)))
+
+
+def _weights(tcfg, rparams):
+    """The port's model holding the reference's params (converted)."""
     model = Model(tcfg, device=CPU)
-    model.load_state_dict(params_from_jax(jax.device_get(rparams), tcfg))
-    return rparams, model
+    model.load_state_dict(params_from_jax(rparams, tcfg))
+    return model
+
+
+def test_ref_init_is_the_reference_s_init_params(ref_init):
+    """The shared state's params are ``init_params(rcfg, key 0)``, bit for
+    bit: what the gradient tests drew before they shared it."""
+    rcfg, _ = _configs()
+    want = dict(_leaves(jax.device_get(ref_init_params(
+        rcfg, jax.random.key(0)))))
+    got = dict(_leaves(ref_init["params"]))
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        np.testing.assert_array_equal(got[path], w, err_msg=path)
 
 
 @pytest.mark.parametrize("S", [1, 21])
-def test_rglru_block_gradients_match_jax_grad(S):
+def test_rglru_block_gradients_match_jax_grad(S, ref_init):
     """Gradients of a weighted sum of the block's output (full mode, no
     cache) with respect to its input and every leaf."""
     rcfg, tcfg = _configs()
-    rparams, _ = _weights(rcfg, tcfg)
+    rparams = ref_init["params"]
     rp = jax.tree.map(lambda a: a[0], rparams["decoder"]["groups"]["1"]["rec"])
     rng = np.random.default_rng(S)
     u = rng.normal(size=(2, S, rcfg.d_model)).astype(np.float32)
     w = rng.normal(size=u.shape).astype(np.float32)
-    want = jax.grad(lambda p, x: (ref_rec.rglru_block(
+    want = jax.jit(jax.grad(lambda p, x: (ref_rec.rglru_block(
         rcfg, p, x, RCTX, mode="full", cache=None)[0] * w).sum(),
-        argnums=(0, 1))(rp, jnp.asarray(u))
+        argnums=(0, 1)))(rp, jnp.asarray(u))
     tp = {n: _t(_np(a)).requires_grad_(True) for n, a in rp.items()}
     ut = _t(u).requires_grad_(True)
     y, cache = port_rec.rglru_block(tcfg, tp, ut, CTX, mode="full",
@@ -279,17 +315,18 @@ def _batch(rcfg, S=40, B=2, step=0, seed=3):
     return b, {k: torch.from_numpy(v).long() for k, v in b.items()}
 
 
-def test_loss_and_gradients_match_reference_by_tree_path():
+def test_loss_and_gradients_match_reference_by_tree_path(ref_init):
     """Reduced recurrentgemma (R, R, L, R: the groups and a tail; window
     16 under S 40, so the local layer's window clips), masked labels."""
     rcfg, tcfg = _configs()
-    rparams, model = _weights(rcfg, tcfg)
-    model = make_trainable(model)
+    rparams = ref_init["params"]
+    model = make_trainable(_weights(tcfg, rparams))
     rb, tb = _batch(rcfg)
     rb["labels"][0, :5] = -1
     tb["labels"][0, :5] = -1
-    (rloss, _), rgrads = jax.value_and_grad(
-        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True)(rparams)
+    (rloss, _), rgrads = jax.jit(jax.value_and_grad(
+        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True))(
+        rparams)
     names, leaves = zip(*model.named_parameters())
     loss, _ = steps.loss_fn(tcfg, compute_params(model, torch.float32), tb,
                             CTX)
@@ -305,16 +342,16 @@ def test_loss_and_gradients_match_reference_by_tree_path():
         _close(got[path], w, GRAD_TOL, path)
 
 
-def run_steps(rcfg, tcfg, n_mb, n_steps, lr=1e-3, B=4, S=40):
+def run_steps(rcfg, tcfg, init, n_mb, n_steps, lr=1e-3, B=4, S=40):
     """``n_steps`` AdamW steps of both packages from the reference's
-    initial state on the reference's batches: both final states (numpy
-    trees), each step's (port, reference) metrics and, with one
-    microbatch, where each step's reference gradient was below 1e-4 of its
-    leaf's largest."""
+    initial state ``init`` (a host tree) on the reference's batches: both
+    final states (numpy trees), each step's (port, reference) metrics
+    and, with one microbatch, where each step's reference gradient was
+    below 1e-4 of its leaf's largest."""
     run = RefRunConfig(num_microbatches=n_mb, learning_rate=lr,
                        warmup_steps=2, total_steps=n_steps)
-    rstate = ref_steps.init_train_state(rcfg, jax.random.key(1), run)
-    tstate = train_state_from_jax(jax.device_get(rstate), tcfg, device=CPU)
+    rstate = jax.tree.map(jnp.asarray, init)
+    tstate = train_state_from_jax(init, tcfg, device=CPU)
     rstep = jax.jit(ref_steps.make_train_step(rcfg, RCTX, run))
     tstep = steps.make_train_step(
         tcfg, CTX, RunConfig(num_microbatches=n_mb, learning_rate=lr,
@@ -339,11 +376,11 @@ def run_steps(rcfg, tcfg, n_mb, n_steps, lr=1e-3, B=4, S=40):
 
 
 @pytest.mark.parametrize("n_mb", [1, 2])
-def test_three_train_steps_match_reference(n_mb):
+def test_three_train_steps_match_reference(n_mb, ref_init_steps):
     rcfg, tcfg = _configs()
     lr, n_steps = 1e-3, 3
-    rstate, tstate, metrics, small = run_steps(rcfg, tcfg, n_mb, n_steps,
-                                               lr=lr)
+    rstate, tstate, metrics, small = run_steps(rcfg, tcfg, ref_init_steps,
+                                               n_mb, n_steps, lr=lr)
     for i, (tm, rm) in enumerate(metrics):
         for key, rtol in (("loss", 1e-5), ("ce", 1e-5), ("grad_norm", 1e-4),
                           ("lr", 1e-6)):
@@ -543,15 +580,15 @@ def _job_payload(tcfg, init):
     return Payload()
 
 
-def test_recurrentgemma_job_killed_after_a_checkpoint_equals_an_uninterrupted_run():
+def test_recurrentgemma_job_killed_after_a_checkpoint_equals_an_uninterrupted_run(
+        ref_init):
     """A reduced recurrentgemma learner as a real payload under the port's
     platform: the pod is killed after a checkpoint, the job restores it
     and completes; every loss (replayed steps included) and the final
     state equal, bit for bit, those of the same payload run without the
     platform."""
-    rcfg, tcfg = _configs()
-    init = jax.device_get(ref_steps.init_train_state(rcfg,
-                                                     jax.random.key(0)))
+    _, tcfg = _configs()
+    init = ref_init
     plain = _job_payload(tcfg, init)
     plain.restore(None)
     want = [plain.step(i) for i in range(JOB_STEPS)]

@@ -401,3 +401,52 @@ def _cumulative_identity(args, grads, ends):
             acc = acc - term_k[:, t]
             out[:, t] = acc
     return out
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its checks are plain functions of
+    tensors; importing it touches no card)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_du_allowance_at_s1_covers_fp32_rounding_and_rejects_a_fault():
+    """At S 1, du = r k (dO · v): one term whose dot product can cancel.
+    Over 300 seeded draws of the smoke's fp32 S 1 case (B 1, H 4, N 64)
+    the plain fp32 du stays within the smoke's du allowance
+    (``chip_smoke.wkv_bwd_tol``) of an fp64 du, and a backward that
+    dropped the step's dO lands at least WKV_BWD_FAULT (10) times over
+    it.  The allowance's rounding term is 2·gamma_{N+3} times du's terms'
+    summed magnitudes; half of it covers one side's fp32 rounding, the
+    other half the kernel's."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(26)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    worst, fault = 0.0, float("inf")
+    for _ in range(300):
+        r, k, v, do = (f32(rng.normal(size=(1, 1, 4, 64))) for _ in range(4))
+        lw = -torch.exp(f32(rng.uniform(-6, 2, (1, 1, 4, 64))))
+        u = f32(0.5 * rng.normal(size=(4, 64)))
+        s0 = f32(0.3 * rng.normal(size=(1, 4, 64, 64)))
+        _, _, ck = wkv.wkv6_torch(r, k, v, lw, u, s0, seg=wkv.SEG)
+        plain = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do)
+        atol, _ = cs.wkv_bwd_tol(plain, torch.float32,
+                                 cs.wkv_du_terms(r, k, v, do))[4]
+        d = lambda t: t.double()  # noqa: E731
+        exact = (d(r) * d(k) * (d(do) * d(v)).sum(-1, keepdim=True)).sum(
+            (0, 1))
+        # one side's rounding against exact: within half the allowance
+        worst = max(worst, float(((d(plain[4]) - exact).abs()
+                                  / (0.5 * d(atol))).max()))
+        dropped = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck,
+                                     torch.zeros_like(do))[4]
+        fault = min(fault, cs.tol_used(dropped, plain[4], (atol, 0.0)))
+    assert worst <= 1.0, worst
+    assert fault >= cs.WKV_BWD_FAULT, fault
+    assert cs.wkv_du_rounding(64) == pytest.approx(2 * 67 * 2.0 ** -24,
+                                                   rel=1e-5)

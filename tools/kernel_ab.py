@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """In-turn A/B of the port's WKV6, paged-decode, MLA latent-decode,
-flash-backward and WKV6-backward kernels between this checkout and another
-one (an earlier design), on one card.
+flash-backward, WKV6-backward and RG-LRU (forward and backward) kernels
+between this checkout and another one (an earlier design), on one card.
 
     mkdir -p build/ab/parent
     git archive <rev> | tar -x -C build/ab/parent
@@ -10,8 +10,9 @@ one (an earlier design), on one card.
 
 Each checkout is driven through its own ``repro_torch`` package: its
 wrappers ``ops.wkv6_bshn``, ``ops.paged_decode_bhd``,
-``ops.mla_paged_decode_bhd``, ``ops.flash_attention_bwd`` and
-``ops.wkv6_bwd`` (the port keeps their signatures), its plain versions,
+``ops.mla_paged_decode_bhd``, ``ops.flash_attention_bwd``,
+``ops.wkv6_bwd``, ``ops.rglru_scan_bsr`` and ``ops.rglru_scan_bwd`` (the
+port keeps their signatures), its plain versions,
 its forward's state checkpoints at its own ``SEG``, its build of its own CUDA
 sources (into that checkout's ``build/``) and, with ``--trace``, its model
 and engine.  So nothing here depends on a kernel's C interface.  Every
@@ -21,10 +22,17 @@ seed on the card, holds each kernel to its checkout's plain version at
 ``chip_smoke.py``'s tolerances, and times it with this checkout's
 ``chip_smoke.py`` helpers: device time (torch.profiler, 20 calls)
 L2-warm and L2-cold (a 256 MB write before each call).  ``--kernels``
-picks some of wkv6, paged_decode, mla_decode, flash_bwd and wkv6_bwd (all
-five by default); wkv6_bwd is the WKV6 backward at rwkv6-7b's training
-shape in bf16 and fp32, from the checkout's forward with checkpoints,
-beside that forward's time with and without them; flash_bwd is the
+picks some of wkv6, paged_decode, mla_decode, flash_bwd, wkv6_bwd, rglru
+and rglru_bwd (all seven by default); wkv6_bwd is the WKV6 backward at
+rwkv6-7b's training shape in bf16 and fp32, from the checkout's forward
+with checkpoints, beside that forward's time with and without them;
+rglru is the RG-LRU scan at recurrentgemma-9b's training microbatch
+((t6): B 1, S 4,096, R 4,096) and serving prefill ((d): B 8, S 2,560),
+rglru_bwd its backward at (t6)'s B 1 and at B 2 with an h0, from the
+checkout's own forward, each held to the checkout's plain loop at
+``chip_smoke.py``'s tolerances; for these two the outputs' sha256 is
+compared across the turns, and whether every turn gave the same bytes
+on the same inputs is reported ("bit-equal across checkouts"); flash_bwd is the
 backward at the two training shapes
 (paper-overhead-100m: B 8, S 1,024, H 12, K 4, hd 64; qwen3-0.6b's
 train_4k: B 2, S 4,096, H 16, K 8, hd 128, causal, bf16), each gradient
@@ -34,7 +42,8 @@ the serving windows of cells (a), qwen3-0.6b, (c), rwkv6-7b, and (e),
 deepseek-v2-236b at 3 layers, as ``chip_smoke.py`` does (one warm-up
 window first; ``--trace e`` or ``--trace a,c`` picks cells): each
 kernel's device time in the window and the launches a step.  The last
-line is one JSON object of the numbers.
+line is one JSON object of the numbers (with ``bit_equal``: for each
+RG-LRU row, whether every turn's outputs had the same digest).
 """
 from __future__ import annotations
 
@@ -50,11 +59,86 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER_TIMEOUT_S = 900
 
 
-KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash_bwd", "wkv6_bwd")
+KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash_bwd", "wkv6_bwd",
+           "rglru", "rglru_bwd")
 SOURCES = {"wkv6": ("rwkv6_wkv",), "paged_decode": ("paged_decode",),
            "mla_decode": ("mla_decode",),
            "flash_bwd": ("flash_attention_bwd",),
-           "wkv6_bwd": ("rwkv6_wkv", "rwkv6_wkv_bwd")}
+           "wkv6_bwd": ("rwkv6_wkv", "rwkv6_wkv_bwd"),
+           "rglru": ("rglru_scan",), "rglru_bwd": ("rglru_scan",)}
+# (label, B, S, R, nonzero h0): recurrentgemma-9b's training microbatch
+# ((t6): B 1, S 4,096), its serving prefill ((d): B 8, S 2,560) and the
+# smoke's "(t6) B2 h0" backward
+RGLRU_FWD_SHAPES = (("rglru (t6)", 1, 4096, 4096, False),
+                    ("rglru (d)", 8, 2560, 4096, False))
+RGLRU_BWD_SHAPES = (("rglru_bwd (t6)", 1, 4096, 4096, False),
+                    ("rglru_bwd (t6) B2 h0", 2, 4096, 4096, True))
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes (None skipped): two checkouts whose
+    outputs on the same inputs have the same digest are bit-equal."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.contiguous().view(-1).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_rglru(cs, dev, gen):
+    """The RG-LRU forward at (t6)'s and (d)'s shapes: held to the
+    checkout's plain step loop at ``chip_smoke.RGLRU_TOL``, its output's
+    digest, its device ms warm and L2-cold."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+
+    rows = {}
+    for label, B, S, R, nz in RGLRU_FWD_SHAPES:
+        log_a, b, h0 = cs.rglru_inputs(dev, gen, B, S, R, nz, None)
+        h = ops.rglru_scan_bsr(log_a, b, h0)
+        torch.cuda.synchronize()
+        cs.rglru_check(h, rg.rglru_scan_torch(log_a, b, h0), label)
+        call = lambda: ops.rglru_scan_bsr(log_a, b, h0)  # noqa: E731
+        rows[label] = dict(shape=f"B {B}, S {S}, R {R}, fp32"
+                           + (", h0" if nz else ""), digest=digest(h),
+                           warm=cs.device_ms(call),
+                           cold=cs.cold_device_ms(call))
+        del log_a, b, h0, h
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_rglru_bwd(cs, dev, gen):
+    """The RG-LRU backward at (t6)'s B 1 and at "(t6) B2 h0", from the
+    checkout's own forward: each gradient held to the checkout's plain
+    reverse loop at ``chip_smoke.rglru_bwd_tol``, the gradients' digest,
+    the device ms warm and L2-cold."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+
+    rows = {}
+    for label, B, S, R, nz in RGLRU_BWD_SHAPES:
+        log_a, b, h0 = cs.rglru_inputs(dev, gen, B, S, R, nz, None)
+        dh = torch.randn(B, S, R, device=dev, generator=gen)
+        h = ops.rglru_scan_bsr(log_a, b, h0)
+        got = ops.rglru_scan_bwd(log_a, h, dh, h0)
+        plain = rg.rglru_scan_bwd_torch(log_a, h, dh, h0)
+        torch.cuda.synchronize()
+        for name, g, p, tol in zip(("dlog_a", "db", "dh0"), got, plain,
+                                   cs.rglru_bwd_tol(plain)):
+            if p is not None:
+                cs.compare(g, p, tol, f"{label} {name}")
+        call = lambda: ops.rglru_scan_bwd(log_a, h, dh, h0)  # noqa: E731
+        rows[label] = dict(shape=f"B {B}, S {S}, R {R}, fp32"
+                           + (", h0" if nz else ""), digest=digest(*got),
+                           warm=cs.device_ms(call),
+                           cold=cs.cold_device_ms(call))
+        del log_a, b, h0, dh, h, got, plain
+        torch.cuda.empty_cache()
+    return rows
 BWD_SHAPES = {"paper train": (8, 1024, 12, 4, 64),
               "qwen3 train": (2, 4096, 16, 8, 128)}
 
@@ -184,7 +268,9 @@ def time_wkv6_bwd(cs, dev, gen):
         torch.cuda.synchronize()
         used = []
         for name, g, p, tol in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
-                                   got, plain, cs.wkv_bwd_tol(plain, dt)):
+                                   got, plain, cs.wkv_bwd_tol(
+                                       plain, dt,
+                                       cs.wkv_du_terms(r, k, v, do))):
             cs.compare(g, p, tol, f"wkv6 bwd {name}")
             used.append(cs.tol_used(g, p, tol))
         del got, plain
@@ -204,7 +290,8 @@ def time_wkv6_bwd(cs, dev, gen):
 
 TIMERS = {"wkv6": time_wkv6, "paged_decode": time_paged_decode,
           "mla_decode": time_mla_decode, "flash_bwd": time_flash_bwd,
-          "wkv6_bwd": time_wkv6_bwd}
+          "wkv6_bwd": time_wkv6_bwd, "rglru": time_rglru,
+          "rglru_bwd": time_rglru_bwd}
 
 
 def time_kernels(cs, dev, kernels):
@@ -330,7 +417,15 @@ def main() -> int:
             return 1
         turns.append(dict(design=name, **json.loads(
             p.stdout.strip().splitlines()[-1])))
-    print(json.dumps({"card": card, "turns": turns}))
+    # outputs on the same inputs, compared across the turns by digest
+    equal = {}
+    for row in turns[0]["kernels"]:
+        got = {t["kernels"][row].get("digest") for t in turns}
+        if None not in got:
+            equal[row] = len(got) == 1
+            print(f"  {row}: outputs bit-equal across checkouts: "
+                  f"{'yes' if equal[row] else 'NO'}", flush=True)
+    print(json.dumps({"card": card, "turns": turns, "bit_equal": equal}))
     return 0
 
 

@@ -15,8 +15,10 @@ ds_final, the smoke's ``wkv_inputs`` from one generator seeded 1).  For
 each it reports:
 
 * how many draws put du past the smoke's tolerance against the plain
-  backward (1e-5 of the head's largest |du| + 1e-6) and the worst share
-  of it;
+  backward (``chip_smoke.wkv_bwd_tol``: 1e-5 of the head's largest |du|
+  + 1e-6 + 2·gamma_{N+3} times the root-sum-square of its terms' summed
+  magnitudes) and the worst share of it, and the same for the share of
+  the head's largest |du| alone (the allowance before the rounding term);
 * the largest |du - du_exact| over the summed magnitudes of du's terms,
   for the kernel and for the plain backward, du_exact computed in fp64.
 
@@ -52,6 +54,7 @@ def worker(tree: Path, draws: int) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     past, used_max, kernel_rel, plain_rel = 0, 0.0, 0.0, 0.0
+    past_share, share_max = 0, 0.0
     for _ in range(draws):
         r, k, v, lw, u, s0 = cs.wkv_inputs(dev, gen, 1, 1, 4, 64,
                                            torch.float32, True, None)
@@ -59,12 +62,18 @@ def worker(tree: Path, draws: int) -> int:
         dsf = 0.3 * torch.randn(1, 4, 64, 64, device=dev, generator=gen)
         _, _, ck = wkv.wkv6_cuda(r, k, v, lw, u, s0, seg=wkv.SEG)
         got = ops.wkv6_bwd(r, k, v, lw, u, ck, do, dsf)[4]
-        plain = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do, dsf)[4]
-        tol = cs.WKV_BWD_TOL["float32"][0] * plain.abs().amax(
+        plain_all = wkv.wkv6_bwd_torch(r, k, v, lw, u, ck, do, dsf)
+        plain = plain_all[4]
+        allowance = cs.wkv_bwd_tol(plain_all, torch.float32,
+                                   cs.wkv_du_terms(r, k, v, do))[4][0]
+        legacy = cs.WKV_BWD_TOL["float32"][0] * plain.abs().amax(
             -1, keepdim=True) + cs.WKV_BWD_NOISE
-        used = float(((got - plain).abs() / tol).max())
+        used = float(((got - plain).abs() / allowance).max())
         past += used > 1
         used_max = max(used_max, used)
+        share = float(((got - plain).abs() / legacy).max())
+        past_share += share > 1
+        share_max = max(share_max, share)
         d = lambda t: t.double()  # noqa: E731
         exact = (d(r) * d(k) * (d(do) * d(v)).sum(-1, keepdim=True)).sum(
             (0, 1))
@@ -75,10 +84,13 @@ def worker(tree: Path, draws: int) -> int:
         plain_rel = max(plain_rel,
                         float(((d(plain) - exact).abs() / terms).max()))
     result = dict(draws=draws, past_tolerance=past, worst_tol_used=used_max,
+                  past_share_alone=past_share, worst_share_used=share_max,
                   kernel_vs_exact=kernel_rel, plain_vs_exact=plain_rel)
     print(f"  {draws} draws: {past} past the smoke's tolerance (worst "
-          f"{used_max:.3f} of it); |du - du_exact| / sum |terms| at most "
-          f"{kernel_rel:.3g} (kernel), {plain_rel:.3g} (plain)", flush=True)
+          f"{used_max:.3f} of it; {past_share} past its share of the head's "
+          f"largest |du| alone, worst {share_max:.3f}); |du - du_exact| / "
+          f"sum |terms| at most {kernel_rel:.3g} (kernel), {plain_rel:.3g} "
+          f"(plain)", flush=True)
     print(json.dumps(result), flush=True)
     return 0
 
