@@ -1701,9 +1701,11 @@ def rg_train_cases():
     """recurrentgemma's local layers in training, (t6)'s microbatch: B 1,
     S 4,096, 16 q heads over one kv head of 256, window 2,048, causal;
     bf16 and fp32, ragged S 1,000, 77 and 1, S 2,047, 2,049 and 4,095
-    around the window, K 8 G 2 (any G), and the sharp-score case of the
-    window faults.  The same cases for the forward's log-sum-exp (checked
-    in every backward case) and the backward."""
+    around the window, K 8 G 2 (any G), a window of 100 (no multiple of
+    64: its edge cuts the dK/dV kernel's 64-row stages and the P^T handed
+    between its consumers), and the sharp-score case of the window
+    faults.  The same cases for the forward's log-sum-exp (checked in
+    every backward case) and the backward."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, B, S, H, K, hd, hdv, dtype, causal, window, cap)
@@ -1718,6 +1720,8 @@ def rg_train_cases():
             ("rg S2049", 1, 2049, 16, 1, 256, 256, bf16, True, 2048, 0.0),
             ("rg S4095", 1, 4095, 16, 1, 256, 256, bf16, True, 2048, 0.0),
             ("hd256 K8 G2", 2, 1000, 16, 8, 256, 256, bf16, True, 2048, 0.0),
+            ("rg window 100", 2, 1000, 16, 1, 256, 256, bf16, True, 100,
+             0.0),
             ("fp32 hd256 S77", 2, 77, 16, 1, 256, 256, f32, True, 32, 0.0)]
 
 

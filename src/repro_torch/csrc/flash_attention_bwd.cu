@@ -41,8 +41,9 @@
 // recurrentgemma's local layers train at hd 256 (MQA, G 16, window 2,048):
 // at B 1, S 4,096, 6,292,480 live pairs a head, 257.7 GFLOP at 10 hd, 0.261
 // ms at 989 TFLOP/s.  Its consumers split an item's dK and dV between them
-// and its dK/dV items also split the group's q heads (BwdTile, SPLIT):
-// three launches, the third summing the parts.
+// (one computes S^T and hands P^T to the other through shared memory) and
+// its dK/dV items also split the group's q heads (BwdTile, SPLIT): three
+// launches, the third summing the parts.
 //
 // bf16 route (hd 64, 128 and 256, and MLA's pair): persistent and
 // warp-specialised like the forward: one block an SM, a producer
@@ -163,14 +164,28 @@ constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
 // hd 256 (recurrentgemma's local layers: MQA, 16 q heads over one kv head,
 // window 2,048; no softcap) holds still more: dK and dV of 64 keys are 256
 // fp32 a thread, past the 240 a consumer has.  So the two consumers split
-// the work of one 64-key item (BC 64) instead of its keys: consumer 0
-// computes S^T, P^T and dV += P^T dO (SPLIT, ROLE_DV), consumer 1 S^T, dP^T,
-// dS^T and dK += dS^T Q (ROLE_DK), both over the same Q/dO stages of 32
-// rows.  S^T is computed twice: 10 hd FLOPs a live pair in this kernel,
-// 16 hd with the dQ kernel's S, dP and dQ (14 hd at the other widths),
-// against the bound's 10 hd.  Each
-// holds 128 accumulators a thread (dV: + S^T 16 + its fragments 8; dK: + S^T
-// and dP^T 16 each + dS^T's fragments 8).  Under MQA the (b, kv head, 64
+// the work of one 64-key item (BC 64) instead of its keys, over the same
+// Q/dO stages of 64 rows (BR 64): consumer 0 (SPLIT, ROLE_DV) computes S^T
+// = K Q^T and P^T, writes P^T in fp32 to a handover buffer in shared memory
+// and accumulates dV += P^T dO; consumer 1 (ROLE_DK) computes dP^T = V dO^T
+// meanwhile, takes P^T from the buffer, forms dS^T = P^T (dP^T - D) and
+// accumulates dK += dS^T Q.  Each score tile is computed once (10 hd FLOPs
+// a live pair in this kernel, 14 hd with the dQ kernel's S, dP and dQ, as
+// at the other widths), and the two consumers do equal tensor work, two 64
+// x 64 x 256 products a stage each.  Each holds 128 accumulators a thread
+// beside one 64-wide score tile (32) and its bf16 fragments (16): 176.
+// Two handover buffers (16 KB each: a thread's 32 floats as 8 float4s,
+// 128 threads apart, in the accumulator's own order, which both consumers
+// share) let consumer 0 start the next stage's S^T while consumer 1 still
+// reads this one's P^T; mbarriers (every thread of a consumer arrives)
+// order the writes and the reads.  The shared memory holds one 64 KB K/V
+// slot, two 64 KB Q/dO stages and the two buffers, so an item's K/V load
+// does not overlap the previous item (about one stage of an item's 33 to
+// 66).  A softcap (gemma2's local layers, a later slice) would fit the
+// same pair: consumer 0 would hand over 1 - th^2 beside P^T (a second 16 KB
+// buffer of the same layout, th = tanh(s scale / cap) from its S^T), and
+// consumer 1 would form dS^T = P^T ((dP^T - D)(1 - th^2)) as dcap_cols and
+// pcap_cols do.  Under MQA the (b, kv head, 64
 // keys) items are too few for the card (64 at B 1, S 4,096), so an item
 // also takes one of ``kv_split`` equal parts of the group's q heads; the
 // consumers write fp32 partials of dK and dV, and a short pass sums the
@@ -183,7 +198,7 @@ template <int DQK, int DV, bool CAP>
 struct BwdTile {
   static constexpr bool SPLIT = DQK == 256;
   static constexpr int BR =
-      SPLIT || DQK != DV ? 32 : (DQK == 64 && !CAP ? 128 : 64);
+      DQK != DV ? 32 : (DQK == 64 && !CAP ? 128 : 64);
   static constexpr int BN =
       SPLIT ? 32 : DQK != DV ? 64 : (DQK == 128 && CAP ? 64 : 128);
   static constexpr int BC = SPLIT ? 64 : 128;   // dK/dV: keys of an item
@@ -207,10 +222,12 @@ constexpr int SMEM_LIMIT = 232448;
 // tile, first, end) with first..end - 1 the tiles the item walks, a dK/dV
 // item's first int (b * KH + kv head) * kv_split + its part of the group's
 // q heads; starts: a block's first item, one more entry than blocks).
+// kv_hands P^T handover buffers at kv_off_hand (hd 256; 0 at the others).
 struct BwdPlan {
   int br, bc, bm, bn, s_pad;
   int kv_blocks, kv_slots, kv_stages, kv_off_kv, kv_off_ring, kv_off_stats,
-      kv_off_bars, kv_smem, kv_items, kv_starts, kv_split;
+      kv_off_bars, kv_smem, kv_items, kv_starts, kv_split, kv_hands,
+      kv_off_hand;
   int dq_blocks, dq_slots, dq_stages, dq_off_q, dq_off_ring, dq_off_bars,
       dq_smem, dq_items, dq_starts;
 };
@@ -288,6 +305,13 @@ __device__ __forceinline__ float4 lds4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ void sts4(uint32_t addr, float a, float b, float c,
+                                     float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
 }
 
 __device__ __forceinline__ uint4 lds128(uint32_t addr) {
@@ -585,6 +609,21 @@ __device__ __forceinline__ void ds_cols(const float (&p)[NS], float (&dp)[NS],
     }
   }
 }
+// The same with P^T from a handover buffer: elements 4 j .. 4 j + 3 of this
+// thread's tile at ``hand`` + 2,048 j (dkdv_consume).
+template <int NS>
+__device__ __forceinline__ void ds_cols_handed(uint32_t hand, float (&dp)[NS],
+                                               uint32_t st) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const float4 v = lds4(st + (8 * j) * 8);
+    const float4 p = lds4(hand + j * 128 * 16);
+    dp[4 * j] = p.x * (dp[4 * j] - v.y);
+    dp[4 * j + 1] = p.y * (dp[4 * j + 1] - v.w);
+    dp[4 * j + 2] = p.z * (dp[4 * j + 2] - v.y);
+    dp[4 * j + 3] = p.w * (dp[4 * j + 3] - v.w);
+  }
+}
 
 // tanh(x) = 1 - 2 / (1 + e^2x) on the MUFU unit, branch-free and lighter
 // in registers than tanhf: its absolute error (about 1e-7) moves P by cap
@@ -728,8 +767,8 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 // What a split dK/dV consumer (hd 256) needs beyond the plan:
 // shared-memory regions, the shapes, the scales and where its partial goes.
 struct KvArgs {
-  uint32_t kv_s, ring, st_s, bars;
-  int KVS, NST, G, B, S, KH, causal, window, r_begin, r_end;
+  uint32_t kv_s, ring, st_s, hand, bars;
+  int KVS, NST, NH, G, B, S, KH, causal, window, r_begin, r_end;
   float sc, scale;
   const int* work;
   float* part;              // fp32 partials of dK, then of dV
@@ -756,10 +795,13 @@ __device__ __forceinline__ void store_part(float* dst,
 }
 
 // A split dK/dV consumer warpgroup's walk over its block's items (hd 256,
-// no softcap): ROLE_DV accumulates dV += P^T dO, ROLE_DK dK += dS^T Q (S^T
-// computed by both), over the same ring stages; a stage goes back to the
-// producer after the 8 consumer warps have read it.  Each writes its fp32
-// partial of the item's 64 keys (dK unscaled: the sum pass scales it).
+// no softcap), over the same ring stages: ROLE_DV computes S^T and P^T,
+// hands P^T over and accumulates dV += P^T dO; ROLE_DK computes dP^T, takes
+// P^T, forms dS^T and accumulates dK += dS^T Q.  A stage goes back to the
+// producer after the 8 consumer warps have read it, a handover buffer to
+// ROLE_DV after the 128 threads of ROLE_DK have read it.  Each writes its
+// fp32 partial of the item's 64 keys (dK unscaled: the sum pass scales
+// it).
 template <int DQK, int DV, int ROLE>
 __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
                                              const KvArgs& a, int cw) {
@@ -771,10 +813,17 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
   constexpr int KV_BYTES = K_BYTES + BC * DV * 2;   // ... and its V
   constexpr int QT_BYTES = BR * DQK * 2;       // a stage's Q
   constexpr int ST_BYTES = QT_BYTES + BR * DV * 2;  // ... and its dO
+  constexpr int HAND_BYTES = BC * BR * 4;      // a P^T handover buffer
   auto kv_full = [&](int i) { return a.bars + 8 * i; };
   auto kv_empty = [&](int i) { return a.bars + 8 * (a.KVS + i); };
   auto full = [&](int s) { return a.bars + 8 * (2 * a.KVS + s); };
   auto empty = [&](int s) { return a.bars + 8 * (2 * a.KVS + a.NST + s); };
+  auto hand_full = [&](int h) {
+    return a.bars + 8 * (2 * a.KVS + 2 * a.NST + h);
+  };
+  auto hand_empty = [&](int h) {
+    return a.bars + 8 * (2 * a.KVS + 2 * a.NST + a.NH + h);
+  };
   const int t = threadIdx.x - 128 * (cw + 1), warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int split = p.kv_split, heads = a.G / split;
@@ -802,56 +851,68 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
     mbar_wait(kv_full(slot), (n / a.KVS) & 1);
     for (int gi = part * heads; gi < (part + 1) * heads; ++gi) {
       for (int qt = u.z; qt < u.w; ++qt, ++it) {
-        const int s = it % a.NST, q0 = qt * BR;
+        const int s = it % a.NST, q0 = qt * BR, hb = it % a.NH;
         const uint32_t qs = a.ring + s * ST_BYTES, os = qs + QT_BYTES;
         const uint32_t st = a.st_s + s * BR * 8 + (2 * tq) * 8;
-        // a mask iff some pair of the tile is dead: keys or rows past S,
-        // a row before the key (causal), a row past the window
-        const bool mask = kc + 64 > S || q0 + BR > S ||
-                          (causal && q0 < kc + 63) ||
-                          (window && q0 + BR - 1 - kc >= window);
-        const int col0 = q0 + 2 * tq;
-        float sv[NS], dp[DK ? NS : 1];
+        // this thread's elements of the stage's P^T: 4 j .. 4 j + 3 at
+        // hand + 2,048 j, the 128 threads' float4s side by side
+        const uint32_t hand = a.hand + hb * HAND_BYTES + t * 16;
+        const uint32_t hpar = (it / a.NH) & 1;
+        float sv[NS];
         mbar_wait(full(s), (it / a.NST) & 1);
         wgmma_fence();
-        ss_tile<DQK, BR>(sv, ka, BC, qs);    // S^T = K Q^T
-        wgmma_commit();
-        if constexpr (DK) {
-          ss_tile<DV, BR>(dp, va, BC, os);   // dP^T = V dO^T
-          wgmma_commit();
-          wgmma_wait<1>();                   // S^T; dP^T in flight
-        } else {
-          wgmma_wait<0>();
-        }
-        reg_fence(sv);
-        if (mask)
-          p_cols<true, NS>(sv, st, a.sc, col0, lo, hi);
+        if constexpr (DK)
+          ss_tile<DV, BR>(sv, va, BC, os);   // dP^T = V dO^T
         else
-          p_cols<false, NS>(sv, st, a.sc, col0, lo, hi);
-        uint32_t fa[BR / 16][4];
+          ss_tile<DQK, BR>(sv, ka, BC, qs);  // S^T = K Q^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sv);
         if constexpr (DK) {
-          wgmma_wait<0>();
-          reg_fence(dp);
-          ds_cols(sv, dp, st);
-          pack_a<NS>(fa, dp);
+          // dS^T = P^T (dP^T - D) in place of dP^T, then the buffer back
+          mbar_wait(hand_full(hb), hpar);
+          ds_cols_handed<NS>(hand, sv, st);
+          mbar_arrive(hand_empty(hb));
         } else {
-          pack_a<NS>(fa, sv);
+          // a mask iff some pair of the tile is dead: keys or rows past S,
+          // a row before the key (causal), a row past the window
+          const bool mask = kc + 64 > S || q0 + BR > S ||
+                            (causal && q0 < kc + 63) ||
+                            (window && q0 + BR - 1 - kc >= window);
+          const int col0 = q0 + 2 * tq;
+          if (mask)
+            p_cols<true, NS>(sv, st, a.sc, col0, lo, hi);
+          else
+            p_cols<false, NS>(sv, st, a.sc, col0, lo, hi);
         }
+        uint32_t fa[BR / 16][4];
+        pack_a<NS>(fa, sv);
         wgmma_fence();
         if constexpr (DK)
           rs_tile<DQK, BR>(acc, fa, qs);     // dK += dS^T Q
         else
           rs_tile<DV, BR>(acc, fa, os);      // dV += P^T dO
         wgmma_commit();
+        if constexpr (!DK) {
+          // P^T to the other consumer while dV's product runs
+          mbar_wait(hand_empty(hb), hpar ^ 1);
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+            sts4(hand + j * 128 * 16, sv[4 * j], sv[4 * j + 1], sv[4 * j + 2],
+                 sv[4 * j + 3]);
+          mbar_arrive(hand_full(hb));
+        }
         wgmma_wait<0>();
         reg_fence(acc);
         reg_fence(fa);
         release(empty(s), lane);
       }
     }
-    // epilogue: this part's fp32 partial from registers; the slot goes
-    // back once every warp of the consumer is past its last product
+    // epilogue: the slot goes back once every warp of the consumer is past
+    // its last product (the next item's K and V load while this part's
+    // fp32 partial goes out from registers)
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    if (t == 0) mbar_arrive(kv_empty(slot));
     const size_t at = (((size_t)part * a.B + b) * S) * a.KH + kh;
     if constexpr (DK)
       store_part<DQK>(a.part + at * DQK, acc, kc, S, a.KH, warp, lane);
@@ -859,7 +920,6 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
       store_part<DV>(a.part + (size_t)split * a.B * S * a.KH * DQK +
                          at * DV,
                      acc, kc, S, a.KH, warp, lane);
-    if (t == 0) mbar_arrive(kv_empty(slot));
   }
 }
 
@@ -909,6 +969,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);          // every consumer warp
     }
+    // hd 256: the P^T handover buffers' full and empty barriers, after the
+    // ring's (every thread of the consumer that writes or reads arrives)
+    for (int h = 0; h < 2 * p.kv_hands; ++h)
+      mbar_init(bars + 8 * (2 * KVS + 2 * NST + h), 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -972,8 +1036,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int cw = wg - 1;
     if constexpr (Tile::SPLIT) {
-      const KvArgs a{kv_s, ring, st_s, bars, KVS, NST, G, B, S, KH, causal,
-                     window, r_begin, r_end, sc, scale, work, part};
+      const KvArgs a{kv_s, ring, st_s, base + p.kv_off_hand, bars, KVS,
+                     NST, p.kv_hands, G, B, S, KH, causal, window, r_begin,
+                     r_end, sc, scale, work, part};
       if (cw == 0)
         dkdv_consume<DQK, DV, ROLE_DV>(p, a, cw);
       else
@@ -1693,16 +1758,20 @@ bool plan_fits(const BwdPlan& p) {
   using Tile = BwdTile<DQK, DV, CAP>;
   constexpr int BR = Tile::BR, BN = Tile::BN, BC = Tile::BC, W = DQK + DV;
   constexpr int DQ_SLOT = BM * (DQK + (Tile::O_SMEM ? 2 : 1) * DV) * 2;
-  const int kv_bar = p.kv_off_bars + 8 * 2 * (p.kv_slots + p.kv_stages);
+  const int kv_bar =
+      p.kv_off_bars + 8 * 2 * (p.kv_slots + p.kv_stages + p.kv_hands);
   const int dq_bar = p.dq_off_bars + 8 * 2 * (p.dq_slots + p.dq_stages);
   return p.br == BR && p.bc == BC && p.bm == BM && p.bn == BN &&
          p.s_pad % BM == 0 && p.kv_slots >= 1 && p.kv_stages >= 1 &&
          p.dq_slots >= 1 && p.dq_stages >= 1 && p.kv_blocks >= 1 &&
          p.dq_blocks >= 1 && p.kv_split >= 1 &&
          (Tile::SPLIT || p.kv_split == 1) &&
+         (Tile::SPLIT ? p.kv_hands >= 1 : p.kv_hands == 0) &&
          p.kv_off_ring >= p.kv_off_kv + p.kv_slots * BC * W * 2 &&
          p.kv_off_stats >= p.kv_off_ring + p.kv_stages * BR * W * 2 &&
-         p.kv_off_bars >= p.kv_off_stats + p.kv_stages * BR * 8 &&
+         p.kv_off_hand >= p.kv_off_stats + p.kv_stages * BR * 8 &&
+         p.kv_off_hand % 16 == 0 &&
+         p.kv_off_bars >= p.kv_off_hand + p.kv_hands * BC * BR * 4 &&
          p.dq_off_ring >= p.dq_off_q + p.dq_slots * DQ_SLOT &&
          p.dq_off_bars >= p.dq_off_ring + p.dq_stages * BN * W * 2 &&
          kv_bar + 1023 <= p.kv_smem && dq_bar + 1023 <= p.dq_smem &&

@@ -37,9 +37,10 @@ CUDA-core path; there are no atomics.
 :func:`flash_attention_bwd_torch` is its plain version, blockwise in fp32:
 the CPU path and the card's oracle.  The backward takes hd 64, 128 and
 256 and MLA's pair (:data:`BWD_HEAD_DIM_PAIRS`); at hd 256 (recurrentgemma's
-local layers) its dK/dV consumers split an item's dK and dV between them,
-its items also split the group's q heads into ``kv_split`` parts, and a
-third launch sums the parts' fp32 partials.
+local layers) its dK/dV consumers split an item's dK and dV between them
+(one computes S^T once and hands P^T to the other in shared memory), its
+items also split the group's q heads into ``kv_split`` parts, and a third
+launch sums the parts' fp32 partials.
 """
 from __future__ import annotations
 
@@ -81,13 +82,15 @@ BWD_BC_SPLIT = 64
 BWD_SPLIT_ITEMS_PER_SM = 2
 BWD_SMEM_LIMIT = 232_448      # dynamic shared memory a block may take
 BWD_MAX_STAGES = 4
+BWD_HANDS = 2                 # hd 256: P^T handover buffers, dK/dV kernel
 # The plan's integers in the order of ``BwdPlan`` in the CUDA source.
 BWD_PLAN_FIELDS = (
     "br", "bc", "bm", "bn", "s_pad",
     "kv_blocks", "kv_slots", "kv_stages", "kv_off_kv", "kv_off_ring",
     "kv_off_stats", "kv_off_bars", "kv_smem", "kv_items", "kv_starts",
-    "kv_split", "dq_blocks", "dq_slots", "dq_stages", "dq_off_q", "dq_off_ring",
-    "dq_off_bars", "dq_smem", "dq_items", "dq_starts")
+    "kv_split", "kv_hands", "kv_off_hand", "dq_blocks", "dq_slots",
+    "dq_stages", "dq_off_q", "dq_off_ring", "dq_off_bars", "dq_smem",
+    "dq_items", "dq_starts")
 
 
 def bwd_stream_tiles(hd: int, softcap: bool = False, hd_v: int = 0):
@@ -96,12 +99,14 @@ def bwd_stream_tiles(hd: int, softcap: bool = False, hd_v: int = 0):
     where a consumer's registers hold the 128-wide score tiles beside its
     accumulators without spilling, else 64 (the softcapped hd-64 dK/dV and
     hd-128 dQ consumers); MLA's pair (192, 128) 32 and 64, its dK and dV
-    accumulators taking 160 of a consumer's 240 registers; hd 256 32 and
-    32, its dK, dV or dQ taking 128 (``BwdTile`` in the CUDA source)."""
+    accumulators taking 160 of a consumer's 240 registers; hd 256 64 and
+    32, its dK, dV or dQ taking 128 (the dK/dV consumers hold one 64-wide
+    score tile each, the dQ consumer two 32-wide ones: ``BwdTile`` in the
+    CUDA source)."""
     if (hd, hd_v or hd) == MLA_PAIR:
         return 32, 64
     if hd == 256:
-        return 32, 32
+        return 64, 32
     br = 64 if hd == 128 or softcap else 128
     bn = 64 if hd == 128 and softcap else 128
     return br, bn
@@ -243,18 +248,20 @@ def _longest_first(costs, n_blocks: int):
     return lists
 
 
-def _bwd_ring(slot: int, stage: int):
-    """(slots, stages, smem) of a kernel whose shared memory is ``slot``
-    bytes a slot and ``stage`` a ring stage, with a full and an empty
-    mbarrier each: two slots if they fit with two stages, then as many
-    stages (up to BWD_MAX_STAGES) as fit; 1,024 bytes of slack align the
-    block's base."""
+def _bwd_ring(slot: int, stage: int, hand: int = 0):
+    """(slots, stages, hands, smem) of a kernel whose shared memory is
+    ``slot`` bytes a slot, ``stage`` a ring stage and, where ``hand`` is
+    not 0, BWD_HANDS handover buffers of ``hand`` bytes, with a full and an
+    empty mbarrier each: two slots if they fit with two stages, then as
+    many stages (up to BWD_MAX_STAGES) as fit; 1,024 bytes of slack align
+    the block's base."""
+    hands = BWD_HANDS if hand else 0
     for slots in (2, 1):
         for stages in range(BWD_MAX_STAGES, 1, -1):
-            smem = (slots * slot + stages * stage + 2 * 8 * (slots + stages)
-                    + 1024)
+            smem = (slots * slot + stages * stage + hands * hand
+                    + 2 * 8 * (slots + stages + hands) + 1024)
             if smem <= BWD_SMEM_LIMIT:
-                return slots, stages, smem
+                return slots, stages, hands, smem
     raise ValueError("flash backward: no ring fits in shared memory")
 
 
@@ -288,10 +295,12 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     the block with the least work so far; ``items`` lists them block by
     block in the order they run, ``starts`` each block's first.  ``slots``
     buffers hold an item's K and V (dK/dV) or Q and dO, and O but at hd 256
-    (dQ), ``stages`` ring stages the streamed tiles; ``offs`` are byte
-    offsets of the regions (kv: K/V slots, Q/dO stages, the stages' (lse
-    log2 e, D) rows, mbarriers; dq: Q/dO/O slots, K/V stages, mbarriers)
-    and ``smem`` a block's dynamic shared memory.  ``s_pad`` is S rounded
+    (dQ), ``stages`` ring stages the streamed tiles, and at hd 256 (dK/dV)
+    ``hands`` buffers hand P^T (``bc`` x ``br`` fp32) from one consumer to
+    the other; ``offs`` are byte offsets of the regions (kv: K/V slots,
+    Q/dO stages, the stages' (lse log2 e, D) rows, handover buffers,
+    mbarriers; dq: Q/dO/O slots, K/V stages, mbarriers) and ``smem`` a
+    block's dynamic shared memory.  ``s_pad`` is S rounded
     up to BWD_BM: the statistics scratch is (B, H, s_pad, 2) fp32, followed
     at hd 256 by ``part_floats`` floats of dK and dV partials.  ``fields``
     are the plan's integers in BWD_PLAN_FIELDS order, ``work`` the int32
@@ -336,17 +345,21 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     kv_order, kv_starts, kv_costs = deal(kv_items, kv_cost)
     dq_order, dq_starts, dq_costs = deal(dq_items, dq_cost)
     # dK/dV: a slot holds K and V of bc keys, a stage Q and dO of br rows,
-    # and each stage its rows' statistics (8 bytes a row)
+    # each stage its rows' statistics (8 bytes a row), and at hd 256 a
+    # handover buffer P^T (fp32, bc x br)
     kv_slot, q_tile = bc * (hd + hd_v) * 2, br * (hd + hd_v) * 2
-    kv_slots, kv_stages, kv_smem = _bwd_ring(kv_slot, q_tile + br * 8)
+    hand = bc * br * 4 if split else 0
+    kv_slots, kv_stages, kv_hands, kv_smem = _bwd_ring(
+        kv_slot, q_tile + br * 8, hand)
     kv_offs = dict(kv=0, ring=kv_slots * kv_slot)
     kv_offs["stats"] = kv_offs["ring"] + kv_stages * q_tile
-    kv_offs["bars"] = kv_offs["stats"] + kv_stages * br * 8
+    kv_offs["hand"] = kv_offs["stats"] + kv_stages * br * 8
+    kv_offs["bars"] = kv_offs["hand"] + kv_hands * hand
     # dQ: a slot holds Q, dO and (but at hd 256, which reads D's O from
     # device memory) O of BWD_BM rows, a stage K and V of bn keys
     dq_slot = BWD_BM * (hd + (1 if split else 2) * hd_v) * 2
     k_tile = bn * (hd + hd_v) * 2
-    dq_slots, dq_stages, dq_smem = _bwd_ring(dq_slot, k_tile)
+    dq_slots, dq_stages, _, dq_smem = _bwd_ring(dq_slot, k_tile)
     dq_offs = dict(q=0, ring=dq_slots * dq_slot)
     dq_offs["bars"] = dq_offs["ring"] + dq_stages * k_tile
 
@@ -358,7 +371,7 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     work += dq_starts
     kv = dict(items=kv_order, starts=kv_starts, costs=kv_costs,
               blocks=len(kv_starts) - 1, slots=kv_slots, stages=kv_stages,
-              offs=kv_offs, smem=kv_smem)
+              hands=kv_hands, offs=kv_offs, smem=kv_smem)
     dq = dict(items=dq_order, starts=dq_starts, costs=dq_costs,
               blocks=len(dq_starts) - 1, slots=dq_slots, stages=dq_stages,
               offs=dq_offs, smem=dq_smem)
@@ -368,7 +381,7 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
         kv_off_kv=kv_offs["kv"], kv_off_ring=kv_offs["ring"],
         kv_off_stats=kv_offs["stats"], kv_off_bars=kv_offs["bars"],
         kv_smem=kv_smem, kv_items=at["kv_items"], kv_starts=at["kv_starts"],
-        kv_split=kv_split,
+        kv_split=kv_split, kv_hands=kv_hands, kv_off_hand=kv_offs["hand"],
         dq_blocks=dq["blocks"], dq_slots=dq_slots, dq_stages=dq_stages,
         dq_off_q=dq_offs["q"], dq_off_ring=dq_offs["ring"],
         dq_off_bars=dq_offs["bars"], dq_smem=dq_smem,

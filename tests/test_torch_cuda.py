@@ -1163,9 +1163,11 @@ def test_flash_backward_wrapper_refuses_hd256(cuda):
 
 
 # recurrentgemma's local layers: MQA (K 1, G 16) at hd 256 with a window;
-# also K 8, G 2, around the window's edge and past it
+# also K 8, G 2, around the window's edge and past it, and a window of 100
+# at B 2, S 1,000 (its edge cuts the dK/dV kernel's 64-row stages)
 FLASH_BWD_HD256_CASES = [(1, S, 16, 1, 64) for S in (1, 31, 77, 129, 300)] \
-    + [(1, 1000, 16, 1, 512), (2, 257, 16, 8, 100), (1, 2049, 16, 1, 2048)]
+    + [(1, 1000, 16, 1, 512), (2, 257, 16, 8, 100), (1, 2049, 16, 1, 2048),
+       (2, 1000, 16, 1, 100)]
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

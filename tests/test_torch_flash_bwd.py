@@ -476,10 +476,11 @@ def test_plain_backward_at_hd256_matches_jax_grad(S, window):
 @pytest.mark.parametrize("S", (1, 31, 63, 64, 65, 127, 200, 1000))
 def test_backward_plan_walks_every_live_pair_once_at_hd256(S, causal, window):
     """64-key dK/dV items split over parts of the group's q heads,
-    32-row q stages and 32-key dQ stages, walked in 32-blocks: every live
+    64-row q stages and 32-key dQ stages, walked in 32-blocks: every live
     pair of every head once per kernel, at G 1, 2 and 16 (MQA) and on 7
-    and 132 SMs; the dQ slot holds Q and dO only (D's O is read from
-    device memory) and three stages fit beside it."""
+    and 132 SMs; the dK/dV kernel holds one K/V slot, two Q/dO stages and
+    two P^T handover buffers; the dQ slot holds Q and dO only (D's O is
+    read from device memory) and three stages fit beside it."""
     live = _live_blocks(S, causal, window, blk=32)
     for G in (1, 2, 16):
         for n_sm in (7, 132):
@@ -487,7 +488,7 @@ def test_backward_plan_walks_every_live_pair_once_at_hd256(S, causal, window):
             plan = fa.flash_bwd_plan(B, S, K * G, K, 256, causal, window,
                                      n_sm)
             what = f"S {S} G {G} n_sm {n_sm}"
-            assert (plan["br"], plan["bc"], plan["bn"]) == (32, 64, 32)
+            assert (plan["br"], plan["bc"], plan["bn"]) == (64, 64, 32)
             split = plan["kv_split"]
             assert G % split == 0, what
             n_base = B * K * -(-S // 64)
@@ -498,25 +499,73 @@ def test_backward_plan_walks_every_live_pair_once_at_hd256(S, causal, window):
                 assert cov.max() <= 1, f"{what}: {name} walks a block twice"
                 assert (cov[:, :, live] == 1).all(), \
                     f"{what}: {name} misses a live block"
+            assert (plan["kv"]["slots"], plan["kv"]["stages"],
+                    plan["kv"]["hands"]) == (1, 2, 2), what
             assert (plan["dq"]["slots"], plan["dq"]["stages"]) == (1, 3)
             assert plan["dq"]["offs"]["ring"] == 128 * 512 * 2
             for kern in ("kv", "dq"):
                 assert plan[kern]["smem"] <= 232_448, (what, kern)
                 assert plan[kern]["offs"]["ring"] % 1024 == 0
-                assert plan[kern]["stages"] >= 3
+            assert plan["dq"]["stages"] >= 3
             fields = dict(zip(fa.BWD_PLAN_FIELDS, plan["fields"]))
             assert fields["kv_split"] == split and fields["bc"] == 64
+            assert (fields["kv_hands"], fields["kv_off_hand"]) == (
+                2, plan["kv"]["offs"]["hand"])
+
+
+HD256_S = (1, 31, 63, 64, 65, 127, 200, 1000)
+
+
+@pytest.mark.parametrize("S", HD256_S)
+def test_hd256_dkdv_regions_are_disjoint_aligned_and_fit(S):
+    """The hd-256 dK/dV kernel's shared memory, G 2 and 16, causal with a
+    window of 64: the K/V slot, the Q/dO stages, their statistics, the P^T
+    handover buffers (64 keys x 64 rows of fp32 each) and the mbarriers
+    (a full and an empty one a slot, a stage and a buffer) lie side by
+    side without overlap, in that order; the regions a TMA box lands in
+    (K/V, stages) start on 1,024 bytes, the buffers on 16 (float4 stores)
+    and the mbarriers on 8; the block's end, with 1,024 bytes of slack to
+    align its base, is within 232,448."""
+    for G in (2, 16):
+        plan = fa.flash_bwd_plan(1, S, G, 1, 256, True, 64, 132)
+        kv, br, bc = plan["kv"], plan["br"], plan["bc"]
+        offs = kv["offs"]
+        sizes = dict(kv=kv["slots"] * bc * 512 * 2,
+                     ring=kv["stages"] * br * 512 * 2,
+                     stats=kv["stages"] * br * 8,
+                     hand=kv["hands"] * bc * br * 4,
+                     bars=2 * 8 * (kv["slots"] + kv["stages"] + kv["hands"]))
+        order = ("kv", "ring", "stats", "hand", "bars")
+        assert list(offs) == list(order), offs
+        assert offs["kv"] == 0
+        for a, b in zip(order, order[1:]):
+            assert offs[a] + sizes[a] <= offs[b], (S, G, a, b, offs)
+        assert offs["kv"] % 1024 == 0 and offs["ring"] % 1024 == 0
+        assert (br * 512 * 2) % 1024 == 0 and (bc * 512 * 2) % 1024 == 0
+        assert offs["hand"] % 16 == 0 and offs["bars"] % 8 == 0
+        assert offs["bars"] + sizes["bars"] + 1024 == kv["smem"]
+        assert kv["smem"] <= fa.BWD_SMEM_LIMIT == 232_448
+        fields = dict(zip(fa.BWD_PLAN_FIELDS, plan["fields"]))
+        for region in ("kv", "ring", "stats", "hand", "bars"):
+            assert fields[f"kv_off_{region}"] == offs[region]
 
 
 def test_backward_plan_at_recurrentgemma_s_training_shape():
     """(t6)'s microbatch on 132 SMs: 64 key tiles of one kv head split
-    into 8 parts of 2 q heads (512 dK/dV items, none longer than 66 q
-    tiles of 2 heads) and 512 dQ items."""
+    into 8 parts of 2 q heads (512 dK/dV items, none longer than 33
+    64-row q tiles of 2 heads) and 512 dQ items; the dK/dV kernel holds
+    one 64 KB K/V slot, two 64 KB Q/dO stages with 512 bytes of
+    statistics each and two 16 KB P^T handover buffers."""
     plan = fa.flash_bwd_plan(1, 4096, 16, 1, 256, True, 2048, 132)
-    assert plan["kv_split"] == 8
+    assert plan["kv_split"] == 8 and plan["br"] == 64
     assert len(plan["kv"]["items"]) == 512
-    assert max(it[3] - it[2] for it in plan["kv"]["items"]) == 66
+    assert max(it[3] - it[2] for it in plan["kv"]["items"]) == 33
     assert len(plan["dq"]["items"]) == 512
+    kv = plan["kv"]
+    assert (kv["slots"], kv["stages"], kv["hands"]) == (1, 2, 2)
+    assert kv["offs"] == dict(kv=0, ring=65_536, stats=196_608,
+                              hand=197_632, bars=230_400)
+    assert kv["smem"] == 231_504 <= 232_448
     assert plan["kv"]["blocks"] == plan["dq"]["blocks"] == 132
     loads = [sum(c) for c in plan["kv"]["costs"]]
     assert max(loads) <= 1.05 * sum(loads) / len(loads)

@@ -32,11 +32,13 @@ rglru_bwd its backward at (t6)'s B 1 and at B 2 with an h0, from the
 checkout's own forward, each held to the checkout's plain loop at
 ``chip_smoke.py``'s tolerances; for these two the outputs' sha256 is
 compared across the turns, and whether every turn gave the same bytes
-on the same inputs is reported ("bit-equal across checkouts"); flash_bwd is the
-backward at the two training shapes
-(paper-overhead-100m: B 8, S 1,024, H 12, K 4, hd 64; qwen3-0.6b's
-train_4k: B 2, S 4,096, H 16, K 8, hd 128, causal, bf16), each gradient
-held to the plain backward at ``chip_smoke.bwd_tol``, with SDPA's
+on the same inputs is reported ("bit-equal across checkouts"); flash_bwd
+is the backward at three training shapes (paper-overhead-100m: B 8, S
+1,024, H 12, K 4, hd 64; qwen3-0.6b's train_4k: B 2, S 4,096, H 16, K 8,
+hd 128; recurrentgemma-9b's local layers at (t6): B 1, S 4,096, H 16, K
+1, hd 256, window 2,048; causal, bf16), each gradient held to the plain
+backward at ``chip_smoke.bwd_tol``, with its device ms by part (the dQ
+kernel, the dK/dV kernel and, at hd 256, the partials' sum) and SDPA's
 backward timed beside it in every turn.  With ``--trace`` it also traces
 the serving windows of cells (a), qwen3-0.6b, (c), rwkv6-7b, and (e),
 deepseek-v2-236b at 3 layers, as ``chip_smoke.py`` does (one warm-up
@@ -139,23 +141,27 @@ def time_rglru_bwd(cs, dev, gen):
         del log_a, b, h0, dh, h, got, plain
         torch.cuda.empty_cache()
     return rows
-BWD_SHAPES = {"paper train": (8, 1024, 12, 4, 64),
-              "qwen3 train": (2, 4096, 16, 8, 128)}
+# label: (B, S, H, K, hd, window), causal
+BWD_SHAPES = {"paper train": (8, 1024, 12, 4, 64, 0),
+              "qwen3 train": (2, 4096, 16, 8, 128, 0),
+              "rg train (t6)": (1, 4096, 16, 1, 256, 2048)}
 
 
 def time_flash_bwd(cs, dev, gen):
-    """The flash backward at both training shapes: held to the plain
-    backward, then its device ms warm and L2-cold, and SDPA's backward."""
+    """The flash backward at the training shapes: held to the plain
+    backward, then its device ms warm, by part and L2-cold, and SDPA's
+    backward."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
     rows = {}
-    for label, (B, S, H, K, hd) in BWD_SHAPES.items():
+    for label, (B, S, H, K, hd, window) in BWD_SHAPES.items():
         q, k, v, do = (torch.randn(B, S, n, hd, device=dev,
                                    generator=gen).to(torch.bfloat16)
                        for n in (H, K, K, H))
-        kw = dict(scale=hd ** -0.5, causal=True, window=0, logit_cap=0.0)
+        kw = dict(scale=hd ** -0.5, causal=True, window=window,
+                  logit_cap=0.0)
         o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
@@ -168,11 +174,13 @@ def time_flash_bwd(cs, dev, gen):
         del got, plain
         call = lambda: ops.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, do, **kw)
-        sdpa_ms, _ = cs.sdpa_backward_ms(q, k, v, do, True, 0)
+        sdpa_ms, _ = cs.sdpa_backward_ms(q, k, v, do, True, window)
         rows["flash_bwd " + label] = dict(
-            shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, bf16, causal",
-            warm=cs.device_ms(call), cold=cs.cold_device_ms(call),
-            sdpa_ms=sdpa_ms, tol_used=used)
+            shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, bf16, causal"
+            + (f", window {window}" if window else ""),
+            warm=cs.device_ms(call),
+            parts=cs.bwd_parts(cs.device_ms_by_kernel(call)),
+            cold=cs.cold_device_ms(call), sdpa_ms=sdpa_ms, tol_used=used)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return rows
@@ -356,6 +364,9 @@ def worker(tree: Path, kernels: list, cells: str) -> int:
               f"ms, L2-cold {cs.fmt_ms(row['cold'])} ms"
               + (f", SDPA's backward {cs.fmt_ms(row['sdpa_ms'])} ms"
                  if "sdpa_ms" in row else "")
+              + ("; device by part " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in row["parts"].items())
+                 if "parts" in row else "")
               + (f"; the forward {cs.fmt_ms(row['fwd'])} ms, with "
                  f"checkpoints {cs.fmt_ms(row['fwd_ckpt'])} ms"
                  if "fwd_ckpt" in row else ""), flush=True)
