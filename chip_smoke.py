@@ -69,7 +69,19 @@ Phases, each of which exits non-zero on the first failure:
               bit-equal, each element within a tolerance scaled by its
               64-step tile that planted faults (a step's dh dropped, h
               read one step late) pass at least 10 times over, timed
-              against its bound.
+              against its bound.  The flash forward and backward also at
+              qwen2.5-32b's training row (B 1, S 4,096, H 40, K 8: G 5)
+              and mistral-large-123b's (H 96, K 8: G 12), bf16 and fp32,
+              each ragged (S 1,000, 2,049); the backward at hd 256 under
+              gemma2-9b's softcap (50, scale 1/16) at its training row (B
+              1, S 4,096, H 16, K 8), local (window 4,096) and global,
+              bf16 and fp32, ragged S 1,000 and 2,049, a window of 100, K 1
+              G 16, and a case of sharp scores (q 40 times wider) where
+              the planted faults include the softcap's 1 - tanh^2 dropped
+              from dS; the forward at gemma2's training row and at its
+              serving prefill (B 8, S 3,072).  The planted faults of each
+              of these backward cases at least 10 times over its
+              tolerance.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -124,6 +136,17 @@ Phases, each of which exits non-zero on the first failure:
               routing flip counts as a tie only within PARITY_TIE_TOL) and
               snapshot/restore of the latent pools on ``cuda``.
 
+7b. dense  -- serves qwen2.5-32b (f: 16 of 64 layers, prompts up to
+              1,024), mistral-large-123b (g: 7 of 88 layers) and gemma2-9b
+              (h: 40 of its 42 local and global layers, prompts up to
+              3,072 on an
+              engine sized for 4,096 tokens, the ring of a local layer a
+              whole window) at full width in bf16, 8 slots, 16 requests:
+              every request completes its budget, the flash kernel once a
+              layer a prefill round, the paged decode once a global layer
+              a decode step (gemma2's local layers decode from their rings
+              in plain PyTorch), no other kernel, peak memory at most 70
+              GB.
 8. train   -- trains ``paper-overhead-100m`` at full width (12 layers, B 8,
               S 1,024, 30 steps, lr 1e-3, warmup 3), ``qwen3-0.6b`` at
               full width (28 layers, S 4,096, global batch 4 in 2
@@ -150,8 +173,14 @@ Phases, each of which exits non-zero on the first failure:
               S 4,096, global batch 2 in 2 microbatches, full remat, 6
               steps; RG-LRU forward 2 x 4 x 2 and backward 4 x 2 a step,
               flash at hd 256 forward 2 x 2 x 2 and backward 2 x 2; peak
-              at most 70 GB; its remat check on one row) in bf16 with fp32
-              master
+              at most 70 GB; its remat check on one row) and the dense
+              decoders' train_4k runs at full width cut in depth, one row
+              a microbatch: (t7) qwen2.5-32b at 2 layers, B 2 in 2
+              microbatches; (t8) mistral-large-123b at 2 layers, B 1;
+              (t9) gemma2-9b at 6 layers (three (local, global) pairs, both
+              softcaps, the flash backward at hd 256 with its cap), B 4 in
+              its 4 microbatches; peak at most 70 GB, remat checks on one
+              row) in bf16 with fp32 master
               weights (deepseek-v2's bf16), through
               ``repro_torch.launch.train``'s loop (the
               trained kernels' plain versions barred), after
@@ -167,18 +196,24 @@ Phases, each of which exits non-zero on the first failure:
               steps/s, tokens/s, MFU and peak
               memory, then one more step under torch.profiler (device busy
               and idle share, device ms by part).  (t5) runs after (t4),
-              (t6) after (t5).
+              (t6) after (t5), (t7)-(t9) after (t6).
               Before granite, one
               MoE FFN at its width and shape runs forward and backward
               with ``torch.cuda.set_sync_debug_mode("error")`` (no host
               sync), twice bit-equal.  Then fp32 cuda vs cpu
-              parity of the six configs at full width and 2 layers (B 2,
+              parity of the nine configs at full width and 2 layers (B 2,
               S 256, 3 steps; deepseek-v2 with 8 experts, d_ff 1,536, a
               vocabulary of 16,384 and B 1; recurrentgemma-9b at 3 layers
               (R, R, L), its window cut to 64 and a vocabulary of 16,384;
               rwkv6-7b at 1 layer, a vocabulary of 16,384 and lr 3e-4, its
               gradients within
-              5e-4: the initial states equal, the MoE's routing
+              5e-4; qwen2.5-32b, mistral-large-123b (d_ff 4,096) and
+              gemma2-9b (one (local, global) pair, window 64) at a
+              vocabulary of 16,384.  Its CPU side runs from right after
+              the build in a second process on 4 of the host's cores (this
+              process keeps the others; the host-bound rates taken
+              meanwhile say so) and the phase computes the card's side:
+              the initial states equal (their digests), the MoE's routing
               equal or parted at a tie, losses within 1e-5 relative, the
               first batch's gradients within 1e-4 of each leaf's largest)
               and a checkpoint round trip through the reference's tree
@@ -221,6 +256,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -373,21 +409,60 @@ DEEPSEEK_TRAIN_LAYERS = 2
 # rwkv6-7b's: 1 layer and the vocabulary 65,536 -> 16,384, so that the
 # smoke stays in its time limit with recurrentgemma's parity added (at 2
 # layers and 65,536 its CPU side took 140-153 s of the smoke's ~1,060-1,090)
+# qwen2.5-32b's, mistral-large-123b's and gemma2-9b's: the vocabulary ->
+# 16,384 (152,064, 32,768, 256,000); mistral-large's d_ff 28,672 -> 4,096
+# (at 2 layers its FFN alone would hold 2.1 B fp32 parameters on the
+# host); gemma2's window 4,096 -> 64 (S 256 crosses it) and one (local,
+# global) pair, both softcaps and the post-block norms kept
 PARITY_CUTS = {"deepseek-v2-236b": dict(num_experts=8, d_ff=1_536,
                                         vocab_size=16_384),
                "recurrentgemma-9b": dict(window_size=64,
                                          vocab_size=16_384),
-               "rwkv6-7b": dict(vocab_size=16_384)}
+               "rwkv6-7b": dict(vocab_size=16_384),
+               "qwen2.5-32b": dict(vocab_size=16_384),
+               "mistral-large-123b": dict(d_ff=4_096, vocab_size=16_384),
+               "gemma2-9b": dict(window_size=64, vocab_size=16_384)}
 PARITY_BATCH = {"deepseek-v2-236b": 1}
 PARITY_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-7b": 1}
 TRAIN_PARITY_ARCHS = ("paper-overhead-100m", "qwen3-0.6b",
                       "granite-moe-1b-a400m", "rwkv6-7b", "deepseek-v2-236b",
-                      "recurrentgemma-9b")
+                      "recurrentgemma-9b", "qwen2.5-32b",
+                      "mistral-large-123b", "gemma2-9b")
+# The train parity's CPU side runs in a second process (:class:`ParityWorker`)
+# from right after the build, on PARITY_WORKER_CORES of the host's cores
+# (its threads and its affinity), the smoke's own process on the others;
+# the parity phase computes the card's side and compares.  Host-bound
+# rates taken meanwhile say so (:func:`host_note`).
+PARITY_WORKER_CORES = 4
+PARITY_WORKER_WAIT_S = 900.0   # the most the parity phase waits for a result
 # recurrentgemma-9b's (t6) depth: two (R, R, L) groups, 2.36 B parameters
 # with the tied 256,000 x 4,096 embedding; fp32 master weights and
 # moments, two microbatches' fp32 gradients and a row's 4,096 x 256,000
 # fp32 logits with their softmax and gradient
 RG_TRAIN_LAYERS = 6
+# The dense decoders of this slice, at full width cut in depth to fit the
+# card's 70 GB (PEAK_MEM_LIMIT_GB).  Serving holds fp32 weights and their
+# bf16 compute copy, 6 bytes a parameter: (f) qwen2.5-32b 488 M a layer
+# (2.9 GB) and its untied 1.56 B embedding and head (9.3 GB); (g)
+# mistral-large-123b 1.38 B a layer (8.3 GB) and 0.81 B (4.8 GB); (h)
+# gemma2-9b 198 M a layer (1.2 GB), its tied 0.92 B (5.5 GB), and its
+# caches at max_len 4,096: a global layer's pages 268 MB, a local layer's
+# ring 268 MB.  Training holds fp32 master weights and moments, the fp32
+# gradients (two of them with microbatches) and the bf16 copy, 18 to 22
+# bytes a parameter, and a row's fp32 logits with their softmax and
+# gradient: (t7) qwen2.5 at 2 layers, 2.53 B parameters; (t8)
+# mistral-large at 2 layers, 3.57 B; (t9) gemma2 at 6 layers (three
+# (local, global) pairs), 2.11 B, a row's 4,096 x 256,000 logits passing
+# the final softcap (its tanh kept for the backward: about 21 GB at the
+# backward's start).  gemma2 serves 40 of its 42 layers: all 42 hold 55.5
+# GB of weights and 11.3 GB of caches, and a prefill round of 8 rows of
+# 3,072 tokens adds about 3.5 GB, past 70 GB
+QWEN25_SERVE_LAYERS = 16
+MISTRAL_SERVE_LAYERS = 7
+GEMMA2_SERVE_LAYERS = 40
+QWEN25_TRAIN_LAYERS = 2
+MISTRAL_TRAIN_LAYERS = 2
+GEMMA2_TRAIN_LAYERS = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -563,8 +638,29 @@ def flash_cases():
         ("edge hd64 S129", 2, 129, 12, 4, 64, bf16, True, 0, 0.0),
         ("edge hd128 S129", 2, 129, 16, 8, 128, bf16, True, 0, 0.0),
         ("edge hd256 S129", 2, 129, 16, 1, 256, bf16, True, 2048, 0.0),
+        # the dense decoders' training shapes ((t7), (t8): a row of 4,096,
+        # qwen2.5's G 5, mistral-large's G 12, hd 128), bf16 and fp32,
+        # each ragged too
+        (QWEN25_T7, 1, 4096, 40, 8, 128, bf16, True, 0, 0.0),
+        ("fp32 qwen2.5 (t7)", 1, 4096, 40, 8, 128, f32, True, 0, 0.0),
+        ("qwen2.5 ragged S1000", 2, 1000, 40, 8, 128, bf16, True, 0, 0.0),
+        (MISTRAL_T8, 1, 4096, 96, 8, 128, bf16, True, 0, 0.0),
+        ("fp32 mistral (t8)", 1, 4096, 96, 8, 128, f32, True, 0, 0.0),
+        ("mistral ragged S2049", 1, 2049, 96, 8, 128, bf16, True, 0, 0.0),
+        # gemma2's local and global layers at (t9)'s shape (G 2, hd 256,
+        # the softcap 50 at the scale 1/16 of its query_pre_attn_scalar)
+        # and at (h)'s prefill rounds (8 rows up to 3,072)
+        (GEMMA2_FWD_T9, 1, 4096, 16, 8, 256, bf16, True, 4096, 50.0),
+        ("gemma2 global (t9)", 1, 4096, 16, 8, 256, bf16, True, 0, 50.0),
+        (GEMMA2_FWD_H, 8, 3072, 16, 8, 256, bf16, True, 4096, 50.0),
     ]
     return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases()
+
+
+QWEN25_T7 = "qwen2.5 train (t7)"
+MISTRAL_T8 = "mistral train (t8)"
+GEMMA2_FWD_T9 = "gemma2 local (t9)"
+GEMMA2_FWD_H = "gemma2 serving (h)"
 
 
 MLA_T5 = "mla t5 B2 S4096"
@@ -588,11 +684,11 @@ def mla_train_cases():
 
 
 def timing_reps(dt, rows) -> int:
-    """Calls a flash timing averages: 20, but 3 in fp32 past 2^19 (batch,
+    """Calls a flash timing averages: 20, but 3 in fp32 past 2^18 (batch,
     row, head) rows, where a CUDA-core walk takes 0.1 s (forward) to 0.5 s
-    (backward) a call at (t5)'s shape."""
+    (backward) a call at (t5)'s shape (1 M rows; (t8)'s 393 K)."""
     import torch
-    return 3 if dt == torch.float32 and rows > 2 ** 19 else 20
+    return 3 if dt == torch.float32 and rows > 2 ** 18 else 20
 
 
 def flash_work(B, S, H, K, hd, elt, causal, window, hdv=0):
@@ -660,6 +756,7 @@ def run_flash_phase(dev, gen):
                    2 ** -7)
         check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite")
         err = compare(out, plain, tol, f"flash {label}")
+        used = tol_used(out, plain, tol)
         lse_err = None
         if hdv != hd:
             # the training forward's log-sum-exp, and its output equal to
@@ -705,7 +802,8 @@ def run_flash_phase(dev, gen):
         # achieved rate and share of the bound, from the device time
         k_ms = dev_ms if dev_ms is not None else ms
         rows.append(dict(label=label, dtype=dtype_name(dt), max_abs_err=err,
-                         tol=tol_text(tol), ms=ms, device_ms=dev_ms,
+                         tol=tol_text(tol), tol_used=used, ms=ms,
+                         device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, lse_err=lse_err, library=lib,
                          shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}"
@@ -720,7 +818,8 @@ def run_flash_phase(dev, gen):
         rate = (f", {rows[-1]['tflops']:.0f} TFLOP/s, {bound_ms / k_ms:.1%} "
                 f"of bound" if dt == torch.bfloat16 else "")
         print(f"  flash {label:<24} {dtype_name(dt):<8} err {err:.3g} "
-              f"(tol {tol_text(tol)}) kernel {ms:.4f} ms (device "
+              f"(tol {tol_text(tol)}; {used:.3f} of it) kernel {ms:.4f} ms "
+              f"(device "
               f"{fmt_ms(dev_ms)}{rate}) "
               f"plain {plain_ms:.4f} ms "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
@@ -1682,9 +1781,16 @@ def flash_bwd_cases():
         ("fp32 qwen3 S1000", 1, 1000, 16, 8, 128, f32, True, 0, 0.0),
         ("fp32 S77 not causal", 2, 77, 12, 4, 64, f32, False, 0, 0.0),
         ("fp32 window 100 cap 20", 2, 384, 12, 4, 64, f32, True, 100, 20.0),
+        # the dense decoders' training shapes, as the forward's
+        (QWEN25_T7, 1, 4096, 40, 8, 128, bf16, True, 0, 0.0),
+        ("fp32 qwen2.5 (t7)", 1, 4096, 40, 8, 128, f32, True, 0, 0.0),
+        ("qwen2.5 ragged S1000", 2, 1000, 40, 8, 128, bf16, True, 0, 0.0),
+        (MISTRAL_T8, 1, 4096, 96, 8, 128, bf16, True, 0, 0.0),
+        ("fp32 mistral (t8)", 1, 4096, 96, 8, 128, f32, True, 0, 0.0),
+        ("mistral ragged S2049", 1, 2049, 96, 8, 128, bf16, True, 0, 0.0),
     ]
     return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases() \
-        + rg_train_cases()
+        + rg_train_cases() + gemma2_train_cases()
 
 
 RG_T6 = "rg train (t6)"
@@ -1694,7 +1800,16 @@ RG_T6 = "rg train (t6)"
 # about 1/2,048 of its row, far under any tile-scaled tolerance, so the
 # other hd-256 cases plant the head and tile faults only.
 RG_SHARP = "rg (t6) sharp scores"
-Q_SCALE = {RG_SHARP: 4.0}
+# gemma2's softcap of 50 at its scale 1/16 leaves unit scores near tanh's
+# linear part (1 - tanh^2 within 4e-4 of 1), where a kernel that dropped
+# that factor from dS would pass any tolerance.  Its sharp case draws q 40
+# times wider (scale·q·k ~ N(0, 1,600): tanh(s / 50) about 0.8 a standard
+# deviation), where the factor is far from 1; that fault, and the window's,
+# are planted there.
+GEMMA2_SHARP = "gemma2 sharp scores"
+Q_SCALE = {RG_SHARP: 4.0, GEMMA2_SHARP: 40.0}
+GEMMA2_T9 = "gemma2 train (t9)"
+GEMMA2_GLOBAL_T9 = "gemma2 global (t9) bwd"
 
 
 def rg_train_cases():
@@ -1723,6 +1838,82 @@ def rg_train_cases():
             ("rg window 100", 2, 1000, 16, 1, 256, 256, bf16, True, 100,
              0.0),
             ("fp32 hd256 S77", 2, 77, 16, 1, 256, 256, f32, True, 32, 0.0)]
+
+
+def gemma2_train_cases():
+    """gemma2's layers in training, (t9)'s microbatch: B 1, S 4,096, 16 q
+    heads over 8 kv heads of 256, the softcap 50 at the scale 1/16; local
+    (window 4,096) and global (none), bf16 and fp32; ragged S 1,000 and
+    2,049, a window of 100 (its edge cuts the dK/dV kernel's 64-row
+    stages), MQA (K 1, G 16: the dK/dV items' q heads split in parts that
+    each see the cap), and the sharp-score case of the window and softcap
+    faults."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, K, hd, hdv, dtype, causal, window, cap)
+    return [(GEMMA2_T9, 1, 4096, 16, 8, 256, 256, bf16, True, 4096, 50.0),
+            ("fp32 gemma2 (t9)", 1, 4096, 16, 8, 256, 256, f32, True, 4096,
+             50.0),
+            (GEMMA2_GLOBAL_T9, 1, 4096, 16, 8, 256, 256, bf16, True, 0,
+             50.0),
+            ("fp32 gemma2 global (t9)", 1, 4096, 16, 8, 256, 256, f32, True,
+             0, 50.0),
+            ("gemma2 ragged S1000", 1, 1000, 16, 8, 256, 256, bf16, True,
+             4096, 50.0),
+            ("gemma2 ragged S2049", 1, 2049, 16, 8, 256, 256, bf16, True, 0,
+             50.0),
+            ("gemma2 window 100", 2, 1000, 16, 8, 256, 256, bf16, True, 100,
+             50.0),
+            ("gemma2 cap K1 G16", 1, 4096, 16, 1, 256, 256, bf16, True, 4096,
+             50.0),
+            (GEMMA2_SHARP, 1, 4096, 16, 8, 256, 256, bf16, True, 1000,
+             50.0)]
+
+
+def new_case_labels():
+    """The forward and backward cases of the dense decoders' slice."""
+    qm = [QWEN25_T7, "fp32 qwen2.5 (t7)", "qwen2.5 ragged S1000", MISTRAL_T8,
+          "fp32 mistral (t8)", "mistral ragged S2049"]
+    return set(qm + [c[0] for c in gemma2_train_cases()]
+               + [GEMMA2_FWD_T9, "gemma2 global (t9)", GEMMA2_FWD_H])
+
+
+def bwd_without_dcap(q, k, v, o, lse, do, *, scale, causal, window,
+                     logit_cap, kv_block=64):
+    """The plain backward with the softcap's factor 1 - tanh^2 dropped from
+    dS (P keeps the cap): a planted fault, what a kernel that forgot the
+    factor would give (``tests/test_torch_cuda.py:_bwd_without_dcap``,
+    keep equal)."""
+    import torch
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf = q.reshape(B, S, K, G, hd).float()
+    dof = do.reshape(B, S, K, G, hd).float()
+    lse_g = lse.permute(0, 2, 1).reshape(B, S, K, G)
+    delta = (dof * o.reshape(B, S, K, G, hd).float()).sum(-1)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, S, K, hd), device=q.device)
+    dv = torch.zeros((B, S, K, hd), device=q.device)
+    pq = torch.arange(S, device=q.device)[:, None]
+    for t0 in range(0, S, kv_block):
+        t1 = min(t0 + kv_block, S)
+        kc, vc = k[:, t0:t1].float(), v[:, t0:t1].float()
+        s = torch.einsum("bskgd,btkd->bskgt", qf, kc) * scale
+        s = logit_cap * torch.tanh(s / logit_cap)
+        pk = torch.arange(t0, t1, device=q.device)[None, :]
+        live = (pk <= pq) if causal else torch.ones_like(pq - pk, dtype=bool)
+        if window:
+            live = live & (pq - pk < window)
+        p = torch.where(live[None, :, None, None, :],
+                        torch.exp(s - lse_g[..., None]), 0.0)
+        dv[:, t0:t1] = torch.einsum("bskgt,bskgd->btkd", p, dof)
+        ds = p * (torch.einsum("bskgd,btkd->bskgt", dof, vc)
+                  - delta[..., None])
+        dq += torch.einsum("bskgt,btkd->bskgd", ds, kc) * scale
+        dk[:, t0:t1] = torch.einsum("bskgt,bskgd->btkd", ds, qf) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_bwd_work(B, S, H, K, hd, elt, causal, window, hdv=0):
@@ -1812,7 +2003,8 @@ def bwd_parts(by_kernel: dict) -> dict:
     return parts
 
 
-def bwd_planted_faults(q, k, v, o, lse, do, kw, window_faults=True):
+def bwd_planted_faults(q, k, v, o, lse, do, kw, window_faults=True,
+                       dcap_fault=False):
     """The backward kernel's gradients with a fault planted through its
     inputs, for the tolerance to reject: (what, (dq, dk, dv), the indices
     of the gradients a kernel with that fault would get wrong).  dO's rows
@@ -1821,7 +2013,9 @@ def bwd_planted_faults(q, k, v, o, lse, do, kw, window_faults=True):
     those rows is then 0, which such a kernel would not give, so only dK
     and dV are held.  A window one key shorter or longer over the same lse
     moves its frontier by one key, in all three (with ``window_faults``,
-    where the window is shorter than S)."""
+    where the window is shorter than S).  With ``dcap_fault`` the plain
+    backward with the softcap's factor 1 - tanh^2 dropped from dS
+    (:func:`bwd_without_dcap`): dQ and dK wrong."""
     from repro_torch.kernels import ops
 
     S, G = q.shape[1], q.shape[2] // k.shape[2]
@@ -1848,6 +2042,9 @@ def bwd_planted_faults(q, k, v, o, lse, do, kw, window_faults=True):
         for w in (kw["window"] - 1, kw["window"] + 1):
             out.append((f"window {w}", ops.flash_attention_bwd(
                 q, k, v, o, lse, do, **dict(kw, window=w)), (0, 1, 2)))
+    if dcap_fault:
+        out.append(("the softcap's 1 - tanh^2 dropped",
+                    bwd_without_dcap(q, k, v, o, lse, do, **kw), (0, 1)))
     return out
 
 
@@ -1872,8 +2069,10 @@ def run_flash_bwd_phase(dev, gen):
         kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                   logit_cap=cap)
         # planted faults must land FAULT_MIN times over the tolerance at
-        # MLA's pair and at hd 256 (any excess at the others, as before)
-        fault_min = 10.0 if hdv != hd or hd == 256 else 1.0
+        # MLA's pair, at hd 256 and in the cases of the dense decoders'
+        # slice (any excess at the others, as before)
+        new = label in new_case_labels()
+        fault_min = 10.0 if hdv != hd or hd == 256 or new else 1.0
         o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
         _, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1894,7 +2093,8 @@ def run_flash_bwd_phase(dev, gen):
         faults = {}
         for what, wrong, held in bwd_planted_faults(
                 q, k, v, o, lse, do, kw,
-                window_faults=hd != 256 or label in Q_SCALE):
+                window_faults=hd != 256 or label in Q_SCALE,
+                dcap_fault=bool(cap) and label in Q_SCALE):
             r = max(tol_used(wrong[i], plain[i], tols[i]) for i in held)
             check(r > fault_min, f"flash bwd {label}: the tolerance passes a "
                   f"kernel with {what} by less than {fault_min:g} times "
@@ -1983,10 +2183,11 @@ class StepTimer:
         return out
 
 
-def serve_once(cfg, model, sv, dev, seed, extra=()):
-    """Drain ``synthesize_requests(cfg, sv, seed)`` plus the ``extra``
-    requests through a fresh bf16 engine, launch counters zeroed just
-    before ``engine.run()`` and read just after it."""
+def serve_once(cfg, model, sv, dev, seed, extra=(), requests=None):
+    """Drain ``requests`` (by default ``synthesize_requests(cfg, sv,
+    seed)``) plus the ``extra`` requests through a fresh bf16 engine,
+    launch counters zeroed just before ``engine.run()`` and read just after
+    it."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.engine import ServingEngine, synthesize_requests
@@ -1995,7 +2196,9 @@ def serve_once(cfg, model, sv, dev, seed, extra=()):
     engine = ServingEngine(cfg, model, sv, device=dev, dtype=torch.bfloat16)
     engine.prefill = pre = StepTimer(engine.prefill)
     engine.decode = dec = StepTimer(engine.decode)
-    requests = synthesize_requests(cfg, sv, seed) + list(extra)
+    if requests is None:
+        requests = synthesize_requests(cfg, sv, seed)
+    requests = list(requests) + list(extra)
     for r in requests:
         engine.submit(r)
     torch.cuda.synchronize()
@@ -2067,12 +2270,13 @@ def run_serve_phase(dev, seed):
                  evictions=eng.evictions, decode_steps=eng.decode_steps,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         del eng                 # its pools must not count in the next peak
+        r["host_note"] = host_note()
         runs[name] = r
         print(f"  serve {name}: {sv.requests} requests, {r['generated']} "
               f"tokens generated, {r['prompt_tokens']} prompt tokens "
               f"({r['cached_tokens']} from the prefix cache, "
               f"{r['cow_copies']} CoW copies) in {r['wall_s']:.3f} s = "
-              f"{r['tok_per_s']:.1f} generated tok/s; prefill "
+              f"{r['tok_per_s']:.1f} generated tok/s{host_note()}; prefill "
               f"{r['prefill_s']:.3f} s over {r['prefill_calls']} rounds, "
               f"decode {r['decode_s']:.3f} s over {r['decode_calls']} steps; "
               f"launches {r['launches']}", flush=True)
@@ -2478,7 +2682,8 @@ def run_rwkv_phase(dev, seed):
     del eng
     print(f"  serve rwkv6-7b: {sv.requests} requests, {r['generated']} tokens "
           f"generated, {r['prompt_tokens']} prompt tokens in "
-          f"{r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated tok/s; "
+          f"{r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated "
+          f"tok/s{host_note()}; "
           f"prefill {r['prefill_s']:.3f} s over {r['prefill_calls']} rounds, "
           f"decode {r['decode_s']:.3f} s over {r['decode_calls']} steps; "
           f"peak memory {r['peak_mem_gb']:.2f} GB; launches {r['launches']}",
@@ -2588,7 +2793,8 @@ def run_recurrentgemma_phase(dev, seed):
     print(f"  serve {cfg.name}: {sv.requests + 1} requests, "
           f"{r['generated']} tokens generated, {r['prompt_tokens']} prompt "
           f"tokens in {r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated "
-          f"tok/s; prefill {r['prefill_s']:.3f} s over {rounds} rounds, "
+          f"tok/s{host_note()}; prefill {r['prefill_s']:.3f} s over {rounds} "
+          f"rounds, "
           f"decode {r['decode_s']:.3f} s over {r['decode_calls']} steps; "
           f"peak memory {r['peak_mem_gb']:.2f} GB; launches {r['launches']} "
           f"({r['launches_per_round']} a prefill round)", flush=True)
@@ -2672,7 +2878,8 @@ def run_deepseek_phase(dev, seed):
           f">= {PEAK_MEM_LIMIT_GB} GB")
     print(f"  serve {cfg.name}: {sv.requests} requests, {r['generated']} "
           f"tokens generated, {r['prompt_tokens']} prompt tokens in "
-          f"{r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated tok/s; "
+          f"{r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated "
+          f"tok/s{host_note()}; "
           f"prefill {r['prefill_s']:.3f} s over {r['prefill_calls']} rounds, "
           f"decode {r['decode_s']:.3f} s over {steps} steps; peak memory "
           f"{r['peak_mem_gb']:.2f} GB; launches {r['launches']} "
@@ -2709,6 +2916,97 @@ def run_deepseek_phase(dev, seed):
           f"({parity['engine']})")
     return dict(serve=r, trace=trace, parity=parity, cut=cut,
                 parity_cuts="2 layers (dense, MoE), 16 experts, page 16")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: the dense decoders of the port's last slice
+# ---------------------------------------------------------------------------
+def run_dense_serve_phase(dev, seed, arch, layers, *, label,
+                          prompt_len=1024, max_len=None):
+    """Serve ``arch`` at full width cut to ``layers`` in bf16: 8 slots, 16
+    requests, prompts in [prompt_len / 2, prompt_len], 16 to 32 new tokens
+    (seed 0, as (a)-(e)); with ``max_len`` the engine is sized for it (a
+    local layer's ring must hold its window, R5) while the requests keep
+    their prompt length.  Every request completes its budget; a prefill
+    round launches the flash kernel once a layer, a decode step the paged
+    decode once a global layer (a local layer decodes from its ring in
+    plain PyTorch, as the reference's local decode is plain jnp), and no
+    other kernel runs; peak memory at most PEAK_MEM_LIMIT_GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import GLOBAL_ATTN
+    from repro_torch.launch.engine import synthesize_requests
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import count_params
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers, cache_layout="paged",
+                              page_size=128)
+    kinds = cfg.layer_kinds()
+    n_glob = kinds.count(GLOBAL_ATTN)
+    cut = (f"depth {full.num_layers} -> {layers} layers, every width kept"
+           if layers < full.num_layers else f"all {layers} layers")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name}, {cut}: d {cfg.d_model}, H {cfg.num_heads}, "
+          f"K {cfg.num_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}"
+          + (f", window {cfg.window_size} on {layers - n_glob} local layers"
+             if layers > n_glob else "")
+          + f", {count_params(cfg, include_embed=True) / 1e9:.2f} B "
+          f"parameters ({count_params(full, include_embed=True) / 1e9:.1f} B "
+          f"at {full.num_layers} layers), in {time.perf_counter() - t0:.2f} "
+          f"s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card",
+          flush=True)
+    P = max_len - 32 if max_len else prompt_len
+    warm = ServeSpec(batch=2, prompt_len=P, gen=32, requests=2,
+                     prefix_cache=False)
+    serve_once(cfg, model, warm, dev, seed, requests=synthesize_requests(
+        cfg, ServeSpec(batch=2, prompt_len=min(256, prompt_len), gen=4,
+                       requests=2), seed))
+    sv = ServeSpec(batch=8, prompt_len=P, gen=32, requests=16,
+                   prefix_cache=False)
+    requests = synthesize_requests(cfg, dataclasses.replace(
+        sv, prompt_len=prompt_len), seed)
+    r = serve_once(cfg, model, sv, dev, seed, requests=requests)
+    eng = r.pop("engine")
+    rounds, steps = r["prefill_calls"], r["decode_calls"]
+    check(rounds > 0 and r["launches"]["flash_attention_bshd"]
+          == layers * rounds,
+          f"serve {cfg.name}: flash launches {r['launches']} for {rounds} "
+          f"prefill rounds of {layers} layers")
+    check(steps > 0 and r["launches"]["paged_decode_bhd"] == n_glob * steps,
+          f"serve {cfg.name}: paged decode launches {r['launches']} for "
+          f"{steps} decode steps of {n_glob} global layers")
+    check(all(n == 0 for k, n in r["launches"].items() if k not in (
+        "flash_attention_bshd", "paged_decode_bhd")),
+          f"serve {cfg.name}: other kernels launched {r['launches']}")
+    r.update(layers=layers, cut=cut, max_len=eng.max_len,
+             decode_steps=eng.decode_steps, evictions=eng.evictions,
+             prefill_tokens=eng.prefill_tokens,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_round=r["launches"]["flash_attention_bshd"]
+             / rounds,
+             launches_per_step=r["launches"]["paged_decode_bhd"] / steps)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(r["peak_mem_gb"] <= PEAK_MEM_LIMIT_GB,
+          f"serve {cfg.name}: peak device memory {r['peak_mem_gb']:.2f} GB "
+          f"> {PEAK_MEM_LIMIT_GB} GB")
+    print(f"  serve ({label}) {cfg.name}: {sv.requests} requests (prompts "
+          f"up to {prompt_len}, engine max_len {r['max_len']}), "
+          f"{r['generated']} tokens generated, {r['prompt_tokens']} prompt "
+          f"tokens in {r['wall_s']:.3f} s = {r['tok_per_s']:.1f} generated "
+          f"tok/s{host_note()}; prefill {r['prefill_s']:.3f} s over {rounds} "
+          f"rounds, "
+          f"decode {r['decode_s']:.3f} s over {steps} steps; peak memory "
+          f"{r['peak_mem_gb']:.2f} GB; launches {r['launches']} (flash "
+          f"{r['launches_per_round']:g} a prefill round, paged decode "
+          f"{r['launches_per_step']:g} a decode step)", flush=True)
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -3053,10 +3351,13 @@ def run_moe_layer_phase(dev, seed):
 
 HELD_OUT_STEP = 10_000      # a batch of the stream no run here trains on
 # Learning rates of the train runs and the parity steps: 1e-3, but
-# rwkv6-7b's the RunConfig default, 3e-4: at 1e-3 its loss climbs over
-# the first steps (its (t4) held-out loss rose), and the unstable steps
-# amplify the two devices' rounding in the parity phase.
-TRAIN_LR = {"rwkv6-7b": 3e-4}
+# rwkv6-7b's and mistral-large-123b's the RunConfig default, 3e-4: at
+# 1e-3 their losses climb over the first steps (rwkv6's (t4) held-out
+# loss rose; mistral-large's (t8), a row of 4,096 at d 12,288, reached a
+# grad norm of 91 by step 5 and its held-out loss rose 10.92 -> 11.31),
+# and the unstable steps amplify the two devices' rounding in the parity
+# phase.
+TRAIN_LR = {"rwkv6-7b": 3e-4, "mistral-large-123b": 3e-4}
 # fp32 cuda-vs-cpu gradients: within 1e-4 of each leaf's largest, and
 # rwkv6-7b's within 5e-4.  Its gradients at init amplify rounding in the
 # WKV6 output (with decays near 1 the state sums hundreds of steps), and
@@ -3212,7 +3513,7 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                peak_mem_gb=peak_gb, card_gb=card_gb, launches=launches,
                launches_per_step=per_step,
                optimizer_device_ms=opt_ms, optimizer_timed_share=opt_share,
-               trace=tr)
+               trace=tr, host_note=host_note())
     print(f"  train {arch} ({cfg.num_layers} layers): {steps} steps of B "
           f"{batch} x S {seq} "
           f"({microbatches} microbatches, remat {remat}, master "
@@ -3221,7 +3522,8 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
           f"last 5 {last:.4f}; held-out batch {held_before:.4f} -> "
           f"{held_after:.4f}); CE {ce[0]:.4f} -> {ce[-1]:.4f}, aux "
           f"{aux[0]:.6f} -> {aux[-1]:.6f}; {r['steps_per_s']:.3f} steps/s, "
-          f"{r['tokens_per_s']:.0f} tokens/s over {r['timed_steps']} steps, "
+          f"{r['tokens_per_s']:.0f} tokens/s over {r['timed_steps']} "
+          f"steps{host_note()}, "
           f"MFU {mfu:.3f} ({flops / 1e12:.2f} TFLOP a step over "
           f"{n / 1e6:.1f} M active matmul parameters vs 989 TFLOP/s "
           f"bf16), peak {peak_gb:.2f} GB of {card_gb:.2f}; launches "
@@ -3269,26 +3571,55 @@ class FirstGrads:
         return self.fn(cfg, grads, params, opt)
 
 
-def run_train_parity_phase(dev, seed):
-    """fp32 on ``cuda`` (the kernels' fp32 paths) against ``cpu`` (the
-    plain versions), TF32 off, each config at full width cut to 2 layers
-    (deepseek-v2 also cut as PARITY_CUTS and PARITY_BATCH say),
-    B 2, S 256, from the same init (built on each device: the draws are
-    the host's, so they must be equal) and batches: the first batch's
-    gradients per leaf (those the first step's AdamW update receives,
-    :class:`FirstGrads`), 3 steps' losses, then a checkpoint round trip
-    (``train_state_to_jax`` and back) and the next step's loss equal to
-    the unrestored state's on ``cuda``.  granite-moe's routing (the
-    experts of every token in every MoE layer call) is compared first:
-    it must be the same on both devices, or part at a tie (a margin
-    within PARITY_TIE_TOL), where the two devices compute different
-    functions from then on and nothing after it is compared."""
-    import torch
+def parity_config(arch):
+    """(config, run, batch) of ``arch``'s train parity: full width cut to
+    PARITY_LAYERS (2 by default) and PARITY_CUTS, the run's lr, one warmup
+    step, PARITY_BATCH rows (2 by default) of 256 tokens."""
     from repro_torch.configs import RunConfig
-    from repro_torch.convert import train_state_from_jax, train_state_to_jax
+    from repro_torch.launch import train as train_cli
+    cfg = dataclasses.replace(
+        train_cli.config_of(arch, reduced=False,
+                            layers=PARITY_LAYERS.get(arch, 2)),
+        **PARITY_CUTS.get(arch, {}))
+    run = RunConfig(learning_rate=TRAIN_LR.get(arch, 1e-3), warmup_steps=1,
+                    total_steps=4)
+    return cfg, run, PARITY_BATCH.get(arch, 2)
+
+
+def state_digest(state) -> str:
+    """sha256 of a train state's bytes, leaf by leaf in name order (the
+    master weights, both moments, the count and the step), whatever its
+    device.  A moment whose every bit is 0 (a fresh state's) enters as its
+    dtype and shape, found on its own device: two such leaves are byte
+    equal, and their gigabytes need not cross to the host."""
+    import hashlib
+    import torch
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    h = hashlib.sha256()
+    leaves = sorted(state["params"].named_parameters()) \
+        + sorted(("m." + n, t) for n, t in state["opt"]["m"].items()) \
+        + sorted(("v." + n, t) for n, t in state["opt"]["v"].items()) \
+        + [("count", state["opt"]["count"]), ("step", state["step"])]
+    for name, t in leaves:
+        h.update(name.encode())
+        t = t.detach().contiguous().reshape(-1)
+        if name.startswith(("m.", "v.")) \
+                and not bool(t.view(bits[t.element_size()]).any()):
+            h.update(f"all bits 0: {t.dtype} {t.numel()}".encode())
+            continue
+        h.update(t.cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def parity_side(arch, seed, d):
+    """One device's side of ``arch``'s train parity, fp32 (TF32 off): the
+    initial state's digest, the first batch's gradients per leaf on the
+    host (those the first AdamW update receives, :class:`FirstGrads`), 3
+    steps' losses, the kernel launches, the MoE routings of every layer
+    call (:class:`RouteRecorder`), and the state and step after them."""
+    import torch
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as train_cli
     from repro_torch.models import moe
     from repro_torch.models.layers import Ctx
     from repro_torch.train import steps
@@ -3296,51 +3627,177 @@ def run_train_parity_phase(dev, seed):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = torch.device("cpu")
+    cfg, run, B = parity_config(arch)
+    data = SyntheticLMData(cfg.vocab_size, 256, B, seed)
+    state = init_train_state(cfg, seed=seed, run=run, device=d)
+    digest = state_digest(state)
+    recorder = RouteRecorder(moe._top_k, of_probs=True)
+    plain_top_k, moe._top_k = moe._top_k, recorder
+    first_grads = FirstGrads(steps.adamw_update)
+    steps.adamw_update = first_grads
+    try:
+        recorder.sink = []
+        step = make_train_step(cfg, Ctx(device=d, dtype=torch.float32), run)
+        ops.reset_launches()
+        losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
+                  for i in range(3)]
+    finally:
+        moe._top_k = plain_top_k
+        steps.adamw_update = first_grads.fn
+    return dict(digest=digest, grads=first_grads.grads, losses=losses,
+                launches=dict(ops.launches), routes=recorder.sink,
+                state=state, step=step, data=data)
+
+
+def pin_threads(cores) -> None:
+    """Every thread of this process onto ``cores`` (``sched_setaffinity``
+    of pid 0 moves the calling thread only: the thread pools started
+    before it, OpenMP's among them, keep every core), and the threads
+    started later with them."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except OSError:                 # a thread that has just ended
+            pass
+
+
+def _parity_worker(out_dir, cores, seed):
+    """The train parity's CPU side (:class:`ParityWorker`'s process): every
+    config of TRAIN_PARITY_ARCHS in order on ``cores`` (its affinity and
+    its threads; no CUDA device visible), each result written to
+    ``out_dir/<arch>.pt`` as soon as it is computed (by a rename, so a
+    reader never sees half of one), a failure to ``out_dir/error.txt``.
+    Files, not a pipe: a pipe moved the gradients at a few MB/s on the
+    card's host."""
+    pin_threads(cores)
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, str(SRC))
+    import torch
+    pin_threads(cores)
+    torch.set_num_threads(len(cores))
+    out = Path(out_dir)
+    try:
+        for arch in TRAIN_PARITY_ARCHS:
+            t0 = time.perf_counter()
+            r = parity_side(arch, seed, torch.device("cpu"))
+            keep = dict(digest=r["digest"], losses=r["losses"],
+                        grads={n: g.detach() for n, g in r["grads"].items()},
+                        routes=[(e.detach(), m.detach())
+                                for e, m in r["routes"]],
+                        seconds=time.perf_counter() - t0)
+            torch.save(keep, out / f"{arch}.part")
+            os.replace(out / f"{arch}.part", out / f"{arch}.pt")
+            del r, keep
+            gc.collect()
+    except BaseException as e:        # the parent reads it and fails
+        (out / "error.txt").write_text(f"{type(e).__name__}: {e}")
+        raise
+
+
+_workers = []         # the running ParityWorker, for host_note
+
+
+def host_note() -> str:
+    """Said beside a host-clock rate taken while the train parity's CPU
+    worker runs: the decode steps and small train steps it slows are host
+    bound."""
+    w = next((w for w in _workers if w.proc.is_alive()), None)
+    if w is None:
+        return ""
+    return (f" (host-bound; taken while the train parity's CPU worker runs "
+            f"on {len(w.cores)} of the host's {len(w.own) + len(w.cores)} "
+            "cores)")
+
+
+class ParityWorker:
+    """The train parity's CPU side in a second process (spawned right after
+    the build) on the host's last PARITY_WORKER_CORES cores; this process
+    keeps the others, its threads too.  Results come as files under the
+    checkout's ``build/parity_cpu``.  :meth:`result` waits for one
+    config's result, loads it and deletes its file (the smoke fails if the
+    worker failed or died); :meth:`stop` ends the worker, removes what it
+    left and gives this process its cores back."""
+
+    def __init__(self, seed):
+        import multiprocessing
+        import shutil
+        import torch
+        cores = sorted(os.sched_getaffinity(0))
+        n = min(PARITY_WORKER_CORES, len(cores) - 1)
+        self.cores, self.own = cores[-n:], cores[:-n]
+        self.dir = ROOT / "build" / "parity_cpu"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        ctx = multiprocessing.get_context("spawn")
+        self.proc = ctx.Process(target=_parity_worker,
+                                args=(str(self.dir), self.cores, seed),
+                                daemon=True)
+        self.proc.start()
+        pin_threads(self.own)
+        torch.set_num_threads(len(self.own))
+        _workers.append(self)
+
+    def result(self, arch):
+        """(the CPU side of ``arch``'s parity, seconds waited for it)."""
+        import torch
+        path, err = self.dir / f"{arch}.pt", self.dir / "error.txt"
+        t0 = time.perf_counter()
+        while not path.exists():
+            check(not err.exists(), "train parity: the CPU worker failed ("
+                  + (err.read_text() if err.exists() else "") + ")")
+            check(self.proc.is_alive() or path.exists(), f"train parity: "
+                  f"the CPU worker exited with {self.proc.exitcode} before "
+                  f"{arch}")
+            check(time.perf_counter() - t0 < PARITY_WORKER_WAIT_S,
+                  f"train parity: no CPU result for {arch} after "
+                  f"{PARITY_WORKER_WAIT_S:g} s")
+            time.sleep(0.5)
+        msg = torch.load(path, weights_only=False)
+        path.unlink()
+        return msg, time.perf_counter() - t0
+
+    def stop(self):
+        import shutil
+        if self in _workers:
+            _workers.remove(self)
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        pin_threads(self.own + self.cores)
+
+
+def run_train_parity_phase(dev, seed, worker):
+    """fp32 on ``cuda`` (the kernels' fp32 paths) against ``cpu`` (the
+    plain versions, computed by the :class:`ParityWorker`), TF32 off, each
+    config at full width cut as :func:`parity_config` says, B 2, S 256,
+    from the same init (built on each device: the draws are the host's, so
+    their digests must be equal) and batches: the first batch's gradients
+    per leaf, 3 steps' losses, then a checkpoint round trip
+    (``train_state_to_jax`` and back) and the next step's loss equal to
+    the unrestored state's on ``cuda``.  The MoE's routing (the experts of
+    every token in every MoE layer call) is compared first: it must be the
+    same on both devices, or part at a tie (a margin within
+    PARITY_TIE_TOL), where the two devices compute different functions
+    from then on and nothing after it is compared."""
+    import torch
+    from repro_torch.convert import train_state_from_jax, train_state_to_jax
+
     out = {}
     for arch in TRAIN_PARITY_ARCHS:
         t_arch = time.perf_counter()
-        cfg = dataclasses.replace(
-            train_cli.config_of(arch, reduced=False,
-                                layers=PARITY_LAYERS.get(arch, 2)),
-            **PARITY_CUTS.get(arch, {}))
-        run = RunConfig(learning_rate=TRAIN_LR.get(arch, 1e-3),
-                        warmup_steps=1, total_steps=4)
-        B = PARITY_BATCH.get(arch, 2)
-        data = SyntheticLMData(cfg.vocab_size, 256, B, seed)
-        res = []
-        init = train_state_to_jax(
-            init_train_state(cfg, seed=seed, run=run, device=cpu), cfg)
-        on_card = train_state_to_jax(
-            init_train_state(cfg, seed=seed, run=run, device=dev), cfg)
-        check(trees_byte_equal(init, on_card), f"train parity {arch}: the "
+        c = parity_side(arch, seed, dev)
+        cfg, _, B = parity_config(arch)
+        t_card = time.perf_counter() - t_arch
+        cpu, waited = worker.result(arch)
+        check(c["digest"] == cpu["digest"], f"train parity {arch}: the "
               "state initialised on cuda differs from the one on cpu")
-        del on_card
-        recorder = RouteRecorder(moe._top_k, of_probs=True)
-        plain_top_k, moe._top_k = moe._top_k, recorder
-        first_grads = FirstGrads(steps.adamw_update)
-        steps.adamw_update = first_grads
-        try:
-            for d in (dev, cpu):
-                ctx = Ctx(device=d, dtype=torch.float32)
-                state = train_state_from_jax(init, cfg, device=d)
-                recorder.sink = []
-                first_grads.grads = None
-                step = make_train_step(cfg, ctx, run)
-                ops.reset_launches()
-                losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
-                          for i in range(3)]
-                res.append((first_grads.grads, losses, state, step,
-                            dict(ops.launches), recorder.sink))
-                recorder.sink = None
-        finally:
-            moe._top_k = plain_top_k
-            steps.adamw_update = first_grads.fn
-        (g_c, l_c, s_c, step_c, launch_c, r_c), (g_p, l_p, *_, r_p) = res
+        g_c, l_c, r_c = c["grads"], c["losses"], c["routes"]
+        g_p, l_p, r_p = cpu["grads"], cpu["losses"], cpu["routes"]
         per_step = train_launches_per_step(cfg, 1, "none")
         check(all(n == per_step.get(name, 0) * 3
-                  for name, n in launch_c.items()),
-              f"train parity {arch}: launches {launch_c}, expected "
+                  for name, n in c["launches"].items()),
+              f"train parity {arch}: launches {c['launches']}, expected "
               f"{per_step} a step")
         flip = margin = None
         if cfg.is_moe:
@@ -3355,7 +3812,7 @@ def run_train_parity_phase(dev, seed):
                 check(m <= PARITY_TIE_TOL, f"train parity {arch}: token "
                       f"{tok} routed differently with a router margin {m} "
                       f"above the tie limit {PARITY_TIE_TOL}")
-        rel = worst = a = None
+        rel = worst = None
         if flip is None:
             rel = max(abs(x - y) / abs(y) for x, y in zip(l_c, l_p))
             check(rel <= 1e-5, f"train parity {arch}: losses {l_c} vs {l_p}")
@@ -3368,9 +3825,10 @@ def run_train_parity_phase(dev, seed):
                       f"train parity {arch}: gradient {n} max |cuda - cpu| "
                       f"{err}, max |g| {scale}")
                 worst = max(worst, err / max(scale, 1e-30))
+        s_c, step_c = c["state"], c["step"]
         restored = train_state_from_jax(train_state_to_jax(s_c, cfg), cfg,
                                         device=dev)
-        nxt = data.batch_at(3, dev)
+        nxt = c["data"].batch_at(3, dev)
         a = float(step_c(restored, nxt)[1]["loss"])
         b = float(step_c(s_c, nxt)[1]["loss"])
         check(a == b, f"train parity {arch}: the restored state's next loss "
@@ -3378,7 +3836,9 @@ def run_train_parity_phase(dev, seed):
         out[arch] = dict(losses_cuda=l_c, losses_cpu=l_p, loss_rel_err=rel,
                          grad_rel_err=worst, restored_next_loss=a,
                          route_flip=flip, least_router_margin=margin,
-                         seconds=time.perf_counter() - t_arch)
+                         seconds=time.perf_counter() - t_arch,
+                         card_seconds=t_card, cpu_seconds=cpu["seconds"],
+                         waited_seconds=waited)
         routing = "" if not cfg.is_moe else (
             f"; routing equal in {len(r_c)} MoE layer calls (least router "
             f"margin {margin:.3g})" if flip is None else
@@ -3394,9 +3854,11 @@ def run_train_parity_phase(dev, seed):
                               f" (max rel {rel:.3g}); gradients within "
                               f"{worst:.3g}·max|g| of their leaves")
               + f"{routing}; init equal on both devices; restored state's "
-              f"next loss {a} equal; {out[arch]['seconds']:.1f} s",
+              f"next loss {a} equal; {out[arch]['seconds']:.1f} s here "
+              f"(card {t_card:.1f} s, waited {waited:.1f} s for the CPU "
+              f"side, which took {cpu['seconds']:.1f} s in the worker)",
               flush=True)
-        del res, s_c, restored, step_c
+        del c, cpu, s_c, restored, step_c, g_c, g_p
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3923,11 +4385,28 @@ def main() -> int:
 
     phase_s = {"build": build_s}      # wall seconds of each phase
     t_mark = [time.perf_counter()]
+    worker = ParityWorker(0)
+    print(f"[parity worker] the train parity's CPU side started in a second "
+          f"process on cores {worker.cores}; this process keeps "
+          f"{worker.own}", flush=True)
+    try:
+        return run_phases(dev, card, build_s, phase_s, t_mark, t_start,
+                          worker)
+    finally:
+        worker.stop()
+
+
+def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
+    """Phases 2-9 (the build and the parity worker are :func:`main`'s)."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_run_config
 
     def mark(name):
         now = time.perf_counter()
         phase_s[name] = now - t_mark[0]
         t_mark[0] = now
+        print(f"[time] {name} {phase_s[name]:.1f} s, "
+              f"{now - t_start:.1f} s in all", flush=True)
 
     seed = 0
     gen = torch.Generator(device=dev)
@@ -3972,6 +4451,17 @@ def main() -> int:
     mark("deepseek")
     gc.collect()
     torch.cuda.empty_cache()
+    dense = {}
+    for key, arch, layers, kw in (
+            ("f", "qwen2.5-32b", QWEN25_SERVE_LAYERS, {}),
+            ("g", "mistral-large-123b", MISTRAL_SERVE_LAYERS, {}),
+            ("h", "gemma2-9b", GEMMA2_SERVE_LAYERS,
+             dict(prompt_len=3072, max_len=4096))):
+        print(f"[serve ({key})] {arch} full width, {layers} layers, bf16",
+              flush=True)
+        dense[key] = run_dense_serve_phase(dev, seed, arch, layers,
+                                           label=key, **kw)
+        mark(f"serve ({key})")
     print("[train] paper-overhead-100m full width (12 layers), bf16 compute,"
           " fp32 master", flush=True)
     train = {"paper-overhead-100m": run_train_phase(
@@ -4052,9 +4542,32 @@ def main() -> int:
     mark("train (t6)")
     gc.collect()
     torch.cuda.empty_cache()
+    # (t7)-(t9): one row a microbatch.  (t7) B 2 in 2 microbatches of the
+    # run's 16, (t9) B 4 in its 4; (t8) B 1 in 1 of its 8 (a second
+    # microbatch's fp32 gradient sum, 14.3 GB at 2 layers, does not fit)
+    for key, arch, layers, batch, mb in (
+            ("t7", "qwen2.5-32b", QWEN25_TRAIN_LAYERS, 2, 2),
+            ("t8", "mistral-large-123b", MISTRAL_TRAIN_LAYERS, 1, 1),
+            ("t9", "gemma2-9b", GEMMA2_TRAIN_LAYERS, 4, 4)):
+        t_run = get_run_config(arch, "train_4k")
+        print(f"[train ({key})] {arch} full width cut to {layers} layers, "
+              f"its train_4k run (S 4096, {t_run.num_microbatches} "
+              f"microbatches, {t_run.remat_policy} remat) at B {batch} in "
+              f"{mb} microbatch{'es' if mb > 1 else ''}", flush=True)
+        train[arch] = run_train_phase(
+            dev, seed, arch, steps=6, batch=batch,
+            seq=SHAPES["train_4k"].seq_len, microbatches=mb,
+            remat=t_run.remat_policy, lr=TRAIN_LR.get(arch, 1e-3),
+            falling_mean=False, remat_rows=1, layers=layers,
+            max_peak_gb=PEAK_MEM_LIMIT_GB)
+        mark(f"train ({key})")
+        gc.collect()
+        torch.cuda.empty_cache()
     print("[train-parity] fp32 cuda vs cpu, full width, 2 layers "
-          "(recurrentgemma-9b 3, rwkv6-7b 1)", flush=True)
-    train["parity"] = run_train_parity_phase(dev, seed)
+          "(recurrentgemma-9b 3, rwkv6-7b 1), the CPU side from the worker",
+          flush=True)
+    train["parity"] = run_train_parity_phase(dev, seed, worker)
+    worker.stop()
     mark("train parity")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4095,6 +4608,16 @@ def main() -> int:
     fft = next(r for r in flash_rows if r["label"] == RG_FWD_T6)
     keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library")
+
+    def row_of(rows, label, launches):
+        r = next(r for r in rows if r["label"] == label)
+        return dict({k: r[k] for k in keys}, launches=launches,
+                    max_abs_err=r["max_abs_err"], tol_used=r["tol_used"])
+
+    q_l = train["qwen2.5-32b"]["launches"]
+    m_l = train["mistral-large-123b"]["launches"]
+    g_l = train["gemma2-9b"]["launches"]
+    gem_bwd = [c[0] for c in gemma2_train_cases()]
     mf = next(r for r in flash_rows if r["label"] == MLA_T5)
     mb = next(r for r in bwd_rows if r["label"] == MLA_T5)
     mla_fwd = dict({k: mf[k] for k in keys},
@@ -4151,6 +4674,17 @@ def main() -> int:
                            lse_err=max(r["lse_err"] for r in bwd_rows
                                        if r["label"] in {c[0] for c in
                                                          rg_train_cases()})),
+             qwen2_5=row_of(flash_rows, QWEN25_T7,
+                            q_l["flash_attention_bshd"]),
+             mistral=row_of(flash_rows, MISTRAL_T8,
+                            m_l["flash_attention_bshd"]),
+             gemma2=row_of(flash_rows, GEMMA2_FWD_T9,
+                           g_l["flash_attention_bshd"]),
+             gemma2_serving=row_of(
+                 flash_rows, GEMMA2_FWD_H,
+                 dense["h"]["launches"]["flash_attention_bshd"]),
+             serving_launches={k: dense[k]["launches"]["flash_attention_bshd"]
+                               for k in dense},
              platform=platform_launches(platform, "flash_attention_bshd")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -4171,6 +4705,10 @@ def main() -> int:
                  "bound_ms", "bound_by", "library_ms", "library")},
                  launches=granite_launches["flash_attention_bwd"]),
              mla=mla_bwd,
+             qwen2_5=row_of(bwd_rows, QWEN25_T7,
+                            q_l["flash_attention_bwd"]),
+             mistral=row_of(bwd_rows, MISTRAL_T8,
+                            m_l["flash_attention_bwd"]),
              platform=platform_launches(platform, "flash_attention_bwd")),
         dict(name="flash_attention_bwd_hd256", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -4189,7 +4727,18 @@ def main() -> int:
              parts_device_ms=fbt["parts_device_ms"], plan=fbt["plan"],
              faults_tol_used={r["label"]: r["faults_tol_used"]
                               for r in bwd_rows if r["label"] in
-                              {c[0] for c in rg_train_cases()}}),
+                              {c[0] for c in rg_train_cases()}
+                              | set(gem_bwd)},
+             gemma2=dict(row_of(bwd_rows, GEMMA2_T9,
+                                g_l["flash_attention_bwd"]),
+                         max_abs_err_all=max(r["max_abs_err"]
+                                             for r in bwd_rows
+                                             if r["label"] in gem_bwd),
+                         parts_device_ms=next(
+                             r["parts_device_ms"] for r in bwd_rows
+                             if r["label"] == GEMMA2_T9),
+                         global_layers=row_of(bwd_rows, GEMMA2_GLOBAL_T9,
+                                              g_l["flash_attention_bwd"]))),
         dict(name="paged_decode_fwd", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_attention.py:120",
@@ -4202,6 +4751,8 @@ def main() -> int:
              device_ms_ungrouped=dc["device_ms_ungrouped"],
              also_replaces="src/repro/kernels/paged_attention.py:76",
              platform=platform_launches(platform, "paged_decode_bhd"),
+             serving_launches={k: dense[k]["launches"]["paged_decode_bhd"]
+                               for k in dense},
              shape="B 8, K 8, G 2, hd 128, ps 128, bf16, ragged"),
         dict(name="wkv6_fwd", route="cuda",
              source="src/repro_torch/csrc/rwkv6_wkv.cu",
@@ -4279,6 +4830,7 @@ def main() -> int:
                       "wkv6": wkv_rows, "rwkv": rwkv, "rglru": rglru_rows,
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,
+                      "dense_serve": dense,
                       "flash_bwd": bwd_rows, "wkv6_bwd": wkv_bwd_rows,
                       "rglru_bwd": rglru_bwd_rows,
                       "train": train,

@@ -2,16 +2,17 @@
 ``ModelConfig`` (fields, ``padded_vocab``, ``layer_kinds``, ``reduced``),
 ``ShapeConfig`` and ``RunConfig``, and the config and run registries.
 
-The port serves the dense all-global GQA decoders (``qwen3-0.6b`` and
-``paper-overhead-100m``), the attention-free RWKV6 stack (``rwkv6-7b``),
-the RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
+The port serves and trains the dense all-global GQA decoders
+(``paper-overhead-100m``, ``qwen3-0.6b``, ``qwen2.5-32b``,
+``mistral-large-123b``), gemma2's mix of local and global attention with
+its softcaps, ``query_pre_attn_scalar`` and post-block norms
+(``gemma2-9b``), the attention-free RWKV6 stack (``rwkv6-7b``), the
+RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
 all-global MLA and MoE stacks (``deepseek-v2-236b``,
-``granite-moe-1b-a400m``).  The other families keep their fields here so
-a config reads the same as in the reference; :func:`check_ported`
-rejects them when a model is built.  The port trains the all-global GQA
-stacks, dense or MoE (``paper-overhead-100m``, ``qwen3-0.6b``,
-``granite-moe-1b-a400m``); :func:`check_trainable` refuses the rest by
-name.
+``granite-moe-1b-a400m``).  The other families (the vision frontend, the
+encoder-decoder) keep their fields here so a config reads the same as in
+the reference; :func:`check_ported` rejects them when a model is built,
+and :func:`check_trainable` when a train state is.
 """
 from __future__ import annotations
 
@@ -190,9 +191,11 @@ class RunConfig:
 
 
 #: The layer mixes the port serves: all-global attention (GQA or MLA, a
-#: dense or MoE FFN), RWKV6, and the Griffin hybrid of RG-LRU and
-#: sliding-window (local) attention layers.
-PORTED_KINDS = ({GLOBAL_ATTN}, {RWKV}, {RECURRENT, LOCAL_ATTN})
+#: dense or MoE FFN), RWKV6, the Griffin hybrid of RG-LRU and
+#: sliding-window (local) attention layers, and gemma2's mix of local and
+#: global attention layers.
+PORTED_KINDS = ({GLOBAL_ATTN}, {RWKV}, {RECURRENT, LOCAL_ATTN},
+                {GLOBAL_ATTN, LOCAL_ATTN})
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -214,12 +217,6 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append("encoder-decoder")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
-    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
-        missing.append("gemma2 logit softcaps")
-    if cfg.query_pre_attn_scalar:
-        missing.append("gemma2 query_pre_attn_scalar")
-    if cfg.use_post_block_norm:
-        missing.append("gemma2 post-block norms")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} comes in a later slice of "
@@ -228,30 +225,22 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose training this port
-    does not have yet: it trains GQA stacks without softcaps, all-global
-    with a dense FFN or an MoE FFN under capacity dispatch with the
-    router's load-balancing loss (``paper-overhead-100m``, ``qwen3-0.6b``,
-    ``granite-moe-1b-a400m``), the MLA stack with its dense first layer
-    and MoE layers with shared experts, attention through the flash
-    kernels at qk 192 / v 128 (``deepseek-v2-236b``), the RWKV6 stack
-    through the WKV6 backward (``rwkv6-7b``), and the RG-LRU hybrid: its
-    recurrent layers through the RG-LRU scan's backward and its
-    sliding-window MQA layers through the flash backward at hd 256
-    (``recurrentgemma-9b``).  Softcaps (gemma2), encoder-decoders and
-    frontends are refused by name, and :func:`check_ported` refuses a mix
-    of local and global layers (gemma2's) by its block kinds."""
+    does not have yet: it trains every stack it serves.  GQA stacks,
+    all-global with a dense FFN or an MoE FFN under capacity dispatch with
+    the router's load-balancing loss (``paper-overhead-100m``,
+    ``qwen3-0.6b``, ``qwen2.5-32b``, ``mistral-large-123b``,
+    ``granite-moe-1b-a400m``), or gemma2's local and global layers with
+    both softcaps (the attention's through the flash backward at hd 256,
+    the final one through autograd; ``gemma2-9b``); the MLA stack with its
+    dense first layer and MoE layers with shared experts, attention
+    through the flash kernels at qk 192 / v 128 (``deepseek-v2-236b``);
+    the RWKV6 stack through the WKV6 backward (``rwkv6-7b``); and the
+    RG-LRU hybrid: its recurrent layers through the RG-LRU scan's backward
+    and its sliding-window MQA layers through the flash backward at hd 256
+    (``recurrentgemma-9b``).  So it refuses what :func:`check_ported`
+    refuses, each by name: a recurrent layer mixed with a global one,
+    MLA or MoE on a mixed stack, encoder-decoders and frontends."""
     check_ported(cfg)
-    missing = []
-    if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
-        missing.append("logit softcaps")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: training {', '.join(missing)} comes in a later "
-            "training slice of the port")
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
@@ -299,5 +288,6 @@ def list_configs() -> Tuple[str, ...]:
 def _ensure_loaded() -> None:
     """Import every config module (they self-register on import)."""
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, granite_moe_1b_a400m, paper_overhead, qwen3_0_6b,
+        deepseek_v2_236b, gemma2_9b, granite_moe_1b_a400m,
+        mistral_large_123b, paper_overhead, qwen2_5_32b, qwen3_0_6b,
         recurrentgemma_9b, rwkv6_7b)

@@ -40,8 +40,10 @@
 //
 // recurrentgemma's local layers train at hd 256 (MQA, G 16, window 2,048):
 // at B 1, S 4,096, 6,292,480 live pairs a head, 257.7 GFLOP at 10 hd, 0.261
-// ms at 989 TFLOP/s.  Its consumers split an item's dK and dV between them
-// (one computes S^T and hands P^T to the other through shared memory) and
+// ms at 989 TFLOP/s.  gemma2's local and global layers train at hd 256 too
+// (G 2, window 4,096 or none) under a softcap of 50.  Its consumers split
+// an item's dK and dV between them (one computes S^T and hands P^T, or P^T
+// (1 - tanh^2) under the softcap, to the other through shared memory) and
 // its dK/dV items also split the group's q heads (BwdTile, SPLIT): three
 // launches, the third summing the parts.
 //
@@ -162,7 +164,8 @@ constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
 // (QBOX).
 //
 // hd 256 (recurrentgemma's local layers: MQA, 16 q heads over one kv head,
-// window 2,048; no softcap) holds still more: dK and dV of 64 keys are 256
+// window 2,048; gemma2's: 16 q heads over 8 kv heads, a softcap of 50)
+// holds still more: dK and dV of 64 keys are 256
 // fp32 a thread, past the 240 a consumer has.  So the two consumers split
 // the work of one 64-key item (BC 64) instead of its keys, over the same
 // Q/dO stages of 64 rows (BR 64): consumer 0 (SPLIT, ROLE_DV) computes S^T
@@ -181,11 +184,14 @@ constexpr int BM = 128;   // dQ: q rows of a work item (64 a consumer)
 // order the writes and the reads.  The shared memory holds one 64 KB K/V
 // slot, two 64 KB Q/dO stages and the two buffers, so an item's K/V load
 // does not overlap the previous item (about one stage of an item's 33 to
-// 66).  A softcap (gemma2's local layers, a later slice) would fit the
-// same pair: consumer 0 would hand over 1 - th^2 beside P^T (a second 16 KB
-// buffer of the same layout, th = tanh(s scale / cap) from its S^T), and
-// consumer 1 would form dS^T = P^T ((dP^T - D)(1 - th^2)) as dcap_cols and
-// pcap_cols do.  Under MQA the (b, kv head, 64
+// 66).  These take 231,504 of the 232,448 bytes a block may have, so a
+// softcap (gemma2) gets no buffer of its own: under it dS^T = P^T (1 -
+// th^2) (dP^T - D), and consumer 0, which computes th = tanh(s scale /
+// cap) from its S^T and P^T = 2^(th cap log2 e - lse log2 e) from th,
+// feeds P^T to its dV product from the bf16 fragments and hands P^T (1 -
+// th^2) through the same buffers, in the same layout, under the same
+// mbarriers (pcap_hand_cols); consumer 1 runs unchanged.  The cap adds th
+// in place of the score and no register.  Under MQA the (b, kv head, 64
 // keys) items are too few for the card (64 at B 1, S 4,096), so an item
 // also takes one of ``kv_split`` equal parts of the group's q heads; the
 // consumers write fp32 partials of dK and dV, and a short pass sums the
@@ -674,6 +680,35 @@ __device__ __forceinline__ void pcap_cols(float (&th)[NS], float (&dp)[NS],
   }
 }
 
+// Under a softcap, consumer 0 of a split dK/dV item (hd 256), with th =
+// tanh(s scale / cap) in place of S^T (tanh_tile): P^T = 2^(th cap log2 e -
+// lse log2 e) rounded into the bf16 A fragments of dV's product (pack_a's
+// order), and P^T (1 - th^2) in place of th, the tile it hands to consumer
+// 1, which forms dS^T = that (dP^T - D) (ds_cols_handed).  No register
+// beyond the unmasked route's: P^T lives only in the fragments.
+template <bool MASK, int NS>
+__device__ __forceinline__ void pcap_hand_cols(float (&th)[NS],
+                                               uint32_t (&pa)[NS / 8][4],
+                                               uint32_t st, float cl,
+                                               int col0, const int (&lo)[2],
+                                               const int (&hi)[2]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    const float4 v = lds4(st + (8 * j) * 8);
+    float pj[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, r = e >> 1, col = col0 + 8 * j + (e & 1);
+      float p = ex2(fmaf(th[i], cl, -((e & 1) ? v.z : v.x)));
+      if constexpr (MASK) p = col >= lo[r] && col < hi[r] ? p : 0.f;
+      pj[e] = p;
+      th[i] = p * (1.f - th[i] * th[i]);
+    }
+    pa[j >> 1][2 * (j & 1)] = pack_bf16(pj[0], pj[1]);
+    pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(pj[2], pj[3]);
+  }
+}
+
 // dQ tiles are not transposed: rows are q rows, whose statistics a thread
 // keeps in registers (l2: lse log2 e, d: D), columns keys.
 template <bool MASK, int NS>
@@ -769,7 +804,7 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 struct KvArgs {
   uint32_t kv_s, ring, st_s, hand, bars;
   int KVS, NST, NH, G, B, S, KH, causal, window, r_begin, r_end;
-  float sc, scale;
+  float sc, cl, scale;
   const int* work;
   float* part;              // fp32 partials of dK, then of dV
 };
@@ -794,18 +829,18 @@ __device__ __forceinline__ void store_part(float* dst,
   }
 }
 
-// A split dK/dV consumer warpgroup's walk over its block's items (hd 256,
-// no softcap), over the same ring stages: ROLE_DV computes S^T and P^T,
-// hands P^T over and accumulates dV += P^T dO; ROLE_DK computes dP^T, takes
-// P^T, forms dS^T and accumulates dK += dS^T Q.  A stage goes back to the
-// producer after the 8 consumer warps have read it, a handover buffer to
-// ROLE_DV after the 128 threads of ROLE_DK have read it.  Each writes its
-// fp32 partial of the item's 64 keys (dK unscaled: the sum pass scales
-// it).
-template <int DQK, int DV, int ROLE>
+// A split dK/dV consumer warpgroup's walk over its block's items (hd 256),
+// over the same ring stages: ROLE_DV computes S^T and P^T, hands P^T (under
+// a softcap P^T (1 - th^2)) over and accumulates dV += P^T dO; ROLE_DK
+// computes dP^T, takes the handed tile, forms dS^T and accumulates dK +=
+// dS^T Q.  A stage goes back to the producer after the 8 consumer warps
+// have read it, a handover buffer to ROLE_DV after the 128 threads of
+// ROLE_DK have read it.  Each writes its fp32 partial of the item's 64
+// keys (dK unscaled: the sum pass scales it).
+template <int DQK, int DV, bool CAP, int ROLE>
 __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
                                              const KvArgs& a, int cw) {
-  using Tile = BwdTile<DQK, DV, false>;
+  using Tile = BwdTile<DQK, DV, CAP>;
   constexpr int BR = Tile::BR, NS = BR / 2, BC = Tile::BC;
   constexpr bool DK = ROLE == ROLE_DK;
   constexpr int ACC = DK ? DQK / 2 : DV / 2;
@@ -868,11 +903,14 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(sv);
+        uint32_t fa[BR / 16][4];
         if constexpr (DK) {
-          // dS^T = P^T (dP^T - D) in place of dP^T, then the buffer back
+          // dS^T = P^T (dP^T - D) (under a softcap the handed P^T (1 -
+          // th^2) times dP^T - D) in place of dP^T, then the buffer back
           mbar_wait(hand_full(hb), hpar);
           ds_cols_handed<NS>(hand, sv, st);
           mbar_arrive(hand_empty(hb));
+          pack_a<NS>(fa, sv);
         } else {
           // a mask iff some pair of the tile is dead: keys or rows past S,
           // a row before the key (causal), a row past the window
@@ -880,13 +918,22 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
                             (causal && q0 < kc + 63) ||
                             (window && q0 + BR - 1 - kc >= window);
           const int col0 = q0 + 2 * tq;
-          if (mask)
-            p_cols<true, NS>(sv, st, a.sc, col0, lo, hi);
-          else
-            p_cols<false, NS>(sv, st, a.sc, col0, lo, hi);
+          if constexpr (CAP) {
+            // th in place of S^T, then P^T into fa and P^T (1 - th^2),
+            // the handed tile, in place of th
+            tanh_tile(sv, a.sc);
+            if (mask)
+              pcap_hand_cols<true, NS>(sv, fa, st, a.cl, col0, lo, hi);
+            else
+              pcap_hand_cols<false, NS>(sv, fa, st, a.cl, col0, lo, hi);
+          } else {
+            if (mask)
+              p_cols<true, NS>(sv, st, a.sc, col0, lo, hi);
+            else
+              p_cols<false, NS>(sv, st, a.sc, col0, lo, hi);
+            pack_a<NS>(fa, sv);
+          }
         }
-        uint32_t fa[BR / 16][4];
-        pack_a<NS>(fa, sv);
         wgmma_fence();
         if constexpr (DK)
           rs_tile<DQK, BR>(acc, fa, qs);     // dK += dS^T Q
@@ -894,7 +941,7 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
           rs_tile<DV, BR>(acc, fa, os);      // dV += P^T dO
         wgmma_commit();
         if constexpr (!DK) {
-          // P^T to the other consumer while dV's product runs
+          // the handed tile to the other consumer while dV's product runs
           mbar_wait(hand_empty(hb), hpar ^ 1);
 #pragma unroll
           for (int j = 0; j < NS / 4; ++j)
@@ -1038,11 +1085,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     if constexpr (Tile::SPLIT) {
       const KvArgs a{kv_s, ring, st_s, base + p.kv_off_hand, bars, KVS,
                      NST, p.kv_hands, G, B, S, KH, causal, window, r_begin,
-                     r_end, sc, scale, work, part};
+                     r_end, sc, cl, scale, work, part};
       if (cw == 0)
-        dkdv_consume<DQK, DV, ROLE_DV>(p, a, cw);
+        dkdv_consume<DQK, DV, CAP, ROLE_DV>(p, a, cw);
       else
-        dkdv_consume<DQK, DV, ROLE_DK>(p, a, cw);
+        dkdv_consume<DQK, DV, CAP, ROLE_DK>(p, a, cw);
     } else {
       const int t = threadIdx.x - 128 * wg, warp = t >> 5, lane = t & 31;
       const int g = lane >> 2, tq = lane & 3;
@@ -1786,9 +1833,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const BwdPlan& p, const int* work, cudaStream_t st) {
   using Plain = BwdTile<DQK, DV, false>;
   const bool c = cap != 0.f;
-  // MLA's pair and hd 256 are compiled without the softcap (no config
-  // trains either with one: gemma2's softcapped hd 256 is a later slice)
-  if ((DQK != DV || Plain::SPLIT) && c) return -1;
+  // MLA's pair is compiled without the softcap (no config trains it with one)
+  if (DQK != DV && c) return -1;
   if (!(c ? plan_fits<DQK, DV, true>(p) : plan_fits<DQK, DV, false>(p)))
     return -1;
   if (Plain::SPLIT && (H / KH) % p.kv_split != 0) return -1;
@@ -1819,7 +1865,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const float cl = cap * LOG2E;
   auto dkdv = flash_bwd_dkdv_wgmma<DQK, DV, false>;
   auto dqk = flash_bwd_dq_wgmma<DQK, DV, false>;
-  if constexpr (DQK == DV && !Plain::SPLIT)
+  if constexpr (DQK == DV)
     if (c) {
       dkdv = flash_bwd_dkdv_wgmma<DQK, DV, true>;
       dqk = flash_bwd_dq_wgmma<DQK, DV, true>;
@@ -1886,7 +1932,7 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16.  q, dq: (B, S, H, hd); o, dout: (B, S,
 // H, hdv); k, dk: (B, S, KH, hd); v, dv: (B, S, KH, hdv); (hd, hdv) is (64,
-// 64), (128, 128), (256, 256) or MLA's (192, 128); the last two take no
+// 64), (128, 128), (256, 256) or MLA's (192, 128); the last takes no
 // softcap in bf16.  lse: (B, H, S) fp32 (natural log); delta: fp32 scratch
 // that this call fills, (B, H, S) floats for fp32 and (B, H, s_pad, 2) for
 // bf16, followed at hd 256 by 2 kv_split B S KH 256 floats of partials.  plan: ``n_plan`` ints

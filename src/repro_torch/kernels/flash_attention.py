@@ -12,9 +12,10 @@ of shared-memory stages, and two consumer warpgroups of 64 q rows each
 run both products as wgmma (fp32 has its own CUDA-core walk, for exact
 checks).  Both sides take the model's (B, S, heads, hd) layout directly,
 and the kernel masks a ragged S itself, so there is no S % 128 gate and no
-transpose.  Head dims 64 and 128 (qwen3, paper-overhead), 256 (the
-local layers of recurrentgemma, 16 q heads over one kv head, window
-2,048) and MLA's pair, q and k 192 wide (128 nope + 64 rope) over v 128,
+transpose.  Head dims 64 and 128 (qwen3, paper-overhead, qwen2.5 and
+mistral-large at G 5 and 12), 256 (the local layers of recurrentgemma,
+16 q heads over one kv head, window 2,048; gemma2's local and global
+layers, 16 q heads over 8 kv heads, a softcap of 50) and MLA's pair, q and k 192 wide (128 nope + 64 rope) over v 128,
 the shape deepseek-v2 trains at (:data:`HEAD_DIM_PAIRS`).
 
 :func:`flash_attention_torch` is the plain PyTorch version of the same
@@ -36,9 +37,11 @@ longest first, and every tile size and shared-memory offset.  fp32 has a
 CUDA-core path; there are no atomics.
 :func:`flash_attention_bwd_torch` is its plain version, blockwise in fp32:
 the CPU path and the card's oracle.  The backward takes hd 64, 128 and
-256 and MLA's pair (:data:`BWD_HEAD_DIM_PAIRS`); at hd 256 (recurrentgemma's
-local layers) its dK/dV consumers split an item's dK and dV between them
-(one computes S^T once and hands P^T to the other in shared memory), its
+256 and MLA's pair (:data:`BWD_HEAD_DIM_PAIRS`), a softcap at all but
+MLA's; at hd 256 (recurrentgemma's and gemma2's layers) its dK/dV
+consumers split an item's dK and dV between them (one computes S^T once
+and hands P^T, under a softcap P^T (1 - tanh^2), to the other in shared
+memory), its
 items also split the group's q heads into ``kv_split`` parts, and a third
 launch sums the parts' fp32 partials.
 """

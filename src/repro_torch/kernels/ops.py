@@ -98,18 +98,14 @@ def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _flash_pair(name: str, q, v, kw, pairs, uncapped=()) -> None:
-    """The card's (qk, v) head-dim pairs, and no softcap on MLA's or on
-    those of ``uncapped``."""
+def _flash_pair(name: str, q, v, kw, pairs) -> None:
+    """The card's (qk, v) head-dim pairs, and no softcap on MLA's."""
     pair = (q.shape[3], v.shape[3])
     _require(pair in pairs,
              f"{name}: head_dim (qk, v) {pair}, kernel takes {pairs}")
     _require(pair[0] == pair[1] or not kw["logit_cap"],
              f"{name}: a softcap at head dims {pair}; the kernel takes one "
              "only with equal head dims")
-    _require(pair not in uncapped or not kw["logit_cap"],
-             f"{name}: a softcap at head dims {pair}; the kernel takes none "
-             "there (gemma2's softcapped hd 256 trains in a later slice)")
 
 
 def _flash_forward(q, k, v, kw, *, return_lse: bool):
@@ -156,7 +152,7 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv) of :func:`flash_attention_bshd`.  The kernel takes
     (hd, hdv) in ``fa.BWD_HEAD_DIM_PAIRS``: (64, 64), (128, 128), (256,
-    256) and MLA's (192, 128); no softcap at the last two."""
+    256) and MLA's (192, 128); a softcap at each but the last."""
     B, S, H, hd = q.shape
     hdv = v.shape[-1]
     _require(v.ndim == 4 and k.shape[:3] == v.shape[:3]
@@ -178,8 +174,7 @@ def flash_attention_bwd(
         return fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
     _cuda_operands("flash_attention_bwd", operands[:4] + operands[5:],
                    fa.DTYPE_CODES)
-    _flash_pair("flash_attention_bwd", q, v, kw, fa.BWD_HEAD_DIM_PAIRS,
-                uncapped=((256, 256),))
+    _flash_pair("flash_attention_bwd", q, v, kw, fa.BWD_HEAD_DIM_PAIRS)
     _require(lse.device == q.device and lse.is_contiguous(),
              "flash_attention_bwd: lse must be contiguous on the card")
     _require(all(t.data_ptr() % 16 == 0 for t in operands),

@@ -12,12 +12,17 @@
         --arch deepseek-v2-236b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --layers 3 --no-prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --reduced --device cpu --prompt-len 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
+        --layers 16
 
 Weights are random, drawn from ``--seed``; the workload is synthesized
 (``launch.engine.synthesize_requests``).  It runs on ``cuda`` unless
 ``--device`` names another device.  A stack with local attention layers
-(recurrentgemma) needs ``--prompt-len`` + ``--gen`` >= its window (16 when
-``--reduced``, 2,048 at full width).  ``--layers`` cuts a config's depth
+(recurrentgemma, gemma2) needs ``--prompt-len`` + ``--gen`` >= its window
+(16 when ``--reduced``, 2,048 and 4,096 at full width); its prefix cache
+is always off.  ``--layers`` cuts a config's depth
 and keeps its widths: deepseek-v2-236b (60 layers, 234.7 B parameters
 without the embeddings) fits one 80 GB card at 3 layers (the dense first
 layer and two MoE layers, 9.33 B parameters); the cut is printed.

@@ -21,13 +21,24 @@ decay.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch recurrentgemma-9b --layers 6 --steps 6 --batch 2 --seq 4096 \\
         --microbatches 2 --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-32b \\
+        --layers 2 --steps 6 --batch 2 --seq 4096 --microbatches 2 \\
+        --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch mistral-large-123b --layers 2 --steps 6 --batch 1 \\
+        --seq 4096 --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \\
+        --layers 6 --steps 6 --batch 4 --seq 4096 --microbatches 4 \\
+        --remat full
 
-It trains paper-overhead-100m, qwen3-0.6b, granite-moe-1b-a400m,
+It trains every config the port serves: paper-overhead-100m, qwen3-0.6b,
+qwen2.5-32b, mistral-large-123b, gemma2-9b, granite-moe-1b-a400m,
 rwkv6-7b, deepseek-v2-236b and recurrentgemma-9b
 (``configs.base.check_trainable``).  It runs on ``cuda`` unless
 ``--device`` names another device; on the card every attention layer
 takes the flash kernels (forward and backward; MLA's at qk 192 / v 128,
-recurrentgemma's local layers at hd 256 over their window), every RWKV6
+recurrentgemma's local layers at hd 256 over their window, gemma2's
+local and global layers at hd 256 under its softcap), every RWKV6
 layer the WKV6 kernels and every RG-LRU layer the RG-LRU scan's kernels
 (forward and backward).  Compute is bf16 at full width and fp32 under ``--reduced``, as
 in the reference's executor; the master weights and moments take the

@@ -1,7 +1,9 @@
 """Model assembly: embedding → decoder blocks → logits (the reference's
 ``models/model.py``): training, and serving over the paged cache.  A block is
 GQA attention (global or sliding-window) or MLA + a dense or MoE FFN, the
-RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix.
+RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix; under gemma2's
+``use_post_block_norm`` each of the two outputs passes a norm of its own
+before it joins the residual, and its logits pass the final softcap.
 
 Modes
 -----
@@ -32,7 +34,9 @@ from repro_torch.configs.base import (
     check_trainable,
 )
 from repro_torch.models.attention import gqa_attention, mla_attention
-from repro_torch.models.layers import Ctx, dense_ffn, resolve_device, rms_norm
+from repro_torch.models.layers import (
+    Ctx, dense_ffn, resolve_device, rms_norm, softcap,
+)
 from repro_torch.models.moe import check_row_length, moe_ffn
 from repro_torch.models.recurrent import rglru_block
 from repro_torch.models.rwkv import rwkv_channel_mix, rwkv_time_mix
@@ -81,11 +85,12 @@ def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
 
 
 def _unembed(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
-    """Final norm, tied or untied head, fp32 logits; vocabulary-padding ids
-    get -1e9."""
+    """Final norm, tied or untied head, fp32 logits, the final-logit
+    softcap (gemma2; before the padding mask, as in the reference);
+    vocabulary-padding ids get -1e9."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ table.to(h.dtype)).float()
+    logits = softcap((h @ table.to(h.dtype)).float(), cfg.final_logit_softcap)
     pad = torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab_size
     return torch.where(pad, logits, -1e9)
 
@@ -121,6 +126,14 @@ def _remat(fn, policy: str):
     raise ValueError(f"remat_policy {policy!r}: none, dots or full")
 
 
+def _post(cfg: ModelConfig, blk: Tree, name: str,
+          y: torch.Tensor) -> torch.Tensor:
+    """A mixer's or FFN's output through its post-block norm ``name``
+    where the layer has one (gemma2), as it joins the residual (the
+    reference's ``_post``)."""
+    return rms_norm(y, blk[name], cfg.norm_eps) if name in blk else y
+
+
 def _attend(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
             pos: torch.Tensor, kind: str = GLOBAL_ATTN) -> torch.Tensor:
     """The residual stream after a layer's attention, no cache (train
@@ -133,7 +146,7 @@ def _attend(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
     else:
         y, _ = gqa_attention(cfg, blk["attn"], x, kind=kind, mode="full",
                              cache=None, pos=pos)
-    return h + y
+    return h + _post(cfg, blk, "post_norm", y)
 
 
 def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
@@ -142,7 +155,8 @@ def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
     no cache (train mode)."""
     h = _attend(cfg, blk, h, pos, kind)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-    return h + dense_ffn(blk["ffn"], x, cfg.act)
+    return h + _post(cfg, blk, "post_ffn_norm",
+                     dense_ffn(blk["ffn"], x, cfg.act))
 
 
 def _moe_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
@@ -153,7 +167,7 @@ def _moe_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
     h = _attend(cfg, blk, h, pos)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     y, aux = moe_ffn(cfg, blk["moe"], x, mode="train")
-    return h + y, aux
+    return h + _post(cfg, blk, "post_ffn_norm", y), aux
 
 
 def _recurrent_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
@@ -163,9 +177,10 @@ def _recurrent_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
     prefill."""
     x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
     y, _ = rglru_block(cfg, blk["rec"], x, ctx, mode="full", cache=None)
-    h = h + y
+    h = h + _post(cfg, blk, "post_norm", y)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-    return h + dense_ffn(blk["ffn"], x, cfg.act)
+    return h + _post(cfg, blk, "post_ffn_norm",
+                     dense_ffn(blk["ffn"], x, cfg.act))
 
 
 def _rwkv_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
@@ -174,10 +189,10 @@ def _rwkv_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
     each after its norm and added to the residual, as in prefill."""
     x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
     y, _ = rwkv_time_mix(cfg, blk["tm"], x, ctx, mode="full", cache=None)
-    h = h + y
+    h = h + _post(cfg, blk, "post_norm", y)
     x = rms_norm(h, blk["cm_norm"], cfg.norm_eps)
     y, _ = rwkv_channel_mix(cfg, blk["cm"], x, ctx, mode="full", cache=None)
-    return h + y
+    return h + _post(cfg, blk, "post_ffn_norm", y)
 
 
 def forward_train(cfg: ModelConfig, params: Tree,
@@ -289,7 +304,7 @@ def forward(
         if kind == RWKV:
             y, lc = rwkv_time_mix(cfg, blk["tm"], x, ctx, mode=amode,
                                   cache=lc, lengths=lengths)
-            h = h + y
+            h = h + _post(cfg, blk, "post_norm", y)
             x = rms_norm(h, blk["cm_norm"], cfg.norm_eps)
             y, lc = rwkv_channel_mix(cfg, blk["cm"], x, ctx, mode=amode,
                                      cache=lc, lengths=lengths)
@@ -306,11 +321,14 @@ def forward(
                 y, lc = gqa_attention(cfg, blk["attn"], x, kind=kind,
                                       mode=amode, cache=lc, pos=p_arr,
                                       lengths=lengths)
-        h = h + y
-        if kind != RWKV:
+        if kind == RWKV:                 # y is the channel mix
+            h = h + _post(cfg, blk, "post_ffn_norm", y)
+        else:
+            h = h + _post(cfg, blk, "post_norm", y)
             x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
-            h = h + (moe_ffn(cfg, blk["moe"], x) if "moe" in blk
-                     else dense_ffn(blk["ffn"], x, cfg.act))
+            y = moe_ffn(cfg, blk["moe"], x) if "moe" in blk \
+                else dense_ffn(blk["ffn"], x, cfg.act)
+            h = h + _post(cfg, blk, "post_ffn_norm", y)
         if cache is not None:
             for name in leaves:
                 cache[name][j] = lc[name]

@@ -171,28 +171,38 @@ class Block(nn.Module):
     """One decoder layer of ``kind``: pre-norm temporal mixer (attention,
     GQA or MLA, global or local, or the RG-LRU block) + pre-norm FFN
     (dense, or MoE past the first ``first_k_dense`` layers of an MoE
-    config), or (RWKV) pre-norm time-mix + pre-norm channel-mix."""
+    config), or (RWKV) pre-norm time-mix + pre-norm channel-mix.  Under
+    ``use_post_block_norm`` (gemma2) the mixer's and the FFN's outputs
+    also pass a norm, ``post_norm`` and ``post_ffn_norm``, before they
+    join the residual (the reference's ``_post``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None, *,
                  dense_ffn: bool = True):
         super().__init__()
-        self.pre_norm = _leaf((cfg.d_model,), device)
+        D = cfg.d_model
+        self.pre_norm = _leaf((D,), device)
         if kind == RWKV:
             self.tm = TimeMix(cfg, device)
-            self.cm_norm = _leaf((cfg.d_model,), device)
+            if cfg.use_post_block_norm:
+                self.post_norm = _leaf((D,), device)
+            self.cm_norm = _leaf((D,), device)
             self.cm = ChannelMix(cfg, device)
-            return
-        if kind == RECURRENT:
-            self.rec = RGLRU(cfg, device)
-        elif cfg.use_mla:
-            self.attn = MLA(cfg, device)
         else:
-            self.attn = Attention(cfg, device)
-        self.ffn_norm = _leaf((cfg.d_model,), device)
-        if dense_ffn:
-            self.ffn = DenseFFN(cfg, device)
-        else:
-            self.moe = MoEFFN(cfg, device)
+            if kind == RECURRENT:
+                self.rec = RGLRU(cfg, device)
+            elif cfg.use_mla:
+                self.attn = MLA(cfg, device)
+            else:
+                self.attn = Attention(cfg, device)
+            if cfg.use_post_block_norm:
+                self.post_norm = _leaf((D,), device)
+            self.ffn_norm = _leaf((D,), device)
+            if dense_ffn:
+                self.ffn = DenseFFN(cfg, device)
+            else:
+                self.moe = MoEFFN(cfg, device)
+        if cfg.use_post_block_norm:
+            self.post_ffn_norm = _leaf((D,), device)
 
 
 class Model(nn.Module):

@@ -154,6 +154,8 @@ FLASH_CASES = [
     (1, 260, 4, 4, 128, True, 0, 0.0),     # G 1
     (1, 260, 16, 1, 128, True, 0, 0.0),    # G 16
     (1, 300, 6, 2, 128, True, 64, 30.0),   # softcap with a window
+    (1, 300, 10, 2, 128, True, 0, 0.0),    # qwen2.5's G 5
+    (1, 257, 24, 2, 128, True, 0, 0.0),    # mistral-large's G 12
 ]
 
 
@@ -944,6 +946,10 @@ BWD_CASES = [
     # more work items than an H100 runs at once (256 dK/dV, 512 dQ on 132
     # SMs): the persistent loops and the rings' phases wrap
     (2, 2048, 16, 8, 128, True, 0, 0.0),
+    # qwen2.5's G 5 and mistral-large's G 12, ragged
+    (1, 300, 10, 2, 128, True, 0, 0.0),
+    (1, 257, 24, 2, 128, True, 0, 0.0),
+    (1, 1000, 40, 8, 128, True, 0, 0.0),
 ]
 
 
@@ -1148,40 +1154,93 @@ def test_flash_wrappers_refuse_other_unequal_pairs_and_mla_softcaps(cuda):
 
 
 def test_flash_backward_wrapper_refuses_hd256(cuda):
-    """hd 256 trains without a softcap (recurrentgemma); a softcap there
-    (gemma2) and an unequal pair at 256 are refused before any launch."""
-    x = torch.zeros(1, 64, 2, 256, device=cuda, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 64, device=cuda)
+    """hd 256 trains with a softcap (gemma2) as without one
+    (recurrentgemma): the wrapper takes it and launches once, within the
+    tolerance of the plain version; an unequal pair at 256 is refused
+    before any launch."""
+    rng = np.random.default_rng(2)
+    x, k, v, do = (_randn(rng, (1, 64, n, 256), cuda, torch.bfloat16)
+                   for n in (2, 1, 1, 2))
+    kw = dict(scale=0.0625, causal=True, window=0, logit_cap=30.0)
+    o, lse = fa.flash_attention_torch(x, k, v, return_lse=True, **kw)
     before = ops.launches["flash_attention_bwd"]
-    with pytest.raises(ValueError, match="softcap"):
-        ops.flash_attention_bwd(x, x, x, x, lse, x, scale=0.0625,
-                                logit_cap=30.0)
-    v = x[..., :128].contiguous()
+    got = ops.flash_attention_bwd(x, k, v, o, lse, do, **kw)
+    plain = fa.flash_attention_bwd_torch(x, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == before + 1
+    for g, p in zip(got, plain):
+        assert _within(g, p, _bwd_tol(p, torch.bfloat16))
+    v2 = x[..., :128].contiguous()
     with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention_bwd(x, x, v, v, lse, v, scale=0.0625)
-    assert ops.launches["flash_attention_bwd"] == before
+        ops.flash_attention_bwd(x, x, v2, v2, lse, v2, scale=0.0625)
+    assert ops.launches["flash_attention_bwd"] == before + 1
 
 
 # recurrentgemma's local layers: MQA (K 1, G 16) at hd 256 with a window;
 # also K 8, G 2, around the window's edge and past it, and a window of 100
-# at B 2, S 1,000 (its edge cuts the dK/dV kernel's 64-row stages)
-FLASH_BWD_HD256_CASES = [(1, S, 16, 1, 64) for S in (1, 31, 77, 129, 300)] \
-    + [(1, 1000, 16, 1, 512), (2, 257, 16, 8, 100), (1, 2049, 16, 1, 2048),
-       (2, 1000, 16, 1, 100)]
+# at B 2, S 1,000 (its edge cuts the dK/dV kernel's 64-row stages).
+# gemma2's layers: K 8, G 2 under its softcap of 50 (scale 1/16), local
+# (a window) and global (none), ragged; a cap that binds at unit scores
+# (2); MQA under the cap, so the kv_split parts see it
+FLASH_BWD_HD256_CASES = [(1, S, 16, 1, 64, 0.0)
+                         for S in (1, 31, 77, 129, 300)] \
+    + [(1, 1000, 16, 1, 512, 0.0), (2, 257, 16, 8, 100, 0.0),
+       (1, 2049, 16, 1, 2048, 0.0), (2, 1000, 16, 1, 100, 0.0),
+       (1, 1000, 16, 8, 0, 50.0), (2, 257, 16, 8, 100, 50.0),
+       (1, 300, 16, 8, 64, 2.0), (1, 300, 16, 1, 64, 2.0),
+       (1, 77, 16, 8, 0, 50.0)]
+
+
+def _bwd_without_dcap(q, k, v, o, lse, do, *, scale, causal, window,
+                      logit_cap, kv_block=64):
+    """The plain backward with the softcap's factor 1 - tanh^2 dropped from
+    dS (P keeps the cap): a planted fault, what a kernel that forgot the
+    factor would give (``chip_smoke.py:bwd_without_dcap``, keep equal)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf = q.reshape(B, S, K, G, hd).float()
+    dof = do.reshape(B, S, K, G, hd).float()
+    lse_g = lse.permute(0, 2, 1).reshape(B, S, K, G)
+    delta = (dof * o.reshape(B, S, K, G, hd).float()).sum(-1)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, S, K, hd), device=q.device)
+    dv = torch.zeros((B, S, K, hd), device=q.device)
+    pq = torch.arange(S, device=q.device)[:, None]
+    for t0 in range(0, S, kv_block):
+        t1 = min(t0 + kv_block, S)
+        kc, vc = k[:, t0:t1].float(), v[:, t0:t1].float()
+        s = torch.einsum("bskgd,btkd->bskgt", qf, kc) * scale
+        s = logit_cap * torch.tanh(s / logit_cap)
+        pk = torch.arange(t0, t1, device=q.device)[None, :]
+        live = (pk <= pq) if causal else torch.ones_like(pq - pk, dtype=bool)
+        if window:
+            live = live & (pq - pk < window)
+        p = torch.where(live[None, :, None, None, :],
+                        torch.exp(s - lse_g[..., None]), 0.0)
+        dv[:, t0:t1] = torch.einsum("bskgt,bskgd->btkd", p, dof)
+        ds = p * (torch.einsum("bskgd,btkd->bskgt", dof, vc)
+                  - delta[..., None])
+        dq += torch.einsum("bskgt,btkd->bskgd", ds, kc) * scale
+        dk[:, t0:t1] = torch.einsum("bskgt,bskgd->btkd", ds, qf) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,window", FLASH_BWD_HD256_CASES)
-def test_flash_backward_at_hd256_matches_plain(cuda, dt, B, S, H, K, window):
+@pytest.mark.parametrize("B,S,H,K,window,cap", FLASH_BWD_HD256_CASES)
+def test_flash_backward_at_hd256_matches_plain(cuda, dt, B, S, H, K, window,
+                                               cap):
     """The backward at hd 256 (dK/dV items split over parts of the q
-    heads, their fp32 partials summed) within the tile-scaled tolerance,
-    two calls bit-equal, one wrapper call counted; the forward's lse
-    within 1e-5 of max(1, |lse|)."""
+    heads, their fp32 partials summed; under a softcap consumer 0 hands
+    P^T (1 - tanh^2) over) within the tile-scaled tolerance, two calls
+    bit-equal, one wrapper call counted; the forward's lse within 1e-5 of
+    max(1, |lse|)."""
     rng = np.random.default_rng(S + K + window)
     hd = 256
     q, k, v, do = (_randn(rng, (B, S, n, hd), cuda, dt)
                    for n in (H, K, K, H))
-    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=0.0)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=cap)
     o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
     _, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     before = ops.launches["flash_attention_bwd"]
@@ -1218,6 +1277,40 @@ def test_flash_backward_tolerance_rejects_planted_faults_at_hd256(cuda):
     tile[:, (S - 1) // 64 * 64:] = 0
     faults = [(ops.flash_attention_bwd(q, k, v, o, lse, head, **kw), (1, 2)),
               (ops.flash_attention_bwd(q, k, v, o, lse, tile, **kw), (1, 2))]
+    for ww in (w - 1, w + 1):
+        faults.append((ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                               **dict(kw, window=ww)),
+                       (0, 1, 2)))
+    for wrong, held in faults:
+        assert max(_tol_used(wrong[j], plain[j], tols[j])
+                   for j in held) >= 10
+
+
+def test_flash_backward_tolerance_rejects_planted_faults_at_hd256_with_a_softcap(
+        cuda):
+    """gemma2's local layers (K 8, G 2, window 64 under S 300, its cap of
+    50, q drawn 40 times wider so that the scores spread over the cap's
+    bend: tanh(s / 50) of about 0.8 a standard deviation): the tolerance
+    rejects, at least 10 times over, a q head or the last q tile dropped
+    from dK and dV, the window's frontier one key off, and the softcap's
+    factor 1 - tanh^2 dropped from dS."""
+    B, S, H, K, hd, w = 1, 300, 16, 8, 256, 64
+    rng = np.random.default_rng(13)
+    kw = dict(scale=hd ** -0.5, causal=True, window=w, logit_cap=50.0)
+    q, k, v, do = (_randn(rng, (B, S, n, hd), cuda, torch.bfloat16)
+                   for n in (H, K, K, H))
+    q = (q.float() * 40).bfloat16()
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    tols = [_bwd_tol(p, torch.bfloat16) for p in plain]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(_within(g, p, t) for g, p, t in zip(got, plain, tols))
+    head, tile = do.clone(), do.clone()
+    head[:, :, 1::2] = 0
+    tile[:, (S - 1) // 64 * 64:] = 0
+    faults = [(ops.flash_attention_bwd(q, k, v, o, lse, head, **kw), (1, 2)),
+              (ops.flash_attention_bwd(q, k, v, o, lse, tile, **kw), (1, 2)),
+              (_bwd_without_dcap(q, k, v, o, lse, do, **kw), (0, 1))]
     for ww in (w - 1, w + 1):
         faults.append((ops.flash_attention_bwd(q, k, v, o, lse, do,
                                                **dict(kw, window=ww)),

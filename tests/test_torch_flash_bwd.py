@@ -269,11 +269,13 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
     """The bf16 kernels' arithmetic, walking the plan's items: scores and
     dP from bf16 operands with fp32 sums; P = 2^(s scale log2 e - lse log2
     e) (under a softcap 2^(tanh(s scale / cap) cap log2 e - lse log2 e));
-    dS = P (dP - D) (times 1 - tanh^2); P^T and dS^T rounded to bf16 for
-    dV += P^T dO, dK += dS^T Q and dQ += dS K; each output scaled and
-    rounded to bf16 once.  At hd 256 an item sums its part of the group's q
-    heads and the parts' fp32 sums are added in part order before the
-    rounding.  Returns (dq, dk, dv) in bf16; an element no item writes
+    dS = P (dP - D) (times 1 - tanh^2: ((dP - D)(1 - tanh^2)) P, but in
+    the hd-256 dK/dV kernel, whose consumer 0 hands P^T (1 - tanh^2) to
+    consumer 1, which multiplies it by dP^T - D); P^T and dS^T rounded to
+    bf16 for dV += P^T dO, dK += dS^T Q and dQ += dS K; each output scaled
+    and rounded to bf16 once.  At hd 256 an item sums its part of the
+    group's q heads and the parts' fp32 sums are added in part order before
+    the rounding.  Returns (dq, dk, dv) in bf16; an element no item writes
     stays NaN."""
     B, S, H, hd = q.shape
     K, hdv = k.shape[2], v.shape[3]
@@ -291,11 +293,12 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
             ok &= rows[:, None] - keys[None, :] < window
         return ok
 
-    def p_ds(s, dp, l2r, dr, ok):
+    def p_ds(s, dp, l2r, dr, ok, handed=False):
         if logit_cap:
             th = torch.tanh(s * (scale / logit_cap))
             p = torch.exp2(th * (logit_cap * LOG2E) - l2r)
-            ds = p * (dp - dr) * (1.0 - th * th)
+            ds = (p * (1.0 - th * th)) * (dp - dr) if handed \
+                else ((dp - dr) * (1.0 - th * th)) * p
         else:
             p = torch.exp2(s * (scale * LOG2E) - l2r)
             ds = p * (dp - dr)
@@ -320,7 +323,8 @@ def _emulate_bf16_route(q, k, v, o, lse, do, plan, *, scale, causal, window,
                 dpt = vf[b, k0:k1, kh] @ dof[b, q0:q1, h].T   # dP^T
                 p, ds = p_ds(st, dpt, l2[b, h, q0:q1][None, :],
                              dd[b, q0:q1, h][None, :],
-                             live(pos[q0:q1], pos[k0:k1]).T)
+                             live(pos[q0:q1], pos[k0:k1]).T,
+                             handed=plan["bc"] == fa.BWD_BC_SPLIT)
                 acc_v += _bf(p) @ dof[b, q0:q1, h]
                 acc_k += _bf(ds) @ qf[b, q0:q1, h]
         parts.setdefault((b, kh, k0, k1), [None] * split)[part] = \
@@ -599,18 +603,96 @@ def test_bf16_route_emulation_at_hd256_stays_within_the_card_tolerance(S, G):
 
 
 def test_backward_wrapper_refuses_a_softcap_at_hd256():
-    """hd 256 trains without a softcap (recurrentgemma); gemma2's
-    softcapped hd 256 is refused on the card before any launch.  The CPU
-    takes the plain version, which has the softcap."""
+    """hd 256 trains with a softcap (gemma2's local and global layers) as
+    it does without one (recurrentgemma): the card's wrapper takes the cap
+    there and refuses it only at MLA's unequal pair, before any launch.
+    On the CPU the wrapper is the plain version, cap and all."""
     q = torch.zeros(1, 16, 2, 256, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 16)
+    ops._flash_pair("flash_attention_bwd", q, q, dict(logit_cap=50.0),
+                    fa.BWD_HEAD_DIM_PAIRS)
     with pytest.raises(ValueError, match="softcap"):
-        ops._flash_pair("flash_attention_bwd", q, q,
-                        dict(logit_cap=30.0), fa.BWD_HEAD_DIM_PAIRS,
-                        uncapped=((256, 256),))
-    ops._flash_pair("flash_attention_bwd", q, q, dict(logit_cap=0.0),
-                    fa.BWD_HEAD_DIM_PAIRS, uncapped=((256, 256),))
-    got = ops.flash_attention_bwd(q, q[:, :, :1], q[:, :, :1], q, lse, q,
-                                  scale=0.0625, logit_cap=30.0)
-    assert [g.shape for g in got] == [q.shape, (1, 16, 1, 256),
-                                      (1, 16, 1, 256)]
+        ops._flash_pair("flash_attention_bwd", q[..., :192], q[..., :128],
+                        dict(logit_cap=50.0), fa.BWD_HEAD_DIM_PAIRS)
+    qf, kf, vf, dof = (torch.from_numpy(a) for a in
+                       _inputs(1, 40, 1, 2, 256, seed=9))
+    kw = dict(scale=0.0625, causal=True, window=16, logit_cap=2.0)
+    o, lse = fa.flash_attention_torch(qf, kf, vf, return_lse=True, **kw)
+    got = ops.flash_attention_bwd(qf, kf, vf, o, lse, dof, **kw)
+    want = fa.flash_attention_bwd_torch(qf, kf, vf, o, lse, dof, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+HD256_CAP_CASES = [
+    # S, K, G, window, cap: gemma2's G 2 with a window and without; MQA's
+    # G 16, whose items split the q heads into parts (kv_split > 1); caps
+    # that bind at unit scores (2) and gemma2's 50
+    (77, 2, 2, 32, 2.0),
+    (130, 2, 2, 0, 2.0),
+    (200, 1, 16, 64, 2.0),
+    (130, 2, 2, 64, 50.0),
+]
+
+
+def _cap_ids(c):
+    S, K, G, window, cap = c
+    return f"S{S}-K{K}-G{G}-w{window}-cap{cap:g}"
+
+
+@pytest.mark.parametrize("case", HD256_CAP_CASES, ids=_cap_ids)
+def test_plain_backward_at_hd256_with_a_softcap_matches_jax_grad(case):
+    """gemma2's softcap at hd 256: the plain backward against ``jax.grad``
+    of ``flash_attention_jnp`` and autograd of the plain forward, within
+    1e-5 of each gradient's largest magnitude."""
+    S, K, G, window, cap = case
+    q, k, v, do = _inputs(1, S, K, G, 256, seed=S + G)
+    kw = dict(scale=256 ** -0.5, causal=True, window=window, logit_cap=cap)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_jnp(a, b, c, **kw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    auto = torch.autograd.grad(fa.flash_attention_torch(qt, kt, vt, **kw),
+                               (qt, kt, vt), torch.from_numpy(do))
+    o, lse = fa.flash_attention_torch(*(torch.from_numpy(a) for a in
+                                        (q, k, v)), return_lse=True, **kw)
+    got = fa.flash_attention_bwd_torch(
+        *(torch.from_numpy(a) for a in (q, k, v)), o, lse,
+        torch.from_numpy(do), **kw)
+    for name, g, w, a in zip("qkv", got, want, auto):
+        _close(g.numpy(), w, f"d{name} vs jax.grad")
+        _close(g.numpy(), a.numpy(), f"d{name} vs autograd")
+
+
+@pytest.mark.parametrize("case", HD256_CAP_CASES, ids=_cap_ids)
+def test_bf16_route_emulation_at_hd256_with_a_softcap_stays_within_the_card_tolerance(
+        case):
+    """The bf16 kernels' arithmetic at hd 256 under a softcap: the dK/dV
+    kernel's consumer 0 hands P^T (1 - tanh^2) over and consumer 1
+    multiplies it by dP^T - D; the dQ kernel forms ((dP - D)(1 - tanh^2))
+    P.  Walking the plan (the same as without the cap), against the plain
+    backward and ``jax.grad``, within the card's tolerance; the plan's
+    tiles and layout are those of the uncapped plan."""
+    S, K, G, window, cap = case
+    B, hd = 1, 256
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, logit_cap=cap)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(B, S, K, G, hd, seed=7 + S))
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plan = fa.flash_bwd_plan(B, S, K * G, K, hd, True, window, n_sm=3,
+                             softcap=True)
+    uncapped = fa.flash_bwd_plan(B, S, K * G, K, hd, True, window, n_sm=3)
+    assert plan["fields"] == uncapped["fields"]
+    assert plan["work"] == uncapped["work"]
+    assert G == 2 or plan["kv_split"] > 1
+    got = _emulate_bf16_route(q, k, v, o, lse, do, plan, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_jnp(a, b, c, **kw),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for name, g, p, w in zip("qkv", got, plain, want):
+        assert not torch.isnan(g.float()).any(), f"d{name}: unwritten"
+        for what, r in (("plain", p.float()),
+                        ("jax.grad", torch.from_numpy(np.array(w)))):
+            over = (g.float() - r).abs() / _card_tol(r)
+            assert float(over.max()) <= 1.0, \
+                f"d{name} vs {what}: {float(over.max()):.3f} of the tolerance"

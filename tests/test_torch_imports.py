@@ -132,19 +132,25 @@ def test_recurrentgemma_entry_points_need_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("over,what", [
     (dict(block_pattern=("recurrent", "global")), "block kinds"),
-    (dict(block_pattern=("global", "local")), "block kinds"),
+    (dict(block_pattern=("recurrent", "local", "global")), "block kinds"),
     (dict(window_size=0), "local layers without a window"),
-    (dict(attn_logit_softcap=50.0), "softcaps"),
-    (dict(query_pre_attn_scalar=256.0), "query_pre_attn_scalar"),
-    (dict(use_post_block_norm=True), "post-block norms"),
-], ids=["recurrent+global", "global+local", "no-window", "softcap",
-        "query-scalar", "post-norms"])
+    (dict(frontend="vision", frontend_tokens=4), "the vision frontend"),
+    (dict(is_encoder_decoder=True, num_encoder_layers=2), "encoder-decoder"),
+    (dict(num_experts=4, num_experts_per_tok=2, moe_d_ff=32),
+     "MoE on a stack that is not all-global"),
+], ids=["recurrent+global", "recurrent+local+global", "no-window",
+        "frontend", "encoder-decoder", "moe"])
 def test_hybrid_stack_refuses_what_the_port_lacks(over, what):
-    """The RG-LRU + local-attention mix and the √d embedding scale are
-    ported; a global layer in the mix, a window-less local layer and the
-    other gemma2 features are not, each named in the refusal."""
+    """The RG-LRU + local-attention mix, the √d embedding scale and
+    gemma2's features (softcaps, ``query_pre_attn_scalar``, post-block
+    norms) are ported; a global layer beside a recurrent one, a
+    window-less local layer, a frontend, an encoder-decoder and an MoE FFN
+    on the mix are not, each named in the refusal."""
     base = get_config("recurrentgemma-9b").reduced()
     build_model(base, device="cpu")
+    build_model(dataclasses.replace(
+        base, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+        query_pre_attn_scalar=256.0, use_post_block_norm=True), device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         build_model(dataclasses.replace(base, **over), device="cpu")
 
@@ -178,14 +184,17 @@ def test_serve_cli_rejects_bad_flags():
 
 
 def test_unported_configs_raise_at_build():
-    assert list_configs() == ("deepseek-v2-236b", "granite-moe-1b-a400m",
-                              "paper-overhead-100m", "qwen3-0.6b",
-                              "recurrentgemma-9b", "rwkv6-7b")
+    assert list_configs() == ("deepseek-v2-236b", "gemma2-9b",
+                              "granite-moe-1b-a400m", "mistral-large-123b",
+                              "paper-overhead-100m", "qwen2.5-32b",
+                              "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b")
     base = get_config("qwen3-0.6b").reduced()
-    for over in (dict(window_size=8), dict(use_post_block_norm=True),
+    for over in (dict(window_size=8),
+                 dict(block_pattern=("recurrent", "global")),
                  dict(frontend="vision"), dict(block_pattern=("recurrent",)),
                  dict(is_encoder_decoder=True), dict(frontend="audio"),
-                 dict(attn_logit_softcap=50.0),
+                 dict(block_pattern=("recurrent", "local", "global"),
+                      window_size=8),
                  dict(use_mla=True, kv_lora_rank=16,
                       block_pattern=("global", "local"), window_size=8)):
         cfg = dataclasses.replace(base, **over)
@@ -195,4 +204,4 @@ def test_unported_configs_raise_at_build():
     with pytest.raises(NotImplementedError, match="later slice"):
         init_cache(base, 2, 16, device="cpu")
     with pytest.raises(KeyError, match="later slices"):
-        get_config("gemma2-9b")
+        get_config("internvl2-76b")

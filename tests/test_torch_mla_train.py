@@ -179,13 +179,11 @@ def test_flash_wrappers_refuse_mismatched_shapes_and_pairs():
             ops._flash_pair(name, torch.zeros(1, 1, 1, 192),
                             torch.zeros(1, 1, 1, 128),
                             dict(mla, logit_cap=30.0), pairs)
-    # hd 256 trains without a softcap (recurrentgemma); the backward
-    # refuses one there (gemma2's slice)
+    # hd 256 trains with a softcap too (gemma2): only MLA's pair refuses
     assert (256, 256) in fa.BWD_HEAD_DIM_PAIRS
-    with pytest.raises(ValueError, match="softcap"):
-        ops._flash_pair("bwd", torch.zeros(1, 1, 1, 256),
-                        torch.zeros(1, 1, 1, 256), dict(mla, logit_cap=30.0),
-                        fa.BWD_HEAD_DIM_PAIRS, uncapped=((256, 256),))
+    ops._flash_pair("bwd", torch.zeros(1, 1, 1, 256),
+                    torch.zeros(1, 1, 1, 256), dict(mla, logit_cap=30.0),
+                    fa.BWD_HEAD_DIM_PAIRS)
     assert fa.MLA_PAIR in fa.BWD_HEAD_DIM_PAIRS
 
 

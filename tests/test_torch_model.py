@@ -33,13 +33,19 @@ from repro_torch.models.params import Model, cast_params, count_params  # noqa: 
 ATOL = 1e-4
 CPU = torch.device("cpu")
 
-# the two dense configs at .reduced(), and paper-overhead narrowed with its
-# own G = 3 kept (its .reduced() has G = 2)
+# the dense configs at .reduced(), and paper-overhead, qwen2.5-32b and
+# mistral-large-123b narrowed with their own groups kept (G 3, 5 and 12;
+# .reduced() makes every group 2); qwen2.5's qkv bias comes along
 CASES = {
     "qwen3": ("qwen3-0.6b", {}),
     "paper": ("paper-overhead-100m", {}),
     "paper-g3": ("paper-overhead-100m", dict(num_heads=6, num_kv_heads=2)),
+    "qwen2.5-g5": ("qwen2.5-32b", dict(num_heads=10, num_kv_heads=2)),
+    "mistral-g12": ("mistral-large-123b", dict(num_heads=24,
+                                               num_kv_heads=2)),
 }
+DENSE_ARCHS = ("qwen3-0.6b", "paper-overhead-100m", "qwen2.5-32b",
+               "mistral-large-123b", "gemma2-9b")
 
 
 def _configs(arch, narrow):
@@ -92,7 +98,7 @@ def _table(B, pps):
 
 
 def test_configs_are_faithful_copies():
-    for arch in ("qwen3-0.6b", "paper-overhead-100m"):
+    for arch in DENSE_ARCHS:
         for rcfg, tcfg in ((ref_get_config(arch), get_config(arch)),
                            _configs(arch, {})):
             assert dataclasses.asdict(rcfg) == dataclasses.asdict(tcfg)
@@ -103,7 +109,7 @@ def test_configs_are_faithful_copies():
             assert rcfg.layer_kinds() == tcfg.layer_kinds()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "paper-overhead-100m"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_count_params_matches_reference_at_full_width(arch):
     from repro.models.params import count_params as ref_count
 
@@ -200,7 +206,8 @@ def test_chunked_prefill_matches_reference(pair):
 
 def test_unported_configs_raise():
     base = get_config("qwen3-0.6b").reduced()
-    for over in (dict(window_size=8), dict(use_post_block_norm=True),
+    for over in (dict(window_size=8),
+                 dict(block_pattern=("recurrent", "global")),
                  dict(num_experts=4, block_pattern=("rwkv",)),
                  dict(block_pattern=("recurrent",)),
                  dict(is_encoder_decoder=True), dict(frontend="vision"),

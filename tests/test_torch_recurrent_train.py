@@ -535,16 +535,16 @@ def test_cli_trains_recurrentgemma_on_the_cpu(capsys):
 
 
 def test_check_trainable_takes_the_hybrid_and_refuses_the_rest_by_name():
-    """recurrentgemma trains, full and reduced; softcaps (gemma2), a mix
-    of local and global layers, encoder-decoders and frontends are
-    refused by name."""
+    """recurrentgemma trains, full and reduced; a mix of recurrent and
+    global layers (alone or beside local ones), encoder-decoders and
+    frontends are refused by name."""
     check_trainable(get_config(ARCH))
     check_trainable(get_config(ARCH).reduced())
     base = get_config(ARCH).reduced()
-    for over, what in ((dict(attn_logit_softcap=30.0), "softcaps"),
-                       (dict(final_logit_softcap=30.0), "softcaps"),
-                       (dict(block_pattern=("local", "global")),
-                        r"block kinds \['global', 'local'\]"),
+    for over, what in ((dict(block_pattern=("recurrent", "global")),
+                        r"block kinds \['global', 'recurrent'\]"),
+                       (dict(block_pattern=("recurrent", "local", "global")),
+                        r"block kinds \['global', 'local', 'recurrent'\]"),
                        (dict(is_encoder_decoder=True, num_encoder_layers=2),
                         "encoder-decoder"),
                        (dict(frontend="vision", frontend_tokens=4),

@@ -272,9 +272,9 @@ def test_mixer_gradients_match_jax_grad(mixer, N):
         else ref_rwkv.rwkv_channel_mix
     tfn = port_rwkv.rwkv_time_mix if mixer == "time" \
         else port_rwkv.rwkv_channel_mix
-    want = jax.grad(lambda p, x: (rfn(rcfg, p, x, RCTX, mode="full",
-                                      cache=None)[0] * w).sum(),
-                    argnums=(0, 1))(rp, jnp.asarray(x))
+    want = jax.jit(jax.grad(lambda p, x: (rfn(rcfg, p, x, RCTX, mode="full",
+                                              cache=None)[0] * w).sum(),
+                            argnums=(0, 1)))(rp, jnp.asarray(x))
     tp = {n: _t(_np(a)).requires_grad_(True) for n, a in rp.items()}
     xt = _t(x).requires_grad_(True)
     y, _ = tfn(tcfg, tp, xt, CTX, mode="full", cache=None)
@@ -306,8 +306,9 @@ def test_loss_and_gradients_match_reference_by_tree_path(case):
     rb, tb = _batch(rcfg)
     rb["labels"][0, :5] = -1
     tb["labels"][0, :5] = -1
-    (rloss, _), rgrads = jax.value_and_grad(
-        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True)(rparams)
+    (rloss, _), rgrads = jax.jit(jax.value_and_grad(
+        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True))(
+        rparams)
     names, leaves = zip(*model.named_parameters())
     loss, _ = steps.loss_fn(tcfg, compute_params(model, torch.float32), tb,
                             CTX)

@@ -57,12 +57,16 @@ CPU = torch.device("cpu")
 CTX = Ctx(device=CPU, dtype=torch.float32)
 RCTX = RefCtx(mesh=None, dtype=jnp.float32)
 
-# as tests/test_torch_model.py: the two dense configs at .reduced(), and
-# paper-overhead narrowed with its own G = 3 kept
+# as tests/test_torch_model.py: the dense configs at .reduced(), and
+# paper-overhead, qwen2.5-32b and mistral-large-123b narrowed with their
+# own groups kept (G 3, 5 and 12; qwen2.5's qkv bias comes along)
 CASES = {
     "qwen3": ("qwen3-0.6b", {}),
     "paper": ("paper-overhead-100m", {}),
     "paper-g3": ("paper-overhead-100m", dict(num_heads=6, num_kv_heads=2)),
+    "qwen2.5-g5": ("qwen2.5-32b", dict(num_heads=10, num_kv_heads=2)),
+    "mistral-g12": ("mistral-large-123b", dict(num_heads=24,
+                                               num_kv_heads=2)),
 }
 
 
@@ -168,7 +172,9 @@ def _run_steps(rcfg, tcfg, n_mb, n_steps=3):
 
 
 @pytest.mark.parametrize("name,n_mb", [("qwen3", 1), ("paper-g3", 1),
-                                       ("paper", 2), ("qwen3", 2)])
+                                       ("paper", 2), ("qwen3", 2),
+                                       ("qwen2.5-g5", 1),
+                                       ("mistral-g12", 2)])
 def test_three_train_steps_match_reference(name, n_mb):
     rcfg, tcfg = _configs(name)
     rstate, tstate, small = _run_steps(rcfg, tcfg, n_mb)
@@ -304,21 +310,26 @@ def test_cli_trains_on_the_cpu_and_needs_a_device_without_a_card(
 
 
 def test_configs_this_slice_does_not_train_are_refused():
-    trained = {"paper-overhead-100m", "qwen3-0.6b", "granite-moe-1b-a400m",
-               "rwkv6-7b", "deepseek-v2-236b", "recurrentgemma-9b"}
+    """Every registered config trains; what the port lacks (a frontend, an
+    encoder-decoder, a recurrent layer mixed with a global one) is
+    refused by name, also when a train state is built."""
+    assert len(list_configs()) == 9
     for arch in list_configs():
-        cfg = get_config(arch)
-        if arch in trained:
-            check_trainable(cfg)
-            continue
-        with pytest.raises(NotImplementedError, match="training slice"):
-            check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            steps.init_train_state(cfg.reduced(), device=CPU)
+        check_trainable(get_config(arch))
     base = get_config("qwen3-0.6b").reduced()
     for over in (dict(attn_logit_softcap=30.0), dict(final_logit_softcap=5.0)):
-        with pytest.raises(NotImplementedError, match="softcaps"):
-            check_trainable(dataclasses.replace(base, **over))
+        check_trainable(dataclasses.replace(base, **over))
+    for over, what in ((dict(frontend="vision", frontend_tokens=4),
+                        "the vision frontend"),
+                       (dict(is_encoder_decoder=True, num_encoder_layers=2),
+                        "encoder-decoder"),
+                       (dict(block_pattern=("recurrent", "global")),
+                        r"block kinds \['global', 'recurrent'\]")):
+        cfg = dataclasses.replace(base, **over)
+        with pytest.raises(NotImplementedError, match=what):
+            check_trainable(cfg)
+        with pytest.raises(NotImplementedError, match=what):
+            steps.init_train_state(cfg, device=CPU)
     with pytest.raises(NotImplementedError, match="compression"):
         steps.make_train_step(base, CTX, RunConfig(grad_compression="int8"))
     run = get_run_config("qwen3-0.6b", "train_4k")
