@@ -79,9 +79,14 @@ Phases, each of which exits non-zero on the first failure:
               G 16, and a case of sharp scores (q 40 times wider) where
               the planted faults include the softcap's 1 - tanh^2 dropped
               from dS; the forward at gemma2's training row and at its
-              serving prefill (B 8, S 3,072).  The planted faults of each
-              of these backward cases at least 10 times over its
-              tolerance.
+              serving prefill (B 8, S 3,072).  The flash forward and
+              backward also at internvl2-76b's training row (B 1, S
+              4,096, H 64, K 8: G 8), bf16 and fp32, ragged (S 1,000), and
+              the forward at its frontend prefill (B 8, S 1,280); the
+              paged decode also at its group (K 8, G 8, hd 128) over the
+              frontend's table and a long one, bf16 and fp32 q.  The
+              planted faults of each of these backward cases at least 10
+              times over its tolerance.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -146,7 +151,16 @@ Phases, each of which exits non-zero on the first failure:
               layer a prefill round, the paged decode once a global layer
               a decode step (gemma2's local layers decode from their rings
               in plain PyTorch), no other kernel, peak memory at most 70
-              GB.
+              GB; then (i) internvl2-76b (10 of 80 layers, G 8) the same
+              way, served text-only as the reference's engine serves it,
+              its prefix cache asked for and turned off, and on the same
+              weights its vision frontend: 8 rows of 256 patch embeddings
+              and ragged prompts up to 1,024 through one ragged prefill
+              and 16 decode steps (the flash kernel once a layer, the
+              paged decode once a layer a step, logits finite), then the
+              same in fp32 on cuda and cpu at 2 layers (d_ff 4,096,
+              vocabulary 16,384; 4 rows of prompts up to 128): live
+              logits within 2e-3, greedy tokens equal but at a tie.
 8. train   -- trains ``paper-overhead-100m`` at full width (12 layers, B 8,
               S 1,024, 30 steps, lr 1e-3, warmup 3), ``qwen3-0.6b`` at
               full width (28 layers, S 4,096, global batch 4 in 2
@@ -179,7 +193,11 @@ Phases, each of which exits non-zero on the first failure:
               microbatches; (t8) mistral-large-123b at 2 layers, B 1;
               (t9) gemma2-9b at 6 layers (three (local, global) pairs, both
               softcaps, the flash backward at hd 256 with its cap), B 4 in
-              its 4 microbatches; peak at most 70 GB, remat checks on one
+              its 4 microbatches; (t10) internvl2-76b at 1 layer, B 1 in 1
+              of its 16, text-only, then one step on a batch of the
+              reference's dry-run shape (256 patch embeddings and 3,840
+              tokens a row: the flash kernels at S 4,096, loss finite);
+              peak at most 70 GB, remat checks on one
               row) in bf16 with fp32 master
               weights (deepseek-v2's bf16), through
               ``repro_torch.launch.train``'s loop (the
@@ -196,12 +214,12 @@ Phases, each of which exits non-zero on the first failure:
               steps/s, tokens/s, MFU and peak
               memory, then one more step under torch.profiler (device busy
               and idle share, device ms by part).  (t5) runs after (t4),
-              (t6) after (t5), (t7)-(t9) after (t6).
+              (t6) after (t5), (t7)-(t10) after (t6).
               Before granite, one
               MoE FFN at its width and shape runs forward and backward
               with ``torch.cuda.set_sync_debug_mode("error")`` (no host
               sync), twice bit-equal.  Then fp32 cuda vs cpu
-              parity of the nine configs at full width and 2 layers (B 2,
+              parity of the ten configs at full width and 2 layers (B 2,
               S 256, 3 steps; deepseek-v2 with 8 experts, d_ff 1,536, a
               vocabulary of 16,384 and B 1; recurrentgemma-9b at 3 layers
               (R, R, L), its window cut to 64 and a vocabulary of 16,384;
@@ -209,7 +227,8 @@ Phases, each of which exits non-zero on the first failure:
               gradients within
               5e-4; qwen2.5-32b, mistral-large-123b (d_ff 4,096) and
               gemma2-9b (one (local, global) pair, window 64) at a
-              vocabulary of 16,384.  Its CPU side runs from right after
+              vocabulary of 16,384; internvl2-76b (d_ff 4,096, vocabulary
+              16,384) on rows of 32 patch embeddings and 224 tokens.  Its CPU side runs from right after
               the build in a second process on 4 of the host's cores (this
               process keeps the others; the host-bound rates taken
               meanwhile say so) and the phase computes the card's side:
@@ -421,13 +440,17 @@ PARITY_CUTS = {"deepseek-v2-236b": dict(num_experts=8, d_ff=1_536,
                "rwkv6-7b": dict(vocab_size=16_384),
                "qwen2.5-32b": dict(vocab_size=16_384),
                "mistral-large-123b": dict(d_ff=4_096, vocab_size=16_384),
-               "gemma2-9b": dict(window_size=64, vocab_size=16_384)}
+               "gemma2-9b": dict(window_size=64, vocab_size=16_384),
+               "internvl2-76b": dict(d_ff=4_096, vocab_size=16_384)}
 PARITY_BATCH = {"deepseek-v2-236b": 1}
 PARITY_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-7b": 1}
+# internvl2-76b's parity batches carry its frontend: 32 patch embeddings
+# and 224 tokens a row of 256
+PARITY_FRONTEND = {"internvl2-76b": 32}
 TRAIN_PARITY_ARCHS = ("paper-overhead-100m", "qwen3-0.6b",
                       "granite-moe-1b-a400m", "rwkv6-7b", "deepseek-v2-236b",
                       "recurrentgemma-9b", "qwen2.5-32b",
-                      "mistral-large-123b", "gemma2-9b")
+                      "mistral-large-123b", "gemma2-9b", "internvl2-76b")
 # The train parity's CPU side runs in a second process (:class:`ParityWorker`)
 # from right after the build, on PARITY_WORKER_CORES of the host's cores
 # (its threads and its affinity), the smoke's own process on the others;
@@ -463,6 +486,27 @@ GEMMA2_SERVE_LAYERS = 40
 QWEN25_TRAIN_LAYERS = 2
 MISTRAL_TRAIN_LAYERS = 2
 GEMMA2_TRAIN_LAYERS = 6
+# internvl2-76b (a Llama-3-70B-class GQA backbone, G 8, under the vision
+# frontend stub): 855.65 M parameters a layer, an untied 1.05 B embedding
+# and head.  (i) serves 10 of its 80 layers, 10.66 B parameters at 6 bytes
+# a parameter (64 GB; (g)'s 10.49 B peaked at 65.35 GB).  (t10) trains 1
+# layer: 2.96 B parameters at 18 bytes a parameter (fp32 master weights
+# and moments, the fp32 gradient, the bf16 copy: 53 GB) and a row's fp32
+# logits, softmax and gradient over 128,256 tokens (about 6 GB); at 2
+# layers the state alone, 3.81 B x 18 bytes = 68.6 GB, would pass
+# PEAK_MEM_LIMIT_GB
+INTERNVL2_SERVE_LAYERS = 10
+INTERNVL2_TRAIN_LAYERS = 1
+# The frontend on the card, after (i): FRONTEND_ROWS rows, each the
+# config's 256 seeded patch embeddings and a ragged prompt of up to
+# FRONTEND_PROMPT tokens, one ragged prefill into a paged cache of 256 +
+# 1,024 + 16 tokens a row, then FRONTEND_STEPS decode steps; its fp32
+# cuda-vs-cpu parity at the cut depth and widths of FRONTEND_PARITY, on
+# FRONTEND_PARITY_ROWS rows of prompts up to FRONTEND_PARITY_PROMPT (the
+# CPU side's prefill: about 1.6 TFLOP)
+FRONTEND_ROWS, FRONTEND_PROMPT, FRONTEND_STEPS = 8, 1024, 16
+FRONTEND_PARITY = dict(num_layers=2, d_ff=4_096, vocab_size=16_384)
+FRONTEND_PARITY_ROWS, FRONTEND_PARITY_PROMPT = 4, 128
 
 
 class SmokeFailure(RuntimeError):
@@ -653,12 +697,32 @@ def flash_cases():
         (GEMMA2_FWD_T9, 1, 4096, 16, 8, 256, bf16, True, 4096, 50.0),
         ("gemma2 global (t9)", 1, 4096, 16, 8, 256, bf16, True, 0, 50.0),
         (GEMMA2_FWD_H, 8, 3072, 16, 8, 256, bf16, True, 4096, 50.0),
+        # internvl2-76b's G 8 (H 64 over K 8, hd 128): its training row
+        # ((t10)), bf16 and fp32, ragged, and the frontend phase's prefill
+        # (8 rows of 256 patch embeddings and up to 1,024 tokens)
+    ] + internvl2_cases() + [
+        (INTERNVL2_FRONTEND, 8, 1280, 64, 8, 128, bf16, True, 0, 0.0),
     ]
     return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases()
 
 
 QWEN25_T7 = "qwen2.5 train (t7)"
 MISTRAL_T8 = "mistral train (t8)"
+INTERNVL2_T10 = "internvl2 train (t10)"
+INTERNVL2_FRONTEND = "internvl2 frontend B8 S1280"
+
+
+def internvl2_cases():
+    """internvl2-76b's training row ((t10): B 1, S 4,096, H 64, K 8, hd
+    128, causal), bf16 and fp32, and ragged (B 2, S 1,000): the same
+    cases for the flash forward and its backward, (label, B, S, H, K, hd,
+    dtype, causal, window, cap)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [(INTERNVL2_T10, 1, 4096, 64, 8, 128, bf16, True, 0, 0.0),
+            ("fp32 internvl2 (t10)", 1, 4096, 64, 8, 128, f32, True, 0, 0.0),
+            ("internvl2 ragged S1000", 2, 1000, 64, 8, 128, bf16, True, 0,
+             0.0)]
 GEMMA2_FWD_T9 = "gemma2 local (t9)"
 GEMMA2_FWD_H = "gemma2 serving (h)"
 
@@ -879,6 +943,8 @@ def decode_cases():
     # qwen3 serve shape: 8 slots, prompts up to 1024 + 32 generated tokens
     qwen_pos = [1055, 700, 1023, -1, 512, 127, 128, 900]
     long_pos = [8191, 5000, 8000, -1, 3000, 127, 2048, 6500]
+    # the frontend phase's last decode step: 256 + a prompt + 15
+    frontend_pos = [1294, 1100, 783, 1290, 900, 1037, 655, 1201]
     # (label, B, K, G, hd, ps, pps, q dtype, pool dtype, positions)
     return [
         ("qwen3 G2", 8, 8, 2, 128, 128, 9, bf16, bf16, qwen_pos),
@@ -901,7 +967,17 @@ def decode_cases():
         ("long B8 pps64", 8, 8, 2, 128, 128, 64, bf16, bf16, long_pos),
         ("long fp32 B8 pps64", 8, 8, 2, 128, 128, 64, f32, f32, long_pos),
         ("long B1 pps160", 1, 8, 2, 128, 128, 160, bf16, bf16, [20000]),
+        # internvl2-76b's group (K 8, G 8, hd 128: the first config on
+        # group_tile's boundary, a kv head a block): the frontend phase's
+        # table (256 + 1,024 + 16 tokens a row) and a long one, bf16 and
+        # fp32 q over bf16 pools
+        (INTERNVL2_G8, 8, 8, 8, 128, 128, 11, bf16, bf16, frontend_pos),
+        ("long B8 pps64 G8", 8, 8, 8, 128, 128, 64, bf16, bf16, long_pos),
+        ("long fp32 q G8", 8, 8, 8, 128, 128, 64, f32, bf16, long_pos),
     ]
+
+
+INTERNVL2_G8 = "internvl2 K8 G8"
 
 
 def run_decode_phase(dev, gen):
@@ -1788,7 +1864,7 @@ def flash_bwd_cases():
         (MISTRAL_T8, 1, 4096, 96, 8, 128, bf16, True, 0, 0.0),
         ("fp32 mistral (t8)", 1, 4096, 96, 8, 128, f32, True, 0, 0.0),
         ("mistral ragged S2049", 1, 2049, 96, 8, 128, bf16, True, 0, 0.0),
-    ]
+    ] + internvl2_cases()
     return [c[:6] + (c[5],) + c[6:] for c in square] + mla_train_cases() \
         + rg_train_cases() + gemma2_train_cases()
 
@@ -1871,11 +1947,12 @@ def gemma2_train_cases():
 
 
 def new_case_labels():
-    """The forward and backward cases of the dense decoders' slice."""
+    """The forward and backward cases of the dense decoders' slices."""
     qm = [QWEN25_T7, "fp32 qwen2.5 (t7)", "qwen2.5 ragged S1000", MISTRAL_T8,
           "fp32 mistral (t8)", "mistral ragged S2049"]
     return set(qm + [c[0] for c in gemma2_train_cases()]
-               + [GEMMA2_FWD_T9, "gemma2 global (t9)", GEMMA2_FWD_H])
+               + [GEMMA2_FWD_T9, "gemma2 global (t9)", GEMMA2_FWD_H]
+               + [c[0] for c in internvl2_cases()])
 
 
 def bwd_without_dcap(q, k, v, o, lse, do, *, scale, causal, window,
@@ -2922,7 +2999,8 @@ def run_deepseek_phase(dev, seed):
 # Phase 7b: the dense decoders of the port's last slice
 # ---------------------------------------------------------------------------
 def run_dense_serve_phase(dev, seed, arch, layers, *, label,
-                          prompt_len=1024, max_len=None):
+                          prompt_len=1024, max_len=None, prefix_cache=False,
+                          after=None):
     """Serve ``arch`` at full width cut to ``layers`` in bf16: 8 slots, 16
     requests, prompts in [prompt_len / 2, prompt_len], 16 to 32 new tokens
     (seed 0, as (a)-(e)); with ``max_len`` the engine is sized for it (a
@@ -2931,7 +3009,11 @@ def run_dense_serve_phase(dev, seed, arch, layers, *, label,
     round launches the flash kernel once a layer, a decode step the paged
     decode once a global layer (a local layer decodes from its ring in
     plain PyTorch, as the reference's local decode is plain jnp), and no
-    other kernel runs; peak memory at most PEAK_MEM_LIMIT_GB."""
+    other kernel runs; peak memory at most PEAK_MEM_LIMIT_GB.  A vision
+    config is served text-only, as the reference's engine serves it, and
+    its engine must turn off the ``prefix_cache`` asked for.  ``after(cfg,
+    model, dev, seed)`` runs on the same weights once the engine is gone,
+    its result under ``"after"``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import GLOBAL_ATTN
@@ -2967,11 +3049,14 @@ def run_dense_serve_phase(dev, seed, arch, layers, *, label,
         cfg, ServeSpec(batch=2, prompt_len=min(256, prompt_len), gen=4,
                        requests=2), seed))
     sv = ServeSpec(batch=8, prompt_len=P, gen=32, requests=16,
-                   prefix_cache=False)
+                   prefix_cache=prefix_cache)
     requests = synthesize_requests(cfg, dataclasses.replace(
         sv, prompt_len=prompt_len), seed)
     r = serve_once(cfg, model, sv, dev, seed, requests=requests)
     eng = r.pop("engine")
+    check(not (cfg.frontend == "vision" and eng.prefix_cache),
+          f"serve {cfg.name}: the engine kept the prefix cache on under the "
+          "vision frontend")
     rounds, steps = r["prefill_calls"], r["decode_calls"]
     check(rounds > 0 and r["launches"]["flash_attention_bshd"]
           == layers * rounds,
@@ -2989,8 +3074,14 @@ def run_dense_serve_phase(dev, seed, arch, layers, *, label,
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              launches_per_round=r["launches"]["flash_attention_bshd"]
              / rounds,
-             launches_per_step=r["launches"]["paged_decode_bhd"] / steps)
-    del eng, model
+             launches_per_step=r["launches"]["paged_decode_bhd"] / steps,
+             prefix_cache=(prefix_cache, eng.prefix_cache))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if after is not None:
+        r["after"] = after(cfg, model, dev, seed)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     check(r["peak_mem_gb"] <= PEAK_MEM_LIMIT_GB,
@@ -3005,8 +3096,174 @@ def run_dense_serve_phase(dev, seed, arch, layers, *, label,
           f"decode {r['decode_s']:.3f} s over {steps} steps; peak memory "
           f"{r['peak_mem_gb']:.2f} GB; launches {r['launches']} (flash "
           f"{r['launches_per_round']:g} a prefill round, paged decode "
-          f"{r['launches_per_step']:g} a decode step)", flush=True)
+          f"{r['launches_per_step']:g} a decode step)"
+          + (f"; prefix cache asked {prefix_cache}, kept "
+             f"{r['prefix_cache'][1]}" if prefix_cache else ""), flush=True)
     return r
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b, (i): internvl2-76b's vision frontend on the card
+# ---------------------------------------------------------------------------
+def frontend_inputs(cfg, rows, prompt, seed):
+    """(tokens (rows, prompt) int64, lengths (rows,) int32 in [prompt / 2,
+    prompt], the first row's the longest, patch embeddings (rows, F, d)
+    fp32 0.02·N(0, 1)), drawn on the host from ``seed``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, prompt), generator=g)
+    lengths = torch.randint(prompt // 2, prompt + 1, (rows,), generator=g,
+                            dtype=torch.int32)
+    lengths[0] = prompt
+    embeds = 0.02 * torch.randn(rows, cfg.frontend_tokens, cfg.d_model,
+                                generator=g)
+    return tokens, lengths, embeds
+
+
+def frontend_serve(cfg, params, ctx, tokens, lengths, embeds, steps,
+                   forced=None):
+    """One ragged prefill of ``tokens`` after their rows' patch embeddings
+    (``models/model.py:forward`` with ``frontend_embeds`` and
+    ``lengths``) into a paged cache of F + P + ``steps`` tokens a row
+    (each row its own pages, the frontend's K/V in the first), then
+    ``steps`` decode steps at positions shifted by F.  Returns each step's
+    live logits on the host (fp32) and their greedy tokens; ``forced``
+    feeds its tokens to the decode steps in place of the greedy ones."""
+    import torch
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.steps import make_serve_steps
+
+    dev = ctx.device
+    (B, P), F = tokens.shape, embeds.shape[1]
+    cache = init_cache(cfg, B, F + P + steps, device=dev)
+    table = cache["page_table"]
+    table.copy_(torch.arange(table.numel(), dtype=torch.int32,
+                             device=dev).reshape(table.shape))
+    prefill, decode = make_serve_steps(cfg, ctx)
+    logits, cache = prefill(params, {"tokens": tokens.to(dev),
+                                     "frontend_embeds": embeds.to(dev)},
+                            cache, lengths.to(dev))
+    pos = (lengths + F).to(dev)
+    live, greedy = [], []
+    for i in range(steps + 1):
+        lv = logits[:, -1, :cfg.vocab_size].float()
+        live.append(lv.cpu())
+        greedy.append(lv.argmax(-1).cpu())
+        if i == steps:
+            break
+        tok = greedy[-1] if forced is None else forced[i]
+        logits, cache = decode(params, {"tokens": tok[:, None].to(dev)},
+                               cache, pos)
+        pos = pos + 1
+    return live, greedy
+
+
+def run_frontend_phase(cfg, model, dev, seed):
+    """internvl2-76b's vision frontend on (i)'s weights: FRONTEND_ROWS rows
+    of the config's 256 patch embeddings (bf16) and ragged prompts of up
+    to FRONTEND_PROMPT tokens through one ragged prefill and
+    FRONTEND_STEPS decode steps in bf16: the flash kernel once a layer,
+    the paged decode once a layer a step, no other kernel, every logit
+    finite, peak memory at most PEAK_MEM_LIMIT_GB.  Then the same in fp32
+    on ``cuda`` and on ``cpu`` (TF32 off) at FRONTEND_PARITY's depth and
+    widths on FRONTEND_PARITY_ROWS rows of prompts up to
+    FRONTEND_PARITY_PROMPT, the CPU fed the card's greedy tokens: the live
+    logits of every step within PARITY_LOGIT_TOL, the greedy tokens equal
+    but at a tie (a top-2 gap within PARITY_TIE_TOL)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import cast_params
+
+    tokens, lengths, embeds = frontend_inputs(cfg, FRONTEND_ROWS,
+                                              FRONTEND_PROMPT, seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = cast_params(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    live, _ = frontend_serve(cfg, params, Ctx(device=dev,
+                                              dtype=torch.bfloat16),
+                             tokens, lengths, embeds.bfloat16(),
+                             FRONTEND_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    check(launches["flash_attention_bshd"] == L
+          and launches["paged_decode_bhd"] == L * FRONTEND_STEPS
+          and all(n == 0 for k, n in launches.items() if k not in (
+              "flash_attention_bshd", "paged_decode_bhd")),
+          f"frontend {cfg.name}: launches {launches}, expected flash {L} and "
+          f"paged decode {L} x {FRONTEND_STEPS}")
+    check(all(bool(torch.isfinite(x).all()) for x in live),
+          f"frontend {cfg.name}: non-finite logits")
+    check(peak <= PEAK_MEM_LIMIT_GB, f"frontend {cfg.name}: peak device "
+          f"memory {peak:.2f} GB > {PEAK_MEM_LIMIT_GB} GB")
+    F = cfg.frontend_tokens
+    print(f"  frontend {cfg.name} ({L} layers, bf16): {FRONTEND_ROWS} rows "
+          f"of {F} patch embeddings and prompts of {int(lengths.min())}-"
+          f"{int(lengths.max())} tokens, one ragged prefill and "
+          f"{FRONTEND_STEPS} decode steps at positions from F + length "
+          f"(cache of {F + FRONTEND_PROMPT + FRONTEND_STEPS} tokens a row) in "
+          f"{wall:.3f} s; logits finite; launches {launches}; peak "
+          f"{peak:.2f} GB", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg = dataclasses.replace(cfg, dtype="float32", **FRONTEND_PARITY)
+    cpu = torch.device("cpu")
+    models = {name: build_model(pcfg, device=d, seed=seed)
+              for name, d in (("cpu", cpu), ("cuda", dev))}
+    check(models_equal(models["cpu"], models["cuda"]), f"frontend parity "
+          f"{pcfg.name}: the model built on cuda differs from the one built "
+          "on cpu")
+    ptok, plen, pemb = frontend_inputs(pcfg, FRONTEND_PARITY_ROWS,
+                                       FRONTEND_PARITY_PROMPT, seed + 1)
+    t0 = time.perf_counter()
+    run = {}
+    for name, d in (("cuda", dev), ("cpu", cpu)):
+        forced = None if name == "cuda" else run["cuda"][1]
+        run[name] = frontend_serve(
+            pcfg, cast_params(models[name], torch.float32),
+            Ctx(device=d, dtype=torch.float32), ptok, plen, pemb,
+            FRONTEND_STEPS, forced=forced)
+    parity_s = time.perf_counter() - t0
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    err, ties = 0.0, []
+    for i, (lc, lp, gc_, gp) in enumerate(zip(run["cuda"][0], run["cpu"][0],
+                                               run["cuda"][1],
+                                               run["cpu"][1])):
+        err = max(err, (lc - lp).abs().max().item())
+        for b in torch.nonzero(gc_ != gp).flatten().tolist():
+            top2 = lp[b].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            check(gap <= PARITY_TIE_TOL, f"frontend parity: step {i} row {b} "
+                  f"greedy token {int(gc_[b])} on cuda, {int(gp[b])} on cpu, "
+                  f"top-2 gap {gap} above {PARITY_TIE_TOL}")
+            ties.append((i, b, gap))
+    check(err <= PARITY_LOGIT_TOL, f"frontend parity: live logits differ by "
+          f"{err} > {PARITY_LOGIT_TOL}")
+    print(f"  frontend parity fp32 cuda vs cpu ({pcfg.num_layers} layers, d_ff "
+          f"{pcfg.d_ff}, vocab {pcfg.vocab_size}; {FRONTEND_PARITY_ROWS} rows "
+          f"of {F} patch embeddings and prompts of {int(plen.min())}-"
+          f"{int(plen.max())} tokens, {FRONTEND_STEPS} decode steps): live "
+          f"logit max err {err:.3g} (tol {PARITY_LOGIT_TOL}); greedy tokens "
+          + ("equal" if not ties else f"equal but at ties {ties}")
+          + f"; {parity_s:.1f} s", flush=True)
+    return dict(rows=FRONTEND_ROWS, frontend_tokens=F,
+                prompt_lengths=lengths.tolist(), steps=FRONTEND_STEPS,
+                wall_s=wall, launches=launches, peak_mem_gb=peak,
+                parity=dict(layers=pcfg.num_layers, rows=FRONTEND_PARITY_ROWS,
+                            prompt_lengths=plen.tolist(), logit_err=err,
+                            ties=ties, seconds=parity_s))
 
 
 # ---------------------------------------------------------------------------
@@ -3378,7 +3635,7 @@ REPEAT_STEPS, REPEAT_DROP = 6, 1.0
 def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                     remat, lr=1e-3, warmup=3, falling_mean=True,
                     remat_rows=None, layers=0, min_free_gb=None,
-                    max_peak_gb=None):
+                    max_peak_gb=None, after=None):
     """Train ``arch`` at full width in bf16 (the master weights and
     moments in the dtypes of its registered ``train_4k`` run: fp32, bf16
     for deepseek-v2) through ``repro_torch.launch.train``'s own loop: launch
@@ -3395,7 +3652,9 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     with ``min_free_gb`` the run's peak memory must leave that much of the
     card free, with ``max_peak_gb`` stay at or below it.  The plain
     versions of the trained kernels are barred
-    during the run (:class:`PlainVersionsBarred`)."""
+    during the run (:class:`PlainVersionsBarred`).  ``after(cfg, run,
+    state, step, dev, seed)`` then takes the repeated batch's state and
+    step, its result under ``"after"``."""
     import torch
     from repro_torch.configs import RunConfig, get_run_config
     from repro_torch.data.pipeline import SyntheticLMData
@@ -3551,10 +3810,87 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     out["repeated_batch_losses"] = rep
     print(f"  one batch {REPEAT_STEPS} times: loss "
           + " ".join(f"{x:.4f}" for x in rep), flush=True)
+    if after is not None:
+        with PlainVersionsBarred():
+            out["after"] = after(cfg, run, state, step, dev, seed)
     del state, step, one
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def frontend_train_step(cfg, run, state, step, dev, seed):
+    """One more step of ``state`` on a batch in the reference's dry-run
+    shape (``launch/specs.py:batch_specs``): the config's F bf16 patch
+    embeddings and S - F tokens and labels a row, S the train_4k row of
+    4,096.  The loss must be finite, the flash forward must launch twice a
+    layer and microbatch (full remat) and its backward once, each at S
+    rows.  A row a microbatch, as (t10) trains."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    S, F = SHAPES["train_4k"].seq_len, cfg.frontend_tokens
+    B = run.num_microbatches            # one row a microbatch
+    batch = SyntheticLMData(cfg.vocab_size, S - F, B, seed).batch_at(1, dev)
+    g = torch.Generator().manual_seed(seed)
+    batch["frontend_embeds"] = (0.02 * torch.randn(
+        B, F, cfg.d_model, generator=g)).to(dev, torch.bfloat16)
+    rows = []
+    saved = {n: getattr(fa, n) for n in ("flash_attention_cuda",
+                                         "flash_attention_bwd_cuda")}
+
+    def recorder(name):
+        def call(q, *a, **kw):
+            rows.append((name, q.shape[1]))
+            return saved[name](q, *a, **kw)
+        return call
+    for name in saved:
+        setattr(fa, name, recorder(name))
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        loss = float(step(state, batch)[1]["loss"])
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+    launches = dict(ops.launches)
+    L = cfg.num_layers
+    fwd = [n for k, n in rows if k == "flash_attention_cuda"]
+    bwd = [n for k, n in rows if k == "flash_attention_bwd_cuda"]
+    check(math.isfinite(loss), f"frontend train step {cfg.name}: loss {loss}")
+    check(launches["flash_attention_bshd"] == len(fwd) == 2 * L * B
+          and launches["flash_attention_bwd"] == len(bwd) == L * B
+          and set(fwd + bwd) == {S},
+          f"frontend train step {cfg.name}: launches {launches}, rows of "
+          f"the flash calls {rows}, expected {2 * L * B} forwards and "
+          f"{L * B} backwards at S {S}")
+    print(f"  frontend train step {cfg.name}: {B} row(s) of {F} patch "
+          f"embeddings (bf16) and {S - F} tokens and labels: loss "
+          f"{loss:.4f}; flash forward {len(fwd)} and backward {len(bwd)} "
+          f"launches, each at S {S}", flush=True)
+    return dict(loss=loss, frontend_tokens=F, text_tokens=S - F,
+                launches=launches, flash_rows=sorted(set(fwd + bwd)))
+
+
+class FrontendBatches:
+    """A batch stream whose rows also carry ``n`` patch embeddings of
+    width ``d`` (fp32 0.02·N(0, 1), drawn on the host from (``seed``,
+    step)), the frontend of a vision config."""
+
+    def __init__(self, data, n, d, seed):
+        self.data, self.n, self.d, self.seed = data, n, d, seed
+
+    def batch_at(self, step, device=None):
+        import torch
+        b = self.data.batch_at(step, device)
+        g = torch.Generator().manual_seed(self.seed * 1_000_003 + step)
+        b["frontend_embeds"] = (0.02 * torch.randn(
+            b["tokens"].shape[0], self.n, self.d, generator=g)).to(device)
+        return b
 
 
 class FirstGrads:
@@ -3574,7 +3910,8 @@ class FirstGrads:
 def parity_config(arch):
     """(config, run, batch) of ``arch``'s train parity: full width cut to
     PARITY_LAYERS (2 by default) and PARITY_CUTS, the run's lr, one warmup
-    step, PARITY_BATCH rows (2 by default) of 256 tokens."""
+    step, PARITY_BATCH rows (2 by default) of 256 positions (a vision
+    config's PARITY_FRONTEND patch embeddings among them)."""
     from repro_torch.configs import RunConfig
     from repro_torch.launch import train as train_cli
     cfg = dataclasses.replace(
@@ -3628,7 +3965,10 @@ def parity_side(arch, seed, d):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, run, B = parity_config(arch)
-    data = SyntheticLMData(cfg.vocab_size, 256, B, seed)
+    n_front = PARITY_FRONTEND.get(arch, 0)
+    data = SyntheticLMData(cfg.vocab_size, 256 - n_front, B, seed)
+    if n_front:
+        data = FrontendBatches(data, n_front, cfg.d_model, seed)
     state = init_train_state(cfg, seed=seed, run=run, device=d)
     digest = state_digest(state)
     recorder = RouteRecorder(moe._top_k, of_probs=True)
@@ -4456,7 +4796,11 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
             ("f", "qwen2.5-32b", QWEN25_SERVE_LAYERS, {}),
             ("g", "mistral-large-123b", MISTRAL_SERVE_LAYERS, {}),
             ("h", "gemma2-9b", GEMMA2_SERVE_LAYERS,
-             dict(prompt_len=3072, max_len=4096))):
+             dict(prompt_len=3072, max_len=4096)),
+            # served text-only with the prefix cache asked for, then the
+            # frontend on the same weights
+            ("i", "internvl2-76b", INTERNVL2_SERVE_LAYERS,
+             dict(prefix_cache=True, after=run_frontend_phase))):
         print(f"[serve ({key})] {arch} full width, {layers} layers, bf16",
               flush=True)
         dense[key] = run_dense_serve_phase(dev, seed, arch, layers,
@@ -4545,10 +4889,13 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
     # (t7)-(t9): one row a microbatch.  (t7) B 2 in 2 microbatches of the
     # run's 16, (t9) B 4 in its 4; (t8) B 1 in 1 of its 8 (a second
     # microbatch's fp32 gradient sum, 14.3 GB at 2 layers, does not fit)
+    # (t10) B 1 in 1 of its 16, text-only through the train loop as the
+    # reference's CLI trains, then a step with the frontend
     for key, arch, layers, batch, mb in (
             ("t7", "qwen2.5-32b", QWEN25_TRAIN_LAYERS, 2, 2),
             ("t8", "mistral-large-123b", MISTRAL_TRAIN_LAYERS, 1, 1),
-            ("t9", "gemma2-9b", GEMMA2_TRAIN_LAYERS, 4, 4)):
+            ("t9", "gemma2-9b", GEMMA2_TRAIN_LAYERS, 4, 4),
+            ("t10", "internvl2-76b", INTERNVL2_TRAIN_LAYERS, 1, 1)):
         t_run = get_run_config(arch, "train_4k")
         print(f"[train ({key})] {arch} full width cut to {layers} layers, "
               f"its train_4k run (S 4096, {t_run.num_microbatches} "
@@ -4559,13 +4906,14 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
             seq=SHAPES["train_4k"].seq_len, microbatches=mb,
             remat=t_run.remat_policy, lr=TRAIN_LR.get(arch, 1e-3),
             falling_mean=False, remat_rows=1, layers=layers,
-            max_peak_gb=PEAK_MEM_LIMIT_GB)
+            max_peak_gb=PEAK_MEM_LIMIT_GB,
+            after=frontend_train_step if key == "t10" else None)
         mark(f"train ({key})")
         gc.collect()
         torch.cuda.empty_cache()
     print("[train-parity] fp32 cuda vs cpu, full width, 2 layers "
-          "(recurrentgemma-9b 3, rwkv6-7b 1), the CPU side from the worker",
-          flush=True)
+          "(recurrentgemma-9b 3, rwkv6-7b 1; internvl2-76b with 32 patch "
+          "embeddings a row), the CPU side from the worker", flush=True)
     train["parity"] = run_train_parity_phase(dev, seed, worker)
     worker.stop()
     mark("train parity")
@@ -4617,6 +4965,9 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
     q_l = train["qwen2.5-32b"]["launches"]
     m_l = train["mistral-large-123b"]["launches"]
     g_l = train["gemma2-9b"]["launches"]
+    i_l = train["internvl2-76b"]["launches"]
+    i_front = dense["i"]["after"]["launches"]
+    i_dec = next(r for r in decode_rows if r["label"] == "long B8 pps64 G8")
     gem_bwd = [c[0] for c in gemma2_train_cases()]
     mf = next(r for r in flash_rows if r["label"] == MLA_T5)
     mb = next(r for r in bwd_rows if r["label"] == MLA_T5)
@@ -4683,6 +5034,10 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              gemma2_serving=row_of(
                  flash_rows, GEMMA2_FWD_H,
                  dense["h"]["launches"]["flash_attention_bshd"]),
+             internvl2=row_of(flash_rows, INTERNVL2_T10,
+                              i_l["flash_attention_bshd"]),
+             internvl2_frontend=row_of(flash_rows, INTERNVL2_FRONTEND,
+                                       i_front["flash_attention_bshd"]),
              serving_launches={k: dense[k]["launches"]["flash_attention_bshd"]
                                for k in dense},
              platform=platform_launches(platform, "flash_attention_bshd")),
@@ -4709,6 +5064,8 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                             q_l["flash_attention_bwd"]),
              mistral=row_of(bwd_rows, MISTRAL_T8,
                             m_l["flash_attention_bwd"]),
+             internvl2=row_of(bwd_rows, INTERNVL2_T10,
+                              i_l["flash_attention_bwd"]),
              platform=platform_launches(platform, "flash_attention_bwd")),
         dict(name="flash_attention_bwd_hd256", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -4753,6 +5110,15 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              platform=platform_launches(platform, "paged_decode_bhd"),
              serving_launches={k: dense[k]["launches"]["paged_decode_bhd"]
                                for k in dense},
+             internvl2=dict(
+                 {k: i_dec[k] for k in (
+                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "max_abs_err", "live_keys")},
+                 shape="B 8, K 8, G 8, hd 128, ps 128, 64 pages a row, bf16",
+                 launches=dense["i"]["launches"]["paged_decode_bhd"]
+                 + i_front["paged_decode_bhd"],
+                 max_abs_err_g8=max(r["max_abs_err"] for r in decode_rows
+                                    if r["label"].endswith("G8"))),
              shape="B 8, K 8, G 2, hd 128, ps 128, bf16, ragged"),
         dict(name="wkv6_fwd", route="cuda",
              source="src/repro_torch/csrc/rwkv6_wkv.cu",

@@ -9,10 +9,12 @@ its softcaps, ``query_pre_attn_scalar`` and post-block norms
 (``gemma2-9b``), the attention-free RWKV6 stack (``rwkv6-7b``), the
 RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
 all-global MLA and MoE stacks (``deepseek-v2-236b``,
-``granite-moe-1b-a400m``).  The other families (the vision frontend, the
-encoder-decoder) keep their fields here so a config reads the same as in
-the reference; :func:`check_ported` rejects them when a model is built,
-and :func:`check_trainable` when a train state is.
+``granite-moe-1b-a400m``), and InternVL2's vision frontend stub (patch
+embeddings prepended to the text) on a dense GQA stack
+(``internvl2-76b``).  The encoder-decoder and the audio frontend keep
+their fields here so a config reads the same as in the reference;
+:func:`check_ported` rejects them when a model is built, and
+:func:`check_trainable` when a train state is.
 """
 from __future__ import annotations
 
@@ -200,7 +202,8 @@ PORTED_KINDS = ({GLOBAL_ATTN}, {RWKV}, {RECURRENT, LOCAL_ATTN},
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
-    model this port does not have yet."""
+    model this port does not have yet.  The vision frontend (a stub with
+    no parameters) is taken on an all-global dense GQA stack only."""
     missing = []
     kinds = set(cfg.layer_kinds())
     if kinds not in PORTED_KINDS:
@@ -215,7 +218,13 @@ def check_ported(cfg: ModelConfig) -> None:
         missing.append("MoE on a stack that is not all-global")
     if cfg.is_encoder_decoder:
         missing.append("encoder-decoder")
-    if cfg.frontend != "none":
+    if cfg.frontend == "vision":
+        for where, bad in (("MLA", cfg.use_mla), ("MoE", cfg.is_moe),
+                           ("a stack that is not all-global",
+                            kinds != {GLOBAL_ATTN})):
+            if bad:
+                missing.append(f"the vision frontend on {where}")
+    elif cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(
@@ -237,9 +246,13 @@ def check_trainable(cfg: ModelConfig) -> None:
     the RWKV6 stack through the WKV6 backward (``rwkv6-7b``); and the
     RG-LRU hybrid: its recurrent layers through the RG-LRU scan's backward
     and its sliding-window MQA layers through the flash backward at hd 256
-    (``recurrentgemma-9b``).  So it refuses what :func:`check_ported`
-    refuses, each by name: a recurrent layer mixed with a global one,
-    MLA or MoE on a mixed stack, encoder-decoders and frontends."""
+    (``recurrentgemma-9b``); and the dense GQA stack under the vision
+    frontend stub, whose patch embeddings a batch may carry
+    (``frontend_embeds``; ``internvl2-76b``).  So it refuses what
+    :func:`check_ported` refuses, each by name: a recurrent layer mixed
+    with a global one, MLA or MoE on a mixed stack, encoder-decoders, the
+    audio frontend, and the vision frontend on MLA, on MoE or on a stack
+    that is not all-global."""
     check_ported(cfg)
 
 
@@ -288,6 +301,6 @@ def list_configs() -> Tuple[str, ...]:
 def _ensure_loaded() -> None:
     """Import every config module (they self-register on import)."""
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, gemma2_9b, granite_moe_1b_a400m,
+        deepseek_v2_236b, gemma2_9b, granite_moe_1b_a400m, internvl2_76b,
         mistral_large_123b, paper_overhead, qwen2_5_32b, qwen3_0_6b,
         recurrentgemma_9b, rwkv6_7b)

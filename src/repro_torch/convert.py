@@ -37,11 +37,15 @@ def _flatten(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
         yield path, np.asarray(tree)
 
 
-def _tensor(a) -> torch.Tensor:
+def _tensor(a, copy: bool = True) -> torch.Tensor:
+    """A torch leaf of ``a``; without ``copy`` it may share ``a``'s memory
+    (a C-contiguous, writable array), for a caller that copies it on."""
     if isinstance(a, torch.Tensor):      # a bf16 leaf of a port checkpoint
-        return a.detach().clone()
+        return a.detach().clone() if copy else a.detach()
     if a.dtype.name == "bfloat16":       # ml_dtypes leaf: exact via fp32
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if not copy and a.flags.c_contiguous and a.flags.writeable:
+        return torch.from_numpy(a)
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
@@ -51,22 +55,30 @@ def _layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     return pat, first, (cfg.num_layers - first) // pat
 
 
-def params_from_jax(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree, cfg: ModelConfig, *,
+                    copy: bool = True) -> Dict[str, torch.Tensor]:
+    """The reference's nested parameter tree (or any tree shaped like it,
+    e.g. the AdamW moments) as the port's state dict, a layer a
+    ``blocks.{i}`` entry.  Each leaf is a copy; with ``copy`` False a leaf
+    may share the tree's memory, for a caller that copies it on (to a
+    device, or into the state's own tensors)."""
     check_ported(cfg)
     pat, first, n_groups = _layout(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
         if path[0] != "decoder":
-            out[".".join(path)] = _tensor(arr)
+            out[".".join(path)] = _tensor(arr, copy)
             continue
         part, j, rest = path[1], int(path[2]), ".".join(path[3:])
         if part == "prefix":
-            out[f"blocks.{j}.{rest}"] = _tensor(arr)
+            out[f"blocks.{j}.{rest}"] = _tensor(arr, copy)
         elif part == "groups":
             for g in range(arr.shape[0]):
-                out[f"blocks.{first + g * pat + j}.{rest}"] = _tensor(arr[g])
+                out[f"blocks.{first + g * pat + j}.{rest}"] = _tensor(arr[g],
+                                                                      copy)
         elif part == "tail":
-            out[f"blocks.{first + n_groups * pat + j}.{rest}"] = _tensor(arr)
+            out[f"blocks.{first + n_groups * pat + j}.{rest}"] = _tensor(arr,
+                                                                         copy)
         else:
             raise NotImplementedError(
                 f"decoder/{part} comes in a later slice of the port")
@@ -81,6 +93,17 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
         import ml_dtypes                 # numpy's bfloat16, as jax keeps it
         return t.float().numpy().astype(ml_dtypes.bfloat16)
     return t.numpy() if copied else t.numpy().copy()
+
+
+def _stacked(ts) -> np.ndarray:
+    """``np.stack`` of the host copies of ``ts``, each tensor copied once,
+    straight into its slice (a bf16 leaf through :func:`_numpy`)."""
+    if ts[0].dtype == torch.bfloat16:
+        return np.stack([_numpy(t) for t in ts])
+    out = torch.empty((len(ts),) + tuple(ts[0].shape), dtype=ts[0].dtype)
+    for g, t in enumerate(ts):
+        out[g].copy_(t.detach())
+    return out.numpy()
 
 
 def _nest(tree: Dict, path, leaf) -> None:
@@ -110,11 +133,11 @@ def params_to_jax(state: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
         g, j = divmod(i - first, pat)
         if g < n_groups:
             key = ("decoder", "groups", str(j), *rest)
-            stacks.setdefault(key, [None] * n_groups)[g] = _numpy(t)
+            stacks.setdefault(key, [None] * n_groups)[g] = t
         else:
             _nest(out, ["decoder", "tail", str(j)] + rest, _numpy(t))
-    for key, arrs in stacks.items():
-        _nest(out, list(key), np.stack(arrs))
+    for key, ts in stacks.items():
+        _nest(out, list(key), _stacked(ts))
     return out
 
 
@@ -128,7 +151,10 @@ def train_state_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
 
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
-    weights = params_from_jax(tree["params"], cfg)
+    # a leaf bound for a card is copied there; one that stays on the host
+    # is copied once, so the state never shares the tree's memory
+    copy = dev.type == "cpu"
+    weights = params_from_jax(tree["params"], cfg, copy=copy)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.data = weights[name].to(dev)
@@ -136,7 +162,7 @@ def train_state_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
     state = new_train_state(model)
     for part in ("m", "v"):
         state["opt"][part] = {n: t.to(dev) for n, t in params_from_jax(
-            tree["opt"][part], cfg).items()}
+            tree["opt"][part], cfg, copy=copy).items()}
     state["opt"]["count"] = torch.tensor(int(tree["opt"]["count"]),
                                          dtype=torch.int32, device=dev)
     state["step"] = torch.tensor(int(tree["step"]), dtype=torch.int32,
@@ -166,9 +192,10 @@ def overlay_train_state(state: Dict, tree) -> Dict:
     leaf's dtype the same way).  Returns ``state``."""
     cfg = state["params"].cfg
     _copy_into(dict(state["params"].named_parameters()),
-               params_from_jax(tree["params"], cfg), "params")
+               params_from_jax(tree["params"], cfg, copy=False), "params")
     for part in ("m", "v"):
-        _copy_into(state["opt"][part], params_from_jax(tree["opt"][part], cfg),
+        _copy_into(state["opt"][part],
+                   params_from_jax(tree["opt"][part], cfg, copy=False),
                    f"opt/{part}")
     state["opt"]["count"].fill_(int(tree["opt"]["count"]))
     state["step"].fill_(int(tree["step"]))

@@ -20,7 +20,7 @@ module is that resource model for our platform:
   DLaaS treats Caffe/TF/Torch as opaque learner payloads.
 
 This is the port's copy of the reference's ``core/jobspec.py``.  What
-differs: the registry is the port's (9 of the reference's 11
+differs: the registry is the port's (10 of the reference's 11
 architectures, so a job naming another framework is refused at the
 gateway; ROADMAP D11), a real serve payload is the port's
 ``launch/engine.py:RealServePayload``, and a dryrun job with

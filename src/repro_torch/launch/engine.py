@@ -228,8 +228,14 @@ class ServingEngine:
                              f"engine device {dev}")
         if cfg.cache_layout != "paged":
             raise ValueError("continuous batching needs cache_layout='paged'")
+        # prefix caching needs the chunked-prefill seam: an all-global
+        # stack (ring locals would have to replay the evicted prefix) and
+        # no vision frontend (its embeddings precede position 0), as in the
+        # reference's engine, which feeds no frontend: it serves such a
+        # config text-only
         self.prefix_cache = bool(sv.prefix_cache) \
-            and set(cfg.layer_kinds()) == {GLOBAL_ATTN}
+            and set(cfg.layer_kinds()) == {GLOBAL_ATTN} \
+            and cfg.frontend != "vision"
 
         B, P, G = sv.batch, sv.prompt_len, sv.gen
         self.cfg, self.sv = cfg, sv

@@ -84,6 +84,18 @@ def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
     return h
 
 
+def _prepend_frontend(cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                      h: torch.Tensor, ctx: Ctx) -> Tuple[torch.Tensor, int]:
+    """The vision frontend stub: a vision config's batch may carry
+    ``frontend_embeds`` (B, F, D), precomputed patch embeddings, which are
+    cast to the compute dtype and prepended to the text embeddings, as in
+    the reference's ``forward``.  ``(h, F)``; F is 0 without them."""
+    if cfg.frontend != "vision" or "frontend_embeds" not in batch:
+        return h, 0
+    fe = batch["frontend_embeds"].to(device=h.device, dtype=ctx.dtype)
+    return torch.cat([fe, h], dim=1), fe.shape[1]
+
+
 def _unembed(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
     """Final norm, tied or untied head, fp32 logits, the final-logit
     softcap (gemma2; before the padding mask, as in the reference);
@@ -199,19 +211,23 @@ def forward_train(cfg: ModelConfig, params: Tree,
                   batch: Dict[str, torch.Tensor], ctx: Ctx, *,
                   remat_policy: str = "none"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(logits (B, S, V) fp32, aux)`` for every position; ``params`` is
-    the differentiable compute tree (:func:`compute_params`).  Vocabulary
-    padding ids get -1e9, as in the reference's ``_unembed``.  ``aux`` is
-    the fp32 sum of the MoE layers' load-balancing losses in layer order
-    (the reference's ``run_stack``); a layer's forward that remat runs
-    again in the backward adds nothing to it."""
+    """``(logits (B, S, V) fp32, aux)`` for every text position;
+    ``params`` is the differentiable compute tree (:func:`compute_params`).
+    Vocabulary padding ids get -1e9, as in the reference's ``_unembed``.
+    ``aux`` is the fp32 sum of the MoE layers' load-balancing losses in
+    layer order (the reference's ``run_stack``); a layer's forward that
+    remat runs again in the backward adds nothing to it.  A vision
+    config's ``frontend_embeds`` (B, F, D) go before the text
+    (:func:`_prepend_frontend`): positions run over all F + S rows, and
+    the F frontend rows are dropped before the head, so the logits match
+    the (B, S) labels."""
     check_trainable(cfg)
     tokens = batch["tokens"]
     if cfg.is_moe:
         check_row_length(cfg, tokens.shape[1])
-    h = _embed(cfg, params, tokens, ctx)
-    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
-                       device=tokens.device)
+    h, n_front = _prepend_frontend(cfg, batch,
+                                   _embed(cfg, params, tokens, ctx), ctx)
+    pos = torch.arange(h.shape[1], dtype=torch.int32, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, blk in zip(cfg.layer_kinds(), params["blocks"]):
         if kind == RWKV:
@@ -229,7 +245,7 @@ def forward_train(cfg: ModelConfig, params: Tree,
             layer = _remat(functools.partial(_dense_layer, cfg, blk,
                                              kind=kind), remat_policy)
             h = layer(h, pos)
-    return _unembed(cfg, params, h), aux
+    return _unembed(cfg, params, h[:, n_front:]), aux
 
 
 def forward(
@@ -260,7 +276,14 @@ def forward(
     keep theirs; a local ring keeps each row's last ``window`` tokens.
     ``starts`` makes it chunked: row ``b``'s tokens are the uncached tail
     of its prompt, opening at absolute position ``starts[b]``, and
-    attention walks the page table (all-global stacks only)."""
+    attention walks the page table (all-global stacks without a frontend
+    only).
+
+    A vision config's batch may carry ``frontend_embeds`` (B, F, D): they
+    are prepended to the text (:func:`_prepend_frontend`), positions run
+    over all F + S0 rows, a ragged row's length counts them (a length-0
+    row stays untouched) and the paged writers put their K/V in the row's
+    first pages, so the cache must hold F + P + G tokens a row."""
     if mode == "train":
         if cache is not None or lengths is not None or starts is not None:
             raise ValueError("train mode takes no cache, lengths or starts")
@@ -273,24 +296,31 @@ def forward(
     if starts is not None and lengths is None:
         raise ValueError("starts requires ragged prefill (lengths)")
     kinds = cfg.layer_kinds()
-    if starts is not None and set(kinds) != {GLOBAL_ATTN}:
+    if starts is not None and (set(kinds) != {GLOBAL_ATTN}
+                               or cfg.frontend == "vision"):
         raise NotImplementedError(
-            "chunked prefix prefill needs an all-global paged decoder")
+            "chunked prefix prefill needs an all-global paged decoder "
+            "without a frontend")
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     dev = tokens.device
-    h = _embed(cfg, params, tokens, ctx)
+    h, n_front = _prepend_frontend(cfg, batch,
+                                   _embed(cfg, params, tokens, ctx), ctx)
 
     if mode == "decode":
         if pos is None or cache is None:
             raise ValueError("decode needs pos and a cache")
         p_arr = pos.to(device=dev, dtype=torch.int32)
     else:
-        p_arr = torch.arange(S, dtype=torch.int32, device=dev)
+        p_arr = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
         if starts is not None:
             p_arr = starts.to(dev, torch.int32)[:, None] + p_arr[None, :]
     if lengths is not None:
         lengths = lengths.to(dev, torch.int32)
+        if n_front:
+            # the frontend rows are each row's first content: a ragged
+            # length counts them, and a length-0 row stays untouched
+            lengths = torch.where(lengths > 0, lengths + n_front, 0)
 
     amode = "full" if mode == "prefill" else "decode"
     seen = {kind: 0 for kind in LAYER_LEAVES}

@@ -156,6 +156,8 @@ FLASH_CASES = [
     (1, 300, 6, 2, 128, True, 64, 30.0),   # softcap with a window
     (1, 300, 10, 2, 128, True, 0, 0.0),    # qwen2.5's G 5
     (1, 257, 24, 2, 128, True, 0, 0.0),    # mistral-large's G 12
+    (1, 300, 16, 2, 128, True, 0, 0.0),    # internvl2's G 8
+    (2, 1000, 64, 8, 128, True, 0, 0.0),   # internvl2's heads, ragged
 ]
 
 
@@ -239,10 +241,11 @@ def test_paged_decode_kernel_at_the_qwen3_serving_shape(cuda, dt):
 @pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32 q"])
 @pytest.mark.parametrize("K,G,hd", [(8, 2, 256), (8, 12, 128), (1, 16, 256),
-                                    (2, 5, 256), (4, 1, 256)])
+                                    (2, 5, 256), (4, 1, 256), (8, 8, 128)])
 def test_paged_decode_kernel_at_hd256_and_large_groups(cuda, qdt, K, G, hd):
     """gemma2-9b's global layers (K 8, G 2, hd 256), mistral-large's group
-    (G 12), MQA at hd 256 (G 16) and two odd shapes, over bf16 pools with
+    (G 12), MQA at hd 256 (G 16), two odd shapes and internvl2-76b's group
+    (K 8, G 8: a kv head a block of the grouped grid), over bf16 pools with
     a bf16 or an fp32 query; pages of 128, rows up to 1,056 keys; both
     grids bit-equal, with and without the softcap."""
     rng = np.random.default_rng(K * 100 + G)
@@ -266,16 +269,17 @@ def test_paged_decode_kernel_at_hd256_and_large_groups(cuda, qdt, K, G, hd):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,pps", [(8, 64), (1, 160)])
-def test_paged_decode_kernel_walks_long_tables(cuda, dt, B, pps):
+@pytest.mark.parametrize("B,pps,G", [(8, 64, 2), (1, 160, 2), (8, 64, 8)])
+def test_paged_decode_kernel_walks_long_tables(cuda, dt, B, pps, G):
     """Tables long enough that a range holds several tiles (qwen3's heads,
     pages of 128): a warp walks them through its ring, the producer waits
     on the empty barrier and reuses stages, the ring's parity flips, and at
     B 1 the merge takes its 320 ranges in rounds of 32.  Rows up to 8,192
     (B 8) or 20,001 keys (B 1) with a -1 hole; both grids bit-equal (the
-    fp32 grouped grid has one stage, the others two or three)."""
+    fp32 grouped grid has one stage, the others two or three); also at
+    internvl2-76b's group (G 8, a kv head a block)."""
     rng = np.random.default_rng(B * pps)
-    K, G, hd, ps = 8, 2, 128, 128
+    K, hd, ps = 8, 128, 128
     if B == 8:
         q, kp, vp, table, pos = _paged(
             rng, cuda, dt, B, K, G, hd, ps, pps,
@@ -950,6 +954,9 @@ BWD_CASES = [
     (1, 300, 10, 2, 128, True, 0, 0.0),
     (1, 257, 24, 2, 128, True, 0, 0.0),
     (1, 1000, 40, 8, 128, True, 0, 0.0),
+    # internvl2-76b's G 8, ragged
+    (1, 300, 16, 2, 128, True, 0, 0.0),
+    (1, 1000, 64, 8, 128, True, 0, 0.0),
 ]
 
 

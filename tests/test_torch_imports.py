@@ -185,13 +185,18 @@ def test_serve_cli_rejects_bad_flags():
 
 def test_unported_configs_raise_at_build():
     assert list_configs() == ("deepseek-v2-236b", "gemma2-9b",
-                              "granite-moe-1b-a400m", "mistral-large-123b",
-                              "paper-overhead-100m", "qwen2.5-32b",
-                              "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b")
+                              "granite-moe-1b-a400m", "internvl2-76b",
+                              "mistral-large-123b", "paper-overhead-100m",
+                              "qwen2.5-32b", "qwen3-0.6b",
+                              "recurrentgemma-9b", "rwkv6-7b")
     base = get_config("qwen3-0.6b").reduced()
+    build_model(dataclasses.replace(base, frontend="vision",
+                                    frontend_tokens=4), device="cpu")
     for over in (dict(window_size=8),
                  dict(block_pattern=("recurrent", "global")),
-                 dict(frontend="vision"), dict(block_pattern=("recurrent",)),
+                 dict(frontend="vision", num_experts=4, num_experts_per_tok=2,
+                      moe_d_ff=32),
+                 dict(block_pattern=("recurrent",)),
                  dict(is_encoder_decoder=True), dict(frontend="audio"),
                  dict(block_pattern=("recurrent", "local", "global"),
                       window_size=8),
@@ -204,4 +209,4 @@ def test_unported_configs_raise_at_build():
     with pytest.raises(NotImplementedError, match="later slice"):
         init_cache(base, 2, 16, device="cpu")
     with pytest.raises(KeyError, match="later slices"):
-        get_config("internvl2-76b")
+        get_config("seamless-m4t-medium")

@@ -242,8 +242,8 @@ def test_mla_attention_train_mode_matches_reference(reduced, layer):
         assert cache is None
         return (out * w).sum(), out
 
-    (_, want), wgrads = jax.value_and_grad(ref_loss, argnums=(0, 1),
-                                           has_aux=True)(
+    (_, want), wgrads = jax.jit(jax.value_and_grad(
+        ref_loss, argnums=(0, 1), has_aux=True))(
         {n: jnp.asarray(a) for n, a in rp.items()}, jnp.asarray(x))
     leaves = {n: _t(a).requires_grad_(True) for n, a in rp.items()}
     xt = _t(x).requires_grad_(True)
@@ -273,8 +273,9 @@ def test_loss_and_gradients_match_reference_by_tree_path(reduced):
     rb, tb = _batch(rcfg)
     rb["labels"][0, :5] = -1
     tb["labels"][0, :5] = -1
-    (rloss, rmet), rgrads = jax.value_and_grad(
-        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True)(rparams)
+    (rloss, rmet), rgrads = jax.jit(jax.value_and_grad(
+        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True))(
+        rparams)
     names, leaves = zip(*model.named_parameters())
     loss, met = steps.loss_fn(tcfg, compute_params(model, torch.float32), tb,
                               CTX)

@@ -33,9 +33,11 @@ from repro_torch.models.params import Model, cast_params, count_params  # noqa: 
 ATOL = 1e-4
 CPU = torch.device("cpu")
 
-# the dense configs at .reduced(), and paper-overhead, qwen2.5-32b and
-# mistral-large-123b narrowed with their own groups kept (G 3, 5 and 12;
-# .reduced() makes every group 2); qwen2.5's qkv bias comes along
+# the dense configs at .reduced(), and paper-overhead, qwen2.5-32b,
+# mistral-large-123b and internvl2-76b narrowed with their own groups kept
+# (G 3, 5, 12 and 8; .reduced() makes every group 2); qwen2.5's qkv bias
+# comes along; internvl2 serves text-only here (its frontend:
+# tests/test_torch_internvl2.py)
 CASES = {
     "qwen3": ("qwen3-0.6b", {}),
     "paper": ("paper-overhead-100m", {}),
@@ -43,9 +45,10 @@ CASES = {
     "qwen2.5-g5": ("qwen2.5-32b", dict(num_heads=10, num_kv_heads=2)),
     "mistral-g12": ("mistral-large-123b", dict(num_heads=24,
                                                num_kv_heads=2)),
+    "internvl2-g8": ("internvl2-76b", dict(num_heads=16, num_kv_heads=2)),
 }
 DENSE_ARCHS = ("qwen3-0.6b", "paper-overhead-100m", "qwen2.5-32b",
-               "mistral-large-123b", "gemma2-9b")
+               "mistral-large-123b", "gemma2-9b", "internvl2-76b")
 
 
 def _configs(arch, narrow):
@@ -167,7 +170,9 @@ def test_prefill_ragged_then_decode_match_reference(pair):
 
 def test_chunked_prefill_matches_reference(pair):
     """Prefix caching: a plain prefill fills the prefix pages, then a
-    chunked prefill continues each row at its own start (one row idle)."""
+    chunked prefill continues each row at its own start (one row idle).
+    Under a vision frontend both packages refuse the chunked prefill
+    (its rows would precede position 0)."""
     rcfg, tcfg, rparams, tparams = pair
     B, ps = 3, rcfg.page_size
     max_len = 32
@@ -188,6 +193,19 @@ def test_chunked_prefill_matches_reference(pair):
                                 {"tokens": torch.from_numpy(first).long()},
                                 tctx, mode="prefill", cache=tc)
     np.testing.assert_allclose(tl.numpy(), _np(rl), atol=ATOL)
+    if rcfg.frontend == "vision":
+        with pytest.raises(NotImplementedError, match="frontend"):
+            ref_model.forward(rcfg, rparams, {"tokens": jnp.asarray(chunk)},
+                              rctx, mode="prefill", cache=rc,
+                              lengths=jnp.asarray(lengths),
+                              starts=jnp.asarray(starts))
+        with pytest.raises(NotImplementedError, match="frontend"):
+            port_model.forward(tcfg, tparams,
+                               {"tokens": torch.from_numpy(chunk).long()},
+                               tctx, mode="prefill", cache=tc,
+                               lengths=torch.from_numpy(lengths),
+                               starts=torch.from_numpy(starts))
+        return
     rl, rc, _ = ref_model.forward(rcfg, rparams, {"tokens": jnp.asarray(chunk)},
                                   rctx, mode="prefill", cache=rc,
                                   lengths=jnp.asarray(lengths),
@@ -210,7 +228,9 @@ def test_unported_configs_raise():
                  dict(block_pattern=("recurrent", "global")),
                  dict(num_experts=4, block_pattern=("rwkv",)),
                  dict(block_pattern=("recurrent",)),
-                 dict(is_encoder_decoder=True), dict(frontend="vision"),
+                 dict(is_encoder_decoder=True), dict(frontend="audio"),
+                 dict(frontend="vision", window_size=8,
+                      block_pattern=("recurrent", "recurrent", "local")),
                  dict(use_mla=True, window_size=8,
                       block_pattern=("recurrent", "recurrent", "local"))):
         with pytest.raises(NotImplementedError, match="later slice"):

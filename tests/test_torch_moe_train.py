@@ -204,8 +204,8 @@ def test_moe_train_gradients_match_jax_grad(name):
     xt = _t(x).requires_grad_(True)
     out, aux = moe.moe_ffn(tcfg, leaves, xt, mode="train")
     for i, port_loss in enumerate(((out * _t(w)).sum(), aux)):
-        want = jax.grad(lambda p, x: ref_losses(p, x)[i], argnums=(0, 1))(
-            rp_j, jnp.asarray(x))
+        want = jax.jit(jax.grad(lambda p, x: ref_losses(p, x)[i],
+                                argnums=(0, 1)))(rp_j, jnp.asarray(x))
         names = sorted(leaves)
         got = torch.autograd.grad(port_loss, [leaves[n] for n in names]
                                   + [xt], retain_graph=True,
@@ -261,8 +261,9 @@ def test_loss_and_gradients_match_reference_by_tree_path(granite):
     rb, tb = _batch(rcfg)
     rb["labels"][0, :5] = -1
     tb["labels"][0, :5] = -1
-    (rloss, rmet), rgrads = jax.value_and_grad(
-        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True)(rparams)
+    (rloss, rmet), rgrads = jax.jit(jax.value_and_grad(
+        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True))(
+        rparams)
     names, leaves = zip(*model.named_parameters())
     loss, met = steps.loss_fn(tcfg, compute_params(model, torch.float32), tb,
                               CTX)

@@ -282,17 +282,22 @@ def test_virtual_time_platform_equals_the_reference(scenario):
 
 
 def test_port_registry_knows_its_configs_and_refuses_the_rest():
-    """D11: the port's registry holds 9 of the reference's 11 configs; a
-    job naming another framework is refused at the gateway."""
+    """D11: the port's registry holds 10 of the reference's 11 configs; a
+    job naming the other, seamless-m4t-medium, is refused at the
+    gateway."""
     assert FrameworkRegistry.default().known() == (
         "deepseek-v2-236b", "gemma2-9b", "granite-moe-1b-a400m",
-        "mistral-large-123b", "paper-overhead-100m", "qwen2.5-32b",
-        "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b")
-    assert "internvl2-76b" in ref_core.FrameworkRegistry.default()
+        "internvl2-76b", "mistral-large-123b", "paper-overhead-100m",
+        "qwen2.5-32b", "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b")
+    assert "seamless-m4t-medium" in ref_core.FrameworkRegistry.default()
     p = _boot(port_core, 1)
-    h = p.submit(port_core.JobManifest(name="g", framework="internvl2-76b"))
+    h = p.submit(port_core.JobManifest(name="g",
+                                       framework="seamless-m4t-medium"))
+    ok = p.submit(port_core.JobManifest(name="v", framework="internvl2-76b"))
     p.run(5)
-    assert h.rejected and "unknown framework 'internvl2-76b'" in h.rejected
+    assert h.rejected \
+        and "unknown framework 'seamless-m4t-medium'" in h.rejected
+    assert ok.acked, ok.rejected
 
 
 def test_real_dryrun_needs_a_registered_payload():

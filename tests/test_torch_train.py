@@ -58,8 +58,9 @@ CTX = Ctx(device=CPU, dtype=torch.float32)
 RCTX = RefCtx(mesh=None, dtype=jnp.float32)
 
 # as tests/test_torch_model.py: the dense configs at .reduced(), and
-# paper-overhead, qwen2.5-32b and mistral-large-123b narrowed with their
-# own groups kept (G 3, 5 and 12; qwen2.5's qkv bias comes along)
+# paper-overhead, qwen2.5-32b, mistral-large-123b and internvl2-76b
+# narrowed with their own groups kept (G 3, 5, 12 and 8; qwen2.5's qkv bias
+# comes along); internvl2's batches carry its frontend embeddings
 CASES = {
     "qwen3": ("qwen3-0.6b", {}),
     "paper": ("paper-overhead-100m", {}),
@@ -67,6 +68,7 @@ CASES = {
     "qwen2.5-g5": ("qwen2.5-32b", dict(num_heads=10, num_kv_heads=2)),
     "mistral-g12": ("mistral-large-123b", dict(num_heads=24,
                                                num_kv_heads=2)),
+    "internvl2-g8": ("internvl2-76b", dict(num_heads=16, num_kv_heads=2)),
 }
 
 
@@ -82,9 +84,16 @@ def _np(x):
 
 
 def _batch(rcfg, S=24, B=2, step=0):
+    """The reference's batch; under a vision frontend also seeded patch
+    embeddings (0.02·N(0, 1), as the reference's tests draw them)."""
     b = RefData(rcfg.vocab_size, S, B, seed=3).batch_at(step)
     b = {k: np.array(v) for k, v in b.items()}
-    return b, {k: torch.from_numpy(v).long() for k, v in b.items()}
+    t = {k: torch.from_numpy(v).long() for k, v in b.items()}
+    if rcfg.frontend == "vision":
+        b["frontend_embeds"] = (0.02 * np.random.default_rng(step).normal(
+            size=(B, rcfg.frontend_tokens, rcfg.d_model))).astype(np.float32)
+        t["frontend_embeds"] = torch.from_numpy(b["frontend_embeds"])
+    return b, t
 
 
 def _leaves(tree, path=()):
@@ -121,8 +130,9 @@ def test_loss_and_gradients_match_reference_by_tree_path(pair):
     rb, tb = _batch(rcfg)
     rb["labels"][0, :5] = -1                 # masked labels count for nothing
     tb["labels"][0, :5] = -1
-    (rloss, rmet), rgrads = jax.value_and_grad(
-        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True)(rparams)
+    (rloss, rmet), rgrads = jax.jit(jax.value_and_grad(
+        lambda p: ref_steps.loss_fn(rcfg, p, rb, RCTX), has_aux=True))(
+        rparams)
     names, leaves = zip(*model.named_parameters())
     loss, met = steps.loss_fn(tcfg, compute_params(model, torch.float32), tb,
                               CTX)
@@ -310,17 +320,23 @@ def test_cli_trains_on_the_cpu_and_needs_a_device_without_a_card(
 
 
 def test_configs_this_slice_does_not_train_are_refused():
-    """Every registered config trains; what the port lacks (a frontend, an
-    encoder-decoder, a recurrent layer mixed with a global one) is
-    refused by name, also when a train state is built."""
-    assert len(list_configs()) == 9
+    """Every registered config trains; what the port lacks (the audio
+    frontend, the vision frontend on an MoE stack, an encoder-decoder, a
+    recurrent layer mixed with a global one) is refused by name, also when
+    a train state is built."""
+    assert len(list_configs()) == 10
     for arch in list_configs():
         check_trainable(get_config(arch))
     base = get_config("qwen3-0.6b").reduced()
-    for over in (dict(attn_logit_softcap=30.0), dict(final_logit_softcap=5.0)):
+    for over in (dict(attn_logit_softcap=30.0), dict(final_logit_softcap=5.0),
+                 dict(frontend="vision", frontend_tokens=4)):
         check_trainable(dataclasses.replace(base, **over))
-    for over, what in ((dict(frontend="vision", frontend_tokens=4),
-                        "the vision frontend"),
+    for over, what in ((dict(frontend="audio", frontend_tokens=4),
+                        "the audio frontend"),
+                       (dict(frontend="vision", frontend_tokens=4,
+                             num_experts=4, num_experts_per_tok=2,
+                             moe_d_ff=32),
+                        "the vision frontend on MoE"),
                        (dict(is_encoder_decoder=True, num_encoder_layers=2),
                         "encoder-decoder"),
                        (dict(block_pattern=("recurrent", "global")),
