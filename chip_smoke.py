@@ -86,7 +86,19 @@ Phases, each of which exits non-zero on the first failure:
               paged decode also at its group (K 8, G 8, hd 128) over the
               frontend's table and a long one, bf16 and fp32 q.  The
               planted faults of each of these backward cases at least 10
-              times over its tolerance.
+              times over its tolerance.  The flash forward and backward
+              at a key length apart from the query length
+              (:func:`run_cross_flash_phase`): seamless-m4t-medium's
+              cross-attention at (t11) (B 2, 4,096 queries over 1,024
+              keys, H = K = 16, hd 64) and (j) (1,024 over 264), its
+              encoder's full and its decoder's causal self-attention (G 1
+              at hd 64), (t11)'s cross in fp32, and Sk 1, 77, 1,000 and
+              65, Sq 1, Sq < Sk and G 2 at hd 128: outputs, log-sum-exp
+              and gradients within the tolerances above, two backward
+              calls bit-equal, planted faults at least 10 times over (the
+              last key tile dropped from dQ; the key past Sk read as live,
+              on scores below zero), timed beside SDPA (which takes L != S
+              without a mask) and its backward.
 3. serve   -- serves ``qwen3-0.6b`` at full width in bf16 through the
               port's continuous-batching engine, twice: (a) without the
               prefix cache, so ragged prefill runs the flash kernel and
@@ -106,16 +118,17 @@ Phases, each of which exits non-zero on the first failure:
               tie, if the token streams part), then a byte-identical
               snapshot/restore on ``cuda``.
 5. rwkv    -- the same for ``rwkv6-7b`` (32 layers, d 4096, 64 heads of 64,
-              7.04 B parameters without the embeddings; its build, the
-              weights drawn on the host, timed beside the same draws by a
-              CUDA generator on the card): serve at full
+              7.04 B parameters without the embeddings; its build
+              timed): serve at full
               width in bf16 with the WKV6 kernel in every prefill of every
               layer (its launches must be 32 a prefill round, none of
               them writing state checkpoints), one traced
               prefill round and four decode steps, then fp32 cuda vs cpu
               parity at full width and 2 layers (prompts up to 90 tokens:
-              a chunk, a ragged tail and padded rows) and snapshot/restore
-              of the RWKV state on ``cuda``.
+              a chunk, a ragged tail and padded rows; the vocabulary cut
+              to 16,384 and d_ff to 4,096, SERVE_PARITY_VOCAB and
+              SERVE_PARITY_FFN, as in 6, 7 and 7c) and
+              snapshot/restore of the RWKV state on ``cuda``.
 6. recurrentgemma -- the same for ``recurrentgemma-9b`` (38 layers: 26
               RG-LRU and 12 local-attention layers, d 4096, 16 q heads over
               one kv head of 256, window 2,048; 9.40 B parameters), run after
@@ -135,7 +148,8 @@ Phases, each of which exits non-zero on the first failure:
               weights are freed: serve in bf16 with the MLA kernel 3 times
               a decode step, one traced prefill round and four decode
               steps, then fp32 cuda vs cpu parity at full width and 2
-              layers with the experts cut to 16 (prefix cache on, so every
+              layers with the experts cut to 8 and the dense FFN to 1,536
+              (prefix cache on, so every
               prefill is the chunked walk, a shared-prefix request for
               copy-on-write and a page budget that forces an eviction; a
               routing flip counts as a tie only within PARITY_TIE_TOL) and
@@ -161,6 +175,17 @@ Phases, each of which exits non-zero on the first failure:
               same in fp32 on cuda and cpu at 2 layers (d_ff 4,096,
               vocabulary 16,384; 4 rows of prompts up to 128): live
               logits within 2e-3, greedy tokens equal but at a tie.
+7c. seamless -- (j) serves seamless-m4t-medium at full depth (12 encoder
+              and 12 decoder layers, 977.9 M parameters) in bf16: 8
+              slots, 16 full-length prompts of 1,024 tokens, each
+              prefilled alone on its slot over its own 264 frames, 16-32
+              new tokens; the flash kernel 36 times a prefill (12 of them
+              cross-attention at Sk 264), the paged decode 12 times a
+              step, no other kernel; a traced prefill round and four
+              decode steps; fp32 cuda-vs-cpu parity at 2 + 2 layers with
+              evictions, snapshot/restore, and an evicted request
+              replayed into its slot with its cross and paged K/V
+              byte-identical.
 8. train   -- trains ``paper-overhead-100m`` at full width (12 layers, B 8,
               S 1,024, 30 steps, lr 1e-3, warmup 3), ``qwen3-0.6b`` at
               full width (28 layers, S 4,096, global batch 4 in 2
@@ -177,28 +202,31 @@ Phases, each of which exits non-zero on the first failure:
               at B 2, S 4,096, 1 microbatch of its 16, full remat, bf16
               master weights and moments; peak memory at most 70 GB; its
               remat check on one row) and ``rwkv6-7b`` at full width cut
-              to 12 layers
-              (the most that leave 8 GB of the card free; its train_4k
-              run: S 4,096, global batch 4 in 2 microbatches, full
-              remat, 6 steps; WKV6 forward 2 x 12 x 2 and backward 12 x
-              2 a step; its remat check on one row) and
-              ``recurrentgemma-9b`` at full width cut to 6 layers ((t6):
-              two (R, R, L) groups, 2.36 B parameters; its train_4k run:
+              to 6 layers
+              (half of the 12 that leave 8 GB of the card free; its
+              train_4k run: S 4,096, global batch 4 in 2 microbatches,
+              full remat, 6 steps; WKV6 forward 2 x 6 x 2 and backward 6
+              x 2 a step; its remat check on one row) and
+              ``recurrentgemma-9b`` at full width cut to 3 layers ((t6):
+              one (R, R, L) group, 1.70 B parameters; its train_4k run:
               S 4,096, global batch 2 in 2 microbatches, full remat, 6
-              steps; RG-LRU forward 2 x 4 x 2 and backward 4 x 2 a step,
-              flash at hd 256 forward 2 x 2 x 2 and backward 2 x 2; peak
+              steps; RG-LRU forward 2 x 2 x 2 and backward 2 x 2 a step,
+              flash at hd 256 forward 2 x 1 x 2 and backward 1 x 2; peak
               at most 70 GB; its remat check on one row) and the dense
               decoders' train_4k runs at full width cut in depth, one row
               a microbatch: (t7) qwen2.5-32b at 2 layers, B 2 in 2
               microbatches; (t8) mistral-large-123b at 2 layers, B 1;
-              (t9) gemma2-9b at 6 layers (three (local, global) pairs, both
+              (t9) gemma2-9b at 2 layers (one (local, global) pair, both
               softcaps, the flash backward at hd 256 with its cap), B 4 in
               its 4 microbatches; (t10) internvl2-76b at 1 layer, B 1 in 1
               of its 16, text-only, then one step on a batch of the
               reference's dry-run shape (256 patch embeddings and 3,840
               tokens a row: the flash kernels at S 4,096, loss finite);
               peak at most 70 GB, remat checks on one
-              row) in bf16 with fp32 master
+              row), (t11) seamless-m4t-medium at full depth, its
+              train_4k run (B 4 in 2 microbatches, S 4,096 over 1,024
+              frames a row, full remat; flash 144 forward and 72
+              backward a step) in bf16 with fp32 master
               weights (deepseek-v2's bf16), through
               ``repro_torch.launch.train``'s loop (the
               trained kernels' plain versions barred), after
@@ -213,24 +241,34 @@ Phases, each of which exits non-zero on the first failure:
               2 x 28 x 2 forward under remat and 28 x 2 backward),
               steps/s, tokens/s, MFU and peak
               memory, then one more step under torch.profiler (device busy
-              and idle share, device ms by part).  (t5) runs after (t4),
-              (t6) after (t5), (t7)-(t10) after (t6).
+              and idle share, device ms by part).  Their weights, like
+              those of every full-width serving build (3, 5-7c), are
+              drawn on the card (``init_params``'s ``draws="device"``):
+              no CPU side holds them to anything, and the host's draws
+              took 12-18 s a serving build; the parity builds draw on
+              the host, where both devices must hold the same numbers.
+              (t5) runs after (t4), (t6) after (t5), (t7)-(t10) after
+              (t6).
               Before granite, one
               MoE FFN at its width and shape runs forward and backward
               with ``torch.cuda.set_sync_debug_mode("error")`` (no host
               sync), twice bit-equal.  Then fp32 cuda vs cpu
-              parity of the ten configs at full width and 2 layers (B 2,
+              parity of the eleven configs at full width and 2 layers (B 2,
               S 256, 3 steps; deepseek-v2 with 8 experts, d_ff 1,536, a
               vocabulary of 16,384 and B 1; recurrentgemma-9b at 3 layers
               (R, R, L), its window cut to 64 and a vocabulary of 16,384;
               rwkv6-7b at 1 layer, a vocabulary of 16,384 and lr 3e-4, its
               gradients within
-              5e-4; qwen2.5-32b, mistral-large-123b (d_ff 4,096) and
-              gemma2-9b (one (local, global) pair, window 64) at a
-              vocabulary of 16,384; internvl2-76b (d_ff 4,096, vocabulary
-              16,384) on rows of 32 patch embeddings and 224 tokens.  Its CPU side runs from right after
+              5e-4; qwen2.5-32b (d_ff 4,096), mistral-large-123b (1 layer,
+              d_ff 4,096) and gemma2-9b (one (local, global) pair, window
+              64) at a vocabulary of 16,384; internvl2-76b (1 layer, d_ff
+              4,096, vocabulary 16,384) on rows of 32 patch embeddings and
+              224 tokens;
+              seamless-m4t-medium at 2 + 2 layers and 16,384 on rows of
+              256 tokens over 64 frames.  Its CPU side runs from right after
               the build in a second process on 4 of the host's cores (this
-              process keeps the others; the host-bound rates taken
+              process keeps the others, and takes all of them back once
+              the worker has finished; the host-bound rates taken
               meanwhile say so) and the phase computes the card's side:
               the initial states equal (their digests), the MoE's routing
               equal or parted at a tie, losses within 1e-5 relative, the
@@ -406,12 +444,26 @@ def wkv_du_terms(r, k, v, do):
 # |lse|) (fp32 statistics in both types; the bf16 walk's ex2.approx)
 LSE_TOL = 1e-5
 PARITY_LOGIT_TOL = 2e-3      # fp32 cuda vs cpu, 2-4 layers, summation order
+# The serving parity of rwkv6-7b, recurrentgemma-9b, deepseek-v2-236b and
+# seamless-m4t-medium runs its full-width sequence mixers over a
+# vocabulary cut to 16,384 (65,536, 256,000, 102,400, 256,206) and FFNs
+# cut as the train parity cuts them (SERVE_PARITY_FFN): what it holds the
+# card to is the engine and the kernels of its mixers (WKV6; the RG-LRU
+# scan and flash at hd 256; the MLA decode and its routing; the flash
+# kernels at Sk != Sq), which neither reaches, while the host's draws of
+# both devices' weights and the CPU side's head and FFNs were most of each
+# phase's parity
+SERVE_PARITY_VOCAB = 16_384
+SERVE_PARITY_FFN = {"rwkv6-7b": dict(d_ff=4_096),
+                    "recurrentgemma-9b": dict(d_ff=4_096),
+                    "deepseek-v2-236b": dict(d_ff=1_536, num_experts=8)}
 PARITY_TIE_TOL = 2e-3        # top-2 gap below which a divergence is a tie
-# rwkv6-7b's (t4) depth: the most layers that leave 8 GB of the card's 80
-# GB free (a layer adds 220 M parameters at 22 bytes in training, 4.84 GB:
-# fp32 master and moments, two microbatches' fp32 gradients, the bf16
-# compute copy)
-RWKV_TRAIN_LAYERS = 12
+# rwkv6-7b's (t4) depth: 12 layers are the most that leave 8 GB of the
+# card's 80 GB free (a layer adds 220 M parameters at 22 bytes in
+# training, 4.84 GB: fp32 master and moments, two microbatches' fp32
+# gradients, the bf16 compute copy); the smoke trains half of them, 1.86
+# B parameters, to stay inside its time limit (12 took 63 s of it)
+RWKV_TRAIN_LAYERS = 6
 PEAK_MEM_LIMIT_GB = 70.0     # deepseek-v2 at 3 layers: 56 GB of weights
 # deepseek-v2's (t5) depth: layer 0 dense, layer 1 MoE; 5.36 B parameters
 # at 8 bytes in training (bf16 weights, moments and gradients), 42.9 GB;
@@ -431,26 +483,40 @@ DEEPSEEK_TRAIN_LAYERS = 2
 # qwen2.5-32b's, mistral-large-123b's and gemma2-9b's: the vocabulary ->
 # 16,384 (152,064, 32,768, 256,000); mistral-large's d_ff 28,672 -> 4,096
 # (at 2 layers its FFN alone would hold 2.1 B fp32 parameters on the
-# host); gemma2's window 4,096 -> 64 (S 256 crosses it) and one (local,
-# global) pair, both softcaps and the post-block norms kept
+# host) and qwen2.5's 27,648 -> 4,096 (its CPU side took 127 s of the
+# worker's ~590, and the card side, compare and round trip 23 s of the
+# phase's 142); gemma2's window 4,096 -> 64 (S 256 crosses it) and one (local,
+# global) pair, both softcaps and the post-block norms kept;
+# seamless-m4t-medium's: 2 encoder and 2 decoder layers, the vocabulary
+# 256,206 -> 16,384, rows of 256 tokens over 64 frames
 PARITY_CUTS = {"deepseek-v2-236b": dict(num_experts=8, d_ff=1_536,
                                         vocab_size=16_384),
                "recurrentgemma-9b": dict(window_size=64,
                                          vocab_size=16_384),
                "rwkv6-7b": dict(vocab_size=16_384),
-               "qwen2.5-32b": dict(vocab_size=16_384),
+               "qwen2.5-32b": dict(d_ff=4_096, vocab_size=16_384),
                "mistral-large-123b": dict(d_ff=4_096, vocab_size=16_384),
                "gemma2-9b": dict(window_size=64, vocab_size=16_384),
-               "internvl2-76b": dict(d_ff=4_096, vocab_size=16_384)}
+               "internvl2-76b": dict(d_ff=4_096, vocab_size=16_384),
+               "seamless-m4t-medium": dict(num_encoder_layers=2,
+                                           vocab_size=16_384)}
 PARITY_BATCH = {"deepseek-v2-236b": 1}
-PARITY_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-7b": 1}
+# mistral-large-123b and internvl2-76b at 1 layer: the widest dense stacks
+# (d 12,288 and 8,192), whose fp32 states (16.3 and 9.3 GB at 2 layers,
+# master weights and moments) made their round trips and gradient
+# comparisons the phase's longest (29 and 19 s) and their CPU sides 124
+# and 67 s of the worker's; a layer's gradient flowing into another is
+# held at 2 layers by the other dense GQA stacks
+PARITY_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-7b": 1,
+                 "mistral-large-123b": 1, "internvl2-76b": 1}
 # internvl2-76b's parity batches carry its frontend: 32 patch embeddings
 # and 224 tokens a row of 256
 PARITY_FRONTEND = {"internvl2-76b": 32}
 TRAIN_PARITY_ARCHS = ("paper-overhead-100m", "qwen3-0.6b",
                       "granite-moe-1b-a400m", "rwkv6-7b", "deepseek-v2-236b",
                       "recurrentgemma-9b", "qwen2.5-32b",
-                      "mistral-large-123b", "gemma2-9b", "internvl2-76b")
+                      "mistral-large-123b", "gemma2-9b", "internvl2-76b",
+                      "seamless-m4t-medium")
 # The train parity's CPU side runs in a second process (:class:`ParityWorker`)
 # from right after the build, on PARITY_WORKER_CORES of the host's cores
 # (its threads and its affinity), the smoke's own process on the others;
@@ -458,11 +524,12 @@ TRAIN_PARITY_ARCHS = ("paper-overhead-100m", "qwen3-0.6b",
 # rates taken meanwhile say so (:func:`host_note`).
 PARITY_WORKER_CORES = 4
 PARITY_WORKER_WAIT_S = 900.0   # the most the parity phase waits for a result
-# recurrentgemma-9b's (t6) depth: two (R, R, L) groups, 2.36 B parameters
-# with the tied 256,000 x 4,096 embedding; fp32 master weights and
-# moments, two microbatches' fp32 gradients and a row's 4,096 x 256,000
-# fp32 logits with their softmax and gradient
-RG_TRAIN_LAYERS = 6
+# recurrentgemma-9b's (t6) depth: one (R, R, L) group, 1.70 B parameters
+# with the tied 256,000 x 4,096 embedding (two groups, 2.36 B, fit too:
+# 55.5 GB; one keeps the smoke inside its time limit); fp32 master
+# weights and moments, two microbatches' fp32 gradients and a row's 4,096
+# x 256,000 fp32 logits with their softmax and gradient
+RG_TRAIN_LAYERS = 3
 # The dense decoders of this slice, at full width cut in depth to fit the
 # card's 70 GB (PEAK_MEM_LIMIT_GB).  Serving holds fp32 weights and their
 # bf16 compute copy, 6 bytes a parameter: (f) qwen2.5-32b 488 M a layer
@@ -474,18 +541,19 @@ RG_TRAIN_LAYERS = 6
 # gradients (two of them with microbatches) and the bf16 copy, 18 to 22
 # bytes a parameter, and a row's fp32 logits with their softmax and
 # gradient: (t7) qwen2.5 at 2 layers, 2.53 B parameters; (t8)
-# mistral-large at 2 layers, 3.57 B; (t9) gemma2 at 6 layers (three
-# (local, global) pairs), 2.11 B, a row's 4,096 x 256,000 logits passing
-# the final softcap (its tanh kept for the backward: about 21 GB at the
-# backward's start).  gemma2 serves 40 of its 42 layers: all 42 hold 55.5
-# GB of weights and 11.3 GB of caches, and a prefill round of 8 rows of
-# 3,072 tokens adds about 3.5 GB, past 70 GB
+# mistral-large at 2 layers, 3.57 B; (t9) gemma2 at 2 layers (one (local,
+# global) pair; three, 2.11 B, fit too but cost the smoke's time), 1.31
+# B, a row's 4,096 x 256,000 logits passing the final softcap (its tanh
+# kept for the backward: about 21 GB at the backward's start).  gemma2
+# serves 40 of its 42 layers: all 42 hold 55.5 GB of weights and 11.3 GB
+# of caches, and a prefill round of 8 rows of 3,072 tokens adds about 3.5
+# GB, past 70 GB
 QWEN25_SERVE_LAYERS = 16
 MISTRAL_SERVE_LAYERS = 7
 GEMMA2_SERVE_LAYERS = 40
 QWEN25_TRAIN_LAYERS = 2
 MISTRAL_TRAIN_LAYERS = 2
-GEMMA2_TRAIN_LAYERS = 6
+GEMMA2_TRAIN_LAYERS = 2
 # internvl2-76b (a Llama-3-70B-class GQA backbone, G 8, under the vision
 # frontend stub): 855.65 M parameters a layer, an untied 1.05 B embedding
 # and head.  (i) serves 10 of its 80 layers, 10.66 B parameters at 6 bytes
@@ -540,6 +608,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_ms_of(fn) -> float:
+    """A plain version's time: one call, its ops already warm from the
+    oracle call the check made just before.  The plain version repeats
+    the kernel's arithmetic and is no yardstick of speed, so the smoke
+    spends one call on it, not an average."""
+    return time_ms(fn, reps=1, warmup=0)
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -840,8 +916,8 @@ def run_flash_phase(dev, gen):
                      reps=reps)
         dev_ms = device_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw),
                            reps=reps)
-        plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
-                           reps=min(reps, 5), warmup=1)
+        plain_ms = plain_ms_of(lambda: fa.flash_attention_torch(q, k, v,
+                                                                **kw))
         lib_ms, lib = None, None
         if hdv != hd:
             lib_ms, lib = sdpa_forward_ms(q, k, v, causal, reps=reps)
@@ -1031,9 +1107,8 @@ def run_decode_phase(dev, gen):
             qm, kp, vp, table, pos, grouped=False, **kw))
         dev_ung = device_ms(lambda: ops.paged_decode_bhd(
             qm, kp, vp, table, pos, grouped=False, **kw))
-        plain_ms = time_ms(lambda: pa.paged_decode_torch(q, kp, vp, table,
-                                                         pos, **kw),
-                           reps=5, warmup=1)
+        plain_ms = plain_ms_of(lambda: pa.paged_decode_torch(
+            q, kp, vp, table, pos, **kw))
         cold_ms = cold_device_ms(lambda: ops.paged_decode_bhd(
             qm, kp, vp, table, pos, **kw)) if label == "qwen3 G2" else None
         keys, pairs = decode_live_keys(table, pos, ps)
@@ -1191,8 +1266,8 @@ def run_wkv_phase(dev, gen):
             call = lambda: ops.wkv6_bshn(r, k, v, lw, u, s0)  # noqa: E731
             row.update(ms=time_ms(call), device_ms=device_ms(call),
                        cold_ms=cold_device_ms(call),
-                       plain_ms=time_ms(lambda: wkv.wkv6_torch(
-                           r, k, v, lw, u, s0), reps=3, warmup=1),
+                       plain_ms=plain_ms_of(lambda: wkv.wkv6_torch(
+                           r, k, v, lw, u, s0)),
                        library_ms=None,
                        **wkv_work(B, S, H, N, r.element_size()),
                        shape=f"B {B}, S {S}, H {H}, N {N}, {dtype_name(dt)}")
@@ -1403,8 +1478,8 @@ def run_wkv_bwd_phase(dev, gen):
                            re.search(r"wkv6_bwd_\w+", k)[0]: x
                            for k, x in device_ms_by_kernel(call).items()
                            if "wkv6_bwd_" in k},
-                       plain_ms=time_ms(lambda: wkv.wkv6_bwd_torch(
-                           r, k, v, lw, u, ck, do, dsf), reps=1, warmup=0),
+                       plain_ms=plain_ms_of(lambda: wkv.wkv6_bwd_torch(
+                           r, k, v, lw, u, ck, do, dsf)),
                        library_ms=None,
                        fwd_ms=time_ms(lambda: wkv.wkv6_cuda(
                            r, k, v, lw, u, s0)),
@@ -1412,9 +1487,8 @@ def run_wkv_bwd_phase(dev, gen):
                            r, k, v, lw, u, s0, seg=wkv.SEG)),
                        fwd_ckpt_device_ms=device_ms(lambda: wkv.wkv6_cuda(
                            r, k, v, lw, u, s0, seg=wkv.SEG)),
-                       fwd_ckpt_plain_ms=time_ms(lambda: wkv.wkv6_torch(
-                           r, k, v, lw, u, s0, seg=wkv.SEG), reps=3,
-                           warmup=1),
+                       fwd_ckpt_plain_ms=plain_ms_of(lambda: wkv.wkv6_torch(
+                           r, k, v, lw, u, s0, seg=wkv.SEG)),
                        checkpoint_every=wkv.SEG,
                        **wkv_bwd_work(B, S, H, N, r.element_size()))
             moved = row["moved_bytes"]
@@ -1548,8 +1622,8 @@ def run_rglru_phase(dev, gen):
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS["float32"]
             row.update(ms=time_ms(call), device_ms=device_ms(call),
-                       plain_ms=time_ms(lambda: rg.rglru_scan_torch(
-                           log_a, b, h0), reps=3, warmup=1),
+                       plain_ms=plain_ms_of(lambda: rg.rglru_scan_torch(
+                           log_a, b, h0)),
                        library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        shape=f"B {B}, S {S}, R {R}, fp32",
@@ -1686,8 +1760,8 @@ def run_rglru_bwd_phase(dev, gen):
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS["float32"]
             row.update(ms=time_ms(call), device_ms=device_ms(call),
-                       plain_ms=time_ms(lambda: rg.rglru_scan_bwd_torch(
-                           log_a, h, dh, h0), reps=1, warmup=0),
+                       plain_ms=plain_ms_of(lambda: rg.rglru_scan_bwd_torch(
+                           log_a, h, dh, h0)),
                        library_ms=None,
                        library="none: no PyTorch call computes the scan's "
                        "gradient",
@@ -1808,9 +1882,8 @@ def run_mla_phase(dev, gen):
             t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
             row.update(ms=time_ms(call), device_ms=device_ms(call),
                        cold_ms=cold_device_ms(call),
-                       plain_ms=time_ms(lambda: pa.mla_paged_decode_torch(
-                           q, ckv, krope, table, pos, scale=scale),
-                           reps=5, warmup=1),
+                       plain_ms=plain_ms_of(lambda: pa.mla_paged_decode_torch(
+                           q, ckv, krope, table, pos, scale=scale)),
                        library_ms=None, bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        live_keys=keys, scored=pairs, bytes=nbytes,
@@ -2181,8 +2254,9 @@ def run_flash_bwd_phase(dev, gen):
         call = lambda: ops.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, do, **kw)
         reps = timing_reps(dt, B * S * H)
-        ms, dev_ms = time_ms(call, reps=reps), device_ms(call, reps=reps)
-        parts = bwd_parts(device_ms_by_kernel(call, reps=reps))
+        ms, by_kernel = time_ms(call, reps=reps), \
+            device_ms_by_kernel(call, reps=reps)
+        dev_ms, parts = sum(by_kernel.values()) or None, bwd_parts(by_kernel)
         plan = fa.flash_bwd_card_plan(q, k, v, causal, window, cap)[0]
         plan_text = (f"dK/dV {len(plan['kv']['items'])} items on "
                      f"{plan['kv']['blocks']} blocks, {plan['kv']['slots']} "
@@ -2191,8 +2265,8 @@ def run_flash_bwd_phase(dev, gen):
                      f"{len(plan['dq']['items'])} items on "
                      f"{plan['dq']['blocks']} blocks, {plan['dq']['slots']} "
                      f"x {plan['dq']['stages']}, {plan['dq']['smem']} B")
-        plain_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
-            q, k, v, o, lse, do, **kw), reps=3, warmup=1)
+        plain_ms = plain_ms_of(lambda: fa.flash_attention_bwd_torch(
+            q, k, v, o, lse, do, **kw))
         lib_ms, lib = (None, "none: SDPA has no softcap") if cap else \
             sdpa_backward_ms(q, k, v, do, causal, window)
         flops, nbytes = flash_bwd_work(B, S, H, K, hd, q.element_size(),
@@ -2239,6 +2313,204 @@ def run_flash_bwd_phase(dev, gen):
     return rows
 
 
+# seamless-m4t-medium's attention (H = K = 16, hd 64, G 1): (t11)'s row of
+# 4,096 decoder tokens over 1,024 encoder frames and (j)'s prompt of 1,024
+# over 264 frames.  The cross-attention has Sk apart from Sq and no mask;
+# the encoder's self-attention is full, the decoder's causal.
+T11_CROSS = "seamless (t11) cross"
+T11_ENCODER = "seamless (t11) encoder"
+T11_DECODER = "seamless (t11) decoder"
+J_CROSS = "seamless (j) cross"
+J_ENCODER = "seamless (j) encoder"
+
+
+def cross_cases():
+    """(label, B, Sq, Sk, H, K, hd, dtype, causal, timed): seamless's five
+    attention shapes in bf16 (timed), (t11)'s cross-attention in fp32, and
+    the kernels' edges at Sq != Sk: Sk 1, 77, 1,000 and 65, Sq 1, Sq < Sk,
+    and G 2 at hd 128 (the group sum at Sq != Sk)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        (T11_CROSS, 2, 4096, 1024, 16, 16, 64, bf16, False, True),
+        (T11_ENCODER, 2, 1024, 1024, 16, 16, 64, bf16, False, True),
+        (T11_DECODER, 2, 4096, 4096, 16, 16, 64, bf16, True, True),
+        (J_CROSS, 1, 1024, 264, 16, 16, 64, bf16, False, True),
+        (J_ENCODER, 1, 264, 264, 16, 16, 64, bf16, False, True),
+        ("fp32 (t11) cross", 2, 4096, 1024, 16, 16, 64, f32, False, False),
+        ("cross Sk1", 2, 300, 1, 16, 16, 64, bf16, False, False),
+        ("cross Sk77", 1, 1000, 77, 16, 16, 64, bf16, False, False),
+        ("cross Sk1000", 1, 130, 1000, 16, 16, 64, bf16, False, False),
+        ("cross Sk65", 1, 200, 65, 16, 16, 64, bf16, False, False),
+        ("cross Sq1", 2, 1, 264, 16, 16, 64, bf16, False, False),
+        ("cross Sq<Sk", 1, 100, 1024, 16, 16, 64, bf16, False, False),
+        ("fp32 cross Sk77", 1, 1000, 77, 16, 16, 64, f32, False, False),
+        ("cross G2 hd128", 2, 500, 300, 16, 8, 128, bf16, False, False),
+        ("fp32 cross G2 hd128", 2, 500, 300, 16, 8, 128, f32, False, False),
+    ]
+
+
+def cross_work(B, Sq, Sk, H, K, hd, elt, causal):
+    """((forward flops, bytes), (backward flops, bytes)): 4·hd and 10·hd
+    FLOPs a live (q, k) pair and head; the forward reads q, k, v once and
+    writes o, the backward reads q, k, v, o, dO and the lse and writes dq,
+    dk, dv."""
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    fwd = (4.0 * hd * B * H * pairs,
+           (2 * B * Sq * H * hd + 2 * B * Sk * K * hd) * elt)
+    bwd = (10.0 * hd * B * H * pairs,
+           (4 * B * Sq * H * hd + 4 * B * Sk * K * hd) * elt + 4 * B * H * Sq)
+    return fwd, bwd
+
+
+def bound_of(work, dt):
+    """(bound ms, what bounds it) of (flops, bytes) on the card."""
+    flops, nbytes = work
+    t_ops = flops / PEAK_FLOPS[dtype_name(dt)]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def run_cross_flash_phase(dev, gen):
+    """The flash forward and backward at a key length apart from the query
+    length (seamless's cross-attention) and at its G 1, hd 64 self-
+    attention: each against its plain version (the forward's output and
+    log-sum-exp, the backward's dq, dk, dv on the plain forward's O and
+    lse, two backward calls bit-equal), planted faults at least 10 times
+    over the tolerance (the backward: the last key tile of Sk dropped from
+    dQ, a q head of each group or the last q tile dropped from dK and dV;
+    the forward: the key past Sk read as live, the zero key the card's
+    loads give there, on scores below zero where a key of score 0 weighs),
+    and the timed cases' kernel, plain and SDPA times beside the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    rows = []
+    for label, B, Sq, Sk, H, K, hd, dt, causal, timed in cross_cases():
+        q, k, v, do = (torch.randn(B, n, h, hd, device=dev,
+                                   generator=gen).to(dt)
+                       for n, h in ((Sq, H), (Sk, K), (Sk, K), (Sq, H)))
+        kw = dict(scale=hd ** -0.5, causal=causal, window=0, logit_cap=0.0)
+        ftol = FLASH_TOL[dtype_name(dt)]
+        out = ops.flash_attention_bshd(q, k, v, **kw)
+        out_l, lse_k = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite")
+        check(torch.equal(out, out_l), f"flash {label}: the output with the "
+              "lse differs from the one without")
+        err = compare(out, o, ftol, f"flash {label}")
+        used = tol_used(out, o, ftol)
+        lse_err = (lse_k - lse).abs().max().item()
+        check(lse_err <= LSE_TOL * max(1.0, lse.abs().max().item()),
+              f"flash lse {label}: max |kernel - plain| {lse_err}")
+        tols = [bwd_tol(p, dt) for p in plain]
+        errs = []
+        for name, g, g2, p, tol in zip("qkv", got, again, plain, tols):
+            check(bool(torch.isfinite(g).all()),
+                  f"flash bwd {label}: d{name} non-finite")
+            check(torch.equal(g, g2),
+                  f"flash bwd {label}: d{name} differs between two calls")
+            errs.append(compare(g, p, tol, f"flash bwd {label} d{name}"))
+        bwd_used = [tol_used(g, p, t) for g, p, t in zip(got, plain, tols)]
+        faults = {}
+        for what, wrong, held in bwd_planted_faults(q, k, v, o, lse, do, kw):
+            faults[what] = max(tol_used(wrong[i], plain[i], tols[i])
+                               for i in held)
+        bn = fa.bwd_stream_tiles(hd)[1]
+        cut = (Sk - 1) // bn * bn
+        if cut and not causal:       # fewer keys than queries: no mask
+            wrong = ops.flash_attention_bwd(q, k[:, :cut].contiguous(),
+                                            v[:, :cut].contiguous(), o, lse,
+                                            do, **kw)[0]
+            faults[f"keys {cut}-{Sk - 1} dropped from dQ"] = tol_used(
+                wrong, plain[0], tols[0])
+        if not causal:
+            # scores below zero (q >= 0, k <= 0, twice as wide) and v about
+            # 1: the zero key past Sk, if read as live, takes the weight
+            qs = (q.float().abs() * 2).to(dt)
+            ks = (-k.float().abs() * 2).to(dt)
+            vs = (v.float() + 1).to(dt)
+            want = fa.flash_attention_torch(qs, ks, vs, **kw)
+            zero = torch.zeros_like(ks[:, :1])
+            compare(ops.flash_attention_bshd(qs, ks, vs, **kw), want, ftol,
+                    f"flash {label} (negative scores)")
+            faults[f"key {Sk} read as live"] = tol_used(
+                ops.flash_attention_bshd(qs, torch.cat([ks, zero], 1),
+                                         torch.cat([vs, zero], 1), **kw),
+                want, ftol)
+            del qs, ks, vs, want, zero
+        for what, r in faults.items():
+            check(r >= 10.0, f"flash {label}: the tolerance passes a kernel "
+                  f"with {what} by less than 10 times (its largest error is "
+                  f"{r:.3g} of it)")
+        row = dict(label=label, dtype=dtype_name(dt), max_abs_err=err,
+                   tol_used=used, lse_err=lse_err, bwd_max_abs_err=max(errs),
+                   bwd_errs=errs, bwd_tol_used=bwd_used,
+                   faults_tol_used=faults,
+                   shape=f"B {B}, Sq {Sq}, Sk {Sk}, H {H}, K {K}, hd {hd}, "
+                   f"{dtype_name(dt)}, "
+                   f"{'causal' if causal else 'not causal'}")
+        line = (f"  flash {label:<22} {dtype_name(dt):<8} fwd err {err:.3g} "
+                f"({used:.3f} of the tolerance), lse {lse_err:.3g}; bwd "
+                f"dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
+                f"({bwd_used[0]:.3f}/{bwd_used[1]:.3f}/{bwd_used[2]:.3f} of "
+                "it), bit-equal; planted faults "
+                + ", ".join(f"{w} {r:.3g}" for w, r in faults.items()))
+        if timed:
+            fwd_call = lambda: ops.flash_attention_bshd(  # noqa: E731
+                q, k, v, **kw)
+            bwd_call = lambda: ops.flash_attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, **kw)
+            fwork, bwork = cross_work(B, Sq, Sk, H, K, hd, q.element_size(),
+                                      causal)
+            f_bound, f_by = bound_of(fwork, dt)
+            b_bound, b_by = bound_of(bwork, dt)
+            lib_ms, lib = sdpa_forward_ms(q, k, v, causal)
+            blib_ms, blib = sdpa_backward_ms(q, k, v, do, causal, 0)
+            by_kernel = device_ms_by_kernel(bwd_call)
+            row.update(
+                ms=time_ms(fwd_call), device_ms=device_ms(fwd_call),
+                plain_ms=plain_ms_of(lambda: fa.flash_attention_torch(
+                    q, k, v, **kw)),
+                library_ms=lib_ms, library=f"SDPA ({lib})",
+                bound_ms=f_bound, bound_by=f_by,
+                bwd_ms=time_ms(bwd_call),
+                bwd_device_ms=sum(by_kernel.values()) or None,
+                bwd_parts_device_ms=bwd_parts(by_kernel),
+                bwd_plain_ms=plain_ms_of(lambda: fa.flash_attention_bwd_torch(
+                    q, k, v, o, lse, do, **kw)),
+                bwd_library_ms=blib_ms, bwd_library=f"SDPA's backward ({blib})",
+                bwd_bound_ms=b_bound, bwd_bound_by=b_by)
+            f_ms = row["device_ms"] or row["ms"]
+            b_ms = row["bwd_device_ms"] or row["bwd_ms"]
+            row.update(bound_share=f_bound / f_ms,
+                       bwd_bound_share=b_bound / b_ms)
+            line += (f"; forward {row['ms']:.4f} ms (device "
+                     f"{fmt_ms(row['device_ms'])}, "
+                     f"{f_bound / f_ms:.1%} of its "
+                     f"{f_bound:.4f} ms bound) plain {row['plain_ms']:.4f} "
+                     f"SDPA {fmt_ms(lib_ms)} ({lib}); backward "
+                     f"{row['bwd_ms']:.4f} ms (device "
+                     f"{fmt_ms(row['bwd_device_ms'])}, "
+                     f"{b_bound / b_ms:.1%} of its "
+                     f"{b_bound:.4f} ms bound; "
+                     + ", ".join(f"{n} {t:.4f}" for n, t in
+                                 row["bwd_parts_device_ms"].items())
+                     + f") plain {row['bwd_plain_ms']:.4f} SDPA "
+                     f"{fmt_ms(blib_ms)} ({blib})")
+        rows.append(row)
+        print(line, flush=True)
+        del q, k, v, do, out, out_l, lse_k, o, lse, got, again, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve qwen3-0.6b at full width
 # ---------------------------------------------------------------------------
@@ -2274,7 +2546,7 @@ def serve_once(cfg, model, sv, dev, seed, extra=(), requests=None):
     engine.prefill = pre = StepTimer(engine.prefill)
     engine.decode = dec = StepTimer(engine.decode)
     if requests is None:
-        requests = synthesize_requests(cfg, sv, seed)
+        requests = synthesize_requests(cfg, sv, seed, engine.ragged)
     requests = list(requests) + list(extra)
     for r in requests:
         engine.submit(r)
@@ -2308,7 +2580,7 @@ def run_serve_phase(dev, seed):
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), cache_layout="paged",
                               page_size=128)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=seed)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
     torch.cuda.synchronize()
     print(f"  built {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"H {cfg.num_heads}, K {cfg.num_kv_heads}, hd {cfg.head_dim}, "
@@ -2416,7 +2688,7 @@ def trace_serving(cfg, model, dev, seed, prompt_len=1024):
                    prefix_cache=False)
     out = {}
     eng = ServingEngine(cfg, model, sv, device=dev, dtype=torch.bfloat16)
-    for r in synthesize_requests(cfg, sv, seed):
+    for r in synthesize_requests(cfg, sv, seed, eng.ragged):
         eng.submit(r)
     for name, steps, fn in (("prefill_round", 1, eng.admit),
                             ("decode_4_steps", 4,
@@ -2450,7 +2722,7 @@ def run_trace_phase(dev, seed):
 
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), cache_layout="paged",
                               page_size=128)
-    model = build_model(cfg, device=dev, seed=seed)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
     return trace_serving(cfg, model, dev, seed)
 
 
@@ -2468,10 +2740,15 @@ class LogitRecorder:
     def __init__(self, fn, kind, calls, routes=None):
         self.fn, self.kind, self.calls, self.routes = fn, kind, calls, routes
 
-    def __call__(self, params, batch, cache, rows, *rest):
+    def __call__(self, params, batch, cache, rows=None, *rest):
         import torch
         if self.routes is not None:
             self.routes.sink = []
+        if rows is None:     # an encoder-decoder's prefill: one slot, live
+            logits, cache = self.fn(params, batch, cache)
+            self.calls.append((self.kind, logits[:, -1].float().cpu(),
+                               torch.ones(1, dtype=torch.bool), None))
+            return logits, cache
         logits, cache = self.fn(params, batch, cache, rows, *rest)
         live = (rows > 0) if self.kind == "prefill" else (rows >= 0)
         routed = None
@@ -2595,6 +2872,7 @@ def parity_run(cfg, sv, dev, seed, requests=None, routes=False):
     from repro_torch.models import moe
     from repro_torch.models.model import build_model
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu_model = build_model(cfg, device="cpu", seed=seed)
@@ -2602,7 +2880,8 @@ def parity_run(cfg, sv, dev, seed, requests=None, routes=False):
     check(models_equal(cpu_model, gpu_model), f"parity {cfg.name}: the "
           "model built on cuda differs from the one built on cpu")
     if requests is None:
-        requests = synthesize_requests(cfg, sv, seed)
+        requests = synthesize_requests(cfg, sv, seed,
+                                       ragged=not cfg.is_encoder_decoder)
     recorder = RouteRecorder(moe.route) if routes else None
     streams, recs, stats = {}, {}, {}
     if recorder is not None:
@@ -2673,10 +2952,12 @@ def parity_run(cfg, sv, dev, seed, requests=None, routes=False):
           "restored engine answered differently")
     check(caches_equal(eng.cache, fresh.cache),
           "restored run left a different cache")
+    secs = time.perf_counter() - t_start
     print(f"  snapshot/restore on cuda: {len(fresh.responses)} responses and "
-          f"the final cache ({', '.join(sorted(eng.cache))}) byte-identical",
-          flush=True)
-    out = dict(logit_err=perr, steps_compared=compared, diverged=diverged)
+          f"the final cache ({', '.join(sorted(eng.cache))}) byte-identical;"
+          f" parity and snapshot/restore took {secs:.1f} s", flush=True)
+    out = dict(logit_err=perr, steps_compared=compared, diverged=diverged,
+               seconds=secs)
     if routes:
         out.update(router_margin=margin, engine=stats["cuda"])
     return out
@@ -2712,17 +2993,14 @@ def run_rwkv_phase(dev, seed):
     cfg = dataclasses.replace(get_config("rwkv6-7b"), cache_layout="paged",
                               page_size=128)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=seed)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    draw_s = device_draw_s(model, seed)
     print(f"  built {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{count_params(cfg) / 1e9:.2f} B parameters without the "
-          f"embeddings, in {build_s:.2f} s (host draws; the same leaves "
-          f"drawn by a CUDA generator on the card: {draw_s:.2f} s)",
-          flush=True)
+          f"embeddings, in {build_s:.2f} s (drawn on the card)", flush=True)
     serve_once(cfg, model, ServeSpec(batch=2, prompt_len=256, gen=4,
                                      requests=2, prefix_cache=False),
                dev, seed)                                      # warm-up
@@ -2774,36 +3052,15 @@ def run_rwkv_phase(dev, seed):
     # page size 16: rounds pad to 48..96 steps, so the plain version on the
     # cpu crosses a 32-step chunk and a ragged tail; rows are padded too
     pcfg = dataclasses.replace(cfg, num_layers=2, page_size=16,
-                               dtype="float32")
+                               dtype="float32",
+                               vocab_size=SERVE_PARITY_VOCAB,
+                               **SERVE_PARITY_FFN[cfg.name])
     parity = parity_run(pcfg, ServeSpec(batch=4, prompt_len=90, gen=8,
                                         requests=6, prefix_cache=False),
                         dev, seed)
     return dict(serve=r, trace=trace, parity=parity, build_s=build_s,
-                device_draw_s=draw_s)
-
-
-def device_draw_s(model, seed):
-    """Seconds to draw every drawn leaf of ``model`` on its device with a
-    CUDA generator, leaf by leaf, into one scratch buffer (what a build
-    cost before the draws moved to the host; the model is left as it
-    was)."""
-    import torch
-    from repro_torch.models.params import _recipe
-    leaves = [p for n, p in model.named_parameters()
-              if _recipe(n) not in ("ones", "zeros")]
-    buf = torch.empty(max(p.numel() for p in leaves),
-                      device=leaves[0].device)
-    gen = torch.Generator(device=buf.device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i, p in enumerate(leaves):
-        gen.manual_seed(seed + i)
-        buf[:p.numel()].normal_(0.0, 0.02, generator=gen)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    del buf
-    torch.cuda.empty_cache()
-    return secs
+                parity_cuts="2 layers, d_ff 4,096, "
+                f"page 16, vocabulary {SERVE_PARITY_VOCAB:,}")
 
 
 # ---------------------------------------------------------------------------
@@ -2825,7 +3082,7 @@ def run_recurrentgemma_phase(dev, seed):
     kinds = cfg.layer_kinds()
     n_rec, n_loc = kinds.count("recurrent"), kinds.count("local")
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=seed)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
     torch.cuda.synchronize()
     print(f"  built {cfg.name}: {cfg.num_layers} layers ({n_rec} RG-LRU, "
           f"{n_loc} local attention), d {cfg.d_model}, R {cfg.rnn_width}, "
@@ -2885,12 +3142,15 @@ def run_recurrentgemma_phase(dev, seed):
     # full width, layers (R, R, L); the window cut to 64 and pages of 16 so
     # prompts of 75..150 tokens wrap the ring in prefill on the cpu too
     pcfg = dataclasses.replace(cfg, num_layers=3, window_size=64,
-                               page_size=16, dtype="float32")
+                               page_size=16, dtype="float32",
+                               vocab_size=SERVE_PARITY_VOCAB,
+                               **SERVE_PARITY_FFN[cfg.name])
     parity = parity_run(pcfg, ServeSpec(batch=4, prompt_len=150, gen=8,
                                         requests=6, prefix_cache=False),
                         dev, seed)
     return dict(serve=r, trace=trace, parity=parity,
-                parity_cuts="3 layers (R, R, L), window 64, page 16")
+                parity_cuts="3 layers (R, R, L), window 64, d_ff 4,096, "
+                f"page 16, vocabulary {SERVE_PARITY_VOCAB:,}")
 
 
 # ---------------------------------------------------------------------------
@@ -2898,7 +3158,7 @@ def run_recurrentgemma_phase(dev, seed):
 # ---------------------------------------------------------------------------
 def run_deepseek_phase(dev, seed):
     """Serve deepseek-v2-236b at full width cut to 3 layers in bf16, trace
-    it, then fp32 parity (2 layers, 16 experts, prefix cache, an eviction)
+    it, then fp32 parity (2 layers, 8 experts, prefix cache, an eviction)
     and snapshot/restore of the latent pools."""
     import numpy as np
     import torch
@@ -2915,7 +3175,7 @@ def run_deepseek_phase(dev, seed):
            f"first layer and {cfg.num_layers - cfg.first_k_dense} MoE "
            "layers), every width kept")
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=seed)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
     torch.cuda.synchronize()
     print(f"  built {cfg.name}, {cut}: d {cfg.d_model}, H {cfg.num_heads}, "
           f"q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, nope "
@@ -2968,14 +3228,17 @@ def run_deepseek_phase(dev, seed):
     gc.collect()
     torch.cuda.empty_cache()
     print("[deepseek parity]", flush=True)
-    # full width, 2 layers (dense, MoE), experts cut to 16 (top-6 and the 2
-    # shared kept) so the cpu holds ~8 GB; pages of 16; the prefix cache on,
+    # full width, 2 layers (dense, MoE), experts cut to 8 (top-6 and the 2
+    # shared kept) and the dense FFN to 1,536, as the train parity cuts
+    # them; pages of 16; the prefix cache on,
     # so every prefill is the chunked walk over the latent pool; one more
     # request, queued right after request 0, shares its first 40 tokens (2
     # whole pages and a partial one: a prefix hit and copy-on-write); 18
     # pages for 4 slots force an eviction
-    pcfg = dataclasses.replace(cfg, num_layers=2, num_experts=16,
-                               page_size=16, dtype="float32")
+    pcfg = dataclasses.replace(cfg, num_layers=2, page_size=16,
+                               dtype="float32",
+                               vocab_size=SERVE_PARITY_VOCAB,
+                               **SERVE_PARITY_FFN[cfg.name])
     psv = ServeSpec(batch=4, prompt_len=150, gen=8, requests=6,
                     page_budget=18, overcommit=2.0, prefix_cache=True)
     requests = synthesize_requests(pcfg, psv, seed)
@@ -2992,7 +3255,8 @@ def run_deepseek_phase(dev, seed):
           f"deepseek parity: no prefix hit or copy-on-write "
           f"({parity['engine']})")
     return dict(serve=r, trace=trace, parity=parity, cut=cut,
-                parity_cuts="2 layers (dense, MoE), 16 experts, page 16")
+                parity_cuts="2 layers (dense, MoE), 8 experts, dense d_ff "
+                f"1,536, page 16, vocabulary {SERVE_PARITY_VOCAB:,}")
 
 
 # ---------------------------------------------------------------------------
@@ -3030,7 +3294,7 @@ def run_dense_serve_phase(dev, seed, arch, layers, *, label,
     cut = (f"depth {full.num_layers} -> {layers} layers, every width kept"
            if layers < full.num_layers else f"all {layers} layers")
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=seed)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
     torch.cuda.synchronize()
     print(f"  built {cfg.name}, {cut}: d {cfg.d_model}, H {cfg.num_heads}, "
           f"K {cfg.num_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
@@ -3267,6 +3531,164 @@ def run_frontend_phase(cfg, model, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7c: seamless-m4t-medium, the encoder-decoder (cross-attention: the
+# flash kernels at Sk apart from Sq)
+# ---------------------------------------------------------------------------
+SEAMLESS = "seamless-m4t-medium"
+# its serving parity and evict-replay: 2 encoder and 2 decoder layers at
+# full width over a vocabulary of 16,384 (SERVE_PARITY_VOCAB), pages of 16, prompts of 128 tokens over 34 frames; 33 pages
+# for 4 slots of 9 force evictions at the first decode page past the
+# prompts
+SEAMLESS_PARITY = dict(num_layers=2, num_encoder_layers=2, page_size=16,
+                       dtype="float32", vocab_size=SERVE_PARITY_VOCAB)
+SEAMLESS_PARITY_SV = dict(batch=4, prompt_len=128, gen=8, requests=6,
+                          page_budget=33, overcommit=2.0, prefix_cache=False)
+
+
+def seamless_evict_replay(cfg, dev, seed):
+    """On the card in fp32: admit, two decode steps, evict the youngest
+    request and admit again.  It must come back to its slot with its cross
+    K and V and its prompt's paged K and V byte-identical (its frames are
+    drawn from its id), and the drained engine must answer as one that
+    never evicted it."""
+    import torch
+    from repro_torch.launch.engine import ServingEngine, synthesize_requests
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device=dev, seed=seed)
+    sv = ServeSpec(**dict(SEAMLESS_PARITY_SV, page_budget=0, overcommit=1.0))
+    requests = synthesize_requests(cfg, sv, seed, ragged=False)
+    whole = ServingEngine(cfg, model, sv, device=dev, dtype=torch.float32)
+    for r in requests:
+        whole.submit(r)
+    whole.run()
+    eng = ServingEngine(cfg, model, sv, device=dev, dtype=torch.float32)
+    for r in requests:
+        eng.submit(r)
+    eng.admit()
+    eng.step()
+    eng.step()
+    b = eng._youngest_in_shard(0)
+    rec = eng.slots[b]
+    n_prompt = -(-len(rec.request.tokens) // eng.ps)
+
+    def held(slot):
+        pages = eng.slots[slot].pages[:n_prompt]
+        return [t[slot].clone() for n in ("cross_k", "cross_v")
+                for t in eng.cache[n]] + [
+            pool[pages].clone() for n in ("k_pages", "v_pages")
+            for pool in eng.cache[n]]
+    before = held(b)
+    eng.evict(b)
+    eng.admit()
+    check(eng.slots[b] is not None
+          and eng.slots[b].request.req == rec.request.req,
+          "seamless evict-replay: the evicted request did not come back to "
+          "its slot")
+    after = held(b)
+    check(all(torch.equal(x, y) for x, y in zip(before, after)),
+          "seamless evict-replay: the replayed request's cross or paged K/V "
+          "differ from the evicted ones")
+    eng.run()
+    check(eng.evictions == 1 and eng.responses == whole.responses,
+          "seamless evict-replay: the evicting engine answered differently")
+    print(f"  evict-replay on cuda: request {rec.request.req} evicted from "
+          f"slot {b} after 2 decode steps and prefilled again: its cross K/V "
+          f"({len(before) // 2} tensors) and prompt pages byte-identical, "
+          f"{len(eng.responses)} responses equal to an engine that never "
+          "evicted it", flush=True)
+    return dict(request=rec.request.req, slot=b, tensors=len(before))
+
+
+def run_seamless_serve_phase(dev, seed):
+    """(j): serve seamless-m4t-medium at full depth in bf16 (12 encoder and
+    12 decoder layers, 977.9 M parameters): 8 slots, 16 full-length
+    prompts of 1,024 tokens, each prefilled alone on its slot with its own
+    264 frames, 16 to 32 new tokens.  A prefill launches the flash kernel
+    36 times (12 encoder, 12 decoder and 12 cross-attention calls, the last
+    at Sk 264 against Sq 1,024), a decode step the paged decode 12 times
+    (the cross-attention decodes in plain PyTorch over the cached frames,
+    as the reference's is plain jnp), no other kernel.  One traced prefill
+    round (8 prefills) and four decode steps; then fp32 cuda-vs-cpu parity
+    at 2 + 2 layers with evictions, snapshot/restore, and an evict-replay
+    byte-identical (:func:`seamless_evict_replay`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import count_params
+
+    cfg = dataclasses.replace(get_config(SEAMLESS), cache_layout="paged",
+                              page_size=128)
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name}: {E} encoder and {L} decoder layers, d "
+          f"{cfg.d_model}, H {cfg.num_heads}, K {cfg.num_kv_heads}, hd "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{count_params(cfg, include_embed=True) / 1e6:.1f} M parameters "
+          f"({count_params(cfg) / 1e6:.1f} M without the embeddings), in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    serve_once(cfg, model, ServeSpec(batch=2, prompt_len=256, gen=4,
+                                     requests=2, prefix_cache=False),
+               dev, seed)                                      # warm-up
+    sv = ServeSpec(batch=8, prompt_len=1024, gen=32, requests=16,
+                   prefix_cache=False)
+    r = serve_once(cfg, model, sv, dev, seed)
+    eng = r.pop("engine")
+    check(not eng.ragged and eng.src_len == 264
+          and r["prompt_tokens"] == sv.requests * sv.prompt_len,
+          f"serve {cfg.name}: ragged {eng.ragged}, {eng.src_len} frames, "
+          f"{r['prompt_tokens']} prompt tokens")
+    rounds, steps = r["prefill_calls"], r["decode_calls"]
+    check(rounds >= sv.requests and r["launches"]["flash_attention_bshd"]
+          == (E + 2 * L) * rounds,
+          f"serve {cfg.name}: flash launches {r['launches']} for {rounds} "
+          "prefills")
+    check(r["launches"]["paged_decode_bhd"] == L * steps,
+          f"serve {cfg.name}: paged decode launches {r['launches']} for "
+          f"{steps} decode steps")
+    check(all(n == 0 for k, n in r["launches"].items()
+              if k not in ("flash_attention_bshd", "paged_decode_bhd")),
+          f"serve {cfg.name}: other kernels launched {r['launches']}")
+    r.update(decode_steps=eng.decode_steps, evictions=eng.evictions,
+             prefill_tokens=eng.prefill_tokens, src_len=eng.src_len,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches_per_prefill=r["launches"]["flash_attention_bshd"]
+             / rounds,
+             launches_per_step=r["launches"]["paged_decode_bhd"] / steps)
+    del eng
+    check(r["peak_mem_gb"] < PEAK_MEM_LIMIT_GB,
+          f"serve {cfg.name}: peak {r['peak_mem_gb']:.2f} GB")
+    print(f"  serve {cfg.name} (j): {sv.requests} requests, "
+          f"{r['generated']} tokens generated, {r['prompt_tokens']} prompt "
+          f"tokens over {r['src_len']} frames each in {r['wall_s']:.3f} s = "
+          f"{r['tok_per_s']:.1f} generated tok/s{host_note()}; prefill "
+          f"{r['prefill_s']:.3f} s over {rounds} prefills, decode "
+          f"{r['decode_s']:.3f} s over {steps} steps; peak memory "
+          f"{r['peak_mem_gb']:.2f} GB; launches {r['launches']} (flash "
+          f"{r['launches_per_prefill']:g} a prefill, paged decode "
+          f"{r['launches_per_step']:g} a step)", flush=True)
+    print("[seamless trace] profiler on (not used for the numbers above)",
+          flush=True)
+    trace = trace_serving(cfg, model, dev, seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[seamless parity]", flush=True)
+    pcfg = dataclasses.replace(cfg, **SEAMLESS_PARITY)
+    parity = parity_run(pcfg, ServeSpec(**SEAMLESS_PARITY_SV), dev, seed)
+    replay = seamless_evict_replay(pcfg, dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(serve=r, trace=trace, parity=parity, evict_replay=replay,
+                parity_cuts="2 encoder and 2 decoder layers, page 16, "
+                f"vocabulary {SERVE_PARITY_VOCAB:,}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: training (paper-overhead-100m, qwen3-0.6b) at full width
 # ---------------------------------------------------------------------------
 # Kernel names by part, for the traced train step
@@ -3293,9 +3715,12 @@ def train_flops(cfg, tokens, S, B):
     N the head size).  An MoE layer counts the k experts a token runs, not
     the other E - k, nor the router or the capacity padding.  The RG-LRU's
     elementwise scan is not counted, nor remat's recomputed forward."""
-    from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, RWKV
+    from repro_torch.configs.base import (
+        GLOBAL_ATTN, LOCAL_ATTN, RWKV, src_len_for)
     from repro_torch.models.params import count_params
     n = count_params(cfg) + cfg.d_model * cfg.padded_vocab
+    if cfg.is_encoder_decoder:
+        return encdec_flops(cfg, tokens, S, src_len_for(cfg, S)), n
     if cfg.is_moe:
         moe_layers = cfg.num_layers - cfg.first_k_dense
         idle = (cfg.num_experts - cfg.num_experts_per_tok) \
@@ -3317,6 +3742,28 @@ def train_flops(cfg, tokens, S, B):
     return 6.0 * n * tokens + mix, n
 
 
+def encdec_flops(cfg, tokens, S, Ssrc):
+    """Model FLOPs of an encoder-decoder's step of ``tokens`` decoder tokens
+    in rows of S over Ssrc frames a row: 6 FLOPs a parameter and token it
+    acts on (the encoder's layers and every decoder layer's cross K and V
+    projections on the Ssrc frames, the rest of the decoder and the
+    vocabulary projection on the S tokens), and 12·hd a live (q, k) pair
+    and head of its three attentions (the decoder's causal, the encoder's
+    full Ssrc², the cross-attention's S·Ssrc)."""
+    from repro_torch.models.params import count_params
+    D, K, hd, H = cfg.d_model, cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    rows = tokens // S
+    encdec = dataclasses.replace(cfg, num_encoder_layers=0)
+    cross_kv = 2 * D * K * hd * cfg.num_layers
+    n_enc = count_params(cfg) - count_params(encdec) + cross_kv
+    n_dec = count_params(cfg) - n_enc + D * cfg.padded_vocab
+    pairs = (cfg.num_layers * S * (S + 1) // 2
+             + cfg.num_encoder_layers * Ssrc * Ssrc
+             + cfg.num_layers * S * Ssrc)
+    attn = 12.0 * hd * H * rows * pairs
+    return 6.0 * (n_dec * tokens + n_enc * rows * Ssrc) + attn
+
+
 def train_launches_per_step(cfg, microbatches, remat):
     """The kernel launches a train step must make: each layer's sequence
     mixer's forward once a layer and microbatch (twice under remat) and
@@ -3326,7 +3773,11 @@ def train_launches_per_step(cfg, microbatches, remat):
     kernels = {RWKV: ("wkv6_bshn", "wkv6_bwd"),
                RECURRENT: ("rglru_scan_bsr", "rglru_scan_bwd")}
     out = {}
-    for kind in cfg.layer_kinds():
+    # an encoder-decoder's encoder layers and every decoder layer's
+    # cross-attention take the flash kernels too
+    extra = cfg.num_encoder_layers + cfg.num_layers \
+        if cfg.is_encoder_decoder else 0
+    for kind in cfg.layer_kinds() + ("global",) * extra:
         fwd, bwd = kernels.get(kind, ("flash_attention_bshd",
                                       "flash_attention_bwd"))
         out[fwd] = out.get(fwd, 0) \
@@ -3657,7 +4108,6 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     step, its result under ``"after"``."""
     import torch
     from repro_torch.configs import RunConfig, get_run_config
-    from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.spec import TrainSpec
@@ -3669,7 +4119,10 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     cfg = train_cli.config_of(arch, reduced=False, layers=layers)
     registered = get_run_config(arch, "train_4k")
     ctx = Ctx(device=dev, dtype=torch.bfloat16)
-    data = SyntheticLMData(cfg.vocab_size, seq, batch, seed)
+    # the train loop's own batch source (an encoder-decoder's rows carry
+    # their frames too)
+    data = train_cli.batches_of(cfg, TrainSpec(seq_len=seq,
+                                               global_batch=batch), seed)
     held = {k: v[:batch // microbatches] for k, v in
             data.batch_at(HELD_OUT_STEP, dev).items()}
 
@@ -3685,6 +4138,22 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
                     learning_rate=lr, warmup_steps=warmup, total_steps=steps,
                     master_dtype=registered.master_dtype,
                     opt_dtype=registered.opt_dtype)
+
+    def fresh_state():
+        """A train state at the run's init, drawn from ``seed`` on the card
+        (the same bits at every call)."""
+        return init_train_state(cfg, seed=seed, run=run, device=dev,
+                                draws="device")
+
+    parts_s = {}                    # the phase's wall seconds by part
+    t_part = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts_s[name] = parts_s.get(name, 0.0) + now - t_part[0]
+        t_part[0] = now
+
     no_remat = with_remat = None
     if remat != "none":
         # the first step without remat, for the remat run to equal: the
@@ -3696,7 +4165,7 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
             policies = ("none", remat)
         pair = []
         for policy in policies:
-            state = init_train_state(cfg, seed=seed, run=run, device=dev)
+            state = fresh_state()
             m = make_train_step(cfg, ctx, dataclasses.replace(
                 run, remat_policy=policy, num_microbatches=min(
                     microbatches, first["tokens"].shape[0])))(state,
@@ -3707,15 +4176,18 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
             torch.cuda.empty_cache()
         no_remat = pair[0]
         with_remat = pair[1] if remat_rows else None
+    lap("remat check")
     torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(cfg, seed=seed, run=run, device=dev)
+    state = fresh_state()
     held_before = held_out_loss(state)
+    lap("init and held-out loss")
     torch.cuda.synchronize()
     ops.reset_launches()
     with PlainVersionsBarred():
         r = train_cli.train(cfg, t, seed=seed, device=dev, run=run,
                             state=state, log=lambda s: print(s, flush=True))
     launches = dict(ops.launches)
+    lap("train loop")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     check(min_free_gb is None or card_gb - peak_gb >= min_free_gb,
@@ -3748,9 +4220,12 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     tokens = batch * seq
     flops, n = train_flops(cfg, tokens, seq, batch)
     mfu = flops * r["steps_per_s"] / PEAK_FLOPS["bfloat16"]
+    lap("held-out loss")
     opt_ms, opt_share = optimizer_device_ms(r["state"], run)
+    lap("AdamW timing")
     step = make_train_step(cfg, ctx, run)
     tr = trace_train_step(step, r["state"], data.batch_at(steps, dev))
+    lap("traced step")
     if cfg.is_moe:
         check(all(tr["device_ms_by_part"].get(part, 0.0) > 0
                   for part in set(MOE_RANGES.values())),
@@ -3801,7 +4276,7 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     del r, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    state = init_train_state(cfg, seed=seed, run=run, device=dev)
+    state = fresh_state()
     step, one = make_train_step(cfg, ctx, run), data.batch_at(0, dev)
     rep = [float(step(state, one)[1]["loss"]) for _ in range(REPEAT_STEPS)]
     check(rep[0] - rep[-1] > REPEAT_DROP, f"train {arch}: one batch trained "
@@ -3810,9 +4285,14 @@ def run_train_phase(dev, seed, arch, *, steps, batch, seq, microbatches,
     out["repeated_batch_losses"] = rep
     print(f"  one batch {REPEAT_STEPS} times: loss "
           + " ".join(f"{x:.4f}" for x in rep), flush=True)
+    lap("repeated batch")
     if after is not None:
         with PlainVersionsBarred():
             out["after"] = after(cfg, run, state, step, dev, seed)
+        lap("after")
+    out["seconds_by_part"] = parts_s
+    print("  seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts_s.items()), flush=True)
     del state, step, one
     gc.collect()
     torch.cuda.empty_cache()
@@ -3924,28 +4404,36 @@ def parity_config(arch):
 
 
 def state_digest(state) -> str:
-    """sha256 of a train state's bytes, leaf by leaf in name order (the
-    master weights, both moments, the count and the step), whatever its
-    device.  A moment whose every bit is 0 (a fresh state's) enters as its
-    dtype and shape, found on its own device: two such leaves are byte
-    equal, and their gigabytes need not cross to the host."""
+    """sha256 over the sha256 of each leaf of a train state (its name and
+    bytes), in name order (the master weights, both moments, the count and
+    the step), whatever its device; the leaves are hashed in threads
+    (hashlib lets go of the GIL).  A moment whose every bit is 0 (a fresh
+    state's) enters as its dtype and shape, found on its own device: two
+    such leaves are byte equal, and their gigabytes need not cross to the
+    host."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-    h = hashlib.sha256()
     leaves = sorted(state["params"].named_parameters()) \
         + sorted(("m." + n, t) for n, t in state["opt"]["m"].items()) \
         + sorted(("v." + n, t) for n, t in state["opt"]["v"].items()) \
         + [("count", state["opt"]["count"]), ("step", state["step"])]
-    for name, t in leaves:
-        h.update(name.encode())
+
+    def leaf(item):
+        name, t = item
+        h = hashlib.sha256(name.encode())
         t = t.detach().contiguous().reshape(-1)
         if name.startswith(("m.", "v.")) \
                 and not bool(t.view(bits[t.element_size()]).any()):
             h.update(f"all bits 0: {t.dtype} {t.numel()}".encode())
-            continue
-        h.update(t.cpu().view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
+        else:
+            h.update(t.cpu().view(torch.uint8).numpy())
+        return h.digest()
+
+    with ThreadPoolExecutor(PARITY_WORKER_CORES) as pool:
+        parts = list(pool.map(leaf, leaves))
+    return hashlib.sha256(b"".join(parts)).hexdigest()
 
 
 def parity_side(arch, seed, d):
@@ -3955,8 +4443,9 @@ def parity_side(arch, seed, d):
     steps' losses, the kernel launches, the MoE routings of every layer
     call (:class:`RouteRecorder`), and the state and step after them."""
     import torch
-    from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.spec import TrainSpec
     from repro_torch.models import moe
     from repro_torch.models.layers import Ctx
     from repro_torch.train import steps
@@ -3966,7 +4455,8 @@ def parity_side(arch, seed, d):
     torch.backends.cudnn.allow_tf32 = False
     cfg, run, B = parity_config(arch)
     n_front = PARITY_FRONTEND.get(arch, 0)
-    data = SyntheticLMData(cfg.vocab_size, 256 - n_front, B, seed)
+    data = train_cli.batches_of(cfg, TrainSpec(seq_len=256 - n_front,
+                                               global_batch=B), seed)
     if n_front:
         data = FrontendBatches(data, n_front, cfg.d_model, seed)
     state = init_train_state(cfg, seed=seed, run=run, device=d)
@@ -4055,8 +4545,9 @@ class ParityWorker:
     keeps the others, its threads too.  Results come as files under the
     checkout's ``build/parity_cpu``.  :meth:`result` waits for one
     config's result, loads it and deletes its file (the smoke fails if the
-    worker failed or died); :meth:`stop` ends the worker, removes what it
-    left and gives this process its cores back."""
+    worker failed or died); :meth:`release` gives this process the
+    worker's cores once it has exited; :meth:`stop` ends the worker,
+    removes what it left and gives this process its cores back."""
 
     def __init__(self, seed):
         import multiprocessing
@@ -4073,9 +4564,19 @@ class ParityWorker:
                                 args=(str(self.dir), self.cores, seed),
                                 daemon=True)
         self.proc.start()
+        self.released = False
         pin_threads(self.own)
         torch.set_num_threads(len(self.own))
         _workers.append(self)
+
+    def release(self):
+        """All the host's cores for this process once the worker has
+        exited (its results stay on disk for :meth:`result`)."""
+        import torch
+        if not self.released and not self.proc.is_alive():
+            self.released = True
+            pin_threads(self.own + self.cores)
+            torch.set_num_threads(len(self.own) + len(self.cores))
 
     def result(self, arch):
         """(the CPU side of ``arch``'s parity, seconds waited for it)."""
@@ -4104,7 +4605,8 @@ class ParityWorker:
             self.proc.kill()
         self.proc.join()
         shutil.rmtree(self.dir, ignore_errors=True)
-        pin_threads(self.own + self.cores)
+        self.released = False
+        self.release()
 
 
 def run_train_parity_phase(dev, seed, worker):
@@ -4745,8 +5247,13 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
         now = time.perf_counter()
         phase_s[name] = now - t_mark[0]
         t_mark[0] = now
+        released = worker.released
+        worker.release()
         print(f"[time] {name} {phase_s[name]:.1f} s, "
-              f"{now - t_start:.1f} s in all", flush=True)
+              f"{now - t_start:.1f} s in all"
+              + ("" if released or not worker.released else
+                 "; the parity worker has finished: its cores are this "
+                 "process's again"), flush=True)
 
     seed = 0
     gen = torch.Generator(device=dev)
@@ -4760,6 +5267,10 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
     mark("kernels")
     bwd_rows = run_flash_bwd_phase(dev, gen)
     mark("flash backward")
+    print("[cross] flash forward and backward at Sk apart from Sq "
+          "(seamless-m4t-medium)", flush=True)
+    cross_rows = run_cross_flash_phase(dev, gen)
+    mark("flash cross")
     wkv_bwd_rows = run_wkv_bwd_phase(dev, gen)
     mark("WKV6 backward")
     rglru_bwd_rows = run_rglru_bwd_phase(dev, gen)
@@ -4806,6 +5317,12 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
         dense[key] = run_dense_serve_phase(dev, seed, arch, layers,
                                            label=key, **kw)
         mark(f"serve ({key})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve (j)] {SEAMLESS} full depth (12 + 12 layers), bf16",
+          flush=True)
+    seamless = run_seamless_serve_phase(dev, seed)
+    mark("serve (j)")
     print("[train] paper-overhead-100m full width (12 layers), bf16 compute,"
           " fp32 master", flush=True)
     train = {"paper-overhead-100m": run_train_phase(
@@ -4890,14 +5407,18 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
     # run's 16, (t9) B 4 in its 4; (t8) B 1 in 1 of its 8 (a second
     # microbatch's fp32 gradient sum, 14.3 GB at 2 layers, does not fit)
     # (t10) B 1 in 1 of its 16, text-only through the train loop as the
-    # reference's CLI trains, then a step with the frontend
+    # reference's CLI trains, then a step with the frontend; (t11)
+    # seamless-m4t-medium at full depth, B 4 in its 2, its rows' frames
+    # from the train loop's batch source
     for key, arch, layers, batch, mb in (
             ("t7", "qwen2.5-32b", QWEN25_TRAIN_LAYERS, 2, 2),
             ("t8", "mistral-large-123b", MISTRAL_TRAIN_LAYERS, 1, 1),
             ("t9", "gemma2-9b", GEMMA2_TRAIN_LAYERS, 4, 4),
-            ("t10", "internvl2-76b", INTERNVL2_TRAIN_LAYERS, 1, 1)):
+            ("t10", "internvl2-76b", INTERNVL2_TRAIN_LAYERS, 1, 1),
+            ("t11", SEAMLESS, 0, 4, 2)):
         t_run = get_run_config(arch, "train_4k")
-        print(f"[train ({key})] {arch} full width cut to {layers} layers, "
+        depth = f"cut to {layers} layers" if layers else "at full depth"
+        print(f"[train ({key})] {arch} full width {depth}, "
               f"its train_4k run (S 4096, {t_run.num_microbatches} "
               f"microbatches, {t_run.remat_policy} remat) at B {batch} in "
               f"{mb} microbatch{'es' if mb > 1 else ''}", flush=True)
@@ -4912,8 +5433,9 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     print("[train-parity] fp32 cuda vs cpu, full width, 2 layers "
-          "(recurrentgemma-9b 3, rwkv6-7b 1; internvl2-76b with 32 patch "
-          "embeddings a row), the CPU side from the worker", flush=True)
+          "(recurrentgemma-9b 3; rwkv6-7b, mistral-large-123b, "
+          "internvl2-76b 1; internvl2-76b with 32 patch embeddings a row), "
+          "the CPU side from the worker", flush=True)
     train["parity"] = run_train_parity_phase(dev, seed, worker)
     worker.stop()
     mark("train parity")
@@ -4979,12 +5501,41 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                    launches=ds_launches["flash_attention_bwd"],
                    max_abs_err=max(r["max_abs_err"] for r in bwd_rows
                                    if "mla" in r["label"]))
+    s_l = train[SEAMLESS]["launches"]
+    j_l = seamless["serve"]["launches"]
+
+    def cross_of(label, bwd):
+        r = next(r for r in cross_rows if r["label"] == label)
+        pre = "bwd_" if bwd else ""
+        return dict(shape=r["shape"], ms=r[pre + "ms"],
+                    device_ms=r[pre + "device_ms"],
+                    plain_ms=r[pre + "plain_ms"],
+                    library_ms=r[pre + "library_ms"],
+                    library=r[pre + "library"], bound_ms=r[pre + "bound_ms"],
+                    bound_by=r[pre + "bound_by"],
+                    max_abs_err=r["bwd_max_abs_err" if bwd
+                                  else "max_abs_err"],
+                    tol_used=r["bwd_tol_used" if bwd else "tol_used"])
+
+    def seamless_of(bwd):
+        name = "flash_attention_bwd" if bwd else "flash_attention_bshd"
+        return dict(
+            {lab: cross_of(lab, bwd) for lab in
+             (T11_CROSS, T11_ENCODER, T11_DECODER)
+             + (() if bwd else (J_CROSS, J_ENCODER))},
+            launches=s_l[name] + (0 if bwd else j_l[name]),
+            launches_t11=s_l[name], launches_j=0 if bwd else j_l[name],
+            max_abs_err=max(r["bwd_max_abs_err" if bwd else "max_abs_err"]
+                            for r in cross_rows),
+            faults_tol_used={r["label"]: r["faults_tol_used"]
+                             for r in cross_rows})
     kernels = [
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:57",
              launches=main_run["launches"]["flash_attention_bshd"],
-             max_abs_err=max(r["max_abs_err"] for r in flash_rows),
+             max_abs_err=max([r["max_abs_err"] for r in flash_rows]
+                             + [r["max_abs_err"] for r in cross_rows]),
              ms=fl["ms"], device_ms=fl["device_ms"], plain_ms=fl["plain_ms"],
              bound_ms=fl["bound_ms"],
              bound_by=fl["bound_by"], library_ms=fl["library_ms"],
@@ -5038,6 +5589,7 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                               i_l["flash_attention_bshd"]),
              internvl2_frontend=row_of(flash_rows, INTERNVL2_FRONTEND,
                                        i_front["flash_attention_bshd"]),
+             seamless=seamless_of(False),
              serving_launches={k: dense[k]["launches"]["flash_attention_bshd"]
                                for k in dense},
              platform=platform_launches(platform, "flash_attention_bshd")),
@@ -5047,7 +5599,8 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              gradient_of="flash_attention_jnp (src/repro/models/attention.py"
              ":34) under jax.grad; the reference has no Pallas backward",
              launches=paper_train["launches"]["flash_attention_bwd"],
-             max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
+             max_abs_err=max([r["max_abs_err"] for r in bwd_rows]
+                             + [r["bwd_max_abs_err"] for r in cross_rows]),
              ms=pb["ms"], device_ms=pb["device_ms"], plain_ms=pb["plain_ms"],
              bound_ms=pb["bound_ms"], bound_by=pb["bound_by"],
              library_ms=pb["library_ms"], library=pb["library"],
@@ -5066,6 +5619,7 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                             m_l["flash_attention_bwd"]),
              internvl2=row_of(bwd_rows, INTERNVL2_T10,
                               i_l["flash_attention_bwd"]),
+             seamless=seamless_of(True),
              platform=platform_launches(platform, "flash_attention_bwd")),
         dict(name="flash_attention_bwd_hd256", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -5108,8 +5662,9 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              device_ms_ungrouped=dc["device_ms_ungrouped"],
              also_replaces="src/repro/kernels/paged_attention.py:76",
              platform=platform_launches(platform, "paged_decode_bhd"),
-             serving_launches={k: dense[k]["launches"]["paged_decode_bhd"]
-                               for k in dense},
+             serving_launches=dict(
+                 {k: dense[k]["launches"]["paged_decode_bhd"]
+                  for k in dense}, j=j_l["paged_decode_bhd"]),
              internvl2=dict(
                  {k: i_dec[k] for k in (
                      "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -5196,7 +5751,8 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                       "wkv6": wkv_rows, "rwkv": rwkv, "rglru": rglru_rows,
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,
-                      "dense_serve": dense,
+                      "dense_serve": dense, "seamless": seamless,
+                      "flash_cross": cross_rows,
                       "flash_bwd": bwd_rows, "wkv6_bwd": wkv_bwd_rows,
                       "rglru_bwd": rglru_bwd_rows,
                       "train": train,

@@ -9,12 +9,14 @@ its softcaps, ``query_pre_attn_scalar`` and post-block norms
 (``gemma2-9b``), the attention-free RWKV6 stack (``rwkv6-7b``), the
 RG-LRU + local-attention hybrid (``recurrentgemma-9b``) and the
 all-global MLA and MoE stacks (``deepseek-v2-236b``,
-``granite-moe-1b-a400m``), and InternVL2's vision frontend stub (patch
+``granite-moe-1b-a400m``), InternVL2's vision frontend stub (patch
 embeddings prepended to the text) on a dense GQA stack
-(``internvl2-76b``).  The encoder-decoder and the audio frontend keep
-their fields here so a config reads the same as in the reference;
-:func:`check_ported` rejects them when a model is built, and
-:func:`check_trainable` when a train state is.
+(``internvl2-76b``), and SeamlessM4T's encoder-decoder under its audio
+frontend stub (encoder frames in, cross-attention in every decoder
+layer; ``seamless-m4t-medium``): all eleven configs of the reference.
+:func:`check_ported` rejects the combinations no config has (an
+encoder-decoder on MoE, MLA or a hybrid stack; the audio frontend without
+an encoder), each by name.
 """
 from __future__ import annotations
 
@@ -171,6 +173,14 @@ SHAPES: Dict[str, ShapeConfig] = {
 }
 
 
+def src_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    """The encoder frames of an encoder-decoder's row of ``seq_len``
+    decoder tokens (the reference's ``launch/specs.py:src_len_for``: the
+    audio stub's frames, a quarter of the tokens and at least 16); 0 for a
+    decoder-only config."""
+    return max(seq_len // 4, 16) if cfg.is_encoder_decoder else 0
+
+
 @dataclass(frozen=True)
 class RunConfig:
     """The per-(arch, shape) training knobs the port reads (the fields of
@@ -203,7 +213,9 @@ PORTED_KINDS = ({GLOBAL_ATTN}, {RWKV}, {RECURRENT, LOCAL_ATTN},
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
     model this port does not have yet.  The vision frontend (a stub with
-    no parameters) is taken on an all-global dense GQA stack only."""
+    no parameters) is taken on an all-global dense GQA stack only, and so
+    is an encoder-decoder, whose audio frontend stub is its encoder's
+    input."""
     missing = []
     kinds = set(cfg.layer_kinds())
     if kinds not in PORTED_KINDS:
@@ -217,13 +229,20 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.is_moe and kinds != {GLOBAL_ATTN}:
         missing.append("MoE on a stack that is not all-global")
     if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder")
+        for where, bad in (("MoE", cfg.is_moe), ("MLA", cfg.use_mla),
+                           ("a stack that is not all-global",
+                            kinds != {GLOBAL_ATTN})):
+            if bad:
+                missing.append(f"an encoder-decoder on {where}")
     if cfg.frontend == "vision":
         for where, bad in (("MLA", cfg.use_mla), ("MoE", cfg.is_moe),
                            ("a stack that is not all-global",
                             kinds != {GLOBAL_ATTN})):
             if bad:
                 missing.append(f"the vision frontend on {where}")
+    elif cfg.frontend == "audio":
+        if not cfg.is_encoder_decoder:
+            missing.append("the audio frontend without an encoder")
     elif cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
@@ -248,11 +267,15 @@ def check_trainable(cfg: ModelConfig) -> None:
     and its sliding-window MQA layers through the flash backward at hd 256
     (``recurrentgemma-9b``); and the dense GQA stack under the vision
     frontend stub, whose patch embeddings a batch may carry
-    (``frontend_embeds``; ``internvl2-76b``).  So it refuses what
-    :func:`check_ported` refuses, each by name: a recurrent layer mixed
-    with a global one, MLA or MoE on a mixed stack, encoder-decoders, the
-    audio frontend, and the vision frontend on MLA, on MoE or on a stack
-    that is not all-global."""
+    (``frontend_embeds``; ``internvl2-76b``); and the encoder-decoder
+    under the audio frontend stub, whose batch carries the encoder's
+    frames (``src_embeds``), the gradient reaching the encoder through
+    every decoder layer's cross-attention (``seamless-m4t-medium``).  So
+    it refuses what :func:`check_ported` refuses, each by name: a
+    recurrent layer mixed with a global one, MLA or MoE on a mixed stack,
+    an encoder-decoder on MoE, MLA or a hybrid stack, the audio frontend
+    without an encoder, and the vision frontend on MLA, on MoE or on a
+    stack that is not all-global."""
     check_ported(cfg)
 
 
@@ -289,8 +312,7 @@ def get_config(name: str) -> ModelConfig:
     except KeyError:
         raise KeyError(
             f"unknown architecture {name!r}; the port has "
-            f"{sorted(_REGISTRY)} (the others come in later slices)"
-        ) from None
+            f"{sorted(_REGISTRY)}") from None
 
 
 def list_configs() -> Tuple[str, ...]:
@@ -303,4 +325,4 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401
         deepseek_v2_236b, gemma2_9b, granite_moe_1b_a400m, internvl2_76b,
         mistral_large_123b, paper_overhead, qwen2_5_32b, qwen3_0_6b,
-        recurrentgemma_9b, rwkv6_7b)
+        recurrentgemma_9b, rwkv6_7b, seamless_m4t_medium)

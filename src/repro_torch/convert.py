@@ -7,8 +7,12 @@ keyed by tree path.  The unrolled ``decoder/prefix/{i}`` (the first
 ``first_k_dense`` layers) is layer ``i``; the stacked ``decoder/groups``
 leaves are unstacked into one block per layer after it (layer
 ``first_k_dense + g * len(pattern) + j`` for group ``g``, pattern position
-``j``); the unrolled ``tail`` follows the groups.  ``params_to_jax`` is
-its inverse, restacking ``blocks.{i}`` into ``decoder/{prefix,groups,tail}``.
+``j``); the unrolled ``tail`` follows the groups.  An encoder-decoder's
+``encoder/{groups,tail}`` become ``encoder_blocks.{i}`` the same way (an
+encoder has no prefix), and its decoder's cross-attention leaves ride in
+its blocks.  ``params_to_jax`` is its inverse, restacking ``blocks.{i}``
+into ``decoder/{prefix,groups,tail}`` and ``encoder_blocks.{i}`` into
+``encoder/{groups,tail}``.
 
 ``train_state_from_jax`` / ``train_state_to_jax`` carry a whole train
 state across (the reference's ``{params, opt: {m, v, count}, step}``, as
@@ -49,8 +53,16 @@ def _tensor(a, copy: bool = True) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def _layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+#: The reference's stacks and the port's block lists they become.
+STACKS = {"decoder": "blocks", "encoder": "encoder_blocks"}
+
+
+def _layout(cfg: ModelConfig, stack: str = "decoder") -> Tuple[int, int, int]:
+    """(pattern length, prefix layers, groups) of the reference's
+    ``stack``: the encoder has no first-k-dense prefix."""
     pat = len(cfg.block_pattern)
+    if stack == "encoder":
+        return pat, 0, cfg.num_encoder_layers // pat
     first = cfg.first_k_dense
     return pat, first, (cfg.num_layers - first) // pat
 
@@ -63,25 +75,27 @@ def params_from_jax(tree, cfg: ModelConfig, *,
     may share the tree's memory, for a caller that copies it on (to a
     device, or into the state's own tensors)."""
     check_ported(cfg)
-    pat, first, n_groups = _layout(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree):
-        if path[0] != "decoder":
+        if path[0] not in STACKS:
             out[".".join(path)] = _tensor(arr, copy)
             continue
+        pat, first, n_groups = _layout(cfg, path[0])
+        blocks = STACKS[path[0]]
         part, j, rest = path[1], int(path[2]), ".".join(path[3:])
         if part == "prefix":
-            out[f"blocks.{j}.{rest}"] = _tensor(arr, copy)
+            out[f"{blocks}.{j}.{rest}"] = _tensor(arr, copy)
         elif part == "groups":
             for g in range(arr.shape[0]):
-                out[f"blocks.{first + g * pat + j}.{rest}"] = _tensor(arr[g],
-                                                                      copy)
+                out[f"{blocks}.{first + g * pat + j}.{rest}"] = _tensor(
+                    arr[g], copy)
         elif part == "tail":
-            out[f"blocks.{first + n_groups * pat + j}.{rest}"] = _tensor(arr,
-                                                                         copy)
+            out[f"{blocks}.{first + n_groups * pat + j}.{rest}"] = _tensor(
+                arr, copy)
         else:
             raise NotImplementedError(
-                f"decoder/{part} comes in a later slice of the port")
+                f"{path[0]}/{part}: the reference's stacks hold prefix, "
+                "groups and tail")
     return out
 
 
@@ -116,26 +130,29 @@ def params_to_jax(state: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     """The port's state dict (or any tree keyed like it, e.g. the AdamW
     moments) as the reference's nested tree of numpy arrays: ``blocks.{i}``
     goes back to ``decoder/prefix/{i}``, to slice ``g`` of the stacked
-    ``decoder/groups/{j}`` or to ``decoder/tail/{j}``."""
+    ``decoder/groups/{j}`` or to ``decoder/tail/{j}``, and
+    ``encoder_blocks.{i}`` to ``encoder/groups`` or ``encoder/tail``."""
     check_ported(cfg)
-    pat, first, n_groups = _layout(cfg)
+    stack_of = {blocks: stack for stack, blocks in STACKS.items()}
     out: Dict = {}
     stacks: Dict[Tuple[str, ...], list] = {}
     for name, t in state.items():
         path = name.split(".")
-        if path[0] != "blocks":
+        if path[0] not in stack_of:
             _nest(out, path, _numpy(t))
             continue
+        stack = stack_of[path[0]]
+        pat, first, n_groups = _layout(cfg, stack)
         i, rest = int(path[1]), path[2:]
         if i < first:
-            _nest(out, ["decoder", "prefix", str(i)] + rest, _numpy(t))
+            _nest(out, [stack, "prefix", str(i)] + rest, _numpy(t))
             continue
         g, j = divmod(i - first, pat)
         if g < n_groups:
-            key = ("decoder", "groups", str(j), *rest)
+            key = (stack, "groups", str(j), *rest)
             stacks.setdefault(key, [None] * n_groups)[g] = t
         else:
-            _nest(out, ["decoder", "tail", str(j)] + rest, _numpy(t))
+            _nest(out, [stack, "tail", str(j)] + rest, _numpy(t))
     for key, ts in stacks.items():
         _nest(out, list(key), _stacked(ts))
     return out

@@ -20,9 +20,8 @@ module is that resource model for our platform:
   DLaaS treats Caffe/TF/Torch as opaque learner payloads.
 
 This is the port's copy of the reference's ``core/jobspec.py``.  What
-differs: the registry is the port's (10 of the reference's 11
-architectures, so a job naming another framework is refused at the
-gateway; ROADMAP D11), a real serve payload is the port's
+differs: the registry is the port's (all of the reference's 11
+architectures), a real serve payload is the port's
 ``launch/engine.py:RealServePayload``, and a dryrun job with
 ``real_compute`` raises ``NotImplementedError`` until the port has its own
 ``launch/dryrun.py`` (a virtual dryrun runs as in the reference).  The

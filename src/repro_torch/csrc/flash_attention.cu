@@ -8,7 +8,10 @@
 // (B, S, heads, hd) layout.  Query head h of batch row b reads kv head
 // h / G (GQA).  Causal and sliding-window masks, a tanh logit softcap
 // applied before the mask, fp32 (m, l, acc), output acc / max(l, 1e-37).
-// Keys past S are masked, so S need not be a multiple of any tile.  The
+// Query positions 0..S-1 attend to key positions 0..Sk-1 (Sk != S only
+// without a causal mask or a window: cross-attention, where the entry
+// point refuses the others).  Keys past Sk are masked, so neither length
+// need be a multiple of any tile.  The
 // TPU walked kv blocks as a sequential grid axis with (m, l, acc) in VMEM
 // scratch; here a loop inside the thread block replaces that axis, and kv
 // tiles beyond the causal frontier or before the window are never loaded.
@@ -91,8 +94,8 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int S, int H, int KH, float scale,
-               int causal, int window, float cap) {
+               float* __restrict__ lse, int S, int Sk, int H, int KH,
+               float scale, int causal, int window, float cap) {
   constexpr int DJ = DV / 16;               // output dims per thread
   extern __shared__ float smem[];
   float* Qs = smem;                         // [BQ][DQK + 1], scaled
@@ -107,8 +110,8 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
   const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
   const size_t vstride = (size_t)KH * DV, ostride = (size_t)H * DV;
   const float* qb = q + (size_t)b * S * qstride + (size_t)h * DQK;
-  const float* kb = k + (size_t)b * S * kstride + (size_t)kh * DQK;
-  const float* vb = v + (size_t)b * S * vstride + (size_t)kh * DV;
+  const float* kb = k + (size_t)b * Sk * kstride + (size_t)kh * DQK;
+  const float* vb = v + (size_t)b * Sk * vstride + (size_t)kh * DV;
   float* ob = o + (size_t)b * S * ostride + (size_t)h * DV;
 
   for (int idx = tid; idx < BQ * DQK; idx += NT) {
@@ -128,18 +131,18 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 
   // live kv range of this q tile: causal ends at the tile's last row, a
   // window starts at the earliest key its first row can see
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int kv_begin = window ? (max(0, q0 - window + 1) / BKV) * BKV : 0;
 
   for (int t0 = kv_begin; t0 < kv_end; t0 += BKV) {
     __syncthreads();  // Q staged; the previous tile's K, V, P consumed
     for (int idx = tid; idx < BKV * DQK; idx += NT) {
       const int r = idx / DQK, d = idx - r * DQK, t = t0 + r;
-      Ks[r * (DQK + 1) + d] = t < S ? kb[(size_t)t * kstride + d] : 0.f;
+      Ks[r * (DQK + 1) + d] = t < Sk ? kb[(size_t)t * kstride + d] : 0.f;
     }
     for (int idx = tid; idx < BKV * DV; idx += NT) {
       const int r = idx / DV, d = idx - r * DV, t = t0 + r;
-      Vs[r * DV + d] = t < S ? vb[(size_t)t * vstride + d] : 0.f;
+      Vs[r * DV + d] = t < Sk ? vb[(size_t)t * vstride + d] : 0.f;
     }
     __syncthreads();
 
@@ -169,7 +172,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int pk = t0 + tx + 16 * j;
-        bool ok = pk < S;
+        bool ok = pk < Sk;
         if (causal) ok = ok && pk <= pq;
         if (window) ok = ok && pq - pk < window;
         float x = s[i][j];
@@ -550,7 +553,7 @@ __device__ __forceinline__ float ex2(float x) {
 
 // What a consumer's softmax needs to know about its rows and the tile.
 struct RowCtx {
-  int S, causal, window;
+  int Sk, causal, window;
   int row0;      // this thread's first row (absolute); the second is +8
   int key0;      // the tile's first key plus 2 * (lane % 4)
   float sc;      // softcap: scale / cap; else scale * log2(e)
@@ -563,7 +566,7 @@ struct RowCtx {
 // the output must be multiplied by, ``rs`` this tile's row sums (of this
 // thread's columns; the quad is reduced at the end).  MASK: some key of the
 // tile is dead for some row (the causal diagonal, the window's edge, keys
-// past S); elsewhere every key is live and no mask is computed.  A masked
+// past Sk); elsewhere every key is live and no mask is computed.  A masked
 // score is NEG_INF, finite.  While a row has seen no live key its max is
 // NEG_INF, and its p are taken against 0 (so they are 0, not 2^0): the
 // exponent is one fma, s k - m k, and with both products near 1e37 its
@@ -583,7 +586,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2],
     int lo = 0, hi = 0;
     if constexpr (MASK) {
       const int row = c.row0 + 8 * r;
-      hi = (c.causal ? min(row, c.S - 1) : c.S - 1) - c.key0;
+      hi = (c.causal ? min(row, c.Sk - 1) : c.Sk - 1) - c.key0;
       lo = c.window ? row - c.window + 1 - c.key0 : -(1 << 30);
     }
 #pragma unroll
@@ -650,15 +653,16 @@ struct WorkItem {
 };
 
 template <int BKV>
-__device__ __forceinline__ WorkItem work_item(int w, int B, int S, int H,
-                                              int causal, int window) {
+__device__ __forceinline__ WorkItem work_item(int w, int B, int S, int Sk,
+                                              int H, int causal,
+                                              int window) {
   const int n_qt = (S + WG_BQ - 1) / WG_BQ;
   WorkItem u;
   const int bh = w % (B * H);
   u.b = bh / H;
   u.h = bh % H;
   u.q0 = (n_qt - 1 - w / (B * H)) * WG_BQ;
-  const int kv_end = causal ? min(S, u.q0 + WG_BQ) : S;
+  const int kv_end = causal ? min(Sk, u.q0 + WG_BQ) : Sk;
   u.t_lo = window ? max(0, u.q0 - window + 1) / BKV : 0;
   u.n_tiles = (kv_end - 1) / BKV - u.t_lo + 1;
   return u;
@@ -684,8 +688,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 const __grid_constant__ CUtensorMap omap,
-                float* __restrict__ lse, int B, int S, int H, int KH,
-                float sc, float cl, int causal, int window) {
+                float* __restrict__ lse, int B, int S, int Sk, int H,
+                int KH, float sc, float cl, int causal, int window) {
   using T = WgTile<DQK, DV>;
   constexpr int BKV = T::BKV, ST = T::STAGES, NS = BKV / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -724,7 +728,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       for (int r = 0;; ++r) {
         const int w = work_index(r);
         if (w >= n_work) break;
-        const WorkItem u = work_item<BKV>(w, B, S, H, causal, window);
+        const WorkItem u = work_item<BKV>(w, B, S, Sk, H, causal, window);
         const int kh = u.h / (H / KH);
         mbar_wait(q_empty, (r & 1) ^ 1);   // item 0 passes at once
         mbar_expect_tx(q_full, T::Q_BYTES);
@@ -785,13 +789,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       const int w = work_index(r);
       if (w >= n_work) break;
       const bool last_item = work_index(r + 1) >= n_work;
-      const WorkItem u = work_item<BKV>(w, B, S, H, causal, window);
+      const WorkItem u = work_item<BKV>(w, B, S, Sk, H, causal, window);
       const int q0c = u.q0 + 64 * cw;
-      RowCtx ctx{S, causal, window, q0c + 16 * warp + (lane >> 2), 0, sc, cl};
+      RowCtx ctx{Sk, causal, window, q0c + 16 * warp + (lane >> 2), 0, sc,
+                 cl};
       // a tile needs a mask iff some key of it is dead for some row of the
-      // consumer's 64: past S, past the causal diagonal, before the window
+      // consumer's 64: past Sk, past the causal diagonal, before the window
       auto masked = [&](int t0) {
-        return t0 + BKV > S || (causal && t0 + BKV - 1 > q0c) ||
+        return t0 + BKV > Sk || (causal && t0 + BKV - 1 > q0c) ||
                (window && q0c + 63 - t0 >= window);
       };
 #pragma unroll
@@ -963,7 +968,7 @@ bool tensor_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
 
 template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int S, int H, int KH, float scale,
+                float* lse, int B, int S, int Sk, int H, int KH, float scale,
                 int causal, int window, float cap, cudaStream_t stream) {
   const int smem = smem_floats<DQK, DV>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -973,14 +978,14 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_simt<DQK, DV><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KH,
-      scale, causal, window, cap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Sk, H,
+      KH, scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int S, int H, int KH, float scale,
+                 float* lse, int B, int S, int Sk, int H, int KH, float scale,
                  int causal, int window, float cap, cudaStream_t stream) {
   using T = WgTile<DQK, DV>;
   // MLA's pair is compiled without the softcap (no config has both)
@@ -989,8 +994,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
   if (!tensor_map(enc, &qm, q, B, S, H, DQK, WG_BQ) ||
-      !tensor_map(enc, &km, k, B, S, KH, DQK, T::BKV) ||
-      !tensor_map(enc, &vm, v, B, S, KH, DV, T::BKV) ||
+      !tensor_map(enc, &km, k, B, Sk, KH, DQK, T::BKV) ||
+      !tensor_map(enc, &vm, v, B, Sk, KH, DV, T::BKV) ||
       !tensor_map(enc, &om, o, B, S, H, DV, 64))
     return (int)cudaErrorInvalidValue;     // e.g. a base not 16-byte aligned
   auto kernel = flash_fwd_wgmma<DQK, DV, false>;
@@ -1022,14 +1027,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const long long n_work = (long long)B * H * ((S + WG_BQ - 1) / WG_BQ);
   const int grid = (int)std::min<long long>(n_work, sms[dev]);
   kernel<<<grid, WG_THREADS, T::SMEM, stream>>>(
-      qm, km, vm, om, lse, B, S, H, KH, sc, cl, causal, window);
+      qm, km, vm, om, lse, B, S, Sk, H, KH, sc, cl, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q: (B, S, H, hd); k: (B, S, KH, hd);
-// v: (B, S, KH, hdv); o: (B, S, H, hdv); all contiguous.  (hd, hdv) is
+// dtype: 0 = float32, 1 = bfloat16.  q: (B, S, H, hd); k: (B, Sk, KH, hd);
+// v: (B, Sk, KH, hdv); o: (B, S, H, hdv); all contiguous.  Sk != S takes
+// neither a causal mask nor a window.  (hd, hdv) is
 // (64, 64), (128, 128), (256, 256) or MLA's (192, 128), which takes no
 // softcap.  lse: null, or (B, H, S) fp32 that receives each row's
 // log-sum-exp in natural units, log sum_k exp(s_qk) over the live keys
@@ -1038,19 +1044,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // when the launch was refused, -1 for an unsupported shape or type.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
-                                   int dtype, int B, int S, int H, int KH,
-                                   int hd, int hdv, float scale, int causal,
-                                   int window, float cap, void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
+                                   int dtype, int B, int S, int Sk, int H,
+                                   int KH, int hd, int hdv, float scale,
+                                   int causal, int window, float cap,
+                                   void* stream) {
+  if (B <= 0 || S <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || window < 0)
+    return -1;
+  if (Sk != S && (causal || window)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define FLASH_FWD_CASE(DQK, DV)                                             \
   if (hd == DQK && hdv == DV)                                               \
-    return dtype == 0 ? launch_simt<DQK, DV>(q, k, v, o, l, B, S, H, KH,    \
+    return dtype == 0 ? launch_simt<DQK, DV>(q, k, v, o, l, B, S, Sk, H, KH, \
                                              scale, causal, window, cap, st) \
-         : dtype == 1 ? launch_wgmma<DQK, DV>(q, k, v, o, l, B, S, H, KH,   \
-                                              scale, causal, window, cap,   \
-                                              st)                           \
+         : dtype == 1 ? launch_wgmma<DQK, DV>(q, k, v, o, l, B, S, Sk, H,   \
+                                              KH, scale, causal, window,    \
+                                              cap, st)                      \
                       : -1;
   FLASH_FWD_CASE(64, 64)
   FLASH_FWD_CASE(128, 128)

@@ -133,9 +133,9 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
 }
 
 // Whether query position pq may see key position pk.
-__device__ __forceinline__ bool live_pair(int pq, int pk, int S, int causal,
-                                          int window) {
-  bool ok = pq < S && pk < S;
+__device__ __forceinline__ bool live_pair(int pq, int pk, int Sq, int Sk,
+                                          int causal, int window) {
+  bool ok = pq < Sq && pk < Sk;
   if (causal) ok = ok && pk <= pq;
   if (window) ok = ok && pq - pk < window;
   return ok;
@@ -803,24 +803,24 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 // shared-memory regions, the shapes, the scales and where its partial goes.
 struct KvArgs {
   uint32_t kv_s, ring, st_s, hand, bars;
-  int KVS, NST, NH, G, B, S, KH, causal, window, r_begin, r_end;
+  int KVS, NST, NH, G, B, Sq, Sk, KH, causal, window, r_begin, r_end;
   float sc, cl, scale;
   const int* work;
   float* part;              // fp32 partials of dK, then of dV
 };
 
 // A consumer's fp32 result (64 keys x HD) into its part of the partials
-// (kv_split, B, S, KH, HD), keys past S skipped.
+// (kv_split, B, Sk, KH, HD), keys past Sk skipped.
 template <int HD>
 __device__ __forceinline__ void store_part(float* dst,
                                            const float (&acc)[HD / 2],
-                                           int key0, int S, int KH, int warp,
+                                           int key0, int Sk, int KH, int warp,
                                            int lane) {
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int key = key0 + 16 * warp + g + 8 * rr;
-    if (key >= S) continue;
+    if (key >= Sk) continue;
     float* row = dst + (size_t)key * KH * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -862,7 +862,7 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
   const int t = threadIdx.x - 128 * (cw + 1), warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int split = p.kv_split, heads = a.G / split;
-  const int S = a.S, causal = a.causal, window = a.window;
+  const int Sq = a.Sq, Sk = a.Sk, causal = a.causal, window = a.window;
   int it = 0;                                // ring stages consumed
   for (int r = a.r_begin; r < a.r_end; ++r) {
     const int4 u = uniform_item(a.work, p.kv_items + 4 * r);
@@ -878,7 +878,7 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
     for (int rr = 0; rr < 2; ++rr) {
       const int key = kc + 16 * warp + g + 8 * rr;
       lo[rr] = causal ? key : 0;
-      hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
+      hi[rr] = key >= Sk ? -1 : (window ? min(Sq, key + window) : Sq);
     }
     float acc[ACC];
 #pragma unroll
@@ -912,9 +912,9 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
           mbar_arrive(hand_empty(hb));
           pack_a<NS>(fa, sv);
         } else {
-          // a mask iff some pair of the tile is dead: keys or rows past S,
-          // a row before the key (causal), a row past the window
-          const bool mask = kc + 64 > S || q0 + BR > S ||
+          // a mask iff some pair of the tile is dead: keys past Sk, rows
+          // past Sq, a row before the key (causal), a row past the window
+          const bool mask = kc + 64 > Sk || q0 + BR > Sq ||
                             (causal && q0 < kc + 63) ||
                             (window && q0 + BR - 1 - kc >= window);
           const int col0 = q0 + 2 * tq;
@@ -960,13 +960,13 @@ __device__ __forceinline__ void dkdv_consume(const BwdPlan& p,
     // fp32 partial goes out from registers)
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
     if (t == 0) mbar_arrive(kv_empty(slot));
-    const size_t at = (((size_t)part * a.B + b) * S) * a.KH + kh;
+    const size_t at = (((size_t)part * a.B + b) * Sk) * a.KH + kh;
     if constexpr (DK)
-      store_part<DQK>(a.part + at * DQK, acc, kc, S, a.KH, warp, lane);
+      store_part<DQK>(a.part + at * DQK, acc, kc, Sk, a.KH, warp, lane);
     else
-      store_part<DV>(a.part + (size_t)split * a.B * S * a.KH * DQK +
+      store_part<DV>(a.part + (size_t)split * a.B * Sk * a.KH * DQK +
                          at * DV,
-                     acc, kc, S, a.KH, warp, lane);
+                     acc, kc, Sk, a.KH, warp, lane);
   }
 }
 
@@ -985,8 +985,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap dvmap,
                      const float2* __restrict__ stats,
                      const int* __restrict__ work, const BwdPlan p, int B,
-                     int S, int H, int KH, float sc, float cl, float scale,
-                     int causal, int window, float* __restrict__ part) {
+                     int Sq, int Sk, int H, int KH, float sc, float cl,
+                     float scale, int causal, int window,
+                     float* __restrict__ part) {
   using Tile = BwdTile<DQK, DV, CAP>;
   constexpr int BR = Tile::BR, NS = BR / 2, QBOX = Tile::QBOX, BC = Tile::BC;
   constexpr int K_BYTES = BC * DQK * 2;        // an item's K
@@ -1084,7 +1085,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int cw = wg - 1;
     if constexpr (Tile::SPLIT) {
       const KvArgs a{kv_s, ring, st_s, base + p.kv_off_hand, bars, KVS,
-                     NST, p.kv_hands, G, B, S, KH, causal, window, r_begin,
+                     NST, p.kv_hands, G, B, Sq, Sk, KH, causal, window,
+                     r_begin,
                      r_end, sc, cl, scale, work, part};
       if (cw == 0)
         dkdv_consume<DQK, DV, CAP, ROLE_DV>(p, a, cw);
@@ -1107,7 +1109,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         for (int rr = 0; rr < 2; ++rr) {
           const int key = kc + 16 * warp + g + 8 * rr;
           lo[rr] = causal ? key : 0;
-          hi[rr] = key >= S ? -1 : (window ? min(S, key + window) : S);
+          hi[rr] = key >= Sk ? -1 : (window ? min(Sq, key + window) : Sq);
         }
         float dk[DQK / 2], dv[DV / 2];
 #pragma unroll
@@ -1120,9 +1122,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
             const int s = it % NST, q0 = qt * BR;
             const uint32_t qs = ring + s * ST_BYTES, os = qs + QT_BYTES;
             const uint32_t st = st_s + s * BR * 8 + (2 * tq) * 8;
-            // a mask iff some pair of the tile is dead: keys or rows past S,
-            // a row before the key (causal), a row past the window
-            const bool mask = kc + 64 > S || q0 + BR > S ||
+            // a mask iff some pair of the tile is dead: keys past Sk, rows
+            // past Sq, a row before the key (causal), a row past the window
+            const bool mask = kc + 64 > Sk || q0 + BR > Sq ||
                               (causal && q0 < kc + 63) ||
                               (window && q0 + BR - 1 - kc >= window);
             const int col0 = q0 + 2 * tq;
@@ -1172,7 +1174,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
         }
         // epilogue: dK scale and dV in bf16 over this consumer's own K and V
         // rows (no product reads them any more), then TMA stores, which clip
-        // the keys past S; the slot goes back to the producer once the
+        // the keys past Sk; the slot goes back to the producer once the
         // stores have read it
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
         stage_out<DQK>(ka, BC, dk, scale, warp, lane);
@@ -1198,7 +1200,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 // hd 256: dK = scale x the sum of its kv_split fp32 partials and dV the sum
 // of its, in part order, rounded once to bf16; ``n`` elements of each (B,
-// S, KH, 256), a multiple of 4, 4 a thread.
+// Sk, KH, 256), a multiple of 4, 4 a thread.
 __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_sum(const float* __restrict__ part, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int split, size_t n, float scale) {
@@ -1239,9 +1241,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap dqmap,
                    const float* __restrict__ lse,
                    float2* __restrict__ stats,
-                   const int* __restrict__ work, const BwdPlan p, int S,
-                   int H, int KH, float sc, float cl, float scale, int causal,
-                   int window, const bf16* __restrict__ og,
+                   const int* __restrict__ work, const BwdPlan p, int Sq,
+                   int Sk, int H, int KH, float sc, float cl, float scale,
+                   int causal, int window, const bf16* __restrict__ og,
                    const bf16* __restrict__ dog) {
   using Tile = BwdTile<DQK, DV, CAP>;
   constexpr int BN = Tile::BN, NS = BN / 2, KBOX = Tile::KBOX;
@@ -1347,9 +1349,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = r0 + 16 * warp + g + 8 * rr;
-        l2[rr] = row < S ? lse[bh * S + row] * LOG2E : 0.f;
+        l2[rr] = row < Sq ? lse[bh * Sq + row] * LOG2E : 0.f;
         lo[rr] = window ? row - window + 1 : 0;
-        hi[rr] = row >= S ? -(1 << 30) : (causal ? row + 1 : S);
+        hi[rr] = row >= Sq ? -(1 << 30) : (causal ? min(row + 1, Sk) : Sk);
       }
       float dq[DQK / 2];
 #pragma unroll
@@ -1369,9 +1371,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                                  (((j & 7) ^ (rl & 7)) << 4);
             d = dot8(lds128(oa + off), lds128(oa + D_BYTES + off), d);
           }
-        } else if (row < S) {
+        } else if (row < Sq) {
           // 16-byte chunks of the row in device memory, in the same order
-          const size_t at = (((size_t)b * S + row) * H + h) * DV;
+          const size_t at = (((size_t)b * Sq + row) * H + h) * DV;
           const uint4* orow = reinterpret_cast<const uint4*>(og + at);
           const uint4* drow = reinterpret_cast<const uint4*>(dog + at);
 #pragma unroll 4
@@ -1381,14 +1383,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         if (half == 0)
           stats[bh * p.s_pad + row] =
-              make_float2(row < S ? lse[bh * S + row] * LOG2E : 0.f, d);
+              make_float2(row < Sq ? lse[bh * Sq + row] * LOG2E : 0.f, d);
         dd[0] = __shfl_sync(0xffffffffu, d, 2 * g);
         dd[1] = __shfl_sync(0xffffffffu, d, 2 * g + 16);
       }
       for (int j = u.z; j < u.w; ++j, ++it) {
         const int s = it % NST, t0 = j * BN;
         const uint32_t ks = ring + s * ST_BYTES, vs = ks + KT_BYTES;
-        const bool mask = t0 + BN > S || r0 + 64 > S ||
+        const bool mask = t0 + BN > Sk || r0 + 64 > Sq ||
                           (causal && t0 + BN - 1 > r0) ||
                           (window && r0 + 63 - t0 >= window);
         const int col0 = t0 + 2 * tq;
@@ -1531,7 +1533,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int S, int H, int KH,
+                    float* __restrict__ dv, int Sq, int Sk, int H, int KH,
                     float scale, int causal, int window, float cap) {
   constexpr int T = SimtTile<DQK>::T, R = T / 16;
   constexpr int DJK = DQK / 16, DJV = DV / 16;
@@ -1550,10 +1552,10 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * T;
   const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
   const size_t ostride = (size_t)H * DV, vstride = (size_t)KH * DV;
-  const size_t k_off = (size_t)b * S * kstride + (size_t)kh * DQK;
-  const size_t v_off = (size_t)b * S * vstride + (size_t)kh * DV;
-  stage_f32<DQK, T>(Ks, k + k_off, kstride, k0, S);
-  stage_f32<DV, T>(Vs, v + v_off, vstride, k0, S);
+  const size_t k_off = (size_t)b * Sk * kstride + (size_t)kh * DQK;
+  const size_t v_off = (size_t)b * Sk * vstride + (size_t)kh * DV;
+  stage_f32<DQK, T>(Ks, k + k_off, kstride, k0, Sk);
+  stage_f32<DV, T>(Vs, v + v_off, vstride, k0, Sk);
 
   float dk_acc[R][DJK], dv_acc[R][DJV];
 #pragma unroll
@@ -1565,21 +1567,21 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int q_first = causal ? k0 : 0;
-  const int q_end = window ? min(S, k0 + T - 1 + window) : S;
+  const int q_end = window ? min(Sq, k0 + T - 1 + window) : Sq;
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = kh * G + gi;
-    const size_t q_off = (size_t)b * S * qstride + (size_t)h * DQK;
-    const size_t o_off = (size_t)b * S * ostride + (size_t)h * DV;
-    const float* lse_h = lse + ((size_t)b * H + h) * S;
-    const float* d_h = delta + ((size_t)b * H + h) * S;
+    const size_t q_off = (size_t)b * Sq * qstride + (size_t)h * DQK;
+    const size_t o_off = (size_t)b * Sq * ostride + (size_t)h * DV;
+    const float* lse_h = lse + ((size_t)b * H + h) * Sq;
+    const float* d_h = delta + ((size_t)b * H + h) * Sq;
     for (int q0 = (q_first / T) * T; q0 < q_end; q0 += T) {
       __syncthreads();
-      stage_f32<DQK, T>(Qs, q + q_off, qstride, q0, S);
-      stage_f32<DV, T>(Os, dout + o_off, ostride, q0, S);
+      stage_f32<DQK, T>(Qs, q + q_off, qstride, q0, Sq);
+      stage_f32<DV, T>(Os, dout + o_off, ostride, q0, Sq);
       for (int i = tid; i < T; i += SIMT_THREADS) {
-        Ls[i] = q0 + i < S ? lse_h[q0 + i] : 0.f;
-        Ds[i] = q0 + i < S ? d_h[q0 + i] : 0.f;
+        Ls[i] = q0 + i < Sq ? lse_h[q0 + i] : 0.f;
+        Ds[i] = q0 + i < Sq ? d_h[q0 + i] : 0.f;
       }
       __syncthreads();
       float s[R][R], dp[R][R];
@@ -1598,7 +1600,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
             dc = 1.f - th * th;
           }
           const float p =
-              live_pair(q0 + qi, k0 + ty + 16 * i, S, causal, window)
+              live_pair(q0 + qi, k0 + ty + 16 * i, Sq, Sk, causal, window)
                   ? expf(x - Ls[qi])
                   : 0.f;
           Ps[(ty + 16 * i) * (T + 1) + qi] = p;
@@ -1620,7 +1622,7 @@ flash_bwd_dkdv_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int key = k0 + ty + 16 * i;
-    if (key >= S) continue;
+    if (key >= Sk) continue;
 #pragma unroll
     for (int jj = 0; jj < DJK; ++jj)
       dk[k_off + (size_t)key * kstride + tx + 16 * jj] =
@@ -1637,8 +1639,8 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
-                  int S, int H, int KH, float scale, int causal, int window,
-                  float cap) {
+                  int Sq, int Sk, int H, int KH, float scale, int causal,
+                  int window, float cap) {
   constexpr int T = SimtTile<DQK>::T, R = T / 16;
   constexpr int DJ = DQK / 16;
   extern __shared__ float smem[];
@@ -1653,20 +1655,20 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * T;
   const size_t qstride = (size_t)H * DQK, kstride = (size_t)KH * DQK;
   const size_t ostride = (size_t)H * DV, vstride = (size_t)KH * DV;
-  const size_t q_off = (size_t)b * S * qstride + (size_t)h * DQK;
-  const size_t o_off = (size_t)b * S * ostride + (size_t)h * DV;
-  const size_t k_off = (size_t)b * S * kstride + (size_t)kh * DQK;
-  const size_t v_off = (size_t)b * S * vstride + (size_t)kh * DV;
-  stage_f32<DQK, T>(Qs, q + q_off, qstride, q0, S);
-  stage_f32<DV, T>(Os, dout + o_off, ostride, q0, S);
+  const size_t q_off = (size_t)b * Sq * qstride + (size_t)h * DQK;
+  const size_t o_off = (size_t)b * Sq * ostride + (size_t)h * DV;
+  const size_t k_off = (size_t)b * Sk * kstride + (size_t)kh * DQK;
+  const size_t v_off = (size_t)b * Sk * vstride + (size_t)kh * DV;
+  stage_f32<DQK, T>(Qs, q + q_off, qstride, q0, Sq);
+  stage_f32<DV, T>(Os, dout + o_off, ostride, q0, Sq);
 
   float lse_r[R], d_r[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = q0 + ty + 16 * i;
-    const size_t idx = ((size_t)b * H + h) * S + s;
-    lse_r[i] = s < S ? lse[idx] : 0.f;
-    d_r[i] = s < S ? delta[idx] : 0.f;
+    const size_t idx = ((size_t)b * H + h) * Sq + s;
+    lse_r[i] = s < Sq ? lse[idx] : 0.f;
+    d_r[i] = s < Sq ? delta[idx] : 0.f;
   }
   float dq_acc[R][DJ];
 #pragma unroll
@@ -1675,11 +1677,11 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < DJ; ++jj) dq_acc[i][jj] = 0.f;
 
   const int k_first = window ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q0 + T) : S;
+  const int k_end = causal ? min(Sk, q0 + T) : Sk;
   for (int t0 = (k_first / T) * T; t0 < k_end; t0 += T) {
     __syncthreads();
-    stage_f32<DQK, T>(Ks, k + k_off, kstride, t0, S);
-    stage_f32<DV, T>(Vs, v + v_off, vstride, t0, S);
+    stage_f32<DQK, T>(Ks, k + k_off, kstride, t0, Sk);
+    stage_f32<DV, T>(Vs, v + v_off, vstride, t0, Sk);
     __syncthreads();
     float s[R][R], dp[R][R];
     tile_dot<DQK, T>(s, Qs, Ks, tx, ty);    // S: rows ty.., keys tx..
@@ -1695,7 +1697,8 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
           dc = 1.f - th * th;
         }
         const float p =
-            live_pair(q0 + ty + 16 * i, t0 + tx + 16 * j, S, causal, window)
+            live_pair(q0 + ty + 16 * i, t0 + tx + 16 * j, Sq, Sk, causal,
+                      window)
                 ? expf(x - lse_r[i])
                 : 0.f;
         Ps[(ty + 16 * i) * (T + 1) + tx + 16 * j] =
@@ -1708,7 +1711,7 @@ flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int s = q0 + ty + 16 * i;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
       dq[q_off + (size_t)s * qstride + tx + 16 * jj] = dq_acc[i][jj] * scale;
@@ -1828,8 +1831,8 @@ bool plan_fits(const BwdPlan& p) {
 template <int DQK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const float* lse, const void* dout, void* dq, void* dk,
-                 void* dv, float* stats, int B, int S, int H, int KH,
-                 float scale, int causal, int window, float cap,
+                 void* dv, float* stats, int B, int Sq, int Sk, int H,
+                 int KH, float scale, int causal, int window, float cap,
                  const BwdPlan& p, const int* work, cudaStream_t st) {
   using Plain = BwdTile<DQK, DV, false>;
   const bool c = cap != 0.f;
@@ -1845,18 +1848,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const int qbox = c ? BwdTile<DQK, DV, true>::QBOX : Plain::QBOX;
   const int kbox = c ? BwdTile<DQK, DV, true>::KBOX : Plain::KBOX;
   CUtensorMap qm, dm, qrm, drm, om, km, vm, kqm, vqm, dqm, dkm, dvm;
-  if (!tensor_map(enc, &qm, q, B, S, H, DQK) ||
-      !tensor_map(enc, &dm, dout, B, S, H, DV) ||
-      !tensor_map(enc, &qrm, q, B, S, H, DQK, qbox) ||
-      !tensor_map(enc, &drm, dout, B, S, H, DV, qbox) ||
-      !tensor_map(enc, &om, o, B, S, H, DV) ||
-      !tensor_map(enc, &km, k, B, S, KH, DQK) ||
-      !tensor_map(enc, &vm, v, B, S, KH, DV) ||
-      !tensor_map(enc, &kqm, k, B, S, KH, DQK, kbox) ||
-      !tensor_map(enc, &vqm, v, B, S, KH, DV, kbox) ||
-      !tensor_map(enc, &dqm, dq, B, S, H, DQK) ||
-      !tensor_map(enc, &dkm, dk, B, S, KH, DQK) ||
-      !tensor_map(enc, &dvm, dv, B, S, KH, DV))
+  if (!tensor_map(enc, &qm, q, B, Sq, H, DQK) ||
+      !tensor_map(enc, &dm, dout, B, Sq, H, DV) ||
+      !tensor_map(enc, &qrm, q, B, Sq, H, DQK, qbox) ||
+      !tensor_map(enc, &drm, dout, B, Sq, H, DV, qbox) ||
+      !tensor_map(enc, &om, o, B, Sq, H, DV) ||
+      !tensor_map(enc, &km, k, B, Sk, KH, DQK) ||
+      !tensor_map(enc, &vm, v, B, Sk, KH, DV) ||
+      !tensor_map(enc, &kqm, k, B, Sk, KH, DQK, kbox) ||
+      !tensor_map(enc, &vqm, v, B, Sk, KH, DV, kbox) ||
+      !tensor_map(enc, &dqm, dq, B, Sq, H, DQK) ||
+      !tensor_map(enc, &dkm, dk, B, Sk, KH, DQK) ||
+      !tensor_map(enc, &dvm, dv, B, Sk, KH, DV))
     return (int)cudaErrorInvalidValue;     // e.g. a base not 16-byte aligned
   float2* stats2 = reinterpret_cast<float2*>(stats);
   // log2 units: 2^(x log2 e) = e^x; under a softcap th = tanh(s scale / cap)
@@ -1877,7 +1880,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return (int)err;
   // dQ first: it writes the statistics the dK/dV kernel streams
   dqk<<<p.dq_blocks, WG_THREADS, p.dq_smem, st>>>(
-      qm, dm, om, kqm, vqm, dqm, lse, stats2, work, p, S, H, KH, sc, cl,
+      qm, dm, om, kqm, vqm, dqm, lse, stats2, work, p, Sq, Sk, H, KH, sc, cl,
       scale, causal, window, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout));
   err = cudaGetLastError();
@@ -1885,11 +1888,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   // hd 256: the dK/dV partials follow the statistics in the scratch
   float* part = stats + (size_t)B * H * p.s_pad * 2;
   dkdv<<<p.kv_blocks, WG_THREADS, p.kv_smem, st>>>(
-      qrm, drm, km, vm, dkm, dvm, stats2, work, p, B, S, H, KH, sc, cl,
+      qrm, drm, km, vm, dkm, dvm, stats2, work, p, B, Sq, Sk, H, KH, sc, cl,
       scale, causal, window, part);
   err = cudaGetLastError();
   if (err != cudaSuccess || !Plain::SPLIT) return (int)err;
-  const size_t n = (size_t)B * S * KH * DQK;
+  const size_t n = (size_t)B * Sk * KH * DQK;
   flash_bwd_dkdv_sum<<<(unsigned)((2 * n / 4 + 255) / 256), 256, 0, st>>>(
       part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.kv_split, n,
       scale);
@@ -1899,7 +1902,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
 template <int DQK, int DV>
 int launch_simt(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dq, void* dk,
-                void* dv, int B, int S, int H, int KH, float scale,
+                void* dv, int B, int Sq, int Sk, int H, int KH, float scale,
                 int causal, int window, float cap, cudaStream_t st) {
   const int bytes = simt_smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -1911,31 +1914,33 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
                              bytes);
   if (err != cudaSuccess) return (int)err;
   constexpr int T = SimtTile<DQK>::T;
-  const int tiles = (S + T - 1) / T;
+  const int k_tiles = (Sk + T - 1) / T, q_tiles = (Sq + T - 1) / T;
   const float *qp = static_cast<const float*>(q),
               *kp = static_cast<const float*>(k),
               *vp = static_cast<const float*>(v),
               *op = static_cast<const float*>(dout);
   flash_bwd_dkdv_simt<DQK, DV>
-      <<<dim3(tiles, B * KH), SIMT_THREADS, bytes, st>>>(
+      <<<dim3(k_tiles, B * KH), SIMT_THREADS, bytes, st>>>(
           qp, kp, vp, op, lse, delta, static_cast<float*>(dk),
-          static_cast<float*>(dv), S, H, KH, scale, causal, window, cap);
+          static_cast<float*>(dv), Sq, Sk, H, KH, scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_simt<DQK, DV><<<dim3(tiles, B * H), SIMT_THREADS, bytes, st>>>(
-      qp, kp, vp, op, lse, delta, static_cast<float*>(dq), S, H, KH, scale,
-      causal, window, cap);
+  flash_bwd_dq_simt<DQK, DV>
+      <<<dim3(q_tiles, B * H), SIMT_THREADS, bytes, st>>>(
+          qp, kp, vp, op, lse, delta, static_cast<float*>(dq), Sq, Sk, H, KH,
+          scale, causal, window, cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, dq: (B, S, H, hd); o, dout: (B, S,
-// H, hdv); k, dk: (B, S, KH, hd); v, dv: (B, S, KH, hdv); (hd, hdv) is (64,
+// H, hdv); k, dk: (B, Sk, KH, hd); v, dv: (B, Sk, KH, hdv), Sk != S without
+// a causal mask or a window only (cross-attention); (hd, hdv) is (64,
 // 64), (128, 128), (256, 256) or MLA's (192, 128); the last takes no
 // softcap in bf16.  lse: (B, H, S) fp32 (natural log); delta: fp32 scratch
 // that this call fills, (B, H, S) floats for fp32 and (B, H, s_pad, 2) for
-// bf16, followed at hd 256 by 2 kv_split B S KH 256 floats of partials.  plan: ``n_plan`` ints
+// bf16, followed at hd 256 by 2 kv_split B Sk KH 256 floats of partials.  plan: ``n_plan`` ints
 // in host memory, the fields of BwdPlan
 // (kernels/flash_attention.py:flash_bwd_plan), and work: the plan's work
 // items and block starts on the card; the bf16 route reads both, the fp32
@@ -1946,11 +1951,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* lse,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int dtype, int B,
-                                   int S, int H, int KH, int hd, int hdv,
+                                   int S, int Sk, int H, int KH, int hd,
+                                   int hdv,
                                    float scale, int causal, int window,
                                    float cap, void* stream, const int* plan,
                                    int n_plan, const void* work) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || window < 0) return -1;
+  if (B <= 0 || S <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || window < 0)
+    return -1;
+  if (Sk != S && (causal || window)) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   if (!((hd == 64 && hdv == 64) || (hd == 128 && hdv == 128) ||
         (hd == 256 && hdv == 256) || (hd == 192 && hdv == 128)))
@@ -1972,10 +1980,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (hd == DQK && hdv == DV)                                                 \
     return dtype == 0                                                         \
                ? launch_simt<DQK, DV>(q, k, v, dout, lp, dp, dq, dk, dv, B, S, \
-                                      H, KH, scale, causal, window, cap, st)  \
+                                      Sk, H, KH, scale, causal, window, cap,  \
+                                      st)                                     \
                : launch_wgmma<DQK, DV>(q, k, v, o, lp, dout, dq, dk, dv, dp,  \
-                                       B, S, H, KH, scale, causal, window,    \
-                                       cap, p, w, st);
+                                       B, S, Sk, H, KH, scale, causal,        \
+                                       window, cap, p, w, st);
   FLASH_BWD_CASE(64, 64)
   FLASH_BWD_CASE(128, 128)
   FLASH_BWD_CASE(256, 256)

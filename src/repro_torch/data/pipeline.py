@@ -11,7 +11,9 @@ while no files are read; ``labels[t] = tokens[t + 1]``.
 The draws come from numpy's generator seeded with ``(seed, step)``; the
 reference draws with ``jax.random``, whose stream cannot be reproduced
 bit for bit (ROADMAP D10), so tests that compare the two packages feed
-both the reference's own batches.
+both the reference's own batches.  :class:`SourceFramesData` adds an
+encoder-decoder's encoder frames (the audio stub's ``src_embeds``) to
+each batch, drawn from ``(seed, step)`` too.
 """
 from __future__ import annotations
 
@@ -47,3 +49,24 @@ class SyntheticLMData:
             seq[:, t] = x
         seq_t = torch.from_numpy(seq).to(device)
         return {"tokens": seq_t[:, :S], "labels": seq_t[:, 1:S + 1]}
+
+
+@dataclass(frozen=True)
+class SourceFramesData:
+    """An encoder-decoder's training stream: ``lm``'s tokens and labels
+    and, at the reference's dry-run shape (``launch/specs.py``), the audio
+    stub's encoder frames ``src_embeds`` (B, src_len, d_model) fp32, ``0.02
+    N(0, 1)`` from numpy's generator seeded with ``(seed, step, 1)``, so a
+    batch is still a pure function of ``(seed, step)``."""
+    lm: SyntheticLMData
+    d_model: int
+    src_len: int
+
+    def batch_at(self, step: int, device=None) -> Dict[str, torch.Tensor]:
+        batch = self.lm.batch_at(step, device)
+        rng = np.random.default_rng([self.lm.seed, int(step), 1])
+        x = rng.standard_normal(
+            (self.lm.global_batch, self.src_len, self.d_model),
+            dtype=np.float32)
+        batch["src_embeds"] = torch.from_numpy(0.02 * x).to(device)
+        return batch

@@ -12,7 +12,10 @@ of shared-memory stages, and two consumer warpgroups of 64 q rows each
 run both products as wgmma (fp32 has its own CUDA-core walk, for exact
 checks).  Both sides take the model's (B, S, heads, hd) layout directly,
 and the kernel masks a ragged S itself, so there is no S % 128 gate and no
-transpose.  Head dims 64 and 128 (qwen3, paper-overhead, qwen2.5 and
+transpose.  The keys may number Sk apart from the S queries (the TPU
+kernel's (BH, Sq, hd) against (BK, Sk, hd)) where there is neither a causal
+mask nor a window: seamless-m4t-medium's cross-attention, 4,096 decoder
+rows against 1,024 encoder frames in training.  Head dims 64 and 128 (qwen3, paper-overhead, qwen2.5 and
 mistral-large at G 5 and 12), 256 (the local layers of recurrentgemma,
 16 q heads over one kv head, window 2,048; gemma2's local and global
 layers, 16 q heads over 8 kv heads, a softcap of 50) and MLA's pair, q and k 192 wide (128 nope + 64 rope) over v 128,
@@ -63,12 +66,12 @@ HEAD_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), MLA_PAIR)
 BWD_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), MLA_PAIR)
 
 _SIGNATURES = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    "flash_attention_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
        ctypes.c_void_p],
@@ -117,8 +120,8 @@ def bwd_stream_tiles(hd: int, softcap: bool = False, hd_v: int = 0):
 
 def _live(S: int, t0: int, t1: int, causal: bool, window: int,
           dev) -> torch.Tensor:
-    """(S, t1 - t0) mask of the pairs (query row, key t0..t1-1) that
-    attend."""
+    """(S, t1 - t0) mask of the pairs (query row 0..S-1, key t0..t1-1)
+    that attend."""
     pq = torch.arange(S, device=dev)[:, None]
     pk = torch.arange(t0, t1, device=dev)[None, :]
     valid = torch.ones((S, t1 - t0), dtype=torch.bool, device=dev)
@@ -131,8 +134,8 @@ def _live(S: int, t0: int, t1: int, causal: bool, window: int,
 
 def flash_attention_torch(
     q: torch.Tensor,          # (B, S, H, hd), positions 0..S-1
-    k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hdv)
+    k: torch.Tensor,          # (B, Sk, K, hd), positions 0..Sk-1
+    v: torch.Tensor,          # (B, Sk, K, hdv)
     *,
     scale: float,
     causal: bool = True,
@@ -147,7 +150,7 @@ def flash_attention_torch(
     ``return_lse`` returns ``(out, lse)``, lse (B, H, S) fp32 = m + log
     max(l, 1e-37), the log of the row's sum of exp(score) over live keys.
     The output is (B, S, H, hdv): v's width may differ from q's and k's
-    (MLA)."""
+    (MLA), and the keys may number Sk apart from the S queries."""
     B, S, H, hd = q.shape
     Sk, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
@@ -181,8 +184,8 @@ def flash_attention_torch(
 
 def flash_attention_bwd_torch(
     q: torch.Tensor,          # (B, S, H, hd)
-    k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hdv)
+    k: torch.Tensor,          # (B, Sk, K, hd)
+    v: torch.Tensor,          # (B, Sk, K, hdv)
     o: torch.Tensor,          # (B, S, H, hdv) the forward's output
     lse: torch.Tensor,        # (B, H, S) fp32 the forward's log-sum-exp
     do: torch.Tensor,         # (B, S, H, hdv) the output's gradient
@@ -198,9 +201,9 @@ def flash_attention_bwd_torch(
     = rowsum(dO o), dV = P^T dO, dS = P (dO V^T - D) (times 1 - tanh^2
     under a softcap), dQ = scale dS K, dK = scale dS^T Q, dK and dV summed
     over the G q heads of each kv head.  v, o and dO may be narrower than q
-    and k (MLA's hdv)."""
+    and k (MLA's hdv), and k and v may hold Sk keys apart from S."""
     B, S, H, hd = q.shape
-    K, hdv = k.shape[2], v.shape[3]
+    Sk, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
     dev = q.device
     qf = q.reshape(B, S, K, G, hd).float()
@@ -208,10 +211,10 @@ def flash_attention_bwd_torch(
     lse_g = lse.permute(0, 2, 1).reshape(B, S, K, G)
     delta = (dof * o.reshape(B, S, K, G, hdv).float()).sum(-1)
     dq = torch.zeros_like(qf)
-    dk = torch.zeros((B, S, K, hd), dtype=torch.float32, device=dev)
-    dv = torch.zeros((B, S, K, hdv), dtype=torch.float32, device=dev)
-    for t0 in range(0, S, kv_block):
-        t1 = min(t0 + kv_block, S)
+    dk = torch.zeros((B, Sk, K, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, K, hdv), dtype=torch.float32, device=dev)
+    for t0 in range(0, Sk, kv_block):
+        t1 = min(t0 + kv_block, Sk)
         kc = k[:, t0:t1].float()
         vc = v[:, t0:t1].float()
         s = torch.einsum("bskgd,btkd->bskgt", qf, kc) * scale
@@ -280,7 +283,7 @@ def _kv_split(n_items: int, G: int, n_sm: int) -> int:
 
 def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
                    window: int, n_sm: int, softcap: bool = False,
-                   hd_v: int = 0) -> dict:
+                   hd_v: int = 0, Sk: int = 0) -> dict:
     """The bf16 backward's work and shared-memory layout, from the shapes
     and the card's SM count.  The kernels take it as it is and compute
     none of it.
@@ -308,20 +311,23 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
     at hd 256 by ``part_floats`` floats of dK and dV partials.  ``fields``
     are the plan's integers in BWD_PLAN_FIELDS order, ``work`` the int32
     buffer the kernels read (kv items, dq items, kv starts, dq starts).
-    ``hd`` is the qk width, ``hd_v`` the v width (``hd`` if 0)."""
+    ``hd`` is the qk width, ``hd_v`` the v width (``hd`` if 0); S counts
+    the queries, ``Sk`` the keys (S if 0): the dK/dV items tile the keys,
+    the dQ items the queries."""
     G = H // K
     hd_v = hd_v or hd
+    Sk = Sk or S
     br, bn = bwd_stream_tiles(hd, softcap, hd_v)
     split = hd == 256                # BwdTile::SPLIT in the CUDA source
     bc = BWD_BC_SPLIT if split else BWD_BC
-    n_kt, n_mt = _cdiv(S, bc), _cdiv(S, BWD_BM)
+    n_kt, n_mt = _cdiv(Sk, bc), _cdiv(S, BWD_BM)
     s_pad = n_mt * BWD_BM
     kv_split = _kv_split(B * K * n_kt, G, n_sm) if split else 1
     kv_items, kv_cost = [], []
     for bh in range(B * K):
         for kt in range(n_kt):
             q_lo = kt * bc if causal else 0
-            k_last = min(S, (kt + 1) * bc) - 1
+            k_last = min(Sk, (kt + 1) * bc) - 1
             q_hi = min(S, k_last + window) if window else S
             first, end = q_lo // br, _cdiv(q_hi, br)
             for part in range(kv_split):
@@ -332,7 +338,7 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
         for mt in range(n_mt):
             r_last = min(S, (mt + 1) * BWD_BM) - 1
             k_lo = max(0, mt * BWD_BM - window + 1) if window else 0
-            k_hi = r_last + 1 if causal else S
+            k_hi = min(r_last + 1, Sk) if causal else Sk
             first, end = k_lo // bn, _cdiv(k_hi, bn)
             dq_items.append((bh, mt, first, end))
             dq_cost.append(end - first + 1)
@@ -389,7 +395,7 @@ def flash_bwd_plan(B: int, S: int, H: int, K: int, hd: int, causal: bool,
         dq_off_q=dq_offs["q"], dq_off_ring=dq_offs["ring"],
         dq_off_bars=dq_offs["bars"], dq_smem=dq_smem,
         dq_items=at["dq_items"], dq_starts=at["dq_starts"])
-    part_floats = 2 * kv_split * B * S * K * hd if split else 0
+    part_floats = 2 * kv_split * B * Sk * K * hd if split else 0
     return dict(br=br, bc=bc, bm=BWD_BM, bn=bn, s_pad=s_pad,
                 kv_split=kv_split, part_floats=part_floats, kv=kv, dq=dq,
                 fields=[values[f] for f in BWD_PLAN_FIELDS], work=work)
@@ -407,13 +413,13 @@ def flash_bwd_card_plan(q, k, v, causal: bool, window: int,
     hd_v = v.shape[3]
     idx = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
-    key = (idx, B, S, H, k.shape[2], hd, hd_v, bool(causal), int(window),
-           bool(logit_cap))
+    key = (idx, B, S, k.shape[1], H, k.shape[2], hd, hd_v, bool(causal),
+           int(window), bool(logit_cap))
     got = _bwd_plans.get(key)
     if got is None:
         n_sm = torch.cuda.get_device_properties(idx).multi_processor_count
         plan = flash_bwd_plan(B, S, H, k.shape[2], hd, causal, window, n_sm,
-                              bool(logit_cap), hd_v)
+                              bool(logit_cap), hd_v, k.shape[1])
         fields = (ctypes.c_int * len(plan["fields"]))(*plan["fields"])
         work = torch.tensor(plan["work"], dtype=torch.int32,
                             device=q.device)
@@ -437,7 +443,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool,
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        DTYPE_CODES[q.dtype], B, S, H, k.shape[2], hd, hd_v,
+        DTYPE_CODES[q.dtype], B, S, k.shape[1], H, k.shape[2], hd, hd_v,
         float(scale), int(causal), int(window), float(logit_cap),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
@@ -464,8 +470,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
     rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), DTYPE_CODES[q.dtype], B, S, H,
-        k.shape[2], hd, v.shape[3], float(scale), int(causal), int(window),
+        dv.data_ptr(), delta.data_ptr(), DTYPE_CODES[q.dtype], B, S,
+        k.shape[1], H, k.shape[2], hd, v.shape[3], float(scale), int(causal),
+        int(window),
         float(logit_cap), torch.cuda.current_stream(q.device).cuda_stream,
         fields, len(fields), work.data_ptr())
     if rc:

@@ -66,32 +66,44 @@ def _cuda_operands(name: str, tensors, dtypes, head_dim: int = 0,
 
 def flash_attention_bshd(
     q: torch.Tensor,          # (B, S, H, hd)
-    k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hdv)
+    k: torch.Tensor,          # (B, Sk, K, hd)
+    v: torch.Tensor,          # (B, Sk, K, hdv)
     *,
     scale: float,
     causal: bool = True,
     window: int = 0,
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
-    """Self-attention over positions ``0..S-1`` (prefill), any S; returns
-    (B, S, H, hdv).  v may be narrower than q and k (MLA trains at hd 192
+    """Query positions ``0..S-1`` against key positions ``0..Sk-1``, any
+    S and Sk; returns (B, S, H, hdv).  Self-attention (prefill, training)
+    has Sk = S; cross-attention (an encoder-decoder's decoder over the
+    encoder's frames) has Sk apart from S, and then neither a causal mask
+    nor a window.  v may be narrower than q and k (MLA trains at hd 192
     over hdv 128); on the card (hd, hdv) must be one of
     ``fa.HEAD_DIM_PAIRS``."""
     _require(q.ndim == 4 and k.ndim == 4 and v.ndim == 4
              and k.shape[:3] == v.shape[:3],
              f"flash_attention_bshd: shapes {q.shape} {k.shape} {v.shape}")
     B, S, H, hd = q.shape
-    _require(k.shape[0] == B and k.shape[1] == S and k.shape[3] == hd
-             and H % k.shape[2] == 0,
+    _require(k.shape[0] == B and k.shape[3] == hd and H % k.shape[2] == 0,
              f"flash_attention_bshd: q {tuple(q.shape)} vs k "
              f"{tuple(k.shape)}")
+    _rectangular_ok("flash_attention_bshd", S, k.shape[1], causal, window)
     _require(q.dtype == k.dtype == v.dtype,
              "flash_attention_bshd: q, k, v dtypes differ")
     kw = dict(scale=scale, causal=causal, window=window, logit_cap=logit_cap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, kw)
     return _flash_forward(q, k, v, kw, return_lse=False)
+
+
+def _rectangular_ok(name: str, S: int, Sk: int, causal: bool,
+                    window: int) -> None:
+    """Sk != S is cross-attention: every key is live for every query, so
+    no causal mask and no window (no path needs them; ROADMAP D9)."""
+    _require(Sk == S or not (causal or window),
+             f"{name}: {S} queries against {Sk} keys take neither a causal "
+             f"mask nor a window (causal={causal}, window={window})")
 
 
 def _on_cpu(tensors) -> bool:
@@ -139,8 +151,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention_bwd(
     q: torch.Tensor,          # (B, S, H, hd)
-    k: torch.Tensor,          # (B, S, K, hd)
-    v: torch.Tensor,          # (B, S, K, hdv)
+    k: torch.Tensor,          # (B, Sk, K, hd)
+    v: torch.Tensor,          # (B, Sk, K, hdv)
     o: torch.Tensor,          # (B, S, H, hdv) the forward's output
     lse: torch.Tensor,        # (B, H, S) fp32 log-sum-exp
     do: torch.Tensor,         # (B, S, H, hdv) the output's gradient
@@ -156,7 +168,7 @@ def flash_attention_bwd(
     B, S, H, hd = q.shape
     hdv = v.shape[-1]
     _require(v.ndim == 4 and k.shape[:3] == v.shape[:3]
-             and k.shape[0] == B and k.shape[1] == S
+             and k.shape[0] == B
              and k.shape[3] == hd and H % k.shape[2] == 0
              and tuple(o.shape) == (B, S, H, hdv) and do.shape == o.shape
              and tuple(lse.shape) == (B, H, S),
@@ -168,6 +180,7 @@ def flash_attention_bwd(
              and lse.dtype == torch.float32,
              "flash_attention_bwd: q, k, v, o, do must share a dtype, lse "
              "must be fp32")
+    _rectangular_ok("flash_attention_bwd", S, k.shape[1], causal, window)
     kw = dict(scale=scale, causal=causal, window=window, logit_cap=logit_cap)
     operands = (q, k, v, o, lse, do)
     if _on_cpu(operands):

@@ -11,10 +11,16 @@ the whole state as plain host data, so a restored engine continues
 byte-identically.
 
 What differs from the reference: the port has no mesh, so the page pool
-has one shard; prefill is always ragged (the port serves decoder-only
-stacks); the cache (KV pools, local rings, RG-LRU or RWKV state) is
-updated in place, so :meth:`snapshot` copies every device tensor to the
-host.  A stack without global layers (RWKV, the RG-LRU + local-attention
+has one shard; the cache (KV pools, local rings, RG-LRU or RWKV state,
+cross K/V) is updated in place, so :meth:`snapshot` copies every device
+tensor to the host.  A decoder-only stack prefills ragged, one batched
+prefill a round; an encoder-decoder (seamless-m4t-medium) prefills each
+admitted request alone on its slot's views of the page table and the
+cross K/V (the reference's per-slot path), with its encoder frames drawn
+from numpy keyed on the request id (:meth:`ServingEngine._src_embeds`;
+the reference draws them with ``jax.random``, ROADMAP D13), and its
+prefix cache stays off, as the reference's does without ragged prefill.
+A stack without global layers (RWKV, the RG-LRU + local-attention
 hybrid) keeps the page accounting of an attention stack (its table has
 no pools behind it) and no prefix cache; an admitted row starts from zero
 state inside the ragged prefill, and rows not in the round keep theirs.
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import GLOBAL_ATTN, check_ported
+from repro_torch.configs.base import GLOBAL_ATTN, check_ported, src_len_for
 from repro_torch.launch.spec import ServeSpec, check_serve_spec
 from repro_torch.models.layers import Ctx, resolve_device
 from repro_torch.models.model import build_model, init_cache, num_pages
@@ -174,6 +180,22 @@ def _set_page_tables(cache, host_table: np.ndarray):
 POOL_LEAVES = ("k_pages", "v_pages", "ckv_pages", "krope_pages")
 
 
+def _slot_view(cache, b: int):
+    """Row ``b`` of the cache as a batch of one: the page table's row and
+    the per-row leaves (an encoder-decoder's cross K/V) as views, so a
+    prefill through it writes the full cache in place; the pools are
+    indexed by physical page and shared whole."""
+    view = {}
+    for name, leaf in cache.items():
+        if name == "page_table":
+            view[name] = leaf[b:b + 1]
+        elif name in POOL_LEAVES:
+            view[name] = leaf
+        else:
+            view[name] = [t[b:b + 1] for t in leaf]
+    return view
+
+
 def _copy_pool_pages(cache, pairs: List[Tuple[int, int]]):
     """``src -> dst`` page copies in every global layer's pools (K and V,
     or MLA's latent and rope-key pools): the copy half of copy-on-write.
@@ -228,12 +250,15 @@ class ServingEngine:
                              f"engine device {dev}")
         if cfg.cache_layout != "paged":
             raise ValueError("continuous batching needs cache_layout='paged'")
-        # prefix caching needs the chunked-prefill seam: an all-global
-        # stack (ring locals would have to replay the evicted prefix) and
-        # no vision frontend (its embeddings precede position 0), as in the
-        # reference's engine, which feeds no frontend: it serves such a
-        # config text-only
-        self.prefix_cache = bool(sv.prefix_cache) \
+        # an encoder-decoder prefills per slot: a batched prefill would
+        # overwrite the cross K/V of the rows not in the round
+        self.ragged = not cfg.is_encoder_decoder
+        # prefix caching needs the chunked-prefill seam: ragged prefill on
+        # an all-global stack (ring locals would have to replay the
+        # evicted prefix) and no vision frontend (its embeddings precede
+        # position 0), as in the reference's engine, which feeds no
+        # frontend: it serves such a config text-only
+        self.prefix_cache = bool(sv.prefix_cache) and self.ragged \
             and set(cfg.layer_kinds()) == {GLOBAL_ATTN} \
             and cfg.frontend != "vision"
 
@@ -259,8 +284,9 @@ class ServingEngine:
                 check_row_length(cfg, S0)
 
         self.prefill, self.decode = make_serve_steps(cfg, self.ctx)
-        self.cache = init_cache(cfg, B, self.max_len, page_budget=budget,
-                                device=dev)
+        self.src_len = src_len_for(cfg, self.max_len)
+        self.cache = init_cache(cfg, B, self.max_len, src_len=self.src_len,
+                                page_budget=budget, device=dev)
         self.pool = PagePool(budget)
         self.per_shard = budget
         self.reserved = [0]                    # worst-case pages admitted
@@ -308,6 +334,17 @@ class ServingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.ctx.device)
 
+    def _src_embeds(self, req_id: int) -> torch.Tensor:
+        """The audio stub's encoder frames of one request, ``0.02 N(0,
+        1)`` of shape (1, src_len, d_model) in fp32, drawn from numpy's
+        generator keyed on the request id alone: an evict-replay or a
+        restored engine rebuilds the same cross K/V, and so the same
+        continuation.  (The reference draws them with ``jax.random``;
+        ROADMAP D13.)"""
+        rng = np.random.default_rng(req_id)
+        x = 0.02 * rng.standard_normal((1, self.src_len, self.cfg.d_model))
+        return self._tensor(x.astype(np.float32))
+
     # -- prefix matching ---------------------------------------------------
     def _match_prefix(self, req: Request, shard: int, pending) -> tuple:
         """``(shared, cow, C, hashes, defer)`` for one prompt: the cached
@@ -353,7 +390,9 @@ class ServingEngine:
     # -- admission ---------------------------------------------------------
     def admit(self) -> List[int]:
         """One admission round and ONE ragged prefill over the admitted
-        prompts' uncached tails.  Returns the admitted request ids."""
+        prompts' uncached tails (an encoder-decoder: one prefill an
+        admitted request, on its slot).  Returns the admitted request
+        ids."""
         admitted: List[tuple] = []               # (slot, request)
         plans: Dict[int, tuple] = {}             # slot -> (C, hashes, m)
         cow_pairs: List[Tuple[int, int]] = []
@@ -412,34 +451,13 @@ class ServingEngine:
             return []
         _set_page_tables(self.cache, self.host_table)
 
-        # pad to the round's longest uncached tail, bucketed to a page
-        # multiple (as the reference does to bound its recompiles)
-        round_max = max(len(r.tokens) - plans[b][0] for b, r in admitted)
-        S0 = -(-round_max // self.ps) * self.ps
-        toks_in = np.zeros((self.B, S0), np.int64)
-        lens = np.zeros((self.B,), np.int32)
-        starts = np.zeros((self.B,), np.int32)
-        for b, r in admitted:
-            C = plans[b][0]
-            toks_in[b, :len(r.tokens) - C] = r.tokens[C:]
-            lens[b] = len(r.tokens) - C
-            starts[b] = C
-        if cow_pairs:
-            _copy_pool_pages(self.cache, cow_pairs)
-        batch = {"tokens": self._tensor(toks_in)}
-        if self.prefix_cache:
-            # the chunked path even at starts == 0: one numeric family for
-            # every prefill, so evict-replay stays byte-identical
-            logits, _ = self.prefill(self.params, batch, self.cache,
-                                     self._tensor(lens), self._tensor(starts))
-        else:
-            logits, _ = self.prefill(self.params, batch, self.cache,
-                                     self._tensor(lens))
-        nxt_tok = logits[:, -1].argmax(dim=-1).cpu().numpy()
+        nxt_tok = self._prefill_round(admitted, plans, cow_pairs) \
+            if self.ragged else None
 
         out: List[int] = []
         for b, r in admitted:
-            tok = int(nxt_tok[b])
+            tok = int(nxt_tok[b]) if self.ragged \
+                else self._prefill_slot(b, r)
             rec = self.slots[b]
             C, hashes, m = plans[b]
             if self.prefix_cache:
@@ -463,6 +481,45 @@ class ServingEngine:
             if rec.remaining <= 0:
                 self.finish(b)                   # gen_len == 1: prefill was it
         return out
+
+    def _prefill_round(self, admitted, plans, cow_pairs) -> np.ndarray:
+        """One ragged prefill over the round's uncached prompt tails;
+        returns every slot's next token (only the admitted ones are
+        read)."""
+        # pad to the round's longest uncached tail, bucketed to a page
+        # multiple (as the reference does to bound its recompiles)
+        round_max = max(len(r.tokens) - plans[b][0] for b, r in admitted)
+        S0 = -(-round_max // self.ps) * self.ps
+        toks_in = np.zeros((self.B, S0), np.int64)
+        lens = np.zeros((self.B,), np.int32)
+        starts = np.zeros((self.B,), np.int32)
+        for b, r in admitted:
+            C = plans[b][0]
+            toks_in[b, :len(r.tokens) - C] = r.tokens[C:]
+            lens[b] = len(r.tokens) - C
+            starts[b] = C
+        if cow_pairs:
+            _copy_pool_pages(self.cache, cow_pairs)
+        batch = {"tokens": self._tensor(toks_in)}
+        if self.prefix_cache:
+            # the chunked path even at starts == 0: one numeric family for
+            # every prefill, so evict-replay stays byte-identical
+            logits, _ = self.prefill(self.params, batch, self.cache,
+                                     self._tensor(lens), self._tensor(starts))
+        else:
+            logits, _ = self.prefill(self.params, batch, self.cache,
+                                     self._tensor(lens))
+        return logits[:, -1].argmax(dim=-1).cpu().numpy()
+
+    def _prefill_slot(self, b: int, r: Request) -> int:
+        """Prefill request ``r`` alone on slot ``b`` (an encoder-decoder:
+        its tokens and its encoder frames, over the row's views of the
+        cache) and return its next token."""
+        batch = {"tokens": self._tensor(np.asarray(r.tokens)[None]),
+                 "src_embeds": self._src_embeds(r.req)}
+        logits, _ = self.prefill(self.params, batch,
+                                 _slot_view(self.cache, b))
+        return int(logits[0, -1].argmax())
 
     # -- eviction ------------------------------------------------------------
     def evict(self, b: int) -> int:
@@ -695,11 +752,14 @@ class ServingEngine:
             self.step()
 
 
-def synthesize_requests(cfg, sv: ServeSpec, seed: int) -> List[Request]:
+def synthesize_requests(cfg, sv: ServeSpec, seed: int,
+                        ragged: bool = True) -> List[Request]:
     """The deterministic request workload of a ServeSpec, drawn from
     numpy's ``default_rng(seed)``: prompts of ``prompt_len`` tokens cut to
     ragged lengths in [P/2, P] (full length under a shared prefix, so the
-    share ratio is exact) and generation budgets in [G/2, G]."""
+    share ratio is exact, and for an engine that is not ragged, as the
+    reference's lockstep fallback serves them) and generation budgets in
+    [G/2, G]."""
     rng = np.random.default_rng(seed)
     n_req, P, G = sv.requests, sv.prompt_len, sv.gen
     prompts = rng.integers(0, cfg.vocab_size, size=(n_req, P))
@@ -708,7 +768,7 @@ def synthesize_requests(cfg, sv: ServeSpec, seed: int) -> List[Request]:
         prompts[:, :C] = prompts[0, :C]
     gen_lens = rng.integers(max(G // 2, 1), G + 1, size=n_req)
     prompt_lens = rng.integers(max(P // 2, 1), P + 1, size=n_req) \
-        if C == 0 else np.full(n_req, P, np.int64)
+        if ragged and C == 0 else np.full(n_req, P, np.int64)
     return [Request(req=r, tokens=prompts[r, :int(prompt_lens[r])].copy(),
                     gen_len=int(gen_lens[r])) for r in range(n_req)]
 
@@ -746,4 +806,4 @@ class RealServePayload:
         engine = ServingEngine(
             cfg, model, sv, device=dev,
             dtype=torch.float32 if sv.reduced else torch.bfloat16)
-        return engine, synthesize_requests(cfg, sv, spec.seed)
+        return engine, synthesize_requests(cfg, sv, spec.seed, engine.ragged)

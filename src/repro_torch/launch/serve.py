@@ -16,6 +16,8 @@
         --reduced --device cpu --prompt-len 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
         --layers 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-medium --reduced --device cpu
 
 Weights are random, drawn from ``--seed``; the workload is synthesized
 (``launch.engine.synthesize_requests``).  It runs on ``cuda`` unless
@@ -25,7 +27,10 @@ Weights are random, drawn from ``--seed``; the workload is synthesized
 is always off.  ``--layers`` cuts a config's depth
 and keeps its widths: deepseek-v2-236b (60 layers, 234.7 B parameters
 without the embeddings) fits one 80 GB card at 3 layers (the dense first
-layer and two MoE layers, 9.33 B parameters); the cut is printed.
+layer and two MoE layers, 9.33 B parameters); the cut is printed.  An
+encoder-decoder (seamless-m4t-medium) is served at full-length prompts,
+each prefilled alone with its own encoder frames, as the reference's
+engine serves it; ``--layers`` cuts its decoder.
 """
 from __future__ import annotations
 
@@ -87,7 +92,7 @@ def run_continuous(cfg, model, sv: ServeSpec, *, seed: int, device,
     except ValueError as e:          # CLI contract: bad flags exit nonzero
         raise SystemExit(str(e)) from e
     t0 = time.perf_counter()
-    for request in synthesize_requests(cfg, sv, seed):
+    for request in synthesize_requests(cfg, sv, seed, engine.ragged):
         engine.submit(request)
     engine.run()
     if engine.ctx.device.type == "cuda":

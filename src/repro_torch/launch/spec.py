@@ -27,10 +27,17 @@ def check_serve_spec(sv: ServeSpec, cfg) -> None:
         raise NotImplementedError(
             f"serve.mesh {sv.mesh!r}: the port serves on one card (meshes "
             "come with dist/, ROADMAP Queue 1 item 6)")
-    if sv.ragged_prefill is False:
+    if cfg.is_encoder_decoder:
+        if sv.ragged_prefill:
+            # the reference's reason (launch/engine.py), as a refusal
+            raise NotImplementedError(
+                "serve.ragged_prefill needs a decoder-only stack; the "
+                "encoder output is per-round, so enc-dec prefills per slot")
+    elif sv.ragged_prefill is False:
         raise NotImplementedError(
-            "serve.ragged_prefill=False: the port's prefill is always "
-            "ragged")
+            "serve.ragged_prefill=False: the port's prefill of a "
+            "decoder-only stack is always ragged (an encoder-decoder's is "
+            "per slot)")
     if sv.page_size not in (0, cfg.page_size):
         raise NotImplementedError(
             f"serve.page_size {sv.page_size}: the engine pages by its "

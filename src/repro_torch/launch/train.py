@@ -50,6 +50,12 @@ the reference asserts), and its loss adds the router's aux loss.  It prints
 the loss, grad norm and lr of the logged steps, then steps/s and tokens/s
 on a host clock that ends in a device synchronise.  ``--layers`` cuts a
 config's depth and keeps its widths.
+
+An encoder-decoder (seamless-m4t-medium) trains through :func:`train`,
+whose batch source then adds the encoder frames (``src_embeds``,
+``data.pipeline.SourceFramesData``); the CLI refuses it, as the
+reference's CLI cannot train it (its batches carry no ``src_embeds``;
+ROADMAP R9).
 """
 from __future__ import annotations
 
@@ -61,7 +67,8 @@ from typing import Dict, List
 import torch
 
 from repro_torch.configs import RunConfig, get_config, get_run_config
-from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.configs.base import src_len_for
+from repro_torch.data.pipeline import SourceFramesData, SyntheticLMData
 from repro_torch.launch.spec import TrainSpec, check_train_spec
 from repro_torch.models.layers import Ctx, resolve_device
 from repro_torch.models.moe import check_row_length
@@ -127,9 +134,21 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def batches_of(cfg, t: TrainSpec, seed: int):
+    """The train loop's batch source: the synthetic token stream, and for
+    an encoder-decoder also its encoder frames at the dry-run shape (B,
+    ``src_len_for(cfg, S)``, d_model)."""
+    data = SyntheticLMData(cfg.vocab_size, t.seq_len, t.global_batch, seed)
+    if cfg.is_encoder_decoder:
+        return SourceFramesData(data, cfg.d_model,
+                                src_len_for(cfg, t.seq_len))
+    return data
+
+
 def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
           state=None, log=print) -> Dict:
-    """Run ``t.total_steps`` steps from a fresh state (or ``state``);
+    """Run ``t.total_steps`` steps from a fresh state (or ``state``) on
+    the batches of :func:`batches_of`;
     returns ``{"state", "metrics": [per-step floats], "seconds",
     "steps_per_s", "tokens_per_s"}``.  The clock starts after the first
     step has been issued and synchronised, so it leaves out the kernels'
@@ -145,7 +164,7 @@ def train(cfg, t: TrainSpec, *, seed: int, device, run: RunConfig = None,
               else torch.bfloat16)
     if state is None:
         state = init_train_state(cfg, seed=seed, run=run, device=dev)
-    data = SyntheticLMData(cfg.vocab_size, t.seq_len, t.global_batch, seed)
+    data = batches_of(cfg, t, seed)
     step = make_train_step(cfg, ctx, run)
     metrics: List[Dict[str, torch.Tensor]] = []
     start = int(state["step"])
@@ -178,6 +197,12 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     t = spec_of(args)
     cfg = config_of(args.arch, reduced=t.reduced, layers=args.layers)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(
+            f"{args.arch} is an encoder-decoder: the reference's train CLI "
+            "feeds it tokens and labels only and stops at the missing "
+            "src_embeds (ROADMAP R9); train it through "
+            "repro_torch.launch.train.train, whose batch source adds them")
     dev = resolve_device(args.device)
     n = count_params(cfg, include_embed=True)
     run = run_config_of(t, args.arch)

@@ -18,6 +18,16 @@ the position each slot holds.  Two modes:
   ring slot and attends over the ring with :func:`decode_attention_torch`
   (plain, as the reference's local decode is plain jnp).
 
+An encoder-decoder's decoder layers also attend to the encoder's output
+(``is_cross``): in full mode q comes from the layer's input and K, V from
+the encoder's frames, unrotated, through ``ops.flash_attention_bshd``
+without a causal mask (Sk, the frames, apart from S); prefill also writes
+the layer's cross K and V (B, K, Ssrc, hd) into its cache.  Decode reads
+them back and attends with :func:`decode_attention_torch` over every
+frame; its q is rotated by the decode position, as the reference's decode
+rotates it before its cross branch (ROADMAP R8).  The encoder's own
+self-attention is the full mode without the causal mask.
+
 Keys are RoPE-rotated at write time, so cached keys never re-rotate.
 
 The reference's cache is functional; here the page pools and rings are
@@ -175,23 +185,35 @@ def gqa_attention(
     cache: Optional[Cache],
     pos: torch.Tensor,               # full: (S,) or (B, S0); decode: (B,)
     lengths: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    enc_out: Optional[torch.Tensor] = None,   # full-mode cross: (B, Ssrc, D)
+    is_cross: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Self-attention of one layer; returns (out (B, S, D), cache).
     ``cache`` is the layer's ``{"k_pages", "v_pages", "page_table"}``
-    (global) or its ring ``{"k", "v", "pos"}`` (local)."""
+    (global) or its ring ``{"k", "v", "pos"}`` (local).  ``causal`` False
+    is an encoder's self-attention (train mode, no cache).  With
+    ``is_cross`` it is a decoder layer's cross-attention over the
+    encoder's output ``enc_out`` (full mode) or over the layer's cached
+    encoder K and V, ``cache`` ``{"k", "v"}`` (B, K, Ssrc, hd) (decode)."""
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
     window = cfg.window_size if kind == LOCAL_ATTN else 0
 
     q = torch.einsum("bsd,dhk->bshk", x, p["q"])
+    if "qb" in p:
+        q = q + p["qb"].to(q.dtype)
+    if cfg.qk_norm:                  # before rope, as in the reference
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if is_cross:
+        return _cross_attention(cfg, p, q, mode=mode, cache=cache, pos=pos,
+                                enc_out=enc_out, scale=scale, cap=cap)
     k = torch.einsum("bsd,dhk->bshk", x, p["k"])
     v = torch.einsum("bsd,dhk->bshk", x, p["v"])
     if "qb" in p:
-        q = q + p["qb"].to(q.dtype)
         k = k + p["kb"].to(k.dtype)
         v = v + p["vb"].to(v.dtype)
-    if cfg.qk_norm:                  # before rope, as in the reference
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
     new_cache = cache
@@ -211,7 +233,7 @@ def gqa_attention(
         else:
             out = ops.flash_attention_bshd(
                 q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
-                causal=True, window=window, logit_cap=cap)
+                causal=causal, window=window, logit_cap=cap)
             if cache is not None and window:
                 if lengths is None:      # every row holds all S tokens
                     lengths = torch.full((k.shape[0],), k.shape[1],
@@ -237,6 +259,51 @@ def gqa_attention(
     else:
         raise ValueError(mode)
     return torch.einsum("bshk,hkd->bsd", out, p["o"]), new_cache
+
+
+def _cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                     q: torch.Tensor, *, mode: str, cache: Optional[Cache],
+                     pos: torch.Tensor, enc_out: Optional[torch.Tensor],
+                     scale: float, cap: float
+                     ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """A decoder layer's cross-attention from its projected (and
+    qk-normed) queries (the reference's ``gqa_attention`` with
+    ``is_cross``).  Full mode: K and V from ``enc_out`` (biases, k-norm,
+    no rope; q unrotated too), every frame live for every query through
+    the flash kernel at Sk = Ssrc; prefill writes K and V into ``cache``
+    ``{"k", "v"}`` (B, K, Ssrc, hd) in place.  Decode: q rotated by
+    ``pos`` (the reference's decode rotates it before its cross branch;
+    the cached K never is: ROADMAP R8), then plain one-token attention over
+    every cached frame (the reference's ``pos_q = 2**30``)."""
+    if mode == "full":
+        if enc_out is None:
+            raise ValueError("full-mode cross-attention needs enc_out")
+        k = torch.einsum("bsd,dhk->bshk", enc_out, p["k"])
+        v = torch.einsum("bsd,dhk->bshk", enc_out, p["v"])
+        if "kb" in p:
+            k = k + p["kb"].to(k.dtype)
+            v = v + p["vb"].to(v.dtype)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        out = ops.flash_attention_bshd(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+            causal=False, logit_cap=cap)
+        if cache is not None:
+            cache["k"].copy_(k.transpose(1, 2))
+            cache["v"].copy_(v.transpose(1, 2))
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("cross-attention decode reads the cached "
+                             "encoder K and V")
+        q = apply_rope(q, pos.reshape(-1, 1), cfg.rope_theta)
+        ck = cache["k"]
+        pos_k = torch.arange(ck.shape[2], dtype=torch.int32,
+                             device=ck.device)
+        out = decode_attention_torch(q, ck, cache["v"], pos_k, 2 ** 30,
+                                     scale=scale, logit_cap=cap)
+    else:
+        raise ValueError(mode)
+    return torch.einsum("bshk,hkd->bsd", out, p["o"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,12 @@
 GQA attention (global or sliding-window) or MLA + a dense or MoE FFN, the
 RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix; under gemma2's
 ``use_post_block_norm`` each of the two outputs passes a norm of its own
-before it joins the residual, and its logits pass the final softcap.
+before it joins the residual, and its logits pass the final softcap.  An
+encoder-decoder (seamless-m4t-medium) first runs its encoder stack over
+the batch's ``src_embeds`` (:func:`_encoder_out`), and each decoder block
+adds a cross-attention over the encoder's output between its
+self-attention and its FFN; decode reads the cross K and V its prefill
+cached and runs no encoder.
 
 Modes
 -----
@@ -65,12 +70,14 @@ def layer_leaves(cfg: ModelConfig, kind: str):
     return LAYER_LEAVES[kind]
 
 
-def build_model(cfg: ModelConfig, *, device=None, seed: int = 0) -> Model:
+def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
+                draws: str = "host") -> Model:
     """A model with the reference's leaf shapes, initialised from
-    ``seed`` on ``device`` (``cuda`` unless the caller names one)."""
+    ``seed`` on ``device`` (``cuda`` unless the caller names one), its
+    numbers drawn as :func:`init_params`'s ``draws`` says."""
     check_ported(cfg)
     dev = resolve_device(device)
-    return init_params(Model(cfg, device=dev), seed)
+    return init_params(Model(cfg, device=dev), seed, draws)
 
 
 def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
@@ -147,25 +154,46 @@ def _post(cfg: ModelConfig, blk: Tree, name: str,
 
 
 def _attend(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
-            pos: torch.Tensor, kind: str = GLOBAL_ATTN) -> torch.Tensor:
+            pos: torch.Tensor, kind: str = GLOBAL_ATTN,
+            causal: bool = True) -> torch.Tensor:
     """The residual stream after a layer's attention, no cache (train
     mode): global GQA or MLA, or (``kind`` LOCAL_ATTN) GQA over the
-    config's sliding window."""
+    config's sliding window; ``causal`` False for an encoder's layer."""
     x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
     if cfg.use_mla:
         y, _ = mla_attention(cfg, blk["attn"], x, mode="full", cache=None,
                              pos=pos)
     else:
         y, _ = gqa_attention(cfg, blk["attn"], x, kind=kind, mode="full",
-                             cache=None, pos=pos)
+                             cache=None, pos=pos, causal=causal)
     return h + _post(cfg, blk, "post_norm", y)
 
 
+def _cross(cfg: ModelConfig, blk: Tree, h: torch.Tensor, *, mode: str,
+           cache: Optional[Dict], pos: torch.Tensor,
+           enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The residual stream after a decoder layer's cross-attention (the
+    reference's ``apply_block`` between the mixer and the FFN): over
+    ``enc_out`` in full mode, over ``cache`` (the layer's cross K and V)
+    in decode."""
+    x = rms_norm(h, blk["cross_norm"], cfg.norm_eps)
+    y, _ = gqa_attention(cfg, blk["cross"], x, mode=mode, cache=cache,
+                         pos=pos, enc_out=enc_out, is_cross=True)
+    return h + _post(cfg, blk, "post_cross_norm", y)
+
+
 def _dense_layer(cfg: ModelConfig, blk: Tree, h: torch.Tensor,
-                 pos: torch.Tensor, kind: str = GLOBAL_ATTN) -> torch.Tensor:
+                 pos: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
+                 kind: str = GLOBAL_ATTN, causal: bool = True
+                 ) -> torch.Tensor:
     """One attention layer (GQA or MLA, global or local) with a dense FFN,
-    no cache (train mode)."""
-    h = _attend(cfg, blk, h, pos, kind)
+    no cache (train mode); a decoder layer of an encoder-decoder also
+    attends to ``enc_out``, an input of the layer, so that remat's
+    backward carries its gradient to the encoder."""
+    h = _attend(cfg, blk, h, pos, kind, causal)
+    if "cross" in blk:
+        h = _cross(cfg, blk, h, mode="full", cache=None, pos=pos,
+                   enc_out=enc_out)
     x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
     return h + _post(cfg, blk, "post_ffn_norm",
                      dense_ffn(blk["ffn"], x, cfg.act))
@@ -207,6 +235,24 @@ def _rwkv_layer(cfg: ModelConfig, ctx: Ctx, blk: Tree,
     return h + _post(cfg, blk, "post_ffn_norm", y)
 
 
+def _encoder_out(cfg: ModelConfig, params: Tree,
+                 src_embeds: Optional[torch.Tensor], ctx: Ctx,
+                 remat_policy: str = "none") -> torch.Tensor:
+    """The encoder stack over the audio frontend stub's frames (the
+    reference's ``_encoder_out``): ``src_embeds`` (B, Ssrc, D) cast to the
+    compute dtype, positions ``0..Ssrc-1``, every layer without the causal
+    mask under ``remat_policy``, then ``encoder_norm``."""
+    if src_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its batch "
+                         "carries src_embeds (B, Ssrc, d_model)")
+    h = src_embeds.to(device=ctx.device, dtype=ctx.dtype)
+    pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    for blk in params["encoder_blocks"]:
+        h = _remat(functools.partial(_dense_layer, cfg, blk, causal=False),
+                   remat_policy)(h, pos)
+    return rms_norm(h, params["encoder_norm"], cfg.norm_eps)
+
+
 def forward_train(cfg: ModelConfig, params: Tree,
                   batch: Dict[str, torch.Tensor], ctx: Ctx, *,
                   remat_policy: str = "none"
@@ -220,11 +266,15 @@ def forward_train(cfg: ModelConfig, params: Tree,
     config's ``frontend_embeds`` (B, F, D) go before the text
     (:func:`_prepend_frontend`): positions run over all F + S rows, and
     the F frontend rows are dropped before the head, so the logits match
-    the (B, S) labels."""
+    the (B, S) labels.  An encoder-decoder's batch carries ``src_embeds``
+    (B, Ssrc, D): the encoder runs first (:func:`_encoder_out`, under the
+    same remat policy) and every decoder layer attends to its output."""
     check_trainable(cfg)
     tokens = batch["tokens"]
     if cfg.is_moe:
         check_row_length(cfg, tokens.shape[1])
+    enc_out = _encoder_out(cfg, params, batch.get("src_embeds"), ctx,
+                           remat_policy) if cfg.is_encoder_decoder else None
     h, n_front = _prepend_frontend(cfg, batch,
                                    _embed(cfg, params, tokens, ctx), ctx)
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=tokens.device)
@@ -244,7 +294,7 @@ def forward_train(cfg: ModelConfig, params: Tree,
         else:
             layer = _remat(functools.partial(_dense_layer, cfg, blk,
                                              kind=kind), remat_policy)
-            h = layer(h, pos)
+            h = layer(h, pos, enc_out)
     return _unembed(cfg, params, h[:, n_front:]), aux
 
 
@@ -283,7 +333,16 @@ def forward(
     are prepended to the text (:func:`_prepend_frontend`), positions run
     over all F + S0 rows, a ragged row's length counts them (a length-0
     row stays untouched) and the paged writers put their K/V in the row's
-    first pages, so the cache must hold F + P + G tokens a row."""
+    first pages, so the cache must hold F + P + G tokens a row.
+
+    An encoder-decoder's prefill batch carries ``src_embeds`` (B, Ssrc,
+    D): the encoder runs (:func:`_encoder_out`) and each decoder layer's
+    cross-attention writes its K and V into the cache's ``cross_k``,
+    ``cross_v`` (B, K, Ssrc, hd) entries; decode runs no encoder and reads
+    them.  Its prefill takes neither ``lengths`` nor ``starts``, as in the
+    reference: a batched prefill would overwrite the cross K and V of rows
+    not in the round, so the engine prefills such a stack a slot at a
+    time."""
     if mode == "train":
         if cache is not None or lengths is not None or starts is not None:
             raise ValueError("train mode takes no cache, lengths or starts")
@@ -295,6 +354,11 @@ def forward(
         raise ValueError("lengths is a prefill-only argument")
     if starts is not None and lengths is None:
         raise ValueError("starts requires ragged prefill (lengths)")
+    if lengths is not None and cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "ragged prefill needs a decoder-only stack: the cross-attention "
+            "K/V of rows not in this round would be overwritten by the new "
+            "encoder output")
     kinds = cfg.layer_kinds()
     if starts is not None and (set(kinds) != {GLOBAL_ATTN}
                                or cfg.frontend == "vision"):
@@ -304,6 +368,9 @@ def forward(
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dev = tokens.device
+    # decode reuses the cross K/V its prefill cached: no encoder run
+    enc_out = _encoder_out(cfg, params, batch.get("src_embeds"), ctx) \
+        if cfg.is_encoder_decoder and mode == "prefill" else None
     h, n_front = _prepend_frontend(cfg, batch,
                                    _embed(cfg, params, tokens, ctx), ctx)
 
@@ -324,7 +391,7 @@ def forward(
 
     amode = "full" if mode == "prefill" else "decode"
     seen = {kind: 0 for kind in LAYER_LEAVES}
-    for kind, blk in zip(kinds, params["blocks"]):
+    for i, (kind, blk) in enumerate(zip(kinds, params["blocks"])):
         j = seen[kind]               # this layer's entry in its kind's lists
         seen[kind] += 1
         leaves = layer_leaves(cfg, kind)
@@ -355,6 +422,11 @@ def forward(
             h = h + _post(cfg, blk, "post_ffn_norm", y)
         else:
             h = h + _post(cfg, blk, "post_norm", y)
+            if "cross" in blk:
+                cc = None if cache is None else {
+                    "k": cache["cross_k"][i], "v": cache["cross_v"][i]}
+                h = _cross(cfg, blk, h, mode=amode, cache=cc, pos=p_arr,
+                           enc_out=enc_out)
             x = rms_norm(h, blk["ffn_norm"], cfg.norm_eps)
             y = moe_ffn(cfg, blk["moe"], x) if "moe" in blk \
                 else dense_ffn(blk["ffn"], x, cfg.act)
@@ -378,7 +450,8 @@ def num_pages(seq_len: int, page_size: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
-               page_budget: Optional[int] = None, device=None) -> Dict:
+               src_len: int = 0, page_budget: Optional[int] = None,
+               device=None) -> Dict:
     """The serving cache (``cfg.cache_layout == "paged"``): ONE page table
     ``(B, pps)`` int32 that every layer reads (the reference broadcasts the
     same host table into each layer's leaf), starting at -1 for the
@@ -393,7 +466,11 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
       and ``pos (B, W)`` int32 starting at -1, W = ``window_size``;
     * RG-LRU: ``h (B, R)`` fp32 and ``conv (B, CW-1, R)`` in ``cfg.dtype``;
     * RWKV: ``s (B, H, N, N)`` fp32 and the token-shift carries
-      ``shift_tm``, ``shift_cm (B, D)`` in ``cfg.dtype``.
+      ``shift_tm``, ``shift_cm (B, D)`` in ``cfg.dtype``;
+    * an encoder-decoder's decoder layers: the cross-attention's K and V
+      over the encoder's ``src_len`` frames, ``cross_k``, ``cross_v (B,
+      K, src_len, hd)`` in ``cfg.dtype`` (the reference's ``cross``
+      leaves), one entry a decoder layer.
 
     A stack without global layers has no pools; it keeps the table so the
     engine's page accounting is the same for every config.  The ring must
@@ -441,6 +518,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
             shape, dtype, fill = shapes[name]
             cache.setdefault(name, []).append(
                 torch.full(shape, fill, dtype=dtype, device=dev))
+    if cfg.is_encoder_decoder:
+        if src_len < 1:
+            raise ValueError(f"{cfg.name}: an encoder-decoder's cache holds "
+                             "the cross K/V of src_len >= 1 frames")
+        for name in ("cross_k", "cross_v"):
+            cache[name] = [torch.zeros((B, K, src_len, hd), dtype=dt,
+                                       device=dev)
+                           for _ in range(cfg.num_layers)]
     cache["page_table"] = torch.full((B, pps), -1, dtype=torch.int32,
                                      device=dev)
     return cache

@@ -7,7 +7,10 @@ MoE FFN): the reference's unrolled ``prefix`` (the first-k-dense layers),
 its stacked ``groups`` and its ``tail`` become one :class:`Block` per
 layer in a ``ModuleList``.  State-dict keys therefore read
 ``blocks.{i}.attn.q`` where the reference reads
-``decoder/groups/0/attn/q[i]``.
+``decoder/groups/0/attn/q[i]``.  An encoder-decoder's encoder stack is
+``encoder_blocks.{i}`` (the reference's ``encoder/groups`` and
+``encoder/tail``) and its decoder blocks also hold the cross-attention
+leaves ``cross_norm`` and ``cross``.
 """
 from __future__ import annotations
 
@@ -174,10 +177,13 @@ class Block(nn.Module):
     config), or (RWKV) pre-norm time-mix + pre-norm channel-mix.  Under
     ``use_post_block_norm`` (gemma2) the mixer's and the FFN's outputs
     also pass a norm, ``post_norm`` and ``post_ffn_norm``, before they
-    join the residual (the reference's ``_post``)."""
+    join the residual (the reference's ``_post``).  With ``cross_attn`` (an
+    encoder-decoder's decoder layer) a pre-norm cross-attention over the
+    encoder's output follows the mixer: ``cross_norm``, ``cross`` (GQA
+    projections) and, under ``use_post_block_norm``, ``post_cross_norm``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None, *,
-                 dense_ffn: bool = True):
+                 dense_ffn: bool = True, cross_attn: bool = False):
         super().__init__()
         D = cfg.d_model
         self.pre_norm = _leaf((D,), device)
@@ -196,6 +202,11 @@ class Block(nn.Module):
                 self.attn = Attention(cfg, device)
             if cfg.use_post_block_norm:
                 self.post_norm = _leaf((D,), device)
+            if cross_attn:
+                self.cross_norm = _leaf((D,), device)
+                self.cross = Attention(cfg, device)
+                if cfg.use_post_block_norm:
+                    self.post_cross_norm = _leaf((D,), device)
             self.ffn_norm = _leaf((D,), device)
             if dense_ffn:
                 self.ffn = DenseFFN(cfg, device)
@@ -207,8 +218,10 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """Embedding table, ``num_layers`` blocks, final norm and (untied)
-    LM head.  Holds the fp32 master weights; :func:`cast_params` makes
-    the compute copy the forward pass reads."""
+    LM head; an encoder-decoder also holds ``num_encoder_layers`` encoder
+    blocks (dense, no cross leaves) and ``encoder_norm``, and its decoder
+    blocks the cross-attention.  Holds the fp32 master weights;
+    :func:`cast_params` makes the compute copy the forward pass reads."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -218,11 +231,17 @@ class Model(nn.Module):
         self.embed = _leaf((V, D), device)
         self.blocks = nn.ModuleList(
             Block(cfg, kind, device,
-                  dense_ffn=not cfg.is_moe or i < cfg.first_k_dense)
+                  dense_ffn=not cfg.is_moe or i < cfg.first_k_dense,
+                  cross_attn=cfg.is_encoder_decoder)
             for i, kind in enumerate(cfg.layer_kinds()))
         self.final_norm = _leaf((D,), device)
         if not cfg.tie_embeddings:
             self.lm_head = _leaf((D, V), device)
+        if cfg.is_encoder_decoder:
+            self.encoder_blocks = nn.ModuleList(
+                Block(cfg, kind, device)
+                for kind in cfg.layer_kinds(cfg.num_encoder_layers))
+            self.encoder_norm = _leaf((D,), device)
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +250,13 @@ class Model(nn.Module):
 # the model seed, the leaf's name and the chunk's index, and copied to the
 # leaf's device.  A seed therefore gives the same weights on every device
 # (a CUDA generator draws other numbers), and the chunks are drawn in
-# parallel threads with at most one chunk a thread on the host.  The
-# numbers differ from the reference's jax.random draws; tests that compare
-# the two packages load converted reference weights instead.
+# parallel threads with at most one chunk a thread on the host.  With
+# ``draws="device"`` each chunk is drawn by a generator on the leaf's own
+# device, seeded alike: the same recipes, numbers that depend on the device
+# kind, and no host work (for a large model on a card, where the host's
+# draws take most of a build).  The numbers differ from the
+# reference's jax.random draws; tests that compare the two packages load
+# converted reference weights instead.
 # ---------------------------------------------------------------------------
 DRAW_CHUNK = 1 << 22
 DRAW_THREADS = min(8, os.cpu_count() or 1)
@@ -273,12 +296,14 @@ def _stable_hash(s: str) -> int:
 
 @torch.no_grad()
 def _draw_chunk(p: torch.Tensor, name: str, recipe: str, seed: int,
-                i: int) -> None:
+                i: int, on_device: bool = False) -> None:
     """Draw elements ``[i·DRAW_CHUNK, (i+1)·DRAW_CHUNK)`` of leaf ``p``
-    (flattened) on the host and write them into it."""
+    (flattened) on the host, or ``on_device`` on its device, and write
+    them into it."""
     dst = p.view(-1)[i * DRAW_CHUNK:(i + 1) * DRAW_CHUNK]
-    out = dst if dst.device.type == "cpu" else torch.empty(dst.shape)
-    gen = torch.Generator()
+    home = dst.device if on_device else torch.device("cpu")
+    out = dst if dst.device == home else torch.empty(dst.shape)
+    gen = torch.Generator(device=home)
     gen.manual_seed(seed * 1_000_003 + _stable_hash(f"{name}#{i}"))
     kind, *args = recipe.split(":")
     if kind == "rglru_lambda":
@@ -296,9 +321,13 @@ def _draw_chunk(p: torch.Tensor, name: str, recipe: str, seed: int,
 
 
 @torch.no_grad()
-def init_params(model: Model, seed: int) -> Model:
-    """Initialise every leaf in place: the same numbers on every device."""
-    draws = []
+def init_params(model: Model, seed: int, draws: str = "host") -> Model:
+    """Initialise every leaf in place: drawn on the host, the same numbers
+    on every device, or with ``draws="device"`` on the leaves' device."""
+    if draws not in ("host", "device"):
+        raise ValueError(f"draws must be 'host' or 'device', not {draws!r}")
+    on_device = draws == "device"
+    jobs = []
     for name, p in model.named_parameters():
         recipe = _recipe(name)
         if recipe == "ones":
@@ -306,10 +335,10 @@ def init_params(model: Model, seed: int) -> Model:
         elif recipe == "zeros":
             p.zero_()
         else:
-            draws += [(p, name, recipe, seed, i)
-                      for i in range(-(-p.numel() // DRAW_CHUNK))]
+            jobs += [(p, name, recipe, seed, i, on_device)
+                     for i in range(-(-p.numel() // DRAW_CHUNK))]
     with ThreadPoolExecutor(DRAW_THREADS) as pool:
-        for f in [pool.submit(_draw_chunk, *d) for d in draws]:
+        for f in [pool.submit(_draw_chunk, *j) for j in jobs]:
             f.result()
     return model
 
@@ -362,14 +391,18 @@ def make_trainable(model: Model, master_dtype: str = "float32") -> Model:
     over the layers, so there a layer's 1-D leaves (norm gains, biases)
     are cast too; the unstacked ones (the embedding's side, the first
     ``first_k_dense`` layers, the tail) stay fp32.  The port casts the
-    same leaves."""
+    same leaves (an encoder's ``encoder/groups`` are stacked the same
+    way, from its first layer)."""
     dt = getattr(torch, master_dtype)
     cfg = model.cfg
     pat, first = len(cfg.block_pattern), cfg.first_k_dense
-    stacked_end = first + (cfg.num_layers - first) // pat * pat
+    spans = {"blocks": (first, first + (cfg.num_layers - first) // pat
+                        * pat),
+             "encoder_blocks": (0, cfg.num_encoder_layers // pat * pat)}
     for name, p in model.named_parameters():
         path = name.split(".")
-        stacked = path[0] == "blocks" and first <= int(path[1]) < stacked_end
+        lo, hi = spans.get(path[0], (0, 0))
+        stacked = lo <= int(path[1]) < hi if hi else False
         if dt != torch.float32 and (p.ndim >= 2 or stacked):
             p.data = p.data.to(dt)
         p.requires_grad_(True)

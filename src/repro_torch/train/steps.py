@@ -56,14 +56,15 @@ def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 def init_train_state(cfg: ModelConfig, *, seed: int = 0,
                      run: Optional[RunConfig] = None,
-                     device=None) -> TrainState:
+                     device=None, draws: str = "host") -> TrainState:
     """Fresh master weights from ``seed`` (fp32, matrices in the run's
-    ``master_dtype``), zero AdamW moments in its ``opt_dtype`` and step 0,
-    on ``device`` (``cuda`` unless the caller names one)."""
+    ``master_dtype``; drawn as :func:`init_params`'s ``draws`` says), zero
+    AdamW moments in its ``opt_dtype`` and step 0, on ``device`` (``cuda``
+    unless the caller names one)."""
     run = run or RunConfig()
     check_trainable(cfg)
     model = make_trainable(
-        init_params(Model(cfg, device=resolve_device(device)), seed),
+        init_params(Model(cfg, device=resolve_device(device)), seed, draws),
         run.master_dtype)
     return new_train_state(model, run)
 
@@ -85,7 +86,9 @@ def make_train_step(cfg: ModelConfig, ctx: Ctx, run: RunConfig,
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict]]:
     """(state, batch) -> (state, metrics {loss, ce, aux, grad_norm, lr}).
-    With ``run.num_microbatches`` > 1 the batch is split along its rows;
+    With ``run.num_microbatches`` > 1 the batch is split along its rows
+    (every entry: tokens, labels, an encoder-decoder's ``src_embeds``, a
+    vision config's ``frontend_embeds``);
     the fp32 gradients of the microbatches are summed and divided by their
     count, the loss and metrics averaged.  The state is updated in
     place."""

@@ -1558,3 +1558,114 @@ def test_a_model_built_on_the_card_equals_the_cpu_s(cuda, arch):
     for (n, a), (_, b) in zip(on_cpu.named_parameters(),
                               on_card.named_parameters()):
         assert torch.equal(a, b.cpu()), n
+
+
+# Cross-attention: Sq queries against Sk keys, no causal mask, no window
+# (seamless-m4t-medium's decoder over its encoder frames).  B, Sq, Sk, H, K,
+# hd: G 1 at hd 64 as seamless, the kernels' tile edges on both lengths
+# (Sk 1, 65, 77, 1000; Sq 1; Sq < Sk), and G 2 at hd 128 so the group
+# sum runs at Sq != Sk.
+CROSS_CASES = [
+    (2, 256, 64, 4, 4, 64),
+    (1, 300, 77, 16, 16, 64),
+    (2, 130, 1, 4, 4, 64),
+    (1, 200, 65, 4, 4, 64),
+    (1, 130, 1000, 4, 4, 64),
+    (1, 1, 264, 4, 4, 64),
+    (1, 100, 1024, 4, 4, 64),
+    (1, 500, 300, 8, 4, 128),
+]
+
+
+def _cross_inputs(rng, dev, dt, B, Sq, Sk, H, K, hd):
+    return (_randn(rng, (B, Sq, H, hd), dev, dt),
+            _randn(rng, (B, Sk, K, hd), dev, dt),
+            _randn(rng, (B, Sk, K, hd), dev, dt),
+            _randn(rng, (B, Sq, H, hd), dev, dt))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd", CROSS_CASES)
+def test_flash_kernels_at_a_key_length_apart_match_plain(cuda, dt, B, Sq,
+                                                         Sk, H, K, hd):
+    """The forward (output within FLASH_TOL, lse within 1e-5 of max(1,
+    |lse|)) and the backward (within the tile-scaled tolerance, two calls
+    bit-equal) at Sq != Sk, launched through the wrappers."""
+    rng = np.random.default_rng(Sq * 7 + Sk)
+    kw = dict(scale=hd ** -0.5, causal=False, window=0, logit_cap=0.0)
+    q, k, v, do = _cross_inputs(rng, cuda, dt, B, Sq, Sk, H, K, hd)
+    before = dict(ops.launches)
+    alone = ops.flash_attention_bshd(q, k, v, **kw)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    plain, plain_lse = fa.flash_attention_torch(q, k, v, return_lse=True,
+                                                **kw)
+    got = ops.flash_attention_bwd(q, k, v, plain, plain_lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, plain, plain_lse, do, **kw)
+    want = fa.flash_attention_bwd_torch(q, k, v, plain, plain_lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bshd"] == \
+        before["flash_attention_bshd"] + 1
+    assert ops.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    assert out.shape == (B, Sq, H, hd) and torch.equal(out, alone)
+    assert _within(out, plain, FLASH_TOL[dt])
+    assert lse.shape == (B, H, Sq)
+    assert float((lse - plain_lse).abs().max()) <= 1e-5 * max(
+        1.0, float(plain_lse.abs().max()))
+    for name, g, g2, p in zip("qkv", got, again, want):
+        assert g.dtype == dt and g.shape == p.shape, name
+        assert torch.equal(g, g2), f"d{name}: two calls differ"
+        assert _within(g, p, _bwd_tol(p, dt)), name
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_tolerances_at_a_key_length_apart_reject_planted_faults(
+        cuda, dt):
+    """At Sq 256 against Sk 300 the tolerances reject, at least 10 times
+    over, a backward that dropped the last key tile of Sk from dQ (the dQ
+    of the keys before it) and a forward that read the key past Sk as live
+    (the zero key the card's loads give past Sk, taken into the softmax;
+    shown on scores below zero, where a key of score 0 weighs)."""
+    B, Sq, Sk, H, K, hd = 1, 256, 300, 4, 4, 64
+    rng = np.random.default_rng(11)
+    kw = dict(scale=hd ** -0.5, causal=False, window=0, logit_cap=0.0)
+    q, k, v, do = _cross_inputs(rng, cuda, dt, B, Sq, Sk, H, K, hd)
+    o, lse = fa.flash_attention_torch(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_torch(q, k, v, o, lse, do, **kw)
+    tol = _bwd_tol(plain[0], dt)
+    bn = fa.bwd_stream_tiles(hd)[1]
+    cut = (Sk - 1) // bn * bn
+    dropped = ops.flash_attention_bwd(q, k[:, :cut].contiguous(),
+                                      v[:, :cut].contiguous(), o, lse, do,
+                                      **kw)[0]
+    assert _tol_used(dropped, plain[0], tol) >= 10
+    qs = (q.float().abs() * 2).to(dt)
+    ks = (-k.float().abs() * 2).to(dt)
+    vs = (v.float() + 1).to(dt)
+    want = fa.flash_attention_torch(qs, ks, vs, **kw)
+    zero = torch.zeros_like(ks[:, :1])
+    past = ops.flash_attention_bshd(qs, torch.cat([ks, zero], 1),
+                                    torch.cat([vs, zero], 1), **kw)
+    assert _within(ops.flash_attention_bshd(qs, ks, vs, **kw), want,
+                   FLASH_TOL[dt])
+    assert _tol_used(past, want, FLASH_TOL[dt]) >= 10
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernels_at_g1_hd64_match_plain(cuda, dt, causal):
+    """seamless's self-attention: G 1 at hd 64 (H = K = 16), the decoder's
+    causal and the encoder's full attention, forward and backward."""
+    B, S, H, K, hd = 1, 333, 16, 16, 64
+    rng = np.random.default_rng(333)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=0, logit_cap=0.0)
+    q, k, v, do = _cross_inputs(rng, cuda, dt, B, S, S, H, K, hd)
+    out = ops.flash_attention_bshd(q, k, v, **kw)
+    plain, plain_lse = fa.flash_attention_torch(q, k, v, return_lse=True,
+                                                **kw)
+    got = ops.flash_attention_bwd(q, k, v, plain, plain_lse, do, **kw)
+    want = fa.flash_attention_bwd_torch(q, k, v, plain, plain_lse, do, **kw)
+    torch.cuda.synchronize()
+    assert _within(out, plain, FLASH_TOL[dt])
+    for name, g, p in zip("qkv", got, want):
+        assert _within(g, p, _bwd_tol(p, dt)), name

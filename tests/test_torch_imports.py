@@ -188,16 +188,21 @@ def test_unported_configs_raise_at_build():
                               "granite-moe-1b-a400m", "internvl2-76b",
                               "mistral-large-123b", "paper-overhead-100m",
                               "qwen2.5-32b", "qwen3-0.6b",
-                              "recurrentgemma-9b", "rwkv6-7b")
+                              "recurrentgemma-9b", "rwkv6-7b",
+                              "seamless-m4t-medium")
     base = get_config("qwen3-0.6b").reduced()
     build_model(dataclasses.replace(base, frontend="vision",
                                     frontend_tokens=4), device="cpu")
+    build_model(dataclasses.replace(base, is_encoder_decoder=True,
+                                    num_encoder_layers=2), device="cpu")
     for over in (dict(window_size=8),
                  dict(block_pattern=("recurrent", "global")),
                  dict(frontend="vision", num_experts=4, num_experts_per_tok=2,
                       moe_d_ff=32),
                  dict(block_pattern=("recurrent",)),
-                 dict(is_encoder_decoder=True), dict(frontend="audio"),
+                 dict(is_encoder_decoder=True, num_encoder_layers=2,
+                      num_experts=4, num_experts_per_tok=2, moe_d_ff=32),
+                 dict(frontend="audio"),
                  dict(block_pattern=("recurrent", "local", "global"),
                       window_size=8),
                  dict(use_mla=True, kv_lora_rank=16,
@@ -208,5 +213,6 @@ def test_unported_configs_raise_at_build():
     assert base.cache_layout == "dense"
     with pytest.raises(NotImplementedError, match="later slice"):
         init_cache(base, 2, 16, device="cpu")
-    with pytest.raises(KeyError, match="later slices"):
-        get_config("seamless-m4t-medium")
+    assert get_config("seamless-m4t-medium").is_encoder_decoder
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("seamless-m4t-large")

@@ -159,7 +159,7 @@ def test_config_and_runs_are_faithful_copies():
                 getattr(ref_run, field.name), (shape, field.name)
     assert (get_run_config(ARCH, "train_4k").num_microbatches,
             get_run_config(ARCH, "train_4k").remat_policy) == (16, "full")
-    assert ARCH in list_configs() and len(list_configs()) == 10
+    assert ARCH in list_configs() and len(list_configs()) == 11
     check_ported(tcfg)
     check_trainable(tcfg)
 

@@ -228,7 +228,8 @@ def test_unported_configs_raise():
                  dict(block_pattern=("recurrent", "global")),
                  dict(num_experts=4, block_pattern=("rwkv",)),
                  dict(block_pattern=("recurrent",)),
-                 dict(is_encoder_decoder=True), dict(frontend="audio"),
+                 dict(is_encoder_decoder=True, num_experts=4),
+                 dict(frontend="audio"),
                  dict(frontend="vision", window_size=8,
                       block_pattern=("recurrent", "recurrent", "local")),
                  dict(use_mla=True, window_size=8,
@@ -261,3 +262,27 @@ def test_weight_draws_are_the_host_s_whatever_the_threads(monkeypatch):
         gen.manual_seed(7 * 1_000_003 + P._stable_hash(f"embed#{i}"))
         want = torch.empty(1000).normal_(0.0, 0.02, generator=gen)
         assert torch.equal(embed[i * 1000:(i + 1) * 1000], want), i
+
+
+def test_device_draws_use_the_leaf_s_device_and_its_seeds(monkeypatch):
+    """``draws="device"`` draws each chunk with a generator on the leaf's
+    own device, seeded as the host's: on the CPU that is the host's draw,
+    bit for bit, through ``build_model`` and ``init_train_state`` too; any
+    other value is refused."""
+    from repro_torch.models import params as P
+    from repro_torch.models.model import build_model
+    from repro_torch.train.steps import init_train_state
+    cfg = get_config("qwen3-0.6b").reduced()
+    monkeypatch.setattr(P, "DRAW_CHUNK", 1000)     # leaves span chunks
+    host = P.init_params(Model(cfg, device=CPU), 3)
+    for built in (P.init_params(Model(cfg, device=CPU), 3, draws="device"),
+                  build_model(cfg, device=CPU, seed=3, draws="device")):
+        for (n, a), (_, b) in zip(host.named_parameters(),
+                                  built.named_parameters()):
+            assert torch.equal(a, b), n
+    state = init_train_state(cfg, seed=3, device=CPU, draws="device")
+    for (n, a), (_, b) in zip(host.named_parameters(),
+                              state["params"].named_parameters()):
+        assert torch.equal(a.float(), b.float()), n
+    with pytest.raises(ValueError, match="draws"):
+        P.init_params(Model(cfg, device=CPU), 3, draws="card")

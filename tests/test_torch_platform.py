@@ -282,22 +282,32 @@ def test_virtual_time_platform_equals_the_reference(scenario):
 
 
 def test_port_registry_knows_its_configs_and_refuses_the_rest():
-    """D11: the port's registry holds 10 of the reference's 11 configs; a
-    job naming the other, seamless-m4t-medium, is refused at the
-    gateway."""
+    """The port's registry holds the reference's 11 configs (D11 closed):
+    a job naming seamless-m4t-medium is admitted, and its
+    ``serve.real_compute`` refused at the gateway with the reference's
+    reason, in both platforms; a framework neither knows is refused."""
     assert FrameworkRegistry.default().known() == (
         "deepseek-v2-236b", "gemma2-9b", "granite-moe-1b-a400m",
         "internvl2-76b", "mistral-large-123b", "paper-overhead-100m",
-        "qwen2.5-32b", "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b")
-    assert "seamless-m4t-medium" in ref_core.FrameworkRegistry.default()
-    p = _boot(port_core, 1)
-    h = p.submit(port_core.JobManifest(name="g",
-                                       framework="seamless-m4t-medium"))
-    ok = p.submit(port_core.JobManifest(name="v", framework="internvl2-76b"))
-    p.run(5)
-    assert h.rejected \
-        and "unknown framework 'seamless-m4t-medium'" in h.rejected
-    assert ok.acked, ok.rejected
+        "qwen2.5-32b", "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b",
+        "seamless-m4t-medium")
+    assert FrameworkRegistry.default().known() == \
+        ref_core.FrameworkRegistry.default().known()
+    reasons = {}
+    for core in (ref_core, port_core):
+        p = _boot(core, 1)
+        h = p.submit(core.JobManifest(name="g",
+                                      framework="seamless-m4t-medium"))
+        real = p.submit(core.JobSpec(
+            name="s", kind="serve", framework="seamless-m4t-medium",
+            serve=core.ServeSpec(reduced=True, real_compute=True)))
+        other = p.submit(core.JobManifest(name="x", framework="whisper"))
+        p.run(5)
+        assert h.acked, h.rejected
+        assert "unknown framework 'whisper'" in other.rejected
+        reasons[core] = real.rejected
+    assert reasons[port_core] == reasons[ref_core]
+    assert "enc-dec caches are lockstep-only" in reasons[port_core]
 
 
 def test_real_dryrun_needs_a_registered_payload():

@@ -321,15 +321,17 @@ def test_cli_trains_on_the_cpu_and_needs_a_device_without_a_card(
 
 def test_configs_this_slice_does_not_train_are_refused():
     """Every registered config trains; what the port lacks (the audio
-    frontend, the vision frontend on an MoE stack, an encoder-decoder, a
-    recurrent layer mixed with a global one) is refused by name, also when
-    a train state is built."""
-    assert len(list_configs()) == 10
+    frontend without an encoder, the vision frontend on an MoE stack, an
+    encoder-decoder on MoE, a recurrent layer mixed with a global one) is
+    refused by name, also when a train state is built."""
+    assert len(list_configs()) == 11
     for arch in list_configs():
         check_trainable(get_config(arch))
     base = get_config("qwen3-0.6b").reduced()
     for over in (dict(attn_logit_softcap=30.0), dict(final_logit_softcap=5.0),
-                 dict(frontend="vision", frontend_tokens=4)):
+                 dict(frontend="vision", frontend_tokens=4),
+                 dict(is_encoder_decoder=True, num_encoder_layers=2,
+                      frontend="audio")):
         check_trainable(dataclasses.replace(base, **over))
     for over, what in ((dict(frontend="audio", frontend_tokens=4),
                         "the audio frontend"),
@@ -337,8 +339,10 @@ def test_configs_this_slice_does_not_train_are_refused():
                              num_experts=4, num_experts_per_tok=2,
                              moe_d_ff=32),
                         "the vision frontend on MoE"),
-                       (dict(is_encoder_decoder=True, num_encoder_layers=2),
-                        "encoder-decoder"),
+                       (dict(is_encoder_decoder=True, num_encoder_layers=2,
+                             num_experts=4, num_experts_per_tok=2,
+                             moe_d_ff=32),
+                        "an encoder-decoder on MoE"),
                        (dict(block_pattern=("recurrent", "global")),
                         r"block kinds \['global', 'recurrent'\]")):
         cfg = dataclasses.replace(base, **over)

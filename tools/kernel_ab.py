@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""In-turn A/B of the port's WKV6, paged-decode, MLA latent-decode,
-flash-backward, WKV6-backward and RG-LRU (forward and backward) kernels
-between this checkout and another one (an earlier design), on one card.
+"""In-turn A/B of the port's WKV6, paged-decode, MLA latent-decode, flash
+(forward and backward), WKV6-backward and RG-LRU (forward and backward)
+kernels between this checkout and another one (an earlier design), on one
+card.
 
     mkdir -p build/ab/parent
     git archive <rev> | tar -x -C build/ab/parent
@@ -10,7 +11,8 @@ between this checkout and another one (an earlier design), on one card.
 
 Each checkout is driven through its own ``repro_torch`` package: its
 wrappers ``ops.wkv6_bshn``, ``ops.paged_decode_bhd``,
-``ops.mla_paged_decode_bhd``, ``ops.flash_attention_bwd``,
+``ops.mla_paged_decode_bhd``, ``ops.flash_attention_bshd``,
+``ops.flash_attention_bwd``,
 ``ops.wkv6_bwd``, ``ops.rglru_scan_bsr`` and ``ops.rglru_scan_bwd`` (the
 port keeps their signatures), its plain versions,
 its forward's state checkpoints at its own ``SEG``, its build of its own CUDA
@@ -22,18 +24,22 @@ seed on the card, holds each kernel to its checkout's plain version at
 ``chip_smoke.py``'s tolerances, and times it with this checkout's
 ``chip_smoke.py`` helpers: device time (torch.profiler, 20 calls)
 L2-warm and L2-cold (a 256 MB write before each call).  ``--kernels``
-picks some of wkv6, paged_decode, mla_decode, flash_bwd, wkv6_bwd, rglru
-and rglru_bwd (all seven by default); wkv6_bwd is the WKV6 backward at
+picks some of wkv6, paged_decode, mla_decode, flash, flash_bwd,
+wkv6_bwd, rglru and rglru_bwd (all eight by default); wkv6_bwd is the WKV6 backward at
 rwkv6-7b's training shape in bf16 and fp32, from the checkout's forward
 with checkpoints, beside that forward's time with and without them;
 rglru is the RG-LRU scan at recurrentgemma-9b's training microbatch
 ((t6): B 1, S 4,096, R 4,096) and serving prefill ((d): B 8, S 2,560),
 rglru_bwd its backward at (t6)'s B 1 and at B 2 with an h0, from the
 checkout's own forward, each held to the checkout's plain loop at
-``chip_smoke.py``'s tolerances; for these two the outputs' sha256 is
-compared across the turns, and whether every turn gave the same bytes
-on the same inputs is reported ("bit-equal across checkouts"); flash_bwd
-is the backward at three training shapes (paper-overhead-100m: B 8, S
+``chip_smoke.py``'s tolerances; flash is the forward at qwen3-0.6b's
+serving prefill (B 4, S 1,024, H 16, K 8, hd 128), the three training
+shapes below and granite-moe-1b-a400m's (B 4, S 4,096, H 16, K 8, hd
+64), causal, bf16, held to the plain forward at ``chip_smoke.py``'s
+tolerances; for these four the outputs' sha256 (the flash backward's
+too) is compared across the turns, and whether every turn gave the same
+bytes on the same inputs is reported ("bit-equal across checkouts");
+flash_bwd is the backward at three training shapes (paper-overhead-100m: B 8, S
 1,024, H 12, K 4, hd 64; qwen3-0.6b's train_4k: B 2, S 4,096, H 16, K 8,
 hd 128; recurrentgemma-9b's local layers at (t6): B 1, S 4,096, H 16, K
 1, hd 256, window 2,048; causal, bf16), each gradient held to the plain
@@ -45,7 +51,7 @@ deepseek-v2-236b at 3 layers, as ``chip_smoke.py`` does (one warm-up
 window first; ``--trace e`` or ``--trace a,c`` picks cells): each
 kernel's device time in the window and the launches a step.  The last
 line is one JSON object of the numbers (with ``bit_equal``: for each
-RG-LRU row, whether every turn's outputs had the same digest).
+RG-LRU and flash row, whether every turn's outputs had the same digest).
 """
 from __future__ import annotations
 
@@ -61,10 +67,10 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER_TIMEOUT_S = 900
 
 
-KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash_bwd", "wkv6_bwd",
-           "rglru", "rglru_bwd")
+KERNELS = ("wkv6", "paged_decode", "mla_decode", "flash", "flash_bwd",
+           "wkv6_bwd", "rglru", "rglru_bwd")
 SOURCES = {"wkv6": ("rwkv6_wkv",), "paged_decode": ("paged_decode",),
-           "mla_decode": ("mla_decode",),
+           "mla_decode": ("mla_decode",), "flash": ("flash_attention",),
            "flash_bwd": ("flash_attention_bwd",),
            "wkv6_bwd": ("rwkv6_wkv", "rwkv6_wkv_bwd"),
            "rglru": ("rglru_scan",), "rglru_bwd": ("rglru_scan",)}
@@ -81,10 +87,12 @@ def digest(*tensors):
     """sha256 of the tensors' bytes (None skipped): two checkouts whose
     outputs on the same inputs have the same digest are bit-equal."""
     import hashlib
+    import torch
     h = hashlib.sha256()
     for t in tensors:
         if t is not None:
-            h.update(t.contiguous().view(-1).cpu().numpy().tobytes())
+            h.update(t.detach().contiguous().reshape(-1)
+                     .view(torch.uint8).cpu().numpy())
     return h.hexdigest()
 
 
@@ -145,6 +153,39 @@ def time_rglru_bwd(cs, dev, gen):
 BWD_SHAPES = {"paper train": (8, 1024, 12, 4, 64, 0),
               "qwen3 train": (2, 4096, 16, 8, 128, 0),
               "rg train (t6)": (1, 4096, 16, 1, 256, 2048)}
+FWD_SHAPES = dict({"qwen3 S1024": (4, 1024, 16, 8, 128, 0),
+                   "granite train": (4, 4096, 16, 8, 64, 0)}, **BWD_SHAPES)
+
+
+def time_flash(cs, dev, gen):
+    """The flash forward at FWD_SHAPES: held to the plain forward at the
+    smoke's tolerances, its output's digest, its device ms warm and
+    L2-cold."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    rows = {}
+    for label, (B, S, H, K, hd, window) in FWD_SHAPES.items():
+        q, k, v = (torch.randn(B, S, n, hd, device=dev,
+                               generator=gen).to(torch.bfloat16)
+                   for n in (H, K, K))
+        kw = dict(scale=hd ** -0.5, causal=True, window=window,
+                  logit_cap=0.0)
+        out = ops.flash_attention_bshd(q, k, v, **kw)
+        plain = fa.flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = (cs.FLASH_HD256_VSCALE * v.float().abs().max().item(), 2 ** -7) \
+            if hd == 256 else cs.FLASH_TOL["bfloat16"]
+        cs.compare(out, plain, tol, f"flash {label}")
+        call = lambda: ops.flash_attention_bshd(q, k, v, **kw)  # noqa: E731
+        rows["flash " + label] = dict(
+            shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, bf16, causal"
+            + (f", window {window}" if window else ""), digest=digest(out),
+            warm=cs.device_ms(call), cold=cs.cold_device_ms(call))
+        del q, k, v, out, plain
+        torch.cuda.empty_cache()
+    return rows
 
 
 def time_flash_bwd(cs, dev, gen):
@@ -171,6 +212,7 @@ def time_flash_bwd(cs, dev, gen):
             tol = cs.bwd_tol(p, torch.bfloat16)
             cs.compare(g, p, tol, f"flash bwd {label} d{name}")
             used.append(cs.tol_used(g, p, tol))
+        out_digest = digest(*got)
         del got, plain
         call = lambda: ops.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, do, **kw)
@@ -180,7 +222,8 @@ def time_flash_bwd(cs, dev, gen):
             + (f", window {window}" if window else ""),
             warm=cs.device_ms(call),
             parts=cs.bwd_parts(cs.device_ms_by_kernel(call)),
-            cold=cs.cold_device_ms(call), sdpa_ms=sdpa_ms, tol_used=used)
+            cold=cs.cold_device_ms(call), sdpa_ms=sdpa_ms, tol_used=used,
+            digest=out_digest)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return rows
@@ -297,7 +340,8 @@ def time_wkv6_bwd(cs, dev, gen):
 
 
 TIMERS = {"wkv6": time_wkv6, "paged_decode": time_paged_decode,
-          "mla_decode": time_mla_decode, "flash_bwd": time_flash_bwd,
+          "mla_decode": time_mla_decode, "flash": time_flash,
+          "flash_bwd": time_flash_bwd,
           "wkv6_bwd": time_wkv6_bwd, "rglru": time_rglru,
           "rglru_bwd": time_rglru_bwd}
 
@@ -428,7 +472,8 @@ def main() -> int:
             return 1
         turns.append(dict(design=name, **json.loads(
             p.stdout.strip().splitlines()[-1])))
-    # outputs on the same inputs, compared across the turns by digest
+    # outputs on the same inputs (the same draws of the generator in every
+    # turn), compared across the turns by digest
     equal = {}
     for row in turns[0]["kernels"]:
         got = {t["kernels"][row].get("digest") for t in turns}
