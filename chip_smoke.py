@@ -109,6 +109,29 @@ Phases, each of which exits non-zero on the first failure:
               steps of (a) run again under torch.profiler (where the time
               goes, the device's idle share); the numbers above are
               taken with the profiler off.
+3b. lockstep -- the reference's default serve path
+              (``launch.executor.run_lockstep``: one prefill of the whole
+              batch, then every row decoded at one shared position a
+              step), bf16, the same numpy prompts over the dense cache and
+              then over the paged one with identity page tables: (k)
+              ``qwen3-0.6b`` at full width, B 8, P 1,024, G 32; (l)
+              ``deepseek-v2-236b`` at full width cut to 3 layers, B 8, P
+              1,024, G 16.  Each run's launches checked exact (flash a
+              layer a prefill but in (l)'s paged prefill, which scores
+              the fresh latents in plain PyTorch; the paged and MLA
+              decodes a layer a step on the paged layout, none on the
+              dense one, whose decode is plain PyTorch as the
+              reference's), its seconds, rate and peak memory; one traced
+              decode step of each layout; the two bf16 streams compared
+              (the share of equal tokens; where they part, the step and
+              the dense row's top-2 margin); the dense decode attention
+              timed beside the paged kernel at (k)'s decode shape, and
+              the flash forward at MLA's pair at (l)'s prefill shape
+              (kernel, plain, SDPA's memory-efficient backend, bound).
+              Then fp32 parity of cuda dense, cuda paged and cpu dense
+              ((k) at 2 layers, B 4, P 256, G 8; (l) at the deepseek
+              parity's cut): live logits within tolerance, streams equal
+              or parting at a tie.
 4. parity  -- the same weights (built on each device, equal bit for bit:
               the draws are the host's) and requests through the engine
               on ``cuda`` and on ``cpu`` in fp32 with TF32 off (full
@@ -575,6 +598,16 @@ INTERNVL2_TRAIN_LAYERS = 1
 FRONTEND_ROWS, FRONTEND_PROMPT, FRONTEND_STEPS = 8, 1024, 16
 FRONTEND_PARITY = dict(num_layers=2, d_ff=4_096, vocab_size=16_384)
 FRONTEND_PARITY_ROWS, FRONTEND_PARITY_PROMPT = 4, 128
+# Phase 3b, lockstep serving: (k) qwen3-0.6b at full width and (l)
+# deepseek-v2-236b at full width cut to 3 layers, bf16, 8 rows of 1,024
+# prompt tokens, 32 and 16 generated; the fp32 parity of cuda dense, cuda
+# paged and cpu dense at 4 rows of 256 tokens, 8 generated, (k) at 2
+# layers and (l) at the deepseek parity's cut (2 layers, 8 experts, dense
+# d_ff 1,536, vocabulary 16,384)
+LOCKSTEP_K = dict(batch=8, prompt_len=1024, gen=32)
+LOCKSTEP_L = dict(batch=8, prompt_len=1024, gen=16)
+LOCKSTEP_PARITY = dict(batch=4, prompt_len=256, gen=8)
+LOCKSTEP_PARITY_LAYERS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -2724,6 +2757,402 @@ def run_trace_phase(dev, seed):
                               page_size=128)
     model = build_model(cfg, device=dev, seed=seed, draws="device")
     return trace_serving(cfg, model, dev, seed)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: lockstep serving over the dense cache and identity page tables
+# ---------------------------------------------------------------------------
+class StepLogits:
+    """A ``run_lockstep`` recorder: each step's last-position logits (B,
+    V), cloned on the device (no host sync inside the timed loop); with a
+    :class:`RouteRecorder` also each step's MoE routing, every token
+    live."""
+
+    def __init__(self, routes=None):
+        self.steps, self.routes, self.routed = [], routes, []
+        if routes is not None:
+            routes.sink = []
+
+    def __call__(self, kind, step, logits):
+        self.steps.append((kind, logits.float().clone()))
+        if self.routes is not None:
+            self.routed.append(self.routes.sink)
+            self.routes.sink = []
+
+    def calls(self, B, P):
+        """The steps in :func:`parity_walk`'s form, on the host."""
+        import torch
+        out = []
+        for i, (kind, logits) in enumerate(self.steps):
+            routed = None
+            if self.routes is not None:
+                n = B * P if kind == "prefill" else B
+                routed = (self.routed[i], torch.ones(n, dtype=torch.bool))
+            out.append((kind, logits.cpu(), torch.ones(B, dtype=torch.bool),
+                        routed))
+        return out
+
+
+def lockstep_once(cfg, model, sv, dev, prompts, layout, record=None):
+    """One bf16 ``run_lockstep`` on ``layout``, launch counters zeroed just
+    before it and read just after, peak device memory from its start."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.executor import run_lockstep
+
+    lcfg = dataclasses.replace(cfg, cache_layout=layout)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = run_lockstep(lcfg, model, sv, device=dev, dtype=torch.bfloat16,
+                       prompts=prompts, record=record, quiet=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    B, G = sv.batch, sv.gen
+    check(tuple(out["tokens"].shape) == (B, G), f"lockstep {cfg.name} "
+          f"{layout}: tokens of shape {tuple(out['tokens'].shape)}, not "
+          f"({B}, {G})")
+    wall = out["prefill_s"] + out["decode_s"]
+    return dict(tokens=out["tokens"], prefill_s=out["prefill_s"],
+                decode_s=out["decode_s"], decode_steps=G - 1,
+                tok_per_s=B * G / wall,
+                decode_tok_per_s=B * (G - 1) / out["decode_s"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches)
+
+
+def check_lockstep_launches(name, r, expected):
+    """Every kernel's launches in run ``r`` equal ``expected`` (0 where not
+    named)."""
+    bad = {k: (n, expected.get(k, 0)) for k, n in r["launches"].items()
+           if n != expected.get(k, 0)}
+    check(not bad, f"lockstep {name}: launches (run, expected) {bad}")
+
+
+def trace_lockstep_decode(cfg, model, dev, prompts, G, layout):
+    """A bf16 prefill on ``layout``, one decode step untraced, then one
+    under the profiler: its wall, busy ms, idle share and launches."""
+    import torch
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.params import cast_params
+    from repro_torch.train.steps import make_serve_steps
+
+    lcfg = dataclasses.replace(cfg, cache_layout=layout)
+    B, P = prompts.shape
+    ctx = Ctx(device=dev, dtype=torch.bfloat16)
+    params = cast_params(model, torch.bfloat16)
+    prefill, decode = make_serve_steps(lcfg, ctx)
+    cache = init_cache(lcfg, B, P + G, paged_tables="identity", device=dev)
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    pos = [torch.tensor(P + i, dtype=torch.int32, device=dev)
+           for i in range(2)]
+    decode(params, {"tokens": tok}, cache, pos[0])
+    wall, busy, launches, _, by_dev, ours = trace_window(
+        lambda: decode(params, {"tokens": tok}, cache, pos[1]))
+    check(busy > 0, f"traced lockstep {layout} decode step: no device "
+          "activity recorded")
+    out = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+               idle_share=1 - busy / wall, launches=launches,
+               port_kernels_ms={k: ms for k, (_, ms) in ours.items()},
+               top_device=[(k[:56], n, us / 1e3) for k, n, us in by_dev[:4]])
+    print(f"    traced {layout} decode step: wall {out['wall_ms']:.2f} ms, "
+          f"device busy {out['busy_ms']:.2f} ms, idle share "
+          f"{out['idle_share']:.3f}, {launches} kernel launches; "
+          + ", ".join(f"{k[:40]} x{n} {ms:.3f} ms"
+                      for k, n, ms in out["top_device"]), flush=True)
+    del params, cache
+    return out
+
+
+def compare_streams(dense, paged, rec_dense):
+    """The share of equal tokens of two bf16 runs and, where a row first
+    parts, the step and the dense run's top-2 logit margin there."""
+    eq = dense["tokens"] == paged["tokens"]
+    out = dict(equal_share=eq.float().mean().item(), parted=None)
+    bad = (~eq).nonzero()
+    if len(bad):
+        step = int(bad[:, 1].min())
+        row = int(bad[bad[:, 1] == step][0, 0])
+        top2 = rec_dense.steps[step][1][row].topk(2).values
+        out["parted"] = dict(step=step, row=row,
+                             margin=float(top2[0] - top2[1]))
+    return out
+
+
+def lockstep_arch(cfg, model, dev, seed, sv, label, expected):
+    """Phase 3b for one config: the dense run, the paged run, their
+    launches checked, one traced decode step each, the streams
+    compared."""
+    from repro_torch.launch.executor import lockstep_inputs
+
+    prompts, _ = lockstep_inputs(cfg, sv, seed)
+    runs, recs, traces, parts = {}, {}, {}, {}
+    for layout in ("dense", "paged"):
+        recs[layout] = StepLogits()
+        t0 = time.perf_counter()
+        r = lockstep_once(cfg, model, sv, dev, prompts, layout,
+                          record=recs[layout])
+        parts[f"{layout} run"] = time.perf_counter() - t0
+        check_lockstep_launches(f"({label}) {layout}", r, expected[layout])
+        runs[layout] = r
+        print(f"  ({label}) {cfg.name} {layout}: prefill {r['prefill_s']:.3f}"
+              f" s, decode {r['decode_s']:.3f} s for {r['decode_steps']} "
+              f"steps ({r['decode_tok_per_s']:.1f} tok/s), "
+              f"{r['tok_per_s']:.1f} generated tok/s{host_note()}; peak "
+              f"{r['peak_mem_gb']:.2f} GB; launches {r['launches']}",
+              flush=True)
+        t0 = time.perf_counter()
+        traces[layout] = trace_lockstep_decode(cfg, model, dev, prompts,
+                                               sv.gen, layout)
+        parts[f"{layout} trace"] = time.perf_counter() - t0
+    streams = compare_streams(runs["dense"], runs["paged"], recs["dense"])
+    print(f"  ({label}) bf16 streams dense vs paged: "
+          f"{streams['equal_share']:.4f} of the tokens equal"
+          + ("" if streams["parted"] is None else
+             f"; first parted at step {streams['parted']['step']}, row "
+             f"{streams['parted']['row']}, the dense row's top-2 margin "
+             f"{streams['parted']['margin']:.4g}"), flush=True)
+    for layout in runs:
+        runs[layout].pop("tokens")
+        runs[layout]["trace"] = traces[layout]
+    return dict(runs, streams=streams, seconds_by_part=parts)
+
+
+def dense_vs_paged_decode(dev, gen, B=8, K=8, G=2, hd=128, S_max=1056,
+                          live=1041, ps=128):
+    """The dense decode attention (``decode_attention_torch``, plain, as
+    the reference's) over (B, K, S_max, hd) beside ``ops.paged_decode_bhd``
+    at the same live keys under identity tables, bf16, CUDA events over
+    20 calls; both agree, and each bound is its live K and V read once."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import decode_attention_torch
+
+    dt = torch.bfloat16
+    q = torch.randn(B, 1, K * G, hd, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, K, S_max, hd, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, K, S_max, hd, device=dev, generator=gen).to(dt)
+    pos_k = torch.arange(S_max, dtype=torch.int32, device=dev)
+    pos_k = torch.where(pos_k < live, pos_k, -1)
+    pos_q = torch.tensor(live - 1, dtype=torch.int32, device=dev)
+    pps = -(-S_max // ps)
+    pad = pps * ps - S_max
+
+    def pages(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        return x.reshape(B, K, pps, ps, hd).transpose(1, 2).reshape(
+            B * pps, K, ps, hd).contiguous()
+    kp, vp = pages(k), pages(v)
+    table = torch.arange(B * pps, dtype=torch.int32, device=dev).reshape(
+        B, pps)
+    posb = pos_q.reshape(1).expand(B).contiguous()
+    scale = hd ** -0.5
+    dense = decode_attention_torch(q, k, v, pos_k, pos_q, scale=scale)
+    paged = ops.paged_decode_bhd(q, kp, vp, table, posb, scale=scale)
+    torch.cuda.synchronize()
+    err = compare(paged, dense, DECODE_TOL["bfloat16"],
+                  "paged decode vs the dense decode attention")
+    dense_ms = time_ms(lambda: decode_attention_torch(
+        q, k, v, pos_k, pos_q, scale=scale))
+    paged_ms = time_ms(lambda: ops.paged_decode_bhd(q, kp, vp, table, posb,
+                                                    scale=scale))
+    paged_dev = device_ms(lambda: ops.paged_decode_bhd(q, kp, vp, table,
+                                                       posb, scale=scale))
+    live_bytes = 2 * B * K * live * hd * 2 + 2 * B * K * G * hd * 2
+    full_bytes = 2 * B * K * S_max * hd * 2 + 2 * B * K * G * hd * 2
+    out = dict(shape=f"B {B}, K {K}, G {G}, hd {hd}, S_max {S_max}, "
+               f"{live} live keys, bf16", max_abs_err=err,
+               dense_ms=dense_ms, paged_ms=paged_ms,
+               paged_device_ms=paged_dev,
+               bound_ms=live_bytes / HBM_BYTES_PER_S * 1e3,
+               dense_reads_bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    print(f"  dense decode attention (plain) vs the paged kernel at "
+          f"{out['shape']}: {dense_ms:.4f} vs {paged_ms:.4f} ms (kernel "
+          f"device {fmt_ms(paged_dev)}); err {err:.3g}; bound "
+          f"{out['bound_ms']:.4f} ms (the dense buffer's whole read "
+          f"{out['dense_reads_bound_ms']:.4f})", flush=True)
+    del q, k, v, kp, vp
+    return out
+
+
+def mla_prefill_flash(dev, gen, B, S, H=128, hd=192, hdv=128):
+    """The flash forward at MLA's pair at (l)'s dense prefill shape against
+    its plain version; kernel (events), device (profiler), plain, SDPA's
+    memory-efficient backend, bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    dt = torch.bfloat16
+    q = torch.randn(B, S, H, hd, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, S, H, hd, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, S, H, hdv, device=dev, generator=gen).to(dt)
+    kw = dict(scale=hd ** -0.5, causal=True, window=0, logit_cap=0.0)
+    out = ops.flash_attention_bshd(q, k, v, **kw)
+    plain = fa.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL["bfloat16"]
+    err = compare(out, plain, tol, "flash at MLA's pair, (l)'s prefill")
+    used = tol_used(out, plain, tol)
+    del out, plain
+    ms = time_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
+    dev_ms = device_ms(lambda: ops.flash_attention_bshd(q, k, v, **kw))
+    plain_ms = plain_ms_of(lambda: fa.flash_attention_torch(q, k, v, **kw))
+    lib_ms, lib = sdpa_forward_ms(q, k, v, True)
+    flops, nbytes = flash_work(B, S, H, H, hd, 2, True, 0, hdv)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    row = dict(label="(l) mla prefill", shape=f"B {B}, S {S}, H {H}, K {H},"
+               f" hd {hd}, hdv {hdv}, bf16, causal", max_abs_err=err,
+               tol_used=used, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library=lib, bound_ms=bound_ms,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"  flash at MLA's pair, (l)'s prefill ({row['shape']}): err "
+          f"{err:.3g} ({used:.3f} of the tolerance) kernel {ms:.4f} ms "
+          f"(device {fmt_ms(dev_ms)}) plain {plain_ms:.4f} ms library "
+          f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms ({lib}) "
+          f"bound {bound_ms:.4f} ms", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def lockstep_parity(cfg, dev, seed, routes=False):
+    """fp32 with TF32 off, the same weights and numpy prompts: cuda dense,
+    cuda paged and cpu dense.  Each pair's live logits within tolerance up
+    to the first step where an argmax (or with ``routes`` an MoE routing)
+    differs, which must be a tie; every row generates G tokens."""
+    import torch
+    from repro_torch.launch.executor import lockstep_inputs, run_lockstep
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sv = ServeSpec(**LOCKSTEP_PARITY)
+    cpu_model = build_model(cfg, device="cpu", seed=seed)
+    gpu_model = build_model(cfg, device=dev, seed=seed)
+    check(models_equal(cpu_model, gpu_model), f"lockstep parity {cfg.name}: "
+          "the model built on cuda differs from the one built on cpu")
+    prompts, _ = lockstep_inputs(cfg, sv, seed)
+    recorder = RouteRecorder(moe.route) if routes else None
+    if recorder is not None:
+        moe.route = recorder
+    recs, tokens = {}, {}
+    try:
+        for name, model, d, layout in (("cpu dense", cpu_model, "cpu",
+                                        "dense"),
+                                       ("cuda dense", gpu_model, dev,
+                                        "dense"),
+                                       ("cuda paged", gpu_model, dev,
+                                        "paged")):
+            rec = StepLogits(recorder)
+            out = run_lockstep(dataclasses.replace(cfg, cache_layout=layout),
+                               model, sv, device=d, dtype=torch.float32,
+                               prompts=prompts, record=rec, quiet=True)
+            check(tuple(out["tokens"].shape) == (sv.batch, sv.gen),
+                  f"lockstep parity {name}: tokens "
+                  f"{tuple(out['tokens'].shape)}")
+            recs[name] = rec.calls(sv.batch, sv.prompt_len)
+            tokens[name] = out["tokens"]
+    finally:
+        if recorder is not None:
+            moe.route = recorder.fn
+    del cpu_model, gpu_model
+    pairs = {}
+    for a, b in (("cpu dense", "cuda dense"), ("cpu dense", "cuda paged"),
+                 ("cuda dense", "cuda paged")):
+        err, compared, diverged, margin = parity_walk(recs[a], recs[b])
+        check(err <= PARITY_LOGIT_TOL, f"lockstep parity {cfg.name} {a} vs "
+              f"{b}: live logits differ by {err} > {PARITY_LOGIT_TOL}")
+        same = torch.equal(tokens[a], tokens[b])
+        if diverged is not None:
+            check(diverged[3] <= PARITY_TIE_TOL, f"lockstep parity "
+                  f"{cfg.name} {a} vs {b}: parted at {diverged}, its "
+                  f"margin above {PARITY_TIE_TOL}")
+        else:
+            check(same, f"lockstep parity {cfg.name} {a} vs {b}: streams "
+                  "differ but no recorded step does")
+        pairs[f"{a} vs {b}"] = dict(logit_err=err, steps_compared=compared,
+                                    streams_equal=same, diverged=diverged,
+                                    router_margin=margin)
+        print(f"  lockstep parity fp32 ({cfg.name}, {cfg.num_layers} layers)"
+              f" {a} vs {b}: live logit max err {err:.3g} over {compared} of"
+              f" {len(recs[a])} steps (tol {PARITY_LOGIT_TOL}); streams "
+              f"{'equal' if same else f'part at a tie {diverged}'}"
+              + ("" if margin is None else
+                 f"; smallest router margin {margin:.3g}"), flush=True)
+    return dict(pairs=pairs, seconds=time.perf_counter() - t0)
+
+
+def run_lockstep_phase(dev, seed, gen):
+    """(k) and (l), each dense then paged, then the fp32 parity."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spec import ServeSpec
+    from repro_torch.models.model import build_model
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), page_size=128)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
+    sv = ServeSpec(**LOCKSTEP_K)
+    L, steps = cfg.num_layers, sv.gen - 1
+    lockstep_once(cfg, model, ServeSpec(batch=2, prompt_len=128, gen=4),
+                  dev, None, "dense")                         # warm-up
+    t_setup = time.perf_counter() - t0
+    out["k"] = lockstep_arch(cfg, model, dev, seed, sv, "k", {
+        "dense": {"flash_attention_bshd": L},
+        "paged": {"flash_attention_bshd": L, "paged_decode_bhd": L * steps}})
+    out["k"]["seconds_by_part"]["build and warm-up"] = t_setup
+    t1 = time.perf_counter()
+    out["k"]["dense_decode"] = dense_vs_paged_decode(dev, gen)
+    out["k"]["seconds_by_part"]["decode timing"] = time.perf_counter() - t1
+    del model
+    out["k"]["seconds"] = time.perf_counter() - t0
+    print(f"  (k) seconds by part {out['k']['seconds_by_part']}", flush=True)
+
+    t0 = time.perf_counter()
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=3, page_size=128)
+    model = build_model(cfg, device=dev, seed=seed, draws="device")
+    sv = ServeSpec(**LOCKSTEP_L)
+    L, steps = cfg.num_layers, sv.gen - 1
+    out["l"] = lockstep_arch(cfg, model, dev, seed, sv, "l", {
+        "dense": {"flash_attention_bshd": L},
+        "paged": {"mla_paged_decode_bhd": L * steps}})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["l"]["mla_flash"] = mla_prefill_flash(dev, gen, sv.batch,
+                                              sv.prompt_len)
+    out["l"]["seconds_by_part"]["flash timing"] = time.perf_counter() - t1
+    out["l"]["seconds"] = time.perf_counter() - t0
+    print(f"  (l) seconds by part {out['l']['seconds_by_part']}", flush=True)
+
+    t0 = time.perf_counter()
+    kcfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                               num_layers=LOCKSTEP_PARITY_LAYERS,
+                               page_size=128, dtype="float32")
+    lcfg = dataclasses.replace(cfg, num_layers=2, page_size=16,
+                               dtype="float32",
+                               vocab_size=SERVE_PARITY_VOCAB,
+                               **SERVE_PARITY_FFN[cfg.name])
+    out["parity"] = {"k": lockstep_parity(kcfg, dev, seed),
+                     "l": lockstep_parity(lcfg, dev, seed, routes=True)}
+    out["parity"]["seconds"] = time.perf_counter() - t0
+    print(f"  lockstep parity {out['parity']['k']['seconds']:.1f} s (k), "
+          f"{out['parity']['l']['seconds']:.1f} s (l)", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5283,6 +5712,12 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
           flush=True)
     traces = run_trace_phase(dev, seed)
     mark("serve")
+    print("[lockstep] the reference's default serve path, bf16: (k) "
+          "qwen3-0.6b full width, (l) deepseek-v2-236b full width cut to 3 "
+          "layers, dense then paged (identity tables); fp32 parity",
+          flush=True)
+    lockstep = run_lockstep_phase(dev, seed, gen)
+    mark("lockstep")
     print("[parity]", flush=True)
     parity = run_parity_phase(dev, seed)
     mark("parity")
@@ -5592,6 +6027,16 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              seamless=seamless_of(False),
              serving_launches={k: dense[k]["launches"]["flash_attention_bshd"]
                                for k in dense},
+             lockstep=dict(
+                 launches={f"{c}_{lay}": lockstep[c][lay]["launches"][
+                     "flash_attention_bshd"] for c in "kl"
+                     for lay in ("dense", "paged")},
+                 mla_prefill=dict(
+                     {k: lockstep["l"]["mla_flash"][k] for k in keys},
+                     launches=lockstep["l"]["dense"]["launches"][
+                         "flash_attention_bshd"],
+                     max_abs_err=lockstep["l"]["mla_flash"]["max_abs_err"],
+                     tol_used=lockstep["l"]["mla_flash"]["tol_used"])),
              platform=platform_launches(platform, "flash_attention_bshd")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -5661,6 +6106,9 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              ms_ungrouped=dc["ms_ungrouped"],
              device_ms_ungrouped=dc["device_ms_ungrouped"],
              also_replaces="src/repro/kernels/paged_attention.py:76",
+             lockstep_launches=lockstep["k"]["paged"]["launches"][
+                 "paged_decode_bhd"],
+             dense_decode_attention=lockstep["k"]["dense_decode"],
              platform=platform_launches(platform, "paged_decode_bhd"),
              serving_launches=dict(
                  {k: dense[k]["launches"]["paged_decode_bhd"]
@@ -5742,12 +6190,15 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
              library_ms=None, cold_ms=ml["cold_ms"],
              library="none: no PyTorch call reads a paged latent pool",
              shape=ml["shape"],
+             lockstep_launches=lockstep["l"]["paged"]["launches"][
+                 "mla_paged_decode_bhd"],
              long_tables=[{k: r[k] for k in ("label", "device_ms", "cold_ms",
                                              "bound_ms", "live_keys")}
                           for r in mla_rows if r["label"].startswith("long")]),
     ]
     serve = {name: {k: v for k, v in r.items()} for name, r in runs.items()}
-    print(json.dumps({"serve": serve, "trace": traces, "parity": parity,
+    print(json.dumps({"serve": serve, "trace": traces, "lockstep": lockstep,
+                      "parity": parity,
                       "wkv6": wkv_rows, "rwkv": rwkv, "rglru": rglru_rows,
                       "flash": flash_rows, "recurrentgemma": rgemma,
                       "mla": mla_rows, "deepseek": deepseek,

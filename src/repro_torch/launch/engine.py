@@ -242,7 +242,7 @@ class ServingEngine:
     def __init__(self, cfg, model, sv: ServeSpec, *, device=None,
                  dtype: torch.dtype = torch.bfloat16):
         check_ported(cfg)
-        check_serve_spec(sv, cfg)
+        check_serve_spec(sv, cfg, continuous=True)
         dev = resolve_device(device)
         held = {p.device for p in model.parameters()}
         if held != {dev}:
@@ -734,8 +734,14 @@ class ServingEngine:
         c = snap["cache"]
         for name, leaf in self.cache.items():
             if isinstance(leaf, list):
-                for dst, src in zip(leaf, c[name], strict=True):
-                    dst.copy_(src)
+                for i, (dst, src) in enumerate(zip(leaf, c[name],
+                                                   strict=True)):
+                    if dst.dtype == src.dtype:
+                        dst.copy_(src)
+                    else:
+                        # a carry that decode leaves in the compute dtype
+                        # (RWKV's token shift, as the reference's does)
+                        leaf[i] = src.to(dst.device, copy=True)
             else:
                 leaf.copy_(c[name])
 

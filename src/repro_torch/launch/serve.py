@@ -1,36 +1,47 @@
-"""Serving CLI of the port: continuous batching over the paged KV cache.
+"""Serving CLI of the port, the reference's ``launch/serve.py``: lockstep
+serving (one batched prefill, then every row decoded at one shared
+position a step; ``launch.executor.run_lockstep``) over the dense KV
+cache or, with ``--layout paged``, over the paged one with identity page
+tables; or with ``--continuous``, continuous batching over the paged
+cache (``launch.engine.ServingEngine``: admission, ragged prefill, page
+allocation, eviction, prefix caching).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
-        --batch 8 --prompt-len 1024 --gen 32 --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
-        --device cpu --requests 8
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
-        --reduced --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --device cpu --batch 2 --prompt-len 16 --gen 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+        --device cpu --layout paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
+        --arch qwen3-0.6b --batch 8 --prompt-len 1024 --gen 32 --requests 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
+        --reduced --device cpu --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
+        --arch rwkv6-7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --arch recurrentgemma-9b --reduced --device cpu --prompt-len 24
-    PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch deepseek-v2-236b --reduced --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --arch deepseek-v2-236b --layers 3 --no-prefix-cache
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
-        --reduced --device cpu --prompt-len 24
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-32b \\
-        --layers 16
-    PYTHONPATH=src python -m repro_torch.launch.serve \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --arch seamless-m4t-medium --reduced --device cpu
 
-Weights are random, drawn from ``--seed``; the workload is synthesized
-(``launch.engine.synthesize_requests``).  It runs on ``cuda`` unless
-``--device`` names another device.  A stack with local attention layers
-(recurrentgemma, gemma2) needs ``--prompt-len`` + ``--gen`` >= its window
-(16 when ``--reduced``, 2,048 and 4,096 at full width); its prefix cache
-is always off.  ``--layers`` cuts a config's depth
-and keeps its widths: deepseek-v2-236b (60 layers, 234.7 B parameters
-without the embeddings) fits one 80 GB card at 3 layers (the dense first
-layer and two MoE layers, 9.33 B parameters); the cut is printed.  An
-encoder-decoder (seamless-m4t-medium) is served at full-length prompts,
-each prefilled alone with its own encoder frames, as the reference's
-engine serves it; ``--layers`` cuts its decoder.
+Without ``--continuous`` the layout is ``--layout`` or the config's own
+(``dense`` for every registered config); ``--continuous`` pages its
+cache, and ``--continuous --layout dense`` exits nonzero, as in the
+reference.  Weights are random, drawn from ``--seed``; lockstep's prompts
+(and an encoder-decoder's frames) are drawn with numpy from it
+(``launch.executor.lockstep_inputs``), the engine's workload is
+synthesized (``launch.engine.synthesize_requests``).  It runs on ``cuda``
+unless ``--device`` names another device.  A stack with local attention
+layers (recurrentgemma, gemma2) needs ``--prompt-len`` + ``--gen`` >= its
+window (16 when ``--reduced``, 2,048 and 4,096 at full width); the
+engine's prefix cache is always off for it.  ``--layers`` cuts a config's
+depth and keeps its widths: deepseek-v2-236b (60 layers, 234.7 B
+parameters without the embeddings) fits one 80 GB card at 3 layers (the
+dense first layer and two MoE layers, 9.33 B parameters); the cut is
+printed.  The engine serves an encoder-decoder (seamless-m4t-medium) at
+full-length prompts, each prefilled alone with its own encoder frames, as
+the reference's engine serves it; ``--layers`` cuts its decoder.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch.engine import ServingEngine, synthesize_requests
+from repro_torch.launch.executor import run_lockstep
 from repro_torch.launch.spec import ServeSpec
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import build_model
@@ -62,10 +74,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=0,
                     help="tokens per KV page (0 = config default)")
+    ap.add_argument("--layout", default=None, choices=["dense", "paged"],
+                    help="KV-cache layout (default: the config's; paged "
+                         "under --continuous)")
     ap.add_argument("--continuous", action="store_true",
-                    help="accepted for the reference's command line; "
-                         "continuous batching is the port's only mode")
-    ap.add_argument("--requests", type=int, default=8)
+                    help="continuous batching over the paged cache")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="request-queue length for --continuous")
     ap.add_argument("--page-budget", type=int, default=0,
                     help="physical pages in the pool (0 = worst case)")
     ap.add_argument("--overcommit", type=float, default=1.0,
@@ -127,7 +142,12 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    overrides = {"cache_layout": "paged"}
+    if args.continuous and args.layout == "dense":
+        raise SystemExit("--continuous serves the paged cache; --layout "
+                         "dense is lockstep's (drop --continuous)")
+    layout = args.layout or ("paged" if args.continuous
+                             else cfg.cache_layout)
+    overrides = {"cache_layout": layout}
     if args.layers:
         if not 0 < args.layers <= cfg.num_layers:
             raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
@@ -143,11 +163,19 @@ def main(argv=None) -> int:
                    gen=args.gen, requests=args.requests,
                    page_budget=args.page_budget, overcommit=args.overcommit,
                    prefix_cache=args.prefix_cache,
-                   shared_prefix_frac=args.shared_prefix)
+                   shared_prefix_frac=args.shared_prefix,
+                   cache_layout=layout, continuous=args.continuous)
     model = build_model(cfg, device=device, seed=args.seed)
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    run_continuous(cfg, model, sv, seed=args.seed, device=device,
-                   dtype=dtype)
+    if args.continuous:
+        run_continuous(cfg, model, sv, seed=args.seed, device=device,
+                       dtype=dtype)
+        return 0
+    try:
+        run_lockstep(cfg, model, sv, seed=args.seed, device=device,
+                     dtype=dtype)
+    except ValueError as e:          # CLI contract: bad flags exit nonzero
+        raise SystemExit(str(e)) from e
     return 0
 
 

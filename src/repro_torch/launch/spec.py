@@ -16,24 +16,31 @@ from __future__ import annotations
 from repro_torch.core.jobspec import ServeSpec, TrainSpec  # noqa: F401
 
 
-def check_serve_spec(sv: ServeSpec, cfg) -> None:
+def check_serve_spec(sv: ServeSpec, cfg, continuous=None) -> None:
     """Raise ``NotImplementedError`` for a ServeSpec field the port's
-    serving engine does not implement."""
-    if sv.cache_layout not in (None, "paged"):
+    serving path does not implement: the engine's (``continuous``, by
+    default ``sv.continuous``), which pages its cache, or lockstep
+    serving's (:mod:`repro_torch.launch.executor`), which serves either
+    layout and has no prefill policy to choose."""
+    continuous = sv.continuous if continuous is None else continuous
+    if sv.cache_layout not in (None, "dense", "paged"):
         raise NotImplementedError(
-            f"serve.cache_layout {sv.cache_layout!r}: the port serves the "
-            "paged cache only (the dense layout is ROADMAP Queue 1 item 4)")
+            f"serve.cache_layout {sv.cache_layout!r}: dense or paged")
+    if continuous and sv.cache_layout == "dense":
+        raise NotImplementedError(
+            "serve.cache_layout 'dense': continuous batching serves the "
+            "paged cache only (lockstep serving takes the dense one)")
     if sv.mesh != "host":
         raise NotImplementedError(
             f"serve.mesh {sv.mesh!r}: the port serves on one card (meshes "
             "come with dist/, ROADMAP Queue 1 item 6)")
-    if cfg.is_encoder_decoder:
-        if sv.ragged_prefill:
-            # the reference's reason (launch/engine.py), as a refusal
-            raise NotImplementedError(
-                "serve.ragged_prefill needs a decoder-only stack; the "
-                "encoder output is per-round, so enc-dec prefills per slot")
-    elif sv.ragged_prefill is False:
+    if continuous and cfg.is_encoder_decoder and sv.ragged_prefill:
+        # the reference's reason (launch/engine.py), as a refusal
+        raise NotImplementedError(
+            "serve.ragged_prefill needs a decoder-only stack; the "
+            "encoder output is per-round, so enc-dec prefills per slot")
+    if continuous and not cfg.is_encoder_decoder \
+            and sv.ragged_prefill is False:
         raise NotImplementedError(
             "serve.ragged_prefill=False: the port's prefill of a "
             "decoder-only stack is always ragged (an encoder-decoder's is "

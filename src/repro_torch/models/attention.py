@@ -1,22 +1,27 @@
 """Attention over the serving cache (the reference's
-``models/attention.py``): GQA, and DeepSeek-V2's MLA over a paged latent
-cache (:func:`mla_attention`, at the end of this module).
+``models/attention.py``): GQA, and DeepSeek-V2's MLA over a paged or
+dense latent cache (:func:`mla_attention`, at the end of this module).
 
-Global layers keep their K/V in the paged pool; local (sliding-window)
-layers keep a per-sequence ring of ``window`` slots with a (B, W) map of
-the position each slot holds.  Two modes:
+Global layers keep their K/V in the paged pool, or (the dense layout,
+lockstep serving) in a (B, K, S_max, hd) buffer with one shared (S_max,)
+map of the position each slot holds; local (sliding-window) layers keep a
+per-sequence ring of ``window`` slots with a (B, W) map.  Two modes:
 
 * ``full`` (prefill) — self-attention over the prompt through
   ``ops.flash_attention_bshd`` (the Hopper kernel on the card, its plain
   version on the CPU; local layers pass their window), then the rotated
-  K/V are written into the page pool or the ring.  A chunked prefill
+  K/V are written into the page pool, the dense buffer or the ring
+  (:func:`_write_full_kv` for a lockstep batch).  A chunked prefill
   (prefix caching: per-row absolute positions) writes the chunk's K/V
   first and then walks the page table (:func:`prefill_attention_paged`,
   plain torch as in the reference).
 * ``decode`` — one new token per sequence: its K/V go into the pool, then
   ``ops.paged_decode_bhd`` walks the page table; a local layer writes its
-  ring slot and attends over the ring with :func:`decode_attention_torch`
-  (plain, as the reference's local decode is plain jnp).
+  ring slot, and a dense global layer its buffer's slot, and attends with
+  :func:`decode_attention_torch` (plain, as the reference's dense and
+  local decode is plain jnp).  ``pos`` is a scalar (a lockstep batch, every
+  row at one position) or (B,) per-row positions (continuous batching,
+  paged globals and rings only).
 
 An encoder-decoder's decoder layers also attend to the encoder's output
 (``is_cross``): in full mode q comes from the layer's input and K, V from
@@ -30,9 +35,10 @@ self-attention is the full mode without the causal mask.
 
 Keys are RoPE-rotated at write time, so cached keys never re-rotate.
 
-The reference's cache is functional; here the page pools and rings are
-updated IN PLACE by the writers (``index_put_``), and the writers return
-the same tensors.  The reference's ``mode="drop"`` scatters silently drop
+The reference's cache is functional; here the page pools, dense buffers
+and rings are updated IN PLACE by the writers (``index_put_``,
+``index_copy_``), and the writers return the same tensors.  The
+reference's ``mode="drop"`` scatters silently drop
 rows aimed out of the pool; torch would raise (or fault on the card), so
 the writers select the rows to write with a mask first.  Its
 ``mode="fill"`` gathers read zeros for a ``-1`` entry; torch indexing
@@ -191,7 +197,11 @@ def gqa_attention(
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Self-attention of one layer; returns (out (B, S, D), cache).
     ``cache`` is the layer's ``{"k_pages", "v_pages", "page_table"}``
-    (global) or its ring ``{"k", "v", "pos"}`` (local).  ``causal`` False
+    (global, paged), its dense buffer ``{"k", "v" (B, K, S_max, hd), "pos"
+    (S_max,)}`` (global, dense) or its ring ``{"k", "v", "pos" (B, W)}``
+    (local).  A dense global buffer is lockstep-only, as in the
+    reference: a ragged prefill or per-row decode positions raise
+    ``NotImplementedError``.  ``causal`` False
     is an encoder's self-attention (train mode, no cache).  With
     ``is_cross`` it is a decoder layer's cross-attention over the
     encoder's output ``enc_out`` (full mode) or over the layer's cached
@@ -223,7 +233,8 @@ def gqa_attention(
         if pos.ndim == 2:
             # chunked prefix prefill: write the chunk, then one masked walk
             # over the page table covers the cached prefix and the chunk
-            if cache is None or lengths is None or window:
+            if cache is None or "k_pages" not in cache or lengths is None \
+                    or window:
                 raise ValueError("chunked prefill needs the paged cache of "
                                  "a global layer and lengths")
             new_cache = _write_prefill_paged_offset(cache, k, v, lengths, pos)
@@ -231,30 +242,38 @@ def gqa_attention(
                 q, cache["k_pages"], cache["v_pages"], cache["page_table"],
                 pos, lengths, scale=scale, logit_cap=cap)
         else:
+            if cache is not None and lengths is not None and not window \
+                    and "k_pages" not in cache:
+                raise NotImplementedError(
+                    "ragged prefill needs the paged layout for global "
+                    "layers (dense caches are lockstep-only)")
             out = ops.flash_attention_bshd(
                 q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
                 causal=causal, window=window, logit_cap=cap)
-            if cache is not None and window:
-                if lengths is None:      # every row holds all S tokens
-                    lengths = torch.full((k.shape[0],), k.shape[1],
-                                         dtype=torch.int32, device=k.device)
-                new_cache = _write_prefill_ring_ragged(cache, k, v, lengths)
-            elif cache is not None:
+            if cache is not None and "k_pages" in cache:
                 new_cache = _write_prefill_paged(cache, k, v, lengths)
+            elif cache is not None and lengths is not None:
+                # a ring: each row keeps the last window of its own tokens
+                new_cache = _write_prefill_ring_ragged(cache, k, v, lengths)
+            elif cache is not None:      # lockstep: every row all S tokens
+                new_cache = _write_full_kv(cache, k, v, pos, window)
     elif mode == "decode":
-        pos_r = pos.reshape(-1, 1)
+        pos_r = pos.reshape(-1, 1)       # (B, 1), or (1, 1) for a scalar
         q = apply_rope(q, pos_r, cfg.rope_theta)
         k = apply_rope(k, pos_r, cfg.rope_theta)
-        if window:
-            new_cache = _update_decode_kv_ring(cache, k, v, pos)
-            out = decode_attention_torch(
-                q, cache["k"], cache["v"], cache["pos"], pos, scale=scale,
-                window=window, logit_cap=cap)
-        else:
-            new_cache = _update_decode_kv_paged(cache, k, v, pos)
+        if "k_pages" in cache:
+            # a scalar position is every row's (the reference's broadcast)
+            posb = pos.reshape(-1).to(torch.int32).expand(q.shape[0])
+            new_cache = _update_decode_kv_paged(cache, k, v, posb)
             out = ops.paged_decode_bhd(
                 q.contiguous(), cache["k_pages"], cache["v_pages"],
-                cache["page_table"], pos.to(torch.int32), scale=scale,
+                cache["page_table"], posb.contiguous(), scale=scale,
+                logit_cap=cap)
+        else:
+            new_cache, k_all, v_all, pos_all = _update_decode_kv(
+                cache, k, v, pos, window)
+            out = decode_attention_torch(
+                q, k_all, v_all, pos_all, pos, scale=scale, window=window,
                 logit_cap=cap)
     else:
         raise ValueError(mode)
@@ -307,8 +326,63 @@ def _cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# Ring writers of the local layers (in place)
+# Writers of the dense global buffers and of the local layers' rings (in
+# place)
 # ---------------------------------------------------------------------------
+def _write_full_kv(cache: Cache, k, v, pos, window: int) -> Cache:
+    """Lockstep prefill of every row's S tokens at positions ``pos`` (S,)
+    (consecutive, from ``pos[0]``).  A dense global buffer (B, K, S_max,
+    hd) takes them at their positions and its shared ``pos (S_max,)`` map
+    records them; a ring (``window``, W = window slots) keeps only the
+    last ``window`` positions, at slot ``pos % window``, and its per-row
+    ``pos (B, W)`` map records them.  ``k, v`` arrive as (B, S, K, hd),
+    rotated.  Index copies, so no host sync."""
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    pos = pos.to(device=ck.device, dtype=torch.long)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)          # (B, K, S, hd)
+    if window:
+        # only the last window positions survive; slicing to them first
+        # makes the slots unique
+        kt, vt, pos = kt[:, :, -window:], vt[:, :, -window:], pos[-window:]
+        slots = torch.remainder(pos, window)
+        ck.index_copy_(2, slots, kt.to(ck.dtype))
+        cv.index_copy_(2, slots, vt.to(cv.dtype))
+        cp.index_copy_(1, slots, pos.to(cp.dtype)[None, :].expand(
+            cp.shape[0], -1))
+        return cache
+    ck.index_copy_(2, pos, kt.to(ck.dtype))
+    cv.index_copy_(2, pos, vt.to(cv.dtype))
+    cp.index_copy_(0, pos, pos.to(cp.dtype))
+    return cache
+
+
+def _update_decode_kv(cache: Cache, k, v, pos, window: int):
+    """Insert one token's K/V per row; returns ``(cache, k_all, v_all,
+    pos_all)``, the buffers the decode attends over.  ``k, v`` arrive as
+    (B, 1, K, hd).  A scalar ``pos`` (a lockstep batch) writes slot ``pos``
+    of a dense global buffer and its shared map, or ring slot ``pos %
+    window`` of every row; per-row ``pos`` (B,) is a ring's only
+    (:func:`_update_decode_kv_ring`): a dense global buffer is
+    lockstep-only, as in the reference."""
+    if pos.ndim == 1:
+        if not window:
+            raise NotImplementedError(
+                "per-sequence decode positions on a dense global cache; "
+                "use cache_layout='paged' for continuous batching")
+        cache = _update_decode_kv_ring(cache, k, v, pos)
+        return cache, cache["k"], cache["v"], cache["pos"]
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    p = pos.to(device=ck.device, dtype=torch.long).reshape(1)
+    slot = torch.remainder(p, window) if window else p
+    ck.index_copy_(2, slot, k.transpose(1, 2).to(ck.dtype))
+    cv.index_copy_(2, slot, v.transpose(1, 2).to(cv.dtype))
+    if cp.ndim == 2:                     # a ring's per-row (B, W) map
+        cp.index_copy_(1, slot, p.to(cp.dtype).expand(cp.shape[0], 1))
+    else:                                # a global buffer's shared map
+        cp.index_copy_(0, slot, p.to(cp.dtype))
+    return cache, ck, cv, cp
+
+
 def _write_prefill_ring_ragged(cache: Cache, k, v,
                                lengths: torch.Tensor) -> Cache:
     """Ragged prefill into the (B, K, W, hd) ring: row ``b`` keeps the last
@@ -565,8 +639,8 @@ def mla_attention(
     *,
     mode: str,                       # full | decode
     cache: Optional[Cache],
-    pos: torch.Tensor,               # full: (S,) or (B, S0); decode: (B,)
-    lengths: Optional[torch.Tensor] = None,
+    pos: torch.Tensor,               # full: (S,) or (B, S0); decode: ()
+    lengths: Optional[torch.Tensor] = None,   # or (B,)
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """MLA self-attention of one layer; returns (out (B, S, D), cache).
 
@@ -578,16 +652,17 @@ def mla_attention(
     forward and backward).
 
     Serving runs over the paged latent cache ``{"ckv_pages",
-    "krope_pages", "page_table"}``.  Prefill writes the chunk's latents,
-    then scores the fresh latents (``pos`` 1-D, from position 0) or walks
-    the page table (``pos`` 2-D, chunked prefix prefill); decode writes the
-    new latent and runs ``ops.mla_paged_decode_bhd`` (the Hopper kernel on
-    the card, its plain version on the CPU)."""
-    train = mode == "full" and cache is None
-    if not train and (cache is None or "ckv_pages" not in cache):
-        raise NotImplementedError(
-            "MLA decode without the paged latent cache (the dense cache) "
-            "comes in a later slice of the port")
+    "krope_pages", "page_table"}`` or the dense one ``{"ckv" (B, S_max,
+    lora), "krope" (B, S_max, rd), "pos" (S_max,)}``.  Paged: prefill
+    writes the chunk's latents, then scores the fresh latents (``pos`` 1-D,
+    from position 0) or walks the page table (``pos`` 2-D, chunked prefix
+    prefill); decode writes the new latent and runs
+    ``ops.mla_paged_decode_bhd`` (the Hopper kernel on the card, its plain
+    version on the CPU).  Dense (a lockstep batch): prefill is train mode's
+    expanded attention, the flash kernel at qk 192 / v 128 (forward only),
+    and writes the latents; decode at a scalar position writes the new
+    latent and scores every slot in latent space with the weight
+    absorption (:func:`_mla_dense_decode`, plain as in the reference)."""
     B, S = x.shape[:2]
     H = cfg.num_heads
     nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -595,12 +670,20 @@ def mla_attention(
     scale = (nope + rd) ** -0.5
     w_kc = p["kv_b"][..., :nope]                          # (lora, H, nope)
     w_vc = p["kv_b"][..., nope:]                          # (lora, H, vd)
+    paged = cache is not None and "ckv_pages" in cache
+    if mode == "decode" and cache is None:
+        raise NotImplementedError("MLA decode without a cache: it reads "
+                                  "the paged latent cache or the dense one")
 
     kv_a = x @ p["kv_a"]                                  # (B, S, lora+rd)
     ckv = rms_norm(kv_a[..., :lora], p["kv_norm"], cfg.norm_eps)
     k_rope = kv_a[..., None, lora:]                       # (B, S, 1, rd)
 
-    if train:
+    if mode == "full" and not paged:
+        if cache is not None and (pos.ndim != 1 or lengths is not None):
+            raise NotImplementedError(
+                "ragged or chunked MLA prefill needs the paged latent cache "
+                "(cache_layout='paged'); the dense cache is lockstep-only")
         q_nope, q_rope = _mla_q(cfg, p, x, pos)
         k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
         kv = torch.einsum("bsl,lhe->bshe", ckv, p["kv_b"])  # expand
@@ -608,6 +691,8 @@ def mla_attention(
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = ops.flash_attention_bshd(q, k, kv[..., nope:].contiguous(),
                                        scale=scale, causal=True)
+        if cache is not None:
+            _write_full_latent(cache, ckv, k_rope[:, :, 0], pos)
     elif mode == "full":
         pos_q = pos if pos.ndim == 2 else pos[None, :].expand(B, S)
         lens = torch.full((B,), S, dtype=torch.int32, device=x.device) \
@@ -631,8 +716,9 @@ def mla_attention(
                                           k_rope, scale=scale)
             out[:, :, hs] = torch.einsum("bshl,lhe->bshe",
                                          ctx_lat.to(x.dtype), w_vc[:, hs])
-    elif mode == "decode":
-        posb = pos.reshape(-1).to(torch.int32)
+    elif mode == "decode" and paged:
+        # a scalar position is every row's (the reference's broadcast)
+        posb = pos.reshape(-1).to(torch.int32).expand(B).contiguous()
         pos_r = posb[:, None]                             # (B, 1) for rope
         q_nope, q_rope = _mla_q(cfg, p, x, pos_r)
         k_rope = apply_rope(k_rope, pos_r, cfg.rope_theta)
@@ -644,9 +730,56 @@ def mla_attention(
             cache["page_table"], posb, scale=scale)
         out = torch.einsum("bshl,lhe->bshe", ctx_lat[:, None].to(x.dtype),
                            w_vc)
+    elif mode == "decode":
+        out = _mla_dense_decode(cfg, p, x, ckv, k_rope, cache, pos,
+                                w_kc=w_kc, w_vc=w_vc, scale=scale)
     else:
         raise ValueError(mode)
     return torch.einsum("bshe,hed->bsd", out, p["o"]), cache
+
+
+def _mla_dense_decode(cfg: ModelConfig, p, x, ckv, k_rope, cache: Cache,
+                      pos, *, w_kc, w_vc, scale: float) -> torch.Tensor:
+    """The reference's dense MLA decode with weight absorption: the new
+    token's latent and rotated rope key go into slot ``pos`` of the dense
+    latent cache, then every row's query, absorbed through ``W_kc``,
+    scores the latents in fp32 (``(cp >= 0) & (cp <= pos)`` live), and the
+    softmax-weighted latent context is read out through ``W_vc``.
+    Returns the per-head values (B, 1, H, vd).  ``pos`` is a scalar: the
+    dense cache keeps one shared position map, so per-row positions raise
+    as in the reference."""
+    if pos.ndim != 0:
+        raise NotImplementedError(
+            "per-sequence MLA decode positions need the paged latent cache "
+            "(cache_layout='paged'); the dense cache is lockstep-only")
+    p1 = pos.to(device=x.device, dtype=torch.long).reshape(1)
+    q_nope, q_rope = _mla_q(cfg, p, x, p1)
+    k_rope = apply_rope(k_rope, p1, cfg.rope_theta)
+    _write_full_latent(cache, ckv, k_rope[:, :, 0], p1)
+    c, r, cp = cache["ckv"], cache["krope"], cache["pos"]
+    q_eff = torch.einsum("bshe,lhe->bshl", q_nope, w_kc)  # absorb W_kc
+    cf = c.float()
+    s = torch.einsum("bshl,btl->bsht", q_eff.float(), cf)
+    s = s + torch.einsum("bshr,btr->bsht", q_rope.float(), r.float())
+    s = s * scale
+    valid = (cp >= 0) & (cp <= p1)
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    ctx_lat = torch.einsum("bsht,btl->bshl", torch.softmax(s, dim=-1), cf)
+    return torch.einsum("bshl,lhe->bshe", ctx_lat.to(x.dtype), w_vc)
+
+
+def _write_full_latent(cache: Cache, ckv, krope, pos) -> Cache:
+    """Write a lockstep batch's latents ``ckv (B, S, lora)`` and rotated
+    rope keys ``krope (B, S, rd)`` at positions ``pos`` (S,) of the dense
+    latent cache, and record the positions in its shared ``pos`` map (the
+    reference's ``dynamic_update_slice`` at ``pos[0]``; index copies, so
+    no host sync)."""
+    c, r, cp = cache["ckv"], cache["krope"], cache["pos"]
+    pos = pos.to(device=c.device, dtype=torch.long)
+    c.index_copy_(1, pos, ckv.to(c.dtype))
+    r.index_copy_(1, pos, krope.to(r.dtype))
+    cp.index_copy_(0, pos, pos.to(cp.dtype))
+    return cache
 
 
 def _write_prefill_latent_paged(cache: Cache, ckv, krope, lengths,

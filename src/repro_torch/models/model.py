@@ -1,5 +1,6 @@
 """Model assembly: embedding → decoder blocks → logits (the reference's
-``models/model.py``): training, and serving over the paged cache.  A block is
+``models/model.py``): training, and serving over the paged cache or the
+dense one (lockstep batches, :func:`init_cache`).  A block is
 GQA attention (global or sliding-window) or MLA + a dense or MoE FFN, the
 RG-LRU block + dense FFN, or RWKV6 time-mix + channel-mix; under gemma2's
 ``use_post_block_norm`` each of the two outputs passes a norm of its own
@@ -21,8 +22,10 @@ Modes
 * ``prefill`` — tokens → last-position logits + a filled cache.  With
   ``lengths`` the prefill is ragged, with ``starts`` also chunked (prefix
   caching); see :func:`forward`.
-* ``decode``  — one token per row + cache + per-row positions → next
-  logits + the updated cache.
+* ``decode``  — one token per row + cache + positions → next logits + the
+  updated cache: a scalar position for a lockstep batch (every row at one
+  position; the dense cache takes only this), or per-row positions (B,)
+  for continuous batching over the paged cache.
 """
 from __future__ import annotations
 
@@ -50,10 +53,13 @@ from repro_torch.models.params import (  # noqa: F401
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# The per-layer cache leaves of each block kind.  ``cache[name]`` lists one
-# entry per layer of that kind, in layer order (in a hybrid stack a leaf
-# exists only on the layers of its kind).  An MLA global layer pages its
-# latent cache instead of K and V (:func:`layer_leaves`).
+LAYOUTS = ("dense", "paged")
+# The per-layer cache leaves of each block kind under the paged layout.
+# ``cache[name]`` lists one entry per layer of that kind, in layer order
+# (in a hybrid stack a leaf exists only on the layers of its kind).  An
+# MLA global layer pages its latent cache instead of K and V, and under
+# the dense layout a global layer holds a whole-length buffer instead of
+# pools (:func:`layer_leaves`).
 LAYER_LEAVES = {
     GLOBAL_ATTN: ("k_pages", "v_pages"),
     LOCAL_ATTN: ("k", "v", "pos"),
@@ -61,13 +67,29 @@ LAYER_LEAVES = {
     RWKV: ("s", "shift_tm", "shift_cm"),
 }
 MLA_LEAVES = ("ckv_pages", "krope_pages")
+# The dense layout's global leaves: names of their own, so that a gemma2
+# global layer never indexes the lists of the local rings (``k``, ``v``,
+# ``pos``); the attention reads them by the reference's names
+# (:data:`ATTN_NAMES`).
+DENSE_LEAVES = ("k_dense", "v_dense", "pos_dense")
+MLA_DENSE_LEAVES = ("ckv", "krope", "pos_dense")
+ATTN_NAMES = {"k_dense": "k", "v_dense": "v", "pos_dense": "pos"}
 
 
-def layer_leaves(cfg: ModelConfig, kind: str):
-    """The cache leaves a layer of ``kind`` holds under ``cfg``."""
+def layer_leaves(cfg: ModelConfig, kind: str, layout: Optional[str] = None):
+    """The cache leaves a layer of ``kind`` holds under ``cfg`` and
+    ``layout`` (default ``cfg.cache_layout``)."""
+    layout = cfg.cache_layout if layout is None else layout
+    if kind == GLOBAL_ATTN and layout == "dense":
+        return MLA_DENSE_LEAVES if cfg.use_mla else DENSE_LEAVES
     if cfg.use_mla and kind == GLOBAL_ATTN:
         return MLA_LEAVES
     return LAYER_LEAVES[kind]
+
+
+def cache_layout_of(cache: Dict) -> str:
+    """``"paged"`` for a cache with a page table, else ``"dense"``."""
+    return "paged" if "page_table" in cache else "dense"
 
 
 def build_model(cfg: ModelConfig, *, device=None, seed: int = 0,
@@ -306,7 +328,7 @@ def forward(
     *,
     mode: str = "prefill",                 # train | prefill | decode
     cache: Optional[Dict] = None,
-    pos: Optional[torch.Tensor] = None,    # decode: (B,) positions, -1 idle
+    pos: Optional[torch.Tensor] = None,    # decode: () or (B,), -1 idle
     lengths: Optional[torch.Tensor] = None,  # ragged prefill: (B,) lengths
     starts: Optional[torch.Tensor] = None,   # chunked prefill: (B,) starts
     remat_policy: str = "none",              # train: none | dots | full
@@ -328,6 +350,14 @@ def forward(
     of its prompt, opening at absolute position ``starts[b]``, and
     attention walks the page table (all-global stacks without a frontend
     only).
+
+    ``pos`` is decode's position: a scalar (0-d) for a lockstep batch,
+    every row at one position (the reference's form; the dense cache takes
+    only this), or (B,) per-row positions, -1 for an idle row (the
+    engine's form over the paged cache).  The layout is read from the
+    cache: a page table makes it paged (:func:`cache_layout_of`).  A dense
+    cache is lockstep-only, as in the reference: a ragged or chunked
+    prefill into a dense global buffer or latent cache raises.
 
     A vision config's batch may carry ``frontend_embeds`` (B, F, D): they
     are prepended to the text (:func:`_prepend_frontend`), positions run
@@ -354,6 +384,11 @@ def forward(
         raise ValueError("lengths is a prefill-only argument")
     if starts is not None and lengths is None:
         raise ValueError("starts requires ragged prefill (lengths)")
+    if lengths is not None and cfg.use_mla and cache is not None \
+            and cache_layout_of(cache) == "dense":
+        raise NotImplementedError(
+            "ragged prefill over MLA needs the paged latent cache (the dense "
+            "MLA cache keeps a lockstep shared position slot)")
     if lengths is not None and cfg.is_encoder_decoder:
         raise NotImplementedError(
             "ragged prefill needs a decoder-only stack: the cross-attention "
@@ -390,13 +425,14 @@ def forward(
             lengths = torch.where(lengths > 0, lengths + n_front, 0)
 
     amode = "full" if mode == "prefill" else "decode"
+    layout = None if cache is None else cache_layout_of(cache)
     seen = {kind: 0 for kind in LAYER_LEAVES}
     for i, (kind, blk) in enumerate(zip(kinds, params["blocks"])):
         j = seen[kind]               # this layer's entry in its kind's lists
         seen[kind] += 1
-        leaves = layer_leaves(cfg, kind)
+        leaves = layer_leaves(cfg, kind, layout)
         lc = None if cache is None else {
-            name: cache[name][j] for name in leaves}
+            ATTN_NAMES.get(name, name): cache[name][j] for name in leaves}
         x = rms_norm(h, blk["pre_norm"], cfg.norm_eps)
         if kind == RWKV:
             y, lc = rwkv_time_mix(cfg, blk["tm"], x, ctx, mode=amode,
@@ -409,7 +445,7 @@ def forward(
             y, lc = rglru_block(cfg, blk["rec"], x, ctx, mode=amode,
                                 cache=lc, lengths=lengths)
         else:
-            if lc is not None and kind == GLOBAL_ATTN:
+            if layout == "paged" and kind == GLOBAL_ATTN:
                 lc["page_table"] = cache["page_table"]
             if cfg.use_mla:
                 y, lc = mla_attention(cfg, blk["attn"], x, mode=amode,
@@ -433,7 +469,7 @@ def forward(
             h = h + _post(cfg, blk, "post_ffn_norm", y)
         if cache is not None:
             for name in leaves:
-                cache[name][j] = lc[name]
+                cache[name][j] = lc[ATTN_NAMES.get(name, name)]
 
     if lengths is not None:
         # each row's last valid position (length-0 rows: garbage, ignored)
@@ -450,20 +486,26 @@ def num_pages(seq_len: int, page_size: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
-               src_len: int = 0, page_budget: Optional[int] = None,
-               device=None) -> Dict:
-    """The serving cache (``cfg.cache_layout == "paged"``): ONE page table
-    ``(B, pps)`` int32 that every layer reads (the reference broadcasts the
-    same host table into each layer's leaf), starting at -1 for the
-    engine's host-side allocator (the reference's ``paged_tables="empty"``),
-    and the per-layer leaves of the reference's ``_layer_cache_ab``, one
-    list entry per layer of their kind (:data:`LAYER_LEAVES`):
+               src_len: int = 0, layout: Optional[str] = None,
+               page_budget: Optional[int] = None,
+               paged_tables: str = "empty", device=None) -> Dict:
+    """The serving cache of the reference's ``init_cache`` and
+    ``_layer_cache_ab``: the per-layer leaves, one list entry per layer
+    of their kind (:func:`layer_leaves`), for ``layout`` (default
+    ``cfg.cache_layout``):
 
-    * global attention: a K and a V pool ``(P, K, ps, hd)`` in ``cfg.dtype``,
-      or under MLA a latent pool ``ckv_pages (P, ps, lora)`` and a rope-key
-      pool ``krope_pages (P, ps, rd)``;
+    * global attention, ``"paged"``: a K and a V pool ``k_pages``,
+      ``v_pages (P, K, ps, hd)`` in ``cfg.dtype``, or under MLA a latent
+      pool ``ckv_pages (P, ps, lora)`` and a rope-key pool ``krope_pages
+      (P, ps, rd)``; P = ``page_budget``, by default the worst case B·pps;
+    * global attention, ``"dense"`` (lockstep serving): a whole-length
+      buffer ``k_dense``, ``v_dense (B, K, max_len, hd)`` in ``cfg.dtype``
+      and one shared ``pos_dense (max_len,)`` int32 starting at -1, or
+      under MLA ``ckv (B, max_len, lora)``, ``krope (B, max_len, rd)`` and
+      ``pos_dense``;
     * local attention: a ring ``k``, ``v (B, K, W, hd)`` in ``cfg.dtype``
-      and ``pos (B, W)`` int32 starting at -1, W = ``window_size``;
+      and ``pos (B, W)`` int32 starting at -1, W = ``window_size``, in
+      either layout;
     * RG-LRU: ``h (B, R)`` fp32 and ``conv (B, CW-1, R)`` in ``cfg.dtype``;
     * RWKV: ``s (B, H, N, N)`` fp32 and the token-shift carries
       ``shift_tm``, ``shift_cm (B, D)`` in ``cfg.dtype``;
@@ -472,37 +514,60 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
       K, src_len, hd)`` in ``cfg.dtype`` (the reference's ``cross``
       leaves), one entry a decoder layer.
 
-    A stack without global layers has no pools; it keeps the table so the
-    engine's page accounting is the same for every config.  The ring must
-    hold a whole window (``max_len >= window_size``): the reference sizes
-    it ``min(window, max_len)`` but decodes per sequence only into a full
-    ring, so a shorter one fails there at the first decode step."""
+    The paged layout has ONE page table ``(B, pps)`` int32 that every
+    layer reads (the reference broadcasts the same table into each
+    layer's leaf); a stack without global layers keeps it too, so the
+    engine's page accounting is the same for every config.
+    ``paged_tables`` ``"empty"`` starts it at -1 for the engine's
+    host-side allocator; ``"identity"`` gives row ``b`` pages ``b·pps ..
+    (b+1)·pps - 1`` (lockstep serving over a worst-case pool; a smaller
+    ``page_budget`` raises).  The reference's default is ``"identity"``;
+    the port's is ``"empty"``, which its engine takes (ROADMAP D15).  A
+    dense cache has no page table.
+
+    The ring must hold a whole window (``max_len >= window_size``): the
+    reference sizes it ``min(window, max_len)`` but decodes per sequence
+    only into a full ring, and its lockstep prefill cannot fill a shorter
+    one, so it fails there (ROADMAP R5, R10).  ``device="meta"`` sizes a
+    cache without memory (the reference's ``abstract_cache``)."""
     check_ported(cfg)
-    if cfg.cache_layout != "paged":
-        raise NotImplementedError(
-            f"the {cfg.cache_layout!r} cache layout comes in a later slice "
-            "of the port")
+    layout = cfg.cache_layout if layout is None else layout
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown cache layout {layout!r}: dense or paged")
+    if paged_tables not in ("empty", "identity"):
+        raise ValueError(f"paged_tables {paged_tables!r}: empty or identity")
     kinds = cfg.layer_kinds()
     W = cfg.window_size
     if LOCAL_ATTN in kinds and max_len < W:
         raise ValueError(
             f"{cfg.name}: max_len {max_len} (prompt_len + gen) is shorter "
             f"than the local window {W}; the local layers' ring buffer needs "
-            "max_len >= window_size (the reference's engine fails at the "
-            "first decode step there)")
-    dev = resolve_device(device)
+            "max_len >= window_size (the reference fails there: its engine "
+            "at the first decode step, its lockstep prefill at the write)")
     ps = cfg.page_size
     pps = num_pages(max_len, ps)
-    pool = page_budget if page_budget is not None else batch_size * pps
-    B, K, hd, dt = batch_size, cfg.num_kv_heads, cfg.head_dim, \
-        DTYPES[cfg.dtype]
+    B = batch_size
+    if layout == "paged" and paged_tables == "identity" and \
+            page_budget is not None and page_budget < B * pps:
+        raise ValueError(
+            "identity page tables need the worst-case pool; pass "
+            "paged_tables='empty' with a reduced page_budget")
+    dev = resolve_device(device)
+    pool = page_budget if page_budget is not None else B * pps
+    K, hd, dt = cfg.num_kv_heads, cfg.head_dim, DTYPES[cfg.dtype]
     R, CW, D, N = cfg.rnn_width, cfg.conv1d_width, cfg.d_model, \
         cfg.rwkv_head_dim
+    lora, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     shapes = {
         "k_pages": ((pool, K, ps, hd), dt, 0),
         "v_pages": ((pool, K, ps, hd), dt, 0),
-        "ckv_pages": ((pool, ps, cfg.kv_lora_rank), dt, 0),
-        "krope_pages": ((pool, ps, cfg.qk_rope_head_dim), dt, 0),
+        "ckv_pages": ((pool, ps, lora), dt, 0),
+        "krope_pages": ((pool, ps, rd), dt, 0),
+        "k_dense": ((B, K, max_len, hd), dt, 0),
+        "v_dense": ((B, K, max_len, hd), dt, 0),
+        "pos_dense": ((max_len,), torch.int32, -1),
+        "ckv": ((B, max_len, lora), dt, 0),
+        "krope": ((B, max_len, rd), dt, 0),
         "k": ((B, K, W, hd), dt, 0),
         "v": ((B, K, W, hd), dt, 0),
         "pos": ((B, W), torch.int32, -1),
@@ -514,7 +579,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     }
     cache: Dict = {}
     for kind in kinds:
-        for name in layer_leaves(cfg, kind):
+        for name in layer_leaves(cfg, kind, layout):
             shape, dtype, fill = shapes[name]
             cache.setdefault(name, []).append(
                 torch.full(shape, fill, dtype=dtype, device=dev))
@@ -526,6 +591,11 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
             cache[name] = [torch.zeros((B, K, src_len, hd), dtype=dt,
                                        device=dev)
                            for _ in range(cfg.num_layers)]
-    cache["page_table"] = torch.full((B, pps), -1, dtype=torch.int32,
-                                     device=dev)
+    if layout == "paged":
+        if paged_tables == "identity":
+            table = torch.arange(B * pps, dtype=torch.int32,
+                                 device=dev).reshape(B, pps)
+        else:
+            table = torch.full((B, pps), -1, dtype=torch.int32, device=dev)
+        cache["page_table"] = table
     return cache

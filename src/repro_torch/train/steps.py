@@ -160,7 +160,10 @@ def make_prefill_step(cfg: ModelConfig, ctx: Ctx):
 
 
 def make_decode_step(cfg: ModelConfig, ctx: Ctx):
-    """(params, batch {tokens (B, 1)}, cache, pos (B,)) -> (logits, cache)."""
+    """(params, batch {tokens (B, 1)}, cache, pos) -> (logits, cache).
+    ``pos`` is a 0-d tensor for a lockstep batch (every row at that
+    position; the dense cache takes only this form) or (B,) per-row
+    positions, -1 for an idle row (the engine's, over the paged cache)."""
     @torch.inference_mode()
     def decode_step(params, batch, cache, pos):
         return forward(cfg, params, batch, ctx, mode="decode", cache=cache,

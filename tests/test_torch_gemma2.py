@@ -367,6 +367,7 @@ def test_gemma2_snapshot_restore_continues_byte_identically(engine_weights):
 
 def test_serve_cli_serves_gemma2_on_cpu(capsys):
     rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                     "--continuous",
                      "--batch", "3", "--prompt-len", "24", "--gen", "5",
                      "--requests", "5"])
     assert rc == 0
@@ -375,4 +376,4 @@ def test_serve_cli_serves_gemma2_on_cpu(capsys):
     assert "prefix cache:" not in out      # off for a mixed stack
     with pytest.raises(SystemExit, match="shorter than the local window"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                    "--prompt-len", "8", "--gen", "4"])
+                    "--continuous", "--prompt-len", "8", "--gen", "4"])

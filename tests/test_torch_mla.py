@@ -836,6 +836,7 @@ def test_deepseek_entry_points_need_an_explicit_cpu(monkeypatch):
 
 def test_serve_cli_serves_deepseek_on_cpu(capsys):
     rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                     "--continuous",
                      "--batch", "3", "--prompt-len", "20", "--gen", "5",
                      "--requests", "5", "--shared-prefix", "0.5"])
     assert rc == 0
@@ -843,6 +844,7 @@ def test_serve_cli_serves_deepseek_on_cpu(capsys):
     assert "arch=deepseek-v2-236b-reduced" in out and "completed 5/5" in out
     assert "prefix cache:" in out
     rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                     "--continuous",
                      "--layers", "2", "--prompt-len", "12", "--gen", "3",
                      "--requests", "2", "--no-prefix-cache"])
     assert rc == 0
@@ -850,4 +852,4 @@ def test_serve_cli_serves_deepseek_on_cpu(capsys):
         capsys.readouterr().out
     with pytest.raises(SystemExit, match="has 3 layers"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                    "--layers", "4"])
+                    "--continuous", "--layers", "4"])

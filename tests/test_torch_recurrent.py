@@ -697,6 +697,7 @@ def test_a_ring_shorter_than_the_window_is_refused_on_both_sides(
 
 def test_serve_cli_serves_recurrentgemma_on_cpu(capsys):
     rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                     "--continuous",
                      "--batch", "3", "--prompt-len", "24", "--gen", "5",
                      "--requests", "5"])
     assert rc == 0
@@ -705,7 +706,7 @@ def test_serve_cli_serves_recurrentgemma_on_cpu(capsys):
     assert "prefix cache:" not in out      # off for a stack with no globals
     with pytest.raises(SystemExit, match="shorter than the local window"):
         serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                    "--prompt-len", "8", "--gen", "4"])
+                    "--continuous", "--prompt-len", "8", "--gen", "4"])
 
 
 # The CUDA kernels' plan (``kernels/rglru_scan.py:rglru_plan``): pure

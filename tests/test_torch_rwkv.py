@@ -615,6 +615,7 @@ def test_restore_refuses_a_snapshot_of_another_stack(engine_weights):
 
 def test_serve_cli_serves_rwkv_on_cpu(capsys):
     rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                     "--continuous",
                      "--batch", "3", "--prompt-len", "40", "--gen", "5",
                      "--requests", "5"])
     assert rc == 0

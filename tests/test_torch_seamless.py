@@ -521,6 +521,7 @@ def test_serve_and_train_entry_points_take_seamless_on_cpu(capsys):
     batches that carry its frames (B, S/4 but at least 16, d_model) at two
     microbatches under full remat."""
     assert serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--continuous",
                        "--batch", "2", "--prompt-len", "12", "--gen", "4",
                        "--requests", "3"]) == 0
     out = capsys.readouterr().out
