@@ -324,6 +324,25 @@ Phases, each of which exits non-zero on the first failure:
               complete, every request shipped once with its full budget,
               the streams equal (where they part, at a recorded top-2 gap
               within PARITY_TIE_TOL).
+10. compression -- the train step's gradient compression with error
+              feedback (``dist/compression.py``): (t1c) paper-overhead-100m
+              as (t1) (B 8, S 1,024, bf16 compute, fp32 master, 30 steps)
+              under grad_compression none, int8 and topk in turns, flash
+              launches exact, finite losses, the held-out batch lower,
+              steps/s, tokens/s, MFU, peak memory, and one traced step of
+              each compression with its ``dist.compress_grads`` range's
+              device ms and launches; the int8 wire bytes of (t1)'s
+              gradient tree against fp32; sent + err_new == grad + err_old
+              on (t1)'s gradient tree, element by element; three fp32 int8
+              steps on the card and the CPU (2 layers, vocabulary 16,384):
+              losses within 1e-5, levels apart only as far as the devices'
+              quotients target / scale allow (where the targets agree, only
+              across a half level), residuals within one level; (p4)
+              (t1) under int8 as a 14-step platform job killed after its
+              checkpoint at step 10, bit-equal to an uninterrupted run,
+              error buffers included; the int8
+              all-reduce over a one-rank NCCL group bit-equal to the
+              pack/unpack round trip.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  With no CUDA device, or
@@ -4295,13 +4314,32 @@ def moe_parts(events):
     return parts, counted
 
 
-def trace_train_step(step, state, batch):
+def range_totals(events, names):
+    """Device ms and kernel launches of the ops inside each profiler range
+    of ``names`` (an op belongs to the nearest enclosing range of them)."""
+    out = {name: {"device_ms": 0.0, "launches": 0} for name in names}
+    for e in events:
+        owner = e.cpu_parent
+        while owner is not None and owner.name not in out:
+            owner = owner.cpu_parent
+        if owner is None:
+            continue
+        out[owner.name]["device_ms"] += sum(
+            k.duration for k in getattr(e, "kernels", ())) / 1e3
+        out[owner.name]["launches"] += "LaunchKernel" in e.name
+    return out
+
+
+def trace_train_step(step, state, batch, ranges=()):
     """One train step under torch.profiler: wall and device-busy time, the
     idle share and device ms by part (an MoE stack's parts from its
     profiler ranges, ``moe_parts``; then the kernels named in
     TRAIN_KERNEL_GROUPS, the rest as 'elementwise and other').  Each
     kernel's time outside the MoE parts comes from the profiler's device
-    totals by kernel name, so no kernel counts twice."""
+    totals by kernel name, so no kernel counts twice.  ``ranges`` names
+    profiler ranges whose device ms and launches are also returned
+    (``range_totals``; the step's gradient compression is
+    ``dist.compress_grads``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4358,6 +4396,7 @@ def trace_train_step(step, state, batch):
     return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
                 device_summed_s=summed * 1e-6,
                 launches=launches, device_ms_by_part=parts,
+                ranges=range_totals(events, ranges),
                 top_kernels=[(k[:80], n, us / 1e3) for k, n, us in
                              sorted(top, key=lambda r: -r[2])[:8]])
 
@@ -5203,7 +5242,10 @@ def trees_byte_equal(a, b) -> bool:
 
 
 def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
-                       batch=PLATFORM_BATCH, seq=PLATFORM_SEQ, label="p1"):
+                       batch=PLATFORM_BATCH, seq=PLATFORM_SEQ, label="p1",
+                       n_steps=PLATFORM_STEPS, kill_after=PLATFORM_KILL_AFTER,
+                       kill_before=PLATFORM_KILL_BEFORE,
+                       grad_compression="none"):
     """(p1): ``arch`` at full width, cut to ``layers`` if given
     (paper-overhead-100m; (p3): granite-moe-1b-a400m at 2 layers), in bf16
     compute with fp32 master and moments, B ``batch`` x S ``seq`` (8 x
@@ -5218,7 +5260,10 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
     replayed steps included) and the final state bit-equal to an
     uninterrupted 40-step run of the same payload; the flash forward and
     backward launches one a layer a step actually run.  Times the job's
-    wall seconds by part."""
+    wall seconds by part.  (p4): ``n_steps``, ``kill_after`` and
+    ``kill_before`` in place of 40, 20 and 30, and the train step under
+    ``grad_compression``, whose error buffers the checkpoints, the
+    restore and the bit-equal final state carry."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
@@ -5234,7 +5279,7 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
 
     cfg = train_cli.config_of(arch, reduced=False, layers=layers)
     run = RunConfig(learning_rate=1e-3, warmup_steps=3,
-                    total_steps=PLATFORM_STEPS)
+                    total_steps=n_steps, grad_compression=grad_compression)
     train_step = make_train_step(cfg, Ctx(device=dev, dtype=torch.bfloat16),
                                  run)
     data = SyntheticLMData(cfg.vocab_size, seq, batch,
@@ -5285,7 +5330,7 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
         p.run(10)
         h = p.submit(JobManifest(
             name=label, framework=arch, learners=1,
-            total_steps=PLATFORM_STEPS, step_time_s=0.5,
+            total_steps=n_steps, step_time_s=0.5,
             checkpoint_interval_s=5, real_compute=True))
         p.run(5)
         check(h.acked, f"platform ({label}): the train job was not acked "
@@ -5300,18 +5345,18 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
             while True:
                 check(p.sim.now < deadline, f"platform ({label}): no "
                       f"checkpoint at or "
-                      f"past step {PLATFORM_KILL_AFTER} by virtual time "
+                      f"past step {kill_after} by virtual time "
                       f"{p.sim.now} (job state "
                       f"{p.metadata.get('jobs', h.job_id)['state']})")
                 p.run(0.25)
                 vol = p.volumes.get(f"vol-{h.job_id}")
-                done = [s for s in ck.steps() if s >= PLATFORM_KILL_AFTER]
+                done = [s for s in ck.steps() if s >= kill_after]
                 at = vol.read("progress/0", {"step": 0})["step"] \
                     if vol is not None else 0
                 if done and at >= done[0] + PLATFORM_KILL_LAG:
                     break
             kill_step, ckpt_before = at, max(ck.steps())
-            check(ckpt_before < PLATFORM_KILL_BEFORE,
+            check(ckpt_before < kill_before,
                   f"platform ({label}): the kill came after checkpoint "
                   f"{ckpt_before}")
             t_kill_sim, t_kill = p.sim.now, time.perf_counter()
@@ -5339,8 +5384,8 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
           f"platform ({label}): restores {payload.restores}, expected step "
           f"{ckpt_before} byte-equal to the saved tree")
     ran = [i for i, _ in payload.losses]
-    check(sorted(set(ran)) == list(range(PLATFORM_STEPS))
-          and len(ran) > PLATFORM_STEPS,
+    check(sorted(set(ran)) == list(range(n_steps))
+          and len(ran) > n_steps,
           f"platform ({label}): the job ran steps {ran}")
     n_run = len(ran)
     check(launches["flash_attention_bshd"] == cfg.num_layers * n_run
@@ -5350,6 +5395,11 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
           f"over {n_run} steps run")
     job_losses = list(payload.losses)
     final_tree = RealPayload.snapshot(payload)
+    check(("err" in final_tree) == (grad_compression != "none")
+          and ("err" in saved[ckpt_before]) == (grad_compression != "none"),
+          f"platform ({label}): error buffers in the state and the "
+          f"checkpoint under grad_compression {grad_compression!r}: "
+          f"{'err' in final_tree}, {'err' in saved[ckpt_before]}")
     ckpt_bytes = sum(np.asarray(x).nbytes for _, x in
                      tree_leaves(saved[ckpt_before]))
     n_saved = timer.calls["ckpt_save"]
@@ -5361,12 +5411,12 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     RealPayload.restore(payload, None)
-    straight = [RealPayload.step(payload, i) for i in range(PLATFORM_STEPS)]
+    straight = [RealPayload.step(payload, i) for i in range(n_steps)]
     torch.cuda.synchronize()
     straight_s = time.perf_counter() - t0
     straight_launches = dict(ops.launches)
     check(straight_launches["flash_attention_bwd"]
-          == cfg.num_layers * PLATFORM_STEPS,
+          == cfg.num_layers * n_steps,
           f"platform ({label}): the uninterrupted run's launches "
           f"{straight_launches}")
     diffs = [abs(loss - straight[i]) for i, loss in job_losses]
@@ -5383,7 +5433,8 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
     restore_s = sec["restore"] + sec["restore_load"] + sec["restore_verify"]
     other_s = wall - steps_s - ckpt_s - restore_s
     out = dict(
-        job=dict(arch=arch, layers=cfg.num_layers, steps=PLATFORM_STEPS,
+        job=dict(arch=arch, layers=cfg.num_layers, steps=n_steps,
+                 grad_compression=grad_compression,
                  batch=batch, seq=seq,
                  step_time_s=0.5,
                  checkpoint_interval_s=5, platform_seed=21),
@@ -5400,14 +5451,14 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
                      restore_load=sec["restore_load"],
                      restore_verify=sec["restore_verify"],
                      simulation_and_other=other_s),
-        steps_per_s=n_run / wall, useful_steps_per_s=PLATFORM_STEPS / wall,
+        steps_per_s=n_run / wall, useful_steps_per_s=n_steps / wall,
         uninterrupted_s=straight_s,
-        uninterrupted_steps_per_s=PLATFORM_STEPS / straight_s,
+        uninterrupted_steps_per_s=n_steps / straight_s,
         launches=launches, losses_bit_equal=worst == 0.0,
         final_state_byte_equal=state_equal,
         loss_first=job_losses[0][1], loss_last=job_losses[-1][1])
     print(f"  ({label}) {arch} ({cfg.num_layers} layers), "
-          f"{PLATFORM_STEPS}-step job: killed at "
+          f"{n_steps}-step job: killed at "
           f"step {kill_step}, restored checkpoint step {ckpt_before} "
           f"(byte-equal to the saved tree), {final} with {restarts} "
           f"restart; {n_run} steps run; losses {job_losses[0][1]:.4f} -> "
@@ -5422,12 +5473,427 @@ def run_platform_train(dev, seed, arch="paper-overhead-100m", layers=0,
           f"(rebuild {sec['restore']:.3f}, load {sec['restore_load']:.3f}, "
           f"verify {sec['restore_verify']:.3f}), simulation and other "
           f"{other_s:.3f}; {n_run / wall:.3f} steps/s under the platform "
-          f"({PLATFORM_STEPS / wall:.3f} useful) vs "
-          f"{PLATFORM_STEPS / straight_s:.3f} uninterrupted; recovery "
+          f"({n_steps / wall:.3f} useful) vs "
+          f"{n_steps / straight_s:.3f} uninterrupted; recovery "
           f"{recovery:.2f} virtual s", flush=True)
     del payload, final_tree
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# The compression phase ((t1c), (p4)): (t1) under each of the train
+# step's gradient compressions, in turns within one call
+COMP_KINDS = ("none", "int8", "topk")     # topk at CompressionConfig's 0.05
+COMP_STEPS = 30
+COMP_PARITY = dict(num_layers=2, vocab_size=16_384)   # fp32 cuda vs cpu
+COMP_PARITY_BATCH, COMP_PARITY_SEQ, COMP_PARITY_STEPS = 2, 256, 3
+COMP_LOSS_TOL = 1e-5
+# across devices an int8 element may be a level apart only where its
+# quotient lies this near a half level; after three steps at most this
+# share of the weights may lie more than 1e-5 apart
+COMP_HALF_LEVEL, COMP_PARAM_OFF_SHARE = 2 ** -20, 1e-3
+# (p4): (t1) under int8 as a 14-step job, killed two steps after its one
+# checkpoint, at step 10 (the next would fall at 18 at platform seed 21)
+P4_STEPS, P4_KILL_AFTER, P4_KILL_BEFORE = 14, 10, 18
+
+
+def compression_run(kind, total_steps=COMP_STEPS):
+    """(t1)'s run (lr 1e-3, warmup 3, fp32 master and moments) under
+    ``grad_compression=kind``."""
+    from repro_torch.configs import RunConfig
+    return RunConfig(learning_rate=1e-3, warmup_steps=3,
+                     total_steps=total_steps, grad_compression=kind)
+
+
+def compressed_train_run(cfg, dev, seed, kind, data, held_out_loss):
+    """(t1) from a fresh card-drawn init under ``grad_compression=kind``
+    through ``launch/train.py``'s loop: COMP_STEPS steps of B 8 x S 1,024,
+    flash launches exact (the plain versions barred), finite losses, the
+    held-out batch lower after than before; steps/s, tokens/s, MFU, peak
+    memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.spec import TrainSpec
+    from repro_torch.train.steps import init_train_state
+
+    B, S = PLATFORM_BATCH, PLATFORM_SEQ
+    run = compression_run(kind)
+    t = TrainSpec(total_steps=COMP_STEPS, global_batch=B, seq_len=S,
+                  learning_rate=1e-3, reduced=False, log_every=10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, seed=seed, run=run, device=dev,
+                             draws="device")
+    check(("err" in state) == (kind != "none"),
+          f"(t1c) {kind}: error buffers in the fresh state")
+    before = held_out_loss(state)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with PlainVersionsBarred():
+        r = train_cli.train(cfg, t, seed=seed, device=dev, run=run,
+                            state=state, log=lambda s: None)
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in r["metrics"]]
+    after = held_out_loss(r["state"])
+    check(all(map(math.isfinite, losses)),
+          f"(t1c) {kind}: non-finite loss in {losses}")
+    check(after < before, f"(t1c) {kind}: the held-out batch's loss did not "
+          f"fall ({before} at init, {after} after)")
+    per_step = train_launches_per_step(cfg, 1, "none")
+    check(all(n == per_step.get(name, 0) * COMP_STEPS
+              for name, n in launches.items()),
+          f"(t1c) {kind}: launches {launches}, expected {per_step} a step "
+          f"over {COMP_STEPS} steps and no other kernel")
+    flops, _ = train_flops(cfg, B * S, S, B)
+    return dict(kind=kind, losses=losses, held_out_before=before,
+                held_out_after=after, steps_per_s=r["steps_per_s"],
+                tokens_per_s=r["tokens_per_s"], timed_steps=r["timed_steps"],
+                mfu=flops * r["steps_per_s"] / PEAK_FLOPS["bfloat16"],
+                peak_mem_gb=peak_gb, launches=launches), r["state"]
+
+
+def error_feedback_identity(cfg, state, batch, ctx, comp, stacks):
+    """On (t1)'s gradient tree (the state's weights on ``batch``) and the
+    state's carried error: elements where sent + err_new differs from
+    grad + err_old, over all of them (fp32, leaf by leaf)."""
+    import torch
+    from repro_torch.dist.compression import compress_grads
+    from repro_torch.models.params import compute_params
+    from repro_torch.train.steps import loss_fn
+
+    names, leaves = zip(*state["params"].named_parameters())
+    loss, _ = loss_fn(cfg, compute_params(state["params"], ctx.dtype), batch,
+                      ctx)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    with torch.no_grad():
+        sent, err = compress_grads(grads, state["err"], comp, stacks)
+        bad = sum(int(((sent[n].float() + err[n])
+                       != (grads[n].float() + state["err"][n])).sum())
+                  for n in names)
+        sent_nonzero = sum(int(sent[n].count_nonzero()) for n in names)
+    return dict(mismatched=bad, elements=sum(p.numel() for p in leaves),
+                sent_nonzero=sent_nonzero)
+
+
+def compress_cuda_vs_cpu(grads, err, comp, groups, stacks):
+    """``compress_grads`` of one gradient tree and residual on the card and,
+    copied, on the CPU.  The sent values and the new residuals must be
+    bit-equal; an int8 element may be one level apart only where its
+    quotient target / scale lies within COMP_HALF_LEVEL of a half level
+    (as ``tests/test_torch_compression.py`` allows XLA's reciprocal).
+    Returns the elements compared, those that differ and those of them
+    the half level does not explain."""
+    import torch
+    from repro_torch.dist.compression import _blocks, _scales, compress_grads
+
+    host_g = {n: t.cpu() for n, t in grads.items()}
+    host_e = {n: t.cpu() for n, t in err.items()}
+    with torch.no_grad():
+        sc, ec = compress_grads(grads, err, comp, stacks)
+        sh, eh = compress_grads(host_g, host_e, comp, stacks)
+        sc = {n: t.cpu() for n, t in sc.items()}
+        ec = {n: t.cpu() for n, t in ec.items()}
+    total = differ = unexplained = 0
+    for g in groups:
+        a = torch.stack([sc[n] for n in g]).reshape(-1)
+        b = torch.stack([sh[n] for n in g]).reshape(-1)
+        off = (a != b) | (torch.stack([ec[n] for n in g]).reshape(-1)
+                          != torch.stack([eh[n] for n in g]).reshape(-1))
+        total += a.numel()
+        n_off = int(off.sum())
+        differ += n_off
+        if not n_off:
+            continue
+        if comp.kind != "int8":
+            unexplained += n_off
+            continue
+        blocks = _blocks(torch.stack([host_g[n].float() + host_e[n]
+                                      for n in g]), comp.chunk_size)
+        scales = _scales(blocks, comp.levels)
+        safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+        q = (blocks / safe[:, None]).reshape(-1)[:a.numel()].double().abs()
+        level = safe[:, None].expand_as(blocks).reshape(-1)[:a.numel()]
+        near = (q.frac() - 0.5).abs() <= COMP_HALF_LEVEL * q.clamp(min=1)
+        one = (a - b).abs() <= level * (1 + 1e-6)
+        unexplained += int((off & ~((a != b) & near & one)).sum())
+    return dict(elements=total, differ=differ, unexplained=unexplained)
+
+
+def compression_parity(cfg, dev, seed):
+    """fp32 cuda vs cpu under int8 at (t1) cut to 2 layers and a
+    vocabulary of 16,384 (B 2 x S 256).
+
+    The compression itself: one gradient tree computed on the card (the
+    card's weights after three int8 steps, on the next batch) and the
+    card's residual, copied to the CPU; ``compress_grads`` on both devices
+    must give the same sent values and residuals bit for bit
+    (``compress_cuda_vs_cpu``), under int8 per tensor over the tree and
+    under top-k over its layer stacks.
+
+    The train step: three int8 steps on the card and on the CPU from the
+    same host-drawn weights.  Losses within COMP_LOSS_TOL relative; the
+    devices' fp32 gradients differ by rounding, so an element near a half
+    level is sent one level apart and its weight moves apart: at most
+    COMP_PARAM_OFF_SHARE of the weights may lie more than 1e-5 apart.
+    Three uncompressed steps on the card from the same weights must lie
+    past that bound, so that it tells int8 from no compression."""
+    import torch
+    from repro_torch.convert import reference_stacks
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.dist.compression import CompressionConfig
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import abstract_params, compute_params
+    from repro_torch.train import steps as steps_mod
+
+    cfg = dataclasses.replace(cfg, **COMP_PARITY)
+    data = SyntheticLMData(cfg.vocab_size, COMP_PARITY_SEQ,
+                           COMP_PARITY_BATCH, seed)
+    stacks = reference_stacks(cfg)
+    stacked = {n for st in stacks for n in st}
+    groups = stacks + [[n] for n in abstract_params(cfg) if n not in stacked]
+    cpu = torch.device("cpu")
+
+    def three_steps(d, kind):
+        run = compression_run(kind, COMP_PARITY_STEPS)
+        state = steps_mod.init_train_state(cfg, seed=seed, run=run, device=d)
+        step = steps_mod.make_train_step(
+            cfg, Ctx(device=d, dtype=torch.float32), run)
+        losses = [float(step(state, data.batch_at(i, d))[1]["loss"])
+                  for i in range(COMP_PARITY_STEPS)]
+        return losses, state
+
+    losses, weights = {}, {}
+    card, host, plain = "card int8", "cpu int8", "card none"
+    for key, d, kind in ((card, dev, "int8"), (host, cpu, "int8"),
+                         (plain, dev, "none")):
+        losses[key], state = three_steps(d, kind)
+        weights[key] = {n: p.detach().cpu() for n, p in
+                        state["params"].named_parameters()}
+        if key == card:
+            ctx = Ctx(device=dev, dtype=torch.float32)
+            names, leaves = zip(*state["params"].named_parameters())
+            loss, _ = steps_mod.loss_fn(
+                cfg, compute_params(state["params"], ctx.dtype),
+                data.batch_at(COMP_PARITY_STEPS, dev), ctx)
+            grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+            err = dict(state["err"])
+        del state
+    compress = {}
+    # int8 over the whole tree; top-k (a sort on the CPU, seconds) over
+    # the layer stacks
+    for label, kw, names, gs in (
+            ("int8 per tensor", {}, list(grads), groups),
+            ("topk 0.05, layer stacks", dict(kind="topk"), sorted(stacked),
+             stacks)):
+        compress[label] = compress_cuda_vs_cpu(
+            {n: grads[n] for n in names}, {n: err[n] for n in names},
+            CompressionConfig(**kw), gs, stacks)
+        check(compress[label]["unexplained"] == 0,
+              f"compression parity: {label} on the card and on the CPU "
+              f"differ at {compress[label]['unexplained']} elements of one "
+              f"gradient tree away from a half level")
+    del grads, err
+    worst_loss = max(abs(a - b) / abs(b) for a, b in
+                     zip(losses[card], losses[host]))
+    check(worst_loss <= COMP_LOSS_TOL, f"compression parity: losses "
+          f"{losses} differ by {worst_loss} relative")
+    n_weights = sum(w.numel() for w in weights[host].values())
+    bound = int(COMP_PARAM_OFF_SHARE * n_weights)
+
+    def off(key):
+        return sum(int(((weights[key][n] - w).abs() > 1e-5).sum())
+                   for n, w in weights[host].items())
+
+    param_off, plain_off = off(card), off(plain)
+    check(param_off <= bound, f"compression parity: {param_off:,} weights "
+          f"more than 1e-5 apart, past {bound:,}")
+    check(plain_off > bound, f"compression parity: uncompressed steps leave "
+          f"only {plain_off:,} weights more than 1e-5 from the CPU's int8 "
+          f"run, within the bound {bound:,}: it cannot tell them apart")
+    return dict(config=f"paper-overhead-100m, {cfg.num_layers} layers, "
+                f"vocabulary {cfg.vocab_size:,}, B {COMP_PARITY_BATCH} x S "
+                f"{COMP_PARITY_SEQ}, fp32",
+                steps=COMP_PARITY_STEPS, losses=losses,
+                loss_rel_diff=worst_loss,
+                loss_rel_diff_uncompressed=max(
+                    abs(a - b) / abs(b) for a, b in
+                    zip(losses[plain], losses[host])),
+                compress_one_tree=compress, weights=n_weights,
+                weights_off_1e5=param_off, weights_off_1e5_bound=bound,
+                weights_off_1e5_uncompressed=plain_off,
+                weights_max_abs_diff=max(
+                    float((weights[card][n] - w).abs().max())
+                    for n, w in weights[host].items()))
+
+
+def one_rank_allreduce(dev, x, comp):
+    """The int8 all-reduce over a one-rank NCCL group (a world of one on
+    the card): bit-equal to the pack/unpack round trip."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.compression import (
+        pack_int8, sharded_allreduce_int8, unpack_int8)
+    from repro_torch.dist.mesh import init_world_of_one, make_host_mesh
+
+    check(not dist.is_initialized(), "a process group was already "
+          "initialised before the one-rank all-reduce")
+    init_world_of_one(dev)
+    try:
+        mesh = make_host_mesh(dev)
+        out = sharded_allreduce_int8(x, mesh, "data", comp)
+        want = unpack_int8(*pack_int8(x, comp), x.shape)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(out, want))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    check(ok, "one-rank NCCL all-reduce: not bit-equal to pack/unpack")
+    return dict(backend=backend, shape=list(x.shape),
+                chunk_size=comp.chunk_size, bit_equal=ok)
+
+
+def run_compression_phase(dev, seed):
+    """The train step's gradient compression on the card.  (t1c): (t1)
+    under grad_compression none, int8 and topk in turns (its own loop,
+    one call), one traced step of each kind, a compression's with its
+    ``dist.compress_grads`` range (one pass in a fixed order: its rates
+    carry the order's warm-up, so the kinds are compared by the traced
+    steps' device busy time and launches); the int8 wire bytes of (t1)'s gradient tree against fp32; the
+    error-feedback identity on (t1)'s gradient tree; fp32 cuda-vs-cpu
+    parity of three compressed steps; (p4) an int8 platform job killed
+    after a checkpoint, bit-equal to an uninterrupted run, error buffers
+    included; the int8 all-reduce on a one-rank NCCL group."""
+    import torch
+    from repro_torch.convert import reference_stacks
+    from repro_torch.dist.compression import (
+        CompressionConfig, resolve_compression, wire_bytes_int8)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.spec import TrainSpec
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import abstract_params, compute_params
+    from repro_torch.train.steps import loss_fn, make_train_step
+
+    t0 = time.perf_counter()
+    parts_s = {}
+    cfg = train_cli.config_of("paper-overhead-100m", reduced=False)
+    ctx = Ctx(device=dev, dtype=torch.bfloat16)
+    data = train_cli.batches_of(cfg, TrainSpec(seq_len=PLATFORM_SEQ,
+                                               global_batch=PLATFORM_BATCH),
+                                seed)
+    held = data.batch_at(HELD_OUT_STEP, dev)
+
+    def held_out_loss(st):
+        with torch.no_grad():
+            return float(loss_fn(cfg, compute_params(st["params"],
+                                                     ctx.dtype), held,
+                                 ctx)[0])
+
+    runs, traces, identity = {}, {}, {}
+    stacks = reference_stacks(cfg)
+    for kind in COMP_KINDS:
+        runs[kind], state = compressed_train_run(cfg, dev, seed, kind, data,
+                                                 held_out_loss)
+        r = runs[kind]
+        print(f"  (t1c) {kind}: {COMP_STEPS} steps, loss {r['losses'][0]:.4f}"
+              f" -> {r['losses'][-1]:.4f} (held-out {r['held_out_before']:.4f}"
+              f" -> {r['held_out_after']:.4f}); {r['steps_per_s']:.3f} "
+              f"steps/s, {r['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{r['mfu']:.3f}, peak {r['peak_mem_gb']:.2f} GB; launches "
+              f"{r['launches']}", flush=True)
+        step = make_train_step(cfg, ctx, compression_run(kind))
+        tr = trace_train_step(step, state, data.batch_at(COMP_STEPS, dev),
+                              ranges=() if kind == "none"
+                              else ("dist.compress_grads",))
+        traces[kind] = tr
+        del step
+        rg = tr["ranges"].get("dist.compress_grads")
+        print(f"    traced step: wall {tr['wall_s'] * 1e3:.1f} ms, busy "
+              f"{tr['device_busy_s'] * 1e3:.1f} ms, idle share "
+              f"{tr['idle_share']:.3f}, {tr['launches']} launches" + (
+                  f"; dist.compress_grads {rg['device_ms']:.2f} device ms, "
+                  f"{rg['launches']} launches" if rg else ""), flush=True)
+        if kind != "none":
+            identity[kind] = error_feedback_identity(
+                cfg, state, data.batch_at(COMP_STEPS + 1, dev), ctx,
+                resolve_compression(kind), stacks)
+            print(f"    error feedback: sent + err_new != grad + err_old at "
+                  f"{identity[kind]['mismatched']} of "
+                  f"{identity[kind]['elements']:,} elements", flush=True)
+            check(identity[kind]["mismatched"] == 0,
+                  f"(t1c) {kind}: the error-feedback identity fails at "
+                  f"{identity[kind]['mismatched']} elements")
+        if kind == "int8":
+            # the largest leaf of (t1)'s gradient tree, at the card
+            x = next(t for n, t in state["err"].items()
+                     if t.numel() == max(e.numel()
+                                         for e in state["err"].values()))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    parts_s["t1c"] = time.perf_counter() - t0
+    shapes = abstract_params(cfg)
+    fp32_bytes = 4 * sum(p.numel() for p in shapes.values())
+    by_leaf = [sum(shapes[n].numel() for n in g) for g in stacks] + [
+        shapes[n].numel() for n in shapes
+        if not any(n in g for g in stacks)]
+    wire = sum(wire_bytes_int8(torch.empty(n, device="meta"))
+               for n in by_leaf)
+    wire_chunked = sum(wire_bytes_int8(torch.empty(n, device="meta"),
+                                       CompressionConfig(chunk_size=4096))
+                       for n in by_leaf)
+    print(f"  int8 wire bytes of (t1)'s gradient tree ({len(by_leaf)} "
+          f"reference leaves): {wire:,} per tensor, {wire_chunked:,} in "
+          f"chunks of 4,096, against {fp32_bytes:,} in fp32 "
+          f"({fp32_bytes / wire:.3f}x)", flush=True)
+    t1 = time.perf_counter()
+    parity = compression_parity(cfg, dev, seed)
+    parts_s["parity"] = time.perf_counter() - t1
+    print(f"  fp32 cuda vs cpu ({parity['config']}): one gradient tree of "
+          f"the card compressed on both devices, elements apart: " + ", ".join(
+              f"{k} {v['differ']} of {v['elements']:,}" for k, v in
+              parity["compress_one_tree"].items()) +
+          f"; three int8 steps: losses within {parity['loss_rel_diff']:.2e} "
+          f"relative, weights more than 1e-5 apart at "
+          f"{parity['weights_off_1e5']:,} (bound "
+          f"{parity['weights_off_1e5_bound']:,}, max "
+          f"{parity['weights_max_abs_diff']:.3e}); uncompressed card steps: "
+          f"losses {parity['loss_rel_diff_uncompressed']:.2e} relative, "
+          f"weights at {parity['weights_off_1e5_uncompressed']:,}",
+          flush=True)
+    t1 = time.perf_counter()
+    p4 = run_platform_train(dev, seed, label="p4", n_steps=P4_STEPS,
+                            kill_after=P4_KILL_AFTER,
+                            kill_before=P4_KILL_BEFORE,
+                            grad_compression="int8")
+    parts_s["p4"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    allreduce = {"per_tensor": one_rank_allreduce(dev, x, CompressionConfig()),
+                 "chunked": one_rank_allreduce(
+                     dev, x, CompressionConfig(chunk_size=4096))}
+    del x
+    parts_s["allreduce"] = time.perf_counter() - t1
+    print(f"  one-rank NCCL all-reduce of a {allreduce['chunked']['shape']} "
+          f"leaf, per tensor and in chunks of 4,096: bit-equal to "
+          f"pack/unpack", flush=True)
+    # one pass in a fixed order: the rates carry the order's warm-up, so
+    # what is compared across kinds is the traced step's device work
+    base = traces["none"]
+    out = dict(runs=runs, traces=traces, error_feedback=identity,
+               wire_bytes=dict(per_tensor=wire, chunked_4096=wire_chunked,
+                               fp32=fp32_bytes, reference_leaves=len(by_leaf)),
+               traced_vs_none={k: dict(
+                   busy_ms=(traces[k]["device_busy_s"]
+                            - base["device_busy_s"]) * 1e3,
+                   launches=traces[k]["launches"] - base["launches"])
+                   for k in COMP_KINDS if k != "none"},
+               parity=parity, platform=p4, allreduce=allreduce,
+               seconds_by_part=parts_s)
+    print("  seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts_s.items()), flush=True)
     return out
 
 
@@ -5886,6 +6352,15 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                     batch=4, seq=4096, label="p3"),
                 "serve": run_platform_serve(dev, seed)}
     mark("platform")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[compression] (t1c) paper-overhead-100m's (t1) under the train "
+          "step's gradient compression (none, int8, topk), the "
+          "error-feedback identity, fp32 parity, (p4) an int8 platform job "
+          "killed and restored, the int8 all-reduce on one NCCL rank",
+          flush=True)
+    compression = run_compression_phase(dev, seed)
+    mark("compression")
 
     main_run = runs["a_no_prefix_cache"]
     fl = next(r for r in flash_rows if r["label"] == "qwen3 S1024")
@@ -6209,6 +6684,7 @@ def run_phases(dev, card, build_s, phase_s, t_mark, t_start, worker) -> int:
                       "train": train,
                       "moe_layer": moe_layer,
                       "platform": platform,
+                      "compression": compression,
                       "build_s": build_s, "phase_s": phase_s,
                       "total_s": time.perf_counter() - t_start}))
     print("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())

@@ -184,11 +184,14 @@ def src_len_for(cfg: ModelConfig, seq_len: int) -> int:
 @dataclass(frozen=True)
 class RunConfig:
     """The per-(arch, shape) training knobs the port reads (the fields of
-    the reference's ``RunConfig`` that its train step uses).  Microbatches
-    and remat are a memory-fit decision; ``master_dtype`` and
-    ``opt_dtype`` are the storage types of the weights (matrices) and of
-    the AdamW moments; ``grad_compression`` other than ``"none"`` comes
-    with the port of ``dist/compression.py``."""
+    the reference's ``RunConfig`` that its train step and its placement
+    rules use).  Microbatches and remat are a memory-fit decision;
+    ``master_dtype`` and ``opt_dtype`` are the storage types of the weights
+    (matrices) and of the AdamW moments; ``sharding_overrides`` remaps
+    logical axes for the run (``dist/sharding.py:ShardingRules.override``;
+    no meaning on one card); ``grad_compression``
+    (``"none"``, ``"int8"`` or ``"topk"``) compresses the step's gradients
+    with error feedback (``dist/compression.py``)."""
 
     num_microbatches: int = 1
     remat_policy: str = "none"       # none | dots | full
@@ -199,6 +202,8 @@ class RunConfig:
     total_steps: int = 10_000
     master_dtype: str = "float32"
     opt_dtype: str = "float32"
+    # ((logical_axis, (mesh_axes, ...)), ...)
+    sharding_overrides: Tuple[Tuple[str, Tuple[str, ...]], ...] = ()
     grad_compression: str = "none"
 
 

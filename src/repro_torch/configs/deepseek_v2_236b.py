@@ -31,8 +31,9 @@ CONFIG = register(ModelConfig(
 
 # The reference's train_4k run: bf16 master weights and bf16 moments (fp32
 # master and moments would not fit its 256-chip mesh), 16 microbatches,
-# full remat.  Its sharding override (the residual stream's sequence axis
-# over "model") waits for the port of the mesh.
+# full remat, and its sharding override (the residual stream's sequence
+# axis over "model"; read by dist/sharding.py, no meaning on one card).
 register_run("deepseek-v2-236b", "train_4k",
              RunConfig(num_microbatches=16, remat_policy="full",
-                       master_dtype="bfloat16", opt_dtype="bfloat16"))
+                       master_dtype="bfloat16", opt_dtype="bfloat16",
+                       sharding_overrides=(("resid_seq", ("model",)),)))

@@ -25,10 +25,12 @@ CONFIG = register(ModelConfig(
 ))
 
 # The reference's two runs.  train_4k: 16 microbatches, full remat, fp32
-# master weights and moments.  decode_32k sets only sharding overrides
-# (weight-stationary decode), as train_4k's sequence-parallel residuals
-# are: they have no meaning on one card and wait for the port of the mesh,
-# so its port is the default run.
+# master weights and moments, sequence-parallel residuals.  decode_32k sets
+# only sharding overrides (weight-stationary decode).  The overrides are
+# read by dist/sharding.py and have no meaning on one card.
 register_run("internvl2-76b", "train_4k",
-             RunConfig(num_microbatches=16, remat_policy="full"))
-register_run("internvl2-76b", "decode_32k", RunConfig())
+             RunConfig(num_microbatches=16, remat_policy="full",
+                       sharding_overrides=(("resid_seq", ("model",)),)))
+register_run("internvl2-76b", "decode_32k",
+             RunConfig(sharding_overrides=(("batch", ()),
+                                           ("embed_act", ("data",)))))

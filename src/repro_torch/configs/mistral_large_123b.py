@@ -19,9 +19,12 @@ CONFIG = register(ModelConfig(
 ))
 
 # The reference's train_4k run: 8 microbatches, full remat, fp32 master
-# weights and moments.  Its sharding overrides (sequence-parallel
-# residuals; the decode_32k run's weight-stationary decode, which sets
-# nothing else) have no meaning on one card: they wait for the port of
-# the mesh.
+# weights and moments, sequence-parallel residuals; its decode_32k run sets
+# only a weight-stationary decode's overrides.  The overrides are read by
+# dist/sharding.py and have no meaning on one card.
 register_run("mistral-large-123b", "train_4k",
-             RunConfig(num_microbatches=8, remat_policy="full"))
+             RunConfig(num_microbatches=8, remat_policy="full",
+                       sharding_overrides=(("resid_seq", ("model",)),)))
+register_run("mistral-large-123b", "decode_32k",
+             RunConfig(sharding_overrides=(("batch", ()),
+                                           ("embed_act", ("data",)))))

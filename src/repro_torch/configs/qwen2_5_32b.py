@@ -19,9 +19,17 @@ CONFIG = register(ModelConfig(
 ))
 
 # The reference's train_4k run: 16 microbatches, full remat, fp32 master
-# weights and moments.  Its sharding overrides (context-parallel attention
-# and residuals, the sequence axes over "model"; and the reference's
-# prefill_32k and decode_32k runs, which set nothing else) have no meaning
-# on one card: they wait for the port of the mesh.
+# weights and moments, context-parallel attention and residuals (the
+# sequence axes over "model"); its prefill_32k and decode_32k runs set only
+# sharding overrides.  The overrides are read by dist/sharding.py and have
+# no meaning on one card.
 register_run("qwen2.5-32b", "train_4k",
-             RunConfig(num_microbatches=16, remat_policy="full"))
+             RunConfig(num_microbatches=16, remat_policy="full",
+                       sharding_overrides=(("seq", ("model",)),
+                                           ("resid_seq", ("model",)))))
+register_run("qwen2.5-32b", "prefill_32k",
+             RunConfig(sharding_overrides=(("seq", ("model",)),
+                                           ("resid_seq", ("model",)))))
+register_run("qwen2.5-32b", "decode_32k",
+             RunConfig(sharding_overrides=(("batch", ()),
+                                           ("embed_act", ("data",)))))

@@ -20,4 +20,5 @@ CONFIG = register(ModelConfig(
 ))
 
 register_run("rwkv6-7b", "train_4k",
-             RunConfig(num_microbatches=2, remat_policy="full"))
+             RunConfig(num_microbatches=2, remat_policy="full",
+                       sharding_overrides=(("resid_seq", ("model",)),)))

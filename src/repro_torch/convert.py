@@ -15,15 +15,17 @@ into ``decoder/{prefix,groups,tail}`` and ``encoder_blocks.{i}`` into
 ``encoder/{groups,tail}``.
 
 ``train_state_from_jax`` / ``train_state_to_jax`` carry a whole train
-state across (the reference's ``{params, opt: {m, v, count}, step}``, as
-numpy trees; the moments are keyed like the parameters), so a state
-written by one package can continue in the other;
-``overlay_train_state`` loads such a tree into an existing state in place
-(the platform learner's restore, ``core/learner.py``).
+state across (the reference's ``{params, opt: {m, v, count}, step}`` and,
+under gradient compression, ``err``, as numpy trees; the moments and the
+error buffers are keyed like the parameters), so a state written by one
+package can continue in the other; ``overlay_train_state`` loads such a
+tree into an existing state in place (the platform learner's restore,
+``core/learner.py``).  ``reference_stacks`` names the port's leaves that
+the reference stacks into one leaf.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +67,44 @@ def _layout(cfg: ModelConfig, stack: str = "decoder") -> Tuple[int, int, int]:
         return pat, 0, cfg.num_encoder_layers // pat
     first = cfg.first_k_dense
     return pat, first, (cfg.num_layers - first) // pat
+
+
+def reference_path(cfg: ModelConfig, name: str
+                   ) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """The reference's tree path of the port's leaf ``name`` and, for a
+    leaf of a stacked group (``decoder/groups``, ``encoder/groups``), its
+    index in the stack (None elsewhere)."""
+    path = name.split(".")
+    stack_of = {blocks: stack for stack, blocks in STACKS.items()}
+    if path[0] not in stack_of:
+        return tuple(path), None
+    stack = stack_of[path[0]]
+    pat, first, n_groups = _layout(cfg, stack)
+    i, rest = int(path[1]), tuple(path[2:])
+    if i < first:
+        return (stack, "prefix", str(i)) + rest, None
+    g, j = divmod(i - first, pat)
+    if g < n_groups:
+        return (stack, "groups", str(j)) + rest, g
+    return (stack, "tail", str(j)) + rest, None
+
+
+def reference_stacks(cfg: ModelConfig, names=None) -> List[List[str]]:
+    """The port's parameter names (``names``, by default every parameter
+    of ``cfg``'s model) that the reference stacks into one leaf of
+    ``decoder/groups`` or ``encoder/groups``, a list per leaf in the
+    stack's order: what a per-tensor reduction over the reference's tree
+    (gradient compression's scale or top-k) spans."""
+    if names is None:
+        from repro_torch.models.params import Model
+        names = [n for n, _ in Model(cfg, device="meta").named_parameters()]
+    stacks: Dict[Tuple[str, ...], list] = {}
+    for name in names:
+        path, g = reference_path(cfg, name)
+        if g is not None:
+            n_groups = _layout(cfg, path[0])[2]
+            stacks.setdefault(path, [None] * n_groups)[g] = name
+    return list(stacks.values())
 
 
 def params_from_jax(tree, cfg: ModelConfig, *,
@@ -133,26 +173,15 @@ def params_to_jax(state: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     ``decoder/groups/{j}`` or to ``decoder/tail/{j}``, and
     ``encoder_blocks.{i}`` to ``encoder/groups`` or ``encoder/tail``."""
     check_ported(cfg)
-    stack_of = {blocks: stack for stack, blocks in STACKS.items()}
     out: Dict = {}
     stacks: Dict[Tuple[str, ...], list] = {}
     for name, t in state.items():
-        path = name.split(".")
-        if path[0] not in stack_of:
-            _nest(out, path, _numpy(t))
-            continue
-        stack = stack_of[path[0]]
-        pat, first, n_groups = _layout(cfg, stack)
-        i, rest = int(path[1]), path[2:]
-        if i < first:
-            _nest(out, [stack, "prefix", str(i)] + rest, _numpy(t))
-            continue
-        g, j = divmod(i - first, pat)
-        if g < n_groups:
-            key = (stack, "groups", str(j), *rest)
-            stacks.setdefault(key, [None] * n_groups)[g] = t
+        path, g = reference_path(cfg, name)
+        if g is None:
+            _nest(out, list(path), _numpy(t))
         else:
-            _nest(out, [stack, "tail", str(j)] + rest, _numpy(t))
+            n_groups = _layout(cfg, path[0])[2]
+            stacks.setdefault(path, [None] * n_groups)[g] = t
     for key, ts in stacks.items():
         _nest(out, list(key), _stacked(ts))
     return out
@@ -160,8 +189,9 @@ def params_to_jax(state: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
 
 def train_state_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
     """The reference's train state (numpy tree: ``params``, ``opt.m``,
-    ``opt.v``, ``opt.count``, ``step``) as the port's, on ``device``
-    (``cuda`` unless the caller names one); moments keep their dtype."""
+    ``opt.v``, ``opt.count``, ``step`` and, under compression, ``err``) as
+    the port's, on ``device`` (``cuda`` unless the caller names one);
+    moments and error buffers keep their dtype."""
     from repro_torch.models.layers import resolve_device
     from repro_torch.models.params import Model, make_trainable
     from repro_torch.train.steps import new_train_state
@@ -180,6 +210,9 @@ def train_state_from_jax(tree, cfg: ModelConfig, device=None) -> Dict:
     for part in ("m", "v"):
         state["opt"][part] = {n: t.to(dev) for n, t in params_from_jax(
             tree["opt"][part], cfg, copy=copy).items()}
+    if "err" in tree:
+        state["err"] = {n: t.to(dev) for n, t in params_from_jax(
+            tree["err"], cfg, copy=copy).items()}
     state["opt"]["count"] = torch.tensor(int(tree["opt"]["count"]),
                                          dtype=torch.int32, device=dev)
     state["step"] = torch.tensor(int(tree["step"]), dtype=torch.int32,
@@ -206,14 +239,27 @@ def overlay_train_state(state: Dict, tree) -> Dict:
     :func:`train_state_from_jax` takes it) into the port's ``state`` in
     place: every leaf is copied into the tensor the state holds, on its
     device and in its dtype (the reference's restore casts to the current
-    leaf's dtype the same way).  Returns ``state``."""
+    leaf's dtype the same way).  The error buffers come along where the
+    state has them; a tree with them and a state without (or the other
+    way round) is refused before anything is copied.  Returns
+    ``state``."""
     cfg = state["params"].cfg
+    if ("err" in tree) != ("err" in state):
+        def has(d):
+            return "holds" if "err" in d else "lacks"
+        raise ValueError(
+            f"err: the tree {has(tree)} error buffers and the state "
+            f"{has(state)} them (one train step compresses its gradients "
+            "and the other does not)")
     _copy_into(dict(state["params"].named_parameters()),
                params_from_jax(tree["params"], cfg, copy=False), "params")
     for part in ("m", "v"):
         _copy_into(state["opt"][part],
                    params_from_jax(tree["opt"][part], cfg, copy=False),
                    f"opt/{part}")
+    if "err" in state:
+        _copy_into(state["err"], params_from_jax(tree["err"], cfg,
+                                                 copy=False), "err")
     state["opt"]["count"].fill_(int(tree["opt"]["count"]))
     state["step"].fill_(int(tree["step"]))
     return state
@@ -222,10 +268,13 @@ def overlay_train_state(state: Dict, tree) -> Dict:
 def train_state_to_jax(state: Dict, cfg: ModelConfig) -> Dict:
     """The port's train state as the reference's numpy tree."""
     params = dict(state["params"].named_parameters())
-    return {
+    out = {
         "params": params_to_jax(params, cfg),
         "opt": {"m": params_to_jax(state["opt"]["m"], cfg),
                 "v": params_to_jax(state["opt"]["v"], cfg),
                 "count": np.asarray(int(state["opt"]["count"]), np.int32)},
         "step": np.asarray(int(state["step"]), np.int32),
     }
+    if "err" in state:
+        out["err"] = params_to_jax(state["err"], cfg)
+    return out

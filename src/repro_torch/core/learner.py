@@ -44,7 +44,9 @@ class RealPayload:
     gives a batch (torch tensors or numpy arrays), moved to the state's
     device.  Trees in and out (:meth:`restore`, :meth:`snapshot`) are numpy
     trees in the reference's layout (``convert.train_state_to_jax``), so a
-    checkpoint of either package restores in the other.
+    checkpoint of either package restores in the other; a job whose train
+    step compresses its gradients carries its error buffers (``err``) in
+    both, as the reference's state does.
 
     The payload object outlives its pod: the platform keeps it in
     ``platform.payloads`` across incarnations.  :meth:`restore` therefore

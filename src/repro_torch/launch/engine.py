@@ -10,8 +10,9 @@ the queue on page exhaustion), **finish**, and **snapshot / restore** of
 the whole state as plain host data, so a restored engine continues
 byte-identically.
 
-What differs from the reference: the port has no mesh, so the page pool
-has one shard; the cache (KV pools, local rings, RG-LRU or RWKV state,
+What differs from the reference: the engine serves on one card (the
+port's ``dist/`` builds meshes, but serving on one comes later), so the
+page pool has one shard; the cache (KV pools, local rings, RG-LRU or RWKV state,
 cross K/V) is updated in place, so :meth:`snapshot` copies every device
 tensor to the host.  A decoder-only stack prefills ragged, one batched
 prefill a round; an encoder-decoder (seamless-m4t-medium) prefills each

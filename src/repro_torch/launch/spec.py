@@ -32,8 +32,9 @@ def check_serve_spec(sv: ServeSpec, cfg, continuous=None) -> None:
             "paged cache only (lockstep serving takes the dense one)")
     if sv.mesh != "host":
         raise NotImplementedError(
-            f"serve.mesh {sv.mesh!r}: the port serves on one card (meshes "
-            "come with dist/, ROADMAP Queue 1 item 6)")
+            f"serve.mesh {sv.mesh!r}: the port serves on one card "
+            "(execution on a mesh comes in a later slice, ROADMAP Queue 1 "
+            "item 6)")
     if continuous and cfg.is_encoder_decoder and sv.ragged_prefill:
         # the reference's reason (launch/engine.py), as a refusal
         raise NotImplementedError(
@@ -57,5 +58,6 @@ def check_train_spec(t: TrainSpec) -> None:
     loop does not implement."""
     if t.mesh != "host":
         raise NotImplementedError(
-            f"train.mesh {t.mesh!r}: the port trains on one card (meshes "
-            "come with dist/, ROADMAP Queue 1 item 6)")
+            f"train.mesh {t.mesh!r}: the port trains on one card "
+            "(execution on a mesh comes in a later slice, ROADMAP Queue 1 "
+            "item 6)")

@@ -485,6 +485,47 @@ def num_pages(seq_len: int, page_size: int) -> int:
     return -(-seq_len // page_size)
 
 
+#: The logical axes of each cache leaf (the reference's ``_layer_cache_ab``;
+#: ``dist/sharding.py`` maps them to mesh axes).
+CACHE_AXES = {
+    "k_pages": ("cache_pages", "kv_heads", None, "head_dim"),
+    "v_pages": ("cache_pages", "kv_heads", None, "head_dim"),
+    "ckv_pages": ("cache_pages", None, "lora"),
+    "krope_pages": ("cache_pages", None, None),
+    "page_table": ("cache_batch", None),
+    "k_dense": ("cache_batch", "kv_heads", "kv_seq", "head_dim"),
+    "v_dense": ("cache_batch", "kv_heads", "kv_seq", "head_dim"),
+    "pos_dense": (None,),
+    "ckv": ("cache_batch", "kv_seq", "lora"),
+    "krope": ("cache_batch", "kv_seq", None),
+    "k": ("cache_batch", "kv_heads", "window_seq", "head_dim"),
+    "v": ("cache_batch", "kv_heads", "window_seq", "head_dim"),
+    "pos": ("cache_batch", "window_seq"),
+    "h": ("cache_batch", "rnn"),
+    "conv": ("cache_batch", None, "rnn"),
+    "s": ("cache_batch", "heads", None, None),
+    "shift_tm": ("cache_batch", None),
+    "shift_cm": ("cache_batch", None),
+    "cross_k": ("cache_batch", "kv_heads", "kv_seq", "head_dim"),
+    "cross_v": ("cache_batch", "kv_heads", "kv_seq", "head_dim"),
+}
+
+
+def abstract_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+                   src_len: int = 0, layout: Optional[str] = None,
+                   page_budget: Optional[int] = None) -> Dict:
+    """:func:`init_cache`'s leaves on the meta device, each carrying its
+    logical axes (``logical_axes``, :data:`CACHE_AXES`): the reference's
+    ``abstract_cache`` in the port's layout, nothing allocated."""
+    cache = init_cache(cfg, batch_size, max_len, src_len=src_len,
+                       layout=layout, page_budget=page_budget,
+                       device="meta")
+    for name, leaf in cache.items():
+        for t in (leaf if isinstance(leaf, list) else [leaf]):
+            t.logical_axes = CACHE_AXES[name]
+    return cache
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                src_len: int = 0, layout: Optional[str] = None,
                page_budget: Optional[int] = None,

@@ -10,7 +10,9 @@ layer in a ``ModuleList``.  State-dict keys therefore read
 ``decoder/groups/0/attn/q[i]``.  An encoder-decoder's encoder stack is
 ``encoder_blocks.{i}`` (the reference's ``encoder/groups`` and
 ``encoder/tail``) and its decoder blocks also hold the cross-attention
-leaves ``cross_norm`` and ``cross``.
+leaves ``cross_norm`` and ``cross``.  Every leaf carries its reference
+leaf's logical axes (``logical_axes``, without the stacks' ``layers``
+dim), which ``dist/sharding.py`` maps to mesh axes.
 """
 from __future__ import annotations
 
@@ -29,9 +31,19 @@ from repro_torch.configs.base import (
 Tree = Dict[str, Union[torch.Tensor, "Tree", List["Tree"]]]
 
 
-def _leaf(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                    device=device), requires_grad=False)
+def _leaf(shape, axes, device) -> nn.Parameter:
+    """An fp32 leaf of ``shape`` carrying the logical axes of the
+    reference's leaf (``logical_axes``, one name or None a dim), which
+    ``dist/sharding.py`` maps to mesh axes."""
+    assert len(shape) == len(axes), (shape, axes)
+    p = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
+                     requires_grad=False)
+    p.logical_axes = tuple(axes)
+    return p
+
+
+def _norm(d: int, device) -> nn.Parameter:
+    return _leaf((d,), ("embed",), device)
 
 
 class Attention(nn.Module):
@@ -42,17 +54,19 @@ class Attention(nn.Module):
         super().__init__()
         D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.q = _leaf((D, H, hd), device)
-        self.k = _leaf((D, K, hd), device)
-        self.v = _leaf((D, K, hd), device)
-        self.o = _leaf((H, hd, D), device)
+        self.q = _leaf((D, H, hd), ("embed", "heads", "head_dim"), device)
+        self.k = _leaf((D, K, hd), ("embed", "kv_heads", "head_dim"),
+                       device)
+        self.v = _leaf((D, K, hd), ("embed", "kv_heads", "head_dim"),
+                       device)
+        self.o = _leaf((H, hd, D), ("heads", "head_dim", "embed"), device)
         if cfg.qkv_bias:
-            self.qb = _leaf((H, hd), device)
-            self.kb = _leaf((K, hd), device)
-            self.vb = _leaf((K, hd), device)
+            self.qb = _leaf((H, hd), ("heads", "head_dim"), device)
+            self.kb = _leaf((K, hd), ("kv_heads", "head_dim"), device)
+            self.vb = _leaf((K, hd), ("kv_heads", "head_dim"), device)
         if cfg.qk_norm:
-            self.q_norm = _leaf((hd,), device)
-            self.k_norm = _leaf((hd,), device)
+            self.q_norm = _leaf((hd,), ("head_dim",), device)
+            self.k_norm = _leaf((hd,), ("head_dim",), device)
 
 
 class MLA(nn.Module):
@@ -68,16 +82,20 @@ class MLA(nn.Module):
         D, H = cfg.d_model, cfg.num_heads
         lora, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
         nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
-        self.kv_a = _leaf((D, lora + rd), device)
-        self.kv_norm = _leaf((lora,), device)
-        self.kv_b = _leaf((lora, H, nope + vd), device)
-        self.o = _leaf((H, vd, D), device)
+        self.kv_a = _leaf((D, lora + rd), ("embed", "lora"), device)
+        self.kv_norm = _leaf((lora,), ("lora",), device)
+        self.kv_b = _leaf((lora, H, nope + vd),
+                           ("lora", "heads", "head_dim"), device)
+        self.o = _leaf((H, vd, D), ("heads", "head_dim", "embed"), device)
         if cfg.q_lora_rank:
-            self.q_a = _leaf((D, cfg.q_lora_rank), device)
-            self.q_norm = _leaf((cfg.q_lora_rank,), device)
-            self.q_b = _leaf((cfg.q_lora_rank, H, nope + rd), device)
+            self.q_a = _leaf((D, cfg.q_lora_rank), ("embed", "lora"),
+                             device)
+            self.q_norm = _leaf((cfg.q_lora_rank,), ("lora",), device)
+            self.q_b = _leaf((cfg.q_lora_rank, H, nope + rd),
+                             ("lora", "heads", "head_dim"), device)
         else:
-            self.q = _leaf((D, H, nope + rd), device)
+            self.q = _leaf((D, H, nope + rd), ("embed", "heads", "head_dim"),
+                           device)
 
 
 class DenseFFN(nn.Module):
@@ -86,9 +104,9 @@ class DenseFFN(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, F = cfg.d_model, cfg.d_ff
-        self.wg = _leaf((D, F), device)
-        self.wu = _leaf((D, F), device)
-        self.wd = _leaf((F, D), device)
+        self.wg = _leaf((D, F), ("embed", "ffn"), device)
+        self.wu = _leaf((D, F), ("embed", "ffn"), device)
+        self.wd = _leaf((F, D), ("ffn", "embed"), device)
 
 
 class MoEFFN(nn.Module):
@@ -100,15 +118,18 @@ class MoEFFN(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, E, Fe = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-        self.router = _leaf((D, E), device)
-        self.we_g = _leaf((E, D, Fe), device)
-        self.we_u = _leaf((E, D, Fe), device)
-        self.we_d = _leaf((E, Fe, D), device)
+        self.router = _leaf((D, E), ("embed", "experts"), device)
+        self.we_g = _leaf((E, D, Fe), ("experts", "embed", "expert_ffn"),
+                          device)
+        self.we_u = _leaf((E, D, Fe), ("experts", "embed", "expert_ffn"),
+                          device)
+        self.we_d = _leaf((E, Fe, D), ("experts", "expert_ffn", "embed"),
+                          device)
         if cfg.num_shared_experts:
             Fs = Fe * cfg.num_shared_experts
-            self.ws_g = _leaf((D, Fs), device)
-            self.ws_u = _leaf((D, Fs), device)
-            self.ws_d = _leaf((Fs, D), device)
+            self.ws_g = _leaf((D, Fs), ("embed", "ffn"), device)
+            self.ws_u = _leaf((D, Fs), ("embed", "ffn"), device)
+            self.ws_d = _leaf((Fs, D), ("ffn", "embed"), device)
 
 
 class TimeMix(nn.Module):
@@ -122,19 +143,19 @@ class TimeMix(nn.Module):
         super().__init__()
         D, N = cfg.d_model, cfg.rwkv_head_dim
         rk, rw = cfg.rwkv_ddlerp_rank, cfg.rwkv_decay_rank
-        self.tm_mu = _leaf((6, D), device)
-        self.tm_A = _leaf((D, 5 * rk), device)
-        self.tm_B = _leaf((5, rk, D), device)
-        self.wr = _leaf((D, D), device)
-        self.wk = _leaf((D, D), device)
-        self.wv = _leaf((D, D), device)
-        self.wg = _leaf((D, D), device)
-        self.w_base = _leaf((D,), device)
-        self.ww_A = _leaf((D, rw), device)
-        self.ww_B = _leaf((rw, D), device)
-        self.u = _leaf((D // N, N), device)
-        self.ln_x = _leaf((D,), device)
-        self.wo = _leaf((D, D), device)
+        self.tm_mu = _leaf((6, D), (None, "embed"), device)
+        self.tm_A = _leaf((D, 5 * rk), ("embed", "lora"), device)
+        self.tm_B = _leaf((5, rk, D), (None, "lora", "embed"), device)
+        self.wr = _leaf((D, D), ("embed", "heads"), device)
+        self.wk = _leaf((D, D), ("embed", "heads"), device)
+        self.wv = _leaf((D, D), ("embed", "heads"), device)
+        self.wg = _leaf((D, D), ("embed", "heads"), device)
+        self.w_base = _leaf((D,), ("heads",), device)
+        self.ww_A = _leaf((D, rw), ("embed", "lora"), device)
+        self.ww_B = _leaf((rw, D), ("lora", "heads"), device)
+        self.u = _leaf((D // N, N), ("heads", "head_dim"), device)
+        self.ln_x = _leaf((D,), ("heads",), device)
+        self.wo = _leaf((D, D), ("heads", "embed"), device)
 
 
 class ChannelMix(nn.Module):
@@ -144,11 +165,11 @@ class ChannelMix(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, F = cfg.d_model, cfg.d_ff
-        self.cm_mu_k = _leaf((D,), device)
-        self.cm_mu_r = _leaf((D,), device)
-        self.wk_c = _leaf((D, F), device)
-        self.wv_c = _leaf((F, D), device)
-        self.wr_c = _leaf((D, D), device)
+        self.cm_mu_k = _leaf((D,), ("embed",), device)
+        self.cm_mu_r = _leaf((D,), ("embed",), device)
+        self.wk_c = _leaf((D, F), ("embed", "ffn"), device)
+        self.wv_c = _leaf((F, D), ("ffn", "embed"), device)
+        self.wr_c = _leaf((D, D), ("embed", None), device)
 
 
 class RGLRU(nn.Module):
@@ -160,14 +181,14 @@ class RGLRU(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, R, CW = cfg.d_model, cfg.rnn_width, cfg.conv1d_width
-        self.wx = _leaf((D, R), device)
-        self.wy = _leaf((D, R), device)
-        self.conv_w = _leaf((CW, R), device)
-        self.conv_b = _leaf((R,), device)
-        self.gate_i = _leaf((R, R), device)
-        self.gate_r = _leaf((R, R), device)
-        self.rglru_lambda = _leaf((R,), device)
-        self.wo = _leaf((R, D), device)
+        self.wx = _leaf((D, R), ("embed", "rnn"), device)
+        self.wy = _leaf((D, R), ("embed", "rnn"), device)
+        self.conv_w = _leaf((CW, R), ("conv", "rnn"), device)
+        self.conv_b = _leaf((R,), ("rnn",), device)
+        self.gate_i = _leaf((R, R), (None, "rnn"), device)
+        self.gate_r = _leaf((R, R), (None, "rnn"), device)
+        self.rglru_lambda = _leaf((R,), ("rnn",), device)
+        self.wo = _leaf((R, D), ("rnn", "embed"), device)
 
 
 class Block(nn.Module):
@@ -186,12 +207,12 @@ class Block(nn.Module):
                  dense_ffn: bool = True, cross_attn: bool = False):
         super().__init__()
         D = cfg.d_model
-        self.pre_norm = _leaf((D,), device)
+        self.pre_norm = _norm(D, device)
         if kind == RWKV:
             self.tm = TimeMix(cfg, device)
             if cfg.use_post_block_norm:
-                self.post_norm = _leaf((D,), device)
-            self.cm_norm = _leaf((D,), device)
+                self.post_norm = _norm(D, device)
+            self.cm_norm = _norm(D, device)
             self.cm = ChannelMix(cfg, device)
         else:
             if kind == RECURRENT:
@@ -201,19 +222,19 @@ class Block(nn.Module):
             else:
                 self.attn = Attention(cfg, device)
             if cfg.use_post_block_norm:
-                self.post_norm = _leaf((D,), device)
+                self.post_norm = _norm(D, device)
             if cross_attn:
-                self.cross_norm = _leaf((D,), device)
+                self.cross_norm = _norm(D, device)
                 self.cross = Attention(cfg, device)
                 if cfg.use_post_block_norm:
-                    self.post_cross_norm = _leaf((D,), device)
-            self.ffn_norm = _leaf((D,), device)
+                    self.post_cross_norm = _norm(D, device)
+            self.ffn_norm = _norm(D, device)
             if dense_ffn:
                 self.ffn = DenseFFN(cfg, device)
             else:
                 self.moe = MoEFFN(cfg, device)
         if cfg.use_post_block_norm:
-            self.post_ffn_norm = _leaf((D,), device)
+            self.post_ffn_norm = _norm(D, device)
 
 
 class Model(nn.Module):
@@ -228,20 +249,20 @@ class Model(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         D, V = cfg.d_model, cfg.padded_vocab
-        self.embed = _leaf((V, D), device)
+        self.embed = _leaf((V, D), ("vocab", "embed"), device)
         self.blocks = nn.ModuleList(
             Block(cfg, kind, device,
                   dense_ffn=not cfg.is_moe or i < cfg.first_k_dense,
                   cross_attn=cfg.is_encoder_decoder)
             for i, kind in enumerate(cfg.layer_kinds()))
-        self.final_norm = _leaf((D,), device)
+        self.final_norm = _norm(D, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _leaf((D, V), device)
+            self.lm_head = _leaf((D, V), ("embed", "vocab"), device)
         if cfg.is_encoder_decoder:
             self.encoder_blocks = nn.ModuleList(
                 Block(cfg, kind, device)
                 for kind in cfg.layer_kinds(cfg.num_encoder_layers))
-            self.encoder_norm = _leaf((D,), device)
+            self.encoder_norm = _norm(D, device)
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +362,13 @@ def init_params(model: Model, seed: int, draws: str = "host") -> Model:
         for f in [pool.submit(_draw_chunk, *j) for j in jobs]:
             f.result()
     return model
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, nn.Parameter]:
+    """The model's leaves built on the meta device, by name: shapes,
+    dtypes and logical axes (``logical_axes``) with nothing allocated (the
+    reference's ``abstract_params``, its layer stacks unstacked)."""
+    return dict(Model(cfg, device="meta").named_parameters())
 
 
 def count_params(cfg: ModelConfig, include_embed: bool = False) -> int:

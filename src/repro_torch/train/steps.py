@@ -2,12 +2,14 @@
 
 Training: :func:`loss_fn` (masked mean cross-entropy plus the aux loss),
 :func:`init_train_state` and :func:`make_train_step` (microbatch
-accumulation, global-norm clip, AdamW with the warmup-cosine schedule).
-PyTorch runs eagerly, so there is nothing to jit; a step updates the
-master weights and the moments in place.  The train state is a dict
-``{"params": Model, "opt": {"m", "v", "count"}, "step"}``, the moments
-keyed like the model's parameters (``convert.train_state_to_jax`` gives
-the reference's tree).
+accumulation, optional gradient compression with error feedback,
+global-norm clip, AdamW with the warmup-cosine schedule).  PyTorch runs
+eagerly, so there is nothing to jit; a step updates the master weights,
+the moments and the error buffers in place.  The train state is a dict
+``{"params": Model, "opt": {"m", "v", "count"}, "step"}`` and, under
+compression, ``"err"``: the moments and the error buffers keyed like the
+model's parameters (``convert.train_state_to_jax`` gives the reference's
+tree).
 
 Serving: the prefill and decode steps run under ``torch.inference_mode``
 and update the cache's pools in place (the reference donates the cache
@@ -21,6 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig, check_trainable
+from repro_torch.convert import reference_stacks
+from repro_torch.dist.compression import (
+    CompressionConfig, compress_grads, init_error_buffers,
+    resolve_compression,
+)
 from repro_torch.models.layers import Ctx, resolve_device
 from repro_torch.models.model import forward
 from repro_torch.models.params import (
@@ -54,35 +61,51 @@ def loss_fn(cfg: ModelConfig, params: Tree, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
+def _compression_for(run: RunConfig, flag) -> Optional[CompressionConfig]:
+    """The explicit argument wins (None = unspecified, fall back to the
+    run config's knob; False/"none" = explicit opt-out)."""
+    if flag is None:
+        return resolve_compression(run.grad_compression)
+    return resolve_compression(flag)
+
+
 def init_train_state(cfg: ModelConfig, *, seed: int = 0,
                      run: Optional[RunConfig] = None,
-                     device=None, draws: str = "host") -> TrainState:
+                     device=None, draws: str = "host",
+                     grad_compression=None) -> TrainState:
     """Fresh master weights from ``seed`` (fp32, matrices in the run's
     ``master_dtype``; drawn as :func:`init_params`'s ``draws`` says), zero
     AdamW moments in its ``opt_dtype`` and step 0, on ``device`` (``cuda``
-    unless the caller names one)."""
+    unless the caller names one); under compression (``grad_compression``,
+    else the run's) zero error buffers too."""
     run = run or RunConfig()
     check_trainable(cfg)
     model = make_trainable(
         init_params(Model(cfg, device=resolve_device(device)), seed, draws),
         run.master_dtype)
-    return new_train_state(model, run)
+    return new_train_state(model, run, grad_compression)
 
 
-def new_train_state(model: Model, run: Optional[RunConfig] = None
-                    ) -> TrainState:
+def new_train_state(model: Model, run: Optional[RunConfig] = None,
+                    grad_compression=None) -> TrainState:
     """A train state around ``model``'s master weights (made trainable by
-    the caller): zero moments and step 0."""
+    the caller): zero moments and step 0, and zero fp32 error buffers
+    ``"err"`` when compression is on (``grad_compression``, else the
+    run's knob)."""
     run = run or RunConfig()
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
-    return {"params": model,
-            "opt": adamw_init(params, getattr(torch, run.opt_dtype)),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"params": model,
+             "opt": adamw_init(params, getattr(torch, run.opt_dtype)),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if _compression_for(run, grad_compression) is not None:
+        state["err"] = init_error_buffers(params)
+    return state
 
 
 def make_train_step(cfg: ModelConfig, ctx: Ctx, run: RunConfig,
-                    opt_cfg: Optional[AdamWConfig] = None
+                    opt_cfg: Optional[AdamWConfig] = None,
+                    grad_compression=None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict]]:
     """(state, batch) -> (state, metrics {loss, ce, aux, grad_norm, lr}).
@@ -90,18 +113,21 @@ def make_train_step(cfg: ModelConfig, ctx: Ctx, run: RunConfig,
     (every entry: tokens, labels, an encoder-decoder's ``src_embeds``, a
     vision config's ``frontend_embeds``);
     the fp32 gradients of the microbatches are summed and divided by their
-    count, the loss and metrics averaged.  The state is updated in
+    count, the loss and metrics averaged.  Under compression
+    (``grad_compression``, else ``run.grad_compression``: int8 or top-k,
+    ``dist/compression.py``) the gradients then become what the wire
+    delivers, with the state's ``"err"`` carried forward, before the clip
+    and AdamW; the reference's stacked layers are compressed as one
+    tensor each (``convert.reference_stacks``).  The state is updated in
     place."""
     check_trainable(cfg)
-    if run.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression {run.grad_compression!r} comes with the port "
-            "of dist/compression.py")
     opt_cfg = opt_cfg or AdamWConfig(
         learning_rate=run.learning_rate, weight_decay=run.weight_decay,
         grad_clip_norm=run.grad_clip_norm, warmup_steps=run.warmup_steps,
         total_steps=run.total_steps)
     n_mb = run.num_microbatches
+    comp = _compression_for(run, grad_compression)
+    stacks = reference_stacks(cfg) if comp is not None else None
 
     def grads_of(model: Model, mb):
         names, leaves = zip(*model.named_parameters())
@@ -137,6 +163,21 @@ def make_train_step(cfg: ModelConfig, ctx: Ctx, run: RunConfig,
             loss = lsum / n_mb
             metrics = {k: v / n_mb for k, v in msum.items()}
         params = dict(model.named_parameters())
+        if comp is not None:
+            if "err" not in state:
+                raise ValueError(
+                    "the train step compresses its gradients and the state "
+                    "holds no error buffers: build it with the same run "
+                    "(init_train_state(..., run=, grad_compression=))")
+            # the all-reduced gradient is what the wire delivers: quantize
+            # (with the carried error) before the clip and the optimizer
+            with torch.no_grad(), \
+                    torch.profiler.record_function("dist.compress_grads"):
+                grads, err = compress_grads(grads, state["err"], comp,
+                                            stacks)
+                for n, e in err.items():
+                    state["err"][n].copy_(e)
+                del err                 # out of AdamW's peak memory
         state["opt"], opt_metrics = adamw_update(opt_cfg, grads, params,
                                                  state["opt"])
         state["step"] = state["step"] + 1

@@ -35,6 +35,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models.attention import flash_attention_jnp  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 TOL = 1e-5
 LOG2E = 1.4426950408889634

@@ -68,7 +68,8 @@ def test_importing_the_platform_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.core, repro_torch.core.learner, "
             "repro_torch.core.server, repro_torch.core.elastic, "
-            "repro_torch.launch.engine, repro_torch.launch.train; "
+            "repro_torch.launch.engine, repro_torch.launch.train, "
+            "repro_torch.dist, repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes') or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('clean')")

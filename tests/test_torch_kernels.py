@@ -36,6 +36,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 ATOL = 1e-5
 

@@ -46,6 +46,8 @@ from repro_torch.models import attention as port_attn  # noqa: E402
 from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.models.params import Model, cast_params  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 ATOL = 1e-4
 CPU = torch.device("cpu")

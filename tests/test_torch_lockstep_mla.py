@@ -18,6 +18,8 @@ from test_torch_lockstep import (  # noqa: E402
 
 from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 ARCH = "deepseek-v2-236b"
 

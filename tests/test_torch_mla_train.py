@@ -70,6 +70,8 @@ from repro_torch.models.params import (  # noqa: E402
     Model, compute_params, make_trainable)
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 CPU = torch.device("cpu")
 CTX = Ctx(device=CPU, dtype=torch.float32)

@@ -25,6 +25,8 @@ from repro.models.layers import Ctx as RefCtx  # noqa: E402
 from repro.models.params import init_params as ref_init_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 ATOL = 1e-5
 ARCHS = ("deepseek-v2-236b", "granite-moe-1b-a400m")

@@ -59,6 +59,8 @@ from repro_torch.launch import spec as port_spec  # noqa: E402
 from repro_torch.launch.engine import RealServePayload  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

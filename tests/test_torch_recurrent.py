@@ -59,8 +59,11 @@ from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models import recurrent as port_rec  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.models.params import Model, cast_params, count_params  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 SCAN_ATOL, SCAN_RTOL = 1e-5, 1e-5
+
+
 FLASH_ATOL = 1e-5
 ATOL = 1e-4
 CPU = torch.device("cpu")

@@ -46,8 +46,11 @@ from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models import rwkv as port_rwkv  # noqa: E402
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.models.params import Model, cast_params, count_params  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 WKV_ATOL, WKV_RTOL = 2e-4, 1e-3
+
+
 ATOL = 1e-4
 CPU = torch.device("cpu")
 ARCH = "rwkv6-7b"

@@ -71,6 +71,8 @@ from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
     Model, cast_params, compute_params, count_params, make_trainable)
 from repro_torch.train import steps  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 ATOL = 1e-4
 GRAD_TOL = 1e-4

@@ -52,6 +52,8 @@ from repro_torch.models.params import (  # noqa: E402
     Model, compute_params, make_trainable)
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 CPU = torch.device("cpu")
 CTX = Ctx(device=CPU, dtype=torch.float32)
@@ -350,8 +352,15 @@ def test_configs_this_slice_does_not_train_are_refused():
             check_trainable(cfg)
         with pytest.raises(NotImplementedError, match=what):
             steps.init_train_state(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="compression"):
-        steps.make_train_step(base, CTX, RunConfig(grad_compression="int8"))
+    # gradient compression is taken (dist/compression.py): the state
+    # carries error buffers, and a step fills them
+    run = RunConfig(grad_compression="int8")
+    state = steps.init_train_state(base, device=CPU, run=run)
+    _, tb = _batch(_configs("qwen3")[0], S=8, B=2)
+    state, m = steps.make_train_step(base, CTX, run)(state, tb)
+    assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))
+    assert set(state["err"]) == set(state["opt"]["m"])
+    assert any(e.abs().max() > 0 for e in state["err"].values())
     run = get_run_config("qwen3-0.6b", "train_4k")
     assert (run.num_microbatches, run.remat_policy) == (2, "full")
     assert get_run_config("paper-overhead-100m", "train_4k").remat_policy \

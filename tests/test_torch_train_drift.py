@@ -42,6 +42,8 @@ from repro_torch.convert import (  # noqa: E402
     overlay_train_state, train_state_from_jax, train_state_to_jax)
 from repro_torch.models.layers import Ctx  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 CPU = torch.device("cpu")
 STEPS = 24

@@ -44,6 +44,8 @@ from repro.models import rwkv as ref_rwkv  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as wkv  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
 
 CHUNK = 16            # pass 2's chunk (csrc/rwkv6_wkv_bwd.cu: L)
 TOL = 1e-5
